@@ -1,0 +1,7 @@
+from apex_tpu_torch.normalization.fused_layer_norm import (
+    FusedLayerNorm,
+    fused_layer_norm,
+    fused_layer_norm_affine,
+)
+
+__all__ = ["FusedLayerNorm", "fused_layer_norm", "fused_layer_norm_affine"]

@@ -1,0 +1,9 @@
+from apex_tpu_torch.obs.metrics import (
+    DEFAULT,
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+)
+
+__all__ = ["Counter", "DEFAULT", "Gauge", "Histogram", "Registry"]

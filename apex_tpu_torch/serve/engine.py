@@ -1,0 +1,322 @@
+"""Continuous-batching decode engine over the paged KV cache, as
+``apex_tpu/serve/engine.py``.
+
+Each :meth:`ServeEngine.step` admits and evicts at the step boundary,
+then runs ONE decode step over every slot:
+
+1. embed every slot's pending token at its own position (per-slot rope
+   tables);
+2. per layer: layer norm (the CUDA kernel on the card), qkv projection,
+   rope, the paged cache write at ``(layer, page_table[slot, t // bs],
+   t % bs)`` — inactive slots write to the trash block — and attention of
+   the one-token query against the page-table-gathered caches under the
+   per-slot validity mask (:func:`apex_tpu_torch.serve.paged.
+   paged_attention`, the math of solo decode);
+3. per-slot sampling (:mod:`apex_tpu_torch.serve.sampling`); the host
+   reads back the ``(S,)`` token ids it streams.
+
+Admission prefills a prompt in ``prefill_chunk``-token chunks through
+the slot's page-table row (:func:`chunk_prefill_math`), so a request
+joins mid-stream.  The pools are updated in place.  PyTorch runs eagerly,
+so there is no compiled step to keep shape-stable; the kernels' launch
+counters (:func:`apex_tpu_torch.ops.cuda.launch_counts`) show which
+kernels a step ran.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from apex_tpu_torch.models.generate import (
+    _check_model_device,
+    _ln,
+    block_tail,
+    qkv_rotated,
+)
+from apex_tpu_torch.models.gpt import GPTBlock, GPTConfig, GPTModel
+from apex_tpu_torch.obs import metrics as obs_metrics
+from apex_tpu_torch.ops import DeviceLike, resolve_device
+from apex_tpu_torch.ops.rope import rope_tables
+from apex_tpu_torch.serve import paged, sampling
+from apex_tpu_torch.serve.paged import TRASH_BLOCK
+from apex_tpu_torch.serve.scheduler import Request, SlotScheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Shapes of the serving state.  ``num_blocks`` includes the trash
+    block, so ``num_blocks - 1`` are usable; a slot's context is
+    ``max_blocks_per_slot * block_size`` tokens.  KV is stored in the
+    model's dtype.  ``prefix_cache`` turns on
+    cross-request prefix sharing (the scheduler's docstring has the
+    model)."""
+
+    num_slots: int = 4
+    block_size: int = 16
+    num_blocks: int = 33
+    max_blocks_per_slot: int = 8
+    prefill_chunk: int = 16
+    prefix_cache: bool = True
+
+
+def _paged_block(x: torch.Tensor, blk: GPTBlock, cfg: GPTConfig,
+                 kc: torch.Tensor, vc: torch.Tensor, layer_i: int, cos,
+                 sin, blocks: torch.Tensor, offs: torch.Tensor,
+                 table: torch.Tensor, valid: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """One block over ``x (B, Lq, E)`` reading and writing the paged
+    pools in place: the math of solo decode's block, with the cache
+    write at the flattened ``blocks``/``offs`` ``(B * Lq,)`` and
+    ``valid (B, Lq, M)`` the causal-vs-cache mask.  The decode step
+    calls it at ``(num_slots, 1)``, a prefill chunk at ``(1, chunk)``."""
+    b, lq = x.shape[0], x.shape[1]
+    q, k, v = qkv_rotated(x, blk, cfg, cos, sin)
+    n, h, d = b * lq, cfg.num_heads, cfg.head_dim
+    kc[layer_i, blocks, offs] = k.reshape(n, h, d).to(kc.dtype)
+    vc[layer_i, blocks, offs] = v.reshape(n, h, d).to(vc.dtype)
+    kg = paged.gather_slot_kv(kc[layer_i], table)
+    vg = paged.gather_slot_kv(vc[layer_i], table)
+    o = paged.paged_attention(q, kg, vg, valid, scale)
+    return block_tail(x, o, blk, cfg)
+
+
+def chunk_prefill_math(cfg: GPTConfig, block_size: int,
+                       max_blocks_per_slot: int, model: GPTModel,
+                       kc: torch.Tensor, vc: torch.Tensor,
+                       table_row: torch.Tensor, chunk_ids: torch.Tensor,
+                       start: int, n_valid: int) -> torch.Tensor:
+    """One ``(1, C)`` prompt chunk written through a slot's page-table
+    row at positions ``start..``; returns the logits ``(1, V)`` of the
+    last valid token.  Rows past ``n_valid`` are padding: their writes
+    go to the trash block and their outputs are never read."""
+    bs, mb = block_size, max_blocks_per_slot
+    lq = chunk_ids.shape[1]
+    m = mb * bs
+    dev = chunk_ids.device
+    x = model.tok_emb.embedding[chunk_ids]                   # (1, C, E)
+    pos = start + torch.arange(lq, device=dev)               # (C,)
+    cos, sin = rope_tables(pos[None, :], cfg.head_dim, cfg.rope_theta)
+    in_chunk = torch.arange(lq, device=dev) < n_valid
+    blocks = torch.where(in_chunk,
+                         table_row[torch.clamp(pos // bs, 0, mb - 1)],
+                         torch.full_like(pos, TRASH_BLOCK))
+    offs = pos % bs
+    # cache slots <= the row's position: history and in-chunk causality
+    valid = (torch.arange(m, device=dev)[None, :] <= pos[:, None])[None]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    for i, blk in enumerate(model.blocks):
+        x = _paged_block(x, blk, cfg, kc, vc, i, cos, sin, blocks, offs,
+                         table_row[None], valid, scale)
+    x_last = _ln(x[:, n_valid - 1:n_valid], model.ln_f, cfg.layer_norm_eps)
+    return x_last[:, 0] @ model.lm_head.kernel
+
+
+class ServeEngine:
+    """Continuous-batching serving of a :class:`GPTModel` (as built by
+    :func:`apex_tpu_torch.convert.params_from_jax`).
+
+    >>> eng = ServeEngine(model, cfg, ServeConfig())
+    >>> eng.submit(Request("a", prompt_ids, max_new_tokens=16))
+    >>> outputs = eng.run()          # {"a": generated token ids}
+
+    ``device`` defaults to the card (raising when there is none); the
+    model must live there.
+    """
+
+    def __init__(self, model: GPTModel, cfg: GPTConfig,
+                 serve_cfg: ServeConfig,
+                 registry: Optional[obs_metrics.Registry] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        _check_model_device(model, self.device)
+        self.model = model
+        self.cfg = cfg
+        self.scfg = serve_cfg
+        self.metrics = registry if registry is not None \
+            else obs_metrics.DEFAULT
+        self._m_step_s = self.metrics.histogram(
+            "serve_decode_step_seconds",
+            "wall seconds per decode step (launch + token fetch)")
+        self._m_tokens = self.metrics.counter(
+            "serve_tokens_total", "tokens generated (active slots x "
+            "decode steps + prefill first-tokens)")
+        self._m_prefill = self.metrics.counter(
+            "serve_prefill_chunks_total", "prefill chunks run")
+        self._m_cow = None
+        if serve_cfg.prefix_cache:
+            self._m_cow = self.metrics.counter(
+                "serve_prefix_cow_copies_total",
+                "copy-on-write forks of a shared full-prompt-match block")
+        self.sched = SlotScheduler(
+            num_slots=serve_cfg.num_slots,
+            num_blocks=serve_cfg.num_blocks,
+            block_size=serve_cfg.block_size,
+            max_blocks_per_slot=serve_cfg.max_blocks_per_slot,
+            registry=self.metrics,
+            prefix_cache=serve_cfg.prefix_cache)
+        self.kc, self.vc = paged.make_pools(
+            cfg.num_layers, serve_cfg.num_blocks, serve_cfg.block_size,
+            cfg.num_heads, cfg.head_dim, model.dtype, self.device)
+        #: one generator per slot; a slot's is replaced at admission
+        self.generators: List[torch.Generator] = [
+            sampling.make_generator(0) for _ in range(serve_cfg.num_slots)]
+        self.steps = 0
+        self._outputs: Dict[str, np.ndarray] = {}
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    # -- device work -------------------------------------------------
+
+    def _decode(self) -> torch.Tensor:
+        """One decode step over every slot; returns the ``(S,)`` next
+        tokens (an inactive slot keeps its pending token)."""
+        c, s = self.cfg, self.sched
+        bs = self.scfg.block_size
+        tokens = self._t(s.last_tok).long()
+        lengths = self._t(s.lengths).long()
+        active = self._t(s.active)
+        page_table = self._t(s.page_table).long()
+        m = self.scfg.max_blocks_per_slot * bs
+        x = self.model.tok_emb.embedding[tokens][:, None]       # (S, 1, E)
+        cos, sin = rope_tables(lengths[:, None], c.head_dim, c.rope_theta)
+        blocks, offs = paged.token_write_coords(lengths, page_table, bs,
+                                                active)
+        # cache positions <= the fed token's position are attendable;
+        # inactive lanes mask out
+        valid = (torch.arange(m, device=self.device)[None, :]
+                 <= lengths[:, None]) & active[:, None]
+        valid = valid[:, None, :]                                # (S, 1, M)
+        scale = 1.0 / math.sqrt(c.head_dim)
+        for i, blk in enumerate(self.model.blocks):
+            x = _paged_block(x, blk, c, self.kc, self.vc, i, cos, sin,
+                             blocks, offs, page_table, valid, scale)
+        x = _ln(x[:, -1:], self.model.ln_f, c.layer_norm_eps)
+        logits = x[:, 0] @ self.model.lm_head.kernel             # (S, V)
+        toks = sampling.sample_tokens(
+            logits, self.generators, self._t(s.temperature),
+            self._t(s.top_k), self._t(s.top_p))
+        return torch.where(active, toks, tokens)
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy block ``src`` into block ``dst`` in both pools."""
+        self.kc[:, dst] = self.kc[:, src]
+        self.vc[:, dst] = self.vc[:, src]
+
+    # -- host loop ---------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        self.sched.submit(req)
+
+    def _run_prefill(self, slot: int, req: Request) -> None:
+        c = self.scfg.prefill_chunk
+        prompt = np.asarray(req.prompt, np.int64)
+        n = len(prompt)
+        # prefix-cache skip: tokens covered by shared blocks are never
+        # prefilled.  A full-prompt match forks its last block
+        # copy-on-write, then re-runs exactly ONE token (position n - 1:
+        # the first-token logits need its forward pass, and its KV
+        # rewrite must land in the private fork)
+        s = self.sched.slots[slot]
+        resume = 0
+        if s.cow_src is not None:
+            dst = int(self.sched.page_table[slot,
+                                            (n - 1) // self.scfg.block_size])
+            self._cow_copy(s.cow_src, dst)
+            self.sched.finish_cow(slot)
+            self._m_cow.inc()
+            resume = n - 1
+        elif s.prefix_len:
+            resume = s.prefix_len
+        rest = n - resume
+        padded = np.zeros(-(-rest // c) * c, np.int64)
+        padded[:rest] = prompt[resume:]
+        padded = self._t(padded)
+        table_row = self._t(self.sched.page_table[slot]).long()
+        logits = None
+        for j in range(0, padded.shape[0], c):
+            logits = chunk_prefill_math(
+                self.cfg, self.scfg.block_size,
+                self.scfg.max_blocks_per_slot, self.model, self.kc,
+                self.vc, table_row, padded[None, j:j + c], resume + j,
+                min(c, rest - j))
+            self._m_prefill.inc()
+        if req.resume_key is not None:
+            gen = torch.Generator()
+            gen.set_state(torch.as_tensor(req.resume_key, dtype=torch.uint8))
+        else:
+            gen = sampling.make_generator(req.seed)
+        tok = sampling.sample_tokens(
+            logits, [gen],
+            self._t(np.full(1, req.temperature, np.float32)),
+            self._t(np.full(1, req.top_k, np.int64)),
+            self._t(np.full(1, req.top_p, np.float32)))
+        self.generators[slot] = gen
+        first = int(tok[0])
+        self.sched.arm(slot, first, n)
+        self._m_tokens.inc(1)          # the prefill's sampled token
+        # a 1-token budget (or an immediate EOS) finishes on the prefill
+        # sample itself
+        if req.max_new_tokens <= 1 or (
+                req.eos_id is not None and first == req.eos_id):
+            uid, out = self.sched.retire(slot)
+            self._outputs[uid] = out
+
+    def _admit_and_evict(self) -> None:
+        while True:
+            plan = self.sched.plan()
+            if plan is None:
+                return
+            if plan[0] == "evict":
+                slot = plan[1]
+                state = self.generators[slot].get_state().numpy().copy()
+                self.sched.preempt(slot, state)
+            else:
+                _, slot, req = plan
+                self._run_prefill(slot, req)
+
+    @torch.inference_mode()
+    def step(self) -> Dict[str, np.ndarray]:
+        """One step boundary: admit/evict, then one decode step over
+        every slot; returns the requests that FINISHED this step
+        (``{uid: generated token ids}``)."""
+        self._admit_and_evict()
+        sched = self.sched
+        if not sched.active.any():
+            return {}
+        n_act = int(sched.active.sum())
+        t0 = time.perf_counter()
+        toks = self._decode().cpu().numpy()
+        self._m_step_s.observe(time.perf_counter() - t0)
+        self._m_tokens.inc(n_act)
+        self.steps += 1
+        finished: Dict[str, np.ndarray] = {}
+        for slot in range(sched.num_slots):
+            if sched.active[slot] and sched.record_token(slot,
+                                                         int(toks[slot])):
+                uid, out = sched.retire(slot)
+                finished[uid] = out
+        self._outputs.update(finished)
+        self.metrics.tick()
+        return finished
+
+    def run(self, max_steps: int = 100_000) -> Dict[str, np.ndarray]:
+        """Drain the queue and every slot; returns ``{uid: generated
+        token ids}`` for every request submitted (the prompt is not
+        repeated)."""
+        steps = 0
+        while not self.sched.idle():
+            before = self.sched.n_active() + len(self.sched.queue)
+            self.step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError(
+                    f"serve loop exceeded {max_steps} steps with "
+                    f"{before} request(s) outstanding")
+        return dict(self._outputs)
