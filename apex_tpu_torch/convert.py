@@ -1,4 +1,5 @@
-"""Bring a JAX GPT checkpoint across: ``params_from_jax``.
+"""Bring a JAX GPT checkpoint across (``params_from_jax``) and back
+(``params_to_numpy``).
 
 The JAX parameter tree arrives as nested dicts of numpy arrays, in the
 loop layout (``block_{i}`` subtrees) or the scan layout
@@ -13,17 +14,15 @@ exact.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
+from apex_tpu_torch.amp.frontend import default_keep_fp32_filter
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.ops import DeviceLike, resolve_device
-
-#: path fragments of normalization parameters, which the O2 serving cast
-#: keeps in float32 (the JAX package's ``default_keep_fp32_filter``)
-_NORM_NAME_FRAGMENTS = ("batchnorm", "layernorm", "groupnorm", "norm", "bn")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -48,21 +47,23 @@ def _target_dtype(path: Tuple[str, ...], t: torch.Tensor,
                   dtype: Optional[torch.dtype]) -> torch.dtype:
     if dtype is None or not t.is_floating_point():
         return t.dtype
-    if any(frag in name.lower() for name in path
-           for frag in _NORM_NAME_FRAGMENTS):
+    if default_keep_fp32_filter(path):      # normalization params stay fp32
         return torch.float32
     return dtype
 
 
 def params_from_jax(tree: Mapping, cfg: GPTConfig,
                     device: DeviceLike = None,
-                    dtype: Optional[torch.dtype] = None) -> GPTModel:
+                    dtype: Optional[torch.dtype] = None,
+                    trainable: bool = False) -> GPTModel:
     """A :class:`GPTModel` on ``device`` (the card by default) holding
     the JAX parameters ``tree``.  ``dtype=None`` keeps each leaf's dtype;
     ``dtype=torch.bfloat16`` is the O2 serving cast (every floating leaf
     to bf16 except normalization-named paths, as the JAX package's
-    ``amp.model_params_from`` does).  The model's parameters do not
-    require grad: the kernels have no backward yet."""
+    ``amp.model_params_from`` does).  With ``trainable`` the parameters
+    require grad and the model is in training mode (hand it to
+    :func:`apex_tpu_torch.amp.initialize`, which makes the fp32 masters
+    and the compute cast); otherwise they do not, for serving."""
     device = resolve_device(device)
     flat = _flatten(tree)
     if any(p[0] == "layers" for p in flat):
@@ -90,4 +91,23 @@ def params_from_jax(tree: Mapping, cfg: GPTConfig,
             f"{sorted(want - set(state))}, unexpected "
             f"{sorted(set(state) - want)}")
     model.load_state_dict(state, assign=True)
+    if trainable:
+        return model.requires_grad_(True).train()
     return model.requires_grad_(False).eval()
+
+
+def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]]
+                    ) -> Dict[str, Any]:
+    """The flax-shaped nested dict of fp32 numpy arrays (loop layout,
+    ``block_{i}/...``) of a model's parameters, or of a ``{dotted name:
+    tensor}`` mapping such as :attr:`apex_tpu_torch.amp.Amp.masters`."""
+    named = (dict(params.named_parameters()) if isinstance(params, nn.Module)
+             else dict(params))
+    out: Dict[str, Any] = {}
+    for name, t in named.items():
+        node = out
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return out

@@ -27,6 +27,13 @@
 // the ragged last tile is masked in the kernel, so nothing is padded in
 // device memory.  No TMA or wgmma yet: this is the simple, right version.
 //
+// Rope (optional): with full-width tables cos_full = [cos, cos] and
+// sin_signed = [-sin, sin], (B, L, D) in the input dtype, q (after its
+// pre-scale) and k are rotated on the tile right after it is loaded, as the
+// TPU kernel's `_rot` does in VMEM: x * cos + rot_half(x) * sin in fp32,
+// rounded back to the storage dtype.  Rotated q / k never exist in device
+// memory.
+//
 // fp32 inputs (tests) take a SIMT kernel with the same conventions: one warp
 // per query row, lanes across D, an online softmax over the keys.
 
@@ -50,6 +57,12 @@ constexpr int kPadF = 4;   // fp32 row padding (multiple of 4)
 struct Strides {  // in elements; the last dimension has stride 1
   long long b, l, h;
 };
+
+// One rotated element, products and sum rounded as the plain version's
+// separate multiplies and add (no fused multiply-add).
+__device__ __forceinline__ float rot1(float x, float xr, float c, float s) {
+  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(xr, s));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -109,6 +122,58 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// As load_tile, then rotated by the rows' tables (cos_b / sin_b: this
+// batch's (L, D) tables): each thread takes 8 columns c < D / 2 and their
+// partners c + D / 2.
+template <int D>
+__device__ __forceinline__ void load_tile_rope(
+    __nv_bfloat16* dst, const __nv_bfloat16* src, long long stride_l,
+    int row0, int L, bool do_scale, float scale,
+    const __nv_bfloat16* cos_b, const __nv_bfloat16* sin_b) {
+  constexpr int kVec = 8;
+  constexpr int kHalf = D / 2;
+  constexpr int kPerRow = kHalf / kVec;
+  for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * kVec;
+    uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+    if (row0 + r < L) {
+      const long long row = row0 + r;
+      const uint4 a = *reinterpret_cast<const uint4*>(src + row * stride_l + c);
+      const uint4 b =
+          *reinterpret_cast<const uint4*>(src + row * stride_l + c + kHalf);
+      const uint4 cl = *reinterpret_cast<const uint4*>(cos_b + row * D + c);
+      const uint4 ch =
+          *reinterpret_cast<const uint4*>(cos_b + row * D + c + kHalf);
+      const uint4 sl = *reinterpret_cast<const uint4*>(sin_b + row * D + c);
+      const uint4 sh =
+          *reinterpret_cast<const uint4*>(sin_b + row * D + c + kHalf);
+      const __nv_bfloat16* ea = reinterpret_cast<const __nv_bfloat16*>(&a);
+      const __nv_bfloat16* eb = reinterpret_cast<const __nv_bfloat16*>(&b);
+      const __nv_bfloat16* ecl = reinterpret_cast<const __nv_bfloat16*>(&cl);
+      const __nv_bfloat16* ech = reinterpret_cast<const __nv_bfloat16*>(&ch);
+      const __nv_bfloat16* esl = reinterpret_cast<const __nv_bfloat16*>(&sl);
+      const __nv_bfloat16* esh = reinterpret_cast<const __nv_bfloat16*>(&sh);
+      __nv_bfloat16* olo = reinterpret_cast<__nv_bfloat16*>(&lo);
+      __nv_bfloat16* ohi = reinterpret_cast<__nv_bfloat16*>(&hi);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        float xl = __bfloat162float(ea[j]), xh = __bfloat162float(eb[j]);
+        if (do_scale) {
+          xl = __bfloat162float(__float2bfloat16(xl * scale));
+          xh = __bfloat162float(__float2bfloat16(xh * scale));
+        }
+        olo[j] = __float2bfloat16(rot1(xl, xh, __bfloat162float(ecl[j]),
+                                       __bfloat162float(esl[j])));
+        ohi[j] = __float2bfloat16(rot1(xh, xl, __bfloat162float(ech[j]),
+                                       __bfloat162float(esh[j])));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * Smem<D>::ldh + c) = lo;
+    *reinterpret_cast<uint4*>(dst + r * Smem<D>::ldh + c + kHalf) = hi;
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
@@ -116,6 +181,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ v,
                const uint8_t* __restrict__ kv_mask,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+               const __nv_bfloat16* __restrict__ cos_t,
+               const __nv_bfloat16* __restrict__ sin_t,
                Strides sq, Strides sk, Strides sv, int H, int L,
                float scale, int causal) {
   using S = Smem<D>;
@@ -137,8 +204,13 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
   const uint8_t* mb = kv_mask ? kv_mask + (long long)b * L : nullptr;
+  const __nv_bfloat16* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
+  const __nv_bfloat16* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
 
-  load_tile<D>(Qs, qb, sq.l, q0, L, true, scale);
+  if (cb != nullptr)
+    load_tile_rope<D>(Qs, qb, sq.l, q0, L, true, scale, cb, sb);
+  else
+    load_tile<D>(Qs, qb, sq.l, q0, L, true, scale);
 
   constexpr int kCols = D / 32;  // accumulator columns per lane per row
   float acc[16][kCols];
@@ -158,7 +230,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < last; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // every warp is done with the previous K / V tile
-    load_tile<D>(Ks, kb, sk.l, k0, L, false, 1.f);
+    if (cb != nullptr)
+      load_tile_rope<D>(Ks, kb, sk.l, k0, L, false, 1.f, cb, sb);
+    else
+      load_tile<D>(Ks, kb, sk.l, k0, L, false, 1.f);
     load_tile<D>(Vs, vb, sv.l, k0, L, false, 1.f);
     __syncthreads();
 
@@ -264,9 +339,12 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-              float* __restrict__ o, float* __restrict__ lse, Strides sq,
-              Strides sk, Strides sv, int H, int L, float scale, int causal) {
+              float* __restrict__ o, float* __restrict__ lse,
+              const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+              Strides sq, Strides sk, Strides sv, int H, int L, float scale,
+              int causal) {
   constexpr int kCols = D / 32;
+  constexpr int kHalf = kCols / 2;  // lane column j pairs with j + kHalf
   const int lane = threadIdx.x & 31;
   const int qpos = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int bh = blockIdx.y;
@@ -277,20 +355,47 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
   const uint8_t* mb = kv_mask ? kv_mask + (long long)b * L : nullptr;
+  const float* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
+  const float* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
   float qv[kCols], acc[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) {
     qv[j] = qr[lane + 32 * j] * scale;
     acc[j] = 0.f;
   }
+  if (cb != nullptr) {
+    const float* cr = cb + (long long)qpos * D;
+    const float* sr = sb + (long long)qpos * D;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const float lo = qv[j], hi = qv[j + kHalf];
+      const int c = lane + 32 * j, c2 = c + 32 * kHalf;
+      qv[j] = rot1(lo, hi, cr[c], sr[c]);
+      qv[j + kHalf] = rot1(hi, lo, cr[c2], sr[c2]);
+    }
+  }
   float m = kNegInf, l = 0.f;
   const int end = causal ? qpos + 1 : L;
   for (int kpos = 0; kpos < end; ++kpos) {
     if (mb != nullptr && mb[kpos] == 0) continue;
     const float* kr = kb + kpos * sk.l;
+    float kv[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) kv[j] = kr[lane + 32 * j];
+    if (cb != nullptr) {
+      const float* cr = cb + (long long)kpos * D;
+      const float* sr = sb + (long long)kpos * D;
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j) {
+        const float lo = kv[j], hi = kv[j + kHalf];
+        const int c = lane + 32 * j, c2 = c + 32 * kHalf;
+        kv[j] = rot1(lo, hi, cr[c], sr[c]);
+        kv[j + kHalf] = rot1(hi, lo, cr[c2], sr[c2]);
+      }
+    }
     float dot = 0.f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) dot += qv[j] * kr[lane + 32 * j];
+    for (int j = 0; j < kCols; ++j) dot += qv[j] * kv[j];
     const float s = warp_sum(dot);
     const float m_new = fmaxf(m, s);
     const float corr = expf(m - m_new);
@@ -313,7 +418,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v,
-                const uint8_t* mask, void* o, float* lse, Strides sq,
+                const uint8_t* mask, void* o, float* lse, const void* cos_t,
+                const void* sin_t, Strides sq,
                 Strides sk, Strides sv, int B, int H, int L, float scale,
                 int causal, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
@@ -334,20 +440,25 @@ int launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask,
-      static_cast<__nv_bfloat16*>(o), lse, sq, sk, sv, H, L, scale, causal);
+      static_cast<__nv_bfloat16*>(o), lse,
+      static_cast<const __nv_bfloat16*>(cos_t),
+      static_cast<const __nv_bfloat16*>(sin_t), sq, sk, sv, H, L, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v,
-               const uint8_t* mask, void* o, float* lse, Strides sq,
+               const uint8_t* mask, void* o, float* lse, const void* cos_t,
+               const void* sin_t, Strides sq,
                Strides sk, Strides sv, int B, int H, int L, float scale,
                int causal, cudaStream_t stream) {
   const dim3 grid((L + kWarps - 1) / kWarps, B * H);
   flash_fwd_f32<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), mask, static_cast<float*>(o), lse, sq, sk,
-      sv, H, L, scale, causal);
+      static_cast<const float*>(v), mask, static_cast<float*>(o), lse,
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), sq,
+      sk, sv, H, L, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -363,14 +474,16 @@ extern "C" int apex_flash_attn_smem_bytes(int D) {
 // q, k, v: (B, L, H, D) with element strides (b, l, h) each and unit stride
 // over D; bf16 rows must start on 16-byte boundaries.  kv_mask: (B, L)
 // uint8 (1 = attend) or null.  o: contiguous (B, L, H, D) in the input
-// dtype.  lse: contiguous (B, L, H) fp32 or null.  dtype: 0 = float32,
-// 1 = bfloat16.  D is 64 or 128.  Returns the cudaError_t of the launch.
+// dtype.  lse: contiguous (B, L, H) fp32 or null.  cos_t / sin_t: contiguous
+// (B, L, D) full-width rope tables in the input dtype, or both null (no
+// rope).  dtype: 0 = float32, 1 = bfloat16.  D is 64 or 128.  Returns the
+// cudaError_t of the launch.
 extern "C" int apex_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask,
-    void* o, void* lse, long long sqb, long long sql, long long sqh,
-    long long skb, long long skl, long long skh, long long svb,
-    long long svl, long long svh, int B, int L, int H, int D, float scale,
-    int causal, int dtype, void* stream) {
+    void* o, void* lse, const void* cos_t, const void* sin_t, long long sqb,
+    long long sql, long long sqh, long long skb, long long skl,
+    long long skh, long long svb, long long svl, long long svh, int B,
+    int L, int H, int D, float scale, int causal, int dtype, void* stream) {
   const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh}, sv{svb, svl, svh};
   const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
   float* lsep = static_cast<float*>(lse);
@@ -378,18 +491,18 @@ extern "C" int apex_flash_attn_fwd(
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D == 64)
-      return launch_bf16<64>(q, k, v, mask, o, lsep, sq, sk, sv, B, H, L,
-                             scale, causal, s);
+      return launch_bf16<64>(q, k, v, mask, o, lsep, cos_t, sin_t,
+                             sq, sk, sv, B, H, L, scale, causal, s);
     if (D == 128)
-      return launch_bf16<128>(q, k, v, mask, o, lsep, sq, sk, sv, B, H, L,
-                              scale, causal, s);
+      return launch_bf16<128>(q, k, v, mask, o, lsep, cos_t, sin_t,
+                              sq, sk, sv, B, H, L, scale, causal, s);
   } else if (dtype == 0) {
     if (D == 64)
-      return launch_f32<64>(q, k, v, mask, o, lsep, sq, sk, sv, B, H, L,
-                            scale, causal, s);
+      return launch_f32<64>(q, k, v, mask, o, lsep, cos_t, sin_t,
+                            sq, sk, sv, B, H, L, scale, causal, s);
     if (D == 128)
-      return launch_f32<128>(q, k, v, mask, o, lsep, sq, sk, sv, B, H, L,
-                             scale, causal, s);
+      return launch_f32<128>(q, k, v, mask, o, lsep, cos_t, sin_t,
+                             sq, sk, sv, B, H, L, scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@ from apex_tpu_torch.models.gpt import (
     gpt_small,
     gpt_small_tpu,
     gpt_tiny,
+    lm_loss,
 )
 
 __all__ = ["GPTConfig", "GPTModel", "gpt_small", "gpt_small_tpu",
-           "gpt_tiny"]
+           "gpt_tiny", "lm_loss"]

@@ -4,16 +4,20 @@ Parameters are named as the flax tree names them (``tok_emb``,
 ``block_{i}/{ln1, attention/{qkv, out}, ln2, ffn_in, ffn_out}``,
 ``ln_f``, ``lm_head``), so :mod:`apex_tpu_torch.convert` copies a JAX
 checkpoint across by name.  Layers are a Python loop over block modules
-(the JAX package's ``scan_layers`` has no counterpart in eager mode);
-rope is applied to q/k before attention (the JAX model's pre-rotated
-branch), and attention is the local :func:`apex_tpu_torch.attention.
-attention` — the flash kernel on the card.
+(the JAX package's ``scan_layers`` has no counterpart in eager mode).
+``forward`` builds the kernel-format rope tables once per call and hands
+them to the local :func:`apex_tpu_torch.attention.attention`, which
+rotates q and k inside the flash kernels (the JAX model's ``use_pallas()``
+branch); the KV-cache paths of :mod:`~apex_tpu_torch.models.generate`
+and the serve engine rotate before caching instead.  :func:`lm_loss` is
+the JAX package's next-token loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +26,11 @@ from torch import nn
 from apex_tpu_torch.attention import attention
 from apex_tpu_torch.layers import Dense, Embed
 from apex_tpu_torch.normalization import FusedLayerNorm
-from apex_tpu_torch.ops.rope import apply_rope, rope_tables
+from apex_tpu_torch.ops.rope import (
+    KernelRopeTables,
+    rope_kernel_tables,
+    rope_tables,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +77,16 @@ class CausalSelfAttention(nn.Module):
         self.qkv = Dense(e, 3 * e, dtype=dtype, device=device)
         self.out = Dense(e, e, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rope: KernelRopeTables) -> torch.Tensor:
         c = self.cfg
         b, l = x.shape[0], x.shape[1]
         q, k, v = (t.reshape(b, l, c.num_heads, c.head_dim)
                    for t in self.qkv(x).split(c.hidden_size, dim=-1))
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        # q / k reach the kernels unrotated: the rotation happens on the
+        # loaded tiles, and the rotated tensors never exist in memory
         o = attention(q, k, v, causal=True,
-                      scale=1.0 / math.sqrt(c.head_dim))
+                      scale=1.0 / math.sqrt(c.head_dim), rope=rope)
         return self.out(o.reshape(b, l, c.hidden_size))
 
 
@@ -94,8 +102,8 @@ class GPTBlock(nn.Module):
         self.ffn_out = Dense(cfg.intermediate_size, e, dtype=dtype,
                              device=device)
 
-    def forward(self, x, cos, sin):
-        x = x + self.attention(self.ln1(x), cos, sin)
+    def forward(self, x, rope: KernelRopeTables):
+        x = x + self.attention(self.ln1(x), rope)
         return x + self.ffn_out(gelu(self.ffn_in(self.ln2(x))))
 
 
@@ -131,13 +139,33 @@ class GPTModel(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.tok_emb.embedding.dtype
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits ``(B, L, vocab)`` of ``input_ids (B, L)`` at global
+        ``positions (B, L)`` (default ``0..L-1``)."""
         c = self.cfg
         b, l = input_ids.shape
-        positions = torch.arange(l, device=input_ids.device)[None].expand(
-            b, l)
-        cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
+        if positions is None:
+            positions = torch.arange(l, device=input_ids.device)[None] \
+                .expand(b, l)
         x = self.tok_emb(input_ids)
+        # the tables depend only on the positions: built once per call,
+        # shared by q and k of every layer, in the activations' dtype
+        cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
+        rope = rope_kernel_tables(cos, sin, b, l, c.head_dim, x.dtype)
         for blk in self.blocks:
-            x = blk(x, cos, sin)
+            x = blk(x, rope)
         return self.lm_head(self.ln_f(x))
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32, as the JAX package's
+    ``lm_loss``: ``logsumexp(logits) - logits[target]`` per position
+    (the picked logit read in the logits' dtype, then widened), averaged
+    over ``mask`` (all positions by default; the count is at least 1).
+    ``targets`` are the shifted labels."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = logits.gather(-1, targets[..., None])[..., 0].float()
+    m = torch.ones_like(picked) if mask is None else mask.float()
+    return ((lse - picked) * m).sum() / torch.clamp(m.sum(), min=1.0)

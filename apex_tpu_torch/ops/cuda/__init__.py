@@ -1,18 +1,31 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch
 version, and the build that compiles them (:mod:`.build`)."""
 
+from apex_tpu_torch.ops.cuda.adam import packed_adam, packed_adam_ref
 from apex_tpu_torch.ops.cuda.flash_attention import (
+    flash_attn_bwd,
+    flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
 )
 from apex_tpu_torch.ops.cuda.layer_norm import (
+    layer_norm_bwd,
+    layer_norm_bwd_ref,
     layer_norm_fwd,
     layer_norm_fwd_ref,
+)
+from apex_tpu_torch.ops.cuda.multi_tensor import (
+    packed_scale,
+    packed_scale_ref,
 )
 
 #: every kernel wrapper, by the name its launch counter reports under
 KERNELS = {"layer_norm_fwd": layer_norm_fwd,
-           "flash_attn_fwd": flash_attn_fwd}
+           "flash_attn_fwd": flash_attn_fwd,
+           "layer_norm_bwd": layer_norm_bwd,
+           "flash_attn_bwd": flash_attn_bwd,
+           "packed_adam": packed_adam,
+           "packed_scale": packed_scale}
 
 
 def launch_counts() -> dict:
@@ -25,6 +38,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "flash_attn_fwd", "flash_attn_fwd_ref",
-           "launch_counts", "layer_norm_fwd", "layer_norm_fwd_ref",
-           "reset_launch_counts"]
+__all__ = ["KERNELS", "flash_attn_bwd", "flash_attn_bwd_ref",
+           "flash_attn_fwd", "flash_attn_fwd_ref", "launch_counts",
+           "layer_norm_bwd", "layer_norm_bwd_ref", "layer_norm_fwd",
+           "layer_norm_fwd_ref", "packed_adam", "packed_adam_ref",
+           "packed_scale", "packed_scale_ref", "reset_launch_counts"]

@@ -143,11 +143,24 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_layer_norm_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
                                         f32, i32, i32, vp]
     lib.apex_layer_norm_fwd.restype = i32
-    lib.apex_flash_attn_fwd.argtypes = ([vp] * 6 + [i64] * 9
+    lib.apex_flash_attn_fwd.argtypes = ([vp] * 8 + [i64] * 9
                                         + [i32] * 4 + [f32, i32, i32, vp])
     lib.apex_flash_attn_fwd.restype = i32
     lib.apex_flash_attn_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_smem_bytes.restype = i32
+    lib.apex_flash_attn_bwd.argtypes = ([vp] * 12 + [i64] * 12
+                                        + [i32] * 4 + [f32, i32, i32, vp])
+    lib.apex_flash_attn_bwd.restype = i32
+    lib.apex_flash_attn_bwd_smem_bytes.argtypes = [i32]
+    lib.apex_flash_attn_bwd_smem_bytes.restype = i32
+    lib.apex_layer_norm_bwd.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+    lib.apex_layer_norm_bwd.restype = i32
+    lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32]
+    lib.apex_layer_norm_bwd_parts.restype = i32
+    lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32, i32, vp]
+    lib.apex_adam.restype = i32
+    lib.apex_multi_tensor_scale.argtypes = [vp] * 4 + [i64, i32, i32, vp]
+    lib.apex_multi_tensor_scale.restype = i32
     lib.apex_cuda_error_string.argtypes = [i32]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
     _LIB, _INFO = lib, info
@@ -159,14 +172,10 @@ def build_info() -> Optional[BuildInfo]:
     return _INFO
 
 
-def refuse_grad(what: str, *tensors) -> None:
-    """The kernels are forward-only: refuse inputs autograd would need
-    to differentiate through them."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{what} has no backward kernel yet: call it "
-                           f"under torch.no_grad() or on tensors that do "
-                           f"not require grad")
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    with torch.cuda.device(t.device):
+        return torch.cuda.current_stream().cuda_stream
 
 
 def check(err: int, what: str) -> None:

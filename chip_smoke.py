@@ -23,7 +23,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             launches once per layer per call; token agreement with the
             engine under the near-tie rule;
 6. reference  fp32 on a small input: the card's kernels against the plain
-            versions on the CPU, tokens and logits.
+            versions on the CPU, tokens and logits;
+7. train kernels  the training slice's kernels (layer-norm backward, flash
+            backward with in-kernel rope, the flash forward with rope, Adam,
+            the amp unscale) against their plain versions at the train
+            step's shapes, with the same timings and bounds, and the two
+            backward kernels run twice for equal bits;
+8. train    gpt_small at full width and depth, amp O2 + FusedAdam
+            (lr 3e-4), B 8 x L 2048 on the synthetic stream of
+            ``examples/gpt_lm.py``, 10 steps from seeded weights: per-step
+            loss (finite, falling), step ms p50 over steps 3-10, tokens/s,
+            peak memory, launches per step of every kernel; then one step
+            with an injected non-finite gradient, which must be skipped on
+            the card (masters and moments unchanged, scale halved);
+9. train reference  a 2-layer, 2 x 64-head model in fp32 O0, 3 steps on
+            the card against the same on the CPU (plain versions).
 
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -394,6 +408,504 @@ def phase_reference(tree, cfg):
          logits_max_abs_err=err, logits_tolerance=2e-3)
 
 
+# -- the training slice ---------------------------------------------------
+
+#: bf16 results against their plain version in the same dtype: within 2
+#: bf16 ulps of the largest element (both sides compute in fp32 and round
+#: to bf16 at the end, but sum in another order)
+def bf16_tol(ref) -> float:
+    return 2 * 2.0 ** -8 * max(1.0, float(ref.float().abs().max()))
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _kernel_rec(**rec):
+    emit("kernels", **rec)
+    return rec
+
+
+def _tables(b, l, d, dtype):
+    import torch
+    from apex_tpu_torch.ops.rope import rope_kernel_tables, rope_tables
+    pos = torch.arange(l, device="cuda")[None].expand(b, l)
+    cos, sin = rope_tables(pos, d, 10000.0)
+    return tuple(rope_kernel_tables(cos, sin, b, l, d, dtype))
+
+
+def _ln_bwd_case(n1, n2, dtype, rng):
+    import torch
+    from apex_tpu_torch.ops.cuda import (layer_norm_bwd, layer_norm_bwd_ref,
+                                         layer_norm_fwd)
+    dev = torch.device("cuda")
+    x = torch.as_tensor(rng.standard_normal((n1, n2), np.float32) * 2 + 0.3,
+                        device=dev).to(dtype)
+    dy = torch.as_tensor(rng.standard_normal((n1, n2), np.float32),
+                         device=dev).to(dtype)
+    w = torch.as_tensor(rng.standard_normal(n2, np.float32),
+                        device=dev).to(dtype)
+    b = torch.zeros_like(w)
+    _, mean, inv = layer_norm_fwd(x, w, b, 1e-5)
+    got = layer_norm_bwd(dy, x, w, mean, inv)
+    again = layer_norm_bwd(dy, x, w, mean, inv)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip(got, again)),
+            f"layer_norm_bwd {n1}x{n2} {dtype}: two runs differ")
+    ref = layer_norm_bwd_ref(dy, x, w, mean, inv)
+    errs = [_max_err(a, r) for a, r in zip(got, ref)]
+    if dtype == torch.float32:
+        tol = "dx atol 1e-5; dw, db rtol 1e-5 + atol 1e-4 (row sums)"
+        ok = errs[0] <= 1e-5 and all(
+            torch.allclose(a, r, rtol=1e-5, atol=1e-4)
+            for a, r in zip(got[1:], ref[1:]))
+    else:
+        tol = "2 bf16 ulps of the largest element"
+        ok = all(e <= bf16_tol(r) for e, r in zip(errs, ref))
+    require(ok, f"layer_norm_bwd {n1}x{n2} {dtype}: errors {errs}")
+    ms = time_ms(lambda: layer_norm_bwd(dy, x, w, mean, inv))
+    plain = time_ms(lambda: layer_norm_bwd_ref(dy, x, w, mean, inv))
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], w, b, 1e-5)
+    lib = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [n2], lmean, lrstd, w, b, [True, True, True]))
+    isz, wsz = x.element_size(), w.element_size()
+    nbytes = 3 * n1 * n2 * isz + 8 * n1 + 3 * n2 * wsz
+    b_ms, b_by = bound(nbytes, 14.0 * n1 * n2, PEAK_FP32_FLOPS)
+    return _kernel_rec(kernel="layer_norm_bwd", n1=n1, n2=n2,
+                       dtype=str(dtype).split(".")[-1], max_abs_err=max(
+                           errs), errs_dx_dw_db=errs, tolerance=tol,
+                       bitwise_repeat=True, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def _flash_pairs(b, l, h, causal, mask):
+    if mask is not None:
+        import torch
+        vis = mask[:, None, :].expand(b, l, l)
+        if causal:
+            vis = vis & torch.ones(l, l, dtype=torch.bool,
+                                   device=mask.device).tril()
+        return float(vis.sum()) * h
+    return b * h * (l * (l + 1) / 2 if causal else l * l)
+
+
+def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd, flash_attn_bwd_ref,
+                                         flash_attn_fwd)
+    bsz, l, h, d = shape
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                   device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.random((bsz, l)) > 0.25, device=dev)
+        mask[:, 0] = True
+    tables = _tables(bsz, l, d, torch.bfloat16) if rope else None
+    kw = dict(causal=causal, kv_mask=mask, rope=tables)
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    got = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    require(same, f"flash_attn_bwd {shape}: two runs differ")
+    ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
+    errs = [_max_err(a, r) for a, r in zip(got, ref)]
+    require(all(e <= bf16_tol(r) for e, r in zip(errs, ref)),
+            f"flash_attn_bwd {shape} masked={masked}: errors {errs}")
+    ms = time_ms(lambda: flash_attn_bwd(q, k, v, o, lse, do, **kw))
+    plain = time_ms(lambda: flash_attn_bwd_ref(q, k, v, o, lse, do, **kw),
+                    budget_s=0.2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    if masked:
+        am = torch.ones(l, l, dtype=torch.bool, device=dev).tril() \
+            if causal else torch.ones(l, l, dtype=torch.bool, device=dev)
+        am = am[None, None] & mask[:, None, None, :]
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    else:
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                              retain_graph=True))
+    pairs = _flash_pairs(bsz, l, h, causal, mask)
+    nbytes = (8 * bsz * l * h * d * 2 + 4 * bsz * l * h
+              + (2 * bsz * l * d * 2 if rope else 0)
+              + (bsz * l if masked else 0))
+    b_ms, b_by = bound(nbytes, 10.0 * d * pairs, PEAK_BF16_FLOPS)
+    return _kernel_rec(kernel="flash_attn_bwd", shape=list(shape),
+                       causal=causal, kv_mask=masked, rope=rope,
+                       dtype="bfloat16", max_abs_err=max(errs),
+                       errs_dq_dk_dv=errs,
+                       tolerance="2 bf16 ulps of the largest gradient vs "
+                                 "the plain version in bf16",
+                       bitwise_repeat=same, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def _flash_rope_case(shape, rng):
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.cuda import flash_attn_fwd, flash_attn_fwd_ref
+    bsz, l, h, d = shape
+    dev = torch.device("cuda")
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, np.float32),
+                               device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    tables = _tables(bsz, l, d, torch.bfloat16)
+    o, lse = flash_attn_fwd(q, k, v, causal=True, return_lse=True,
+                            rope=tables)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attn_fwd_ref(q, k, v, causal=True, rope=tables)
+    err = _max_err(o, o_ref)
+    lse_err = _max_err(lse, lse_ref)
+    require(err <= 2e-2 and lse_err <= 2e-2,
+            f"flash_attn_fwd rope {shape}: o err {err}, lse err {lse_err}")
+    ms = time_ms(lambda: flash_attn_fwd(q, k, v, causal=True, rope=tables))
+    plain = time_ms(lambda: flash_attn_fwd_ref(q, k, v, causal=True,
+                                               rope=tables), budget_s=0.2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    pairs = bsz * h * l * (l + 1) / 2
+    nbytes = 4 * bsz * l * h * d * 2 + 2 * bsz * l * d * 2
+    b_ms, b_by = bound(nbytes, 4.0 * d * pairs, PEAK_BF16_FLOPS)
+    return _kernel_rec(kernel="flash_attn_fwd", shape=list(shape),
+                       causal=True, rope=True, dtype="bfloat16",
+                       max_abs_err=err, lse_err=lse_err,
+                       tolerance="atol 2e-2 vs plain in bf16 (same rounded "
+                                 "q, k, tables)",
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by)
+
+
+def _leaf_shapes(cfg):
+    from apex_tpu_torch.models import GPTModel
+    return [tuple(p.shape) for p in GPTModel(cfg, device="meta")
+            .parameters()]
+
+
+def _adam_case(cfg, rng):
+    import torch
+    from apex_tpu_torch.ops.cuda import packed_adam, packed_adam_ref
+    dev = torch.device("cuda")
+    shapes = _leaf_shapes(cfg)
+    n = sum(int(np.prod(s)) for s in shapes)
+
+    def leaves(scale, absval=False):
+        out = []
+        for s in shapes:
+            a = rng.standard_normal(s, np.float32) * scale
+            out.append(torch.as_tensor(np.abs(a) if absval else a,
+                                       device=dev))
+        return out
+    p, m, v, g = leaves(0.05), leaves(1e-3), leaves(1e-4, True), leaves(1e-2)
+    copies = [torch.empty_like(t, dtype=torch.bfloat16) for t in p]
+    sizes = torch.full((len(shapes),), 3e-4, device=dev)
+    scale = torch.ones(1, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    twins = [[t.clone() for t in ts] for ts in (p, m, v, copies)]
+
+    def run(fn, ps, ms_, vs, cs):
+        for i in range(len(shapes)):
+            fn(ps[i], ms_[i], vs[i], g[i], sizes[i:i + 1], scale, flag,
+               p_copy=cs[i], **kw)
+    run(packed_adam, p, m, v, copies)
+    run(packed_adam_ref, *twins)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for xs, ys in zip((p, m, v, copies), twins)
+                for a, b in zip(xs, ys))
+    err = max(_max_err(a, b) for a, b in zip(p, twins[0]))
+    require(equal, f"packed_adam differs from its plain version ({err})")
+    flag.fill_(1)
+    before = [t.clone() for t in p[:4]]
+    run(packed_adam, p, m, v, copies)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(p, before)),
+            "packed_adam wrote with the noop flag set")
+    flag.zero_()
+    ms = time_ms(lambda: run(packed_adam, p, m, v, copies))
+    plain = time_ms(lambda: run(packed_adam_ref, p, m, v, copies))
+    lp = [t.clone().requires_grad_() for t in p]
+    for t, gg in zip(lp, g):
+        t.grad = gg
+    opt = torch.optim.Adam(lp, lr=3e-4, fused=True)
+    lib = time_ms(opt.step)
+    b_ms, b_by = bound(30.0 * n, 15.0 * n, PEAK_FP32_FLOPS)
+    return _kernel_rec(kernel="packed_adam", leaves=len(shapes), elements=n,
+                       p_copy="bfloat16", max_abs_err=err,
+                       tolerance="bitwise equal to the plain version",
+                       noop_flag_skips=True, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       per="one optimizer step over every leaf")
+
+
+def _scale_case(cfg, rng):
+    import torch
+    from apex_tpu_torch.ops.cuda import packed_scale, packed_scale_ref
+    dev = torch.device("cuda")
+    shapes = _leaf_shapes(cfg)
+    n = sum(int(np.prod(s)) for s in shapes)
+    grads = [torch.as_tensor(rng.standard_normal(s, np.float32) * 1e3,
+                             device=dev).to(torch.bfloat16) for s in shapes]
+    inv = torch.full((1,), 2.0 ** -16, device=dev)
+    results = {}
+    for bad in (False, True):
+        if bad:
+            grads[5].view(-1)[17] = float("inf")
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        flag_ref = torch.zeros_like(flag)
+        outs = [packed_scale(g, inv, torch.float32, flag) for g in grads]
+        refs = [packed_scale_ref(g, inv, torch.float32, flag_ref)
+                for g in grads]
+        torch.cuda.synchronize()
+        require(int(flag) == int(flag_ref) == int(bad),
+                f"packed_scale flag {int(flag)} (plain {int(flag_ref)}), "
+                f"want {int(bad)}")
+        require(all(torch.equal(a, b) for a, b in zip(outs, refs)),
+                "packed_scale differs from its plain version")
+        results[bad] = int(flag)
+    grads[5].view(-1)[17] = 1.0
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: [packed_scale(g, inv, torch.float32, flag)
+                          for g in grads])
+    plain = time_ms(lambda: [packed_scale_ref(g, inv, torch.float32, flag)
+                             for g in grads])
+    # PyTorch's own unscale takes no bf16 gradients (it unscales float
+    # tensors in place): no call computes this function on these inputs,
+    # so library_ms is null and the fp32 in-place call is timed beside it
+    found = torch.zeros(1, device=dev)
+    one = torch.ones(1, device=dev)
+    grads32 = [g.float() for g in grads]
+    lib32 = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+        grads32, found, one))
+    del grads32
+    b_ms, b_by = bound(6.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
+    return _kernel_rec(kernel="packed_scale", leaves=len(shapes), elements=n,
+                       dtype="bfloat16 -> float32", max_abs_err=0.0,
+                       tolerance="bitwise equal to the plain version; flag "
+                                 "raised by the one inf leaf",
+                       flag_clean=results[False], flag_with_inf=results[True],
+                       ms=ms, plain_ms=plain, library_ms=None,
+                       library_fp32_in_place_ms=lib32, bound_ms=b_ms,
+                       bound_by=b_by, per="one unscale over every leaf")
+
+
+def phase_train_kernels(cfg):
+    import torch
+    rng = np.random.default_rng(2)
+    recs = {}
+    recs["layer_norm_bwd"] = [_ln_bwd_case(16384, 768, dt, rng)
+                              for dt in (torch.bfloat16, torch.float32)]
+    recs["flash_attn_bwd"] = [
+        _flash_bwd_case((8, 2048, 12, 64), rng),
+        _flash_bwd_case((2, 1000, 6, 128), rng),
+        _flash_bwd_case((2, 512, 12, 64), rng, masked=True, rope=False)]
+    recs["flash_attn_fwd_rope"] = [_flash_rope_case((8, 2048, 12, 64), rng)]
+    recs["packed_adam"] = [_adam_case(cfg, rng)]
+    recs["packed_scale"] = [_scale_case(cfg, rng)]
+    torch.cuda.empty_cache()
+    return recs
+
+
+TRAIN_STEPS = 10
+TRAIN_B, TRAIN_L = 8, 2048
+
+
+def train_stream(vocab, b, l):
+    """``examples/gpt_lm.py``'s synthetic stream: each row counts up by
+    one from a random start (next token = token + 1)."""
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, vocab, (b, 1))
+    return (base + np.arange(l)[None, :]) % vocab
+
+
+def _gpt_loss(model, ids):
+    from apex_tpu_torch.models import lm_loss
+    return lm_loss(model(ids)[:, :-1], ids[:, 1:])
+
+
+#: kernel-name fragments of the step's device time, by group
+PROFILE_GROUPS = (("flash_attn_bwd (K4)", ("flash_bwd",)),
+                  ("flash_attn_fwd (K2)", ("flash_fwd",)),
+                  ("layer_norm_bwd (K3)", ("ln_bwd",)),
+                  ("layer_norm_fwd (K1)", ("ln_fwd",)),
+                  ("packed_adam (K5)", ("adam_kernel",)),
+                  ("packed_scale (K6)", ("scale_kernel",)),
+                  ("matmuls (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
+                                        "sm90_", "nvjet")))
+
+
+def profile_step(step, batch):
+    """One train step under ``torch.profiler``: the device time of every
+    kernel, summed by group (the port's kernels, cuBLAS matmuls, the rest
+    of PyTorch's kernels), against the step's wall time; kernels on one
+    stream do not overlap, so their sum over the wall time is the
+    device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        # device events only, without the ranges that annotate a span of
+        # them (the optimizer's ``Optimizer.step#...``): those would count
+        # the same kernels twice
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                and not getattr(ev, "is_user_annotation", False):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    if busy == 0.0:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
+    groups["other PyTorch kernels"] = 0.0
+    for name, ms in kernels.items():
+        low = name.lower()
+        g = next((g for g, frags in PROFILE_GROUPS
+                  if any(f in low for f in frags)), "other PyTorch kernels")
+        groups[g] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "device_busy_share": busy / wall_ms, "by_group_ms": groups,
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def phase_train(cfg, tree):
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt, opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    n_leaves = len(a.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, scales, overflows, times = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+        scales.append(float(out["loss_scale"]))
+        overflows.append(bool(out["overflow"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    want = {"layer_norm_fwd": 2 * cfg.num_layers + 1,
+            "flash_attn_fwd": cfg.num_layers,
+            "layer_norm_bwd": 2 * cfg.num_layers + 1,
+            "flash_attn_bwd": cfg.num_layers,
+            "packed_adam": n_leaves, "packed_scale": n_leaves}
+    require(per_step == want, f"train launches per step {per_step}, want "
+                              f"{want}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(not any(overflows), f"overflow in the train steps: {overflows}")
+    p50 = float(np.median(times[2:])) * 1e3
+    tokens = TRAIN_B * TRAIN_L
+    profile = profile_step(step, ids)
+    # one step with a non-finite gradient: skipped on the card
+    with torch.enable_grad():
+        loss = a.run(_gpt_loss, model, ids)
+        grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
+    grads[3].view(-1)[0] = float("inf")
+    masters = {n: t.clone() for n, t in a.masters.items()}
+    st = opt.state[a.masters["lm_head.kernel"]]
+    moments = (st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+               int(st["step"]))
+    compute = a.params[0].detach().clone()
+    scale_before = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"]), "the injected inf was not seen")
+    require(float(info["loss_scale"]) == scale_before / 2,
+            "the scale did not halve on overflow")
+    require(all(torch.equal(masters[n], t) for n, t in a.masters.items()),
+            "masters changed on a skipped step")
+    require(torch.equal(st["exp_avg"], moments[0])
+            and torch.equal(st["exp_avg_sq"], moments[1])
+            and int(st["step"]) == moments[2],
+            "moments or step counts changed on a skipped step")
+    require(torch.equal(a.params[0], compute),
+            "compute params changed on a skipped step")
+    emit("train", model="gpt_small", opt_level="O2", optimizer="FusedAdam",
+         lr=3e-4, batch=TRAIN_B, seq_len=TRAIN_L, steps=TRAIN_STEPS,
+         losses=losses, loss_scales=scales, step_ms=[t * 1e3 for t in times],
+         step_ms_p50_steps_3_to_10=p50, tokens_per_s=tokens / (p50 / 1e3),
+         peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
+         leaves=n_leaves, profile=profile, injected_overflow={
+             "skipped": True, "loss_scale": [scale_before,
+                                             float(info["loss_scale"])]})
+    del a, opt, model, grads, masters
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_reference():
+    """fp32 O0, a 2-layer 2 x 64-head model, 3 steps: the card (kernels)
+    against the CPU (plain versions) from the same weights."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax, params_to_numpy
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    tree = gpt_small_tree(cfg, seed=3)
+    ids = train_stream(cfg.vocab_size, 4, 128)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, cfg, device=dev, trainable=True)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O0", device=dev)
+        step = amp.make_train_step(a, model, _gpt_loss)
+        x = torch.as_tensor(ids, device=dev)
+        losses = [float(step(x)["loss"]) for _ in range(3)]
+        runs[dev] = (losses, params_to_numpy(a.masters))
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(x - y) for x, y in zip(lg, lc))
+
+    def leaves(t, pre=()):
+        for k, v in t.items():
+            yield from (leaves(v, pre + (k,)) if isinstance(v, dict)
+                        else [(pre + (k,), v)])
+    cpu_leaves = dict(leaves(pc))
+    param_err = max(float(np.abs(v - cpu_leaves[k]).max())
+                    for k, v in leaves(pg))
+    require(loss_err <= 1e-4, f"fp32 train losses card vs CPU differ by "
+                              f"{loss_err}")
+    require(param_err <= TRAIN_REF_PARAM_TOL,
+            f"fp32 train params card vs CPU differ by {param_err}")
+    emit("train_reference", dtype="float32", opt_level="O0", steps=3,
+         losses_card=lg, losses_cpu=lc, loss_max_abs_err=loss_err,
+         loss_tolerance=1e-4, param_max_abs_err=param_err,
+         param_tolerance=TRAIN_REF_PARAM_TOL)
+
+
+#: fp32 masters after 3 Adam steps at lr 3e-3, card vs CPU: cuBLAS and
+#: the CPU sum matmuls in other orders, and Adam's m / sqrt(v) turns
+#: last-bit gradient differences into parameter differences of a small
+#: fraction of lr
+TRAIN_REF_PARAM_TOL = 1e-4
+
+
 def main() -> int:
     try:
         import torch
@@ -435,28 +947,56 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         phase_reference(tree, cfg)
+        train_recs = phase_train_kernels(cfg)
+        train_counts = phase_train(cfg, tree)
+        phase_train_reference()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    by_path = {k: {"serve": serve_counts.get(k, 0),
+                   "solo": solo_counts.get(k, 0),
+                   "train": train_counts[k]} for k in train_counts}
     ln_main = next(r for r in ln_recs if r["n1"] == 8
                    and r["dtype"] == "bfloat16")
-    fl_main = fl_recs[0]
+    rope_main = train_recs["flash_attn_fwd_rope"][0]
     summary = []
     for rec, recs, launches, src, rep in (
             (ln_main, ln_recs, serve_counts["layer_norm_fwd"],
              "apex_tpu_torch/csrc/layer_norm_fwd.cu",
              "apex_tpu/ops/pallas/layer_norm_kernels.py:132"),
-            (fl_main, fl_recs, solo_counts["flash_attn_fwd"],
+            (fl_recs[0], fl_recs + [rope_main], solo_counts["flash_attn_fwd"],
              "apex_tpu_torch/csrc/flash_attn_fwd.cu",
-             "apex_tpu/ops/pallas/flash_attention.py:587")):
-        summary.append(dict(
+             "apex_tpu/ops/pallas/flash_attention.py:587"),
+            (train_recs["layer_norm_bwd"][0], train_recs["layer_norm_bwd"],
+             train_counts["layer_norm_bwd"],
+             "apex_tpu_torch/csrc/layer_norm_bwd.cu",
+             "apex_tpu/ops/pallas/layer_norm_kernels.py:165"),
+            (train_recs["flash_attn_bwd"][0], train_recs["flash_attn_bwd"],
+             train_counts["flash_attn_bwd"],
+             "apex_tpu_torch/csrc/flash_attn_bwd.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:477"),
+            (train_recs["packed_adam"][0], train_recs["packed_adam"],
+             train_counts["packed_adam"], "apex_tpu_torch/csrc/adam.cu",
+             "apex_tpu/ops/pallas/adam_kernel.py:216"),
+            (train_recs["packed_scale"][0], train_recs["packed_scale"],
+             train_counts["packed_scale"],
+             "apex_tpu_torch/csrc/multi_tensor_scale.cu",
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:62")):
+        entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
             launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"],
-            shape=rec.get("shape", [rec.get("n1"), rec.get("n2")])))
+            shape=rec.get("shape", [rec.get("n1"), rec.get("n2")]),
+            launches_by_path=by_path[rec["kernel"]])
+        if rec["kernel"] == "flash_attn_fwd":
+            entry["train_shape_with_rope"] = {
+                k: rope_main[k] for k in ("shape", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")}
+        summary.append(entry)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,12 @@ ulp (the kernel sums in another order, then rounds the fp32 result) or
 flash attention, fp32 ``atol = 2e-5`` and bf16 ``atol = 2e-2`` against
 the plain version run in fp32 on the same bf16 inputs (the kernel
 rounds the pre-scaled q and the probabilities to bf16 for the tensor
-cores, as the TPU kernel does).
+cores, as the TPU kernel does).  The backward kernels: fp32 ``atol =
+1e-5`` (dw, db: also ``rtol = 1e-5``, row sums), bf16 within 2 bf16 ulps
+of the largest element against the plain version in bf16 (both compute
+in fp32 and round at the same places, but sum in other orders); both run
+twice for equal bits.  Adam and the unscale equal their plain versions
+bit for bit (every product and sum rounded on its own).
 """
 
 import numpy as np
@@ -17,10 +22,18 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops.cuda import (
+    flash_attn_bwd,
+    flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
+    layer_norm_bwd,
+    layer_norm_bwd_ref,
     layer_norm_fwd,
     layer_norm_fwd_ref,
+    packed_adam,
+    packed_adam_ref,
+    packed_scale,
+    packed_scale_ref,
 )
 from apex_tpu_torch.testing import BF16_CANCEL_ATOL, bf16_ulp_distance
 
@@ -124,9 +137,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     k = torch.zeros((1, 9, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Lq == Lk"):
         flash_attn_fwd(q, k, k)
-    x = torch.zeros((4, 64), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        layer_norm_fwd(x, None, None, 1e-5)
+    x = torch.zeros((4, 64), device=cuda)
+    _, mean, inv = layer_norm_fwd(x, None, None, 1e-5)
+    with pytest.raises(ValueError, match="dy must match"):
+        layer_norm_bwd(torch.zeros((4, 32), device=cuda), x, None, mean,
+                       inv)
 
 
 def test_serve_engine_launches_layer_norm_kernel_per_step(cuda):
@@ -166,3 +181,197 @@ def test_serve_engine_launches_layer_norm_kernel_per_step(cuda):
         assert launch_counts()["flash_attn_fwd"] == cfg.num_layers
         assert out[f"r{i}"].shape == (6,)
         assert solo.shape == (1, len(p) + 6)
+
+
+def _bf16_tol(ref):
+    return 2 * 2.0 ** -8 * max(1.0, float(ref.float().abs().max()))
+
+
+def _tables(b, l, d, dtype, dev):
+    from apex_tpu_torch.ops.rope import rope_kernel_tables, rope_tables
+    pos = torch.arange(l, device=dev)[None].expand(b, l)
+    cos, sin = rope_tables(pos, d, 10000.0)
+    return tuple(rope_kernel_tables(cos, sin, b, l, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CASES)
+def test_flash_kernel_with_rope_matches_plain(cuda, shape, dtype):
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(l + 2 * d)
+    q, k, v = (_randn(rng, shape, dtype, cuda) for _ in range(3))
+    rope = _tables(bsz, l, d, dtype, cuda)
+    o, lse = flash_attn_fwd(q, k, v, causal=True, return_lse=True,
+                            rope=rope)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attn_fwd_ref(q, k, v, causal=True, rope=rope)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=atol * 10, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CASES)
+def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal,
+                                             masked, rope):
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(3 * l + d)
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
+        mask[:, 0] = True
+        mask[0, :] = False            # batch 0: every row sees no key
+    kw = dict(causal=causal, kv_mask=mask,
+              rope=_tables(bsz, l, d, dtype, cuda) if rope else None)
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    before = flash_attn_bwd.launches
+    got = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attn_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype and a.shape == q.shape
+        tol = 1e-5 if dtype == torch.float32 else _bf16_tol(r)
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=0)
+    if masked:
+        assert all(torch.all(g[0] == 0) for g in got)
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1,n2", [(37, 64), (37, 96), (300, 768),
+                                   (37, 1000), (37, 2304)])
+def test_layer_norm_backward_kernel_matches_plain(cuda, n1, n2, dtype,
+                                                  affine):
+    rng = np.random.RandomState(n1 + n2)
+    x = _randn(rng, (n1, n2), dtype, cuda) * 2 + 0.3
+    dy = _randn(rng, (n1, n2), dtype, cuda)
+    w = _randn(rng, (n2,), dtype, cuda) if affine else None
+    b = torch.zeros_like(w) if affine else None
+    _, mean, inv = layer_norm_fwd(x, w, b, 1e-5)
+    before = layer_norm_bwd.launches
+    got = layer_norm_bwd(dy, x, w, mean, inv)
+    again = layer_norm_bwd(dy, x, w, mean, inv)
+    torch.cuda.synchronize()
+    assert layer_norm_bwd.launches == before + 2
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    ref = layer_norm_bwd_ref(dy, x, w, mean, inv)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0)
+        for a, r in zip(got[1:], ref[1:]):
+            if r is not None:
+                torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
+    else:
+        for a, r in zip(got, ref):
+            if r is not None:
+                torch.testing.assert_close(a.float(), r.float(),
+                                           atol=_bf16_tol(r), rtol=0)
+    if not affine:
+        assert got[1] is None and got[2] is None
+
+
+def test_layer_norm_backward_kernel_fp32_weight_on_bf16(cuda):
+    rng = np.random.RandomState(4)
+    x = _randn(rng, (64, 768), torch.bfloat16, cuda)
+    dy = _randn(rng, (64, 768), torch.bfloat16, cuda)
+    w = _randn(rng, (768,), torch.float32, cuda)
+    _, mean, inv = layer_norm_fwd(x, w, torch.zeros_like(w), 1e-5)
+    got = layer_norm_bwd(dy, x, w, mean, inv)
+    ref = layer_norm_bwd_ref(dy, x, w, mean, inv)
+    assert got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0].float(), ref[0].float(),
+                               atol=_bf16_tol(ref[0]), rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("copy", [False, True])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eps_mode,weight_decay", [(0, 0.0), (1, 0.01)])
+@pytest.mark.parametrize("n", [1, 768, 4099])
+def test_adam_kernel_equals_plain(cuda, n, eps_mode, weight_decay, p_dtype,
+                                  copy):
+    rng = np.random.RandomState(n)
+    p = _randn(rng, (n,), p_dtype, cuda)
+    m = _randn(rng, (n,), torch.float32, cuda) * 0.1
+    v = _randn(rng, (n,), torch.float32, cuda).abs() * 0.01
+    g = _randn(rng, (n,), torch.float32, cuda)
+    pc = torch.zeros(n, dtype=torch.bfloat16, device=cuda) if copy else None
+    twins = [t.clone() for t in (p, m, v)] + [
+        None if pc is None else pc.clone()]
+    ss = torch.tensor([1e-3], device=cuda)
+    sc = torch.tensor([3.0], device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=weight_decay,
+              eps_mode=eps_mode)
+    before = packed_adam.launches
+    packed_adam(p, m, v, g, ss, sc, flag, p_copy=pc, **kw)
+    packed_adam_ref(*twins[:3], g, ss, sc, flag, p_copy=twins[3], **kw)
+    torch.cuda.synchronize()
+    assert packed_adam.launches == before + 1
+    for a, b in zip((p, m, v, pc), twins):
+        assert a is None or torch.equal(a, b)
+    flag.fill_(1)
+    kept = [t.clone() for t in (p, m, v)]
+    packed_adam(p, m, v, g, ss, sc, flag, p_copy=pc, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((p, m, v), kept))
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("bad", [None, "inf", "nan"])
+def test_scale_kernel_equals_plain(cuda, in_dtype, out_dtype, bad):
+    rng = np.random.RandomState(1)
+    x = _randn(rng, (33, 65), in_dtype, cuda) * 100
+    if bad is not None:
+        x[7, 9] = float(bad)
+    inv = torch.tensor([2.0 ** -10], device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    flag_ref = torch.zeros_like(flag)
+    out = packed_scale(x, inv, out_dtype, flag)
+    ref = packed_scale_ref(x, inv, out_dtype, flag_ref)
+    torch.cuda.synchronize()
+    assert int(flag) == int(flag_ref) == int(bad is not None)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))
+
+
+def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
+    """Two fp32 O0 steps of a 2-layer 2 x 64-head GPT on the card and on
+    the CPU from the same weights: the card launches each kernel the
+    expected number of times per step; losses agree within 1e-4."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTConfig, GPTModel, lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    torch.manual_seed(0)
+    state = GPTModel(cfg).state_dict()
+    ids = torch.as_tensor((np.arange(64)[None] + np.arange(4)[:, None] * 7)
+                          % 512)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = GPTModel(cfg, device=dev)
+        model.load_state_dict(state)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O0", device=dev)
+        step = amp.make_train_step(
+            a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+        reset_launch_counts()
+        losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(2)]
+        counts = launch_counts()
+    n = len(list(model.parameters()))
+    assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4,
+                      "layer_norm_bwd": 10, "flash_attn_bwd": 4,
+                      "packed_adam": 2 * n, "packed_scale": 2 * n}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+                               rtol=0)

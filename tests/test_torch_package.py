@@ -80,3 +80,32 @@ def test_a_model_elsewhere_is_refused():
     model = GPTModel(cfg, device="meta")
     with pytest.raises(ValueError, match="model is on"):
         generate(model, cfg, np.zeros((1, 3), np.int64), 2, device="cpu")
+
+
+def test_training_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would use it")
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = GPTModel(gpt_tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FusedAdam(model.parameters())
+    opt = FusedAdam(model.parameters(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        amp.initialize(model, opt, opt_level="O2")
+    a = amp.initialize(model, opt, opt_level="O2", device="cpu")
+    step = amp.make_train_step(a, model, lambda m, x: m(x).float().mean())
+    out = step(torch.zeros((1, 4), dtype=torch.long))
+    assert set(out) >= {"loss", "overflow", "loss_scale"}
+    with pytest.raises(ValueError, match="not the one"):
+        amp.make_train_step(a, GPTModel(gpt_tiny()), lambda m, x: 0)
+
+
+def test_the_new_modules_are_covered_by_the_import_check():
+    names = {str(f.relative_to(ROOT)) for f in
+             (ROOT / "apex_tpu_torch").rglob("*.py")}
+    assert {"apex_tpu_torch/amp/frontend.py", "apex_tpu_torch/amp/scaler.py",
+            "apex_tpu_torch/amp/policy.py",
+            "apex_tpu_torch/optimizers/fused_adam.py",
+            "apex_tpu_torch/ops/cuda/adam.py",
+            "apex_tpu_torch/ops/cuda/multi_tensor.py"} <= names
