@@ -17,6 +17,10 @@
 // host sync.  When the device `noop` flag is set (an overflow found by the
 // unscale), the kernel writes nothing: the skipped step stays on the card.
 //
+// g is read in its own dtype, fp32 or p's, and widened to fp32, as the JAX
+// `adam_step` widens it: under O3 (no master weights) the optimizer steps
+// the bf16 model parameters with bf16 gradients.
+//
 // What bounds it on the H100: bytes.  Four fp32 reads and three fp32
 // writes per element (28 B; 30 B with the bf16 copy) against ~15 flops.
 //
@@ -50,10 +54,15 @@ __device__ __forceinline__ void adam_one(float& p, float& m, float& v,
   p = __fsub_rn(p, __fdiv_rn(__fmul_rn(step_size, m), denom));
 }
 
-template <typename P>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename P, typename G>
 __global__ void __launch_bounds__(256)
 adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
-            const float* __restrict__ g, __nv_bfloat16* __restrict__ p_copy,
+            const G* __restrict__ g, __nv_bfloat16* __restrict__ p_copy,
             const float* __restrict__ step_size,
             const float* __restrict__ scale, const int* __restrict__ noop,
             long long n, Hyper hp, int vec) {
@@ -63,7 +72,8 @@ adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long done = 0;
-  if (vec) {  // fp32 p, every pointer 16-byte aligned
+  // the 16-byte path: fp32 p and g, every pointer 16-byte aligned
+  if constexpr (sizeof(P) == 4 && sizeof(G) == 4) if (vec) {
     const long long n4 = n / 4;
     for (long long i = i0; i < n4; i += stride) {
       float4 pp = reinterpret_cast<const float4*>(p)[i];
@@ -88,11 +98,9 @@ adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
     done = n4 * 4;
   }
   for (long long i = done + i0; i < n; i += stride) {
-    float pp;
-    if constexpr (sizeof(P) == 2) pp = __bfloat162float(p[i]);
-    else pp = p[i];
+    float pp = to_f32(p[i]);
     float mm = m[i], vv = v[i];
-    adam_one(pp, mm, vv, g[i], ss, sc, hp);
+    adam_one(pp, mm, vv, to_f32(g[i]), ss, sc, hp);
     if constexpr (sizeof(P) == 2) p[i] = __float2bfloat16(pp);
     else p[i] = pp;
     m[i] = mm;
@@ -101,23 +109,39 @@ adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
   }
 }
 
+template <typename P, typename G>
+void launch(void* p, void* m, void* v, const void* g, __nv_bfloat16* pc,
+            const float* ssp, const float* scp, const int* np, long long n,
+            const Hyper& hp, int blocks, int threads, int vec,
+            cudaStream_t s) {
+  adam_kernel<P, G><<<blocks, threads, 0, s>>>(
+      static_cast<P*>(p), static_cast<float*>(m), static_cast<float*>(v),
+      static_cast<const G*>(g), pc, ssp, scp, np, n, hp, vec);
+}
+
 }  // namespace
 
-// p: n elements, float32 (p_dtype 0) or bfloat16 (1); m, v, g: n float32.
-// p_copy: n bfloat16 or null.  step_size, scale: one float32 each, in device
-// memory.  noop: one int32 in device memory (nonzero = write nothing) or
-// null.  Returns the cudaError_t of the launch.
+// p: n elements, float32 (p_dtype 0) or bfloat16 (1); m, v: n float32;
+// g: n float32 (g_dtype 0) or, with bfloat16 p, bfloat16 (1).  p_copy: n
+// bfloat16 or null.  step_size, scale: one float32 each, in device memory.
+// noop: one int32 in device memory (nonzero = write nothing) or null.
+// Returns the cudaError_t of the launch.
 extern "C" int apex_adam(void* p, void* m, void* v, const void* g,
                          void* p_copy, const void* step_size,
                          const void* scale, const void* noop, long long n,
                          float beta1, float beta2, float om_beta1,
                          float om_beta2, float eps, float weight_decay,
-                         int eps_inside, int p_dtype, void* stream) {
+                         int eps_inside, int p_dtype, int g_dtype,
+                         void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
+  if ((p_dtype != 0 && p_dtype != 1) || (g_dtype != 0 && g_dtype != p_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Hyper hp{beta1, beta2, om_beta1, om_beta2, eps, weight_decay,
                  eps_inside};
-  const long long per = p_dtype == 0 ? (n + 3) / 4 : n;
+  // the 16-byte path takes fp32 p (and so fp32 g) only
+  const bool f32 = p_dtype == 0;
+  const long long per = f32 ? (n + 3) / 4 : n;
   const int threads = 256;
   const long long want = (per + threads - 1) / threads;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
@@ -130,20 +154,17 @@ extern "C" int apex_adam(void* p, void* m, void* v, const void* g,
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(g);
   // the bf16 copy is written 4 elements at a time too: 8-byte alignment
-  const bool aligned = (bits % 16 == 0) &&
-                       (pc == nullptr || reinterpret_cast<uintptr_t>(pc) % 8 == 0);
-  if (p_dtype == 0) {
-    adam_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<float*>(p), static_cast<float*>(m),
-        static_cast<float*>(v), static_cast<const float*>(g), pc, ssp, scp,
-        np, n, hp, aligned ? 1 : 0);
-  } else if (p_dtype == 1) {
-    adam_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(p), static_cast<float*>(m),
-        static_cast<float*>(v), static_cast<const float*>(g), pc, ssp, scp,
-        np, n, hp, 0);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int vec = f32 && (bits % 16 == 0) &&
+                  (pc == nullptr || reinterpret_cast<uintptr_t>(pc) % 8 == 0);
+  using bf16 = __nv_bfloat16;
+  if (p_dtype == 0)
+    launch<float, float>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks,
+                         threads, vec, s);
+  else if (g_dtype == 0)
+    launch<bf16, float>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks,
+                        threads, 0, s);
+  else
+    launch<bf16, bf16>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks, threads,
+                       0, s);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,8 @@ EPS_MODE_OUTSIDE = 0
 #: eps under the sqrt: denom = sqrt(v + eps) (MODE_1)
 EPS_MODE_INSIDE = 1
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def packed_adam_ref(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     g: torch.Tensor, step_size: torch.Tensor,
@@ -71,8 +73,9 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                 p_copy: Optional[torch.Tensor] = None) -> None:
     """:func:`packed_adam_ref`'s function.  On CUDA tensors one launch of
     the hand-written kernel (counted in ``packed_adam.launches``): p
-    float32 or bfloat16, m, v, g float32, p_copy bfloat16, all
-    contiguous and of one size; ``step_size``, ``scale`` and
+    float32 or bfloat16, g float32 or p's dtype (widened to fp32, as the
+    plain version does), m, v float32, p_copy bfloat16, all contiguous
+    and of one size; ``step_size``, ``scale`` and
     ``noop_flag`` stay on the card (the kernel reads them there, so a
     step makes no host sync).  Bit for bit the plain version on the
     card."""
@@ -83,11 +86,13 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                                p_copy=p_copy)
     if p.device.type != "cuda":
         raise ValueError(f"packed_adam: unsupported device {p.device}")
-    if p.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"packed_adam: p dtype {p.dtype} unsupported")
+    if p.dtype not in _DTYPES or g.dtype not in (torch.float32, p.dtype):
+        raise TypeError(f"packed_adam: p {p.dtype} with g {g.dtype} "
+                        f"unsupported (p float32 or bfloat16, g float32 "
+                        f"or p's dtype)")
     n = p.numel()
     for name, t, dt in (("p", p, p.dtype), ("m", m, torch.float32),
-                        ("v", v, torch.float32), ("g", g, torch.float32)) + (
+                        ("v", v, torch.float32), ("g", g, g.dtype)) + (
             (("p_copy", p_copy, torch.bfloat16),) if p_copy is not None
             else ()):
         if t.numel() != n or t.dtype != dt or t.device != p.device \
@@ -108,8 +113,8 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         None if p_copy is None else p_copy.data_ptr(), step_size.data_ptr(),
         scale.data_ptr(), None if noop_flag is None else noop_flag.data_ptr(),
         n, beta1, beta2, 1.0 - beta1, 1.0 - beta2, eps, weight_decay,
-        int(eps_mode == EPS_MODE_INSIDE),
-        0 if p.dtype == torch.float32 else 1, build.stream_of(p))
+        int(eps_mode == EPS_MODE_INSIDE), _DTYPES[p.dtype], _DTYPES[g.dtype],
+        build.stream_of(p))
     build.check(err, "packed_adam")
     packed_adam.launches += 1
     return None

@@ -157,7 +157,7 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_layer_norm_bwd.restype = i32
     lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32]
     lib.apex_layer_norm_bwd_parts.restype = i32
-    lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32, i32, vp]
+    lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32] * 3 + [vp]
     lib.apex_adam.restype = i32
     lib.apex_multi_tensor_scale.argtypes = [vp] * 4 + [i64, i32, i32, vp]
     lib.apex_multi_tensor_scale.restype = i32

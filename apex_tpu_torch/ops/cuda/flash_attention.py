@@ -240,14 +240,15 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: Optional[torch.Tensor] = None,
                    scale: Optional[float] = None, rope: Rope = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`flash_attn_bwd_ref`'s function.  On CUDA tensors one launch
-    of the hand-written kernel (counted in ``flash_attn_bwd.launches``):
-    in bf16 each 64-key tile writes its fp32 dq contribution into its own
-    partial plane, and the planes are summed here in a fixed order; in
-    fp32 two SIMT kernels write dq, dk, dv directly.  No atomics: two
-    runs give equal bits.  ``delta`` (``rowsum(o * do) - dlse``) and the
-    final ``dq * scale`` are plain PyTorch ops, as the JAX path leaves
-    them to XLA."""
+    """:func:`flash_attn_bwd_ref`'s function.  On CUDA tensors the
+    hand-written kernels, each launch counted in
+    ``flash_attn_bwd.launches``: in bf16 one launch, where each 64-key
+    tile writes its fp32 dq contribution into its own partial plane, and
+    the planes are summed here in a fixed order; in fp32 two launches of
+    SIMT kernels (dk and dv, then dq) write the gradients directly.  No
+    atomics: two runs give equal bits.  ``delta`` (``rowsum(o * do) -
+    dlse``) and the final ``dq * scale`` are plain PyTorch ops, as the
+    JAX path leaves them to XLA."""
     if q.device.type == "cpu":
         return flash_attn_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
                                   causal=causal, kv_mask=kv_mask,
@@ -282,7 +283,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, l, h, d, scale_q, int(bool(causal)), _DTYPES[q.dtype],
         build.stream_of(q))
     build.check(err, "flash_attn_bwd")
-    flash_attn_bwd.launches += 1
+    flash_attn_bwd.launches += 1 if q.dtype == torch.bfloat16 else 2
     dq = dq_acc.sum(dim=0) if dq_acc.dim() == 5 else dq_acc
     dq = dq.to(q.dtype) * torch.tensor(scale, dtype=q.dtype)
     return dq, dk, dv

@@ -117,10 +117,10 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
                    inv: torch.Tensor
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                               Optional[torch.Tensor]]:
-    """:func:`layer_norm_bwd_ref`'s function; on CUDA tensors one call of
-    the hand-written kernel (its two stages: dx with per-block dw/db
-    partials, then their fixed-order sum; counted once in
-    ``layer_norm_bwd.launches``), bitwise repeatable."""
+    """:func:`layer_norm_bwd_ref`'s function; on CUDA tensors the
+    hand-written kernels, bitwise repeatable: dx with per-block dw/db
+    partials, then (with a weight) their fixed-order sum, two launches
+    counted in ``layer_norm_bwd.launches`` (one without a weight)."""
     if x2d.device.type == "cpu":
         return layer_norm_bwd_ref(dy, x2d, weight, mean, inv)
     if x2d.device.type != "cuda":
@@ -169,7 +169,7 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
         ptr(part_b), n1, n2, _DTYPES[x2d.dtype], w_code,
         build.stream_of(x2d))
     build.check(err, "layer_norm_bwd")
-    layer_norm_bwd.launches += 1
+    layer_norm_bwd.launches += 1 if weight is None else 2
     return dx, dw, db
 
 

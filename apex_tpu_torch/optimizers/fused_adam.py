@@ -115,8 +115,7 @@ class FusedAdam(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None, *, noop_flag: Optional[torch.Tensor] = None,
-             model_params: Optional[Sequence[torch.Tensor]] = None,
-             scale=1.0):
+             model_params: Optional[Sequence[torch.Tensor]] = None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -137,8 +136,8 @@ class FusedAdam(torch.optim.Optimizer):
             beta1, beta2 = group["betas"]
             sizes = bias_corrected_step_sizes(
                 group["lr"], beta1, beta2, steps, group["bias_correction"])
-            scale_t = torch.as_tensor(scale, dtype=torch.float32,
-                                      device=dev).reshape(1)
+            # the gradients arrive unscaled (amp's unscale ran first)
+            one = torch.ones(1, dtype=torch.float32, device=dev)
             for i, p in enumerate(params):
                 copy = copies[at + i] if copies else None
                 if p.grad is None:
@@ -148,7 +147,7 @@ class FusedAdam(torch.optim.Optimizer):
                 st = self.state[p]
                 packed_adam(p.view(-1), st["exp_avg"].view(-1),
                             st["exp_avg_sq"].view(-1), p.grad.reshape(-1),
-                            sizes[i:i + 1], scale_t, noop_flag,
+                            sizes[i:i + 1], one, noop_flag,
                             beta1=beta1, beta2=beta2, eps=group["eps"],
                             weight_decay=group["weight_decay"],
                             eps_mode=group["eps_mode"],

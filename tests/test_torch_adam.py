@@ -24,6 +24,7 @@ from apex_tpu_torch.optimizers import (
     FusedAdam,
     adam_step,
 )
+from apex_tpu_torch.testing import bf16_ulp_distance
 
 
 def _ulps(a, b):
@@ -62,6 +63,30 @@ def test_adam_step_matches_jax(eps_mode, weight_decay, copy):
     if copy:
         np.testing.assert_array_equal(
             pc.float().numpy(), np.asarray(want[3].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("eps_mode", [EPS_MODE_OUTSIDE, EPS_MODE_INSIDE])
+def test_adam_step_on_bf16_param_and_grad_matches_jax(eps_mode):
+    """O3's case (no master weights): a bf16 parameter stepped with its
+    bf16 gradient, moments in fp32.  Both sides widen p and g to fp32 and
+    round the new p to bf16 once; that rounding may differ by one bf16
+    ulp where the fp32 values differ by their one ulp."""
+    p, m, v, g = _state(1037, 11)
+    p16 = torch.from_numpy(p).to(torch.bfloat16)
+    g16 = torch.from_numpy(g).to(torch.bfloat16)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              eps_mode=eps_mode)
+    want = jax_adam_step(jnp.asarray(p16.float().numpy(), jnp.bfloat16),
+                         jnp.asarray(m), jnp.asarray(v),
+                         jnp.asarray(g16.float().numpy(), jnp.bfloat16),
+                         step=jnp.asarray(2, jnp.int32), **kw)
+    tm, tv = torch.from_numpy(m.copy()), torch.from_numpy(v.copy())
+    adam_step(p16, tm, tv, g16, step=torch.tensor(2), **kw)
+    assert p16.dtype == torch.bfloat16
+    want_p = torch.tensor(np.asarray(want[0].astype(jnp.float32)))
+    assert bf16_ulp_distance(p16, want_p.to(torch.bfloat16)) <= 1
+    assert _ulps(tm.numpy(), np.asarray(want[1])) <= 1
+    assert _ulps(tv.numpy(), np.asarray(want[2])) <= 1
 
 
 def test_kernel_plain_version_is_what_the_wrapper_runs_on_the_cpu():

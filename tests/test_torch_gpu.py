@@ -232,7 +232,9 @@ def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal,
     got = flash_attn_bwd(q, k, v, o, lse, do, **kw)
     again = flash_attn_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert flash_attn_bwd.launches == before + 2
+    # one launch a call in bf16, two (dk/dv, then dq) in fp32
+    assert flash_attn_bwd.launches == before + 2 * (
+        1 if dtype == torch.bfloat16 else 2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
     for a, r in zip(got, ref):
@@ -259,7 +261,8 @@ def test_layer_norm_backward_kernel_matches_plain(cuda, n1, n2, dtype,
     got = layer_norm_bwd(dy, x, w, mean, inv)
     again = layer_norm_bwd(dy, x, w, mean, inv)
     torch.cuda.synchronize()
-    assert layer_norm_bwd.launches == before + 2
+    # dx with partials, then (with a weight) the dw/db sum
+    assert layer_norm_bwd.launches == before + 2 * (2 if affine else 1)
     assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
     ref = layer_norm_bwd_ref(dy, x, w, mean, inv)
     if dtype == torch.float32:
@@ -291,16 +294,18 @@ def test_layer_norm_backward_kernel_fp32_weight_on_bf16(cuda):
 
 
 @pytest.mark.parametrize("copy", [False, True])
-@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("eps_mode,weight_decay", [(0, 0.0), (1, 0.01)])
 @pytest.mark.parametrize("n", [1, 768, 4099])
 def test_adam_kernel_equals_plain(cuda, n, eps_mode, weight_decay, p_dtype,
-                                  copy):
+                                  g_dtype, copy):
     rng = np.random.RandomState(n)
     p = _randn(rng, (n,), p_dtype, cuda)
     m = _randn(rng, (n,), torch.float32, cuda) * 0.1
     v = _randn(rng, (n,), torch.float32, cuda).abs() * 0.01
-    g = _randn(rng, (n,), torch.float32, cuda)
+    g = _randn(rng, (n,), g_dtype, cuda)
     pc = torch.zeros(n, dtype=torch.bfloat16, device=cuda) if copy else None
     twins = [t.clone() for t in (p, m, v)] + [
         None if pc is None else pc.clone()]
@@ -343,10 +348,20 @@ def test_scale_kernel_equals_plain(cuda, in_dtype, out_dtype, bad):
     assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))
 
 
-def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
-    """Two fp32 O0 steps of a 2-layer 2 x 64-head GPT on the card and on
-    the CPU from the same weights: the card launches each kernel the
-    expected number of times per step; losses agree within 1e-4."""
+#: opt level -> (flash_attn_bwd launches a call, loss tolerance card vs
+#: CPU): the fp32 backward kernel launches twice (dk/dv, then dq); bf16
+#: rounds at other places in cuBLAS and on the CPU
+TRAIN_LEVELS = {"O0": (2, 1e-4), "O3": (1, 2e-2)}
+
+
+@pytest.mark.parametrize("opt_level", sorted(TRAIN_LEVELS))
+def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
+                                                              opt_level):
+    """Two steps of a 2-layer 2 x 64-head GPT on the card and on the CPU
+    from the same weights, in fp32 (O0) and in bf16 without master
+    weights (O3: K5 steps the bf16 parameters with bf16 gradients): the
+    card launches each kernel the expected number of times per step, and
+    the losses agree."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models import GPTConfig, GPTModel, lm_loss
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -363,15 +378,20 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
         model.load_state_dict(state)
         a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
                                             device=dev),
-                           opt_level="O0", device=dev)
+                           opt_level=opt_level, device=dev)
         step = amp.make_train_step(
             a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
         reset_launch_counts()
         losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(2)]
         counts = launch_counts()
     n = len(list(model.parameters()))
+    per_call, atol = TRAIN_LEVELS[opt_level]
     assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4,
-                      "layer_norm_bwd": 10, "flash_attn_bwd": 4,
+                      "layer_norm_bwd": 20, "flash_attn_bwd": 4 * per_call,
                       "packed_adam": 2 * n, "packed_scale": 2 * n}
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+    want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
+    assert all(p.dtype == want_dtype for p in model.parameters())
+    assert all(np.isfinite(losses["cuda"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=atol,
                                rtol=0)
+

@@ -16,8 +16,9 @@ Tolerances:
   ``m / sqrt(v)`` normalises every element's step, a handful of
   elements drift apart by up to ~5e-5 (measured) while the rest stay
   within 1e-5.
-- O2 (bf16 compute, fp32 masters): per-step losses within ``2e-2``
-  absolute.  XLA on the CPU and PyTorch round bf16 activations at other
+- O2 (bf16 compute, fp32 masters) and O3 (bf16 compute, no masters:
+  FusedAdam steps the bf16 parameters with bf16 gradients): per-step
+  losses within ``2e-2`` absolute.  XLA on the CPU and PyTorch round bf16 activations at other
   places (fused elementwise chains vs one rounding per op), and the
   port's attention rotates with bf16 tables (the kernel format) where
   the JAX CPU path rotates in fp32; ``loss_scale`` and ``overflow`` must
@@ -169,3 +170,25 @@ def test_o2_bf16_steps_match_jax(kind):
     # the compute params are the bf16 rounding of the masters
     for n, p in model.named_parameters():
         assert torch.equal(p, a.masters[n].to(torch.bfloat16)), n
+
+
+@pytest.mark.parametrize("kind", sorted(CONFIGS))
+def test_o3_bf16_steps_match_jax(kind):
+    kw = CONFIGS[kind]
+    ids = _stream(kw["vocab_size"])
+    tree, jm, jparams = _jax_run(kw, "O3", ids)
+    model, a, tm = _torch_run(kw, "O3", tree, ids)
+    for j, t in zip(jm, tm):
+        assert abs(j["loss"] - t["loss"]) <= 2e-2, (jm, tm)
+        assert j["loss_scale"] == t["loss_scale"] == 1.0
+        assert j["overflow"] == t["overflow"] == 0.0
+    assert tm[-1]["loss"] < tm[0]["loss"]
+    # no masters: the optimizer stepped the model's own bf16 parameters,
+    # and JAX carried bf16 parameters too
+    assert all(a.masters[n] is p for n, p in model.named_parameters())
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    assert all(w.dtype == jnp.bfloat16 for _, w in _leaves(jparams))
+    for p in model.parameters():
+        st = a.optimizer.state[p]
+        assert st["exp_avg"].dtype == torch.float32
+        assert int(st["step"]) == STEPS
