@@ -18,7 +18,8 @@ the same state on an :class:`Amp` object, in PyTorch's way:
 
 A step: the loss (in fp32) times the scale; gradients w.r.t. the compute
 params; the K6 unscale ``g.float() * (1 / scale)`` into fp32 with one
-device overflow flag (checked on the scaled gradients); the scaler
+device overflow flag (checked on the scaled gradients), into gradient
+buffers kept beside the masters from step to step; the scaler
 update; then FusedAdam on the masters, made conditional on that same flag
 inside the K5 kernel and the step counts, with the bf16 compute params
 refreshed from the new masters in the same pass.  An overflow skips the
@@ -118,6 +119,11 @@ class Amp:
         compute_of = {id(self.masters[n]): p for n, p in named}
         self._copies = [compute_of[i] for i in order] if use_masters \
             else None
+        #: fp32 gradient buffers of the masters, made at the first step and
+        #: unscaled into at every step: their storage never moves, so a
+        #: whole-tree optimizer's pointer rows (FusedLAMB's chunk table)
+        #: are uploaded once
+        self._grads: Optional[List[torch.Tensor]] = None
         self.scaler_state: LossScaleState = scaler.init_state(dev)
         self.step = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -165,7 +171,11 @@ class Amp:
             overflow = torch.zeros((), dtype=torch.bool,
                                    device=self.step.device)
         else:
-            unscaled, flag = self.scaler.unscale(grads, self.scaler_state)
+            if self._copies is not None and self._grads is None:
+                self._grads = [torch.empty_like(t, dtype=torch.float32)
+                               for t in self.masters.values()]
+            unscaled, flag = self.scaler.unscale(grads, self.scaler_state,
+                                                 out=self._grads)
             self.scaler_state, overflow = self.scaler.update(
                 self.scaler_state, flag == 0)
         names = list(self.masters)

@@ -84,17 +84,24 @@ class LossScaler:
         return loss.float() * state.loss_scale
 
     def unscale(self, grads: Sequence[torch.Tensor], state: LossScaleState,
-                out_dtype: torch.dtype = torch.float32
+                out_dtype: torch.dtype = torch.float32,
+                out: Optional[Sequence[torch.Tensor]] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """``g.float() * (1 / scale)`` cast to ``out_dtype`` for each
-        gradient, and one int32 flag ``(1,)``: nonzero when any incoming
-        (still scaled) gradient holds a non-finite value.  On the card,
-        one K6 launch per gradient, all into the same flag."""
+        gradient (into ``out``, one tensor per gradient, when given), and
+        one int32 flag ``(1,)``: nonzero when any incoming (still scaled)
+        gradient holds a non-finite value.  On the card, one K6 launch per
+        gradient, all into the same flag."""
         dev = state.loss_scale.device
         inv = (1.0 / state.loss_scale).reshape(1)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        out = [packed_scale(g, inv, out_dtype, flag) for g in grads]
-        return out, flag
+        outs = [None] * len(grads) if out is None else list(out)
+        if len(outs) != len(grads):
+            raise ValueError(f"{len(outs)} out tensors for {len(grads)} "
+                             f"gradients")
+        res = [packed_scale(g, inv, out_dtype, flag, o)
+               for g, o in zip(grads, outs)]
+        return res, flag
 
     def update(self, state: LossScaleState, grads_finite: torch.Tensor
                ) -> Tuple[LossScaleState, torch.Tensor]:

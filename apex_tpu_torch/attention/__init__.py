@@ -50,9 +50,13 @@ class FlashAttention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = False, kv_mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None, return_lse: bool = False,
-              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              layout: str = "blhd"):
     """``o (B, L, H, D)`` in q's dtype, or ``(o, lse (B, L, H) fp32)``
-    with ``return_lse``.  ``kv_mask (B, Lk)`` bool, True = attend; a row
+    with ``return_lse``.  ``layout="bhld"`` takes and returns ``(B, H,
+    L, D)`` tensors, as the JAX ``flash_attention`` does: they reach the
+    kernels as permuted views (the kernels read through strides, so the
+    forward copies nothing) and the lse stays ``(B, L, H)``.  ``kv_mask (B, Lk)`` bool, True = attend; a row
     that sees no key gives zeros and ``lse = -1e30``.  ``scale``
     defaults to ``1 / sqrt(D)``.  ``rope``: full-width kernel tables
     (:class:`~apex_tpu_torch.ops.rope.KernelRopeTables` or a ``(cos_full,
@@ -61,6 +65,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     unrotated inputs.  Differentiable; under ``torch.no_grad`` (or when
     nothing requires grad) it is one forward kernel call and no autograd
     node."""
+    if layout not in ("blhd", "bhld"):
+        raise ValueError(f"layout {layout!r}: want 'blhd' or 'bhld'")
+    if layout == "bhld":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
     cos_t = sin_t = None
@@ -70,11 +78,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         cos_t, sin_t = (t.to(q.dtype) for t in rope)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
-        return flash_attn_fwd(q, k, v, causal=causal, kv_mask=kv_mask,
-                              scale=scale, return_lse=return_lse,
-                              rope=None if cos_t is None else (cos_t, sin_t))
-    o, lse = FlashAttention.apply(q, k, v, kv_mask, cos_t, sin_t,
-                                  float(scale), bool(causal))
+        out = flash_attn_fwd(q, k, v, causal=causal, kv_mask=kv_mask,
+                             scale=scale, return_lse=return_lse,
+                             rope=None if cos_t is None else (cos_t, sin_t))
+        o, lse = out if return_lse else (out, None)
+    else:
+        o, lse = FlashAttention.apply(q, k, v, kv_mask, cos_t, sin_t,
+                                      float(scale), bool(causal))
+    if layout == "bhld":
+        o = o.transpose(1, 2)
     return (o, lse) if return_lse else o
 
 

@@ -1,11 +1,11 @@
-"""Bring a JAX GPT checkpoint across (``params_from_jax``) and back
-(``params_to_numpy``).
+"""Bring a JAX GPT or BERT checkpoint across (``params_from_jax``,
+``bert_params_from_jax``) and back (``params_to_numpy``).
 
 The JAX parameter tree arrives as nested dicts of numpy arrays, in the
-loop layout (``block_{i}`` subtrees) or the scan layout
-(``layers/block`` with a leading layer axis, unstacked here).  Names map
-one to one onto :class:`~apex_tpu_torch.models.gpt.GPTModel`'s
-parameters (``block_0/attention/qkv/kernel`` ->
+loop layout (``block_{i}`` subtrees for GPT, ``bert/layer_{i}`` for
+BERT) or the scan layout (``layers/block``, ``bert/layers/layer``, with
+a leading layer axis, unstacked here).  Names map one to one onto the
+port's module parameters (``block_0/attention/qkv/kernel`` ->
 ``block_0.attention.qkv.kernel``); :class:`~apex_tpu_torch.layers.Dense`
 keeps flax's ``(in, out)`` kernel layout, so nothing is transposed.
 bf16 arrays (``ml_dtypes.bfloat16``) convert through float32, which is
@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch.amp.frontend import default_keep_fp32_filter
+from apex_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 
@@ -52,6 +53,52 @@ def _target_dtype(path: Tuple[str, ...], t: torch.Tensor,
     return dtype
 
 
+def _unstack(flat: Dict[Tuple[str, ...], Any], scan: Tuple[str, ...],
+             loop: Tuple[str, ...], num_layers: int
+             ) -> Dict[Tuple[str, ...], Any]:
+    """Scan-layout leaves under ``scan`` (a leading layer axis) become
+    loop-layout leaves under ``loop[:-1] + (f"{loop[-1]}_{i}",)``."""
+    head = scan[:-1]
+    stacked = {p: v for p, v in flat.items() if p[:len(head)] == head}
+    if not stacked:
+        return flat
+    out = {p: v for p, v in flat.items() if p not in stacked}
+    for p, v in stacked.items():
+        if p[:len(scan)] != scan:
+            raise ValueError(f"unexpected scan-layout path {p}")
+        arr = np.asarray(v)
+        if arr.shape[0] != num_layers:
+            raise ValueError(f"{'/'.join(p)} stacks {arr.shape[0]} "
+                             f"layers, config has {num_layers}")
+        for i in range(num_layers):
+            out[loop[:-1] + (f"{loop[-1]}_{i}",) + p[len(scan):]] = arr[i]
+    return out
+
+
+def _load(model: nn.Module, tree: Mapping, scan: Tuple[str, ...],
+          loop: Tuple[str, ...], num_layers: int, device: DeviceLike,
+          dtype: Optional[torch.dtype], trainable: bool) -> nn.Module:
+    """``model`` (built on the meta device) holding the JAX parameters
+    ``tree`` on ``device``; see :func:`params_from_jax`."""
+    device = resolve_device(device)
+    flat = _unstack(_flatten(tree), scan, loop, num_layers)
+    state = {}
+    for path, v in flat.items():
+        t = _to_tensor(v)
+        state[".".join(path)] = t.to(device=device,
+                                     dtype=_target_dtype(path, t, dtype))
+    want = set(model.state_dict())
+    if set(state) != want:
+        raise ValueError(
+            f"parameter names differ from {type(model).__name__}'s: "
+            f"missing {sorted(want - set(state))}, unexpected "
+            f"{sorted(set(state) - want)}")
+    model.load_state_dict(state, assign=True)
+    if trainable:
+        return model.requires_grad_(True).train()
+    return model.requires_grad_(False).eval()
+
+
 def params_from_jax(tree: Mapping, cfg: GPTConfig,
                     device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None,
@@ -64,36 +111,21 @@ def params_from_jax(tree: Mapping, cfg: GPTConfig,
     require grad and the model is in training mode (hand it to
     :func:`apex_tpu_torch.amp.initialize`, which makes the fp32 masters
     and the compute cast); otherwise they do not, for serving."""
-    device = resolve_device(device)
-    flat = _flatten(tree)
-    if any(p[0] == "layers" for p in flat):
-        stacked = {p: v for p, v in flat.items() if p[0] == "layers"}
-        flat = {p: v for p, v in flat.items() if p[0] != "layers"}
-        for p, v in stacked.items():
-            if p[:2] != ("layers", "block"):
-                raise ValueError(f"unexpected scan-layout path {p}")
-            arr = np.asarray(v)
-            if arr.shape[0] != cfg.num_layers:
-                raise ValueError(f"{'/'.join(p)} stacks {arr.shape[0]} "
-                                 f"layers, config has {cfg.num_layers}")
-            for i in range(cfg.num_layers):
-                flat[(f"block_{i}",) + p[2:]] = arr[i]
-    state = {}
-    for path, v in flat.items():
-        t = _to_tensor(v)
-        state[".".join(path)] = t.to(device=device,
-                                     dtype=_target_dtype(path, t, dtype))
-    model = GPTModel(cfg, device="meta")
-    want = set(model.state_dict())
-    if set(state) != want:
-        raise ValueError(
-            f"parameter names differ from GPTModel's: missing "
-            f"{sorted(want - set(state))}, unexpected "
-            f"{sorted(set(state) - want)}")
-    model.load_state_dict(state, assign=True)
-    if trainable:
-        return model.requires_grad_(True).train()
-    return model.requires_grad_(False).eval()
+    return _load(GPTModel(cfg, device="meta"), tree, ("layers", "block"),
+                 ("block",), cfg.num_layers, device, dtype, trainable)
+
+
+def bert_params_from_jax(tree: Mapping, cfg: BertConfig,
+                         device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = None,
+                         trainable: bool = False) -> BertForPreTraining:
+    """A :class:`~apex_tpu_torch.models.bert.BertForPreTraining` holding
+    the JAX ``BertForPreTraining`` parameters ``tree`` (loop layout
+    ``bert/layer_{i}`` or scan layout ``bert/layers/layer``); the options
+    as :func:`params_from_jax`'s."""
+    return _load(BertForPreTraining(cfg, device="meta"), tree,
+                 ("bert", "layers", "layer"), ("bert", "layer"),
+                 cfg.num_layers, device, dtype, trainable)
 
 
 def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]]

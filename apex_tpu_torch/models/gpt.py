@@ -26,6 +26,7 @@ from torch import nn
 from apex_tpu_torch.attention import attention
 from apex_tpu_torch.layers import Dense, Embed
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops import DeviceLike, resolve_device
 from apex_tpu_torch.ops.rope import (
     KernelRopeTables,
     rope_kernel_tables,
@@ -110,11 +111,13 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     """Decoder-only transformer: ``forward(input_ids (B, L))`` returns
     logits ``(B, L, vocab)``.  Block ``i`` is the attribute
-    ``block_{i}``; :attr:`blocks` lists them in order."""
+    ``block_{i}``; :attr:`blocks` lists them in order.  Built on the card
+    unless ``device`` says ``"cpu"`` (or ``"meta"``, shapes only)."""
 
     def __init__(self, cfg: GPTConfig, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device: DeviceLike = None):
         super().__init__()
+        device = resolve_device(device, allow_meta=True)
         self.cfg = cfg
         self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, dtype=dtype,
                              device=device)

@@ -15,11 +15,15 @@ import torch
 DeviceLike = Optional[Union[str, torch.device]]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None,
+                   allow_meta: bool = False) -> torch.device:
     """``torch.device`` for an entry point: the card by default; raises
     when a card is wanted (``None`` or ``"cuda..."``) and none is
-    present.  ``"cpu"`` runs the plain PyTorch versions."""
+    present.  ``"cpu"`` runs the plain PyTorch versions; ``"meta"``
+    (shapes only) passes where ``allow_meta`` (a model's constructor)."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "meta" and allow_meta:
+        return dev
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -8,6 +8,12 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     flash_attn_fwd,
     flash_attn_fwd_ref,
 )
+from apex_tpu_torch.ops.cuda.lamb import (
+    lamb_stage1,
+    lamb_stage1_ref,
+    lamb_stage2,
+    lamb_stage2_ref,
+)
 from apex_tpu_torch.ops.cuda.layer_norm import (
     layer_norm_bwd,
     layer_norm_bwd_ref,
@@ -17,6 +23,8 @@ from apex_tpu_torch.ops.cuda.layer_norm import (
 from apex_tpu_torch.ops.cuda.multi_tensor import (
     packed_scale,
     packed_scale_ref,
+    packed_sumsq,
+    packed_sumsq_ref,
 )
 
 #: every kernel wrapper, by the name its launch counter reports under
@@ -25,7 +33,10 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "layer_norm_bwd": layer_norm_bwd,
            "flash_attn_bwd": flash_attn_bwd,
            "packed_adam": packed_adam,
-           "packed_scale": packed_scale}
+           "packed_scale": packed_scale,
+           "lamb_stage1": lamb_stage1,
+           "lamb_stage2": lamb_stage2,
+           "packed_sumsq": packed_sumsq}
 
 
 def launch_counts() -> dict:
@@ -39,7 +50,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "flash_attn_bwd", "flash_attn_bwd_ref",
-           "flash_attn_fwd", "flash_attn_fwd_ref", "launch_counts",
-           "layer_norm_bwd", "layer_norm_bwd_ref", "layer_norm_fwd",
-           "layer_norm_fwd_ref", "packed_adam", "packed_adam_ref",
-           "packed_scale", "packed_scale_ref", "reset_launch_counts"]
+           "flash_attn_fwd", "flash_attn_fwd_ref", "lamb_stage1",
+           "lamb_stage1_ref", "lamb_stage2", "lamb_stage2_ref",
+           "launch_counts", "layer_norm_bwd", "layer_norm_bwd_ref",
+           "layer_norm_fwd", "layer_norm_fwd_ref", "packed_adam",
+           "packed_adam_ref", "packed_scale", "packed_scale_ref",
+           "packed_sumsq", "packed_sumsq_ref", "reset_launch_counts"]

@@ -161,6 +161,15 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_adam.restype = i32
     lib.apex_multi_tensor_scale.argtypes = [vp] * 4 + [i64, i32, i32, vp]
     lib.apex_multi_tensor_scale.restype = i32
+    lib.apex_multi_tensor_sumsq.argtypes = ([vp] * 3 + [i32, i32, vp, i32]
+                                            + [vp] * 4)
+    lib.apex_multi_tensor_sumsq.restype = i32
+    lib.apex_lamb_stage1.argtypes = ([vp] * 3 + [i32, i32] + [vp] * 11
+                                     + [f32] * 7 + [i32, i32, vp])
+    lib.apex_lamb_stage1.restype = i32
+    lib.apex_lamb_stage2.argtypes = ([vp] * 4 + [i32, i32] + [vp] * 6
+                                     + [f32, i32, vp])
+    lib.apex_lamb_stage2.restype = i32
     lib.apex_cuda_error_string.argtypes = [i32]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
     _LIB, _INFO = lib, info

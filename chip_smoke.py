@@ -40,7 +40,24 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             halved);
 9. train reference  a 2-layer, 2 x 64-head model, 3 steps on the card
             against the same on the CPU (plain versions): fp32 O0, and bf16
-            O3 (no master weights: Adam steps the bf16 parameters).
+            O3 (no master weights: Adam steps the bf16 parameters);
+10. bert kernels  the BERT slice's kernels against their plain versions:
+            LAMB stage 1 and 2 and the global sum of squares over
+            bert_large's 303 fp32 master leaves with bf16 copies (bitwise
+            repeats, the noop flag), and the layer-norm and flash kernels
+            at bert_large's shapes (16384 x 1024; (32, 512, 16, 64),
+            non-causal, a key mask), with the same timings and bounds;
+11. bert_train  bert_large at full width and depth, amp O2 + FusedLAMB
+            (lr 1e-3, eps 1e-6, weight decay 0.01, max_grad_norm 1.0),
+            B 32 x L 512 on the synthetic masked-LM batch of
+            ``examples/bert_pretraining.py``, 10 steps from seeded weights:
+            losses (finite, falling), step ms p50 over steps 3-10,
+            sequences/s, tokens/s, peak memory, the exact launches per
+            step, one profiled step, and one injected overflow skipped on
+            the card;
+12. bert_train reference  a 2-layer, 2 x 64-head BERT with a ragged key
+            mask, 3 FusedLAMB steps on the card against the CPU: fp32 O0
+            and bf16 O2.
 
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -142,12 +159,11 @@ def phase_build():
              d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)})
 
 
-def _ln_case(n1, dtype, rng):
+def _ln_case(n1, dtype, rng, n2=768):
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import layer_norm_fwd, layer_norm_fwd_ref
     from apex_tpu_torch.testing import BF16_CANCEL_ATOL, bf16_ulp_distance
-    n2 = 768
     dev = torch.device("cuda")
     x = torch.as_tensor(rng.standard_normal((n1, n2), np.float32) * 2 + 0.3,
                         device=dev).to(dtype)
@@ -185,7 +201,7 @@ def _ln_case(n1, dtype, rng):
     return rec
 
 
-def _flash_case(shape, rng, masked=False):
+def _flash_case(shape, rng, masked=False, causal=True):
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import flash_attn_fwd, flash_attn_fwd_ref
@@ -198,33 +214,34 @@ def _flash_case(shape, rng, masked=False):
     if masked:
         mask = torch.as_tensor(rng.random((bsz, l)) > 0.25, device=dev)
         mask[:, 0] = True
-    o, lse = flash_attn_fwd(q, k, v, causal=True, kv_mask=mask,
+    o, lse = flash_attn_fwd(q, k, v, causal=causal, kv_mask=mask,
                             return_lse=True)
     torch.cuda.synchronize()
     o_ref, lse_ref = flash_attn_fwd_ref(q.float(), k.float(), v.float(),
-                                        causal=True, kv_mask=mask)
+                                        causal=causal, kv_mask=mask)
     err = float((o.float() - o_ref).abs().max())
     lse_err = float((lse - lse_ref).abs().max())
     require(err <= 2e-2 and lse_err <= 2e-2,
             f"flash_attn_fwd {shape} masked={masked}: o err {err}, "
             f"lse err {lse_err}")
-    ms = time_ms(lambda: flash_attn_fwd(q, k, v, causal=True, kv_mask=mask))
-    plain = time_ms(lambda: flash_attn_fwd_ref(q, k, v, causal=True,
+    ms = time_ms(lambda: flash_attn_fwd(q, k, v, causal=causal,
+                                        kv_mask=mask))
+    plain = time_ms(lambda: flash_attn_fwd_ref(q, k, v, causal=causal,
                                                kv_mask=mask))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if masked:
-        causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
-        am = causal[None, None] & mask[:, None, None, :]
+        am = mask[:, None, None, :]
+        if causal:
+            am = am & torch.ones(l, l, dtype=torch.bool, device=dev).tril()
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=am))
-        pairs = float(am.sum()) * h
     else:
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-        pairs = bsz * h * l * (l + 1) / 2
+            qt, kt, vt, is_causal=causal))
+    pairs = _flash_pairs(bsz, l, h, causal, mask)
     nbytes = 4 * bsz * l * h * d * 2 + (bsz * l if masked else 0)
     b_ms, b_by = bound(nbytes, 4.0 * d * pairs, PEAK_BF16_FLOPS)
-    rec = dict(kernel="flash_attn_fwd", shape=list(shape), causal=True,
+    rec = dict(kernel="flash_attn_fwd", shape=list(shape), causal=causal,
                kv_mask=masked, dtype="bfloat16", max_abs_err=err,
                lse_err=lse_err, tolerance="atol 2e-2 vs plain in fp32",
                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
@@ -585,9 +602,11 @@ def _flash_rope_case(shape, rng):
 
 
 def _leaf_shapes(cfg):
-    from apex_tpu_torch.models import GPTModel
-    return [tuple(p.shape) for p in GPTModel(cfg, device="meta")
-            .parameters()]
+    """The parameter shapes of ``cfg``'s model (GPT or BERT), in order."""
+    from apex_tpu_torch.models import BertConfig, BertForPreTraining, \
+        GPTModel
+    cls = BertForPreTraining if isinstance(cfg, BertConfig) else GPTModel
+    return [tuple(p.shape) for p in cls(cfg, device="meta").parameters()]
 
 
 def _adam_case(cfg, rng):
@@ -646,11 +665,13 @@ def _adam_case(cfg, rng):
                        per="one optimizer step over every leaf")
 
 
-def _scale_case(cfg, rng):
+def _scale_case(shapes, rng):
+    """K6 over one bf16 gradient per shape of ``shapes`` (a model's
+    leaves) against its plain version: bitwise, with and without one inf
+    leaf; timings."""
     import torch
     from apex_tpu_torch.ops.cuda import packed_scale, packed_scale_ref
     dev = torch.device("cuda")
-    shapes = _leaf_shapes(cfg)
     n = sum(int(np.prod(s)) for s in shapes)
     grads = [torch.as_tensor(rng.standard_normal(s, np.float32) * 1e3,
                              device=dev).to(torch.bfloat16) for s in shapes]
@@ -688,11 +709,14 @@ def _scale_case(cfg, rng):
     del grads32
     b_ms, b_by = bound(6.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
     return _kernel_rec(kernel="packed_scale", leaves=len(shapes), elements=n,
+                       shape=f"{len(shapes)} leaves, {n} elements",
                        dtype="bfloat16 -> float32", max_abs_err=0.0,
                        tolerance="bitwise equal to the plain version; flag "
                                  "raised by the one inf leaf",
                        flag_clean=results[False], flag_with_inf=results[True],
                        ms=ms, plain_ms=plain, library_ms=None,
+                       library_null_reason="no PyTorch call unscales bf16 "
+                                           "gradients into fp32",
                        library_fp32_in_place_ms=lib32, bound_ms=b_ms,
                        bound_by=b_by, per="one unscale over every leaf")
 
@@ -709,7 +733,7 @@ def phase_train_kernels(cfg):
         _flash_bwd_case((2, 512, 12, 64), rng, masked=True, rope=False)]
     recs["flash_attn_fwd_rope"] = [_flash_rope_case((8, 2048, 12, 64), rng)]
     recs["packed_adam"] = [_adam_case(cfg, rng)]
-    recs["packed_scale"] = [_scale_case(cfg, rng)]
+    recs["packed_scale"] = [_scale_case(_leaf_shapes(cfg), rng)]
     torch.cuda.empty_cache()
     return recs
 
@@ -738,11 +762,14 @@ PROFILE_GROUPS = (("flash_attn_bwd (K4)", ("flash_bwd",)),
                   ("layer_norm_fwd (K1)", ("ln_fwd",)),
                   ("packed_adam (K5)", ("adam_kernel",)),
                   ("packed_scale (K6)", ("scale_kernel",)),
+                  ("lamb_stage1 (K7)", ("lamb_stage1",)),
+                  ("lamb_stage2 (K8)", ("lamb_stage2",)),
+                  ("packed_sumsq (K9)", ("sumsq_kernel",)),
                   ("matmuls (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                         "sm90_", "nvjet")))
 
 
-def profile_step(step, batch):
+def profile_step(step, *batch):
     """One train step under ``torch.profiler``: the device time of every
     kernel, summed by group (the port's kernels, cuBLAS matmuls, the rest
     of PyTorch's kernels), against the step's wall time; kernels on one
@@ -754,7 +781,7 @@ def profile_step(step, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -815,7 +842,8 @@ def phase_train(cfg, tree):
             # two launches a call: dx with partials, then the dw/db sum
             "layer_norm_bwd": 2 * (2 * cfg.num_layers + 1),
             "flash_attn_bwd": cfg.num_layers,
-            "packed_adam": n_leaves, "packed_scale": n_leaves}
+            "packed_adam": n_leaves, "packed_scale": n_leaves,
+            "lamb_stage1": 0, "lamb_stage2": 0, "packed_sumsq": 0}
     require(per_step == want, f"train launches per step {per_step}, want "
                               f"{want}")
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
@@ -936,6 +964,405 @@ TRAIN_REF_PARAM_TOL = 1e-4
 TRAIN_REF_O3_LOSS_TOL = 2e-2
 
 
+# -- the BERT slice -------------------------------------------------------
+
+BERT_STEPS = 10
+BERT_B, BERT_L = 32, 512
+#: fp32 masters after 3 LAMB steps at lr 1e-3, card vs CPU (the CPU
+#: test against JAX measures 1.2e-6 after 5 steps at this lr)
+BERT_REF_PARAM_TOL = 1e-5
+#: bf16 O2 losses, card vs CPU: other roundings in cuBLAS and on the CPU
+BERT_REF_O2_LOSS_TOL = 2e-2
+
+
+def bert_tree(cfg, seed: int):
+    """A JAX-layout ``BertForPreTraining`` parameter tree of numpy fp32
+    arrays, initialised as :func:`gpt_small_tree` does (kernels
+    N(0, 1/fan_in), embeddings N(0, 1/hidden), biases 0, layer-norm
+    scales 1)."""
+    rng = np.random.default_rng(seed)
+    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def dense(i, o):
+        return {"kernel": rng.standard_normal((i, o), np.float32) * i ** -0.5,
+                "bias": np.zeros(o, np.float32)}
+
+    def emb(n):
+        return {"embedding": rng.standard_normal((n, e), np.float32)
+                * e ** -0.5}
+
+    def ln():
+        return {"scale": np.ones(e, np.float32),
+                "bias": np.zeros(e, np.float32)}
+    bert = {"tok_emb": emb(v), "pos_emb": emb(cfg.max_position_embeddings),
+            "seg_emb": emb(cfg.type_vocab_size), "emb_ln": ln()}
+    for i in range(cfg.num_layers):
+        bert[f"layer_{i}"] = {
+            "attention": {"qkv": dense(e, 3 * e), "out": dense(e, e)},
+            "attention_ln": ln(), "ffn_in": dense(e, f),
+            "ffn_out": dense(f, e), "ffn_ln": ln()}
+    return {"bert": bert, "mlm_transform": dense(e, e), "mlm_ln": ln(),
+            "mlm_decoder": dense(e, v), "pooler": dense(e, e),
+            "nsp": dense(e, 2)}
+
+
+def mlm_batch(vocab, b, l, seed, ragged=False):
+    """``examples/bert_pretraining.py``'s synthetic masked-LM batch, drawn
+    with numpy: ``(input ids with 15% of positions set to 103, attention
+    mask, labels = the original ids, mlm_mask, nsp labels)``.  The mask
+    is all ones, or with ``ragged`` row i keeps its first ``l - 9 i``
+    positions."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, l))
+    pos = rng.random((b, l)) < 0.15
+    attn = np.ones((b, l), np.int32)
+    if ragged:
+        attn = (np.arange(l)[None] < (l - 9 * np.arange(b))[:, None]) \
+            .astype(np.int32)
+    return (np.where(pos, 103, ids), attn, ids, pos.astype(np.float32),
+            rng.integers(0, 2, b))
+
+
+def _bert_loss(model, ids, attn, labels, mlm_mask, nsp):
+    from apex_tpu_torch.models import pretraining_loss
+    mlm, nspl = model(ids, None, attn)
+    return pretraining_loss(mlm, nspl, labels, nsp, mlm_mask)
+
+
+def _bert_batch(arrays, dev):
+    import torch
+    ids, attn, labels, mlm_mask, nsp = arrays
+    return [torch.as_tensor(ids, device=dev), torch.as_tensor(attn,
+                                                              device=dev),
+            torch.as_tensor(labels, device=dev),
+            torch.as_tensor(mlm_mask, device=dev),
+            torch.as_tensor(nsp, device=dev)]
+
+
+def _lamb_case(cfg):
+    """K7, K8 and K9 over bert_large's fp32 master leaves (with bf16
+    copies) against their plain versions: bitwise where the arithmetic is
+    the same, the sums within rtol; repeats; the noop flag; timings."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (lamb_stage1, lamb_stage1_ref,
+                                         lamb_stage2, lamb_stage2_ref,
+                                         packed_sumsq, packed_sumsq_ref)
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
+    from apex_tpu_torch.optimizers.fused_lamb import bias_corrections
+    dev = torch.device("cuda")
+    shapes = _leaf_shapes(cfg)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def leaves(scale):
+        return [torch.randn(s, generator=gen, device=dev) * scale
+                for s in shapes]
+    p, g, m = leaves(0.05), leaves(1e-2), leaves(1e-3)
+    v = [t.abs() for t in leaves(1e-5)]
+    copies = [torch.empty_like(t, dtype=torch.bfloat16) for t in p]
+    table = ChunkTable.of(p)
+    _, u = table.flat_views(shapes)
+    n = sum(t.numel() for t in p)
+    bc1, bc2 = bias_corrections(0.9, 0.999, torch.full(
+        (len(shapes),), 3, dtype=torch.int32, device=dev))
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+              max_grad_norm=1.0)
+    recs = {}
+    # K9
+    s = packed_sumsq(table, g)
+    s_again = packed_sumsq(table, g)
+    s_ref = packed_sumsq_ref(table, g)
+    torch.cuda.synchronize()
+    require(torch.equal(s, s_again), "packed_sumsq: two runs differ")
+    s_err = float((s - s_ref).abs()) / float(s_ref)
+    require(s_err <= 1e-5, f"packed_sumsq off by {s_err} (relative)")
+    # K7: twice from the same state for equal bits, and the plain version
+    m0, v0 = [t.clone() for t in m], [t.clone() for t in v]
+    parts = lamb_stage1(table, p, g, m, v, u, bc1, bc2, s, None, **kw)
+    m1, v1 = [t.clone() for t in m0], [t.clone() for t in v0]
+    _, u1 = table.flat_views(shapes)
+    parts1 = lamb_stage1(table, p, g, m1, v1, u1, bc1, bc2, s, None, **kw)
+    torch.cuda.synchronize()
+    same1 = all(torch.equal(a, b) for xs, ys in
+                zip((m, v, u) + parts, (m1, v1, u1) + parts1)
+                for a, b in zip(xs, ys))
+    require(same1, "lamb_stage1: two runs differ")
+    del m1, v1, u1
+    _, u_ref = table.flat_views(shapes)
+    parts_ref = lamb_stage1_ref(table, p, g, m0, v0, u_ref, bc1, bc2, s,
+                                None, **kw)
+    torch.cuda.synchronize()
+    equal1 = all(torch.equal(a, b) for xs, ys in
+                 zip((m, v, u), (m0, v0, u_ref)) for a, b in zip(xs, ys))
+    require(equal1, "lamb_stage1: m, v or u differ from the plain version")
+    part_err = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                   for a, b in zip(parts, parts_ref))
+    require(part_err <= 1e-5, f"lamb_stage1 partials off by {part_err}")
+    del m0, v0, u_ref
+    # K8: twice from the same p for equal bits, and the plain version
+    p0 = [t.clone() for t in p]
+    lamb_stage2(table, p, u, *parts, None, lr=1e-3, p_copy=copies)
+    p1 = [t.clone() for t in p0]
+    c1 = [torch.empty_like(t) for t in copies]
+    lamb_stage2(table, p1, u, *parts, None, lr=1e-3, p_copy=c1)
+    torch.cuda.synchronize()
+    same2 = all(torch.equal(a, b) for xs, ys in ((p, p1), (copies, c1))
+                for a, b in zip(xs, ys))
+    require(same2, "lamb_stage2: two runs differ")
+    del p1, c1
+    lamb_stage2_ref(table, p0, u, *parts, None, lr=1e-3)
+    torch.cuda.synchronize()
+    p_err = max(_max_err(a, b) for a, b in zip(p, p0))
+    require(all(torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+                for a, b in zip(p, p0)),
+            f"lamb_stage2 differs from its plain version by {p_err}")
+    require(all(torch.equal(c, t.to(torch.bfloat16))
+                for c, t in zip(copies, p)), "lamb_stage2: bad bf16 copy")
+    del p0
+    # the noop flag: neither stage writes
+    flag = torch.ones(1, dtype=torch.int32, device=dev)
+    kept = [[t.clone() for t in ts[:12]] for ts in (p, m, v, u, copies)]
+    parts_n = lamb_stage1(table, p, g, m, v, u, bc1, bc2, s, flag, **kw)
+    lamb_stage2(table, p, u, *parts_n, flag, lr=1e-3, p_copy=copies)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for xs, ys in zip((p, m, v, u, copies),
+                                                    kept)
+                for a, b in zip(xs, ys)), "a LAMB stage wrote under noop")
+    del kept
+    flag.zero_()
+    # timings (every call of a stage updates its state in place)
+    ms9 = time_ms(lambda: packed_sumsq(table, g))
+    plain9 = time_ms(lambda: packed_sumsq_ref(table, g), budget_s=0.2)
+    lib9 = time_ms(lambda: torch._foreach_norm(g))
+    ms7 = time_ms(lambda: lamb_stage1(table, p, g, m, v, u, bc1, bc2, s,
+                                      flag, **kw))
+    plain7 = time_ms(lambda: lamb_stage1_ref(table, p, g, m, v, u, bc1,
+                                             bc2, s, flag, **kw),
+                     budget_s=0.5)
+    ms8 = time_ms(lambda: lamb_stage2(table, p, u, *parts, flag, lr=1e-3,
+                                      p_copy=copies))
+    plain8 = time_ms(lambda: lamb_stage2_ref(table, p, u, *parts, flag,
+                                             lr=1e-3, p_copy=copies),
+                     budget_s=0.5)
+    common = dict(shape=f"{len(shapes)} leaves, {n} elements",
+                  leaves=len(shapes), elements=n, chunks=table.n_chunks,
+                  chunk_size=table.chunk_size, bitwise_repeat=True)
+    no_lib = ("no single PyTorch call computes a LAMB stage (torch.optim "
+              "has no LAMB)")
+    b9 = bound(4.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
+    recs["packed_sumsq"] = _kernel_rec(
+        kernel="packed_sumsq", dtype="float32", max_abs_err=float(
+            (s - s_ref).abs()), rel_err=s_err,
+        tolerance="rtol 1e-5 vs the plain sum (another order)", ms=ms9,
+        plain_ms=plain9, library_ms=lib9,
+        library_call="torch._foreach_norm (per-leaf norms)",
+        bound_ms=b9[0], bound_by=b9[1], **common)
+    b7 = bound(28.0 * n, 20.0 * n, PEAK_FP32_FLOPS)
+    recs["lamb_stage1"] = _kernel_rec(
+        kernel="lamb_stage1", dtype="float32 p, g, m, v, u",
+        max_abs_err=0.0, partials_rel_err=part_err,
+        tolerance="m, v, u bitwise equal to the plain version; norm "
+                  "partials rtol 1e-5", noop_flag_skips=True, ms=ms7,
+        plain_ms=plain7, library_ms=None, library_null_reason=no_lib,
+        bound_ms=b7[0], bound_by=b7[1], **common)
+    b8 = bound(14.0 * n, 3.0 * n, PEAK_FP32_FLOPS)
+    recs["lamb_stage2"] = _kernel_rec(
+        kernel="lamb_stage2", dtype="float32 p, u; bfloat16 copy",
+        max_abs_err=p_err,
+        tolerance="p rtol 1e-6 + atol 1e-7 vs the plain version (per-leaf "
+                  "norm sums in another order); copy = bf16(p)",
+        noop_flag_skips=True, ms=ms8, plain_ms=plain8, library_ms=None,
+        library_null_reason=no_lib, bound_ms=b8[0], bound_by=b8[1],
+        **common)
+    del p, g, m, v, u, copies, parts
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_bert_kernels(cfg):
+    import torch
+    rng = np.random.default_rng(3)
+    recs = _lamb_case(cfg)
+    # K6 on bert_large's 303 leaves (the NSP bias and kernel and the
+    # 30522-row embedding among them), as the bert_train path runs it
+    recs["packed_scale"] = _scale_case(_leaf_shapes(cfg), rng)
+    n1 = BERT_B * BERT_L
+    recs["layer_norm_fwd"] = _ln_case(n1, torch.bfloat16, rng,
+                                      n2=cfg.hidden_size)
+    recs["layer_norm_bwd"] = _ln_bwd_case(n1, cfg.hidden_size,
+                                          torch.bfloat16, rng)
+    shape = (BERT_B, BERT_L, cfg.num_heads, cfg.head_dim)
+    recs["flash_attn_fwd"] = _flash_case(shape, rng, masked=True,
+                                         causal=False)
+    recs["flash_attn_bwd"] = _flash_bwd_case(shape, rng, causal=False,
+                                             masked=True, rope=False)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_bert_train(cfg):
+    """bert_large at full width and depth, amp O2 + FusedLAMB (the
+    example's defaults), B 32 x L 512 on one synthetic masked-LM batch."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import bert_params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedLAMB
+    t0 = time.perf_counter()
+    model = bert_params_from_jax(bert_tree(cfg, seed=5), cfg,
+                                 trainable=True)
+    setup_s = time.perf_counter() - t0
+    opt = FusedLAMB(model.parameters(), lr=1e-3)
+    a = amp.initialize(model, opt, opt_level="O2")
+    step = amp.make_train_step(a, model, _bert_loss)
+    batch = _bert_batch(mlm_batch(cfg.vocab_size, BERT_B, BERT_L, seed=8),
+                        "cuda")
+    n_leaves = len(a.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, scales, overflows, times = [], [], [], []
+    for i in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        out = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+        scales.append(float(out["loss_scale"]))
+        overflows.append(bool(out["overflow"]))
+        if i == 0:
+            rows_first = (opt.table.lookups, opt.table.uploads)
+    counts = launch_counts()
+    # the chunk table's pointer rows: amp's gradient buffers keep their
+    # storage, so every row is uploaded in the first step and none after
+    rows = dict(lookups_step_1=rows_first[0], uploads_step_1=rows_first[1],
+                lookups_later=opt.table.lookups - rows_first[0],
+                uploads_later=opt.table.uploads - rows_first[1])
+    require(rows["uploads_later"] == 0,
+            f"pointer rows uploaded after the first step: {rows}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: c / BERT_STEPS for k, c in counts.items()}
+    lnc = 2 * cfg.num_layers + 2
+    want = {"layer_norm_fwd": lnc, "flash_attn_fwd": cfg.num_layers,
+            # two launches a call: dx with partials, then the dw/db sum
+            "layer_norm_bwd": 2 * lnc, "flash_attn_bwd": cfg.num_layers,
+            "packed_adam": 0, "packed_scale": n_leaves, "lamb_stage1": 1,
+            "lamb_stage2": 1, "packed_sumsq": 1}
+    require(per_step == want, f"bert launches per step {per_step}, want "
+                              f"{want}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(not any(overflows), f"overflow in the bert steps: {overflows}")
+    p50 = float(np.median(times[2:])) * 1e3
+    profile = profile_step(step, *batch)
+    # one step with a non-finite gradient: skipped on the card
+    with torch.enable_grad():
+        loss = a.run(_bert_loss, model, *batch)
+        grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
+    grads[11].view(-1)[5] = float("inf")
+    masters = {n: t.clone() for n, t in a.masters.items()}
+    moments = [(opt.state[t]["exp_avg"].clone(),
+                opt.state[t]["exp_avg_sq"].clone())
+               for t in a.masters.values()]
+    steps = opt.param_groups[0]["leaf_steps"].clone()
+    compute = a.params[0].detach().clone()
+    scale_before = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"]), "the injected inf was not seen")
+    require(float(info["loss_scale"]) == scale_before / 2,
+            "the scale did not halve on overflow")
+    require(all(torch.equal(masters[n], t) for n, t in a.masters.items()),
+            "masters changed on a skipped step")
+    require(all(torch.equal(opt.state[t]["exp_avg"], m0)
+                and torch.equal(opt.state[t]["exp_avg_sq"], v0)
+                for (m0, v0), t in zip(moments, a.masters.values())),
+            "moments changed on a skipped step")
+    # the timed steps and the profiled one
+    require(torch.equal(opt.param_groups[0]["leaf_steps"], steps)
+            and int(steps[0]) == BERT_STEPS + 1,
+            "leaf step counts changed on a skipped step")
+    require(torch.equal(a.params[0], compute),
+            "compute params changed on a skipped step")
+    emit("bert_train", model="bert_large", opt_level="O2",
+         optimizer="FusedLAMB", lr=1e-3, eps=1e-6, weight_decay=0.01,
+         max_grad_norm=1.0, batch=BERT_B, seq_len=BERT_L,
+         steps=BERT_STEPS, parameters=sum(t.numel() for t in
+                                          a.masters.values()),
+         leaves=n_leaves, weights_from_seed_s=setup_s, losses=losses,
+         loss_scales=scales, step_ms=[t * 1e3 for t in times],
+         step_ms_p50_steps_3_to_10=p50,
+         sequences_per_s=BERT_B / (p50 / 1e3),
+         tokens_per_s=BERT_B * BERT_L / (p50 / 1e3), peak_memory_gb=peak,
+         launches=counts, launches_per_step=per_step, pointer_rows=rows,
+         profile=profile,
+         injected_overflow={"skipped": True, "loss_scale": [
+             scale_before, float(info["loss_scale"])]})
+    del a, opt, model, grads, masters, moments, step, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bert_train_reference():
+    """A 2-layer 2 x 64-head BERT, 3 FusedLAMB steps on the card (kernels)
+    against the same on the CPU (plain versions) from the same weights,
+    with a ragged key mask: fp32 O0, then bf16 O2."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import bert_params_from_jax, params_to_numpy
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.optimizers import FusedLAMB
+    cfg = BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                     num_heads=2, intermediate_size=256,
+                     max_position_embeddings=128)
+    tree = bert_tree(cfg, seed=6)
+    arrays = mlm_batch(cfg.vocab_size, 4, 128, seed=7, ragged=True)
+
+    def leaves(t, pre=()):
+        for k, v in t.items():
+            yield from (leaves(v, pre + (k,)) if isinstance(v, dict)
+                        else [(pre + (k,), v)])
+
+    out = {}
+    for level in ("O0", "O2"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = bert_params_from_jax(tree, cfg, device=dev,
+                                         trainable=True)
+            a = amp.initialize(model, FusedLAMB(model.parameters(),
+                                                lr=1e-3, device=dev),
+                               opt_level=level, device=dev)
+            step = amp.make_train_step(a, model, _bert_loss)
+            batch = _bert_batch(arrays, dev)
+            losses = [float(step(*batch)["loss"]) for _ in range(3)]
+            masters = {k: np.asarray(v, np.float32) for k, v in
+                       leaves(params_to_numpy(a.masters))}
+            runs[dev] = (losses, masters)
+        (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+        require(all(np.isfinite(lg)) and lg[-1] < lg[0],
+                f"{level} bert losses on the card: {lg}")
+        out[level] = dict(losses_card=lg, losses_cpu=lc,
+                          loss_max_abs_err=max(abs(x - y)
+                                               for x, y in zip(lg, lc)),
+                          param_max_abs_err=max(
+                              float(np.abs(v - pc[k]).max())
+                              for k, v in pg.items()))
+    o0, o2 = out["O0"], out["O2"]
+    require(o0["loss_max_abs_err"] <= 1e-4,
+            f"fp32 bert losses card vs CPU differ by "
+            f"{o0['loss_max_abs_err']}")
+    require(o0["param_max_abs_err"] <= BERT_REF_PARAM_TOL,
+            f"fp32 bert masters card vs CPU differ by "
+            f"{o0['param_max_abs_err']}")
+    require(o2["loss_max_abs_err"] <= BERT_REF_O2_LOSS_TOL,
+            f"O2 bert losses card vs CPU differ by "
+            f"{o2['loss_max_abs_err']}")
+    emit("bert_train_reference", steps=3, kv_mask="ragged",
+         O0=dict(o0, dtype="float32", loss_tolerance=1e-4,
+                 param_tolerance=BERT_REF_PARAM_TOL),
+         O2=dict(o2, dtype="bfloat16 compute, fp32 masters",
+                 loss_tolerance=BERT_REF_O2_LOSS_TOL))
+
+
 def main() -> int:
     try:
         import torch
@@ -980,12 +1407,19 @@ def main() -> int:
         train_recs = phase_train_kernels(cfg)
         train_counts = phase_train(cfg, tree)
         phase_train_reference()
+        del tree
+        from apex_tpu_torch.models import bert_large
+        bert_cfg = bert_large()
+        bert_recs = phase_bert_kernels(bert_cfg)
+        bert_counts = phase_bert_train(bert_cfg)
+        phase_bert_train_reference()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     by_path = {k: {"serve": serve_counts.get(k, 0),
                    "solo": solo_counts.get(k, 0),
-                   "train": train_counts[k]} for k in train_counts}
+                   "train": train_counts[k],
+                   "bert_train": bert_counts[k]} for k in bert_counts}
     ln_main = next(r for r in ln_recs if r["n1"] == 8
                    and r["dtype"] == "bfloat16")
     rope_main = train_recs["flash_attn_fwd_rope"][0]
@@ -1011,7 +1445,17 @@ def main() -> int:
             (train_recs["packed_scale"][0], train_recs["packed_scale"],
              train_counts["packed_scale"],
              "apex_tpu_torch/csrc/multi_tensor_scale.cu",
-             "apex_tpu/ops/pallas/multi_tensor_kernels.py:62")):
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:62"),
+            (bert_recs["lamb_stage1"], [bert_recs["lamb_stage1"]],
+             bert_counts["lamb_stage1"], "apex_tpu_torch/csrc/lamb.cu",
+             "apex_tpu/ops/pallas/lamb_kernels.py:147"),
+            (bert_recs["lamb_stage2"], [bert_recs["lamb_stage2"]],
+             bert_counts["lamb_stage2"], "apex_tpu_torch/csrc/lamb.cu",
+             "apex_tpu/ops/pallas/lamb_kernels.py:240"),
+            (bert_recs["packed_sumsq"], [bert_recs["packed_sumsq"]],
+             bert_counts["packed_sumsq"],
+             "apex_tpu_torch/csrc/multi_tensor_sumsq.cu",
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:200")):
         entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
             launches=launches,
@@ -1021,11 +1465,19 @@ def main() -> int:
             library_ms=rec["library_ms"],
             shape=rec.get("shape", [rec.get("n1"), rec.get("n2")]),
             launches_by_path=by_path[rec["kernel"]])
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")
         if rec["kernel"] == "flash_attn_fwd":
-            entry["train_shape_with_rope"] = {
-                k: rope_main[k] for k in ("shape", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms", "max_abs_err")}
+            entry["train_shape_with_rope"] = {k: rope_main[k] for k in keys}
+        if rec["kernel"] in bert_recs and rec is not bert_recs[
+                rec["kernel"]]:
+            bert = bert_recs[rec["kernel"]]
+            entry["bert_shape"] = {k: bert.get(k, [bert.get("n1"),
+                                                   bert.get("n2")])
+                                   for k in keys}
+            entry["bert_shape"]["launches"] = bert_counts[rec["kernel"]]
+        if rec.get("library_null_reason"):
+            entry["library_null_reason"] = rec["library_null_reason"]
         summary.append(entry)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": summary}), flush=True)

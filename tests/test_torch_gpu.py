@@ -14,7 +14,13 @@ cores, as the TPU kernel does).  The backward kernels: fp32 ``atol =
 of the largest element against the plain version in bf16 (both compute
 in fp32 and round at the same places, but sum in other orders); both run
 twice for equal bits.  Adam and the unscale equal their plain versions
-bit for bit (every product and sum rounded on its own).
+bit for bit (every product and sum rounded on its own).  LAMB: stage 1's
+m, v and u equal the plain version's bit for bit, its norm partials and
+the total sum of squares are within ``rtol = 1e-5`` (sums in another
+order); stage 2's p within ``rtol = 1e-6, atol = 1e-7`` in fp32 and 1
+bf16 ulp in bf16 (its per-leaf norm sums differ in order, so the trust
+ratio may differ in its last bit); stages 1, 2 and the sum of squares
+repeat bitwise.
 """
 
 import numpy as np
@@ -26,6 +32,10 @@ from apex_tpu_torch.ops.cuda import (
     flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
+    lamb_stage1,
+    lamb_stage1_ref,
+    lamb_stage2,
+    lamb_stage2_ref,
     layer_norm_bwd,
     layer_norm_bwd_ref,
     layer_norm_fwd,
@@ -34,7 +44,10 @@ from apex_tpu_torch.ops.cuda import (
     packed_adam_ref,
     packed_scale,
     packed_scale_ref,
+    packed_sumsq,
+    packed_sumsq_ref,
 )
+from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, ChunkTable
 from apex_tpu_torch.testing import BF16_CANCEL_ATOL, bf16_ulp_distance
 
 pytestmark = pytest.mark.gpu
@@ -369,7 +382,7 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
     cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                     num_heads=2, intermediate_size=256)
     torch.manual_seed(0)
-    state = GPTModel(cfg).state_dict()
+    state = GPTModel(cfg, device="cpu").state_dict()
     ids = torch.as_tensor((np.arange(64)[None] + np.arange(4)[:, None] * 7)
                           % 512)
     losses = {}
@@ -388,10 +401,257 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
     per_call, atol = TRAIN_LEVELS[opt_level]
     assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4,
                       "layer_norm_bwd": 20, "flash_attn_bwd": 4 * per_call,
-                      "packed_adam": 2 * n, "packed_scale": 2 * n}
+                      "packed_adam": 2 * n, "packed_scale": 2 * n,
+                      "lamb_stage1": 0, "lamb_stage2": 0,
+                      "packed_sumsq": 0}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
     assert all(p.dtype == want_dtype for p in model.parameters())
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=atol,
                                rtol=0)
 
+
+
+#: leaf sizes of the LAMB kernel tests: smaller than a chunk, not a
+#: multiple of the chunk (nor of 4), an all-zero leaf (trust ratio falls
+#: back to lr), a leaf of no elements, an odd tail
+LAMB_SIZES = [1000, 2 * CHUNK_SIZE + 5, 4096, 0, 7]
+
+
+def _lamb_case(cuda, p_dtype, g_dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    leaves = lambda dt, s: [_randn(rng, (n,), dt, cuda) * s
+                            for n in LAMB_SIZES]
+    p, g = leaves(p_dtype, 0.05), leaves(g_dtype, 0.3)
+    p[2].zero_()
+    m = leaves(torch.float32, 1e-2)
+    v = [t.abs() for t in leaves(torch.float32, 1e-4)]
+    table = ChunkTable.of(p)
+    _, u = table.flat_views([t.shape for t in p])
+    bc1 = torch.tensor([0.1, 0.19, 0.271, 0.1, 0.1], device=cuda)
+    bc2 = torch.tensor([1e-3, 2e-3, 3e-3, 1e-3, 1e-3], device=cuda)
+    return table, p, g, m, v, u, bc1, bc2
+
+
+LAMB_KW = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+               max_grad_norm=1.0)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_lamb_kernels_match_plain(cuda, p_dtype, g_dtype):
+    table, p, g, m, v, u, bc1, bc2 = _lamb_case(cuda, p_dtype, g_dtype)
+    assert table.n_chunks == 1 + 3 + 1 + 0 + 1
+    twins = [[t.clone() for t in ts] for ts in (p, m, v, u)]
+    copies = [torch.zeros(t.shape, dtype=torch.bfloat16, device=cuda)
+              for t in p] if p_dtype == torch.float32 else None
+    copies_ref = None if copies is None else [c.clone() for c in copies]
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = (packed_sumsq.launches, lamb_stage1.launches,
+              lamb_stage2.launches)
+    s = packed_sumsq(table, g)
+    s_again = packed_sumsq(table, g)
+    s_ref = packed_sumsq_ref(table, g)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_again)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=0)
+    parts = lamb_stage1(table, p, g, m, v, u, bc1, bc2, s, flag, **LAMB_KW)
+    parts_ref = lamb_stage1_ref(table, twins[0], g, *twins[1:], bc1, bc2, s,
+                                flag, **LAMB_KW)
+    torch.cuda.synchronize()
+    for a, b in zip((m, v, u), twins[1:]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(parts, parts_ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-30)
+    # stage 2 from the kernel's partials on both sides
+    lamb_stage2(table, p, u, *parts, flag, lr=1e-3, p_copy=copies)
+    lamb_stage2_ref(table, twins[0], twins[3], *parts, flag, lr=1e-3,
+                    p_copy=copies_ref)
+    torch.cuda.synchronize()
+    assert (packed_sumsq.launches, lamb_stage1.launches,
+            lamb_stage2.launches) == (before[0] + 2, before[1] + 1,
+                                      before[2] + 1)
+    for a, b in zip(p, twins[0]):
+        if p_dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        else:
+            assert bf16_ulp_distance(a, b) <= 1
+    if copies is not None:
+        for a, b in zip(copies, copies_ref):
+            assert bf16_ulp_distance(a, b) <= 1
+        for c, t in zip(copies, p):
+            assert torch.equal(c, t.to(torch.bfloat16))
+    # the zero leaf stepped by lr * u (trust ratio 1)
+    torch.testing.assert_close(p[2].float(), (-1e-3 * u[2]).to(p_dtype)
+                               .float(), rtol=0, atol=0)
+
+
+def test_lamb_kernels_repeat_bitwise_and_skip_under_the_flag(cuda):
+    table, p, g, m, v, u, bc1, bc2 = _lamb_case(cuda, torch.float32,
+                                                torch.float32, seed=1)
+    start = [[t.clone() for t in ts] for ts in (p, m, v)]
+    runs = []
+    for _ in range(2):
+        ps, ms, vs = ([t.clone() for t in ts] for ts in start)
+        _, us = table.flat_views([t.shape for t in p])
+        s = packed_sumsq(table, g)
+        parts = lamb_stage1(table, ps, g, ms, vs, us, bc1, bc2, s, None,
+                            **LAMB_KW)
+        lamb_stage2(table, ps, us, *parts, None, lr=1e-3)
+        runs.append((s, parts, ps, ms, vs, us))
+    torch.cuda.synchronize()
+    a, b = runs
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    for xs, ys in zip(a[2:], b[2:]):
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+    # under a set flag neither stage writes anything
+    flag = torch.ones(1, dtype=torch.int32, device=cuda)
+    copies = [torch.full(t.shape, 7.0, dtype=torch.bfloat16, device=cuda)
+              for t in p]
+    kept = [[t.clone() for t in ts] for ts in (p, m, v, u)]
+    s = packed_sumsq(table, g)
+    parts = lamb_stage1(table, p, g, m, v, u, bc1, bc2, s, flag, **LAMB_KW)
+    lamb_stage2(table, p, u, *parts, flag, lr=1e-3, p_copy=copies)
+    torch.cuda.synchronize()
+    for xs, ys in zip((p, m, v, u), kept):
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+    assert all(torch.all(c == 7.0) for c in copies)
+
+
+def test_lamb_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    table, p, g, m, v, u, bc1, bc2 = _lamb_case(cuda, torch.float32,
+                                                torch.float32)
+    with pytest.raises(ValueError, match="leaf sizes"):
+        packed_sumsq(table, g[:-1])
+    with pytest.raises(TypeError, match="want one of"):
+        lamb_stage1(table, p, [t.half() for t in g], m, v, u, bc1, bc2,
+                    None, None, **LAMB_KW)
+    with pytest.raises(ValueError, match="bc1"):
+        lamb_stage1(table, p, g, m, v, u, bc1[:2], bc2, None, None,
+                    **LAMB_KW)
+
+
+BERT_ATTN = [(4, 512, 16, 64), (4, 512, 8, 128)]
+
+
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("shape", BERT_ATTN)
+def test_flash_kernels_at_bert_shapes_with_a_ragged_mask(cuda, shape,
+                                                         layout):
+    """BERT's attention: non-causal, no rope, a key mask padding each
+    row's end, q/k/v as strided views of one qkv product (blhd) or
+    head-major views (bhld), forward and backward through the autograd
+    function against the plain versions."""
+    from apex_tpu_torch.attention import attention
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(l + h)
+    keep = l - 61 * np.arange(bsz)
+    mask = torch.as_tensor(np.arange(l)[None, :] < keep[:, None],
+                           device=cuda)
+    if layout == "blhd":
+        qkv = _randn(rng, (bsz, l, 3, h, d), torch.bfloat16, cuda)
+        q, k, v = qkv.requires_grad_().unbind(2)
+    else:
+        q, k, v = (_randn(rng, (bsz, h, l, d), torch.bfloat16, cuda)
+                   .requires_grad_() for _ in range(3))
+    fwd0, bwd0 = flash_attn_fwd.launches, flash_attn_bwd.launches
+    o = attention(q, k, v, kv_mask=mask, layout=layout)
+    do = torch.randn_like(o)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attn_fwd.launches, flash_attn_bwd.launches) == (fwd0 + 1,
+                                                                  bwd0 + 1)
+    to_blhd = (lambda t: t.transpose(1, 2)) if layout == "bhld" \
+        else (lambda t: t)
+    qb, kb, vb, ob, dob = (to_blhd(t.detach()) for t in (q, k, v, o, do))
+    o_ref, lse = flash_attn_fwd_ref(qb.float(), kb.float(), vb.float(),
+                                    kv_mask=mask)
+    torch.testing.assert_close(ob.float(), o_ref, atol=2e-2, rtol=0)
+    _, lse_k = flash_attn_fwd(qb, kb, vb, kv_mask=mask, return_lse=True)
+    ref = flash_attn_bwd_ref(qb, kb, vb, ob, lse_k, dob, kv_mask=mask)
+    for a, r in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(to_blhd(a).float(), r.float(),
+                                   atol=_bf16_tol(r), rtol=0)
+
+
+def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
+    """Two steps of a 2-layer 2 x 64-head BERT, amp O0 + FusedLAMB, on the
+    card and on the CPU from the same weights: each LAMB kernel launches
+    once a step, K6 once a leaf (O0 unscales by its static scale 1), and
+    the losses agree within 1e-4 (cuBLAS and the CPU sum in other
+    orders)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       pretraining_loss)
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedLAMB
+    cfg = BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                     num_heads=2, intermediate_size=256,
+                     max_position_embeddings=64)
+    torch.manual_seed(0)
+    state = BertForPreTraining(cfg, device="cpu").state_dict()
+    rng = np.random.RandomState(0)
+    ids = torch.as_tensor(rng.randint(0, 1024, (4, 64)))
+    attn = torch.as_tensor(np.arange(64)[None] < (64 - 9 * np.arange(4))
+                           [:, None]).int()
+    mlm = torch.as_tensor(rng.rand(4, 64) < 0.15).float()
+    nsp = torch.as_tensor(rng.randint(0, 2, (4,)))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = BertForPreTraining(cfg, device=dev)
+        model.load_state_dict(state)
+        a = amp.initialize(model, FusedLAMB(model.parameters(), device=dev),
+                           opt_level="O0", device=dev)
+
+        def loss_fn(m, i, t, msk, lab, w, n):
+            x, y = m(i, t, msk)
+            return pretraining_loss(x, y, lab, n, w)
+        step = amp.make_train_step(a, model, loss_fn)
+        batch = [t.to(dev) for t in (ids, torch.zeros_like(ids), attn, ids,
+                                     mlm, nsp)]
+        reset_launch_counts()
+        losses[dev] = [float(step(*batch)["loss"]) for _ in range(2)]
+        counts = launch_counts()
+    assert counts == {"layer_norm_fwd": 2 * 6, "flash_attn_fwd": 2 * 2,
+                      "layer_norm_bwd": 2 * 6 * 2, "flash_attn_bwd": 2 * 2 * 2,
+                      "packed_adam": 0,
+                      "packed_scale": 2 * len(list(model.parameters())),
+                      "lamb_stage1": 2,
+                      "lamb_stage2": 2, "packed_sumsq": 2}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+                               rtol=0)
+
+
+def test_bert_o2_steps_upload_the_pointer_rows_once(cuda):
+    """Under amp O2 the unscale writes into gradient buffers that keep
+    their storage, so FusedLAMB's chunk table uploads its pointer rows in
+    the first step and reuses them after (no host copy on later steps)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                       pretraining_loss)
+    from apex_tpu_torch.optimizers import FusedLAMB
+    cfg = BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                     num_heads=2, intermediate_size=256,
+                     max_position_embeddings=64)
+    torch.manual_seed(0)
+    model = BertForPreTraining(cfg, device=cuda)
+    opt = FusedLAMB(model.parameters())
+    a = amp.initialize(model, opt, opt_level="O2")
+
+    def loss_fn(m, i, t, msk, lab, w, n):
+        x, y = m(i, t, msk)
+        return pretraining_loss(x, y, lab, n, w)
+    step = amp.make_train_step(a, model, loss_fn)
+    ids = torch.randint(0, 1024, (4, 64), device=cuda)
+    batch = [ids, torch.zeros_like(ids), torch.ones_like(ids), ids,
+             (torch.rand(4, 64, device=cuda) < 0.15).float(),
+             torch.randint(0, 2, (4,), device=cuda)]
+    step(*batch)
+    first = (opt.table.lookups, opt.table.uploads)
+    losses = [float(step(*batch)["loss"]) for _ in range(3)]
+    assert first[1] == 6          # p, g, m, v, u and the bf16 copies
+    assert opt.table.lookups == 4 * first[0]
+    assert opt.table.uploads == first[1]
+    assert np.isfinite(losses).all()

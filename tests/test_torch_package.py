@@ -50,9 +50,11 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points would use it")
     cfg = gpt_tiny()
-    model = GPTModel(cfg).requires_grad_(False)
+    model = GPTModel(cfg, device="cpu").requires_grad_(False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTModel(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, cfg, ServeConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -87,7 +89,7 @@ def test_training_entry_points_need_a_card_unless_asked_for_the_cpu():
         pytest.skip("a card is present: the entry points would use it")
     from apex_tpu_torch import amp
     from apex_tpu_torch.optimizers import FusedAdam
-    model = GPTModel(gpt_tiny())
+    model = GPTModel(gpt_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FusedAdam(model.parameters())
     opt = FusedAdam(model.parameters(), device="cpu")
@@ -98,7 +100,8 @@ def test_training_entry_points_need_a_card_unless_asked_for_the_cpu():
     out = step(torch.zeros((1, 4), dtype=torch.long))
     assert set(out) >= {"loss", "overflow", "loss_scale"}
     with pytest.raises(ValueError, match="not the one"):
-        amp.make_train_step(a, GPTModel(gpt_tiny()), lambda m, x: 0)
+        amp.make_train_step(a, GPTModel(gpt_tiny(), device="cpu"),
+                            lambda m, x: 0)
 
 
 def test_the_new_modules_are_covered_by_the_import_check():
@@ -108,4 +111,27 @@ def test_the_new_modules_are_covered_by_the_import_check():
             "apex_tpu_torch/amp/policy.py",
             "apex_tpu_torch/optimizers/fused_adam.py",
             "apex_tpu_torch/ops/cuda/adam.py",
-            "apex_tpu_torch/ops/cuda/multi_tensor.py"} <= names
+            "apex_tpu_torch/ops/cuda/multi_tensor.py",
+            "apex_tpu_torch/ops/cuda/lamb.py",
+            "apex_tpu_torch/ops/multi_tensor.py",
+            "apex_tpu_torch/optimizers/fused_lamb.py",
+            "apex_tpu_torch/models/bert.py"} <= names
+
+
+def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would use it")
+    from apex_tpu_torch.convert import bert_params_from_jax, params_to_numpy
+    from apex_tpu_torch.models import BertForPreTraining, bert_tiny
+    from apex_tpu_torch.optimizers import FusedLAMB
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BertForPreTraining(bert_tiny())
+    model = BertForPreTraining(bert_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FusedLAMB(model.parameters())
+    tree = params_to_numpy(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bert_params_from_jax(tree, bert_tiny())
+    back = bert_params_from_jax(tree, bert_tiny(), device="cpu")
+    assert all(torch.equal(a, b) for a, b in
+               zip(back.parameters(), model.parameters()))

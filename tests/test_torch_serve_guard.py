@@ -34,7 +34,7 @@ def no_autograd_functions(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_serving_outputs_are_unchanged(dtype, no_autograd_functions):
     torch.manual_seed(3)
-    model = GPTModel(CFG).requires_grad_(False).to(dtype)
+    model = GPTModel(CFG, device="cpu").requires_grad_(False).to(dtype)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, 512, (n,)) for n in (7, 13, 4)]
     solo = [generate(model, CFG, p[None], 6, device="cpu")[0, len(p):]
@@ -52,7 +52,7 @@ def test_serving_outputs_are_unchanged(dtype, no_autograd_functions):
 def test_a_trainable_model_under_no_grad_skips_them_too(
         no_autograd_functions):
     torch.manual_seed(3)
-    model = GPTModel(CFG)                 # parameters require grad
+    model = GPTModel(CFG, device="cpu")   # parameters require grad
     with torch.no_grad():
         logits = model(torch.zeros((1, 5), dtype=torch.long))
     assert logits.grad_fn is None
