@@ -17,19 +17,27 @@ the same state on an :class:`Amp` object, in PyTorch's way:
   tensors.
 
 A step: the loss (in fp32) times the scale; gradients w.r.t. the compute
-params; the K6 unscale ``g.float() * (1 / scale)`` into fp32 with one
-device overflow flag (checked on the scaled gradients), into gradient
-buffers kept beside the masters from step to step; the scaler
-update; then FusedAdam on the masters, made conditional on that same flag
-inside the K5 kernel and the step counts, with the bf16 compute params
-refreshed from the new masters in the same pass.  An overflow skips the
-step on the card: masters, moments and step counts stay as they were, and
-the scale halves.  Nothing reads a device value back to the host.
+params; the K6 unscale ``g.float() * (1 / scale)`` with one device
+overflow flag (checked on the scaled gradients), into gradient buffers
+kept beside the masters from step to step (in each master's dtype: fp32,
+or bf16 under O3); the scaler update; then the optimizer on the masters
+(FusedAdam: one K11 launch), made conditional on that same flag inside
+the kernel and the step counts, with the bf16 compute params refreshed
+from the new masters in the same pass.  An overflow skips the step on the
+card: masters, moments and step counts stay as they were, and the scale
+halves.  Nothing reads a device value back to the host.
 
-Not ported yet: gradient accumulation (``accum_steps``), data-parallel
-reduction (``axis_name`` / ``reduce_fn``), fp8 (O4), the AOT cache,
-several losses (``num_losses``) and ``add_params``; O1's cast-ops context
-is refused by :func:`initialize`.
+Gradient accumulation (``make_train_step(..., accum_steps=N)``) follows
+the JAX package's scan: every batch tensor splits into N micro-batches;
+each micro-batch's scaled compute-dtype gradients add into fp32
+accumulators (one K10 launch, ``acc = 1 * g + 1 * acc``; amp's kept
+buffers themselves when they are fp32); the sum is divided by N; then one
+unscale (K6, in place, its flag on the accumulated gradients, so an inf in
+any micro-batch skips the step), scaler update and optimizer step.
+
+Not ported yet: data-parallel reduction (``axis_name`` / ``reduce_fn``),
+fp8 (O4), the AOT cache, several losses (``num_losses``) and
+``add_params``; O1's cast-ops context is refused by :func:`initialize`.
 """
 
 from __future__ import annotations
@@ -38,12 +46,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, \
     Union
 
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 
 from apex_tpu_torch.amp import policy as policy_lib
 from apex_tpu_torch.amp.policy import Properties
-from apex_tpu_torch.amp.scaler import LossScaler, LossScaleState
+from apex_tpu_torch.amp.scaler import LossScaler, LossScaleState, all_finite
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
+from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, multi_tensor_axpby
 
 #: name fragments of normalization parameters kept in fp32 under
 #: keep_batchnorm_fp32 (the JAX package's ``default_keep_fp32_filter``)
@@ -59,13 +69,9 @@ def default_keep_fp32_filter(path: Sequence[str]) -> bool:
 def _cast_floats(tree: Any, dtype: torch.dtype) -> Any:
     """Cast every floating tensor of a (nested tuple / list / dict) tree to
     ``dtype``, leaving integer tensors and non-tensors alone."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(dtype) if tree.is_floating_point() else tree
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_cast_floats(t, dtype) for t in tree)
-    if isinstance(tree, dict):
-        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
-    return tree
+    return pytree.tree_map(
+        lambda t: t.to(dtype) if isinstance(t, torch.Tensor)
+        and t.is_floating_point() else t, tree)
 
 
 class Amp:
@@ -119,11 +125,11 @@ class Amp:
         compute_of = {id(self.masters[n]): p for n, p in named}
         self._copies = [compute_of[i] for i in order] if use_masters \
             else None
-        #: fp32 gradient buffers of the masters, made at the first step and
-        #: unscaled into at every step: their storage never moves, so a
-        #: whole-tree optimizer's pointer rows (FusedLAMB's chunk table)
-        #: are uploaded once
+        #: gradient buffers of the masters (:meth:`grad_buffers`) and the
+        #: fp32 accumulators of ``accum_steps`` where those are not fp32
         self._grads: Optional[List[torch.Tensor]] = None
+        self._acc: Optional[List[torch.Tensor]] = None
+        self._one = torch.ones(1, dtype=torch.float32, device=dev)
         self.scaler_state: LossScaleState = scaler.init_state(dev)
         self.step = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -155,32 +161,80 @@ class Amp:
             return loss
         return self.scaler.scale_loss(loss, self.scaler_state)
 
+    def grad_buffers(self) -> List[torch.Tensor]:
+        """The optimizer's gradients, one buffer per master in its dtype
+        (fp32 masters; the parameters' own dtype without master weights,
+        bf16 under O3), made at the first step and written at every step:
+        their storage never moves, so a whole-tree optimizer's pointer
+        rows (FusedAdam's and FusedLAMB's chunk tables) are uploaded
+        once."""
+        if self._grads is None:
+            with torch.no_grad():
+                self._grads = [torch.empty_like(t)
+                               for t in self.masters.values()]
+        return self._grads
+
+    def accumulators(self) -> List[torch.Tensor]:
+        """fp32 gradient accumulators, one per master: the
+        :meth:`grad_buffers` themselves when those are fp32."""
+        bufs = self.grad_buffers()
+        if all(b.dtype == torch.float32 for b in bufs):
+            return bufs
+        if self._acc is None:
+            with torch.no_grad():
+                self._acc = [torch.empty_like(b, dtype=torch.float32)
+                             for b in bufs]
+        return self._acc
+
     @torch.no_grad()
-    def apply_gradients(self, grads: Sequence[torch.Tensor]
-                        ) -> Dict[str, torch.Tensor]:
-        """Unscale, finite check, scaler update and the conditional
-        optimizer step, for ``grads`` w.r.t. :attr:`params` (still scaled,
-        in the compute dtype).  Returns device tensors ``overflow``,
-        ``loss_scale`` (after the update) and ``pinned_at_floor``."""
+    def accumulate(self, grads: Sequence[torch.Tensor],
+                   acc: Sequence[torch.Tensor]) -> None:
+        """``acc += grads`` in fp32 (one K10 launch per dtype group,
+        ``acc = 1 * g + 1 * acc``), as JAX adds each micro-batch's
+        gradients into fp32 zeros."""
+        self._check_count(grads)
+        multi_tensor_axpby(CHUNK_SIZE, [grads, acc], self._one, self._one,
+                           out=acc)
+
+    def _check_count(self, grads: Sequence[torch.Tensor]) -> None:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for "
                              f"{len(self.params)} parameters")
+
+    @torch.no_grad()
+    def apply_gradients(self, grads: Sequence[torch.Tensor],
+                        stashed_grads: Optional[Sequence[torch.Tensor]]
+                        = None) -> Dict[str, torch.Tensor]:
+        """Unscale, finite check, scaler update and the conditional
+        optimizer step, for ``grads`` w.r.t. :attr:`params` (still scaled,
+        in the compute dtype).  ``stashed_grads`` (unscaled, one per
+        parameter) selects the accumulation path, ``(1 / scale) * grads +
+        stashed`` (K10), whose finite check covers the combined unscaled
+        gradients: an inf from an earlier micro-batch persists through the
+        adds, as in the JAX package.  Returns device tensors
+        ``overflow``, ``loss_scale`` (after the update) and
+        ``pinned_at_floor``."""
+        self._check_count(grads)
         if not self.properties.enabled:
             unscaled = [g.float() for g in grads]
             flag = None
             overflow = torch.zeros((), dtype=torch.bool,
                                    device=self.step.device)
         else:
-            if self._copies is not None and self._grads is None:
-                self._grads = [torch.empty_like(t, dtype=torch.float32)
-                               for t in self.masters.values()]
-            unscaled, flag = self.scaler.unscale(grads, self.scaler_state,
-                                                 out=self._grads)
+            if stashed_grads is not None:
+                self._check_count(stashed_grads)
+                unscaled, _ = self.scaler.unscale_with_stashed(
+                    grads, stashed_grads, self.scaler_state,
+                    out=self.grad_buffers())
+                finite = all_finite(unscaled)
+                flag = torch.logical_not(finite).to(torch.int32).reshape(1)
+            else:
+                unscaled, flag = self.scaler.unscale(
+                    grads, self.scaler_state, out=self.grad_buffers())
+                finite = flag == 0
             self.scaler_state, overflow = self.scaler.update(
-                self.scaler_state, flag == 0)
-        names = list(self.masters)
-        for name, g in zip(names, unscaled):
-            target = self.masters[name]
+                self.scaler_state, finite)
+        for target, g in zip(self.masters.values(), unscaled):
             target.grad = g if g.dtype == target.dtype else g.to(
                 target.dtype)
         self.optimizer.step(noop_flag=flag, model_params=self._copies)
@@ -191,6 +245,23 @@ class Amp:
                 "loss_scale": self.scaler_state.loss_scale,
                 "pinned_at_floor": self.scaler.pinned_at_floor(
                     self.scaler_state)}
+
+    @torch.no_grad()
+    def unscale_gradients(self, grads: Sequence[torch.Tensor],
+                          stashed_grads: Optional[Sequence[torch.Tensor]]
+                          = None
+                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """One backward's gradients unscaled, without stepping: ``(fp32
+        tensors, finite)``, ``finite`` a 0-dim bool device tensor.  With
+        ``stashed_grads`` they are added onto the stash and only the new
+        gradients are checked (the reference's arg-0 policy: a stale inf
+        in the stash is not this backward's)."""
+        if stashed_grads is not None:
+            out, flag = self.scaler.unscale_with_stashed(
+                grads, stashed_grads, self.scaler_state)
+        else:
+            out, flag = self.scaler.unscale(grads, self.scaler_state)
+        return out, (flag == 0).reshape(())
 
 
 def initialize(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -226,22 +297,75 @@ def initialize(model: nn.Module, optimizer: torch.optim.Optimizer,
     return Amp(model, optimizer, props, scaler, keep_fp32_filter)
 
 
-def make_train_step(amp: Amp, model: nn.Module,
-                    loss_fn: Callable) -> Callable:
+def _split_batch(tree: Any, n: int) -> List[Any]:
+    """``tree``'s tensors cut along their leading dimension into ``n``
+    micro-batches (the JAX package's ``(N, B / N)`` reshape)."""
+    leaves, spec = pytree.tree_flatten(tree)
+    parts = []
+    for x in leaves:
+        if not (isinstance(x, torch.Tensor) and x.dim() > 0
+                and x.shape[0] % n == 0):
+            shape = tuple(x.shape) if isinstance(x, torch.Tensor) else ()
+            raise ValueError(
+                f"accum_steps={n}: every batch argument leaf must have a "
+                f"leading dim divisible by it; got shape {shape} (broadcast "
+                "non-batched extras inside loss_fn instead of passing them "
+                "as batch args)")
+        parts.append(x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+                     .unbind(0))
+    return [pytree.tree_unflatten([p[i] for p in parts], spec)
+            for i in range(n)]
+
+
+def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
+                    accum_steps: Optional[int] = None) -> Callable:
     """``step(*batch) -> {"loss", "overflow", "loss_scale",
     "pinned_at_floor"}`` (device tensors): ``loss_fn(model, *batch)`` at
     compute precision, its fp32 loss scaled, the backward, then
     :meth:`Amp.apply_gradients`.  ``model`` is the one ``amp`` was
-    initialized with.  The step makes no host sync."""
+    initialized with.  The step makes no host sync.
+
+    ``accum_steps=N`` (> 1): every batch tensor's leading dimension splits
+    into N micro-batches (``ValueError`` when it does not divide); each
+    micro-batch's scaled gradients add into fp32 accumulators
+    (:meth:`Amp.accumulate`), which are divided by N and applied once, so
+    the step is the large-batch mean-loss step; the returned loss is the
+    mean of the micro-batch losses."""
     if model is not amp.model:
         raise ValueError("make_train_step: model is not the one amp was "
                          "initialized with")
+    if accum_steps is not None and int(accum_steps) < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def step(*batch) -> Dict[str, torch.Tensor]:
+    def backward(batch):
         with torch.enable_grad():
             loss = amp.run(loss_fn, model, *batch)
             grads = torch.autograd.grad(amp.scale_loss(loss), amp.params)
-        info = amp.apply_gradients(grads)
-        return {"loss": loss.detach(), **info}
+        return loss.detach(), grads
 
-    return step
+    if accum_steps is None or int(accum_steps) == 1:
+        def step(*batch) -> Dict[str, torch.Tensor]:
+            loss, grads = backward(batch)
+            info = amp.apply_gradients(grads)
+            return {"loss": loss, **info}
+
+        return step
+
+    n = int(accum_steps)
+
+    def accum_step(*batch) -> Dict[str, torch.Tensor]:
+        micro = _split_batch(tuple(batch), n)
+        acc = amp.accumulators()
+        torch._foreach_zero_(acc)
+        losses = []
+        for mb in micro:
+            loss, grads = backward(mb)
+            amp.accumulate(grads, acc)
+            losses.append(loss)
+            del grads
+        # the mean-loss step; JAX divides outside any kernel too
+        torch._foreach_div_(acc, float(n))
+        info = amp.apply_gradients(acc)
+        return {"loss": torch.stack(losses).mean(), **info}
+
+    return accum_step

@@ -4,7 +4,9 @@ The scale, the good-step counter and the overflow flag are device
 tensors, and every transition is tensor arithmetic: nothing here reads a
 value back to the host, so a train step makes no host sync.  The unscale
 runs the K6 kernel (:func:`apex_tpu_torch.ops.cuda.packed_scale`) on the
-card, one launch per gradient into one shared flag.
+card, one launch per gradient into one shared flag; the unscale onto
+stashed gradients runs K10 (:func:`apex_tpu_torch.ops.cuda.packed_axpby`),
+one launch over the whole tree.
 
 Semantics as the reference's: a dynamic scale starts at ``2**16``,
 doubles after ``scale_window`` (2000) overflow-free steps, halves on
@@ -22,6 +24,7 @@ import torch
 
 from apex_tpu_torch.amp.policy import DYNAMIC
 from apex_tpu_torch.ops.cuda import packed_scale
+from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, multi_tensor_axpby
 
 
 class LossScaleState(NamedTuple):
@@ -88,9 +91,10 @@ class LossScaler:
                 out: Optional[Sequence[torch.Tensor]] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """``g.float() * (1 / scale)`` cast to ``out_dtype`` for each
-        gradient (into ``out``, one tensor per gradient, when given), and
-        one int32 flag ``(1,)``: nonzero when any incoming (still scaled)
-        gradient holds a non-finite value.  On the card, one K6 launch per
+        gradient (into ``out``, one tensor per gradient, when given, each
+        in its own dtype; ``out`` may be ``grads`` itself), and one int32
+        flag ``(1,)``: nonzero when any incoming (still scaled) gradient
+        holds a non-finite value.  On the card, one K6 launch per
         gradient, all into the same flag."""
         dev = state.loss_scale.device
         inv = (1.0 / state.loss_scale).reshape(1)
@@ -99,9 +103,26 @@ class LossScaler:
         if len(outs) != len(grads):
             raise ValueError(f"{len(outs)} out tensors for {len(grads)} "
                              f"gradients")
-        res = [packed_scale(g, inv, out_dtype, flag, o)
-               for g, o in zip(grads, outs)]
+        res = [packed_scale(g, inv, out_dtype if o is None else o.dtype,
+                            flag, o) for g, o in zip(grads, outs)]
         return res, flag
+
+    def unscale_with_stashed(self, new_grads: Sequence[torch.Tensor],
+                             stashed: Sequence[torch.Tensor],
+                             state: LossScaleState,
+                             out: Optional[Sequence[torch.Tensor]] = None
+                             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """The accumulation path: ``(1 / scale) * new + 1 * stashed`` in
+        fp32 (into ``out`` when given, each in its own dtype, else fp32),
+        and one int32 flag ``(1,)`` raised only by a non-finite value of
+        the *new* gradients (``arg_to_check=0``, so a stale inf in the
+        stash is not this backward's).  On the card, one K10 launch over
+        the whole tree (one per dtype group)."""
+        inv = 1.0 / state.loss_scale
+        outs, flag = multi_tensor_axpby(
+            CHUNK_SIZE, [new_grads, stashed], inv, 1.0, arg_to_check=0,
+            out_dtype=torch.float32, out=out)
+        return outs, flag.reshape(1)
 
     def update(self, state: LossScaleState, grads_finite: torch.Tensor
                ) -> Tuple[LossScaleState, torch.Tensor]:

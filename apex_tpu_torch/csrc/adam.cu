@@ -1,7 +1,9 @@
-// Fused Adam step for Hopper (sm_90a), with a plain C interface.
+// Fused Adam steps for Hopper (sm_90a), with a plain C interface: K5 over
+// one flat leaf, and K11 over a whole tree of leaves in one launch.
 //
 // Replaces: apex_tpu/ops/pallas/adam_kernel.py, `packed_adam` and its kernel
-// `_adam_kernel` (the Pallas form of csrc/fused_adam_cuda_kernel.cu).
+// `_adam_kernel` (K5; the Pallas form of csrc/fused_adam_cuda_kernel.cu),
+// and `packed_adam_tree` and its kernel `_adam_tree_kernel` (K11).
 //
 // Computes, per element of one flat leaf, in fp32 and in the op order of the
 // JAX package's `adam_step`: g = g / scale; g = g + wd * p (only when wd is
@@ -24,16 +26,28 @@
 // What bounds it on the H100: bytes.  Four fp32 reads and three fp32
 // writes per element (28 B; 30 B with the bf16 copy) against ~15 flops.
 //
-// Design: a grid-stride loop, four elements per thread per trip with 16-byte
-// loads where the leaf's pointers allow it, a scalar tail otherwise.  One
-// launch per leaf; the multi-tensor one-launch form (the TPU's
-// `packed_adam_tree`) is later work.
+// K5's design: a grid-stride loop, four elements per thread per trip with
+// 16-byte loads where the leaf's pointers allow it, a scalar tail
+// otherwise; one launch per leaf (FP16Optimizer's one flat buffer, the
+// one-leaf `adam_step`).
+//
+// K11 (`adam_tree`): the same element math (it calls K5's `adam_one`) over
+// the chunk table of chunk_table.cuh, one block (256 threads) per chunk,
+// so a parameter group of any number of leaves is one launch with no
+// packing copy.  Each leaf's step size (its own bias correction) is read
+// from a device vector indexed by the chunk's leaf: the TPU kernel's
+// per-chunk step table.  Rows of leaf base pointers carry p, m, v, g and
+// the optional bf16 copy; 16-byte loads (8-byte for bf16) where a leaf's
+// pointers allow it, a scalar tail otherwise.  It reads the noop flag on
+// the card and writes nothing when it is set.  Bound: 28 B an element
+// (fp32 p, m, v, g), 30 B with the bf16 copy, 26 B with bf16 p and g;
+// against ~15 flops.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "chunk_table.cuh"
 
 namespace {
+
+using namespace apex_mt;
 
 struct Hyper {
   float beta1, beta2, om_beta1, om_beta2, eps, weight_decay;
@@ -52,11 +66,6 @@ __device__ __forceinline__ void adam_one(float& p, float& m, float& v,
   const float denom = hp.eps_inside ? __fsqrt_rn(__fadd_rn(v, hp.eps))
                                     : __fadd_rn(__fsqrt_rn(v), hp.eps);
   p = __fsub_rn(p, __fdiv_rn(__fmul_rn(step_size, m), denom));
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 template <typename P, typename G>
@@ -119,6 +128,56 @@ void launch(void* p, void* m, void* v, const void* g, __nv_bfloat16* pc,
       static_cast<const G*>(g), pc, ssp, scp, np, n, hp, vec);
 }
 
+template <typename P, typename G>
+__global__ void __launch_bounds__(kThreads)
+adam_tree_kernel(ChunkTable t, const long long* __restrict__ p_row,
+                 const long long* __restrict__ m_row,
+                 const long long* __restrict__ v_row,
+                 const long long* __restrict__ g_row,
+                 const long long* __restrict__ copy_row,
+                 const float* __restrict__ step_sizes,
+                 const float* __restrict__ scale,
+                 const int* __restrict__ noop, Hyper hp) {
+  if (noop != nullptr && *noop != 0) return;
+  const ChunkSpan s = span_of(t, blockIdx.x);
+  P* p = leaf_ptr<P>(p_row, s);
+  float* m = leaf_ptr<float>(m_row, s);
+  float* v = leaf_ptr<float>(v_row, s);
+  const G* g = leaf_ptr<const G>(g_row, s);
+  __nv_bfloat16* cp =
+      copy_row != nullptr ? leaf_ptr<__nv_bfloat16>(copy_row, s) : nullptr;
+  const float ss = step_sizes[s.leaf];
+  const float sc = *scale;
+  int done = 0;
+  if (aligned4(p) && aligned4(m) && aligned4(v) && aligned4(g) &&
+      (cp == nullptr || aligned4(cp))) {
+    const int n4 = s.len / 4;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      float4 pp = load4(p + 4 * i), mm = load4(m + 4 * i),
+             vv = load4(v + 4 * i);
+      const float4 gg = load4(g + 4 * i);
+      adam_one(pp.x, mm.x, vv.x, gg.x, ss, sc, hp);
+      adam_one(pp.y, mm.y, vv.y, gg.y, ss, sc, hp);
+      adam_one(pp.z, mm.z, vv.z, gg.z, ss, sc, hp);
+      adam_one(pp.w, mm.w, vv.w, gg.w, ss, sc, hp);
+      store4(p + 4 * i, pp);
+      store4(m + 4 * i, mm);
+      store4(v + 4 * i, vv);
+      if (cp != nullptr) store4(cp + 4 * i, pp);
+    }
+    done = n4 * 4;
+  }
+  for (int i = done + threadIdx.x; i < s.len; i += blockDim.x) {
+    float pp = to_f32(p[i]);
+    float mm = m[i], vv = v[i];
+    adam_one(pp, mm, vv, to_f32(g[i]), ss, sc, hp);
+    p[i] = from_f32<P>(pp);
+    m[i] = mm;
+    v[i] = vv;
+    if (cp != nullptr) cp[i] = __float2bfloat16(pp);
+  }
+}
+
 }  // namespace
 
 // p: n elements, float32 (p_dtype 0) or bfloat16 (1); m, v: n float32;
@@ -166,5 +225,49 @@ extern "C" int apex_adam(void* p, void* m, void* v, const void* g,
   else
     launch<bf16, bf16>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks, threads,
                        0, s);
+  return (int)cudaGetLastError();
+}
+
+// K11 over the chunk table (chunk_leaf int32, chunk_start int64,
+// leaf_numel int64; n_chunks chunks of at most `chunk` elements).  Rows of
+// int64 leaf base pointers: p (p_dtype 0 = float32, 1 = bfloat16), m, v
+// (float32), g (g_dtype 0, or p's dtype), copy (bfloat16, or a null row).
+// step_sizes: one float32 per leaf; scale: one float32; noop: one int32
+// (nonzero = write nothing) or null.  Returns the cudaError_t of the
+// launch.
+extern "C" int apex_adam_tree(const void* chunk_leaf, const void* chunk_start,
+                              const void* leaf_numel, int n_chunks, int chunk,
+                              const void* p_row, const void* m_row,
+                              const void* v_row, const void* g_row,
+                              const void* copy_row, const void* step_sizes,
+                              const void* scale, const void* noop,
+                              float beta1, float beta2, float om_beta1,
+                              float om_beta2, float eps, float weight_decay,
+                              int eps_inside, int p_dtype, int g_dtype,
+                              void* stream) {
+  if (n_chunks <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if ((p_dtype != 0 && p_dtype != 1) || (g_dtype != 0 && g_dtype != p_dtype))
+    return (int)cudaErrorInvalidValue;
+  const ChunkTable t{static_cast<const int*>(chunk_leaf),
+                     static_cast<const long long*>(chunk_start),
+                     static_cast<const long long*>(leaf_numel), chunk};
+  const Hyper hp{beta1, beta2, om_beta1, om_beta2, eps, weight_decay,
+                 eps_inside};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using LL = const long long*;
+  const auto args = [&](auto kernel) {
+    kernel<<<n_chunks, kThreads, 0, st>>>(
+        t, static_cast<LL>(p_row), static_cast<LL>(m_row),
+        static_cast<LL>(v_row), static_cast<LL>(g_row),
+        static_cast<LL>(copy_row), static_cast<const float*>(step_sizes),
+        static_cast<const float*>(scale), static_cast<const int*>(noop), hp);
+  };
+  using bf16 = __nv_bfloat16;
+  if (p_dtype == 0)
+    args(adam_tree_kernel<float, float>);
+  else if (g_dtype == 0)
+    args(adam_tree_kernel<bf16, float>);
+  else
+    args(adam_tree_kernel<bf16, bf16>);
   return (int)cudaGetLastError();
 }

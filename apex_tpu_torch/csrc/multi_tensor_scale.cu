@@ -11,7 +11,8 @@
 // in bf16 is always seen).  `scale` is read from device memory, so a moving
 // loss scale needs no host sync; the flag is a plain store of 1 (every
 // writer writes the same value, so there is no read-modify-write race), and
-// many leaves can share one flag.
+// many leaves can share one flag.  out may be x itself (in place, same
+// dtype): every element is read and then written by the same thread.
 //
 // What bounds it on the H100: bytes (2 B in and 4 B out per element for the
 // bf16 gradients of the train step), one flop per element.
@@ -41,7 +42,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 
 template <typename In, typename Out>
 __global__ void __launch_bounds__(256)
-scale_kernel(const In* __restrict__ x, Out* __restrict__ out,
+scale_kernel(const In* x, Out* out,  // may alias: in place
              const float* __restrict__ scale, int* __restrict__ flag,
              long long n) {
   const float s = *scale;

@@ -1,0 +1,28 @@
+"""Manual mixed-precision utilities (``apex_tpu/fp16_utils``'s
+``fp16util``).  The legacy ``FP16_Optimizer`` wrapper and its host-syncing
+loss scalers are not ported yet; the flat-buffer optimizer is
+:class:`apex_tpu_torch.optimizers.FP16Optimizer`."""
+
+from apex_tpu_torch.fp16_utils.fp16util import (
+    BN_convert_float,
+    FP16Model,
+    clip_grad_norm,
+    convert_module,
+    convert_network,
+    master_params_to_model_params,
+    model_grads_to_master_grads,
+    prep_param_lists,
+    to_python_float,
+    tree_to_float,
+    tree_to_half,
+)
+
+# the reference's spellings
+tofp16 = tree_to_half
+network_to_half = tree_to_half
+
+__all__ = ["BN_convert_float", "FP16Model", "clip_grad_norm",
+           "convert_module", "convert_network",
+           "master_params_to_model_params", "model_grads_to_master_grads",
+           "network_to_half", "prep_param_lists", "to_python_float",
+           "tofp16", "tree_to_float", "tree_to_half"]

@@ -1,7 +1,12 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch
 version, and the build that compiles them (:mod:`.build`)."""
 
-from apex_tpu_torch.ops.cuda.adam import packed_adam, packed_adam_ref
+from apex_tpu_torch.ops.cuda.adam import (
+    packed_adam,
+    packed_adam_ref,
+    packed_adam_tree,
+    packed_adam_tree_ref,
+)
 from apex_tpu_torch.ops.cuda.flash_attention import (
     flash_attn_bwd,
     flash_attn_bwd_ref,
@@ -21,10 +26,14 @@ from apex_tpu_torch.ops.cuda.layer_norm import (
     layer_norm_fwd_ref,
 )
 from apex_tpu_torch.ops.cuda.multi_tensor import (
+    packed_axpby,
+    packed_axpby_ref,
     packed_scale,
     packed_scale_ref,
     packed_sumsq,
     packed_sumsq_ref,
+    sumsq_per_tensor,
+    sumsq_per_tensor_ref,
 )
 
 #: every kernel wrapper, by the name its launch counter reports under
@@ -36,7 +45,10 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "packed_scale": packed_scale,
            "lamb_stage1": lamb_stage1,
            "lamb_stage2": lamb_stage2,
-           "packed_sumsq": packed_sumsq}
+           "packed_sumsq": packed_sumsq,
+           "packed_axpby": packed_axpby,
+           "packed_adam_tree": packed_adam_tree,
+           "sumsq_per_tensor": sumsq_per_tensor}
 
 
 def launch_counts() -> dict:
@@ -54,5 +66,8 @@ __all__ = ["KERNELS", "flash_attn_bwd", "flash_attn_bwd_ref",
            "lamb_stage1_ref", "lamb_stage2", "lamb_stage2_ref",
            "launch_counts", "layer_norm_bwd", "layer_norm_bwd_ref",
            "layer_norm_fwd", "layer_norm_fwd_ref", "packed_adam",
-           "packed_adam_ref", "packed_scale", "packed_scale_ref",
-           "packed_sumsq", "packed_sumsq_ref", "reset_launch_counts"]
+           "packed_adam_ref", "packed_adam_tree", "packed_adam_tree_ref",
+           "packed_axpby", "packed_axpby_ref", "packed_scale",
+           "packed_scale_ref", "packed_sumsq", "packed_sumsq_ref",
+           "reset_launch_counts", "sumsq_per_tensor",
+           "sumsq_per_tensor_ref"]

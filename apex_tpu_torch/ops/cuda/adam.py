@@ -1,23 +1,30 @@
-"""K5: the fused Adam step (``csrc/adam.cu``) and its plain PyTorch
-version.
+"""K5 and K11: the fused Adam step over one leaf and over a whole tree
+(``csrc/adam.cu``), and their plain PyTorch versions.
 
-The CUDA kernel replaces the Pallas ``packed_adam`` (``_adam_kernel``) of
-``apex_tpu/ops/pallas/adam_kernel.py``.  It runs on the flat view of any
+The CUDA kernels replace the Pallas ``packed_adam`` (``_adam_kernel``) and
+``packed_adam_tree`` (``_adam_tree_kernel``) of
+``apex_tpu/ops/pallas/adam_kernel.py``.  K5 runs on the flat view of any
 leaf, whatever its size: the TPU's ``ADAM_PAD`` alignment has no
-counterpart.  Unlike the functional JAX step it updates p, m and v in
-place (the state is dead after the step, and the copies would double the
-optimizer's memory).  :func:`packed_adam` launches it for CUDA tensors and
-runs :func:`packed_adam_ref` for CPU tensors; it never falls back from one
-to the other.
+counterpart.  K11 runs the same element math over a
+:class:`~apex_tpu_torch.ops.multi_tensor.ChunkTable`, one launch for a
+whole parameter group, with each leaf's own step size.  Unlike the
+functional JAX step both update p, m and v in place (the state is dead
+after the step, and the copies would double the optimizer's memory).
+:func:`packed_adam` / :func:`packed_adam_tree` launch the kernels for
+CUDA tensors and run :func:`packed_adam_ref` / :func:`packed_adam_tree_ref`
+for CPU tensors; they never fall back from one to the other.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import torch
 
 from apex_tpu_torch.ops.cuda import build
+
+if TYPE_CHECKING:
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
 
 #: eps added to sqrt(v) (the CUDA kernel's MODE_0)
 EPS_MODE_OUTSIDE = 0
@@ -25,6 +32,14 @@ EPS_MODE_OUTSIDE = 0
 EPS_MODE_INSIDE = 1
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded fp32 square root (the kernels' ``__fsqrt_rn``,
+    and XLA's): taken in fp64 and rounded once, which is exact for sqrt
+    (fp64 has more than 2 x 24 + 2 bits).  PyTorch's own fp32 sqrt on the
+    CPU is off by one ulp at some inputs."""
+    return torch.sqrt(x.double()).float()
 
 
 def packed_adam_ref(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
@@ -47,9 +62,9 @@ def packed_adam_ref(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     m32 = beta1 * m + (1.0 - beta1) * g32
     v32 = beta2 * v + (1.0 - beta2) * g32 * g32
     if eps_mode == EPS_MODE_INSIDE:
-        denom = torch.sqrt(v32 + eps)
+        denom = _sqrt_rn(v32 + eps)
     else:
-        denom = torch.sqrt(v32) + eps
+        denom = _sqrt_rn(v32) + eps
     p32 = p32 - step_size.float() * m32 / denom
     if noop_flag is not None:
         keep = noop_flag.reshape(()) != 0
@@ -121,3 +136,79 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 
 
 packed_adam.launches = 0
+
+
+def packed_adam_tree_ref(table: ChunkTable, p: Sequence[torch.Tensor],
+                         m: Sequence[torch.Tensor], v: Sequence[torch.Tensor],
+                         g: Sequence[torch.Tensor], step_sizes: torch.Tensor,
+                         scale: torch.Tensor,
+                         noop_flag: Optional[torch.Tensor], *, beta1: float,
+                         beta2: float, eps: float, weight_decay: float = 0.0,
+                         eps_mode: int = EPS_MODE_OUTSIDE,
+                         p_copy: Optional[Sequence[torch.Tensor]] = None
+                         ) -> None:
+    """:func:`packed_adam_ref` over the table's leaves, leaf ``i`` with
+    step size ``step_sizes[i]`` (one fp32 per leaf), all with one
+    ``scale`` and ``noop_flag``; ``p_copy``, when given, one half copy per
+    leaf."""
+    if not all(table.fits(ts) for ts in (p, m, v, g)):
+        raise ValueError("packed_adam_tree: the tensors do not match the "
+                         "chunk table's leaf sizes")
+    for i in range(table.n_leaves):
+        packed_adam_ref(p[i], m[i], v[i], g[i], step_sizes[i:i + 1], scale,
+                        noop_flag, beta1=beta1, beta2=beta2, eps=eps,
+                        weight_decay=weight_decay, eps_mode=eps_mode,
+                        p_copy=None if p_copy is None else p_copy[i])
+
+
+def packed_adam_tree(table: ChunkTable, p: Sequence[torch.Tensor],
+                     m: Sequence[torch.Tensor], v: Sequence[torch.Tensor],
+                     g: Sequence[torch.Tensor], step_sizes: torch.Tensor,
+                     scale: torch.Tensor, noop_flag: Optional[torch.Tensor],
+                     *, beta1: float, beta2: float, eps: float,
+                     weight_decay: float = 0.0,
+                     eps_mode: int = EPS_MODE_OUTSIDE,
+                     p_copy: Optional[Sequence[torch.Tensor]] = None) -> None:
+    """:func:`packed_adam_tree_ref`'s function.  On CUDA tensors one
+    launch of the hand-written kernel over the whole table (counted in
+    ``packed_adam_tree.launches``): p float32 or bfloat16, g float32 or
+    p's dtype, m, v float32, p_copy bfloat16, each list contiguous and of
+    one dtype; ``step_sizes``, ``scale`` and ``noop_flag`` stay on the
+    card.  Bit for bit the plain version, and so K5 leaf by leaf."""
+    if table.device.type == "cpu":
+        return packed_adam_tree_ref(
+            table, p, m, v, g, step_sizes, scale, noop_flag, beta1=beta1,
+            beta2=beta2, eps=eps, weight_decay=weight_decay,
+            eps_mode=eps_mode, p_copy=p_copy)
+    if table.device.type != "cuda":
+        raise ValueError(f"packed_adam_tree: unsupported device "
+                         f"{table.device}")
+    what = "packed_adam_tree"
+    p_dt = table.check(what, "p", p, tuple(_DTYPES))
+    g_dt = table.check(what, "g", g, (torch.float32, p_dt))
+    for name, ts in (("m", m), ("v", v)):
+        table.check(what, name, ts, (torch.float32,))
+    if p_copy is not None:
+        table.check(what, "p_copy", p_copy, (torch.bfloat16,))
+    table.check_scalars(
+        what, step_sizes=(step_sizes, torch.float32, table.n_leaves),
+        scale=(scale, torch.float32, 1),
+        noop_flag=(noop_flag, torch.int32, 1))
+    if table.n_chunks == 0:
+        return None
+    err = build.library().apex_adam_tree(
+        table.chunk_leaf.data_ptr(), table.chunk_start.data_ptr(),
+        table.leaf_numel.data_ptr(), table.n_chunks, table.chunk_size,
+        *(table.pointers(ts).data_ptr() for ts in (p, m, v, g)),
+        None if p_copy is None else table.pointers(p_copy).data_ptr(),
+        step_sizes.data_ptr(), scale.data_ptr(),
+        None if noop_flag is None else noop_flag.data_ptr(),
+        beta1, beta2, 1.0 - beta1, 1.0 - beta2, eps, weight_decay,
+        int(eps_mode == EPS_MODE_INSIDE), _DTYPES[p_dt], _DTYPES[g_dt],
+        build.stream_of(scale))
+    build.check(err, what)
+    packed_adam_tree.launches += 1
+    return None
+
+
+packed_adam_tree.launches = 0

@@ -164,6 +164,15 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_multi_tensor_sumsq.argtypes = ([vp] * 3 + [i32, i32, vp, i32]
                                             + [vp] * 4)
     lib.apex_multi_tensor_sumsq.restype = i32
+    lib.apex_multi_tensor_sumsq_per_tensor.argtypes = (
+        [vp] * 4 + [i32] * 3 + [vp, i32] + [vp] * 4)
+    lib.apex_multi_tensor_sumsq_per_tensor.restype = i32
+    lib.apex_multi_tensor_axpby.argtypes = ([vp] * 3 + [i32, i32] + [vp] * 6
+                                            + [i32] * 4 + [vp])
+    lib.apex_multi_tensor_axpby.restype = i32
+    lib.apex_adam_tree.argtypes = ([vp] * 3 + [i32, i32] + [vp] * 8
+                                   + [f32] * 6 + [i32] * 3 + [vp])
+    lib.apex_adam_tree.restype = i32
     lib.apex_lamb_stage1.argtypes = ([vp] * 3 + [i32, i32] + [vp] * 11
                                      + [f32] * 7 + [i32, i32, vp])
     lib.apex_lamb_stage1.restype = i32

@@ -22,12 +22,14 @@ never fall back from one to the other.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
 import torch
 
 from apex_tpu_torch.ops.cuda import build
-from apex_tpu_torch.ops.multi_tensor import ChunkTable
+
+if TYPE_CHECKING:
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Leaves = Sequence[torch.Tensor]
@@ -111,10 +113,10 @@ def lamb_stage1(table: ChunkTable, p: Leaves, g: Leaves, m: Leaves,
     g_dt = table.check(what, "g", g, (torch.float32, p_dt))
     for name, ts in (("m", m), ("v", v), ("u", u)):
         table.check(what, name, ts, (torch.float32,))
-    _check_scalars(what, table, bc1=(bc1, torch.float32, table.n_leaves),
-                   bc2=(bc2, torch.float32, table.n_leaves),
-                   sumsq=(sumsq, torch.float32, 1),
-                   noop_flag=(noop_flag, torch.int32, 1))
+    table.check_scalars(what, bc1=(bc1, torch.float32, table.n_leaves),
+                        bc2=(bc2, torch.float32, table.n_leaves),
+                        sumsq=(sumsq, torch.float32, 1),
+                        noop_flag=(noop_flag, torch.int32, 1))
     if sumsq is not None and not max_grad_norm > 0:
         raise ValueError(f"{what}: a clip needs max_grad_norm > 0")
     p_sq = torch.empty(table.n_chunks, dtype=torch.float32,
@@ -196,9 +198,9 @@ def lamb_stage2(table: ChunkTable, p: Leaves, u: Leaves, p_sq: torch.Tensor,
     table.check(what, "u", u, (torch.float32,))
     if p_copy is not None:
         table.check(what, "p_copy", p_copy, (torch.bfloat16,))
-    _check_scalars(what, table, p_sq=(p_sq, torch.float32, table.n_chunks),
-                   u_sq=(u_sq, torch.float32, table.n_chunks),
-                   noop_flag=(noop_flag, torch.int32, 1))
+    table.check_scalars(what, p_sq=(p_sq, torch.float32, table.n_chunks),
+                        u_sq=(u_sq, torch.float32, table.n_chunks),
+                        noop_flag=(noop_flag, torch.int32, 1))
     if table.n_chunks == 0:
         return None
     err = build.library().apex_lamb_stage2(
@@ -216,14 +218,3 @@ def lamb_stage2(table: ChunkTable, p: Leaves, u: Leaves, p_sq: torch.Tensor,
 
 lamb_stage2.launches = 0
 
-
-def _check_scalars(what: str, table: ChunkTable, **specs) -> None:
-    """Each ``name=(tensor or None, dtype, numel)`` must be that many
-    contiguous elements of that dtype on the table's device."""
-    for name, (t, dt, n) in specs.items():
-        if t is None:
-            continue
-        if t.dtype != dt or t.numel() != n or t.device != table.device \
-                or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be {n} contiguous {dt} "
-                             f"on {table.device}")

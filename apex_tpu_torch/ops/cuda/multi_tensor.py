@@ -1,27 +1,43 @@
-"""K6: scale with a non-finite check (``csrc/multi_tensor_scale.cu``), the
-amp unscale, and K9: the total sum of squares over a tree
-(``csrc/multi_tensor_sumsq.cu``), the LAMB global-norm clip; each beside
-its plain PyTorch version.
+"""The multi-tensor kernels of ``apex_tpu/ops/pallas/
+multi_tensor_kernels.py``, each beside its plain PyTorch version:
 
-The CUDA kernel replaces the Pallas ``packed_scale`` (``_scale_kernel``)
-of ``apex_tpu/ops/pallas/multi_tensor_kernels.py``.  It takes one leaf at
-a time (no packing into a flat buffer: on the card a launch per leaf is
-cheap next to a pack and unpack pass), and every leaf of a step raises
-the same device flag.  :func:`packed_scale` launches it for a CUDA tensor
-and runs :func:`packed_scale_ref` for a CPU tensor; it never falls back
-from one to the other.
+- K6 :func:`packed_scale` (``csrc/multi_tensor_scale.cu``, replacing
+  ``packed_scale``): scale with a non-finite check, the amp unscale.  It
+  takes one leaf at a time (no packing into a flat buffer), and every
+  leaf of a step raises the same device flag.
+- K9 :func:`packed_sumsq` (``csrc/multi_tensor_sumsq.cu``, replacing
+  ``packed_sumsq``): the total sum of squares over a tree, the LAMB and
+  FP16Optimizer global-norm clip.
+- K10 :func:`packed_axpby` (``csrc/multi_tensor_axpby.cu``, replacing
+  ``packed_axpby``): ``a * x + b * y`` with a non-finite check on x, y or
+  both, gradient accumulation.
+- K12 :func:`sumsq_per_tensor` (``csrc/multi_tensor_sumsq.cu``,
+  replacing ``packed_sumsq_per_chunk`` and its segment add): one sum of
+  squares per leaf, the per-tensor norms.
+
+K9, K10 and K12 run over a
+:class:`~apex_tpu_torch.ops.multi_tensor.ChunkTable`, one launch over the
+whole tree.  Each wrapper launches its kernel for CUDA tensors and runs
+its ``*_ref`` plain version for CPU tensors; it never falls back from one
+to the other.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import torch
 
 from apex_tpu_torch.ops.cuda import build
-from apex_tpu_torch.ops.multi_tensor import ChunkTable
+
+if TYPE_CHECKING:
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _set_flag_where(flag: torch.Tensor, bad: torch.Tensor) -> None:
+    flag.copy_(torch.where(bad, torch.ones_like(flag), flag))
 
 
 def packed_scale_ref(x: torch.Tensor, scale: torch.Tensor,
@@ -30,8 +46,7 @@ def packed_scale_ref(x: torch.Tensor, scale: torch.Tensor,
     """``(x.float() * scale).to(out_dtype)``, written into ``out`` when
     given; sets ``flag`` (one int32) to 1 when any value of ``x`` is not
     finite, without reading it back to the host."""
-    bad = ~torch.isfinite(x).all()
-    flag.copy_(torch.where(bad, torch.ones_like(flag), flag))
+    _set_flag_where(flag, ~torch.isfinite(x).all())
     y = (x.float() * scale.float()).to(out_dtype)
     return y if out is None else out.copy_(y.view(out.shape))
 
@@ -117,3 +132,109 @@ def packed_sumsq(table: ChunkTable,
 
 
 packed_sumsq.launches = 0
+
+
+def packed_axpby_ref(table: ChunkTable, x: Sequence[torch.Tensor],
+                     y: Sequence[torch.Tensor], a: torch.Tensor,
+                     b: torch.Tensor, flag: torch.Tensor,
+                     out: Sequence[torch.Tensor], *,
+                     arg_to_check: int = -1) -> None:
+    """``out[i] = (a * float(x[i]) + b * float(y[i]))`` cast to
+    ``out[i]``'s dtype, each product and the sum rounded on its own;
+    ``out[i]`` may be ``x[i]`` or ``y[i]``.  Sets ``flag`` (one int32) to
+    1 when a value of x (``arg_to_check=0``), of y (1) or of either (-1)
+    is not finite; ``a``, ``b``: one fp32 each."""
+    if not (table.fits(x) and table.fits(y) and table.fits(out)):
+        raise ValueError("packed_axpby: the tensors do not match the chunk "
+                         "table's leaf sizes")
+    for xi, yi, oi in zip(x, y, out):
+        xf, yf = xi.float(), yi.float()
+        if arg_to_check in (-1, 0):
+            _set_flag_where(flag, ~torch.isfinite(xf).all())
+        if arg_to_check in (-1, 1):
+            _set_flag_where(flag, ~torch.isfinite(yf).all())
+        oi.copy_((a * xf + b * yf).view(oi.shape))
+
+
+def packed_axpby(table: ChunkTable, x: Sequence[torch.Tensor],
+                 y: Sequence[torch.Tensor], a: torch.Tensor, b: torch.Tensor,
+                 flag: torch.Tensor, out: Sequence[torch.Tensor], *,
+                 arg_to_check: int = -1) -> None:
+    """:func:`packed_axpby_ref`'s function.  On CUDA tensors one launch of
+    the hand-written kernel over the whole table (counted in
+    ``packed_axpby.launches``): x, y and out each one list of contiguous
+    float32 or bfloat16 leaves (out may be the x or the y list itself);
+    ``a``, ``b`` and ``flag`` stay on the card.  Bit for bit the plain
+    version."""
+    if table.device.type == "cpu":
+        return packed_axpby_ref(table, x, y, a, b, flag, out,
+                                arg_to_check=arg_to_check)
+    if table.device.type != "cuda":
+        raise ValueError(f"packed_axpby: unsupported device {table.device}")
+    what = "packed_axpby"
+    if arg_to_check not in (-1, 0, 1):
+        raise ValueError(f"{what}: arg_to_check {arg_to_check} not in "
+                         f"(-1, 0, 1)")
+    dts = [table.check(what, name, ts, tuple(_DTYPES))
+           for name, ts in (("x", x), ("y", y), ("out", out))]
+    table.check_scalars(what, a=(a, torch.float32, 1),
+                        b=(b, torch.float32, 1), flag=(flag, torch.int32, 1))
+    if table.n_chunks == 0:
+        return None
+    err = build.library().apex_multi_tensor_axpby(
+        table.chunk_leaf.data_ptr(), table.chunk_start.data_ptr(),
+        table.leaf_numel.data_ptr(), table.n_chunks, table.chunk_size,
+        *(table.pointers(ts).data_ptr() for ts in (x, y, out)),
+        a.data_ptr(), b.data_ptr(), flag.data_ptr(), arg_to_check,
+        *(_DTYPES[d] for d in dts), build.stream_of(flag))
+    build.check(err, what)
+    packed_axpby.launches += 1
+    return None
+
+
+packed_axpby.launches = 0
+
+
+def sumsq_per_tensor_ref(table: ChunkTable,
+                         xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """fp32 ``sum(float(x)**2)`` of each leaf, shape ``(n_leaves,)``: the
+    per-chunk partials of K9 summed per leaf in chunk order."""
+    if not table.fits(xs):
+        raise ValueError("sumsq_per_tensor: the tensors do not match the "
+                         "chunk table's leaf sizes")
+    if not xs:
+        return torch.zeros(0, dtype=torch.float32, device=table.device)
+    return torch.stack([table.leaf_chunk_sums(x).sum() for x in xs])
+
+
+def sumsq_per_tensor(table: ChunkTable,
+                     xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """:func:`sumsq_per_tensor_ref`'s function.  On CUDA tensors one
+    launch of the hand-written kernel over the whole table (counted in
+    ``sumsq_per_tensor.launches``): leaves float32 or bfloat16, all of
+    one dtype, contiguous.  The sums are fixed-order (equal bits run to
+    run) and stay on the card."""
+    if table.device.type == "cpu":
+        return sumsq_per_tensor_ref(table, xs)
+    if table.device.type != "cuda":
+        raise ValueError(f"sumsq_per_tensor: unsupported device "
+                         f"{table.device}")
+    dt = table.check("sumsq_per_tensor", "xs", xs, tuple(_DTYPES))
+    out = torch.zeros(table.n_leaves, dtype=torch.float32,
+                      device=table.device)
+    if table.n_chunks == 0:
+        return out
+    partials = torch.empty(table.n_chunks, dtype=torch.float32,
+                           device=table.device)
+    err = build.library().apex_multi_tensor_sumsq_per_tensor(
+        table.chunk_leaf.data_ptr(), table.chunk_start.data_ptr(),
+        table.leaf_numel.data_ptr(), table.leaf_first_chunk.data_ptr(),
+        table.n_chunks, table.n_leaves, table.chunk_size,
+        table.pointers(xs).data_ptr(), _DTYPES[dt], partials.data_ptr(),
+        table.ticket.data_ptr(), out.data_ptr(), build.stream_of(out))
+    build.check(err, "sumsq_per_tensor")
+    sumsq_per_tensor.launches += 1
+    return out
+
+
+sumsq_per_tensor.launches = 0

@@ -1,27 +1,32 @@
 """FusedAdam, as ``apex_tpu/optimizers/fused_adam.py``: Adam with the
-descale, both moments and the update fused into one pass per parameter
-(K5, :func:`apex_tpu_torch.ops.cuda.packed_adam`, on the card).
+descale, both moments and the update fused into one pass.
 
-Two surfaces: :func:`adam_step`, the raw update of one leaf, and
+Two surfaces: :func:`adam_step`, the raw update of one leaf (K5,
+:func:`apex_tpu_torch.ops.cuda.packed_adam`, on the card), and
 :class:`FusedAdam`, a ``torch.optim.Optimizer`` over fp32 (master)
-tensors.  Bias correction is per leaf: each parameter carries its own
-step count (the reference's per-param ``state['step']``, the JAX
-package's ``leaf_step``), and ``step_size = lr * sqrt(1 - b2^t) /
-(1 - b1^t)`` is computed in fp32 on the device for every leaf at once.
-A step can be made conditional on a device flag (``noop_flag``, the amp
-overflow flag): the kernels and the step counts read it on the card, so
-a skipped step needs no host sync.  Parameters are updated in place.
+tensors whose step is one K11 launch per parameter group
+(:func:`apex_tpu_torch.ops.cuda.packed_adam_tree`, over a chunk table of
+the group's leaves: the reference's one ``multi_tensor_apply`` launch).
+Bias correction is per leaf: each parameter carries its own step count
+(the reference's per-param ``state['step']``, the JAX package's
+``leaf_step``), and ``step_size = lr * sqrt(1 - b2^t) / (1 - b1^t)`` is
+computed in fp32 on the device for every leaf at once; K11 reads each
+leaf's own.  A step can be made conditional on a device flag
+(``noop_flag``, the amp overflow flag): the kernels and the step counts
+read it on the card, so a skipped step needs no host sync.  Parameters
+are updated in place.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
-from apex_tpu_torch.ops.cuda import packed_adam
+from apex_tpu_torch.ops.cuda import packed_adam, packed_adam_tree
 from apex_tpu_torch.ops.cuda.adam import EPS_MODE_INSIDE, EPS_MODE_OUTSIDE
+from apex_tpu_torch.ops.multi_tensor import ChunkTable
 
 
 def bias_corrected_step_sizes(lr: float, beta1: float, beta2: float,
@@ -32,8 +37,9 @@ def bias_corrected_step_sizes(lr: float, beta1: float, beta2: float,
     t = steps.float()
     if not bias_correction:
         return torch.full_like(t, lr)
-    b1 = torch.tensor(beta1, dtype=torch.float32, device=t.device)
-    b2 = torch.tensor(beta2, dtype=torch.float32, device=t.device)
+    # made on the device: a host scalar copied up would wait for the stream
+    b1 = torch.full((), beta1, dtype=torch.float32, device=t.device)
+    b2 = torch.full((), beta2, dtype=torch.float32, device=t.device)
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
     return lr * torch.sqrt(bc2) / bc1
@@ -68,8 +74,11 @@ class FusedAdam(torch.optim.Optimizer):
     card; ``model_params`` (one half tensor per parameter, in order) get
     a bf16 copy of each new parameter in the same pass, the reference's
     fused half write-back.  Gradients are the parameters' ``.grad``.
-    The parameters must lie on ``device`` (the card by default; pass
-    ``device="cpu"`` for the plain versions)."""
+    Each parameter group steps in one K11 launch over a chunk table kept
+    from step to step; its parameters share one dtype, and so do its
+    gradients (fp32 or the parameters' dtype).  The parameters must lie on
+    ``device`` (the card by default; pass ``device="cpu"`` for the plain
+    versions)."""
 
     def __init__(self, params: Iterable, lr: float = 1e-3,
                  bias_correction: bool = True, betas=(0.9, 0.999),
@@ -96,6 +105,13 @@ class FusedAdam(torch.optim.Optimizer):
                 if not same_device(p.device, device):
                     raise ValueError(f"FusedAdam: a parameter is on "
                                      f"{p.device}, not {device}")
+        #: group index -> the chunk table of its leaves
+        self._tables: Dict[int, ChunkTable] = {}
+
+    @property
+    def tables(self) -> List[ChunkTable]:
+        """The chunk tables of the last steps (for their row counters)."""
+        return list(self._tables.values())
 
     def _group_steps(self, group) -> torch.Tensor:
         """The group's per-leaf step counts, one int32 vector; each
@@ -113,6 +129,15 @@ class FusedAdam(torch.optim.Optimizer):
                 st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
         return steps
 
+    def _table(self, gi: int, params: List[torch.Tensor]) -> ChunkTable:
+        """Group ``gi``'s chunk table, built anew when its leaves' sizes or
+        device change."""
+        table = self._tables.get(gi)
+        if table is None or not table.fits(params) \
+                or table.device != params[0].device:
+            table = self._tables[gi] = ChunkTable.of(params)
+        return table
+
     @torch.no_grad()
     def step(self, closure=None, *, noop_flag: Optional[torch.Tensor] = None,
              model_params: Optional[Sequence[torch.Tensor]] = None):
@@ -120,15 +145,28 @@ class FusedAdam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        copies: List[Optional[torch.Tensor]] = (
-            list(model_params) if model_params is not None else [])
+        copies: Optional[List[torch.Tensor]] = (
+            list(model_params) if model_params is not None else None)
+        n_params = sum(len(g["params"]) for g in self.param_groups)
+        if copies is not None and len(copies) != n_params:
+            raise ValueError(f"model_params has {len(copies)} tensors for "
+                             f"{n_params} parameters")
         at = 0
-        for group in self.param_groups:
+        for gi, group in enumerate(self.param_groups):
             params = group["params"]
             if not params:
                 continue
+            if any(p.grad is None for p in params):
+                raise RuntimeError("FusedAdam: a parameter has no grad "
+                                   "(every leaf steps, as in the JAX "
+                                   "optimizer)")
+            grads = [p.grad.contiguous() for p in params]
+            for name, ts in (("parameters", params), ("gradients", grads)):
+                if len({t.dtype for t in ts}) > 1:
+                    raise TypeError(f"FusedAdam: a parameter group's {name} "
+                                    f"mix dtypes; put each dtype in a group "
+                                    f"of its own")
             steps = self._group_steps(group)
-            dev = params[0].device
             if noop_flag is None:
                 steps += 1
             else:
@@ -137,23 +175,22 @@ class FusedAdam(torch.optim.Optimizer):
             sizes = bias_corrected_step_sizes(
                 group["lr"], beta1, beta2, steps, group["bias_correction"])
             # the gradients arrive unscaled (amp's unscale ran first)
-            one = torch.ones(1, dtype=torch.float32, device=dev)
-            for i, p in enumerate(params):
-                copy = copies[at + i] if copies else None
-                if p.grad is None:
-                    raise RuntimeError("FusedAdam: a parameter has no grad "
-                                       "(every leaf steps, as in the JAX "
-                                       "optimizer)")
-                st = self.state[p]
-                packed_adam(p.view(-1), st["exp_avg"].view(-1),
-                            st["exp_avg_sq"].view(-1), p.grad.reshape(-1),
-                            sizes[i:i + 1], one, noop_flag,
-                            beta1=beta1, beta2=beta2, eps=group["eps"],
-                            weight_decay=group["weight_decay"],
-                            eps_mode=group["eps_mode"],
-                            p_copy=None if copy is None else copy.view(-1))
+            one = torch.ones(1, dtype=torch.float32, device=params[0].device)
+            gcopies = None if copies is None else copies[at:at + len(params)]
+            # the kernel writes bf16 copies; where other dtypes are among
+            # them (an fp32 normalization parameter kept beside its
+            # master), every copy is the new parameter, copied after
+            in_kernel = gcopies is not None and all(
+                c.dtype == torch.bfloat16 for c in gcopies)
+            packed_adam_tree(
+                self._table(gi, params), params,
+                [self.state[p]["exp_avg"] for p in params],
+                [self.state[p]["exp_avg_sq"] for p in params], grads, sizes,
+                one, noop_flag, beta1=beta1, beta2=beta2, eps=group["eps"],
+                weight_decay=group["weight_decay"],
+                eps_mode=group["eps_mode"],
+                p_copy=gcopies if in_kernel else None)
+            if gcopies is not None and not in_kernel:
+                torch._foreach_copy_(gcopies, params)
             at += len(params)
-        if copies and at != len(copies):
-            raise ValueError(f"model_params has {len(copies)} tensors for "
-                             f"{at} parameters")
         return loss

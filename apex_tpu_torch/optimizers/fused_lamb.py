@@ -42,8 +42,9 @@ def bias_corrections(beta1: float, beta2: float, steps: torch.Tensor,
     t = steps.float()
     if not bias_correction:
         return torch.ones_like(t), torch.ones_like(t)
-    b1 = torch.tensor(beta1, dtype=torch.float32, device=t.device)
-    b2 = torch.tensor(beta2, dtype=torch.float32, device=t.device)
+    # made on the device: a host scalar copied up would wait for the stream
+    b1 = torch.full((), beta1, dtype=torch.float32, device=t.device)
+    b2 = torch.full((), beta2, dtype=torch.float32, device=t.device)
     return 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
 
 

@@ -30,17 +30,39 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             step's shapes, with the same timings and bounds, and the two
             backward kernels run twice for equal bits;
 8. train    gpt_small at full width and depth, amp O2 + FusedAdam
-            (lr 3e-4), B 8 x L 2048 on the synthetic stream of
-            ``examples/gpt_lm.py``, 10 steps from seeded weights: per-step
-            loss (finite, falling), step ms p50 over steps 3-10, tokens/s,
-            peak memory, launches per step of every kernel (the layer-norm
-            backward launches twice a call: dx, then the dw/db sum); then
+            (lr 3e-4, one K11 launch a step), B 8 x L 2048 on the
+            synthetic stream of ``examples/gpt_lm.py``, 10 steps from
+            seeded weights: per-step loss (finite, falling), step ms p50
+            over steps 3-10, tokens/s, peak memory, launches per step of
+            every kernel (the layer-norm backward launches twice a call:
+            dx, then the dw/db sum), the pointer rows uploaded; then
             one step with an injected non-finite gradient, which must be
             skipped on the card (masters and moments unchanged, scale
             halved);
 9. train reference  a 2-layer, 2 x 64-head model, 3 steps on the card
             against the same on the CPU (plain versions): fp32 O0, and bf16
             O3 (no master weights: Adam steps the bf16 parameters);
+   multi_tensor_kernels  axpby (K10), the whole-tree Adam (K11) and the
+            per-tensor sums of squares (K12) against their plain versions
+            at gpt_small's 148 leaves (K12 also at bert_large's 303): K10
+            bitwise for every arg_to_check with an inf in x, then in y, and
+            in place; K11 bitwise (fp32 g with bf16 copies; bf16 p and g)
+            and equal to K5 leaf by leaf, nothing written under the noop
+            flag; K12 within 1e-6 relative; all repeat bitwise; kernel /
+            plain / library times and the bounds;
+   accum    gpt_small O2 + FusedAdam with ``accum_steps=4`` over B 32 x L
+            2048 (micro-batches of 8), 10 steps: losses, step p50,
+            tokens/s, peak memory, the exact launches per step (K10 4, K6
+            148, K11 1, K5 0, 4 x the passes' kernels, K12 1 for the
+            per-leaf gradient norms logged each step), pointer-row uploads
+            per step, one profiled step, and a step whose micro-batch 1 is
+            non-finite, skipped on the card;
+   accum_reference  a 2-layer fp32 GPT at O0 with ``accum_steps=2``, 3
+            steps, card against CPU;
+   fp16_optimizer  gpt_small at B 8 x L 2048 under ``FP16Optimizer(
+            dynamic_loss_scale=True, max_grad_norm=1.0)``, 5 steps of one K5
+            and one K9 launch each, an injected overflow skipped on the
+            card, and a 2-layer model's steps card against CPU;
 10. bert kernels  the BERT slice's kernels against their plain versions:
             LAMB stage 1 and 2 and the global sum of squares over
             bert_large's 303 fp32 master leaves with bf16 copies (bitwise
@@ -610,6 +632,10 @@ def _leaf_shapes(cfg):
 
 
 def _adam_case(cfg, rng):
+    """K5 over ``cfg``'s leaves launched leaf by leaf and over one flat
+    buffer of all their elements (FP16Optimizer's one launch a step),
+    against its plain version: bitwise, the noop flag; timings of both
+    forms."""
     import torch
     from apex_tpu_torch.ops.cuda import packed_adam, packed_adam_ref
     dev = torch.device("cuda")
@@ -642,6 +668,7 @@ def _adam_case(cfg, rng):
                 for a, b in zip(xs, ys))
     err = max(_max_err(a, b) for a, b in zip(p, twins[0]))
     require(equal, f"packed_adam differs from its plain version ({err})")
+    del twins
     flag.fill_(1)
     before = [t.clone() for t in p[:4]]
     run(packed_adam, p, m, v, copies)
@@ -649,32 +676,54 @@ def _adam_case(cfg, rng):
     require(all(torch.equal(a, b) for a, b in zip(p, before)),
             "packed_adam wrote with the noop flag set")
     flag.zero_()
-    ms = time_ms(lambda: run(packed_adam, p, m, v, copies))
-    plain = time_ms(lambda: run(packed_adam_ref, p, m, v, copies))
-    lp = [t.clone().requires_grad_() for t in p]
-    for t, gg in zip(lp, g):
-        t.grad = gg
+    ms148 = time_ms(lambda: run(packed_adam, p, m, v, copies))
+    # the flat form: one launch over every element, as FP16Optimizer runs
+    flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in (p, m, v, g)]
+    fc = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    twin = [t.clone() for t in flat[:3]] + [fc.clone()]
+    packed_adam(*flat, sizes[:1], scale, flag, p_copy=fc, **kw)
+    packed_adam_ref(*twin[:3], flat[3], sizes[:1], scale, flag,
+                    p_copy=twin[3], **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(flat[:3] + [fc], twin)),
+            "packed_adam over the flat buffer differs from its plain "
+            "version")
+    del twin
+    ms = time_ms(lambda: packed_adam(*flat, sizes[:1], scale, flag,
+                                     p_copy=fc, **kw))
+    plain = time_ms(lambda: packed_adam_ref(*flat, sizes[:1], scale, flag,
+                                            p_copy=fc, **kw))
+    lp = [flat[0].clone().requires_grad_()]
+    lp[0].grad = flat[3]
     opt = torch.optim.Adam(lp, lr=3e-4, fused=True)
     lib = time_ms(opt.step)
+    del lp, opt, flat, fc
     b_ms, b_by = bound(30.0 * n, 15.0 * n, PEAK_FP32_FLOPS)
     return _kernel_rec(kernel="packed_adam", leaves=len(shapes), elements=n,
+                       shape=f"one flat buffer of {n} elements",
                        p_copy="bfloat16", max_abs_err=err,
                        tolerance="bitwise equal to the plain version",
                        noop_flag_skips=True, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                       per="one optimizer step over every leaf")
+                       library_ms=lib, library_call="torch.optim.Adam("
+                       "fused=True).step() over the flat tensor",
+                       ms_148_launches_one_a_leaf=ms148, bound_ms=b_ms,
+                       bound_by=b_by, per="one FP16Optimizer step (one "
+                       "launch over the flat buffer)")
 
 
-def _scale_case(shapes, rng):
-    """K6 over one bf16 gradient per shape of ``shapes`` (a model's
-    leaves) against its plain version: bitwise, with and without one inf
-    leaf; timings."""
+def _scale_case(shapes, rng, in_place=False):
+    """K6 over one gradient per shape of ``shapes`` (a model's leaves)
+    against its plain version: bitwise, with and without one inf leaf;
+    timings.  By default bf16 -> fp32 out of place (amp's unscale of a
+    step's gradients); ``in_place``: fp32 over itself (the unscale of the
+    accumulated gradients, ``out`` aliasing ``x``)."""
     import torch
     from apex_tpu_torch.ops.cuda import packed_scale, packed_scale_ref
     dev = torch.device("cuda")
     n = sum(int(np.prod(s)) for s in shapes)
+    dt = torch.float32 if in_place else torch.bfloat16
     grads = [torch.as_tensor(rng.standard_normal(s, np.float32) * 1e3,
-                             device=dev).to(torch.bfloat16) for s in shapes]
+                             device=dev).to(dt) for s in shapes]
     inv = torch.full((1,), 2.0 ** -16, device=dev)
     results = {}
     for bad in (False, True):
@@ -682,26 +731,57 @@ def _scale_case(shapes, rng):
             grads[5].view(-1)[17] = float("inf")
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
         flag_ref = torch.zeros_like(flag)
-        outs = [packed_scale(g, inv, torch.float32, flag) for g in grads]
-        refs = [packed_scale_ref(g, inv, torch.float32, flag_ref)
-                for g in grads]
+        if in_place:
+            outs = [g.clone() for g in grads]
+            refs = [g.clone() for g in grads]
+            for o, r in zip(outs, refs):
+                packed_scale(o, inv, torch.float32, flag, out=o)
+                packed_scale_ref(r, inv, torch.float32, flag_ref, out=r)
+        else:
+            outs = [packed_scale(g, inv, torch.float32, flag) for g in grads]
+            refs = [packed_scale_ref(g, inv, torch.float32, flag_ref)
+                    for g in grads]
         torch.cuda.synchronize()
         require(int(flag) == int(flag_ref) == int(bad),
                 f"packed_scale flag {int(flag)} (plain {int(flag_ref)}), "
                 f"want {int(bad)}")
         require(all(torch.equal(a, b) for a, b in zip(outs, refs)),
-                "packed_scale differs from its plain version")
+                f"packed_scale ({dt}, in place {in_place}) differs from "
+                f"its plain version")
+        # the scale was applied: 2**-16 is exact away from underflow
+        require(torch.equal(outs[0], grads[0].float() * 2.0 ** -16),
+                "packed_scale did not apply the scale")
         results[bad] = int(flag)
+        del outs, refs
     grads[5].view(-1)[17] = 1.0
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: [packed_scale(g, inv, torch.float32, flag)
-                          for g in grads])
-    plain = time_ms(lambda: [packed_scale_ref(g, inv, torch.float32, flag)
-                             for g in grads])
+    # in place, each timed call scales the leaves again (toward zero and
+    # the subnormals, which the card reads and writes at the same rate)
+    out = grads if in_place else [None] * len(grads)
+    ms = time_ms(lambda: [packed_scale(g, inv, torch.float32, flag, o)
+                          for g, o in zip(grads, out)])
+    plain = time_ms(lambda: [packed_scale_ref(g, inv, torch.float32, flag, o)
+                             for g, o in zip(grads, out)])
+    found = torch.zeros(1, device=dev)
+    if in_place:
+        # PyTorch's own unscale computes this function: fp32 in place,
+        # one found-inf flag
+        lib = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+            grads, found, inv))
+        b_ms, b_by = bound(8.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
+        return _kernel_rec(
+            kernel="packed_scale", leaves=len(shapes), elements=n,
+            shape=f"{len(shapes)} leaves, {n} elements",
+            dtype="float32 -> float32, in place", scale=2.0 ** -16,
+            max_abs_err=0.0, tolerance="bitwise equal to the plain version; "
+            "flag raised by the one inf leaf", flag_clean=results[False],
+            flag_with_inf=results[True], ms=ms, plain_ms=plain,
+            library_ms=lib, library_call="torch._amp_foreach_non_finite_"
+            "check_and_unscale_", bound_ms=b_ms, bound_by=b_by,
+            per="one unscale over every leaf")
     # PyTorch's own unscale takes no bf16 gradients (it unscales float
     # tensors in place): no call computes this function on these inputs,
     # so library_ms is null and the fp32 in-place call is timed beside it
-    found = torch.zeros(1, device=dev)
     one = torch.ones(1, device=dev)
     grads32 = [g.float() for g in grads]
     lib32 = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
@@ -710,7 +790,8 @@ def _scale_case(shapes, rng):
     b_ms, b_by = bound(6.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
     return _kernel_rec(kernel="packed_scale", leaves=len(shapes), elements=n,
                        shape=f"{len(shapes)} leaves, {n} elements",
-                       dtype="bfloat16 -> float32", max_abs_err=0.0,
+                       dtype="bfloat16 -> float32", scale=2.0 ** -16,
+                       max_abs_err=0.0,
                        tolerance="bitwise equal to the plain version; flag "
                                  "raised by the one inf leaf",
                        flag_clean=results[False], flag_with_inf=results[True],
@@ -733,7 +814,10 @@ def phase_train_kernels(cfg):
         _flash_bwd_case((2, 512, 12, 64), rng, masked=True, rope=False)]
     recs["flash_attn_fwd_rope"] = [_flash_rope_case((8, 2048, 12, 64), rng)]
     recs["packed_adam"] = [_adam_case(cfg, rng)]
-    recs["packed_scale"] = [_scale_case(_leaf_shapes(cfg), rng)]
+    # bf16 -> fp32 (train), then fp32 in place (accum's accumulators)
+    recs["packed_scale"] = [_scale_case(_leaf_shapes(cfg), rng),
+                            _scale_case(_leaf_shapes(cfg), rng,
+                                        in_place=True)]
     torch.cuda.empty_cache()
     return recs
 
@@ -755,11 +839,51 @@ def _gpt_loss(model, ids):
     return lm_loss(model(ids)[:, :-1], ids[:, 1:])
 
 
+#: the gpt_small O2 step's p50 measured by this script before FusedAdam
+#: went to K11 (148 K5 launches a step), on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W; printed beside this run's as a record, not compared
+PR3_TRAIN_P50_MS = 124.8
+
+#: every kernel's name with no launch
+NO_LAUNCHES = {k: 0 for k in (
+    "layer_norm_fwd", "flash_attn_fwd", "layer_norm_bwd", "flash_attn_bwd",
+    "packed_adam", "packed_scale", "lamb_stage1", "lamb_stage2",
+    "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor")}
+
+
+def gpt_pass_launches(cfg, micro_batches=1):
+    """Launches of ``micro_batches`` GPT forward and backward passes, and
+    none of any other kernel."""
+    lnc = 2 * cfg.num_layers + 1
+    return dict(NO_LAUNCHES, layer_norm_fwd=micro_batches * lnc,
+                flash_attn_fwd=micro_batches * cfg.num_layers,
+                # two launches a call: dx with partials, then the dw/db sum
+                layer_norm_bwd=micro_batches * 2 * lnc,
+                flash_attn_bwd=micro_batches * cfg.num_layers)
+
+
+def row_counts(tables):
+    """(lookups, uploads) of the pointer rows of ``tables``."""
+    return (sum(t.lookups for t in tables), sum(t.uploads for t in tables))
+
+
+def pointer_rows(first, tables, steps=TRAIN_STEPS):
+    """Pointer-row lookups and uploads in step 1 and in the later steps."""
+    now = row_counts(tables)
+    return dict(lookups_step_1=first[0], uploads_step_1=first[1],
+                lookups_later=now[0] - first[0],
+                uploads_later=now[1] - first[1],
+                uploads_per_later_step=(now[1] - first[1]) / (steps - 1))
+
+
 #: kernel-name fragments of the step's device time, by group
 PROFILE_GROUPS = (("flash_attn_bwd (K4)", ("flash_bwd",)),
                   ("flash_attn_fwd (K2)", ("flash_fwd",)),
                   ("layer_norm_bwd (K3)", ("ln_bwd",)),
                   ("layer_norm_fwd (K1)", ("ln_fwd",)),
+                  ("adam_tree (K11)", ("adam_tree_kernel",)),
+                  ("axpby (K10)", ("axpby_kernel",)),
+                  ("sumsq_per_tensor (K12)", ("sumsq_per_leaf_kernel",)),
                   ("packed_adam (K5)", ("adam_kernel",)),
                   ("packed_scale (K6)", ("scale_kernel",)),
                   ("lamb_stage1 (K7)", ("lamb_stage1",)),
@@ -826,7 +950,7 @@ def phase_train(cfg, tree):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, scales, overflows, times = [], [], [], []
-    for _ in range(TRAIN_STEPS):
+    for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         out = step(ids)
         torch.cuda.synchronize()
@@ -834,18 +958,18 @@ def phase_train(cfg, tree):
         losses.append(float(out["loss"]))
         scales.append(float(out["loss_scale"]))
         overflows.append(bool(out["overflow"]))
+        if i == 0:
+            rows_first = row_counts(opt.tables)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-    want = {"layer_norm_fwd": 2 * cfg.num_layers + 1,
-            "flash_attn_fwd": cfg.num_layers,
-            # two launches a call: dx with partials, then the dw/db sum
-            "layer_norm_bwd": 2 * (2 * cfg.num_layers + 1),
-            "flash_attn_bwd": cfg.num_layers,
-            "packed_adam": n_leaves, "packed_scale": n_leaves,
-            "lamb_stage1": 0, "lamb_stage2": 0, "packed_sumsq": 0}
+    want = dict(gpt_pass_launches(cfg), packed_scale=n_leaves,
+                packed_adam_tree=1)
     require(per_step == want, f"train launches per step {per_step}, want "
                               f"{want}")
+    rows = pointer_rows(rows_first, opt.tables)
+    require(rows["uploads_later"] == 0,
+            f"pointer rows uploaded after the first step: {rows}")
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     require(not any(overflows), f"overflow in the train steps: {overflows}")
@@ -880,13 +1004,24 @@ def phase_train(cfg, tree):
          lr=3e-4, batch=TRAIN_B, seq_len=TRAIN_L, steps=TRAIN_STEPS,
          losses=losses, loss_scales=scales, step_ms=[t * 1e3 for t in times],
          step_ms_p50_steps_3_to_10=p50, tokens_per_s=tokens / (p50 / 1e3),
+         record_step_ms_p50_before_k11=PR3_TRAIN_P50_MS,
          peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
-         leaves=n_leaves, profile=profile, injected_overflow={
+         pointer_rows=rows, leaves=n_leaves, profile=profile,
+         injected_overflow={
              "skipped": True, "loss_scale": [scale_before,
                                              float(info["loss_scale"])]})
     del a, opt, model, grads, masters
     torch.cuda.empty_cache()
     return counts
+
+
+def masters_np(a):
+    """An :class:`Amp`'s fp32 masters as ``{path: numpy array}``."""
+    import torch.utils._pytree as pytree
+    from apex_tpu_torch.convert import params_to_numpy
+    flat, _ = pytree.tree_flatten_with_path(params_to_numpy(a.masters))
+    return {tuple(k.key for k in path): np.asarray(v, np.float32)
+            for path, v in flat}
 
 
 def phase_train_reference():
@@ -896,18 +1031,13 @@ def phase_train_reference():
     gradients)."""
     import torch
     from apex_tpu_torch import amp
-    from apex_tpu_torch.convert import params_from_jax, params_to_numpy
+    from apex_tpu_torch.convert import params_from_jax
     from apex_tpu_torch.models import GPTConfig
     from apex_tpu_torch.optimizers import FusedAdam
     cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                     num_heads=2, intermediate_size=256)
     tree = gpt_small_tree(cfg, seed=3)
     ids = train_stream(cfg.vocab_size, 4, 128)
-
-    def leaves(t, pre=()):
-        for k, v in t.items():
-            yield from (leaves(v, pre + (k,)) if isinstance(v, dict)
-                        else [(pre + (k,), v)])
 
     out = {}
     for level in ("O0", "O3"):
@@ -920,8 +1050,7 @@ def phase_train_reference():
             step = amp.make_train_step(a, model, _gpt_loss)
             x = torch.as_tensor(ids, device=dev)
             losses = [float(step(x)["loss"]) for _ in range(3)]
-            masters = {k: np.asarray(v, np.float32) for k, v in
-                       leaves(params_to_numpy(a.masters))}
+            masters = masters_np(a)
             runs[dev] = (losses, masters,
                          {str(t.dtype) for t in a.masters.values()})
         (lg, pg, dg), (lc, pc, _) = runs["cuda"], runs["cpu"]
@@ -962,6 +1091,530 @@ TRAIN_REF_PARAM_TOL = 1e-4
 #: the bf16 parameters themselves are reported, not gated: a gradient
 #: near zero whose sign differs moves an element by up to 2 x lr a step
 TRAIN_REF_O3_LOSS_TOL = 2e-2
+
+
+# -- accumulation, the whole-tree Adam, FP16Optimizer --------------------
+
+def _fp32_leaves(shapes, gen, scale=1.0, dtype=None):
+    import torch
+    out = [torch.randn(s, generator=gen, device="cuda") * scale
+           for s in shapes]
+    return out if dtype is None else [t.to(dtype) for t in out]
+
+
+def _equal_nan(a, b) -> bool:
+    import torch
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def _axpby_case(shapes):
+    """K10 over gpt_small's 148 leaves as the accumulation runs it (bf16
+    scaled gradients x, fp32 accumulators y, out = y) against its plain
+    version: bitwise for arg_to_check -1 / 0 / 1 with an inf in x, then
+    in y, and in place; repeats; timings."""
+    import torch
+    from apex_tpu_torch.ops.cuda import packed_axpby, packed_axpby_ref
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = _fp32_leaves(shapes, gen, 1e3, torch.bfloat16)
+    y = _fp32_leaves(shapes, gen)
+    n = sum(t.numel() for t in x)
+    table = ChunkTable.of(x)
+    a = torch.ones(1, device=dev)
+    b = torch.ones(1, device=dev)
+    flags = {}
+    for bad in (None, "x", "y"):
+        if bad == "x":
+            x[5].view(-1)[17] = float("inf")
+        if bad == "y":
+            x[5].view(-1)[17] = 1.0
+            y[9].view(-1)[3] = float("inf")
+        for arg in (-1, 0, 1):
+            outs = []
+            for fn in (packed_axpby, packed_axpby_ref):
+                out = [torch.empty_like(t) for t in y]
+                flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                fn(table, x, y, a, b, flag, out, arg_to_check=arg)
+                outs.append((out, int(flag)))
+            want = {None: 0, "x": int(arg in (-1, 0)),
+                    "y": int(arg in (-1, 1))}[bad]
+            require(outs[0][1] == outs[1][1] == want,
+                    f"packed_axpby flag {outs[0][1]} (plain {outs[1][1]}) "
+                    f"with an inf in {bad}, arg_to_check {arg}: want {want}")
+            require(all(_equal_nan(p_, q) for p_, q in
+                        zip(outs[0][0], outs[1][0])),
+                    f"packed_axpby differs from its plain version (inf in "
+                    f"{bad}, arg_to_check {arg})")
+            flags[f"inf_in_{bad}_check_{arg}"] = outs[0][1]
+            del outs
+    y[9].view(-1)[3] = 0.0
+    # in place (out = y), twice from the same state for equal bits
+    runs = []
+    for fn in (packed_axpby, packed_axpby, packed_axpby_ref):
+        acc = [t.clone() for t in y]
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(table, x, acc, a, b, flag, acc)
+        runs.append(acc)
+    torch.cuda.synchronize()
+    require(all(torch.equal(p_, q) for p_, q in zip(runs[0], runs[1])),
+            "packed_axpby: two runs differ")
+    require(all(torch.equal(p_, q) for p_, q in zip(runs[0], runs[2])),
+            "packed_axpby in place differs from its plain version")
+    del runs
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: packed_axpby(table, x, y, a, b, flag, y))
+    plain = time_ms(lambda: packed_axpby_ref(table, x, y, a, b, flag, y))
+    lib = time_ms(lambda: torch._foreach_add_(y, x))
+    b_ms, b_by = bound(10.0 * n, 3.0 * n, PEAK_FP32_FLOPS)
+    return _kernel_rec(kernel="packed_axpby", leaves=len(shapes), elements=n,
+                       shape=f"{len(shapes)} leaves, {n} elements",
+                       dtype="bfloat16 x, float32 y and out (in place)",
+                       max_abs_err=0.0, flags=flags, bitwise_repeat=True,
+                       tolerance="bitwise equal to the plain version; flags "
+                                 "as arg_to_check says",
+                       ms=ms, plain_ms=plain, library_ms=lib,
+                       library_call="torch._foreach_add_(y, x)",
+                       bound_ms=b_ms, bound_by=b_by,
+                       per="one accumulation of a micro-batch's gradients")
+
+
+def _adam_tree_case(shapes, p_dtype, g_dtype, copy):
+    """K11 over one group of ``shapes`` against its plain version and K5
+    leaf by leaf: bitwise, twice; nothing written under the noop flag;
+    timings."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (packed_adam, packed_adam_tree,
+                                         packed_adam_tree_ref)
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    p = _fp32_leaves(shapes, gen, 0.05, p_dtype)
+    m = _fp32_leaves(shapes, gen, 1e-3)
+    v = [t.abs() for t in _fp32_leaves(shapes, gen, 1e-4)]
+    g = _fp32_leaves(shapes, gen, 1e-2, g_dtype)
+    n = sum(t.numel() for t in p)
+    table = ChunkTable.of(p)
+    sizes = torch.linspace(2e-4, 4e-4, len(shapes), device=dev)
+    scale = torch.ones(1, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+
+    def state():
+        return [[t.clone() for t in ts] for ts in (p, m, v)] + [
+            [torch.zeros_like(t, dtype=torch.bfloat16) for t in p]
+            if copy else None]
+    first = None
+    for how in ("kernel", "kernel", "plain", "k5"):
+        ps, ms_, vs, cs = state()
+        if how == "k5":
+            for i in range(len(shapes)):
+                packed_adam(ps[i], ms_[i], vs[i], g[i], sizes[i:i + 1],
+                            scale, flag, p_copy=None if cs is None
+                            else cs[i], **kw)
+        else:
+            fn = packed_adam_tree if how == "kernel" else \
+                packed_adam_tree_ref
+            fn(table, ps, ms_, vs, g, sizes, scale, flag, p_copy=cs, **kw)
+        torch.cuda.synchronize()
+        run = [ps, ms_, vs] + ([cs] if copy else [])
+        if first is None:
+            first = run
+            continue
+        require(all(torch.equal(a_, b_) for xs, ys in zip(first, run)
+                    for a_, b_ in zip(xs, ys)),
+                f"packed_adam_tree ({p_dtype} p, {g_dtype} g) differs from "
+                f"the {how} run")
+        del run
+    kept = [[t.clone() for t in ts[:12]] for ts in first]
+    flag.fill_(1)
+    packed_adam_tree(table, *first[:3], g, sizes, scale, flag,
+                     p_copy=first[3] if copy else None, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a_, b_) for xs, ys in zip(first, kept)
+                for a_, b_ in zip(xs, ys)),
+            "packed_adam_tree wrote with the noop flag set")
+    flag.zero_()
+    ps, ms_, vs = first[:3]
+    cs = first[3] if copy else None
+    ms = time_ms(lambda: packed_adam_tree(table, ps, ms_, vs, g, sizes,
+                                          scale, flag, p_copy=cs, **kw))
+    plain = time_ms(lambda: packed_adam_tree_ref(
+        table, ps, ms_, vs, g, sizes, scale, flag, p_copy=cs, **kw))
+    lib = None
+    if p_dtype == torch.float32:
+        lp = [t.clone().requires_grad_() for t in ps]
+        for t, gg in zip(lp, g):
+            t.grad = gg
+        opt = torch.optim.Adam(lp, lr=3e-4, weight_decay=0.01, fused=True)
+        lib = time_ms(opt.step)
+        del lp, opt
+    per_elem = 4 * 4 + 3 * 4 + (2 if copy else 0) - (
+        2 if g_dtype == torch.bfloat16 else 0) - (
+        4 if p_dtype == torch.bfloat16 else 0)
+    b_ms, b_by = bound(per_elem * n, 15.0 * n, PEAK_FP32_FLOPS)
+    rec = dict(kernel="packed_adam_tree", leaves=len(shapes), elements=n,
+               chunks=table.n_chunks,
+               shape=f"{len(shapes)} leaves, {n} elements",
+               dtype=f"{str(p_dtype)[6:]} p, {str(g_dtype)[6:]} g, float32 "
+                     f"m, v" + (", bfloat16 copy" if copy else ""),
+               max_abs_err=0.0, bitwise_repeat=True, equals_k5_per_leaf=True,
+               noop_flag_skips=True,
+               tolerance="bitwise equal to the plain version and to K5 "
+                         "launched leaf by leaf",
+               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+               bound_by=b_by, bytes_per_element=per_elem,
+               per="one FusedAdam step over every leaf")
+    if lib is None:
+        rec["library_null_reason"] = ("torch.optim.Adam steps bf16 "
+                                      "parameters in bf16, not through "
+                                      "fp32 moments as this kernel does")
+    else:
+        rec["library_call"] = "torch.optim.Adam(fused=True).step()"
+    return _kernel_rec(**rec)
+
+
+def _sumsq_per_tensor_case(shapes, model):
+    """K12 over a model's fp32 leaves against its plain version: within
+    1e-6 relative per leaf, repeats bitwise; timings."""
+    import torch
+    from apex_tpu_torch.ops.cuda import sumsq_per_tensor, sumsq_per_tensor_ref
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    xs = _fp32_leaves(shapes, gen, 1e-2)
+    n = sum(t.numel() for t in xs)
+    table = ChunkTable.of(xs)
+    got = sumsq_per_tensor(table, xs)
+    again = sumsq_per_tensor(table, xs)
+    ref = sumsq_per_tensor_ref(table, xs)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "sumsq_per_tensor: two runs differ")
+    rel = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    require(rel <= 1e-6, f"sumsq_per_tensor off by {rel} (relative)")
+    ms = time_ms(lambda: sumsq_per_tensor(table, xs))
+    plain = time_ms(lambda: sumsq_per_tensor_ref(table, xs), budget_s=0.2)
+    lib = time_ms(lambda: torch._foreach_norm(xs))
+    b_ms, b_by = bound(4.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
+    return _kernel_rec(kernel="sumsq_per_tensor", model=model,
+                       leaves=len(shapes), elements=n, chunks=table.n_chunks,
+                       shape=f"{len(shapes)} leaves, {n} elements",
+                       dtype="float32", max_abs_err=float(
+                           (got - ref).abs().max()), rel_err=rel,
+                       bitwise_repeat=True,
+                       tolerance="rtol 1e-6 per leaf vs the plain sums "
+                                 "(another order)",
+                       ms=ms, plain_ms=plain, library_ms=lib,
+                       library_call="torch._foreach_norm (per-leaf norms)",
+                       bound_ms=b_ms, bound_by=b_by,
+                       per="one per-tensor norm call over every leaf")
+
+
+def phase_multi_tensor_kernels(cfg, bert_cfg):
+    """K10, K11 and K12 against their plain versions at gpt_small's 148
+    leaves (K12 also at bert_large's 303)."""
+    import torch
+    shapes = _leaf_shapes(cfg)
+    recs = {"packed_axpby": _axpby_case(shapes)}
+    torch.cuda.empty_cache()
+    # the O2 path (fp32 masters and gradients, bf16 copies), then O3's
+    # (bf16 parameters stepped with bf16 gradients)
+    recs["packed_adam_tree"] = [
+        _adam_tree_case(shapes, torch.float32, torch.float32, True),
+        _adam_tree_case(shapes, torch.bfloat16, torch.bfloat16, False)]
+    torch.cuda.empty_cache()
+    recs["sumsq_per_tensor"] = [
+        _sumsq_per_tensor_case(shapes, "gpt_small"),
+        _sumsq_per_tensor_case(_leaf_shapes(bert_cfg), "bert_large")]
+    torch.cuda.empty_cache()
+    return recs
+
+
+ACCUM_STEPS = 4
+ACCUM_B = 32
+
+
+def _gpt_loss_poisoned(model, ids, poison):
+    """``_gpt_loss`` times ``1 + sum(poison)``: 1 exactly for a zero
+    poison row, a non-finite loss (and gradients) for an inf one."""
+    return _gpt_loss(model, ids) * (1.0 + poison.float().sum())
+
+
+def phase_accum(cfg, tree):
+    """gpt_small O2 + FusedAdam with ``accum_steps=4`` over B 32 x L 2048
+    (micro-batches of the train phase's 8 x 2048): per step K10 4, K6 a
+    leaf, K11 1, K5 0, 4 x a pass's forward and backward kernels, and the
+    per-leaf gradient norms a trainer logs (K12 1); then one step whose
+    micro-batch 1 is non-finite, skipped on the card."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.multi_tensor_apply import multi_tensor_applier
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.ops.multi_tensor import (cached_tables,
+                                                 multi_tensor_l2norm)
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt, opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss, accum_steps=ACCUM_STEPS)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, ACCUM_B, TRAIN_L),
+                          device="cuda")
+    n_leaves = len(a.params)
+
+    def tables():
+        return cached_tables() + opt.tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, scales, overflows, times, norms, rows = [], [], [], [], [], []
+    for i in range(TRAIN_STEPS):
+        before = row_counts(tables())
+        t0 = time.perf_counter()
+        out = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = row_counts(tables())
+        rows.append([after[0] - before[0], after[1] - before[1]])
+        total, per = multi_tensor_applier(multi_tensor_l2norm,
+                                          [a.grad_buffers()], True)
+        norms.append([float(total), float(per.max())])
+        losses.append(float(out["loss"]))
+        scales.append(float(out["loss_scale"]))
+        overflows.append(bool(out["overflow"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: c / TRAIN_STEPS for k, c in counts.items()}
+    want = dict(gpt_pass_launches(cfg, ACCUM_STEPS), packed_axpby=ACCUM_STEPS,
+                packed_scale=n_leaves, packed_adam_tree=1,
+                sumsq_per_tensor=1)
+    require(per_step == want, f"accum launches per step {per_step}, want "
+                              f"{want}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(not any(overflows), f"overflow in the accum steps: {overflows}")
+    require(all(np.isfinite(norms).all(axis=1)), f"norms: {norms}")
+    # after step 1 only the fresh gradients of each micro-batch may need a
+    # row (the accumulators, masters, moments and copies keep theirs)
+    require(all(r[1] <= ACCUM_STEPS for r in rows[1:]),
+            f"pointer rows uploaded per step: {rows}")
+    p50 = float(np.median(times[2:])) * 1e3
+    tokens = ACCUM_B * TRAIN_L
+    profile = profile_step(step, ids)
+    # one step with a non-finite micro-batch: skipped on the card
+    poisoned = amp.make_train_step(a, model, _gpt_loss_poisoned,
+                                   accum_steps=ACCUM_STEPS)
+    poison = torch.zeros(ACCUM_B, device="cuda")
+    per_micro = ACCUM_B // ACCUM_STEPS
+    poison[per_micro:2 * per_micro] = float("inf")
+    masters = {k: t.clone() for k, t in a.masters.items()}
+    scale_before = float(a.scaler_state.loss_scale)
+    info = poisoned(ids, poison)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"]), "the non-finite micro-batch was not seen")
+    require(float(info["loss_scale"]) == scale_before / 2,
+            "the scale did not halve on overflow")
+    require(all(torch.equal(masters[k], t) for k, t in a.masters.items()),
+            "masters changed on a skipped accumulated step")
+    emit("accum", model="gpt_small", opt_level="O2", optimizer="FusedAdam",
+         lr=3e-4, accum_steps=ACCUM_STEPS, batch=ACCUM_B,
+         micro_batch=per_micro, seq_len=TRAIN_L, steps=TRAIN_STEPS,
+         losses=losses, loss_scales=scales, step_ms=[t * 1e3 for t in times],
+         step_ms_p50_steps_3_to_10=p50, tokens_per_s=tokens / (p50 / 1e3),
+         peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
+         leaves=n_leaves, grad_norm_and_max_leaf_norm=norms,
+         pointer_rows_per_step=rows, profile=profile,
+         injected_overflow={"micro_batch": 1, "skipped": True,
+                            "loss_scale": [scale_before,
+                                           float(info["loss_scale"])]})
+    del a, opt, model, masters, step, poisoned
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_accum_reference():
+    """A 2-layer fp32 GPT at O0 with ``accum_steps=2``, 3 steps, the card
+    (kernels) against the CPU (plain versions) from the same weights,
+    within the train reference's bounds."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    tree = gpt_small_tree(cfg, seed=4)
+    ids = train_stream(cfg.vocab_size, 8, 128)
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, cfg, device=dev, trainable=True)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O0", device=dev)
+        step = amp.make_train_step(a, model, _gpt_loss, accum_steps=2)
+        x = torch.as_tensor(ids, device=dev)
+        losses = [float(step(x)["loss"]) for _ in range(3)]
+        runs[dev] = (losses, masters_np(a))
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(x - y) for x, y in zip(lg, lc))
+    param_err = max(float(np.abs(v - pc[k]).max()) for k, v in pg.items())
+    require(all(np.isfinite(lg)) and lg[-1] < lg[0],
+            f"accumulated losses on the card: {lg}")
+    require(loss_err <= 1e-4, f"accumulated fp32 losses card vs CPU differ "
+                              f"by {loss_err}")
+    require(param_err <= TRAIN_REF_PARAM_TOL,
+            f"accumulated fp32 masters card vs CPU differ by {param_err}")
+    emit("accum_reference", steps=3, accum_steps=2, opt_level="O0",
+         dtype="float32", losses_card=lg, losses_cpu=lc,
+         loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+         loss_tolerance=1e-4, param_tolerance=TRAIN_REF_PARAM_TOL)
+
+
+FP16_STEPS = 5
+
+
+def _fp16_steps(model, opt, x, steps):
+    """``steps`` FP16Optimizer steps of the GPT loss; per step the loss,
+    the step's info (host floats) and its wall seconds."""
+    import torch
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = _gpt_loss(model, x)
+        grads = torch.autograd.grad(opt.scale_loss(loss), opt.model_params)
+        info = opt.step(grads)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        out.append((float(loss.detach()),
+                    {k: float(v) for k, v in info.items()},
+                    time.perf_counter() - t0))
+    return out
+
+
+def _flat_sumsq_case(grads):
+    """K9 as ``FP16Optimizer.step`` runs it: over the scaled half gradients
+    copied into one flat fp32 buffer, a one-leaf chunk table, against its
+    plain version (rtol 1e-5, another order) and repeating bitwise;
+    timings."""
+    import torch
+    from apex_tpu_torch.ops.cuda import packed_sumsq, packed_sumsq_ref
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    n = flat.numel()
+    table = ChunkTable([n], flat.device)
+    s = packed_sumsq(table, [flat])
+    s_again = packed_sumsq(table, [flat])
+    s_ref = packed_sumsq_ref(table, [flat])
+    torch.cuda.synchronize()
+    require(torch.equal(s, s_again), "packed_sumsq (flat): two runs differ")
+    rel = float((s - s_ref).abs()) / float(s_ref)
+    require(bool(torch.isfinite(s)) and rel <= 1e-5,
+            f"packed_sumsq (flat) off by {rel} (relative)")
+    ms = time_ms(lambda: packed_sumsq(table, [flat]))
+    plain = time_ms(lambda: packed_sumsq_ref(table, [flat]), budget_s=0.2)
+    lib = time_ms(lambda: torch.dot(flat, flat))
+    b_ms, b_by = bound(4.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
+    del flat
+    return _kernel_rec(
+        kernel="packed_sumsq", dtype="float32", leaves=1, elements=n,
+        chunks=table.n_chunks, chunk_size=table.chunk_size,
+        shape=f"one flat buffer of {n} elements (the scaled gradients of "
+              f"{len(grads)} leaves)", sumsq=float(s),
+        max_abs_err=float((s - s_ref).abs()), rel_err=rel,
+        tolerance="rtol 1e-5 vs the plain sum (another order)",
+        bitwise_repeat=True, ms=ms, plain_ms=plain, library_ms=lib,
+        library_call="torch.dot(flat, flat)", bound_ms=b_ms, bound_by=b_by,
+        per="one FP16Optimizer step's gradient norm")
+
+
+def phase_fp16_optimizer(cfg, tree):
+    """gpt_small at B 8 x L 2048 under ``FP16Optimizer(dynamic_loss_scale=
+    True, max_grad_norm=1.0)``: 5 steps, each one K5 and one K9 launch
+    beside the forward and backward kernels; one injected overflow
+    skipped on the card; then a 2-layer model's same steps on the card
+    against the CPU."""
+    import torch
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FP16Optimizer
+    model = params_from_jax(tree, cfg, trainable=True)
+    opt = FP16Optimizer(model, lr=3e-4, dynamic_loss_scale=True,
+                        max_grad_norm=1.0)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    runs = _fp16_steps(model, opt, ids, FP16_STEPS)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: c / FP16_STEPS for k, c in counts.items()}
+    want = dict(gpt_pass_launches(cfg), packed_adam=1, packed_sumsq=1)
+    require(per_step == want, f"fp16_optimizer launches per step "
+                              f"{per_step}, want {want}")
+    losses = [r[0] for r in runs]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"fp16_optimizer losses: {losses}")
+    require(not any(r[1]["overflow"] for r in runs),
+            "overflow in the fp16_optimizer steps")
+    loss = _gpt_loss(model, ids)
+    grads = list(torch.autograd.grad(opt.scale_loss(loss),
+                                     opt.model_params))
+    k9 = _flat_sumsq_case(grads)
+    # an injected overflow: the flat master and the step count stay
+    grads[3].view(-1)[0] = float("inf")
+    master = opt.master.clone()
+    steps_before = int(opt.step_count)
+    scale_before = float(opt.loss_scale)
+    info = opt.step(grads)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"]), "the injected inf was not seen")
+    require(float(info["loss_scale"]) == scale_before / 2,
+            "the scale did not halve on overflow")
+    require(torch.equal(opt.master, master)
+            and int(opt.step_count) == steps_before,
+            "the flat master or the step count changed on a skipped step")
+    p50 = float(np.median([r[2] for r in runs[1:]])) * 1e3
+    del model, opt, grads, master
+    torch.cuda.empty_cache()
+    # the same steps on a 2-layer model, card against CPU
+    small = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                      num_heads=2, intermediate_size=256)
+    small_tree = gpt_small_tree(small, seed=5)
+    ref = {}
+    for dev in ("cuda", "cpu"):
+        m = params_from_jax(small_tree, small, device=dev, trainable=True)
+        o = FP16Optimizer(m, lr=3e-3, dynamic_loss_scale=True,
+                          max_grad_norm=1.0, device=dev)
+        x = torch.as_tensor(train_stream(small.vocab_size, 4, 128),
+                            device=dev)
+        r = _fp16_steps(m, o, x, 3)
+        ref[dev] = ([q[0] for q in r], [q[1]["grad_norm"] for q in r])
+    loss_err = max(abs(p_ - q) for p_, q in zip(ref["cuda"][0],
+                                                ref["cpu"][0]))
+    norm_rel = max(abs(p_ - q) / q for p_, q in zip(ref["cuda"][1],
+                                                    ref["cpu"][1]))
+    require(loss_err <= TRAIN_REF_O3_LOSS_TOL,
+            f"fp16_optimizer losses card vs CPU differ by {loss_err}")
+    require(norm_rel <= TRAIN_REF_O3_LOSS_TOL,
+            f"fp16_optimizer grad norms card vs CPU differ by {norm_rel}")
+    emit("fp16_optimizer", model="gpt_small", optimizer="FP16Optimizer",
+         lr=3e-4, dynamic_loss_scale=True, max_grad_norm=1.0,
+         batch=TRAIN_B, seq_len=TRAIN_L, steps=FP16_STEPS, losses=losses,
+         grad_norms=[r[1]["grad_norm"] for r in runs],
+         loss_scales=[r[1]["loss_scale"] for r in runs],
+         step_ms=[r[2] * 1e3 for r in runs], step_ms_p50_steps_2_to_5=p50,
+         peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
+         injected_overflow={"skipped": True, "loss_scale": [
+             scale_before, float(info["loss_scale"])]},
+         reference=dict(model="2 layers, 2 x 64 heads", steps=3,
+                        losses_card=ref["cuda"][0], losses_cpu=ref["cpu"][0],
+                        loss_max_abs_err=loss_err,
+                        grad_norm_max_rel_err=norm_rel,
+                        tolerance=TRAIN_REF_O3_LOSS_TOL))
+    return counts, k9
 
 
 # -- the BERT slice -------------------------------------------------------
@@ -1242,11 +1895,12 @@ def phase_bert_train(cfg):
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: c / BERT_STEPS for k, c in counts.items()}
     lnc = 2 * cfg.num_layers + 2
-    want = {"layer_norm_fwd": lnc, "flash_attn_fwd": cfg.num_layers,
-            # two launches a call: dx with partials, then the dw/db sum
-            "layer_norm_bwd": 2 * lnc, "flash_attn_bwd": cfg.num_layers,
-            "packed_adam": 0, "packed_scale": n_leaves, "lamb_stage1": 1,
-            "lamb_stage2": 1, "packed_sumsq": 1}
+    want = dict(NO_LAUNCHES, layer_norm_fwd=lnc,
+                flash_attn_fwd=cfg.num_layers,
+                # two launches a call: dx with partials, then the dw/db sum
+                layer_norm_bwd=2 * lnc, flash_attn_bwd=cfg.num_layers,
+                packed_scale=n_leaves, lamb_stage1=1, lamb_stage2=1,
+                packed_sumsq=1)
     require(per_step == want, f"bert launches per step {per_step}, want "
                               f"{want}")
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
@@ -1308,7 +1962,7 @@ def phase_bert_train_reference():
     with a ragged key mask: fp32 O0, then bf16 O2."""
     import torch
     from apex_tpu_torch import amp
-    from apex_tpu_torch.convert import bert_params_from_jax, params_to_numpy
+    from apex_tpu_torch.convert import bert_params_from_jax
     from apex_tpu_torch.models import BertConfig
     from apex_tpu_torch.optimizers import FusedLAMB
     cfg = BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
@@ -1316,11 +1970,6 @@ def phase_bert_train_reference():
                      max_position_embeddings=128)
     tree = bert_tree(cfg, seed=6)
     arrays = mlm_batch(cfg.vocab_size, 4, 128, seed=7, ragged=True)
-
-    def leaves(t, pre=()):
-        for k, v in t.items():
-            yield from (leaves(v, pre + (k,)) if isinstance(v, dict)
-                        else [(pre + (k,), v)])
 
     out = {}
     for level in ("O0", "O2"):
@@ -1334,8 +1983,7 @@ def phase_bert_train_reference():
             step = amp.make_train_step(a, model, _bert_loss)
             batch = _bert_batch(arrays, dev)
             losses = [float(step(*batch)["loss"]) for _ in range(3)]
-            masters = {k: np.asarray(v, np.float32) for k, v in
-                       leaves(params_to_numpy(a.masters))}
+            masters = masters_np(a)
             runs[dev] = (losses, masters)
         (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
         require(all(np.isfinite(lg)) and lg[-1] < lg[0],
@@ -1407,9 +2055,13 @@ def main() -> int:
         train_recs = phase_train_kernels(cfg)
         train_counts = phase_train(cfg, tree)
         phase_train_reference()
-        del tree
         from apex_tpu_torch.models import bert_large
         bert_cfg = bert_large()
+        mt_recs = phase_multi_tensor_kernels(cfg, bert_cfg)
+        accum_counts = phase_accum(cfg, tree)
+        phase_accum_reference()
+        fp16_counts, fp16_k9 = phase_fp16_optimizer(cfg, tree)
+        del tree
         bert_recs = phase_bert_kernels(bert_cfg)
         bert_counts = phase_bert_train(bert_cfg)
         phase_bert_train_reference()
@@ -1419,6 +2071,8 @@ def main() -> int:
     by_path = {k: {"serve": serve_counts.get(k, 0),
                    "solo": solo_counts.get(k, 0),
                    "train": train_counts[k],
+                   "accum": accum_counts[k],
+                   "fp16_optimizer": fp16_counts[k],
                    "bert_train": bert_counts[k]} for k in bert_counts}
     ln_main = next(r for r in ln_recs if r["n1"] == 8
                    and r["dtype"] == "bfloat16")
@@ -1440,7 +2094,7 @@ def main() -> int:
              "apex_tpu_torch/csrc/flash_attn_bwd.cu",
              "apex_tpu/ops/pallas/flash_attention.py:477"),
             (train_recs["packed_adam"][0], train_recs["packed_adam"],
-             train_counts["packed_adam"], "apex_tpu_torch/csrc/adam.cu",
+             fp16_counts["packed_adam"], "apex_tpu_torch/csrc/adam.cu",
              "apex_tpu/ops/pallas/adam_kernel.py:216"),
             (train_recs["packed_scale"][0], train_recs["packed_scale"],
              train_counts["packed_scale"],
@@ -1452,10 +2106,21 @@ def main() -> int:
             (bert_recs["lamb_stage2"], [bert_recs["lamb_stage2"]],
              bert_counts["lamb_stage2"], "apex_tpu_torch/csrc/lamb.cu",
              "apex_tpu/ops/pallas/lamb_kernels.py:240"),
-            (bert_recs["packed_sumsq"], [bert_recs["packed_sumsq"]],
-             bert_counts["packed_sumsq"],
+            (bert_recs["packed_sumsq"],
+             [bert_recs["packed_sumsq"], fp16_k9], bert_counts["packed_sumsq"],
              "apex_tpu_torch/csrc/multi_tensor_sumsq.cu",
-             "apex_tpu/ops/pallas/multi_tensor_kernels.py:200")):
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:200"),
+            (mt_recs["packed_axpby"], [mt_recs["packed_axpby"]],
+             accum_counts["packed_axpby"],
+             "apex_tpu_torch/csrc/multi_tensor_axpby.cu",
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:124"),
+            (mt_recs["packed_adam_tree"][0], mt_recs["packed_adam_tree"],
+             train_counts["packed_adam_tree"], "apex_tpu_torch/csrc/adam.cu",
+             "apex_tpu/ops/pallas/adam_kernel.py:159"),
+            (mt_recs["sumsq_per_tensor"][0], mt_recs["sumsq_per_tensor"],
+             accum_counts["sumsq_per_tensor"],
+             "apex_tpu_torch/csrc/multi_tensor_sumsq.cu",
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:179")):
         entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
             launches=launches,
@@ -1476,6 +2141,17 @@ def main() -> int:
                                                    bert.get("n2")])
                                    for k in keys}
             entry["bert_shape"]["launches"] = bert_counts[rec["kernel"]]
+        if rec["kernel"] == "packed_scale":
+            entry["accum_in_place"] = {k: recs[1][k] for k in keys}
+            entry["accum_in_place"]["launches"] = accum_counts["packed_scale"]
+        if rec["kernel"] == "packed_sumsq":
+            entry["fp16_optimizer_flat"] = dict(
+                {k: fp16_k9[k] for k in keys}, rel_err=fp16_k9["rel_err"],
+                launches=fp16_counts["packed_sumsq"])
+        if rec["kernel"] in ("packed_adam_tree", "sumsq_per_tensor"):
+            other = recs[1]
+            entry["o3_bf16" if rec["kernel"] == "packed_adam_tree"
+                  else "bert_shape"] = {k: other.get(k) for k in keys}
         if rec.get("library_null_reason"):
             entry["library_null_reason"] = rec["library_null_reason"]
         summary.append(entry)

@@ -20,7 +20,10 @@ the total sum of squares are within ``rtol = 1e-5`` (sums in another
 order); stage 2's p within ``rtol = 1e-6, atol = 1e-7`` in fp32 and 1
 bf16 ulp in bf16 (its per-leaf norm sums differ in order, so the trust
 ratio may differ in its last bit); stages 1, 2 and the sum of squares
-repeat bitwise.
+repeat bitwise.  axpby (K10) and the whole-tree Adam (K11) equal their
+plain versions bit for bit, and K11 equals K5 run leaf by leaf; the
+per-tensor sums of squares (K12) are within ``rtol = 1e-6`` (another
+order) and repeat bitwise.
 """
 
 import numpy as np
@@ -42,10 +45,16 @@ from apex_tpu_torch.ops.cuda import (
     layer_norm_fwd_ref,
     packed_adam,
     packed_adam_ref,
+    packed_adam_tree,
+    packed_adam_tree_ref,
+    packed_axpby,
+    packed_axpby_ref,
     packed_scale,
     packed_scale_ref,
     packed_sumsq,
     packed_sumsq_ref,
+    sumsq_per_tensor,
+    sumsq_per_tensor_ref,
 )
 from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, ChunkTable
 from apex_tpu_torch.testing import BF16_CANCEL_ATOL, bf16_ulp_distance
@@ -361,6 +370,42 @@ def test_scale_kernel_equals_plain(cuda, in_dtype, out_dtype, bad):
     assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))
 
 
+@pytest.mark.parametrize("bad", [False, True])
+def test_scale_kernel_in_place_equals_plain(cuda, bad):
+    """fp32 over itself, the unscale of the accumulated gradients: out
+    aliases x, at several leaf sizes (vector path and scalar tail)."""
+    rng = np.random.RandomState(2)
+    xs = [_randn(rng, (n,), torch.float32, cuda) * 1e3
+          for n in (1, 7, 4096, 65537)]
+    if bad:
+        xs[2][5] = float("inf")
+    refs = [x.clone() for x in xs]
+    inv = torch.tensor([2.0 ** -16], device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    flag_ref = torch.zeros_like(flag)
+    for x, r in zip(xs, refs):
+        assert packed_scale(x, inv, torch.float32, flag, out=x) is x
+        packed_scale_ref(r, inv, torch.float32, flag_ref, out=r)
+    torch.cuda.synchronize()
+    assert int(flag) == int(flag_ref) == int(bad)
+    assert all(torch.equal(x, r) for x, r in zip(xs, refs))
+    # the scale was applied (|x| ~ 1e3 before it)
+    assert float(xs[3].abs().max()) < 1.0
+
+
+def test_sumsq_kernel_over_one_flat_leaf(cuda):
+    """K9 over one flat fp32 buffer (FP16Optimizer's one-leaf table):
+    within rtol 1e-5 of the plain sum, and repeating bitwise."""
+    rng = np.random.RandomState(3)
+    flat = _randn(rng, (3 * CHUNK_SIZE + 5,), torch.float32, cuda) * 300
+    table = ChunkTable([flat.numel()], cuda)
+    s, again = packed_sumsq(table, [flat]), packed_sumsq(table, [flat])
+    ref = packed_sumsq_ref(table, [flat])
+    torch.cuda.synchronize()
+    assert torch.equal(s, again)
+    torch.testing.assert_close(s, ref, rtol=1e-5, atol=0)
+
+
 #: opt level -> (flash_attn_bwd launches a call, loss tolerance card vs
 #: CPU): the fp32 backward kernel launches twice (dk/dv, then dq); bf16
 #: rounds at other places in cuBLAS and on the CPU
@@ -399,11 +444,13 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
         counts = launch_counts()
     n = len(list(model.parameters()))
     per_call, atol = TRAIN_LEVELS[opt_level]
+    # FusedAdam: one K11 launch a step over every leaf, no K5
     assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4,
                       "layer_norm_bwd": 20, "flash_attn_bwd": 4 * per_call,
-                      "packed_adam": 2 * n, "packed_scale": 2 * n,
+                      "packed_adam": 0, "packed_scale": 2 * n,
                       "lamb_stage1": 0, "lamb_stage2": 0,
-                      "packed_sumsq": 0}
+                      "packed_sumsq": 0, "packed_axpby": 0,
+                      "packed_adam_tree": 2, "sumsq_per_tensor": 0}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
     assert all(p.dtype == want_dtype for p in model.parameters())
     assert all(np.isfinite(losses["cuda"]))
@@ -619,7 +666,9 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
                       "packed_adam": 0,
                       "packed_scale": 2 * len(list(model.parameters())),
                       "lamb_stage1": 2,
-                      "lamb_stage2": 2, "packed_sumsq": 2}
+                      "lamb_stage2": 2, "packed_sumsq": 2,
+                      "packed_axpby": 0, "packed_adam_tree": 0,
+                      "sumsq_per_tensor": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=0)
 
@@ -655,3 +704,202 @@ def test_bert_o2_steps_upload_the_pointer_rows_once(cuda):
     assert opt.table.lookups == 4 * first[0]
     assert opt.table.uploads == first[1]
     assert np.isfinite(losses).all()
+
+
+#: leaf sizes of the multi-tensor tests: one element, around a chunk, a
+#: leaf of no elements, a ragged multi-chunk leaf, an odd tail
+MT_SIZES = [1, CHUNK_SIZE - 1, CHUNK_SIZE + 1, 0, 3 * CHUNK_SIZE + 5, 7]
+
+
+def _mt_leaves(rng, dtype, dev, scale=1.0, sizes=MT_SIZES):
+    return [_randn(rng, (n,), dtype, dev) * scale for n in sizes]
+
+
+@pytest.mark.parametrize("bad_in", [None, "x", "y"])
+@pytest.mark.parametrize("arg_to_check", [-1, 0, 1])
+@pytest.mark.parametrize("x_dtype,y_dtype,out_dtype,in_place", [
+    # the accumulation: bf16 gradients onto fp32 accumulators, in place
+    (torch.bfloat16, torch.float32, torch.float32, None),
+    (torch.bfloat16, torch.float32, torch.float32, "y"),
+    (torch.float32, torch.float32, torch.float32, None),
+    (torch.float32, torch.float32, torch.float32, "x"),
+    (torch.float32, torch.bfloat16, torch.bfloat16, None),
+    (torch.float32, torch.bfloat16, torch.bfloat16, "y")])
+def test_axpby_kernel_equals_plain(cuda, x_dtype, y_dtype, out_dtype,
+                                   in_place, arg_to_check, bad_in):
+    rng = np.random.RandomState(11)
+    x = _mt_leaves(rng, x_dtype, cuda, 100.0)
+    y = _mt_leaves(rng, y_dtype, cuda)
+    if bad_in == "x":
+        x[4][CHUNK_SIZE + 3] = float("inf")
+    elif bad_in == "y":
+        y[2][5] = float("nan")
+    table = ChunkTable.of(x)
+    a = torch.tensor([2.0 ** -12], device=cuda)
+    b = torch.tensor([0.75], device=cuda)
+    runs = []
+    for fn in (packed_axpby, packed_axpby, packed_axpby_ref):
+        xs, ys = [t.clone() for t in x], [t.clone() for t in y]
+        out = {"x": xs, "y": ys}.get(in_place) or [
+            torch.empty(t.shape, dtype=out_dtype, device=cuda) for t in x]
+        flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+        fn(table, xs, ys, a, b, flag, out, arg_to_check=arg_to_check)
+        runs.append((out, flag))
+    torch.cuda.synchronize()
+    want = {None: 0, "x": int(arg_to_check in (-1, 0)),
+            "y": int(arg_to_check in (-1, 1))}[bad_in]
+    for out, flag in runs:
+        assert int(flag) == want
+        for o, r in zip(out, runs[-1][0]):
+            assert torch.equal(o.isnan(), r.isnan())
+            assert torch.equal(torch.nan_to_num(o), torch.nan_to_num(r))
+
+
+@pytest.mark.parametrize("copy", [False, True])
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("eps_mode,weight_decay", [(0, 0.0), (1, 0.01)])
+def test_adam_tree_kernel_equals_plain_and_k5(cuda, eps_mode, weight_decay,
+                                              p_dtype, g_dtype, copy):
+    """K11 over the chunk table against its plain version and against K5
+    launched leaf by leaf: bitwise, twice; nothing written under the noop
+    flag."""
+    rng = np.random.RandomState(12)
+    p = _mt_leaves(rng, p_dtype, cuda)
+    m = _mt_leaves(rng, torch.float32, cuda, 0.1)
+    v = [t.abs() for t in _mt_leaves(rng, torch.float32, cuda, 0.01)]
+    g = _mt_leaves(rng, g_dtype, cuda)
+    copies = [torch.zeros(n, dtype=torch.bfloat16, device=cuda)
+              for n in MT_SIZES] if copy else None
+    table = ChunkTable.of(p)
+    sizes = torch.linspace(1e-3, 3e-3, len(MT_SIZES), device=cuda)
+    scale = torch.tensor([4.0], device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=weight_decay,
+              eps_mode=eps_mode)
+
+    def state():
+        return [[t.clone() for t in ls] for ls in (p, m, v)] + [
+            None if copies is None else [c.clone() for c in copies]]
+    runs = []
+    for fn in ("tree", "tree", "ref", "k5"):
+        ps, ms, vs, cs = state()
+        before = packed_adam_tree.launches
+        if fn == "k5":
+            for i, n in enumerate(MT_SIZES):
+                packed_adam(ps[i], ms[i], vs[i], g[i], sizes[i:i + 1],
+                            scale, flag, p_copy=None if cs is None
+                            else cs[i], **kw)
+        else:
+            (packed_adam_tree if fn == "tree" else packed_adam_tree_ref)(
+                table, ps, ms, vs, g, sizes, scale, flag, p_copy=cs, **kw)
+            assert packed_adam_tree.launches == before + (fn == "tree")
+        runs.append([ps, ms, vs] + ([cs] if cs is not None else []))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for xs, ys in zip(runs[0], other):
+            assert all(torch.equal(a, b) for a, b in zip(xs, ys))
+    flag.fill_(1)
+    kept = [[t.clone() for t in ls] for ls in runs[0]]
+    packed_adam_tree(table, *runs[0][:3], g, sizes, scale, flag,
+                     p_copy=runs[0][3] if copy else None, **kw)
+    torch.cuda.synchronize()
+    for xs, ys in zip(runs[0], kept):
+        assert all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sumsq_per_tensor_kernel_matches_plain(cuda, dtype):
+    rng = np.random.RandomState(13)
+    xs = _mt_leaves(rng, dtype, cuda, 3.0)
+    table = ChunkTable.of(xs)
+    before = sumsq_per_tensor.launches
+    got = sumsq_per_tensor(table, xs)
+    again = sumsq_per_tensor(table, xs)
+    ref = sumsq_per_tensor_ref(table, xs)
+    torch.cuda.synchronize()
+    assert sumsq_per_tensor.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+    assert float(got[3]) == 0.0
+    # the ticket is left at zero: K9 over the same table still works
+    torch.testing.assert_close(packed_sumsq(table, xs), ref.sum()
+                               .reshape(1), rtol=1e-5, atol=0)
+
+
+def _small_gpt(dev, state=None):
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    torch.manual_seed(0)
+    model = GPTModel(cfg, device=dev)
+    if state is not None:
+        model.load_state_dict(state)
+    return cfg, model
+
+
+def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
+    """``accum_steps=4`` at O2 over 8 rows: per step K10 4 (one a
+    micro-batch), K6 one a leaf, K11 1, K5 0, and 4 x the forward and
+    backward kernels of one micro-batch; the losses agree with the CPU's
+    within O2's 2e-2."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    state = _small_gpt("cpu")[1].state_dict()
+    ids = torch.as_tensor((np.arange(64)[None] + np.arange(8)[:, None] * 7)
+                          % 512)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        _, model = _small_gpt(dev, state)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O2", device=dev)
+        step = amp.make_train_step(
+            a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]),
+            accum_steps=4)
+        reset_launch_counts()
+        losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(2)]
+        counts = launch_counts()
+    n = len(list(model.parameters()))
+    assert counts == {"layer_norm_fwd": 2 * 4 * 5, "flash_attn_fwd": 2 * 4 * 2,
+                      "layer_norm_bwd": 2 * 4 * 10,
+                      "flash_attn_bwd": 2 * 4 * 2, "packed_adam": 0,
+                      "packed_scale": 2 * n, "lamb_stage1": 0,
+                      "lamb_stage2": 0, "packed_sumsq": 0,
+                      "packed_axpby": 2 * 4, "packed_adam_tree": 2,
+                      "sumsq_per_tensor": 0}
+    assert all(np.isfinite(losses["cuda"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
+                               rtol=0)
+
+
+def test_fp16_optimizer_step_is_one_k5_and_one_k9_launch(cuda):
+    from apex_tpu_torch.models import lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FP16Optimizer
+    state = _small_gpt("cpu")[1].state_dict()
+    ids = torch.as_tensor((np.arange(64)[None] + np.arange(4)[:, None] * 7)
+                          % 512)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, model = _small_gpt(dev, state)
+        opt = FP16Optimizer(model, lr=3e-3, dynamic_loss_scale=True,
+                            max_grad_norm=1.0, device=dev)
+        x = ids.to(dev)
+        for i in range(2):
+            loss = lm_loss(model(x)[:, :-1], x[:, 1:])
+            grads = torch.autograd.grad(opt.scale_loss(loss),
+                                        opt.model_params)
+            if i == 1:
+                reset_launch_counts()
+            info = opt.step(grads)
+            counts = launch_counts()
+        out[dev] = (float(loss.detach()), float(info["grad_norm"]),
+                    opt.master.cpu())
+    assert counts["packed_adam"] == 1 and counts["packed_sumsq"] == 1
+    assert sum(counts.values()) == 2
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-2
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=2e-2)

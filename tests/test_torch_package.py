@@ -115,7 +115,10 @@ def test_the_new_modules_are_covered_by_the_import_check():
             "apex_tpu_torch/ops/cuda/lamb.py",
             "apex_tpu_torch/ops/multi_tensor.py",
             "apex_tpu_torch/optimizers/fused_lamb.py",
-            "apex_tpu_torch/models/bert.py"} <= names
+            "apex_tpu_torch/models/bert.py",
+            "apex_tpu_torch/optimizers/fp16_optimizer.py",
+            "apex_tpu_torch/multi_tensor_apply/multi_tensor_apply.py",
+            "apex_tpu_torch/fp16_utils/fp16util.py"} <= names
 
 
 def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
@@ -135,3 +138,17 @@ def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
     back = bert_params_from_jax(tree, bert_tiny(), device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(back.parameters(), model.parameters()))
+
+
+def test_fp16_optimizer_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would use it")
+    from apex_tpu_torch.optimizers import FP16Optimizer
+    model = GPTModel(gpt_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FP16Optimizer(model)
+    opt = FP16Optimizer(model, device="cpu")
+    assert opt.master.dtype == torch.float32
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    with pytest.raises(ValueError, match="not cpu"):
+        FP16Optimizer([torch.zeros(3, device="meta")], device="cpu")
