@@ -3,8 +3,12 @@
 ``(B, L, H, D)`` through the flash kernels of
 :mod:`apex_tpu_torch.ops.cuda` (the CUDA kernels on the card, their plain
 versions on the CPU), differentiable through :class:`FlashAttention`, the
-counterpart of the JAX package's ``_flash`` custom VJP.  Ring and Ulysses
-sequence parallelism are not ported yet."""
+counterpart of the JAX package's ``_flash`` custom VJP.  Its backward is
+the fused flash backward (K4), or the two-pass one (K13 for dq, K14 for
+dk / dv) where K4's fp32 dq partial planes would exceed
+``APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES`` (1 GiB by default), as the JAX
+package routes it.  Ring and Ulysses sequence parallelism are not ported
+yet."""
 
 from __future__ import annotations
 
@@ -17,13 +21,14 @@ from apex_tpu_torch.ops.rope import KernelRopeTables
 
 
 class FlashAttention(torch.autograd.Function):
-    """``(o, lse)`` of the flash forward; the backward is the fused flash
-    backward kernel, with the semantics of ``_flash_fwd_rule`` /
-    ``_flash_bwd_rule``: it saves the unrotated q, k, v (the kernels
-    pre-scale and rotate q and k again on load, as they did in the
-    forward) with o and lse, returns dq with the one deferred scale, dk and
-    dv as they come out, and no gradient for the mask, the rope tables or
-    the options."""
+    """``(o, lse)`` of the flash forward; the backward is
+    :func:`~apex_tpu_torch.ops.cuda.flash_attn_bwd`, the fused backward
+    or, above the partials budget, the two-pass one, with the semantics
+    of ``_flash_fwd_rule`` / ``_flash_bwd_rule``: it saves the unrotated
+    q, k, v (the kernels pre-scale and rotate q and k again on load, as
+    they did in the forward) with o and lse, returns dq with the one
+    deferred scale, dk and dv as they come out, and no gradient for the
+    mask, the rope tables or the options."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, cos_t, sin_t, scale, causal):

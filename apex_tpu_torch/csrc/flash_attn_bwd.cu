@@ -1,8 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py, `_flash_bwd_fused` and
-// its kernel `_bwd_fused_kernel` (the one-pass backward the TPU picks while
-// the dq-partials buffer fits its budget).
+// its kernel `_bwd_fused_kernel` (K4: the one-pass backward the TPU picks
+// while the dq-partials buffer fits its budget), and, compiled without its
+// dq planes, `_flash_bwd`'s `_dkv_kernel` (K14: the dk / dv pass of the
+// two-pass backward taken above that budget; K13 in flash_attn_bwd_dq.cu
+// is its dq pass).
 //
 // Computes, for (B, L, H, D) q, k, v, do and the forward's lse (B, L, H)
 // fp32 and delta = rowsum(o * do) - dlse (B, L, H) fp32 (computed outside,
@@ -33,7 +36,11 @@
 // accumulate on chip (it is indexed by the q tile), so, as on the TPU, each
 // key tile writes its fp32 dQ contribution, already inverse-rotated, into
 // its own partial plane; the caller sums the planes in a fixed order.  No
-// atomics anywhere: two runs give equal bits.
+// atomics anywhere: two runs give equal bits.  The planes are
+// ceil(L / 64) * B * L * H * D * 4 bytes, growing with L^2, which is why the
+// wrapper gates K4 on their size.  K14 is the same block with `kDq` false:
+// the same dK / dV in the same order (bit-equal to K4's), no planes; it
+// bounds at 8 * D flops a visible pair (S, dP, dV, dK).
 //
 // fp32 inputs (tests, the fp32 reference) take two SIMT kernels: one warp
 // per key row for dK / dV (looping over the queries that see it) and one
@@ -44,35 +51,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_attn_bwd_tiles.cuh"
+
 namespace {
 
 using namespace nvcuda;
-
-constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPadH = 8;
-constexpr int kPadF = 4;
-
-struct Strides {  // in elements; the last dimension has stride 1
-  long long b, l, h;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float rot1(float x, float xr, float c, float s) {
-  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(xr, s));
-}
-
-__host__ __device__ constexpr size_t align128(size_t n) {
-  return (n + 127) / 128 * 128;
-}
+using namespace apex_fa;
 
 template <int D>
 struct Smem {
@@ -101,89 +85,7 @@ struct Smem {
                                                          : end_stage;
 };
 
-// Copy a (64, D) tile of a strided bf16 tensor into shared memory, zero past
-// L.  With `do_scale`, each value is multiplied by `scale` and rounded back
-// to bf16 (the wrapper's q pre-scale); with tables (cos_b / sin_b, this
-// batch's (L, D)), the row is then rotated in fp32 and rounded to bf16.
-template <int D>
-__device__ __forceinline__ void load_tile(
-    __nv_bfloat16* dst, const __nv_bfloat16* src, long long stride_l,
-    int row0, int L, bool do_scale, float scale,
-    const __nv_bfloat16* cos_b, const __nv_bfloat16* sin_b) {
-  constexpr int kVec = 8;
-  constexpr int kHalf = D / 2;
-  constexpr int kPerRow = kHalf / kVec;
-  for (int i = threadIdx.x; i < 64 * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
-    if (row0 + r < L) {
-      const long long row = row0 + r;
-      lo = *reinterpret_cast<const uint4*>(src + row * stride_l + c);
-      hi = *reinterpret_cast<const uint4*>(src + row * stride_l + c + kHalf);
-      __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&lo);
-      __nv_bfloat16* eh = reinterpret_cast<__nv_bfloat16*>(&hi);
-      if (do_scale) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          el[j] = __float2bfloat16(__bfloat162float(el[j]) * scale);
-          eh[j] = __float2bfloat16(__bfloat162float(eh[j]) * scale);
-        }
-      }
-      if (cos_b != nullptr) {
-        const uint4 cl = *reinterpret_cast<const uint4*>(cos_b + row * D + c);
-        const uint4 ch =
-            *reinterpret_cast<const uint4*>(cos_b + row * D + c + kHalf);
-        const uint4 sl = *reinterpret_cast<const uint4*>(sin_b + row * D + c);
-        const uint4 sh =
-            *reinterpret_cast<const uint4*>(sin_b + row * D + c + kHalf);
-        const __nv_bfloat16* ecl = reinterpret_cast<const __nv_bfloat16*>(&cl);
-        const __nv_bfloat16* ech = reinterpret_cast<const __nv_bfloat16*>(&ch);
-        const __nv_bfloat16* esl = reinterpret_cast<const __nv_bfloat16*>(&sl);
-        const __nv_bfloat16* esh = reinterpret_cast<const __nv_bfloat16*>(&sh);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const float xl = __bfloat162float(el[j]);
-          const float xh = __bfloat162float(eh[j]);
-          el[j] = __float2bfloat16(rot1(xl, xh, __bfloat162float(ecl[j]),
-                                        __bfloat162float(esl[j])));
-          eh[j] = __float2bfloat16(rot1(xh, xl, __bfloat162float(ech[j]),
-                                        __bfloat162float(esh[j])));
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::ldh + c) = lo;
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::ldh + c + kHalf) = hi;
-  }
-}
-
-// Inverse-rotate this warp's 16 fp32 staging rows in place (the rows'
-// tables; the same lane rotation with the sine negated).  Rows at or past
-// L are left as they are.
-template <int D>
-__device__ __forceinline__ void unrotate_rows(float* stage, int wrow,
-                                              int row0, int L,
-                                              const __nv_bfloat16* cos_b,
-                                              const __nv_bfloat16* sin_b) {
-  constexpr int kHalf = D / 2;
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < 16; ++r) {
-    const int pos = row0 + wrow + r;
-    if (pos >= L) break;
-    float* row = stage + (wrow + r) * Smem<D>::ldo;
-    const __nv_bfloat16* cr = cos_b + (long long)pos * D;
-    const __nv_bfloat16* sr = sin_b + (long long)pos * D;
-    for (int c = lane; c < kHalf; c += 32) {
-      const float lo = row[c], hi = row[c + kHalf];
-      row[c] = rot1(lo, hi, __bfloat162float(cr[c]),
-                    -__bfloat162float(sr[c]));
-      row[c + kHalf] = rot1(hi, lo, __bfloat162float(cr[c + kHalf]),
-                            -__bfloat162float(sr[c + kHalf]));
-    }
-  }
-}
-
-template <int D>
+template <int D, bool kDq>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
@@ -237,7 +139,6 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
 
   const int n_q = (L + kBQ - 1) / kBQ;
   const int first = causal ? k0 / kBQ : 0;
-  const long long plane = (long long)B * L * H * D;  // one dq partial plane
 
   for (int iq = first; iq < n_q; ++iq) {
     const int q0 = iq * kBQ;
@@ -317,40 +218,45 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
         wmma::mma_sync(dk_acc[df], sa, bf, dk_acc[df]);
       }
     }
-    __syncthreads();  // every warp's dS^T rows are in; S^T / dP^T are free
+    // dQ: only the fused backward (K4) writes it here; the two-pass route
+    // (K14) leaves it to K13.
+    if constexpr (kDq) {
+      __syncthreads();  // every warp's dS^T rows are in; S^T / dP^T are free
 
-    // dQ partial = dS K for this warp's 16 queries (dS read through dS^T
-    // as a column-major A), staged in fp32, inverse-rotated, written to
-    // this key tile's plane.
+      // dQ partial = dS K for this warp's 16 queries (dS read through dS^T
+      // as a column-major A), staged in fp32, inverse-rotated, written to
+      // this key tile's plane.
 #pragma unroll
-    for (int df = 0; df < kFr; ++df) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> qf;
-      wmma::fill_fragment(qf, 0.f);
+      for (int df = 0; df < kFr; ++df) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> qf;
+        wmma::fill_fragment(qf, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(af, dSt + kk * 16 * S::ldp + wrow, S::ldp);
-        wmma::load_matrix_sync(bf, Ks + kk * 16 * S::ldh + df * 16, S::ldh);
-        wmma::mma_sync(qf, af, bf, qf);
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::col_major> af;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> bf;
+          wmma::load_matrix_sync(af, dSt + kk * 16 * S::ldp + wrow, S::ldp);
+          wmma::load_matrix_sync(bf, Ks + kk * 16 * S::ldh + df * 16, S::ldh);
+          wmma::mma_sync(qf, af, bf, qf);
+        }
+        wmma::store_matrix_sync(stage + wrow * S::ldo + df * 16, qf, S::ldo,
+                                wmma::mem_row_major);
       }
-      wmma::store_matrix_sync(stage + wrow * S::ldo + df * 16, qf, S::ldo,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    if (cb != nullptr) {
-      unrotate_rows<D>(stage, wrow, q0, L, cb, sb);
       __syncwarp();
-    }
-    float* pbase = dq_part + ik * plane;
-    for (int r = 0; r < 16; ++r) {
-      const int qpos = q0 + wrow + r;
-      if (qpos >= L) break;
-      float* dst_row = pbase + (((long long)b * L + qpos) * H + h) * D;
-      for (int c = lane; c < D; c += 32)
-        dst_row[c] = stage[(wrow + r) * S::ldo + c];
+      if (cb != nullptr) {
+        unrotate_rows<D>(stage, wrow, q0, L, cb, sb);
+        __syncwarp();
+      }
+      // this key tile's partial plane of (B, L, H, D)
+      float* pbase = dq_part + ik * ((long long)B * L * H * D);
+      for (int r = 0; r < 16; ++r) {
+        const int qpos = q0 + wrow + r;
+        if (qpos >= L) break;
+        float* dst_row = pbase + (((long long)b * L + qpos) * H + h) * D;
+        for (int c = lane; c < D; c += 32)
+          dst_row[c] = stage[(wrow + r) * S::ldo + c];
+      }
     }
   }
 
@@ -522,7 +428,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < kCols; ++j) dq[at * D + lane + 32 * j] = acc[j];
 }
 
-template <int D>
+template <int D, bool kDq>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 const uint8_t* mask, const void* cos_t, const void* sin_t,
@@ -531,18 +437,10 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 int causal, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
   static unsigned configured = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = opt_in_smem(flash_bwd_bf16<D, kDq>, bytes, &configured);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 32 || !(configured & (1u << dev))) {
-    e = cudaFuncSetAttribute(flash_bwd_bf16<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 32) configured |= 1u << dev;
-  }
   const dim3 grid((L + kBK - 1) / kBK, B * H);
-  flash_bwd_bf16<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_bf16<D, kDq><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -614,13 +512,13 @@ extern "C" int apex_flash_attn_bwd(
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D == 64)
-      return launch_bf16<64>(q, k, v, dout, lp, dl, mask, cos_t, sin_t, dqp,
-                             dk, dv, sq, sk, sv, sd, B, H, L, scale, causal,
-                             s);
+      return launch_bf16<64, true>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
+                                   dqp, dk, dv, sq, sk, sv, sd, B, H, L,
+                                   scale, causal, s);
     if (D == 128)
-      return launch_bf16<128>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
-                              dqp, dk, dv, sq, sk, sv, sd, B, H, L, scale,
-                              causal, s);
+      return launch_bf16<128, true>(q, k, v, dout, lp, dl, mask, cos_t,
+                                    sin_t, dqp, dk, dv, sq, sk, sv, sd, B, H,
+                                    L, scale, causal, s);
   } else if (dtype == 0) {
     if (D == 64)
       return launch_f32<64>(q, k, v, dout, lp, dl, mask, cos_t, sin_t, dqp,
@@ -631,5 +529,34 @@ extern "C" int apex_flash_attn_bwd(
                              dk, dv, sq, sk, sv, sd, B, H, L, scale, causal,
                              s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K14, the dk / dv pass of the two-pass backward: the bf16 kernel above
+// without its dq partial planes.  The operands as apex_flash_attn_bwd's in
+// bf16; no dq.  Returns the cudaError_t of the launch.
+extern "C" int apex_flash_attn_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* kv_mask,
+    const void* cos_t, const void* sin_t, void* dk, void* dv, long long sqb,
+    long long sql, long long sqh, long long skb, long long skl,
+    long long skh, long long svb, long long svl, long long svh,
+    long long sdb, long long sdl, long long sdh, int B, int L, int H, int D,
+    float scale, int causal, void* stream) {
+  const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh}, sv{svb, svl, svh},
+      sd{sdb, sdl, sdh};
+  const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return launch_bf16<64, false>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
+                                  nullptr, dk, dv, sq, sk, sv, sd, B, H, L,
+                                  scale, causal, s);
+  if (D == 128)
+    return launch_bf16<128, false>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
+                                   nullptr, dk, dv, sq, sk, sv, sd, B, H, L,
+                                   scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

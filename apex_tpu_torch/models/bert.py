@@ -14,7 +14,7 @@ no causal mask, the attention mask as the kernels' key mask.  The JAX
 model's head-major and split branches hold the same parameters and
 compute the same function; the port has the one.  ``scan_layers`` only
 changes the JAX parameter layout (the converter unstacks it); ``remat``
-is not ported.
+recomputes each layer in the backward, as GPT's does.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from torch import nn
 
 from apex_tpu_torch.attention import attention
 from apex_tpu_torch.layers import Dense, Embed
-from apex_tpu_torch.models.gpt import gelu
+from apex_tpu_torch.models.gpt import gelu, run_layer
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 
@@ -47,7 +47,8 @@ class BertConfig:
     #: the JAX parameter layout only (one stacked ``layers/layer``
     #: subtree); the port's layers are a loop either way
     scan_layers: bool = False
-    #: activation recomputation in the backward: not ported
+    #: recompute each layer's activations in the backward
+    #: (``torch.utils.checkpoint``, the JAX model's ``nn.remat``)
     remat: bool = False
 
     @property
@@ -131,10 +132,6 @@ class BertModel(nn.Module):
                  device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device, allow_meta=True)
-        if cfg.remat:
-            raise NotImplementedError(
-                "BertConfig.remat: activation recomputation is not ported "
-                "to apex_tpu_torch yet (ROADMAP Queue 1, the BERT slice)")
         self.cfg = cfg
         e = cfg.hidden_size
         self.tok_emb = Embed(cfg.vocab_size, e, dtype=dtype, device=device)
@@ -164,7 +161,7 @@ class BertModel(nn.Module):
             + self.seg_emb(token_type_ids)
         x = self.emb_ln(x)
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            x = run_layer(layer, self.cfg.remat, x, attention_mask)
         return x
 
 

@@ -4,7 +4,11 @@ Parameters are named as the flax tree names them (``tok_emb``,
 ``block_{i}/{ln1, attention/{qkv, out}, ln2, ffn_in, ffn_out}``,
 ``ln_f``, ``lm_head``), so :mod:`apex_tpu_torch.convert` copies a JAX
 checkpoint across by name.  Layers are a Python loop over block modules
-(the JAX package's ``scan_layers`` has no counterpart in eager mode).
+(the JAX package's ``scan_layers`` has no counterpart in eager mode;
+:func:`~apex_tpu_torch.convert.params_from_jax` unstacks its layout).
+``GPTConfig.remat`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint``, the JAX model's ``nn.remat`` per block): the
+memory of long-context training, at the cost of a second forward.
 ``forward`` builds the kernel-format rope tables once per call and hands
 them to the local :func:`apex_tpu_torch.attention.attention`, which
 rotates q and k inside the flash kernels (the JAX model's ``use_pallas()``
@@ -22,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.attention import attention
 from apex_tpu_torch.layers import Dense, Embed
@@ -43,6 +48,9 @@ class GPTConfig:
     intermediate_size: int = 3072
     layer_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    #: recompute each block's activations in the backward (the JAX
+    #: model's ``nn.remat(GPTBlock)``): only the block inputs are kept
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -157,8 +165,20 @@ class GPTModel(nn.Module):
         cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
         rope = rope_kernel_tables(cos, sin, b, l, c.head_dim, x.dtype)
         for blk in self.blocks:
-            x = blk(x, rope)
+            x = run_layer(blk, c.remat, x, rope)
         return self.lm_head(self.ln_f(x))
+
+
+def run_layer(layer: nn.Module, remat: bool, *args):
+    """``layer(*args)``; with ``remat`` and grad enabled, under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped after the forward and recomputed by running it again in the
+    backward, so its kernels launch twice in a training step.  The layers
+    draw no random numbers, so no RNG state is saved."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return layer(*args)
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -8,10 +8,18 @@ from apex_tpu_torch.ops.cuda.adam import (
     packed_adam_tree_ref,
 )
 from apex_tpu_torch.ops.cuda.flash_attention import (
+    attn_delta,
     flash_attn_bwd,
+    flash_attn_bwd_dkv,
+    flash_attn_bwd_dkv_ref,
+    flash_attn_bwd_dq,
+    flash_attn_bwd_dq_ref,
     flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
+    fused_bwd,
+    fused_bwd_max_bytes,
+    fused_bwd_partials_bytes,
 )
 from apex_tpu_torch.ops.cuda.lamb import (
     lamb_stage1,
@@ -48,7 +56,9 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "packed_sumsq": packed_sumsq,
            "packed_axpby": packed_axpby,
            "packed_adam_tree": packed_adam_tree,
-           "sumsq_per_tensor": sumsq_per_tensor}
+           "sumsq_per_tensor": sumsq_per_tensor,
+           "flash_attn_bwd_dq": flash_attn_bwd_dq,
+           "flash_attn_bwd_dkv": flash_attn_bwd_dkv}
 
 
 def launch_counts() -> dict:
@@ -61,8 +71,11 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "flash_attn_bwd", "flash_attn_bwd_ref",
-           "flash_attn_fwd", "flash_attn_fwd_ref", "lamb_stage1",
+__all__ = ["KERNELS", "attn_delta", "flash_attn_bwd", "flash_attn_bwd_dkv",
+           "flash_attn_bwd_dkv_ref", "flash_attn_bwd_dq",
+           "flash_attn_bwd_dq_ref", "flash_attn_bwd_ref",
+           "flash_attn_fwd", "flash_attn_fwd_ref", "fused_bwd",
+           "fused_bwd_max_bytes", "fused_bwd_partials_bytes", "lamb_stage1",
            "lamb_stage1_ref", "lamb_stage2", "lamb_stage2_ref",
            "launch_counts", "layer_norm_bwd", "layer_norm_bwd_ref",
            "layer_norm_fwd", "layer_norm_fwd_ref", "packed_adam",

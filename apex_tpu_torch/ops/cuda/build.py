@@ -153,6 +153,14 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_smem_bytes.restype = i32
+    lib.apex_flash_attn_bwd_dq.argtypes = ([vp] * 10 + [i64] * 12 + [i32] * 4
+                                           + [f32, i32, vp])
+    lib.apex_flash_attn_bwd_dq.restype = i32
+    lib.apex_flash_attn_bwd_dq_smem_bytes.argtypes = [i32]
+    lib.apex_flash_attn_bwd_dq_smem_bytes.restype = i32
+    lib.apex_flash_attn_bwd_dkv.argtypes = ([vp] * 11 + [i64] * 12
+                                            + [i32] * 4 + [f32, i32, vp])
+    lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_layer_norm_bwd.argtypes = [vp] * 10 + [i32] * 4 + [vp]
     lib.apex_layer_norm_bwd.restype = i32
     lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32]

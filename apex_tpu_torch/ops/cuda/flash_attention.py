@@ -1,9 +1,10 @@
-"""K2 and K4: the flash-attention forward and backward kernels
-(``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``) and their plain
-PyTorch versions.
+"""K2, K4, K13 and K14: the flash-attention forward and backward kernels
+(``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``,
+``csrc/flash_attn_bwd_dq.cu``) and their plain PyTorch versions.
 
-The CUDA kernels replace the Pallas ``_flash_fwd`` (``_fwd_kernel``) and
-``_flash_bwd_fused`` (``_bwd_fused_kernel``) of
+The CUDA kernels replace the Pallas ``_flash_fwd`` (``_fwd_kernel``),
+``_flash_bwd_fused`` (``_bwd_fused_kernel``) and ``_flash_bwd``
+(``_dq_kernel``, ``_dkv_kernel``) of
 ``apex_tpu/ops/pallas/flash_attention.py``, with the semantics of that
 module's ``flash_attention`` wrapper and its custom VJP: ``(B, L, H, D)``
 tensors, q pre-scaled in its storage dtype, optional rope applied inside
@@ -11,15 +12,18 @@ the kernel from full-width tables (:func:`apex_tpu_torch.ops.rope.
 rope_kernel_tables`), fp32 online softmax, an optional ``(B, L)`` key
 mask, zeros and ``NEG_INF`` lse for rows that see no key.  The backward
 recomputes the probabilities from the lse and returns gradients w.r.t.
-the unrotated, unscaled inputs.  :func:`flash_attn_fwd` /
-:func:`flash_attn_bwd` launch the kernels for CUDA tensors and run
-:func:`flash_attn_fwd_ref` / :func:`flash_attn_bwd_ref` for CPU tensors;
-they never fall back from one to the other.
+the unrotated, unscaled inputs.  :func:`flash_attn_bwd` takes the fused
+backward (K4) while its fp32 dq partial planes fit
+:func:`fused_bwd_max_bytes` and the two-pass backward (K13 for dq, then
+K14 for dk / dv) above it, as the JAX package's gate does.  Each wrapper
+launches its kernel for CUDA tensors and runs its plain version
+(``*_ref``) for CPU tensors; none falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +36,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 #: rows of one key tile of the bf16 backward (one dq partial plane each)
 BWD_KEY_TILE = 64
+#: the byte budget of K4's dq partial planes (the JAX package's variable)
+FUSED_BWD_MAX_BYTES_ENV = "APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES"
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -191,9 +197,112 @@ def attn_delta(o: torch.Tensor, do: torch.Tensor,
                dlse: Optional[torch.Tensor]) -> torch.Tensor:
     """``rowsum(o * do) - dlse`` in fp32, ``(B, L, H)``: the per-row
     offset of ``dS = P * (dP - delta)`` (the JAX package's ``_delta``; a
-    cotangent on the lse folds in here)."""
+    cotangent on the lse folds in here).  Both backward routes share it."""
     delta = (o.float() * do.float()).sum(dim=-1)
     return delta if dlse is None else delta - dlse.float()
+
+
+def fused_bwd_max_bytes() -> int:
+    """The budget, in bytes, of the fused backward's fp32 dq partial
+    planes: ``APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES`` (read on every call;
+    ``0`` forces the two-pass route wherever K4 would allocate planes), by
+    default 1 GiB, as the JAX package's ``_fused_bwd_max_bytes``: one
+    variable steers both packages."""
+    env = os.environ.get(FUSED_BWD_MAX_BYTES_ENV)
+    if env is not None:
+        try:
+            return int(env)
+        except ValueError:
+            raise ValueError(
+                f"{FUSED_BWD_MAX_BYTES_ENV} must be a plain integer byte "
+                f"count, got {env!r}") from None
+    return 1 << 30
+
+
+def fused_bwd_partials_bytes(b: int, l: int, h: int, d: int,
+                             dtype: torch.dtype) -> int:
+    """Bytes of the fp32 dq partial planes that K4 allocates for a bf16
+    ``(b, l, h, d)`` backward: one ``(b, l, h, d)`` plane per 64-key tile,
+    growing with ``l**2``.  0 in fp32, whose SIMT backward writes dq
+    directly.  The gate measures the port's own buffer (not the TPU's
+    1024-row blocks): it is the port's memory that runs out."""
+    if dtype != torch.bfloat16:
+        return 0
+    return -(-l // BWD_KEY_TILE) * b * l * h * d * 4
+
+
+def fused_bwd(q: torch.Tensor) -> bool:
+    """Whether :func:`flash_attn_bwd` takes the fused route for ``q``: its
+    partial planes fit :func:`fused_bwd_max_bytes` (the JAX package's
+    gate in ``_flash_bwd_rule``)."""
+    if q.dim() != 4:
+        return True              # the fused route's checks refuse it
+    b, l, h, d = q.shape
+    return fused_bwd_partials_bytes(b, l, h, d, q.dtype) \
+        <= fused_bwd_max_bytes()
+
+
+def _bwd_scores(q, k, v, do, lse, delta, causal, kv_mask, scale, rope):
+    """What both passes recompute, by materialising the scores with the
+    kernels' roundings: ``P = exp(S - lse)`` in fp32 from the pre-scaled,
+    rotated q and the rotated k (zero where a pair is hidden or its row
+    sees no key), and ``dS = P (dP - delta)`` rounded to the storage
+    dtype; ``(B, H, Lq, Lk)`` each, with the rotated q and k."""
+    qr, kr = _scaled_rotated(q, k, scale, rope)
+    s = torch.einsum("bqhd,bkhd->bhqk", qr.float(), kr.float())
+    lse_t = lse.permute(0, 2, 1)[..., None]                  # (B, H, L, 1)
+    visible = _visible(q, k.shape[1], causal, kv_mask) \
+        & (lse_t > NEG_INF / 2)
+    p = torch.where(visible, torch.exp(s - lse_t), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta.permute(0, 2, 1)[..., None])).to(q.dtype).float()
+    return p, ds, qr, kr
+
+
+def _unrotate(g: torch.Tensor, rope: Rope, dtype) -> torch.Tensor:
+    if rope is None:
+        return g
+    cos_t, sin_t = (t.to(dtype) for t in rope)
+    return rotate_full(g, cos_t, -sin_t)
+
+
+def flash_attn_bwd_dq_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          do: torch.Tensor, lse: torch.Tensor,
+                          delta: torch.Tensor, *, causal: bool = False,
+                          kv_mask: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None, rope: Rope = None
+                          ) -> torch.Tensor:
+    """dq of :func:`flash_attn_fwd_ref` given ``delta`` (:func:`attn_delta`):
+    ``dQ = dS K`` with dS in the storage dtype, inverse-rotated, cast to
+    q's dtype, then times the scale in that dtype (the one deferred scale
+    of the TPU path: ``_dq_kernel`` emits q's dtype and
+    ``_flash_bwd_rule`` scales it)."""
+    scale = _default_scale(q, scale)
+    _, ds, _, kr = _bwd_scores(q, k, v, do, lse, delta, causal, kv_mask,
+                               scale, rope)
+    dq = _unrotate(torch.einsum("bhqk,bkhd->bqhd", ds, kr.float()), rope,
+                   q.dtype)
+    return dq.to(q.dtype) * torch.tensor(scale, dtype=q.dtype)
+
+
+def flash_attn_bwd_dkv_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor, *,
+                           causal: bool = False,
+                           kv_mask: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None, rope: Rope = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` of :func:`flash_attn_fwd_ref` given ``delta``: ``dV =
+    P^T dO`` with P in the storage dtype, ``dK = dS^T Q`` from the
+    pre-scaled, rotated q (exact: the scale lives in q), dk
+    inverse-rotated; both in the input dtype."""
+    scale = _default_scale(q, scale)
+    dt = q.dtype
+    p, ds, qr, _ = _bwd_scores(q, k, v, do, lse, delta, causal, kv_mask,
+                               scale, rope)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
+    dk = _unrotate(torch.einsum("bhqk,bqhd->bkhd", ds, qr.float()), rope, dt)
+    return dk.to(dt), dv.to(dt)
 
 
 def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,34 +312,112 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_mask: Optional[torch.Tensor] = None,
                        scale: Optional[float] = None, rope: Rope = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` of :func:`flash_attn_fwd_ref`, by materialising the
-    scores, with the kernel's roundings: ``P = exp(S - lse)`` from the
-    pre-scaled, rotated q and rotated k; ``dV = P^T dO`` with P in the
-    storage dtype; ``dS = P (dP - delta)``, rounded to the storage dtype
-    for ``dK = dS^T Q`` and ``dQ = dS K``; dq and dk inverse-rotated; dq
-    cast to q's dtype, then times the scale in that dtype (the one
-    deferred scale of the TPU path)."""
-    scale = _default_scale(q, scale)
-    dt = q.dtype
-    qr, kr = _scaled_rotated(q, k, scale, rope)
-    s = torch.einsum("bqhd,bkhd->bhqk", qr.float(), kr.float())
-    lse_t = lse.permute(0, 2, 1)[..., None]                  # (B, H, L, 1)
-    visible = _visible(q, k.shape[1], causal, kv_mask) \
-        & (lse_t > NEG_INF / 2)
-    p = torch.where(visible, torch.exp(s - lse_t), torch.zeros_like(s))
-    dof = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    delta = attn_delta(o, do, dlse).permute(0, 2, 1)[..., None]
-    ds = (p * (dp - delta)).to(dt).float()
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qr.float())
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr.float())
-    if rope is not None:
-        cos_t, sin_t = (t.to(dt) for t in rope)
-        dq = rotate_full(dq, cos_t, -sin_t)
-        dk = rotate_full(dk, cos_t, -sin_t)
-    dq = dq.to(dt) * torch.tensor(scale, dtype=dt)
-    return dq, dk.to(dt), dv.to(dt)
+    """``(dq, dk, dv)`` of :func:`flash_attn_fwd_ref`:
+    :func:`flash_attn_bwd_dq_ref` and :func:`flash_attn_bwd_dkv_ref` on
+    the shared ``delta``.  Both routes of :func:`flash_attn_bwd` compute
+    this function; only their summation orders differ."""
+    delta = attn_delta(o, do, dlse)
+    kw = dict(causal=causal, kv_mask=kv_mask, scale=scale, rope=rope)
+    dq = flash_attn_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_attn_bwd_dkv_ref(q, k, v, do, lse, delta, **kw))
+
+
+def _check_bwd(what, q, k, v, do, lse, delta, kv_mask, rope):
+    """Validate a backward kernel call; returns ``(do, lse, delta, mask_u8,
+    cos_t, sin_t)`` as the kernels take them."""
+    mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope)
+    b, l, h, _ = q.shape
+    do = do.contiguous()
+    _check_operand(what, "do", do, q.shape, q.dtype, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, l, h) or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be (B, L, H) float32")
+    return do, lse.contiguous(), delta.contiguous(), mask, cos_t, sin_t
+
+
+def _check_two_pass(what, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the two-pass kernels take bf16, got "
+                         f"{q.dtype} (fp32 takes flash_attn_bwd's SIMT "
+                         f"kernels)")
+
+
+def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, *, causal: bool = False,
+                      kv_mask: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None, rope: Rope = None
+                      ) -> torch.Tensor:
+    """:func:`flash_attn_bwd_dq_ref`'s function, the dq pass of the
+    two-pass backward.  On CUDA tensors one launch of K13
+    (``csrc/flash_attn_bwd_dq.cu``, counted in
+    ``flash_attn_bwd_dq.launches``): bf16, D in (64, 128), the operand
+    rules of :func:`flash_attn_fwd`; dq accumulates in registers over the
+    key tiles and is written once, scale applied, with no partial planes.
+    On CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        return flash_attn_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                                     kv_mask=kv_mask, scale=scale,
+                                     rope=rope)
+    what = "flash_attn_bwd_dq"
+    _check_two_pass(what, q)
+    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
+        what, q, k, v, do, lse, delta, kv_mask, rope)
+    b, l, h, d = q.shape
+    # q's pre-scale and dq's deferred scale: one value, rounded to bf16
+    scale_q = float(torch.tensor(_default_scale(q, scale), dtype=q.dtype))
+    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    err = build.library().apex_flash_attn_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
+        _ptr(sin_t), dq.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *do.stride()[:3], b, l, h, d, scale_q,
+        int(bool(causal)), build.stream_of(q))
+    build.check(err, what)
+    flash_attn_bwd_dq.launches += 1
+    return dq
+
+
+flash_attn_bwd_dq.launches = 0
+
+
+def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, *, causal: bool = False,
+                       kv_mask: Optional[torch.Tensor] = None,
+                       scale: Optional[float] = None, rope: Rope = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attn_bwd_dkv_ref`'s function, the dk / dv pass of the
+    two-pass backward.  On CUDA tensors one launch of K14 (K4's device
+    code in ``csrc/flash_attn_bwd.cu`` compiled without its dq planes,
+    counted in ``flash_attn_bwd_dkv.launches``): bf16, D in (64, 128).  On
+    CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        return flash_attn_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                      causal=causal, kv_mask=kv_mask,
+                                      scale=scale, rope=rope)
+    what = "flash_attn_bwd_dkv"
+    _check_two_pass(what, q)
+    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
+        what, q, k, v, do, lse, delta, kv_mask, rope)
+    b, l, h, d = q.shape
+    scale_q = float(torch.tensor(_default_scale(q, scale), dtype=q.dtype))
+    dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    err = build.library().apex_flash_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
+        _ptr(sin_t), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], b, l, h, d,
+        scale_q, int(bool(causal)), build.stream_of(q))
+    build.check(err, what)
+    flash_attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attn_bwd_dkv.launches = 0
 
 
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,30 +427,37 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: Optional[torch.Tensor] = None,
                    scale: Optional[float] = None, rope: Rope = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`flash_attn_bwd_ref`'s function.  On CUDA tensors the
-    hand-written kernels, each launch counted in
-    ``flash_attn_bwd.launches``: in bf16 one launch, where each 64-key
-    tile writes its fp32 dq contribution into its own partial plane, and
-    the planes are summed here in a fixed order; in fp32 two launches of
-    SIMT kernels (dk and dv, then dq) write the gradients directly.  No
-    atomics: two runs give equal bits.  ``delta`` (``rowsum(o * do) -
-    dlse``) and the final ``dq * scale`` are plain PyTorch ops, as the
-    JAX path leaves them to XLA."""
+    """:func:`flash_attn_bwd_ref`'s function, by one of two routes, as the
+    JAX package's ``_flash_bwd_rule`` picks them: the fused backward while
+    its dq partial planes (:func:`fused_bwd_partials_bytes`) fit
+    :func:`fused_bwd_max_bytes`, else the two-pass backward,
+    :func:`flash_attn_bwd_dq` then :func:`flash_attn_bwd_dkv`.  The route
+    is the same on the CPU, where each runs its plain version.
+
+    The fused route on CUDA tensors, each launch counted in
+    ``flash_attn_bwd.launches`` (K4 only): in bf16 one launch, where each
+    64-key tile writes its fp32 dq contribution into its own partial
+    plane, and the planes are summed here in a fixed order; in fp32 two
+    launches of SIMT kernels (dk and dv, then dq) write the gradients
+    directly (no planes, so fp32 is always fused).  No atomics on either
+    route: two runs give equal bits.  ``delta`` (``rowsum(o * do) -
+    dlse``) and the fused route's final ``dq * scale`` are plain PyTorch
+    ops, as the JAX path leaves them to XLA."""
+    if not fused_bwd(q):
+        delta = attn_delta(o, do, dlse)
+        kw = dict(causal=causal, kv_mask=kv_mask, scale=scale, rope=rope)
+        dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw)
+        return (dq, *flash_attn_bwd_dkv(q, k, v, do, lse, delta, **kw))
     if q.device.type == "cpu":
         return flash_attn_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
                                   causal=causal, kv_mask=kv_mask,
                                   scale=scale, rope=rope)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
-    mask, cos_t, sin_t = _check_common("flash_attn_bwd", q, k, v, kv_mask,
-                                       rope)
+    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
+        "flash_attn_bwd", q, k, v, do, lse, attn_delta(o, do, dlse),
+        kv_mask, rope)
     b, l, h, d = q.shape
-    do = do.contiguous()
-    _check_operand("flash_attn_bwd", "do", do, q.shape, q.dtype, q.device)
-    if lse.shape != (b, l, h) or lse.dtype != torch.float32:
-        raise ValueError("flash_attn_bwd: lse must be (B, L, H) float32")
-    lse = lse.contiguous()
-    delta = attn_delta(o, do, dlse).contiguous()
     scale = _default_scale(q, scale)
     scale_q = float(torch.tensor(scale, dtype=q.dtype))
     if q.dtype == torch.bfloat16:

@@ -35,10 +35,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             seeded weights: per-step loss (finite, falling), step ms p50
             over steps 3-10, tokens/s, peak memory, launches per step of
             every kernel (the layer-norm backward launches twice a call:
-            dx, then the dw/db sum), the pointer rows uploaded; then
-            one step with an injected non-finite gradient, which must be
-            skipped on the card (masters and moments unchanged, scale
-            halved);
+            dx, then the dw/db sum; the flash backward takes the
+            two-pass route, K13 + K14, since K4's planes, 1.61 GB, exceed
+            the 1 GiB budget), the pointer rows uploaded; 5 more steps
+            with the budget raised (the fused route, K4) for both
+            routes' p50; then one step with an injected non-finite
+            gradient, which must be skipped on the card (masters and
+            moments unchanged, scale halved);
 9. train reference  a 2-layer, 2 x 64-head model, 3 steps on the card
             against the same on the CPU (plain versions): fp32 O0, and bf16
             O3 (no master weights: Adam steps the bf16 parameters);
@@ -63,6 +66,23 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             dynamic_loss_scale=True, max_grad_norm=1.0)``, 5 steps of one K5
             and one K9 launch each, an injected overflow skipped on the
             card, and a 2-layer model's steps card against CPU;
+   long_context_kernels  the two-pass flash backward, K13 (dq) and K14
+            (dk / dv), against their plain versions (run over slices of
+            heads) at the train shape, at B 1 x L 16384, at BERT's
+            non-causal shape with a ragged key mask and at 6 heads of
+            128: bitwise repeats, times, bounds, the pair beside SDPA's
+            backward, and where K4's planes fit, both routes of
+            ``flash_attn_bwd`` timed whole (K14's dk / dv equal K4's);
+   long_context  gpt_small with ``remat=True`` (O2 + FusedAdam), B 1 x L
+            16384, 10 steps (falling loss, p50, tokens/s, peak memory,
+            the exact launches per step: K13 12, K14 12, K4 0, K2 24, K1
+            49, K3 50, K6 148, K11 1; one profiled step; an injected
+            overflow skipped), then B 1 x L 32768, 3 steps; K4's planes
+            (12.9 and 51.5 GB) printed beside the peaks;
+   long_context_reference  a 2-layer remat GPT at O2, B 2 x L 1024, 3
+            steps on the card with the budget at 0 (two-pass) and at its
+            default (fused), each against the CPU, and the two routes'
+            first-step gradients against each other;
 10. bert kernels  the BERT slice's kernels against their plain versions:
             LAMB stage 1 and 2 and the global sum of squares over
             bert_large's 303 fp32 master leaves with bf16 copies (bitwise
@@ -84,12 +104,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before the last line; with no card it exits 1 at
-once.
+once.  The script clears ``APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES`` (its
+launch counts assume the default 1 GiB budget) and sets it only inside
+the phases that compare the two routes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -147,6 +172,28 @@ def bound(nbytes: float, flops: float, peak_flops: float):
             else "operations")
 
 
+#: the byte budget of the fused flash backward's fp32 dq partial planes
+#: (read by both packages on every call; 1 GiB by default)
+BUDGET_ENV = "APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES"
+#: a budget above every plane buffer of this script: the fused route (K4)
+FUSED_ALWAYS = 1 << 40
+
+
+@contextlib.contextmanager
+def fused_budget(nbytes: int):
+    """The flash backward's partials budget at ``nbytes`` inside the block
+    (or under the decorated function), restored after."""
+    old = os.environ.get(BUDGET_ENV)
+    os.environ[BUDGET_ENV] = str(nbytes)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(BUDGET_ENV, None)
+        else:
+            os.environ[BUDGET_ENV] = old
+
+
 # -- phases ---------------------------------------------------------------
 
 def phase_device():
@@ -177,8 +224,13 @@ def phase_build():
         kernels[short] = "; ".join(
             l for l in lines if not l.startswith("Compile time"))
     emit("build", nvcc_seconds=round(info.seconds, 3), library=info.path,
-         ptxas=kernels, flash_bf16_dynamic_smem_bytes={
-             d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)})
+         sources=len(build.sources()), ptxas=kernels,
+         flash_bf16_dynamic_smem_bytes={
+             d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)},
+         flash_bwd_bf16_dynamic_smem_bytes={
+             d: lib.apex_flash_attn_bwd_smem_bytes(d) for d in (64, 128)},
+         flash_bwd_dq_bf16_dynamic_smem_bytes={
+             d: lib.apex_flash_attn_bwd_dq_smem_bytes(d) for d in (64, 128)})
 
 
 def _ln_case(n1, dtype, rng, n2=768):
@@ -463,6 +515,57 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+#: the scale-aware check beside ``bf16_tol``, for results whose rows span
+#: orders of magnitude (causal attention at long L): each row's (last
+#: dim's) max error within 2**-6 of that row's max |ref| (two bf16 ulps of
+#: it at most: a rounding flip at the store, one more at dq's bf16
+#: scale), and ||err|| / ||ref|| within 1e-2 over the whole tensor.  A
+#: row whose max |ref| is under 1% of the median non-zero row's is held to
+#: that 1% instead (dq's first query row is pure cancellation: P = 1, dP =
+#: delta); a row whose ref is zero must be zero
+ROW_REL_TOL = 2.0 ** -6
+NORM_REL_TOL = 1e-2
+ROW_FLOOR = 1e-2
+
+
+def scaled_errs(what: str, got, ref) -> dict:
+    """``got`` against ``ref`` by the row and norm checks above; fails the
+    run past either limit, else returns both errors and their limits."""
+    import torch
+    err = got.float() - ref.float()
+    row_ref = ref.float().abs().amax(dim=-1)
+    live = row_ref[row_ref > 0]
+    floor = max(ROW_FLOOR * float(live.median()) if live.numel() else 0.0,
+                torch.finfo(torch.float32).tiny)
+    row = float((err.abs().amax(dim=-1)
+                 / torch.clamp(row_ref, min=floor)).max())
+    norm = float(err.norm() / ref.float().norm())
+    require(row <= ROW_REL_TOL and norm <= NORM_REL_TOL,
+            f"{what}: row-relative error {row} (limit {ROW_REL_TOL}), "
+            f"norm-relative error {norm} (limit {NORM_REL_TOL})")
+    return dict(row_rel_err=row, row_rel_tol=ROW_REL_TOL, norm_rel_err=norm,
+                norm_rel_tol=NORM_REL_TOL)
+
+
+#: fp32 scores one plain-version call may hold at once
+PLAIN_SCORES = 1 << 28
+
+
+def _plain_by_heads(fn, args, kw):
+    """A plain attention function ``fn(*args, **kw)`` whose ``args`` are
+    ``(B, L, H, ...)`` tensors, run over slices of heads so that at most
+    ``PLAIN_SCORES`` fp32 scores exist at once; every head is computed,
+    the results concatenated along the heads."""
+    import torch
+    b, l, h = args[0].shape[:3]
+    step = max(1, min(h, PLAIN_SCORES // (b * l * l)))
+    parts = [fn(*(t[:, :, h0:h0 + step] for t in args), **kw)
+             for h0 in range(0, h, step)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+    return torch.cat(parts, dim=2)
+
+
 def _kernel_rec(**rec):
     emit("kernels", **rec)
     return rec
@@ -531,7 +634,10 @@ def _flash_pairs(b, l, h, causal, mask):
     return b * h * (l * (l + 1) / 2 if causal else l * l)
 
 
+@fused_budget(FUSED_ALWAYS)
 def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
+    """K4, the fused backward (the budget raised so that every shape takes
+    it), against its plain version, with times and the bound."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import (flash_attn_bwd, flash_attn_bwd_ref,
@@ -588,6 +694,9 @@ def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
 
 
 def _flash_rope_case(shape, rng):
+    """K2, causal with rope, against its plain version (run over slices of
+    heads, every head compared) by the absolute and the scale-aware
+    checks, twice for equal bits, with times and the bound."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import flash_attn_fwd, flash_attn_fwd_ref
@@ -597,17 +706,24 @@ def _flash_rope_case(shape, rng):
                                device=dev).to(torch.bfloat16)
                for _ in range(3))
     tables = _tables(bsz, l, d, torch.bfloat16)
-    o, lse = flash_attn_fwd(q, k, v, causal=True, return_lse=True,
-                            rope=tables)
+    kw = dict(causal=True, rope=tables)
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    again = flash_attn_fwd(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
-    o_ref, lse_ref = flash_attn_fwd_ref(q, k, v, causal=True, rope=tables)
+    require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+            f"flash_attn_fwd rope {shape}: two runs differ")
+    del again
+    o_ref, lse_ref = _plain_by_heads(flash_attn_fwd_ref, (q, k, v), kw)
     err = _max_err(o, o_ref)
     lse_err = _max_err(lse, lse_ref)
     require(err <= 2e-2 and lse_err <= 2e-2,
             f"flash_attn_fwd rope {shape}: o err {err}, lse err {lse_err}")
-    ms = time_ms(lambda: flash_attn_fwd(q, k, v, causal=True, rope=tables))
-    plain = time_ms(lambda: flash_attn_fwd_ref(q, k, v, causal=True,
-                                               rope=tables), budget_s=0.2)
+    scaled = scaled_errs(f"flash_attn_fwd rope {shape} o", o, o_ref)
+    del o_ref, lse_ref
+    ms = time_ms(lambda: flash_attn_fwd(q, k, v, **kw))
+    plain = time_ms(lambda: _plain_by_heads(flash_attn_fwd_ref, (q, k, v),
+                                            kw), budget_s=0.2)
+    torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
@@ -618,7 +734,11 @@ def _flash_rope_case(shape, rng):
                        causal=True, rope=True, dtype="bfloat16",
                        max_abs_err=err, lse_err=lse_err,
                        tolerance="atol 2e-2 vs plain in bf16 (same rounded "
-                                 "q, k, tables)",
+                                 "q, k, tables), and the row and norm "
+                                 "limits",
+                       **scaled, bitwise_repeat=True,
+                       plain="run over slices of heads (at most 2**28 fp32 "
+                             "scores at once), every head compared",
                        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                        bound_by=b_by)
 
@@ -848,18 +968,38 @@ PR3_TRAIN_P50_MS = 124.8
 NO_LAUNCHES = {k: 0 for k in (
     "layer_norm_fwd", "flash_attn_fwd", "layer_norm_bwd", "flash_attn_bwd",
     "packed_adam", "packed_scale", "lamb_stage1", "lamb_stage2",
-    "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor")}
+    "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor",
+    "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
 
 
-def gpt_pass_launches(cfg, micro_batches=1):
-    """Launches of ``micro_batches`` GPT forward and backward passes, and
-    none of any other kernel."""
+def fused_route(b, l, h, d) -> bool:
+    """Whether the flash backward takes K4 at a bf16 ``(b, l, h, d)`` under
+    the current budget (else K13 + K14)."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (fused_bwd_max_bytes,
+                                         fused_bwd_partials_bytes)
+    return fused_bwd_partials_bytes(b, l, h, d, torch.bfloat16) \
+        <= fused_bwd_max_bytes()
+
+
+def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
+    """Launches of ``micro_batches`` GPT forward and backward passes of
+    ``(b, l)`` tokens each, and none of any other kernel: the flash
+    backward by the route the budget gives that shape (K4 once a layer, or
+    K13 and K14 once a layer each), and under ``cfg.remat`` each block's
+    forward kernels twice (the recompute)."""
     lnc = 2 * cfg.num_layers + 1
-    return dict(NO_LAUNCHES, layer_norm_fwd=micro_batches * lnc,
-                flash_attn_fwd=micro_batches * cfg.num_layers,
+    again = cfg.num_layers if cfg.remat else 0       # blocks run again
+    n = micro_batches * cfg.num_layers
+    fused = fused_route(b, l, cfg.num_heads, cfg.head_dim)
+    return dict(NO_LAUNCHES,
+                layer_norm_fwd=micro_batches * (lnc + 2 * again),
+                flash_attn_fwd=micro_batches * (cfg.num_layers + again),
                 # two launches a call: dx with partials, then the dw/db sum
                 layer_norm_bwd=micro_batches * 2 * lnc,
-                flash_attn_bwd=micro_batches * cfg.num_layers)
+                flash_attn_bwd=n if fused else 0,
+                flash_attn_bwd_dq=0 if fused else n,
+                flash_attn_bwd_dkv=0 if fused else n)
 
 
 def row_counts(tables):
@@ -877,7 +1017,10 @@ def pointer_rows(first, tables, steps=TRAIN_STEPS):
 
 
 #: kernel-name fragments of the step's device time, by group
-PROFILE_GROUPS = (("flash_attn_bwd (K4)", ("flash_bwd",)),
+PROFILE_GROUPS = (("flash_attn_bwd_dq (K13)", ("flash_bwd_dq",)),
+                  ("flash_attn_bwd_dkv (K14)", ("flash_bwd_bf16<64, false>",
+                                                "flash_bwd_bf16<128, false>")),
+                  ("flash_attn_bwd (K4)", ("flash_bwd",)),
                   ("flash_attn_fwd (K2)", ("flash_fwd",)),
                   ("layer_norm_bwd (K3)", ("ln_bwd",)),
                   ("layer_norm_fwd (K1)", ("ln_fwd",)),
@@ -976,6 +1119,9 @@ def phase_train(cfg, tree):
     p50 = float(np.median(times[2:])) * 1e3
     tokens = TRAIN_B * TRAIN_L
     profile = profile_step(step, ids)
+    fused = fused_route_steps(step, ids, cfg, want, dict(
+        want, flash_attn_bwd=cfg.num_layers, flash_attn_bwd_dq=0,
+        flash_attn_bwd_dkv=0))
     # one step with a non-finite gradient: skipped on the card
     with torch.enable_grad():
         loss = a.run(_gpt_loss, model, ids)
@@ -1007,12 +1153,67 @@ def phase_train(cfg, tree):
          record_step_ms_p50_before_k11=PR3_TRAIN_P50_MS,
          peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
          pointer_rows=rows, leaves=n_leaves, profile=profile,
+         flash_backward_route="fused (K4)" if fused_route(
+             TRAIN_B, TRAIN_L, cfg.num_heads, cfg.head_dim)
+         else "two-pass (K13 + K14)",
+         route_comparison=fused,
          injected_overflow={
              "skipped": True, "loss_scale": [scale_before,
                                              float(info["loss_scale"])]})
     del a, opt, model, grads, masters
     torch.cuda.empty_cache()
     return counts
+
+
+#: steps of each route in the train phase's comparison, alternated
+ROUTE_PAIRS = 5
+
+
+def fused_route_steps(step, ids, cfg, want, want_fused):
+    """``ROUTE_PAIRS`` pairs of steps of ``step``, alternating step by step
+    between the default budget (launching ``want``) and a budget raised
+    above K4's planes (the fused route, launching ``want_fused``): both
+    routes' step times and peak memory under the same conditions; p50s
+    over pairs 2 to ``ROUTE_PAIRS``."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (fused_bwd_partials_bytes,
+                                         launch_counts, reset_launch_counts)
+    runs = {"default": (None, want), "fused": (FUSED_ALWAYS, want_fused)}
+    times = {r: [] for r in runs}
+    peaks = {r: 0.0 for r in runs}
+    for _ in range(ROUTE_PAIRS):
+        for route, (budget, launches) in runs.items():
+            with contextlib.ExitStack() as stack:
+                if budget is not None:
+                    stack.enter_context(fused_budget(budget))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = step(ids)
+                torch.cuda.synchronize()
+                times[route].append(time.perf_counter() - t0)
+                counts = launch_counts()
+            require(counts == launches, f"{route}-route step launched "
+                                        f"{counts}, want {launches}")
+            require(not bool(out["overflow"]),
+                    f"overflow in a {route}-route step")
+            peaks[route] = max(peaks[route],
+                               torch.cuda.max_memory_allocated() / 1e9)
+    b, l = ids.shape
+    p50 = {r: float(np.median(t[1:])) * 1e3 for r, t in times.items()}
+    return dict(pairs=ROUTE_PAIRS, order="default, fused; alternated step "
+                                         "by step",
+                default_step_ms=[t * 1e3 for t in times["default"]],
+                fused_step_ms=[t * 1e3 for t in times["fused"]],
+                default_step_ms_p50_pairs_2_to_5=p50["default"],
+                fused_step_ms_p50_pairs_2_to_5=p50["fused"],
+                fused_minus_default_ms=p50["fused"] - p50["default"],
+                default_peak_memory_gb=peaks["default"],
+                fused_peak_memory_gb=peaks["fused"],
+                planes_gb=fused_bwd_partials_bytes(
+                    b, l, cfg.num_heads, cfg.head_dim, torch.bfloat16) / 1e9,
+                launches_per_step={"default": want, "fused": want_fused})
 
 
 def masters_np(a):
@@ -1617,6 +1818,336 @@ def phase_fp16_optimizer(cfg, tree):
     return counts, k9
 
 
+# -- long-context training: the two-pass flash backward, remat ------------
+
+#: (sequence length, steps) of the long_context phase, batch 1
+LC_RUNS = ((16384, 10), (32768, 3))
+#: the launches per gpt_small O2 step with remat at B1 x L16384 or L32768
+#: (the two-pass route), as ``gpt_pass_launches`` derives them: K13 12,
+#: K14 12, K4 0, K2 24 (12 + 12 recomputed), K1 49 (25 + 24 recomputed),
+#: K3 50 (25 calls x 2), K6 148, K11 1
+#: the two routes of flash_attn_bwd are timed whole, side by side, where
+#: K4's planes stay under this
+ROUTE_COMPARE_MAX_BYTES = 2 << 30
+
+
+def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
+    """K13 and K14 at ``shape`` against their plain versions (run over
+    slices of heads, every head compared), twice each for equal bits, with
+    times and bounds; the pair's time beside SDPA's backward at the shape
+    without rope; where the fused route fits, both routes of
+    ``flash_attn_bwd`` timed whole, K14's dk / dv held equal to K4's and
+    the two dq within 2 bf16 ulps."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd,
+                                         flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dkv_ref,
+                                         flash_attn_bwd_dq,
+                                         flash_attn_bwd_dq_ref,
+                                         flash_attn_fwd,
+                                         fused_bwd_partials_bytes)
+    bsz, l, h, d = shape
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                   device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        # ragged: batch row i keeps its first l - 61 i keys (BERT padding)
+        keep = l - 61 * np.arange(bsz)
+        mask = torch.as_tensor(np.arange(l)[None, :] < keep[:, None],
+                               device=dev)
+    tables = _tables(bsz, l, d, torch.bfloat16) if rope else None
+    kw = dict(causal=causal, kv_mask=mask, rope=tables)
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    delta = attn_delta(o, do, None)
+    args = (q, k, v, do, lse, delta)
+    dq = flash_attn_bwd_dq(*args, **kw)
+    dk, dv = flash_attn_bwd_dkv(*args, **kw)
+    again = (flash_attn_bwd_dq(*args, **kw),
+             *flash_attn_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+            f"two-pass backward {shape}: two runs differ")
+    del again
+    ref = _plain_by_heads(flash_attn_bwd_dq_ref, args, kw)
+    err_dq, tol_dq = _max_err(dq, ref), bf16_tol(ref)
+    require(err_dq <= tol_dq, f"flash_attn_bwd_dq {shape}: error {err_dq} "
+                              f"> {tol_dq}")
+    scaled_dq = scaled_errs(f"flash_attn_bwd_dq {shape}", dq, ref)
+    ref = _plain_by_heads(flash_attn_bwd_dkv_ref, args, kw)
+    errs_dkv = [_max_err(a, r) for a, r in zip((dk, dv), ref)]
+    tols_dkv = [bf16_tol(r) for r in ref]
+    require(all(e <= t for e, t in zip(errs_dkv, tols_dkv)),
+            f"flash_attn_bwd_dkv {shape}: errors {errs_dkv} > {tols_dkv}")
+    scaled_dk, scaled_dv = (scaled_errs(f"flash_attn_bwd_dkv {shape} {n}",
+                                        a, r)
+                            for n, a, r in zip(("dk", "dv"), (dk, dv), ref))
+    del ref
+    ms_dq = time_ms(lambda: flash_attn_bwd_dq(*args, **kw))
+    ms_dkv = time_ms(lambda: flash_attn_bwd_dkv(*args, **kw))
+    plain_dq = time_ms(lambda: _plain_by_heads(flash_attn_bwd_dq_ref, args,
+                                               kw), budget_s=0.2)
+    plain_dkv = time_ms(lambda: _plain_by_heads(flash_attn_bwd_dkv_ref,
+                                                args, kw), budget_s=0.2)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    if masked:
+        am = mask[:, None, None, :]
+        if causal:
+            am = am & torch.ones(l, l, dtype=torch.bool, device=dev).tril()
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    else:
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+    del ot, qt, kt, vt
+    pairs = _flash_pairs(bsz, l, h, causal, mask)
+    one = bsz * l * h * d * 2                  # one bf16 (B, L, H, D) tensor
+    reads = (4 * one + 2 * 4 * bsz * l * h
+             + (2 * bsz * l * d * 2 if rope else 0) + (bsz * l if masked
+                                                        else 0))
+    b_dq = bound(reads + one, 6.0 * d * pairs, PEAK_BF16_FLOPS)
+    b_dkv = bound(reads + 2 * one, 8.0 * d * pairs, PEAK_BF16_FLOPS)
+    base = dict(shape=list(shape), causal=causal, kv_mask=masked, rope=rope,
+                dtype="bfloat16", visible_pairs=pairs,
+                tolerance="2 bf16 ulps of the largest gradient vs the plain "
+                          "version in bf16, and the row and norm limits",
+                plain="run over slices of heads (at most 2**28 fp32 scores "
+                      "at once), every head compared",
+                bitwise_repeat=True, library_ms=None)
+    rec_dq = _kernel_rec(
+        kernel="flash_attn_bwd_dq", **base, max_abs_err=err_dq, **scaled_dq,
+        ms=ms_dq, plain_ms=plain_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
+        library_null_reason="no PyTorch call computes dq alone")
+    rec_dkv = _kernel_rec(
+        kernel="flash_attn_bwd_dkv", **base, max_abs_err=max(errs_dkv),
+        errs_dk_dv=errs_dkv,
+        **{k: max(scaled_dk[k], scaled_dv[k]) for k in scaled_dk},
+        scaled_errs_dk_dv=[scaled_dk, scaled_dv], ms=ms_dkv,
+        plain_ms=plain_dkv,
+        bound_ms=b_dkv[0], bound_by=b_dkv[1],
+        library_null_reason="no PyTorch call computes dk and dv alone")
+    pair = dict(kernel="two_pass_pair", shape=list(shape), causal=causal,
+                kv_mask=masked, rope=rope, k13_plus_k14_ms=ms_dq + ms_dkv,
+                bound_ms=b_dq[0] + b_dkv[0],
+                library_sdpa_backward_ms_no_rope=sdpa_bwd)
+    planes = fused_bwd_partials_bytes(bsz, l, h, d, torch.bfloat16)
+    if planes <= ROUTE_COMPARE_MAX_BYTES:
+        bwd = (q, k, v, o, lse, do)
+        with fused_budget(FUSED_ALWAYS):
+            fused = flash_attn_bwd(*bwd, **kw)
+            torch.cuda.synchronize()
+            fused_ms = time_ms(lambda: flash_attn_bwd(*bwd, **kw))
+        with fused_budget(0):
+            two_pass_ms = time_ms(lambda: flash_attn_bwd(*bwd, **kw))
+        require(torch.equal(fused[1], dk) and torch.equal(fused[2], dv),
+                f"{shape}: K14's dk / dv differ from K4's")
+        dq_err = _max_err(fused[0], dq)
+        require(dq_err <= tol_dq, f"{shape}: the routes' dq differ by "
+                                  f"{dq_err} > {tol_dq}")
+        pair.update(fused_route_ms=fused_ms, two_pass_route_ms=two_pass_ms,
+                    fused_planes_bytes=planes, k14_equals_k4_dk_dv=True,
+                    routes_dq_max_abs_err=dq_err)
+        del fused
+    emit("kernels", **pair)
+    del dq, dk, dv
+    torch.cuda.empty_cache()
+    return rec_dq, rec_dkv, pair
+
+
+def phase_long_context_kernels():
+    """K13 and K14 at the train shape, at B1 x L16384, at BERT's
+    non-causal shape with a ragged key mask, at gpt_small_tpu's head width
+    and at B1 x L32768; K2 (causal, rope) at both long lengths.  Returns
+    the two-pass cases in that order and the forward cases."""
+    rng = np.random.default_rng(4)
+    cases = [((TRAIN_B, TRAIN_L, 12, 64), True, False, True),
+             ((1, LC_RUNS[0][0], 12, 64), True, False, True),
+             ((4, 512, 16, 64), False, True, False),
+             ((1, 4096, 6, 128), True, False, True),
+             ((1, LC_RUNS[1][0], 12, 64), True, False, True)]
+    two_pass = [_two_pass_case(s, rng, causal=c, masked=m, rope=r)
+                for s, c, m, r in cases]
+    forward = [_flash_rope_case((1, l, 12, 64), rng) for l, _ in LC_RUNS]
+    return two_pass, forward
+
+
+def phase_long_context(cfg, tree):
+    """gpt_small with per-layer remat, amp O2 + FusedAdam(lr=3e-4), one
+    sequence on the synthetic stream: 10 steps at L 16384 (falling loss,
+    step p50, tokens/s, peak memory, the exact launches per step, one
+    profiled step, one injected overflow skipped on the card), then 3
+    steps at L 32768 with the same launches per step.  K4's planes would
+    be 12.9 and 51.5 GB; the two-pass route allocates none."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import (fused_bwd_partials_bytes,
+                                         launch_counts, reset_launch_counts)
+    from apex_tpu_torch.optimizers import FusedAdam
+    rcfg = dataclasses.replace(cfg, remat=True)
+    model = params_from_jax(tree, rcfg, trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt, opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    n_leaves = len(a.params)
+    runs, counts_by_len, overflow = [], {}, None
+    for l, steps in LC_RUNS:
+        want = dict(gpt_pass_launches(rcfg, b=1, l=l),
+                    packed_scale=n_leaves, packed_adam_tree=1)
+        ids = torch.as_tensor(train_stream(cfg.vocab_size, 1, l),
+                              device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, scales, overflows, times = [], [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out = step(ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(out["loss"]))
+            scales.append(float(out["loss_scale"]))
+            overflows.append(bool(out["overflow"]))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: c / steps for k, c in counts.items()}
+        require(per_step == want, f"long_context L {l} launches per step "
+                                  f"{per_step}, want {want}")
+        require(all(np.isfinite(losses)), f"L {l}: non-finite loss {losses}")
+        require(not any(overflows), f"L {l}: overflow {overflows}")
+        counts_by_len[l] = counts
+        run = dict(seq_len=l, steps=steps, losses=losses, loss_scales=scales,
+                   step_ms=[t * 1e3 for t in times], peak_memory_gb=peak,
+                   fused_route_planes_gb=fused_bwd_partials_bytes(
+                       1, l, cfg.num_heads, cfg.head_dim,
+                       torch.bfloat16) / 1e9,
+                   launches=counts, launches_per_step=per_step)
+        if steps >= 10:
+            require(losses[-1] < losses[0], f"L {l}: loss did not fall: "
+                                            f"{losses}")
+            p50 = float(np.median(times[2:])) * 1e3
+            run.update(step_ms_p50_steps_3_to_10=p50,
+                       tokens_per_s=l / (p50 / 1e3),
+                       profile=profile_step(step, ids))
+            overflow = _inject_overflow(a, opt, model, ids)
+        else:
+            mean = float(np.mean(times[1:])) * 1e3
+            run.update(step_ms_mean_steps_2_to_3=mean,
+                       tokens_per_s=l / (mean / 1e3),
+                       loss_fell=losses[-1] < losses[0])
+        runs.append(run)
+        del ids
+    emit("long_context", model="gpt_small", remat=True, opt_level="O2",
+         optimizer="FusedAdam", lr=3e-4, batch=1, leaves=n_leaves,
+         flash_backward_route="two-pass (K13 + K14)", runs=runs,
+         injected_overflow=overflow)
+    del a, opt, model, step
+    torch.cuda.empty_cache()
+    return counts_by_len[LC_RUNS[0][0]], counts_by_len[LC_RUNS[1][0]]
+
+
+def _inject_overflow(a, opt, model, ids):
+    """One step whose gradient holds an inf: skipped on the card (masters,
+    the lm_head moments and step count unchanged, the scale halved)."""
+    import torch
+    with torch.enable_grad():
+        loss = a.run(_gpt_loss, model, ids)
+        grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
+    grads[3].view(-1)[0] = float("inf")
+    masters = {n: t.clone() for n, t in a.masters.items()}
+    st = opt.state[a.masters["lm_head.kernel"]]
+    moments = (st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+               int(st["step"]))
+    scale_before = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"]), "the injected inf was not seen")
+    require(float(info["loss_scale"]) == scale_before / 2,
+            "the scale did not halve on overflow")
+    require(all(torch.equal(masters[n], t) for n, t in a.masters.items()),
+            "masters changed on a skipped step")
+    require(torch.equal(st["exp_avg"], moments[0])
+            and torch.equal(st["exp_avg_sq"], moments[1])
+            and int(st["step"]) == moments[2],
+            "moments or step counts changed on a skipped step")
+    return {"skipped": True,
+            "loss_scale": [scale_before, float(info["loss_scale"])]}
+
+
+def phase_long_context_reference():
+    """A 2-layer 2 x 64-head GPT with remat, bf16 O2, B 2 x L 1024, 3
+    steps: on the card with the budget at 0 (two-pass: K13 + K14) and at
+    its default (fused: K4's 16.8 MB of planes fit), each against the CPU
+    (plain versions) within the O3 train reference's bound, and the two
+    card routes' first-step gradients within 2 bf16 ulps of each other."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, remat=True)
+    tree = gpt_small_tree(cfg, seed=6)
+    ids = train_stream(cfg.vocab_size, 2, 1024)
+    runs = {}
+    for name, dev, budget in (("two_pass", "cuda", 0),
+                              ("fused", "cuda", None), ("cpu", "cpu", None)):
+        with (contextlib.nullcontext() if budget is None
+              else fused_budget(budget)):
+            model = params_from_jax(tree, cfg, device=dev, trainable=True)
+            a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                                device=dev),
+                               opt_level="O2", device=dev)
+            step = amp.make_train_step(a, model, _gpt_loss)
+            x = torch.as_tensor(ids, device=dev)
+            with torch.enable_grad():
+                loss = a.run(_gpt_loss, model, x)
+                grads = [g.float().cpu() for g in torch.autograd.grad(
+                    a.scale_loss(loss), a.params)]
+            reset_launch_counts()
+            losses = [float(step(x)["loss"]) for _ in range(3)]
+            counts = launch_counts()
+        runs[name] = dict(losses=losses, grads=grads, counts=counts)
+    tp, fu, cpu = runs["two_pass"], runs["fused"], runs["cpu"]
+    n = 3 * cfg.num_layers
+    require((tp["counts"]["flash_attn_bwd_dq"],
+             tp["counts"]["flash_attn_bwd_dkv"],
+             tp["counts"]["flash_attn_bwd"]) == (n, n, 0),
+            f"two-pass reference launches {tp['counts']}")
+    require((fu["counts"]["flash_attn_bwd_dq"],
+             fu["counts"]["flash_attn_bwd"]) == (0, n),
+            f"fused reference launches {fu['counts']}")
+    out = {}
+    for name, run in (("two_pass", tp), ("fused", fu)):
+        err = max(abs(x - y) for x, y in zip(run["losses"], cpu["losses"]))
+        require(all(np.isfinite(run["losses"]))
+                and run["losses"][-1] < run["losses"][0],
+                f"{name} reference losses on the card: {run['losses']}")
+        require(err <= TRAIN_REF_O3_LOSS_TOL,
+                f"{name} route losses card vs CPU differ by {err}")
+        out[name] = dict(losses_card=run["losses"], loss_max_abs_err=err,
+                         flash_launches={k: run["counts"][k] for k in (
+                             "flash_attn_bwd", "flash_attn_bwd_dq",
+                             "flash_attn_bwd_dkv", "flash_attn_fwd")})
+    grad_errs = [float((g - f).abs().max()) / bf16_tol(f)
+                 for g, f in zip(tp["grads"], fu["grads"])]
+    require(max(grad_errs) <= 1.0, f"first-step gradients of the two routes "
+                                   f"differ by up to {max(grad_errs)} x the "
+                                   f"2-ulp bound")
+    emit("long_context_reference", model="2 layers, 2 x 64 heads, remat",
+         opt_level="O2", batch=2, seq_len=1024, steps=3,
+         losses_cpu=cpu["losses"], loss_tolerance=TRAIN_REF_O3_LOSS_TOL,
+         **out, first_step_grads_routes_max_err_over_bound=max(grad_errs),
+         grads_tolerance="2 bf16 ulps of each leaf's largest gradient")
+
+
 # -- the BERT slice -------------------------------------------------------
 
 BERT_STEPS = 10
@@ -2026,6 +2557,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
+    # the launch expectations below assume the default partials budget
+    os.environ.pop(BUDGET_ENV, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2061,6 +2594,9 @@ def main() -> int:
         accum_counts = phase_accum(cfg, tree)
         phase_accum_reference()
         fp16_counts, fp16_k9 = phase_fp16_optimizer(cfg, tree)
+        lc_recs, lc_fwd = phase_long_context_kernels()
+        lc_counts, lc32_counts = phase_long_context(cfg, tree)
+        phase_long_context_reference()
         del tree
         bert_recs = phase_bert_kernels(bert_cfg)
         bert_counts = phase_bert_train(bert_cfg)
@@ -2073,6 +2609,8 @@ def main() -> int:
                    "train": train_counts[k],
                    "accum": accum_counts[k],
                    "fp16_optimizer": fp16_counts[k],
+                   "long_context": lc_counts[k],
+                   "long_context_L32768": lc32_counts[k],
                    "bert_train": bert_counts[k]} for k in bert_counts}
     ln_main = next(r for r in ln_recs if r["n1"] == 8
                    and r["dtype"] == "bfloat16")
@@ -2082,15 +2620,17 @@ def main() -> int:
             (ln_main, ln_recs, serve_counts["layer_norm_fwd"],
              "apex_tpu_torch/csrc/layer_norm_fwd.cu",
              "apex_tpu/ops/pallas/layer_norm_kernels.py:132"),
-            (fl_recs[0], fl_recs + [rope_main], solo_counts["flash_attn_fwd"],
+            (fl_recs[0], fl_recs + [rope_main] + lc_fwd,
+             solo_counts["flash_attn_fwd"],
              "apex_tpu_torch/csrc/flash_attn_fwd.cu",
              "apex_tpu/ops/pallas/flash_attention.py:587"),
             (train_recs["layer_norm_bwd"][0], train_recs["layer_norm_bwd"],
              train_counts["layer_norm_bwd"],
              "apex_tpu_torch/csrc/layer_norm_bwd.cu",
              "apex_tpu/ops/pallas/layer_norm_kernels.py:165"),
-            (train_recs["flash_attn_bwd"][0], train_recs["flash_attn_bwd"],
-             train_counts["flash_attn_bwd"],
+            (bert_recs["flash_attn_bwd"],
+             train_recs["flash_attn_bwd"] + [bert_recs["flash_attn_bwd"]],
+             bert_counts["flash_attn_bwd"],
              "apex_tpu_torch/csrc/flash_attn_bwd.cu",
              "apex_tpu/ops/pallas/flash_attention.py:477"),
             (train_recs["packed_adam"][0], train_recs["packed_adam"],
@@ -2120,7 +2660,15 @@ def main() -> int:
             (mt_recs["sumsq_per_tensor"][0], mt_recs["sumsq_per_tensor"],
              accum_counts["sumsq_per_tensor"],
              "apex_tpu_torch/csrc/multi_tensor_sumsq.cu",
-             "apex_tpu/ops/pallas/multi_tensor_kernels.py:179")):
+             "apex_tpu/ops/pallas/multi_tensor_kernels.py:179"),
+            (lc_recs[1][0], [r[0] for r in lc_recs],
+             lc_counts["flash_attn_bwd_dq"],
+             "apex_tpu_torch/csrc/flash_attn_bwd_dq.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:647"),
+            (lc_recs[1][1], [r[1] for r in lc_recs],
+             lc_counts["flash_attn_bwd_dkv"],
+             "apex_tpu_torch/csrc/flash_attn_bwd.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:671")):
         entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
             launches=launches,
@@ -2132,8 +2680,25 @@ def main() -> int:
             launches_by_path=by_path[rec["kernel"]])
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")
+        # the scale-aware checks' errors and limits, where a case has them
+        scaled = keys + ("row_rel_err", "row_rel_tol", "norm_rel_err",
+                         "norm_rel_tol")
         if rec["kernel"] == "flash_attn_fwd":
-            entry["train_shape_with_rope"] = {k: rope_main[k] for k in keys}
+            entry["train_shape_with_rope"] = {k: rope_main[k]
+                                              for k in scaled}
+            entry["long_context_with_rope"] = [{k: r[k] for k in scaled}
+                                               for r in lc_fwd]
+        if rec["kernel"] == "flash_attn_bwd":
+            entry["train_shape_fused_route"] = {
+                k: train_recs["flash_attn_bwd"][0][k] for k in keys}
+        if rec["kernel"] in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            at = 0 if rec["kernel"] == "flash_attn_bwd_dq" else 1
+            entry["train_shape"] = {k: lc_recs[0][at][k] for k in scaled}
+            entry["other_shapes"] = [{k: r[at][k] for k in scaled}
+                                     for r in lc_recs[2:]]
+            for k in scaled[len(keys):]:
+                entry[k] = max(r[k] for r in recs)      # over every shape
+            entry["pairs"] = [r[2] for r in lc_recs]
         if rec["kernel"] in bert_recs and rec is not bert_recs[
                 rec["kernel"]]:
             bert = bert_recs[rec["kernel"]]

@@ -13,7 +13,9 @@ cores, as the TPU kernel does).  The backward kernels: fp32 ``atol =
 1e-5`` (dw, db: also ``rtol = 1e-5``, row sums), bf16 within 2 bf16 ulps
 of the largest element against the plain version in bf16 (both compute
 in fp32 and round at the same places, but sum in other orders); both run
-twice for equal bits.  Adam and the unscale equal their plain versions
+twice for equal bits; so do the two-pass backward's K13 (dq) and K14
+(dk / dv), whose dk and dv also equal K4's bit for bit (the same device
+code and order).  Adam and the unscale equal their plain versions
 bit for bit (every product and sum rounded on its own).  LAMB: stage 1's
 m, v and u equal the plain version's bit for bit, its norm partials and
 the total sum of squares are within ``rtol = 1e-5`` (sums in another
@@ -207,6 +209,23 @@ def test_serve_engine_launches_layer_norm_kernel_per_step(cuda):
 
 def _bf16_tol(ref):
     return 2 * 2.0 ** -8 * max(1.0, float(ref.float().abs().max()))
+
+
+def _assert_rows_close(got, ref):
+    """The scale-aware check beside ``_bf16_tol`` (as ``chip_smoke.py``'s
+    ``scaled_errs``): each row's max error within 2**-6 of that row's max
+    |ref| (at least 1% of the median non-zero row's; a zero row must be
+    zero), and ||err|| / ||ref|| within 1e-2."""
+    err = got.float() - ref.float()
+    row_ref = ref.float().abs().amax(dim=-1)
+    live = row_ref[row_ref > 0]
+    floor = max(1e-2 * float(live.median()) if live.numel() else 0.0,
+                torch.finfo(torch.float32).tiny)
+    row = float((err.abs().amax(dim=-1)
+                 / torch.clamp(row_ref, min=floor)).max())
+    assert row <= 2.0 ** -6, row
+    if live.numel():
+        assert float(err.norm() / ref.float().norm()) <= 1e-2
 
 
 def _tables(b, l, d, dtype, dev):
@@ -450,7 +469,8 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
                       "packed_adam": 0, "packed_scale": 2 * n,
                       "lamb_stage1": 0, "lamb_stage2": 0,
                       "packed_sumsq": 0, "packed_axpby": 0,
-                      "packed_adam_tree": 2, "sumsq_per_tensor": 0}
+                      "packed_adam_tree": 2, "sumsq_per_tensor": 0,
+                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
     assert all(p.dtype == want_dtype for p in model.parameters())
     assert all(np.isfinite(losses["cuda"]))
@@ -668,7 +688,8 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
                       "lamb_stage1": 2,
                       "lamb_stage2": 2, "packed_sumsq": 2,
                       "packed_axpby": 0, "packed_adam_tree": 0,
-                      "sumsq_per_tensor": 0}
+                      "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
+                      "flash_attn_bwd_dkv": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=0)
 
@@ -870,7 +891,8 @@ def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
                       "packed_scale": 2 * n, "lamb_stage1": 0,
                       "lamb_stage2": 0, "packed_sumsq": 0,
                       "packed_axpby": 2 * 4, "packed_adam_tree": 2,
-                      "sumsq_per_tensor": 0}
+                      "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
+                      "flash_attn_bwd_dkv": 0}
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
                                rtol=0)
@@ -903,3 +925,130 @@ def test_fp16_optimizer_step_is_one_k5_and_one_k9_launch(cuda):
     assert sum(counts.values()) == 2
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-2
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=2e-2)
+
+
+# -- the two-pass flash backward (K13 dq, K14 dk / dv) ----------------------
+
+ENV_BUDGET = "APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES"
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", CASES + [(1, 4096, 2, 64)])
+def test_two_pass_backward_kernels_match_plain(cuda, shape, causal, masked,
+                                               rope):
+    """K13 and K14 against their plain versions in bf16 over K4's shapes
+    and L 4096: within 2 bf16 ulps of the largest gradient and by the
+    row and norm checks of ``_assert_rows_close``, one launch
+    each a call, equal bits on a second run; K14's dk and dv equal K4's
+    (the same device code), and rows that see no key get zeros."""
+    from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dkv_ref,
+                                         flash_attn_bwd_dq,
+                                         flash_attn_bwd_dq_ref)
+    bsz, l, h, d = shape
+    dtype = torch.bfloat16
+    rng = np.random.RandomState(5 * l + d)
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
+        mask[:, 0] = True
+        mask[0, :] = False            # batch 0: every row sees no key
+    kw = dict(causal=causal, kv_mask=mask,
+              rope=_tables(bsz, l, d, dtype, cuda) if rope else None)
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    delta = attn_delta(o, do, None)
+    before = (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches)
+    dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq2 = flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = flash_attn_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+    ref = (flash_attn_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+           *flash_attn_bwd_dkv_ref(q, k, v, do, lse, delta, **kw))
+    for a, r in zip((dq, dk, dv), ref):
+        assert a.dtype == dtype and a.shape == q.shape
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
+                                   rtol=0)
+        _assert_rows_close(a, r)
+    fused = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
+    if masked:
+        assert all(torch.all(g[0] == 0) for g in (dq, dk, dv))
+
+
+def test_route_switches_at_the_budget(cuda, monkeypatch):
+    """``flash_attn_bwd`` takes K4 while its planes fit the budget and
+    K13 + K14 above it: at the planes' exact size fused, one byte less
+    two-pass; both routes within 2 bf16 ulps of each other."""
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dq,
+                                         fused_bwd_partials_bytes)
+    shape = (2, 200, 3, 64)
+    rng = np.random.RandomState(11)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for _ in range(4))
+    o, lse = flash_attn_fwd(q, k, v, causal=True, return_lse=True)
+    planes = fused_bwd_partials_bytes(*shape, torch.bfloat16)
+    out = {}
+    for budget in (planes, planes - 1):
+        monkeypatch.setenv(ENV_BUDGET, str(budget))
+        counts = (flash_attn_bwd.launches, flash_attn_bwd_dq.launches,
+                  flash_attn_bwd_dkv.launches)
+        out[budget] = flash_attn_bwd(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        delta = [a - b for a, b in zip(
+            (flash_attn_bwd.launches, flash_attn_bwd_dq.launches,
+             flash_attn_bwd_dkv.launches), counts)]
+        assert delta == ([1, 0, 0] if budget == planes else [0, 1, 1])
+    for a, b in zip(out[planes], out[planes - 1]):
+        torch.testing.assert_close(a.float(), b.float(), atol=_bf16_tol(a),
+                                   rtol=0)
+
+
+def test_remat_train_step_on_the_two_pass_route_matches_the_cpu(
+        cuda, monkeypatch):
+    """Two O2 steps of a 2-layer 2 x 64-head GPT with ``remat=True`` and
+    the budget at 0 (the two-pass route), card against CPU from the same
+    weights: per step K2 twice a layer (the recompute), K13 and K14 once
+    a layer, K4 none; losses within O2's 2e-2."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTConfig, GPTModel, lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    monkeypatch.setenv(ENV_BUDGET, "0")
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, remat=True)
+    torch.manual_seed(0)
+    state = GPTModel(cfg, device="cpu").state_dict()
+    ids = torch.as_tensor((np.arange(128)[None] + np.arange(4)[:, None] * 7)
+                          % 512)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = GPTModel(cfg, device=dev)
+        model.load_state_dict(state)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O2", device=dev)
+        step = amp.make_train_step(
+            a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+        reset_launch_counts()
+        losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(2)]
+        counts = launch_counts()
+    n = len(list(model.parameters()))
+    assert counts == {"layer_norm_fwd": 2 * 9, "flash_attn_fwd": 2 * 4,
+                      "layer_norm_bwd": 2 * 10, "flash_attn_bwd": 0,
+                      "packed_adam": 0, "packed_scale": 2 * n,
+                      "lamb_stage1": 0, "lamb_stage2": 0,
+                      "packed_sumsq": 0, "packed_axpby": 0,
+                      "packed_adam_tree": 2, "sumsq_per_tensor": 0,
+                      "flash_attn_bwd_dq": 2 * 2, "flash_attn_bwd_dkv": 2 * 2}
+    assert all(np.isfinite(losses["cuda"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
+                               rtol=0)
