@@ -280,7 +280,12 @@ def initialize(model: nn.Module, optimizer: torch.optim.Optimizer,
     them, e.g. :class:`~apex_tpu_torch.optimizers.FusedAdam`) to an opt
     level and overrides: casts the model in place, makes the fp32 masters
     and moves the optimizer onto them.  The model must lie on ``device``
-    (the card by default; ``device="cpu"`` runs the plain versions)."""
+    (the card by default; ``device="cpu"`` runs the plain versions).
+
+    The default ``opt_level="O1"`` (the JAX package's default too) raises
+    ``NotImplementedError``, as does any level with ``cast_ops``: O1's
+    cast-ops context is not ported yet (ROADMAP.md Queue 1 #3).  Pass
+    ``"O0"``, ``"O2"`` or ``"O3"``."""
     device = resolve_device(device)
     for p in model.parameters():
         if not same_device(p.device, device):

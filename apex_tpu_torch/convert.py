@@ -1,5 +1,6 @@
-"""Bring a JAX GPT or BERT checkpoint across (``params_from_jax``,
-``bert_params_from_jax``) and back (``params_to_numpy``).
+"""Bring a JAX GPT, BERT or ResNet checkpoint across
+(``params_from_jax``, ``bert_params_from_jax``, ``resnet_params_from_jax``)
+and back (``params_to_numpy``).
 
 The JAX parameter tree arrives as nested dicts of numpy arrays, in the
 loop layout (``block_{i}`` subtrees for GPT, ``bert/layer_{i}`` for
@@ -7,14 +8,17 @@ BERT) or the scan layout (``layers/block``, ``bert/layers/layer``, with
 a leading layer axis, unstacked here).  Names map one to one onto the
 port's module parameters (``block_0/attention/qkv/kernel`` ->
 ``block_0.attention.qkv.kernel``); :class:`~apex_tpu_torch.layers.Dense`
-keeps flax's ``(in, out)`` kernel layout, so nothing is transposed.
+keeps flax's ``(in, out)`` kernel layout and
+:class:`~apex_tpu_torch.layers.Conv` its HWIO one, so nothing is
+transposed.  A ResNet's ``batch_stats`` land in its BatchNorms'
+``mean`` / ``var`` buffers.
 bf16 arrays (``ml_dtypes.bfloat16``) convert through float32, which is
 exact.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +27,7 @@ from torch import nn
 from apex_tpu_torch.amp.frontend import default_keep_fp32_filter
 from apex_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.resnet import ARCHS, ResNet
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 
 
@@ -80,19 +85,30 @@ def _load(model: nn.Module, tree: Mapping, scan: Tuple[str, ...],
           dtype: Optional[torch.dtype], trainable: bool) -> nn.Module:
     """``model`` (built on the meta device) holding the JAX parameters
     ``tree`` on ``device``; see :func:`params_from_jax`."""
+    return _load_flat(model, _unstack(_flatten(tree), scan, loop,
+                                      num_layers), device, dtype, trainable)
+
+
+def _load_flat(model: nn.Module, flat: Dict[Tuple[str, ...], Any],
+               device: DeviceLike, dtype: Optional[torch.dtype],
+               trainable: bool) -> nn.Module:
     device = resolve_device(device)
-    flat = _unstack(_flatten(tree), scan, loop, num_layers)
     state = {}
     for path, v in flat.items():
         t = _to_tensor(v)
         state[".".join(path)] = t.to(device=device,
                                      dtype=_target_dtype(path, t, dtype))
-    want = set(model.state_dict())
-    if set(state) != want:
+    want = model.state_dict()
+    if set(state) != set(want):
         raise ValueError(
             f"parameter names differ from {type(model).__name__}'s: "
-            f"missing {sorted(want - set(state))}, unexpected "
-            f"{sorted(set(state) - want)}")
+            f"missing {sorted(set(want) - set(state))}, unexpected "
+            f"{sorted(set(state) - set(want))}")
+    bad = [f"{n}: {tuple(t.shape)} for {tuple(want[n].shape)}"
+           for n, t in state.items() if t.shape != want[n].shape]
+    if bad:
+        raise ValueError(f"shapes differ from {type(model).__name__}'s: "
+                         f"{bad}")
     model.load_state_dict(state, assign=True)
     if trainable:
         return model.requires_grad_(True).train()
@@ -126,6 +142,31 @@ def bert_params_from_jax(tree: Mapping, cfg: BertConfig,
     return _load(BertForPreTraining(cfg, device="meta"), tree,
                  ("bert", "layers", "layer"), ("bert", "layer"),
                  cfg.num_layers, device, dtype, trainable)
+
+
+def resnet_params_from_jax(params: Mapping, batch_stats: Mapping,
+                           arch: Union[str, Callable[..., ResNet]]
+                           = "resnet50", device: DeviceLike = None,
+                           dtype: Optional[torch.dtype] = None,
+                           trainable: bool = False, **model_kw) -> ResNet:
+    """A port :class:`~apex_tpu_torch.models.resnet.ResNet` holding the
+    flax ``params`` and ``batch_stats`` of the JAX model built by the same
+    ``ARCHS`` entry (or constructor, e.g. ``ResNet`` itself with
+    ``stage_sizes``), with the same ``model_kw`` (``num_classes``,
+    ``width``, ``stem``, ...).  Names and shapes are checked one for one;
+    ``dtype`` and ``trainable`` as :func:`params_from_jax`'s (the running
+    stats keep their dtype: their paths name a BatchNorm).  With
+    ``trainable`` the model is in training mode."""
+    ctor = ARCHS[arch] if isinstance(arch, str) else arch
+    flat = _flatten(params)
+    stats = _flatten(batch_stats)
+    clash = set(flat) & set(stats)
+    if clash:
+        raise ValueError(f"params and batch_stats share paths: "
+                         f"{sorted(clash)}")
+    flat.update(stats)
+    return _load_flat(ctor(device="meta", **model_kw), flat, device, dtype,
+                      trainable)
 
 
 def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]]

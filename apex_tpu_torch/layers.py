@@ -1,26 +1,39 @@
 """Building-block layers with flax's parameter names and layouts.
 
-:class:`Dense` stores its kernel ``(in, out)``, exactly as flax stores
-it, so ``x @ kernel + bias`` is the JAX package's expression and the
-converter copies weights across without a transpose.
+:class:`Dense` stores its kernel ``(in, out)`` and :class:`Conv` its
+kernel HWIO ``(kh, kw, in, out)``, exactly as flax stores them, so the
+converter copies weights across without a transpose (and K16 reads a
+1x1 kernel as its ``(in, out)`` view).  Convolutions run on NHWC
+activations through :func:`apex_tpu_torch.amp.ops.conv_general_dilated`.
+``ConvTranspose`` comes with the DCGAN slice (amp O1).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple, Union
+
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp import ops as amp_ops
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with ``kernel (in, out)``."""
+    """``y = x @ kernel + bias`` with ``kernel (in, out)``, drawn from a
+    normal of std ``init_std`` (``in ** -0.5`` by default)."""
 
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, init_std: Optional[float] = None):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(
             (in_features, out_features), dtype=dtype, device=device))
-        nn.init.normal_(self.kernel, std=in_features ** -0.5)
+        nn.init.normal_(self.kernel, std=in_features ** -0.5
+                        if init_std is None else init_std)
         if use_bias:
             self.bias = nn.Parameter(torch.zeros(
                 out_features, dtype=dtype, device=device))
@@ -29,6 +42,42 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class Conv(nn.Module):
+    """NHWC convolution with the HWIO ``kernel (kh, kw, in, features)``,
+    drawn as flax's ``variance_scaling(2.0, "fan_out", "normal")`` (std
+    ``sqrt(2 / (kh * kw * features))``), and an optional ``bias``.
+    ``padding``: ``"SAME"`` (lax's, asymmetric at stride 2), ``"VALID"``,
+    an int, or explicit ``(lo, hi)`` pairs."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Tuple[int, int]] = 3,
+                 strides: Union[int, Tuple[int, int]] = 1,
+                 padding: Union[str, int, Sequence[Tuple[int, int]]]
+                 = "SAME", use_bias: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.strides = _pair(strides)
+        self.padding = ([(padding, padding)] * 2
+                        if isinstance(padding, int) else padding)
+        self.kernel = nn.Parameter(torch.empty(
+            (kh, kw, in_features, features), dtype=dtype, device=device))
+        nn.init.normal_(self.kernel, std=(2.0 / (kh * kw * features)) ** 0.5)
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(
+                features, dtype=dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = amp_ops.conv_general_dilated(
+            x, self.kernel, self.strides, self.padding,
+            dimension_numbers=("NHWC", "HWIO", "NHWC"))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

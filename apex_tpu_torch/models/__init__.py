@@ -10,6 +10,21 @@ from apex_tpu_torch.models.bert import (
     bert_tiny,
     pretraining_loss,
 )
+from apex_tpu_torch.models.resnet import (
+    ARCHS,
+    BasicBlock,
+    Bottleneck,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet50S2D,
+    ResNet101,
+    ResNet152,
+    accuracy,
+    resnet_loss,
+    synthetic_batch,
+)
 from apex_tpu_torch.models.gpt import (
     GPTConfig,
     GPTModel,
@@ -19,7 +34,9 @@ from apex_tpu_torch.models.gpt import (
     lm_loss,
 )
 
-__all__ = ["BertConfig", "BertForPreTraining", "BertModel", "GPTConfig",
+__all__ = ["ARCHS", "BasicBlock", "Bottleneck", "ResNet", "ResNet18",
+           "ResNet34", "ResNet50", "ResNet50S2D", "ResNet101", "ResNet152",
+           "accuracy", "resnet_loss", "synthetic_batch", "BertConfig", "BertForPreTraining", "BertModel", "GPTConfig",
            "GPTModel", "SelfAttention", "TransformerLayer", "bert_base",
            "bert_large", "bert_large_tpu", "bert_tiny", "gpt_small",
            "gpt_small_tpu", "gpt_tiny", "lm_loss", "pretraining_loss"]

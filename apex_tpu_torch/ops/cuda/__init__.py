@@ -7,6 +7,7 @@ from apex_tpu_torch.ops.cuda.adam import (
     packed_adam_tree,
     packed_adam_tree_ref,
 )
+from apex_tpu_torch.ops.cuda.conv1x1 import conv1x1_bwd, conv1x1_bwd_ref
 from apex_tpu_torch.ops.cuda.flash_attention import (
     attn_delta,
     flash_attn_bwd,
@@ -58,7 +59,8 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "packed_adam_tree": packed_adam_tree,
            "sumsq_per_tensor": sumsq_per_tensor,
            "flash_attn_bwd_dq": flash_attn_bwd_dq,
-           "flash_attn_bwd_dkv": flash_attn_bwd_dkv}
+           "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
+           "conv1x1_bwd": conv1x1_bwd}
 
 
 def launch_counts() -> dict:
@@ -71,7 +73,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "attn_delta", "flash_attn_bwd", "flash_attn_bwd_dkv",
+__all__ = ["KERNELS", "attn_delta", "conv1x1_bwd", "conv1x1_bwd_ref",
+           "flash_attn_bwd", "flash_attn_bwd_dkv",
            "flash_attn_bwd_dkv_ref", "flash_attn_bwd_dq",
            "flash_attn_bwd_dq_ref", "flash_attn_bwd_ref",
            "flash_attn_fwd", "flash_attn_fwd_ref", "fused_bwd",

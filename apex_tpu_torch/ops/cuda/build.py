@@ -187,6 +187,12 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_lamb_stage2.argtypes = ([vp] * 4 + [i32, i32] + [vp] * 6
                                      + [f32, i32, vp])
     lib.apex_lamb_stage2.restype = i32
+    lib.apex_conv1x1_bwd_split.argtypes = [i64, i32, i32]
+    lib.apex_conv1x1_bwd_split.restype = i32
+    lib.apex_conv1x1_bwd_tickets.argtypes = [i64, i32, i32]
+    lib.apex_conv1x1_bwd_tickets.restype = i32
+    lib.apex_conv1x1_bwd.argtypes = [vp] * 7 + [i64] + [i32] * 4 + [vp]
+    lib.apex_conv1x1_bwd.restype = i32
     lib.apex_cuda_error_string.argtypes = [i32]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
     _LIB, _INFO = lib, info

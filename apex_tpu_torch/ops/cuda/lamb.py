@@ -27,6 +27,7 @@ from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 import torch
 
 from apex_tpu_torch.ops.cuda import build
+from apex_tpu_torch.ops.cuda.adam import _sqrt_rn
 
 if TYPE_CHECKING:
     from apex_tpu_torch.ops.multi_tensor import ChunkTable
@@ -44,7 +45,7 @@ def _inv_clip(sumsq: torch.Tensor, max_grad_norm: float) -> torch.Tensor:
     (the norm divided by a tensor, so the division is the kernel's true
     one)."""
     s = sumsq.float().reshape(1)
-    clip = torch.clamp(torch.sqrt(s) / torch.full_like(s, max_grad_norm),
+    clip = torch.clamp(_sqrt_rn(s) / torch.full_like(s, max_grad_norm),
                        min=1.0)
     return 1.0 / clip
 
@@ -72,7 +73,7 @@ def lamb_stage1_ref(table: ChunkTable, p: Leaves, g: Leaves, m: Leaves,
             g32 = g32 * inv.reshape(())
         m32 = beta1 * m[i] + (1.0 - beta1) * g32
         v32 = beta2 * v[i] + (1.0 - beta2) * g32 * g32
-        u32 = (m32 / bc1[i]) / (torch.sqrt(v32 / bc2[i]) + eps) \
+        u32 = (m32 / bc1[i]) / (_sqrt_rn(v32 / bc2[i]) + eps) \
             + weight_decay * p32
         p_sq.append(table.leaf_chunk_sums(p32))
         u_sq.append(table.leaf_chunk_sums(u32))
@@ -146,8 +147,8 @@ def _trust_ratio(table: ChunkTable, i: int, p_sq: torch.Tensor,
     """``lr * ||p|| / ||u||`` of leaf ``i`` from its chunk partials, or
     ``lr`` when either norm is 0 (0-dim fp32)."""
     c0, c1 = table.first_chunk[i], table.first_chunk[i + 1]
-    pn = torch.sqrt(p_sq[c0:c1].sum())
-    un = torch.sqrt(u_sq[c0:c1].sum())
+    pn = _sqrt_rn(p_sq[c0:c1].sum())
+    un = _sqrt_rn(u_sq[c0:c1].sum())
     trust = torch.where((pn > 0) & (un > 0),
                         pn / torch.clamp(un, min=1e-38), torch.ones_like(pn))
     return lr * trust

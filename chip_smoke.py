@@ -100,13 +100,34 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 12. bert_train reference  a 2-layer, 2 x 64-head BERT with a ragged key
             mask, 3 FusedLAMB steps on the card against the CPU: fp32 O0
             and bf16 O2.
+13. resnet_kernels  K16, the fused 1x1-conv backward, against its plain
+            version at ResNet-50's 12 shapes of 1x1 stride-1 convs (bf16,
+            B 256 x 224^2), in fp32 and at ragged shapes: dx by
+            ``scaled_errs`` and within 2 ulps of its largest element, dW
+            within that bound, bitwise repeats; kernel / plain / cuDNN
+            ``convolution_backward`` times, the HWIO-to-OIHW weight copy
+            cuDNN makes, and the bounds;
+14. resnet_train  ResNet-50 at full width and depth (seeded weights on
+            the card), amp O2 + FusedAdam (lr 1e-3), B 256 x 224^2 on one
+            synthetic batch of ``examples/imagenet_main_amp.py``: 10 steps
+            with ``APEX_TPU_FUSED_CONV1X1`` off, then 10 with it on, each
+            with step p50 over steps 3-10, images/s, peak memory, one
+            profiled step and the exact launches per step (K6 161, K11 1,
+            K16 33 with the switch on, 0 off); the loss must fall; an eval
+            pass on the running stats (top-1 / top-5 on that batch); one
+            injected overflow skipped on the card while its forward still
+            moves the running stats;
+15. resnet_reference  a small Bottleneck ResNet, fp32 O0, 3 steps on the
+            card against the CPU with the switch off and on (9 fp32 K16
+            launches a step on the card).
 
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before the last line; with no card it exits 1 at
 once.  The script clears ``APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES`` (its
 launch counts assume the default 1 GiB budget) and sets it only inside
-the phases that compare the two routes.
+the phases that compare the two routes; likewise it clears
+``APEX_TPU_FUSED_CONV1X1`` and sets it only inside the ResNet phases.
 """
 
 from __future__ import annotations
@@ -180,18 +201,26 @@ FUSED_ALWAYS = 1 << 40
 
 
 @contextlib.contextmanager
-def fused_budget(nbytes: int):
-    """The flash backward's partials budget at ``nbytes`` inside the block
-    (or under the decorated function), restored after."""
-    old = os.environ.get(BUDGET_ENV)
-    os.environ[BUDGET_ENV] = str(nbytes)
+def env_set(name: str, value):
+    """The environment variable ``name`` at ``value`` (unset for None)
+    inside the block (or under the decorated function), restored after."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop(BUDGET_ENV, None)
+            os.environ.pop(name, None)
         else:
-            os.environ[BUDGET_ENV] = old
+            os.environ[name] = old
+
+
+def fused_budget(nbytes: int):
+    """The flash backward's partials budget at ``nbytes``."""
+    return env_set(BUDGET_ENV, str(nbytes))
 
 
 # -- phases ---------------------------------------------------------------
@@ -831,19 +860,21 @@ def _adam_case(cfg, rng):
                        "launch over the flat buffer)")
 
 
-def _scale_case(shapes, rng, in_place=False):
+def _scale_case(shapes, rng, in_place=False, dtypes=None):
     """K6 over one gradient per shape of ``shapes`` (a model's leaves)
     against its plain version: bitwise, with and without one inf leaf;
     timings.  By default bf16 -> fp32 out of place (amp's unscale of a
-    step's gradients); ``in_place``: fp32 over itself (the unscale of the
-    accumulated gradients, ``out`` aliasing ``x``)."""
+    step's gradients; ``dtypes``: each leaf's gradient dtype, for a model
+    whose O2 keeps some leaves fp32); ``in_place``: fp32 over itself (the
+    unscale of the accumulated gradients, ``out`` aliasing ``x``)."""
     import torch
     from apex_tpu_torch.ops.cuda import packed_scale, packed_scale_ref
     dev = torch.device("cuda")
     n = sum(int(np.prod(s)) for s in shapes)
     dt = torch.float32 if in_place else torch.bfloat16
+    dtypes = dtypes or [dt] * len(shapes)
     grads = [torch.as_tensor(rng.standard_normal(s, np.float32) * 1e3,
-                             device=dev).to(dt) for s in shapes]
+                             device=dev).to(d) for s, d in zip(shapes, dtypes)]
     inv = torch.full((1,), 2.0 ** -16, device=dev)
     results = {}
     for bad in (False, True):
@@ -866,8 +897,8 @@ def _scale_case(shapes, rng, in_place=False):
                 f"packed_scale flag {int(flag)} (plain {int(flag_ref)}), "
                 f"want {int(bad)}")
         require(all(torch.equal(a, b) for a, b in zip(outs, refs)),
-                f"packed_scale ({dt}, in place {in_place}) differs from "
-                f"its plain version")
+                f"packed_scale ({set(dtypes)}, in place {in_place}) differs "
+                f"from its plain version")
         # the scale was applied: 2**-16 is exact away from underflow
         require(torch.equal(outs[0], grads[0].float() * 2.0 ** -16),
                 "packed_scale did not apply the scale")
@@ -907,10 +938,13 @@ def _scale_case(shapes, rng, in_place=False):
     lib32 = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
         grads32, found, one))
     del grads32
-    b_ms, b_by = bound(6.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
+    nbytes = sum((g.element_size() + 4) * g.numel() for g in grads)
+    b_ms, b_by = bound(nbytes, 2.0 * n, PEAK_FP32_FLOPS)
+    names = sorted({str(d).replace("torch.", "") for d in dtypes})
     return _kernel_rec(kernel="packed_scale", leaves=len(shapes), elements=n,
                        shape=f"{len(shapes)} leaves, {n} elements",
-                       dtype="bfloat16 -> float32", scale=2.0 ** -16,
+                       dtype=" / ".join(names) + " -> float32",
+                       scale=2.0 ** -16,
                        max_abs_err=0.0,
                        tolerance="bitwise equal to the plain version; flag "
                                  "raised by the one inf leaf",
@@ -969,7 +1003,7 @@ NO_LAUNCHES = {k: 0 for k in (
     "layer_norm_fwd", "flash_attn_fwd", "layer_norm_bwd", "flash_attn_bwd",
     "packed_adam", "packed_scale", "lamb_stage1", "lamb_stage2",
     "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor",
-    "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "conv1x1_bwd")}
 
 
 def fused_route(b, l, h, d) -> bool:
@@ -1017,7 +1051,8 @@ def pointer_rows(first, tables, steps=TRAIN_STEPS):
 
 
 #: kernel-name fragments of the step's device time, by group
-PROFILE_GROUPS = (("flash_attn_bwd_dq (K13)", ("flash_bwd_dq",)),
+PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
+                  ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq",)),
                   ("flash_attn_bwd_dkv (K14)", ("flash_bwd_bf16<64, false>",
                                                 "flash_bwd_bf16<128, false>")),
                   ("flash_attn_bwd (K4)", ("flash_bwd",)),
@@ -1032,6 +1067,9 @@ PROFILE_GROUPS = (("flash_attn_bwd_dq (K13)", ("flash_bwd_dq",)),
                   ("lamb_stage1 (K7)", ("lamb_stage1",)),
                   ("lamb_stage2 (K8)", ("lamb_stage2",)),
                   ("packed_sumsq (K9)", ("sumsq_kernel",)),
+                  ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad",
+                                            "implicit_convolve",
+                                            "cudnn")),
                   ("matmuls (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                         "sm90_", "nvjet")))
 
@@ -2542,6 +2580,319 @@ def phase_bert_train_reference():
                  loss_tolerance=BERT_REF_O2_LOSS_TOL))
 
 
+# -- the ResNet slice -----------------------------------------------------
+
+#: ResNet-50's 1x1 stride-1 convs at B 256 x 224^2, (M, cin, cout, calls a
+#: step): conv1 and conv3 of the 16 bottlenecks and stage 0's projection,
+#: 33 calls of K16 a step with the switch on
+RN50_CONV1X1 = ((802816, 64, 64, 1), (802816, 64, 256, 4),
+                (802816, 256, 64, 2), (802816, 256, 128, 1),
+                (200704, 512, 128, 3), (200704, 128, 512, 4),
+                (200704, 512, 256, 1), (50176, 1024, 256, 5),
+                (50176, 256, 1024, 6), (50176, 1024, 512, 1),
+                (12544, 2048, 512, 2), (12544, 512, 2048, 3))
+RN_B = 256
+RN_SIZE = 224
+RN_STEPS = 10
+RN_LR = 1e-3
+CONV1X1_ENV = "APEX_TPU_FUSED_CONV1X1"
+
+
+def conv1x1_switch(on: bool):
+    """``APEX_TPU_FUSED_CONV1X1`` set to 1 (or cleared)."""
+    return env_set(CONV1X1_ENV, "1" if on else None)
+
+
+def _conv1x1_case(m, cin, cout, dtype, seed, calls=None):
+    """K16 against its plain version at one shape: dx by ``scaled_errs``
+    and within 2 ulps of its largest element (``bf16_tol``; fp32: 1e-5
+    of it), dW within the same bound (both sum in fp32 and round once,
+    in other orders), a second run equal bit for bit; kernel, plain and
+    ``aten.convolution_backward`` (cuDNN's dgrad + wgrad of the same conv,
+    the weight given as the route's strided HWIO view) times, the copy
+    of that view to OIHW, and the bound."""
+    import torch
+    from apex_tpu_torch.ops.cuda import build, conv1x1_bwd, conv1x1_bwd_ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, cin), generator=g, device="cuda").to(dtype)
+    dy = torch.randn((m, cout), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((cin, cout), generator=g, device="cuda")
+         * cin ** -0.5).to(dtype)
+    dx, dw = conv1x1_bwd(x, dy, w)
+    dx2, dw2 = conv1x1_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    require(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+            f"conv1x1_bwd {(m, cin, cout)} does not repeat bitwise")
+    rdx, rdw = conv1x1_bwd_ref(x, dy, w)
+    tol = {}
+    for name, got, ref in (("dx", dx, rdx), ("dw", dw, rdw)):
+        lim = (bf16_tol(ref) if dtype != torch.float32
+               else 1e-5 * max(1.0, float(ref.abs().max())))
+        err = _max_err(got, ref)
+        require(err <= lim, f"conv1x1_bwd {name} {(m, cin, cout)} "
+                            f"{dtype}: max err {err} > {lim}")
+        tol[name] = (err, lim)
+    scaled = scaled_errs(f"conv1x1_bwd dx {(m, cin, cout)}", dx, rdx)
+    item = x.element_size()
+    nbytes = item * (2 * m * cin + m * cout) + 2 * item * cin * cout
+    flops = 4.0 * m * cin * cout
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    bms, by = bound(nbytes, flops, peak)
+    # the conv as the route hands it to cuDNN: NCHW channels-last views
+    # of NHWC tensors (B 256 at a square size where M allows, else one
+    # image of M x 1), the HWIO kernel seen as OIHW
+    side = int(round((m // RN_B) ** 0.5))
+    nhw = (RN_B, side, side) if RN_B * side * side == m else (1, m, 1)
+    x4 = x.view(*nhw, cin).permute(0, 3, 1, 2)
+    dy4 = dy.view(*nhw, cout).permute(0, 3, 1, 2)
+    w4 = w.view(1, 1, cin, cout).permute(3, 2, 0, 1)
+
+    def library():
+        return torch.ops.aten.convolution_backward(
+            dy4, x4, w4, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+
+    ldx, ldw, _ = library()
+    lib_err = [_max_err(ldx.permute(0, 2, 3, 1).reshape(m, cin), rdx),
+               _max_err(ldw.reshape(cout, cin).t(), rdw)]
+    rec = dict(kernel="conv1x1_bwd", shape=[m, cin, cout],
+               dtype=str(dtype).replace("torch.", ""), calls_a_step=calls,
+               dx_max_abs_err=tol["dx"][0], dx_tolerance=tol["dx"][1],
+               dw_max_abs_err=tol["dw"][0], dw_tolerance=tol["dw"][1],
+               max_abs_err=max(tol["dx"][0], tol["dw"][0]),
+               dw_partial_planes=build.library().apex_conv1x1_bwd_split(
+                   m, cin, cout),
+               ms=time_ms(lambda: conv1x1_bwd(x, dy, w)),
+               plain_ms=time_ms(lambda: conv1x1_bwd_ref(x, dy, w)),
+               library_ms=time_ms(library),
+               weight_to_oihw_copy_ms=time_ms(lambda: w4.contiguous()),
+               bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+               library_dx_dw_max_abs_err=lib_err, nhw=list(nhw),
+               bitwise_repeat=True, **scaled)
+    del x, dy, w, dx, dw, dx2, dw2, rdx, rdw, ldx, ldw
+    return _kernel_rec(**rec)
+
+
+def phase_resnet_kernels():
+    """K16 at ResNet-50's 12 shapes of 1x1 stride-1 convs (bf16, B 256 x
+    224^2), in fp32 at one of them, and at ragged shapes; K6 and K11 at
+    ResNet-50's 161 leaves as its O2 step gives them (bf16 gradients but
+    for the fp32 BatchNorm leaves; fp32 masters, moments and gradients,
+    the compute copies made after the kernel since their dtypes mix)."""
+    import torch
+    from apex_tpu_torch.amp import default_keep_fp32_filter
+    from apex_tpu_torch.models import ARCHS
+    named = list(ARCHS["resnet50"](device="meta").named_parameters())
+    shapes = [tuple(p.shape) for _, p in named]
+    dtypes = [torch.float32 if default_keep_fp32_filter(n.split("."))
+              else torch.bfloat16 for n, _ in named]
+    others = {"packed_scale": _scale_case(shapes, np.random.default_rng(9),
+                                          dtypes=dtypes),
+              "packed_adam_tree": _adam_tree_case(shapes, torch.float32,
+                                                  torch.float32, False)}
+    recs = [_conv1x1_case(m, cin, cout, torch.bfloat16, i, calls)
+            for i, (m, cin, cout, calls) in enumerate(RN50_CONV1X1)]
+    extra = [_conv1x1_case(50176, 1024, 256, torch.float32, 20),
+             _conv1x1_case(12345, 192, 320, torch.bfloat16, 21),
+             _conv1x1_case(1001, 24, 40, torch.float32, 22)]
+    step_ms = sum(r["ms"] * r["calls_a_step"] for r in recs)
+    emit("resnet_kernels", k16_calls_a_step=sum(r["calls_a_step"]
+                                               for r in recs),
+         k16_ms_a_step=step_ms,
+         bound_ms_a_step=sum(r["bound_ms"] * r["calls_a_step"]
+                             for r in recs),
+         convolution_backward_ms_a_step=sum(
+             r["library_ms"] * r["calls_a_step"] for r in recs))
+    torch.cuda.empty_cache()
+    return recs, extra, others
+
+
+def _rn_loss(model, x, y):
+    from apex_tpu_torch.models import resnet_loss
+    return resnet_loss(model(x, train=True), y)
+
+
+def _routed_convs(model) -> int:
+    from apex_tpu_torch.layers import Conv
+    return sum(1 for m in model.modules() if isinstance(m, Conv)
+               and tuple(m.kernel.shape[:2]) == (1, 1)
+               and m.strides == (1, 1))
+
+
+def _rn_run(step, x, y, steps, want):
+    """``steps`` timed steps; launches per step must equal ``want``."""
+    import torch
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, scales, overflows, times = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+        scales.append(float(out["loss_scale"]))
+        overflows.append(bool(out["overflow"]))
+    counts = launch_counts()
+    per_step = {k: c / steps for k, c in counts.items()}
+    require(per_step == want, f"resnet launches per step {per_step}, "
+                              f"want {want}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(not any(overflows), f"overflow in the resnet steps: "
+                                f"{overflows}")
+    p50 = float(np.median(times[2:])) * 1e3
+    return counts, dict(
+        losses=losses, loss_scales=scales, step_ms=[t * 1e3 for t in times],
+        step_ms_p50_steps_3_to_10=p50, images_per_s=RN_B / (p50 / 1e3),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts, launches_per_step=per_step)
+
+
+def phase_resnet_train():
+    """ResNet-50 (``ARCHS["resnet50"]``, 1000 classes, seeded weights on
+    the card), amp O2 + FusedAdam(lr=1e-3), B 256 x 224^2 on one fixed
+    synthetic batch of ``examples/imagenet_main_amp.py``: 10 steps with
+    ``APEX_TPU_FUSED_CONV1X1`` off, then 10 with it on, each with one
+    profiled step; an eval pass on the running stats; an injected
+    overflow skipped on the card."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ARCHS, accuracy, synthetic_batch
+    from apex_tpu_torch.optimizers import FusedAdam
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = ARCHS["resnet50"]()
+    setup_s = time.perf_counter() - t0
+    opt = FusedAdam(model.parameters(), lr=RN_LR)
+    a = amp.initialize(model, opt, opt_level="O2")
+    step = amp.make_train_step(a, model, _rn_loss)
+    x, y = synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
+                           RN_B, RN_SIZE)
+    n_leaves, routed = len(a.params), _routed_convs(model)
+    # 161 leaves (53 conv kernels, 53 BN scale / bias pairs, fc kernel and
+    # bias), 33 routed convs
+    require((n_leaves, routed) == (161, 33),
+            f"resnet50: {n_leaves} leaves, {routed} routed convs")
+    want_off = dict(NO_LAUNCHES, packed_scale=n_leaves, packed_adam_tree=1)
+    want_on = dict(want_off, conv1x1_bwd=routed)
+    runs = {}
+    for on, want in ((False, want_off), (True, want_on)):
+        with conv1x1_switch(on):
+            counts, run = _rn_run(step, x, y, RN_STEPS, want)
+            run["profile"] = profile_step(step, x, y)
+        runs["switch_on" if on else "switch_off"] = (counts, run)
+    losses = (runs["switch_off"][1]["losses"]
+              + runs["switch_on"][1]["losses"])
+    require(losses[-1] < losses[0], f"resnet loss did not fall: {losses}")
+    # eval with the running stats (the example's validate: the O2 input
+    # cast, fp32 logits)
+    with torch.no_grad():
+        logits = a.run(lambda m, t: m(t, train=False), model, x)
+    require(tuple(logits.shape) == (RN_B, 1000)
+            and bool(torch.isfinite(logits).all()),
+            "eval logits not finite or misshapen")
+    top1, top5 = (float(t) for t in accuracy(logits, y, (1, 5)))
+    # one step with a non-finite gradient: skipped on the card, while the
+    # forward still moves the running stats
+    stats = {n: b.clone() for n, b in model.named_buffers()}
+    with torch.enable_grad():
+        loss = a.run(_rn_loss, model, x, y)
+        grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
+    grads[3][(0,) * grads[3].dim()] = float("inf")   # a strided grad
+    masters = {n: t.clone() for n, t in a.masters.items()}
+    st = opt.state[a.masters["fc.kernel"]]
+    moments = (st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+               int(st["step"]))
+    compute = a.params[0].detach().clone()
+    scale_before = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"]), "the injected inf was not seen")
+    require(float(info["loss_scale"]) == scale_before / 2,
+            "the scale did not halve on overflow")
+    require(all(torch.equal(masters[n], t) for n, t in a.masters.items()),
+            "masters changed on a skipped step")
+    require(torch.equal(st["exp_avg"], moments[0])
+            and torch.equal(st["exp_avg_sq"], moments[1])
+            and int(st["step"]) == moments[2],
+            "moments or step counts changed on a skipped step")
+    require(torch.equal(a.params[0], compute),
+            "compute params changed on a skipped step")
+    moved = sum(not torch.equal(stats[n], b)
+                for n, b in model.named_buffers())
+    require(moved == len(stats), f"the overflow step's forward moved "
+                                 f"{moved} of {len(stats)} running stats")
+    emit("resnet_train", model="resnet50", opt_level="O2",
+         optimizer="FusedAdam", lr=RN_LR, batch=RN_B, image_size=RN_SIZE,
+         steps_each=RN_STEPS, parameters=sum(t.numel() for t in
+                                             a.masters.values()),
+         leaves=n_leaves, routed_1x1_convs=routed,
+         weights_from_seed_s=setup_s,
+         switch_off=runs["switch_off"][1], switch_on=runs["switch_on"][1],
+         eval_top1=top1, eval_top5=top5,
+         injected_overflow={"skipped": True, "loss_scale": [
+             scale_before, float(info["loss_scale"])],
+             "running_stats_moved": moved})
+    del a, opt, model, grads, masters, step, x, y, logits
+    torch.cuda.empty_cache()
+    return runs["switch_on"][0], runs["switch_off"][0]
+
+
+#: the small ResNet's fp32 card-vs-CPU losses: both run fp32 (no TF32 on
+#: either side) and sum in other orders; BatchNorm over 8 images at 1 x 1
+#: in stage 3 amplifies that (the CPU tests measure 2.9e-6 against JAX
+#: over the same 3 steps)
+RN_REF_LOSS_TOL = 1e-4
+
+
+def phase_resnet_reference():
+    """A small Bottleneck ResNet (stages (1, 1, 1, 1), width 8, 10
+    classes), fp32 O0 + FusedAdam, 3 steps at B 8 x 32^2 on the card
+    against the same on the CPU from the same weights, with the switch
+    off and on (on the card: 9 K16 launches a step, fp32)."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    kw = dict(stage_sizes=(1, 1, 1, 1), width=8, num_classes=10)
+    torch.manual_seed(3)
+    state = ResNet(device="cpu", **kw).state_dict()
+    rng = np.random.default_rng(4)
+    xs = torch.from_numpy(rng.standard_normal((8, 32, 32, 3),
+                                              dtype=np.float32))
+    ys = torch.from_numpy(rng.integers(0, 10, 8))
+    out = {}
+    for on in (False, True):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with conv1x1_switch(on):
+                model = ResNet(device=dev, **kw)
+                model.load_state_dict(state)
+                a = amp.initialize(model, FusedAdam(model.parameters(),
+                                                    lr=RN_LR, device=dev),
+                                   opt_level="O0", device=dev)
+                step = amp.make_train_step(a, model, _rn_loss)
+                reset_launch_counts()
+                losses = [float(step(xs.to(dev), ys.to(dev))["loss"])
+                          for _ in range(3)]
+                runs[dev] = (losses, launch_counts()["conv1x1_bwd"])
+        (lg, k16), (lc, _) = runs["cuda"], runs["cpu"]
+        err = max(abs(p - q) for p, q in zip(lg, lc))
+        require(all(np.isfinite(lg)) and lg[-1] < lg[0],
+                f"small resnet losses on the card: {lg}")
+        require(err <= RN_REF_LOSS_TOL, f"fp32 resnet losses card vs CPU "
+                                        f"differ by {err}")
+        require(k16 == (3 * 9 if on else 0), f"K16 launched {k16} times")
+        out["switch_on" if on else "switch_off"] = dict(
+            losses_card=lg, losses_cpu=lc, loss_max_abs_err=err,
+            k16_launches=k16)
+    emit("resnet_reference", steps=3, dtype="float32", batch=8,
+         image_size=32, loss_tolerance=RN_REF_LOSS_TOL, **out)
+
+
 def main() -> int:
     try:
         import torch
@@ -2558,7 +2909,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(HERE))
     # the launch expectations below assume the default partials budget
+    # and the 1x1-conv switch off
     os.environ.pop(BUDGET_ENV, None)
+    os.environ.pop(CONV1X1_ENV, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2601,6 +2954,9 @@ def main() -> int:
         bert_recs = phase_bert_kernels(bert_cfg)
         bert_counts = phase_bert_train(bert_cfg)
         phase_bert_train_reference()
+        rk_recs, rk_extra, rk_others = phase_resnet_kernels()
+        rn_counts, rn_off_counts = phase_resnet_train()
+        phase_resnet_reference()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2611,7 +2967,11 @@ def main() -> int:
                    "fp16_optimizer": fp16_counts[k],
                    "long_context": lc_counts[k],
                    "long_context_L32768": lc32_counts[k],
-                   "bert_train": bert_counts[k]} for k in bert_counts}
+                   "bert_train": bert_counts[k],
+                   "resnet_train": rn_counts[k],
+                   "resnet_train_switch_off": rn_off_counts[k]}
+               for k in bert_counts}
+    rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8
                    and r["dtype"] == "bfloat16")
     rope_main = train_recs["flash_attn_fwd_rope"][0]
@@ -2668,7 +3028,10 @@ def main() -> int:
             (lc_recs[1][1], [r[1] for r in lc_recs],
              lc_counts["flash_attn_bwd_dkv"],
              "apex_tpu_torch/csrc/flash_attn_bwd.cu",
-             "apex_tpu/ops/pallas/flash_attention.py:671")):
+             "apex_tpu/ops/pallas/flash_attention.py:671"),
+            (rk_main, rk_recs + rk_extra, rn_counts["conv1x1_bwd"],
+             "apex_tpu_torch/csrc/conv1x1_bwd.cu",
+             "apex_tpu/ops/pallas/experimental/conv1x1.py:101")):
         entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
             launches=launches,
@@ -2717,6 +3080,19 @@ def main() -> int:
             other = recs[1]
             entry["o3_bf16" if rec["kernel"] == "packed_adam_tree"
                   else "bert_shape"] = {k: other.get(k) for k in keys}
+        if rec["kernel"] in rk_others:
+            rn = rk_others[rec["kernel"]]
+            entry["resnet50_shape"] = {k: rn[k] for k in keys + ("dtype",)}
+            entry["resnet50_shape"]["launches"] = rn_counts[rec["kernel"]]
+        if rec["kernel"] == "conv1x1_bwd":
+            k16 = keys + ("calls_a_step", "dtype", "dw_partial_planes",
+                          "weight_to_oihw_copy_ms", "row_rel_err",
+                          "norm_rel_err")
+            entry["resnet50_shapes"] = [{k: r[k] for k in k16}
+                                        for r in rk_recs]
+            entry["other_shapes"] = [{k: r[k] for k in k16}
+                                     for r in rk_extra]
+            entry["library"] = "aten.convolution_backward (cuDNN)"
         if rec.get("library_null_reason"):
             entry["library_null_reason"] = rec["library_null_reason"]
         summary.append(entry)

@@ -187,3 +187,19 @@ def test_o1_cast_ops_is_refused_until_ported():
     with pytest.raises(NotImplementedError, match="cast-ops"):
         amp.initialize(model, FusedAdam(model.parameters(), device="cpu"),
                        opt_level="O1", device="cpu")
+
+
+def test_the_default_opt_level_is_jaxs_o1_and_is_refused_until_ported():
+    """``initialize`` defaults to O1, as the JAX package's does; JAX runs
+    it, the port raises (its docstring says so) until O1's cast-ops
+    context is ported."""
+    import inspect
+    default = inspect.signature(amp.initialize).parameters["opt_level"]
+    jax_default = inspect.signature(jax_amp.initialize).parameters[
+        "opt_level"]
+    assert default.default == jax_default.default == "O1"
+    assert "NotImplementedError" in amp.initialize.__doc__
+    model = _Tiny(_params())
+    with pytest.raises(NotImplementedError, match="O1"):
+        amp.initialize(model, FusedAdam(model.parameters(), device="cpu"),
+                       device="cpu")

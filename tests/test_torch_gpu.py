@@ -25,7 +25,11 @@ ratio may differ in its last bit); stages 1, 2 and the sum of squares
 repeat bitwise.  axpby (K10) and the whole-tree Adam (K11) equal their
 plain versions bit for bit, and K11 equals K5 run leaf by leaf; the
 per-tensor sums of squares (K12) are within ``rtol = 1e-6`` (another
-order) and repeat bitwise.
+order) and repeat bitwise.  The fused 1x1-conv backward (K16): dx and dW
+within 2 ulps of each result's largest element in bf16 / fp16 and
+``1e-5`` of it in fp32 (both sum in fp32 and round once, in other
+orders), at ResNet-50's 12 shapes and at small and ragged ones; two runs
+equal bit for bit.
 """
 
 import numpy as np
@@ -470,7 +474,8 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
                       "lamb_stage1": 0, "lamb_stage2": 0,
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
-                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+                      "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+                      "conv1x1_bwd": 0}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
     assert all(p.dtype == want_dtype for p in model.parameters())
     assert all(np.isfinite(losses["cuda"]))
@@ -689,7 +694,8 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
                       "lamb_stage2": 2, "packed_sumsq": 2,
                       "packed_axpby": 0, "packed_adam_tree": 0,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
-                      "flash_attn_bwd_dkv": 0}
+                      "flash_attn_bwd_dkv": 0,
+                      "conv1x1_bwd": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=0)
 
@@ -892,7 +898,8 @@ def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
                       "lamb_stage2": 0, "packed_sumsq": 0,
                       "packed_axpby": 2 * 4, "packed_adam_tree": 2,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
-                      "flash_attn_bwd_dkv": 0}
+                      "flash_attn_bwd_dkv": 0,
+                      "conv1x1_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
                                rtol=0)
@@ -1048,7 +1055,84 @@ def test_remat_train_step_on_the_two_pass_route_matches_the_cpu(
                       "lamb_stage1": 0, "lamb_stage2": 0,
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
-                      "flash_attn_bwd_dq": 2 * 2, "flash_attn_bwd_dkv": 2 * 2}
+                      "flash_attn_bwd_dq": 2 * 2, "flash_attn_bwd_dkv": 2 * 2,
+                      "conv1x1_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
                                rtol=0)
+
+
+#: ResNet-50's 1x1 stride-1 convs at B 256 x 224^2, (M, cin, cout): the
+#: shapes K16 takes on that model's step
+RN50_CONV1X1 = [(802816, 64, 64), (802816, 64, 256), (802816, 256, 64),
+                (802816, 256, 128), (200704, 512, 128), (200704, 128, 512),
+                (200704, 512, 256), (50176, 1024, 256), (50176, 256, 1024),
+                (50176, 1024, 512), (12544, 2048, 512), (12544, 512, 2048)]
+
+
+def _conv1x1_check(cuda, m, cin, cout, dtype, seed):
+    """K16 against its plain version: bf16 / fp16 within 2 ulps of the
+    largest element of each result (both sum in fp32 and round once, in
+    other orders), fp32 within ``1e-5`` of it; two runs equal bit for
+    bit; one launch a call."""
+    from apex_tpu_torch.ops.cuda import conv1x1_bwd, conv1x1_bwd_ref
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, cin), generator=g, device=cuda).to(dtype)
+    dy = torch.randn((m, cout), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((cin, cout), generator=g, device=cuda) * 0.05).to(dtype)
+    before = conv1x1_bwd.launches
+    dx, dw = conv1x1_bwd(x, dy, w)
+    dx2, dw2 = conv1x1_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    assert conv1x1_bwd.launches == before + 2
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    rdx, rdw = conv1x1_bwd_ref(x, dy, w)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for got, ref in ((dx, rdx), (dw, rdw)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=0,
+            atol=rel * max(1.0, float(ref.float().abs().max())))
+
+
+@pytest.mark.parametrize("m,cin,cout", RN50_CONV1X1)
+def test_conv1x1_kernel_matches_plain_at_resnet50_shapes(cuda, m, cin, cout):
+    _conv1x1_check(cuda, m, cin, cout, torch.bfloat16, cin + cout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("m,cin,cout", [
+    (128, 64, 64), (4096, 256, 128), (12544, 512, 2048),
+    (1000, 24, 40), (37, 3, 5), (300, 130, 70), (5000, 129, 257)])
+def test_conv1x1_kernel_matches_plain_small_and_ragged(cuda, m, cin, cout,
+                                                        dtype):
+    _conv1x1_check(cuda, m, cin, cout, dtype, m + cin)
+
+
+def test_conv1x1_route_launches_k16_on_the_card(cuda, monkeypatch):
+    """The autograd route on the card: a 1x1 conv with the switch on
+    launches K16 once a backward, and its gradients equal the plain
+    version's on the same tensors."""
+    from apex_tpu_torch.amp import ops as amp_ops
+    from apex_tpu_torch.ops.cuda import conv1x1_bwd, conv1x1_bwd_ref
+    monkeypatch.setenv("APEX_TPU_FUSED_CONV1X1", "1")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((4, 14, 14, 96), generator=g,
+                    device=cuda).requires_grad_(True)
+    w = torch.randn((1, 1, 96, 160), generator=g,
+                    device=cuda).requires_grad_(True)
+    dy = torch.randn((4, 14, 14, 160), generator=g, device=cuda)
+    before = conv1x1_bwd.launches
+    y = amp_ops.conv_general_dilated(
+        x, w, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert conv1x1_bwd.launches == before + 1
+    m = 4 * 14 * 14
+    rdx, rdw = conv1x1_bwd_ref(x.detach().reshape(m, 96), dy.reshape(m, 160),
+                               w.detach().reshape(96, 160))
+    torch.testing.assert_close(x.grad.reshape(m, 96), rdx, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(w.grad.reshape(96, 160), rdw, rtol=1e-5,
+                               atol=1e-5 * float(rdw.abs().max()))

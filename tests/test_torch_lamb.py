@@ -101,6 +101,72 @@ def test_fused_lamb_matches_jax_over_three_updates(case):
     assert float(tp["d_zero"].abs().max()) > 0
 
 
+def _ulps(a, b):
+    """Largest distance in fp32 units in the last place."""
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(key(a) - key(b)).max())
+
+
+def test_stage1_equals_jaxs_update_expression_to_the_ulp():
+    """Stage 1's plain version against the expression of the JAX
+    package's ``fused_lamb`` loop (``m``, ``v``, then ``m_hat / (sqrt(v_hat)
+    + eps) + weight_decay * p``) on the same fp32 inputs: every op is the
+    same correctly rounded fp32 op, the square root included (the plain
+    version takes K7's ``__fsqrt_rn`` through fp64), so m, v and u are
+    equal bit for bit.  PyTorch's own fp32 ``torch.sqrt`` on the CPU is
+    one ulp off at some of these ``v_hat`` (about 0.7% of them)."""
+    rng = np.random.RandomState(11)
+    n = 4096
+    p = rng.standard_normal(n).astype(np.float32)
+    g = rng.standard_normal(n).astype(np.float32)
+    m = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    v = (np.abs(rng.standard_normal(n)) * 0.01).astype(np.float32)
+    b1, b2, eps, wd = 0.9, 0.999, 1e-6, 0.01
+    bc1, bc2 = np.float32(1 - b1 ** 3), np.float32(1 - b2 ** 3)
+    jm = b1 * jnp.asarray(m) + (1.0 - b1) * jnp.asarray(g)
+    jv = b2 * jnp.asarray(v) + (1.0 - b2) * jnp.asarray(g) * jnp.asarray(g)
+    ju = (jm / bc1) / (jnp.sqrt(jv / bc2) + eps) + wd * jnp.asarray(p)
+    vhat = torch.from_numpy(np.asarray(jv / bc2))
+    assert int((torch.sqrt(vhat) != torch.sqrt(vhat.double()).float())
+               .sum()) > 0
+    table = ChunkTable([n], "cpu", chunk_size=256)
+    tm, tv = torch.from_numpy(m.copy()), torch.from_numpy(v.copy())
+    tu = torch.zeros(n)
+    lamb_stage1_ref(table, [torch.from_numpy(p)], [torch.from_numpy(g)],
+                    [tm], [tv], [tu], torch.tensor([bc1]),
+                    torch.tensor([bc2]), None, None, beta1=b1, beta2=b2,
+                    eps=eps, weight_decay=wd, max_grad_norm=0.0)
+    for got, want in ((tm, jm), (tv, jv), (tu, ju)):
+        assert _ulps(got.numpy(), np.asarray(want)) == 0
+
+
+@pytest.mark.parametrize("bias_correction", [True, False])
+def test_moments_equal_jax_bit_for_bit_without_the_clip(bias_correction):
+    """Over 3 updates without the gradient clip, m and v take the same
+    fp32 ops on both sides and are equal bit for bit.  The masters are
+    not held to the ulp: the trust ratio's two norms are summed in
+    another order (K7's per-chunk partials), so the ratio differs in its
+    last bits, and where ``p - ratio * u`` cancels toward 0 that is many
+    ulps of the small result (measured up to 1280 ulps, 3.0e-8
+    absolute: the tolerance of ``test_fused_lamb_matches_jax_over_three_
+    updates``).  With the clip, the port multiplies by ``1 / clip`` (the
+    Pallas kernel's form) where the jnp path divides."""
+    kw = dict(CASES["clip_off"], bias_correction=bias_correction)
+    params = _tree(0, 0.1)
+    grads = [_tree(s, zero=False) for s in (1, 2, 3)]
+    _, js = _jax_run(params, grads, **kw)
+    tp, opt = _torch_opt(params, **kw)
+    for g in grads:
+        _set_grads(tp, g)
+        opt.step()
+    for k, t in tp.items():
+        st = opt.state[t]
+        assert _ulps(st["exp_avg"].numpy(), np.asarray(js.m[k])) == 0, k
+        assert _ulps(st["exp_avg_sq"].numpy(), np.asarray(js.v[k])) == 0, k
+
+
 def test_the_clip_is_active_in_that_case():
     g = _tree(1, zero=False)
     norm = np.sqrt(sum(float((x.astype(np.float64) ** 2).sum())

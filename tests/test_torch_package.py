@@ -152,3 +152,21 @@ def test_fp16_optimizer_needs_a_card_unless_asked_for_the_cpu():
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
     with pytest.raises(ValueError, match="not cpu"):
         FP16Optimizer([torch.zeros(3, device="meta")], device="cpu")
+
+
+def test_resnet_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would use it")
+    from apex_tpu_torch.models import ResNet50, synthetic_batch
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet50(width=8, num_classes=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyncBatchNorm(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_batch(torch.Generator(), 2, 8)
+    model = ResNet50(width=8, num_classes=4, device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    assert all(b.device.type == "cpu" for b in model.buffers())
+    x, _ = synthetic_batch(torch.Generator(), 2, 32, device="cpu")
+    assert model(x).shape == (2, 4)
