@@ -29,15 +29,28 @@ halves.  Nothing reads a device value back to the host.
 
 Gradient accumulation (``make_train_step(..., accum_steps=N)``) follows
 the JAX package's scan: every batch tensor splits into N micro-batches;
-each micro-batch's scaled compute-dtype gradients add into fp32
-accumulators (one K10 launch, ``acc = 1 * g + 1 * acc``; amp's kept
+each micro-batch's scaled compute-dtype gradients are unscaled onto fp32
+accumulators (one K10 launch, ``acc = (1 / scale) * g + acc``; amp's kept
 buffers themselves when they are fp32); the sum is divided by N; then one
-unscale (K6, in place, its flag on the accumulated gradients, so an inf in
-any micro-batch skips the step), scaler update and optimizer step.
+finite check of the accumulated gradients (K15, one launch over the tree:
+an inf in any micro-batch persists through the adds and skips the step),
+the scaler update and the optimizer step.
+
+Under O1 (``cast_ops``) the parameters stay fp32 and are their own
+masters: :meth:`Amp.run` enters the op layer's cast context
+(:func:`apex_tpu_torch.amp.ops.cast_context`), so the layers' products
+run in bf16 and the softmax, norms and losses in fp32, the gradients come
+back fp32, the unscale is K6 on fp32 and Adam is K11 with no copies.
+
+Several losses (``initialize(..., num_losses=N)``): one scaler state per
+loss, :meth:`Amp.scale_loss` / :meth:`Amp.unscale_gradients` by
+``loss_id``, and the pieces :meth:`Amp.update_scaler` and
+:meth:`Amp.step_if`, which :meth:`Amp.apply_gradients_multi` drives: an
+overflow in any backward skips the step, and each scaler moves only by
+its own loss.
 
 Not ported yet: data-parallel reduction (``axis_name`` / ``reduce_fn``),
-fp8 (O4), the AOT cache, several losses (``num_losses``) and
-``add_params``; O1's cast-ops context is refused by :func:`initialize`.
+fp8 (O4), the AOT cache and ``add_params``.
 """
 
 from __future__ import annotations
@@ -45,10 +58,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, \
     Union
 
+import inspect
+
 import torch
 import torch.utils._pytree as pytree
 from torch import nn
 
+from apex_tpu_torch.amp import ops as amp_ops
 from apex_tpu_torch.amp import policy as policy_lib
 from apex_tpu_torch.amp.policy import Properties
 from apex_tpu_torch.amp.scaler import LossScaler, LossScaleState, all_finite
@@ -81,16 +97,17 @@ class Amp:
     Attributes: ``properties``, ``scaler``, ``model``, ``optimizer``,
     ``params`` (the compute params, in the model's parameter order),
     ``masters`` (``{name: fp32 tensor}``; the compute params themselves
-    when master weights are off), ``scaler_state`` and ``step`` (device
+    when master weights are off), ``scaler_states`` (one per loss;
+    ``scaler_state`` is loss 0's), ``num_losses`` and ``step`` (device
     int32: iterations run, skipped ones included)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  properties: Properties, scaler: LossScaler,
-                 keep_fp32_filter: Callable = default_keep_fp32_filter):
-        if properties.cast_ops:
-            raise NotImplementedError(
-                f"{properties.opt_level}: the O1 cast-ops context is not "
-                f"ported to apex_tpu_torch yet (use O0, O2 or O3)")
+                 keep_fp32_filter: Callable = default_keep_fp32_filter,
+                 num_losses: int = 1):
+        if int(num_losses) < 1:
+            raise ValueError(f"num_losses must be >= 1, got {num_losses}")
+        self.num_losses = int(num_losses)
         self.properties = properties
         self.scaler = scaler
         self.model = model
@@ -130,8 +147,22 @@ class Amp:
         self._grads: Optional[List[torch.Tensor]] = None
         self._acc: Optional[List[torch.Tensor]] = None
         self._one = torch.ones(1, dtype=torch.float32, device=dev)
-        self.scaler_state: LossScaleState = scaler.init_state(dev)
+        self.scaler_states: List[LossScaleState] = [
+            scaler.init_state(dev) for _ in range(self.num_losses)]
         self.step = torch.zeros((), dtype=torch.int32, device=dev)
+        #: whether the optimizer's step takes a device skip flag (the
+        #: port's fused optimizers); another one is stepped from the host
+        self._takes_flag = "noop_flag" in inspect.signature(
+            optimizer.step).parameters
+
+    @property
+    def scaler_state(self) -> LossScaleState:
+        """Loss 0's scaler state."""
+        return self.scaler_states[0]
+
+    @scaler_state.setter
+    def scaler_state(self, state: LossScaleState) -> None:
+        self.scaler_states[0] = state
 
     def _cast_leaf_dtype(self, name: str) -> Optional[torch.dtype]:
         p = self.properties
@@ -144,22 +175,28 @@ class Amp:
     def run(self, fn: Callable, *args, **kwargs):
         """``fn(*args, **kwargs)`` with floating inputs cast to the
         compute dtype and the outputs cast to fp32 (or
-        ``cast_model_outputs``) when the model is cast to a half dtype."""
+        ``cast_model_outputs``) when the model is cast to a half dtype,
+        and under O1 (``cast_ops``) inside the op layer's cast context."""
         p = self.properties
         half = p.enabled and p.cast_model_dtype is not None \
             and p.cast_model_dtype != torch.float32
         if half:
             args, kwargs = _cast_floats((args, kwargs), p.cast_model_dtype)
-        out = fn(*args, **kwargs)
+        if p.enabled and p.cast_ops:
+            with amp_ops.cast_context(p):
+                out = fn(*args, **kwargs)
+        else:
+            out = fn(*args, **kwargs)
         if half:
             out = _cast_floats(out, p.cast_model_outputs or torch.float32)
         return out
 
-    def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        """``loss.float() * loss_scale``."""
+    def scale_loss(self, loss: torch.Tensor,
+                   loss_id: int = 0) -> torch.Tensor:
+        """``loss.float() * loss_scale`` of scaler ``loss_id``."""
         if not self.properties.enabled:
             return loss
-        return self.scaler.scale_loss(loss, self.scaler_state)
+        return self.scaler.scale_loss(loss, self.scaler_states[loss_id])
 
     def grad_buffers(self) -> List[torch.Tensor]:
         """The optimizer's gradients, one buffer per master in its dtype
@@ -204,64 +241,138 @@ class Amp:
     @torch.no_grad()
     def apply_gradients(self, grads: Sequence[torch.Tensor],
                         stashed_grads: Optional[Sequence[torch.Tensor]]
-                        = None) -> Dict[str, torch.Tensor]:
+                        = None, loss_id: int = 0
+                        ) -> Dict[str, torch.Tensor]:
         """Unscale, finite check, scaler update and the conditional
-        optimizer step, for ``grads`` w.r.t. :attr:`params` (still scaled,
-        in the compute dtype).  ``stashed_grads`` (unscaled, one per
-        parameter) selects the accumulation path, ``(1 / scale) * grads +
-        stashed`` (K10), whose finite check covers the combined unscaled
-        gradients: an inf from an earlier micro-batch persists through the
-        adds, as in the JAX package.  Returns device tensors
-        ``overflow``, ``loss_scale`` (after the update) and
+        optimizer step, for ``grads`` w.r.t. :attr:`params` (still scaled
+        by scaler ``loss_id``, in the compute dtype).  ``stashed_grads``
+        (unscaled, one per parameter) selects the accumulation path,
+        ``(1 / scale) * grads + stashed`` (K10), whose finite check (K15,
+        :func:`~apex_tpu_torch.amp.scaler.all_finite`) covers the
+        combined unscaled gradients: an inf from an earlier micro-batch
+        persists through the adds, as in the JAX package.  Returns device
+        tensors ``overflow``, ``loss_scale`` (after the update) and
         ``pinned_at_floor``."""
         self._check_count(grads)
         if not self.properties.enabled:
-            unscaled = [g.float() for g in grads]
-            flag = None
-            overflow = torch.zeros((), dtype=torch.bool,
-                                   device=self.step.device)
+            return self.step_if([g.float() for g in grads], None)
+        if stashed_grads is not None:
+            self._check_count(stashed_grads)
+            unscaled, _ = self.scaler.unscale_with_stashed(
+                grads, stashed_grads, self.scaler_states[loss_id],
+                out=self.grad_buffers())
+            finite = all_finite(unscaled)
         else:
-            if stashed_grads is not None:
-                self._check_count(stashed_grads)
-                unscaled, _ = self.scaler.unscale_with_stashed(
-                    grads, stashed_grads, self.scaler_state,
-                    out=self.grad_buffers())
-                finite = all_finite(unscaled)
-                flag = torch.logical_not(finite).to(torch.int32).reshape(1)
-            else:
-                unscaled, flag = self.scaler.unscale(
-                    grads, self.scaler_state, out=self.grad_buffers())
-                finite = flag == 0
-            self.scaler_state, overflow = self.scaler.update(
-                self.scaler_state, finite)
-        for target, g in zip(self.masters.values(), unscaled):
-            target.grad = g if g.dtype == target.dtype else g.to(
-                target.dtype)
-        self.optimizer.step(noop_flag=flag, model_params=self._copies)
-        for t in self.masters.values():
-            t.grad = None
-        self.step += 1
-        return {"overflow": overflow,
-                "loss_scale": self.scaler_state.loss_scale,
-                "pinned_at_floor": self.scaler.pinned_at_floor(
-                    self.scaler_state)}
+            unscaled, flag = self.scaler.unscale(
+                grads, self.scaler_states[loss_id], out=self.grad_buffers())
+            finite = flag == 0
+        overflow = self.update_scaler(loss_id, finite)
+        return self.step_if(unscaled, overflow, loss_id)
 
     @torch.no_grad()
     def unscale_gradients(self, grads: Sequence[torch.Tensor],
+                          loss_id: int = 0,
                           stashed_grads: Optional[Sequence[torch.Tensor]]
                           = None
                           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        """One backward's gradients unscaled, without stepping: ``(fp32
-        tensors, finite)``, ``finite`` a 0-dim bool device tensor.  With
-        ``stashed_grads`` they are added onto the stash and only the new
-        gradients are checked (the reference's arg-0 policy: a stale inf
-        in the stash is not this backward's)."""
+        """One backward's gradients unscaled by scaler ``loss_id``,
+        without stepping: ``(fp32 tensors, finite)``, ``finite`` a 0-dim
+        bool device tensor.  With ``stashed_grads`` they are added onto
+        the stash and only the new gradients are checked (the reference's
+        arg-0 policy: a stale inf in the stash is not this backward's)."""
+        state = self.scaler_states[loss_id]
         if stashed_grads is not None:
             out, flag = self.scaler.unscale_with_stashed(
-                grads, stashed_grads, self.scaler_state)
+                grads, stashed_grads, state)
         else:
-            out, flag = self.scaler.unscale(grads, self.scaler_state)
+            out, flag = self.scaler.unscale(grads, state)
         return out, (flag == 0).reshape(())
+
+    @torch.no_grad()
+    def update_scaler(self, loss_id: int,
+                      grads_finite: torch.Tensor) -> torch.Tensor:
+        """Scaler ``loss_id``'s post-backward transition, without
+        stepping; returns ``overflow`` (0-dim bool, on the device)."""
+        self.scaler_states[loss_id], overflow = self.scaler.update(
+            self.scaler_states[loss_id], grads_finite)
+        return overflow
+
+    @torch.no_grad()
+    def step_if(self, grads_unscaled: Sequence[torch.Tensor],
+                skip: Optional[torch.Tensor], loss_id: int = 0
+                ) -> Dict[str, torch.Tensor]:
+        """The optimizer step on unscaled gradients (one per master, cast
+        to its dtype), skipped where ``skip`` (0-dim bool on the device,
+        or None) is true; the step count advances either way.  The port's
+        fused optimizers take the skip as a device flag (no host sync);
+        another optimizer (``torch.optim.SGD``) is stepped after reading
+        the flag on the host.  Returns ``apply_gradients``' info, with
+        scaler ``loss_id``'s scale."""
+        self._check_count(grads_unscaled)
+        if skip is None:
+            skip = torch.zeros((), dtype=torch.bool, device=self.step.device)
+        for target, g in zip(self.masters.values(), grads_unscaled):
+            target.grad = g if g.dtype == target.dtype else g.to(
+                target.dtype)
+        if self._takes_flag:
+            flag = None if not self.properties.enabled \
+                else skip.to(torch.int32).reshape(1)
+            self.optimizer.step(noop_flag=flag, model_params=self._copies)
+        elif not bool(skip):
+            self.optimizer.step()
+        for t in self.masters.values():
+            t.grad = None
+        self.step += 1
+        state = self.scaler_states[loss_id]
+        return {"overflow": skip,
+                "loss_scale": state.loss_scale,
+                "pinned_at_floor": self.scaler.pinned_at_floor(state)}
+
+    @torch.no_grad()
+    def apply_gradients_multi(self,
+                              grads_list: Sequence[Sequence[torch.Tensor]],
+                              loss_ids: Optional[Sequence[int]] = None
+                              ) -> Dict[str, Any]:
+        """One optimizer fed by several backwards: ``grads_list[i]``
+        (still scaled, zeros where a loss does not reach a parameter) is
+        unscaled by scaler ``loss_ids[i]`` at the scale it was scaled
+        with, checked, and that scaler updated; the unscaled gradients
+        sum, and the step is skipped when any backward overflowed.
+        Returns ``overflow`` and per-scaler tuples ``loss_scale`` and
+        ``pinned_at_floor``."""
+        if loss_ids is None:
+            loss_ids = list(range(len(grads_list)))
+        if len(loss_ids) != len(grads_list):
+            raise ValueError("loss_ids and grads_list length mismatch")
+        if not self.properties.enabled:
+            total = [torch.stack(gs).sum(0).float()
+                     for gs in zip(*grads_list)]
+            info = self.step_if(total, None)
+            dev = self.step.device
+            n = len(self.scaler_states)
+            return {"overflow": info["overflow"],
+                    "loss_scale": (torch.ones((), device=dev),) * n,
+                    "pinned_at_floor": (torch.zeros(
+                        (), dtype=torch.bool, device=dev),) * n}
+        # every loss was scaled at entry: unscale against the entry states
+        entry = list(self.scaler_states)
+        total, any_overflow = None, None
+        for grads, lid in zip(grads_list, loss_ids):
+            self._check_count(grads)
+            unscaled, flag = self.scaler.unscale(grads, entry[lid])
+            overflow = self.update_scaler(lid, flag == 0)
+            if total is None:
+                total = unscaled
+            else:
+                torch._foreach_add_(total, unscaled)
+            any_overflow = overflow if any_overflow is None \
+                else any_overflow | overflow
+        self.step_if(total, any_overflow)
+        return {"overflow": any_overflow,
+                "loss_scale": tuple(s.loss_scale
+                                    for s in self.scaler_states),
+                "pinned_at_floor": tuple(self.scaler.pinned_at_floor(s)
+                                         for s in self.scaler_states)}
 
 
 def initialize(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -275,17 +386,16 @@ def initialize(model: nn.Module, optimizer: torch.optim.Optimizer,
                min_loss_scale: Optional[float] = None,
                max_loss_scale: float = 2.0 ** 24,
                keep_fp32_filter: Callable = default_keep_fp32_filter,
-               device: DeviceLike = None) -> Amp:
+               num_losses: int = 1, device: DeviceLike = None) -> Amp:
     """Bind ``model`` (fp32 parameters) and ``optimizer`` (built over
-    them, e.g. :class:`~apex_tpu_torch.optimizers.FusedAdam`) to an opt
-    level and overrides: casts the model in place, makes the fp32 masters
-    and moves the optimizer onto them.  The model must lie on ``device``
-    (the card by default; ``device="cpu"`` runs the plain versions).
-
-    The default ``opt_level="O1"`` (the JAX package's default too) raises
-    ``NotImplementedError``, as does any level with ``cast_ops``: O1's
-    cast-ops context is not ported yet (ROADMAP.md Queue 1 #3).  Pass
-    ``"O0"``, ``"O2"`` or ``"O3"``."""
+    them, e.g. :class:`~apex_tpu_torch.optimizers.FusedAdam`, or any
+    ``torch.optim`` optimizer) to an opt level and overrides: casts the
+    model in place, makes the fp32 masters and moves the optimizer onto
+    them.  The model must lie on ``device`` (the card by default;
+    ``device="cpu"`` runs the plain versions).  ``opt_level`` defaults to
+    ``"O1"``, as the JAX package's does; ``num_losses`` keeps one dynamic
+    scaler per loss.  The result becomes
+    :func:`apex_tpu_torch.amp.handle.active_amp`."""
     device = resolve_device(device)
     for p in model.parameters():
         if not same_device(p.device, device):
@@ -299,7 +409,10 @@ def initialize(model: nn.Module, optimizer: torch.optim.Optimizer,
     scaler = LossScaler(loss_scale=props.loss_scale,
                         min_loss_scale=min_loss_scale,
                         max_loss_scale=max_loss_scale)
-    return Amp(model, optimizer, props, scaler, keep_fp32_filter)
+    a = Amp(model, optimizer, props, scaler, keep_fp32_filter, num_losses)
+    from apex_tpu_torch.amp import handle as handle_lib
+    handle_lib._set_active_amp(a)
+    return a
 
 
 def _split_batch(tree: Any, n: int) -> List[Any]:
@@ -332,10 +445,14 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
 
     ``accum_steps=N`` (> 1): every batch tensor's leading dimension splits
     into N micro-batches (``ValueError`` when it does not divide); each
-    micro-batch's scaled gradients add into fp32 accumulators
-    (:meth:`Amp.accumulate`), which are divided by N and applied once, so
-    the step is the large-batch mean-loss step; the returned loss is the
-    mean of the micro-batch losses."""
+    micro-batch's gradients are unscaled onto fp32 accumulators (one K10
+    launch, ``acc = (1 / scale) * g + acc``: the stashed path of
+    :meth:`Amp.apply_gradients`), which are divided by N, checked once
+    (K15 over the whole tree: an inf of any micro-batch persists through
+    the adds) and applied once, so the step is the large-batch mean-loss
+    step; the returned loss is the mean of the micro-batch losses.  With
+    a power-of-two scale (a dynamic one always is) unscaling before the
+    sum gives the bits of unscaling after it."""
     if model is not amp.model:
         raise ValueError("make_train_step: model is not the one amp was "
                          "initialized with")
@@ -362,15 +479,28 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
         micro = _split_batch(tuple(batch), n)
         acc = amp.accumulators()
         torch._foreach_zero_(acc)
+        enabled = amp.properties.enabled
         losses = []
         for mb in micro:
             loss, grads = backward(mb)
-            amp.accumulate(grads, acc)
+            if enabled:
+                with torch.no_grad():
+                    amp.scaler.unscale_with_stashed(
+                        grads, acc, amp.scaler_state, out=acc)
+            else:
+                amp.accumulate(grads, acc)
             losses.append(loss)
             del grads
         # the mean-loss step; JAX divides outside any kernel too
         torch._foreach_div_(acc, float(n))
-        info = amp.apply_gradients(acc)
+        overflow = None
+        if enabled:
+            overflow = amp.update_scaler(0, all_finite(acc))
+        grads = amp.grad_buffers()
+        if grads is not acc:
+            # kept buffers in the masters' dtype (bf16 under O3)
+            torch._foreach_copy_(grads, acc)
+        info = amp.step_if(grads, overflow)
         return {"loss": torch.stack(losses).mean(), **info}
 
     return accum_step

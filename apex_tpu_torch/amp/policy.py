@@ -1,10 +1,8 @@
 """Optimization-level policy, as ``apex_tpu/amp/policy.py``: ``Properties``
 and the ``O0``-``O3`` levels, with bf16 as the half dtype.
 
-O4 (fp8) is not ported yet: :func:`resolve` refuses it.  O1 resolves to
-its policy, but its cast-ops context (``apex_tpu/amp/ops.py``,
-``lists.py``) is not ported either, so
-:func:`apex_tpu_torch.amp.initialize` refuses a policy with ``cast_ops``.
+O4 (fp8) is not ported yet: :func:`resolve` refuses it.  O1's
+``cast_ops`` turns on the op layer of :mod:`apex_tpu_torch.amp.ops`.
 """
 
 from __future__ import annotations
@@ -54,7 +52,7 @@ class Properties:
 
     ``cast_model_dtype``: dtype the model params and compute are cast to
     (O0, O2, O3), or None to leave the model in fp32 (O1).
-    ``cast_ops``: O1-style casting of individual ops (not ported yet).
+    ``cast_ops``: O1-style casting of individual ops (:mod:`.ops`).
     ``keep_batchnorm_fp32``: keep normalization params in fp32 when the
     model is cast.  ``master_weights``: keep fp32 master params and run
     the optimizer on them.  ``loss_scale``: a number or ``"dynamic"``.

@@ -6,6 +6,7 @@ value back to the host, so a train step makes no host sync.  The unscale
 runs the K6 kernel (:func:`apex_tpu_torch.ops.cuda.packed_scale`) on the
 card, one launch per gradient into one shared flag; the unscale onto
 stashed gradients runs K10 (:func:`apex_tpu_torch.ops.cuda.packed_axpby`),
+and the finite check of unscaled gradients K15 (:func:`all_finite`), each
 one launch over the whole tree.
 
 Semantics as the reference's: a dynamic scale starts at ``2**16``,
@@ -24,6 +25,7 @@ import torch
 
 from apex_tpu_torch.amp.policy import DYNAMIC
 from apex_tpu_torch.ops.cuda import packed_scale
+from apex_tpu_torch.ops.cuda.finite import all_finite_packed
 from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, multi_tensor_axpby
 
 
@@ -36,12 +38,12 @@ class LossScaleState(NamedTuple):
 
 
 def all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """0-dim bool: every element of every floating tensor is finite."""
-    flags = [torch.isfinite(t).all() for t in tensors
-             if t.is_floating_point()]
-    if not flags:
-        return torch.tensor(True)
-    return torch.stack(flags).all()
+    """0-dim bool: every element of every floating tensor is finite
+    (integer tensors skipped; True for none).  On the card one K15 launch
+    over the whole list (:func:`~apex_tpu_torch.ops.cuda.finite.
+    all_finite_packed`), the leaves read in place in their own dtypes; on
+    the CPU its plain version."""
+    return all_finite_packed(tensors)
 
 
 @dataclasses.dataclass(frozen=True)

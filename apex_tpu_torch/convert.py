@@ -1,6 +1,7 @@
-"""Bring a JAX GPT, BERT or ResNet checkpoint across
-(``params_from_jax``, ``bert_params_from_jax``, ``resnet_params_from_jax``)
-and back (``params_to_numpy``).
+"""Bring a JAX GPT, BERT, ResNet, MLP or DCGAN checkpoint across
+(``params_from_jax``, ``bert_params_from_jax``, ``resnet_params_from_jax``,
+``mlp_params_from_jax``, ``dcgan_params_from_jax``) and back
+(``params_to_numpy``).
 
 The JAX parameter tree arrives as nested dicts of numpy arrays, in the
 loop layout (``block_{i}`` subtrees for GPT, ``bert/layer_{i}`` for
@@ -10,8 +11,8 @@ port's module parameters (``block_0/attention/qkv/kernel`` ->
 ``block_0.attention.qkv.kernel``); :class:`~apex_tpu_torch.layers.Dense`
 keeps flax's ``(in, out)`` kernel layout and
 :class:`~apex_tpu_torch.layers.Conv` its HWIO one, so nothing is
-transposed.  A ResNet's ``batch_stats`` land in its BatchNorms'
-``mean`` / ``var`` buffers.
+transposed.  A ResNet's or a DCGAN's ``batch_stats`` land in its
+BatchNorms' ``mean`` / ``var`` buffers.
 bf16 arrays (``ml_dtypes.bfloat16``) convert through float32, which is
 exact.
 """
@@ -26,7 +27,9 @@ from torch import nn
 
 from apex_tpu_torch.amp.frontend import default_keep_fp32_filter
 from apex_tpu_torch.models.bert import BertConfig, BertForPreTraining
+from apex_tpu_torch.models.dcgan import Discriminator, Generator
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.mlp import MLP
 from apex_tpu_torch.models.resnet import ARCHS, ResNet
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 
@@ -158,6 +161,13 @@ def resnet_params_from_jax(params: Mapping, batch_stats: Mapping,
     stats keep their dtype: their paths name a BatchNorm).  With
     ``trainable`` the model is in training mode."""
     ctor = ARCHS[arch] if isinstance(arch, str) else arch
+    return _load_flat(ctor(device="meta", **model_kw),
+                      _with_stats(params, batch_stats), device, dtype,
+                      trainable)
+
+
+def _with_stats(params: Mapping, batch_stats: Mapping
+                ) -> Dict[Tuple[str, ...], Any]:
     flat = _flatten(params)
     stats = _flatten(batch_stats)
     clash = set(flat) & set(stats)
@@ -165,8 +175,43 @@ def resnet_params_from_jax(params: Mapping, batch_stats: Mapping,
         raise ValueError(f"params and batch_stats share paths: "
                          f"{sorted(clash)}")
     flat.update(stats)
-    return _load_flat(ctor(device="meta", **model_kw), flat, device, dtype,
+    return flat
+
+
+def mlp_params_from_jax(params: Mapping, features=(256, 256),
+                        num_classes: int = 10, in_features: int = 784,
+                        device: DeviceLike = None,
+                        dtype: Optional[torch.dtype] = None,
+                        trainable: bool = False) -> MLP:
+    """A port :class:`~apex_tpu_torch.models.mlp.MLP` holding the flax
+    ``params`` of the JAX ``MLP(features, num_classes)`` (``AmpDense_{i}``
+    kernels and biases); the options as :func:`params_from_jax`'s."""
+    return _load_flat(MLP(features, num_classes, in_features,
+                          device="meta"), _flatten(params), device, dtype,
                       trainable)
+
+
+def dcgan_params_from_jax(g_vars: Mapping, d_vars: Mapping,
+                          feature_maps: int = 64, n_upsample: int = 2,
+                          zdim: int = 100, image_size: int = 32,
+                          device: DeviceLike = None,
+                          trainable: bool = False
+                          ) -> Tuple[Generator, Discriminator]:
+    """``(Generator, Discriminator)`` of the port holding the flax
+    variables (``{"params", "batch_stats"}``) of the JAX ``Generator(
+    feature_maps, n_upsample=n_upsample)`` and ``Discriminator(
+    feature_maps, n_down=n_upsample + 1)``, at fp32 with the running
+    stats in the BatchNorms' buffers; ``trainable`` as
+    :func:`params_from_jax`'s."""
+    g = _load_flat(Generator(feature_maps, n_upsample=n_upsample,
+                             zdim=zdim, device="meta"),
+                   _with_stats(g_vars["params"], g_vars["batch_stats"]),
+                   device, None, trainable)
+    d = _load_flat(Discriminator(feature_maps, n_down=n_upsample + 1,
+                                 image_size=image_size, device="meta"),
+                   _with_stats(d_vars["params"], d_vars["batch_stats"]),
+                   device, None, trainable)
+    return g, d
 
 
 def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]]

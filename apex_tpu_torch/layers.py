@@ -3,9 +3,12 @@
 :class:`Dense` stores its kernel ``(in, out)`` and :class:`Conv` its
 kernel HWIO ``(kh, kw, in, out)``, exactly as flax stores them, so the
 converter copies weights across without a transpose (and K16 reads a
-1x1 kernel as its ``(in, out)`` view).  Convolutions run on NHWC
-activations through :func:`apex_tpu_torch.amp.ops.conv_general_dilated`.
-``ConvTranspose`` comes with the DCGAN slice (amp O1).
+1x1 kernel as its ``(in, out)`` view).  The layers call the policy-aware
+op layer (:mod:`apex_tpu_torch.amp.ops`), as the JAX package's do: under
+amp O1 their products run in the half dtype, and otherwise they follow
+their parameters' dtype.  Convolutions run on NHWC activations through
+:func:`~apex_tpu_torch.amp.ops.conv_general_dilated` and
+:func:`~apex_tpu_torch.amp.ops.conv_transpose`.
 """
 
 from __future__ import annotations
@@ -41,10 +44,7 @@ class Dense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+        return amp_ops.linear(x, self.kernel, self.bias)
 
 
 class Conv(nn.Module):
@@ -76,6 +76,42 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = amp_ops.conv_general_dilated(
+            x, self.kernel, self.strides, self.padding,
+            dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class ConvTranspose(nn.Module):
+    """NHWC transposed convolution (lax's ``conv_transpose``: the conv of
+    the input spread by ``strides``) with the HWIO ``kernel (kh, kw, in,
+    features)``, drawn as flax's ``variance_scaling(1.0, "fan_in",
+    "normal")`` (std ``sqrt(1 / (kh * kw * in))``), and an optional
+    ``bias``.  ``"SAME"`` padding gives ``in * strides`` outputs."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Tuple[int, int]] = 4,
+                 strides: Union[int, Tuple[int, int]] = 2,
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+                 use_bias: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.strides = _pair(strides)
+        self.padding = padding
+        self.kernel = nn.Parameter(torch.empty(
+            (kh, kw, in_features, features), dtype=dtype, device=device))
+        nn.init.normal_(self.kernel, std=(1.0 / (kh * kw * in_features))
+                        ** 0.5)
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(
+                features, dtype=dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = amp_ops.conv_transpose(
             x, self.kernel, self.strides, self.padding,
             dimension_numbers=("NHWC", "HWIO", "NHWC"))
         if self.bias is not None:

@@ -25,6 +25,13 @@ from apex_tpu_torch.models.resnet import (
     resnet_loss,
     synthetic_batch,
 )
+from apex_tpu_torch.models.dcgan import (
+    Discriminator,
+    Generator,
+    dcgan_step,
+    gan_losses,
+)
+from apex_tpu_torch.models.mlp import MLP, AmpDense, cross_entropy_loss
 from apex_tpu_torch.models.gpt import (
     GPTConfig,
     GPTModel,
@@ -34,7 +41,8 @@ from apex_tpu_torch.models.gpt import (
     lm_loss,
 )
 
-__all__ = ["ARCHS", "BasicBlock", "Bottleneck", "ResNet", "ResNet18",
+__all__ = ["AmpDense", "Discriminator", "Generator", "MLP",
+           "cross_entropy_loss", "dcgan_step", "gan_losses", "ARCHS", "BasicBlock", "Bottleneck", "ResNet", "ResNet18",
            "ResNet34", "ResNet50", "ResNet50S2D", "ResNet101", "ResNet152",
            "accuracy", "resnet_loss", "synthetic_batch", "BertConfig", "BertForPreTraining", "BertModel", "GPTConfig",
            "GPTModel", "SelfAttention", "TransformerLayer", "bert_base",

@@ -24,9 +24,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.amp import ops as amp_ops
 from apex_tpu_torch.attention import attention
 from apex_tpu_torch.layers import Dense, Embed
 from apex_tpu_torch.models.gpt import gelu, run_layer
@@ -203,11 +203,13 @@ def pretraining_loss(mlm_logits: torch.Tensor, nsp_logits: torch.Tensor,
     ``pretraining_loss``: ``logsumexp(logits) - logits[label]`` per
     position (the picked logit read in the logits' dtype, then widened),
     averaged over the positions where ``mlm_mask`` is 1 (at least one),
-    plus the mean NSP ``-log_softmax[label]``."""
-    lse = torch.logsumexp(mlm_logits.float(), dim=-1)
+    plus the mean NSP ``-log_softmax[label]``.  The logsumexp and the
+    log-softmax are the op layer's fp32 ops, as in the JAX package, over
+    logits widened first (which is what the fp32 cast does under O1)."""
+    lse = amp_ops.logsumexp(mlm_logits.float(), axis=-1)
     picked = mlm_logits.gather(-1, mlm_labels[..., None])[..., 0].float()
     w = mlm_mask.float()
     mlm = ((lse - picked) * w).sum() / torch.clamp(w.sum(), min=1.0)
-    nsp_logp = F.log_softmax(nsp_logits.float(), dim=-1)
+    nsp_logp = amp_ops.log_softmax(nsp_logits.float(), axis=-1)
     nsp = -nsp_logp.gather(-1, nsp_labels[:, None]).mean()
     return mlm + nsp

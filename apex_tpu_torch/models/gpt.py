@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.amp import ops as amp_ops
 from apex_tpu_torch.attention import attention
 from apex_tpu_torch.layers import Dense, Embed
 from apex_tpu_torch.normalization import FusedLayerNorm
@@ -174,10 +175,14 @@ def run_layer(layer: nn.Module, remat: bool, *args):
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     dropped after the forward and recomputed by running it again in the
     backward, so its kernels launch twice in a training step.  The layers
-    draw no random numbers, so no RNG state is saved."""
+    draw no random numbers, so no RNG state is saved.  The recompute runs
+    under the amp O1 cast policy of the forward (autograd may run it on
+    another thread, where the thread-local policy is unset), so it
+    recomputes the same dtypes."""
     if remat and torch.is_grad_enabled():
         return checkpoint(layer, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+                          preserve_rng_state=False,
+                          context_fn=amp_ops.recompute_context)
     return layer(*args)
 
 

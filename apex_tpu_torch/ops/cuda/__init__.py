@@ -8,6 +8,11 @@ from apex_tpu_torch.ops.cuda.adam import (
     packed_adam_tree_ref,
 )
 from apex_tpu_torch.ops.cuda.conv1x1 import conv1x1_bwd, conv1x1_bwd_ref
+from apex_tpu_torch.ops.cuda.finite import (
+    all_finite_packed,
+    packed_nonfinite,
+    packed_nonfinite_ref,
+)
 from apex_tpu_torch.ops.cuda.flash_attention import (
     attn_delta,
     flash_attn_bwd,
@@ -21,6 +26,14 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     fused_bwd,
     fused_bwd_max_bytes,
     fused_bwd_partials_bytes,
+)
+from apex_tpu_torch.ops.cuda.flash_mh import (
+    flash_mh_bwd,
+    flash_mh_bwd_ref,
+    flash_mh_fwd,
+    flash_mh_fwd_ref,
+    mh_fused_bwd,
+    mh_partials_bytes,
 )
 from apex_tpu_torch.ops.cuda.lamb import (
     lamb_stage1,
@@ -60,7 +73,10 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "sumsq_per_tensor": sumsq_per_tensor,
            "flash_attn_bwd_dq": flash_attn_bwd_dq,
            "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
-           "conv1x1_bwd": conv1x1_bwd}
+           "conv1x1_bwd": conv1x1_bwd,
+           "packed_nonfinite": packed_nonfinite,
+           "flash_mh_fwd": flash_mh_fwd,
+           "flash_mh_bwd": flash_mh_bwd}
 
 
 def launch_counts() -> dict:
@@ -73,7 +89,10 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "attn_delta", "conv1x1_bwd", "conv1x1_bwd_ref",
+__all__ = ["KERNELS", "all_finite_packed", "attn_delta", "conv1x1_bwd",
+           "conv1x1_bwd_ref", "flash_mh_bwd", "flash_mh_bwd_ref",
+           "flash_mh_fwd", "flash_mh_fwd_ref", "mh_fused_bwd",
+           "mh_partials_bytes", "packed_nonfinite", "packed_nonfinite_ref",
            "flash_attn_bwd", "flash_attn_bwd_dkv",
            "flash_attn_bwd_dkv_ref", "flash_attn_bwd_dq",
            "flash_attn_bwd_dq_ref", "flash_attn_bwd_ref",

@@ -193,6 +193,16 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_conv1x1_bwd_tickets.restype = i32
     lib.apex_conv1x1_bwd.argtypes = [vp] * 7 + [i64] + [i32] * 4 + [vp]
     lib.apex_conv1x1_bwd.restype = i32
+    lib.apex_flash_mh_fwd.argtypes = ([vp] * 6 + [i64] * 9 + [i32] * 4
+                                      + [f32, i32, vp])
+    lib.apex_flash_mh_fwd.restype = i32
+    lib.apex_flash_mh_bwd.argtypes = ([vp] * 10 + [i64] * 12 + [i32] * 4
+                                      + [f32, i32, vp])
+    lib.apex_flash_mh_bwd.restype = i32
+    lib.apex_flash_mh_heads_per_block.argtypes = [i32]
+    lib.apex_flash_mh_heads_per_block.restype = i32
+    lib.apex_packed_nonfinite.argtypes = [vp] * 3 + [i32, i32] + [vp] * 4
+    lib.apex_packed_nonfinite.restype = i32
     lib.apex_cuda_error_string.argtypes = [i32]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
     _LIB, _INFO = lib, info

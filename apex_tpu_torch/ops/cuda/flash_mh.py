@@ -1,0 +1,196 @@
+"""K17 and K18: the multi-head flash-attention forward and fused backward
+(``csrc/flash_mh_fwd.cu``, ``csrc/flash_mh_bwd.cu``) of
+``apex_tpu/ops/pallas/experimental/flash_mh.py``, each beside its plain
+PyTorch version.
+
+The semantics are the JAX module's (``_mh_core``, ``_mh_bwd_rule``): q is
+multiplied by ``scale`` in its own dtype before the kernels (the scale
+rounded to that dtype), the scores, the online softmax and the lse are
+fp32, a key mask hides keys, a row that sees no key gives zeros and lse
+``NEG_INF``; the backward recomputes the probabilities from the lse, uses
+``delta = rowsum(o * do) - dlse`` per head (so a cotangent on the lse
+reaches the inputs), returns dk from the pre-scaled q and dq cast to q's
+dtype, then times the scale in that dtype.  :func:`flash_mh_bwd` takes
+K18 while its fp32 dq partial planes (:func:`mh_partials_bytes`, the JAX
+rule's ``partials_bytes`` at the port's 64-key tile) fit
+:func:`~apex_tpu_torch.ops.cuda.flash_attention.fused_bwd_max_bytes`,
+else the two-pass kernels K13 / K14 on strided views of the pre-scaled q
+(the JAX rule's fallback, without its relayout).
+
+On CUDA tensors the kernels take bf16, D a multiple of 8 up to 128, Lq ==
+Lk, any strides with unit stride over D (16-byte aligned rows); anything
+else raises (the two-pass route also needs D in (64, 128)).  On CPU
+tensors each wrapper runs its plain version; none falls back from one to
+the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from apex_tpu_torch.ops.cuda import build
+from apex_tpu_torch.ops.cuda.flash_attention import (
+    BWD_KEY_TILE,
+    _check_operand,
+    _default_scale,
+    _ptr,
+    attn_delta,
+    flash_attn_bwd_dkv,
+    flash_attn_bwd_dq,
+    flash_attn_bwd_ref,
+    flash_attn_fwd_ref,
+    fused_bwd_max_bytes,
+)
+
+
+def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``q * scale`` in q's dtype (the scale itself rounded to it), the
+    JAX wrapper's ``q3 * jnp.asarray(scale, q3.dtype)``."""
+    return q * torch.tensor(scale, dtype=q.dtype)
+
+
+def flash_mh_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = False,
+                     kv_mask: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o (B, L, H, D) in q's dtype, lse (B, L, H) fp32)`` of the
+    pre-scaled q, by materialising the fp32 scores."""
+    qf = _scaled_q(q, _default_scale(q, scale))
+    return flash_attn_fwd_ref(qf, k, v, causal=causal, kv_mask=kv_mask,
+                              scale=1.0)
+
+
+def _check(what: str, q, k, v, kv_mask):
+    """Validate a kernel call; returns the uint8 mask (or None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be (B, L, H, D), got "
+                         f"{tuple(q.shape)}")
+    b, l, h, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the kernel takes bfloat16, got {q.dtype}")
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"{what}: head dim {d} unsupported (a multiple of "
+                         f"8 up to 128)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(what, name, t, q.shape, q.dtype, q.device)
+    if kv_mask is None:
+        return None
+    if kv_mask.shape != (b, l) or kv_mask.device != q.device:
+        raise ValueError(f"{what}: kv_mask must be ({b}, {l}) on {q.device}")
+    return kv_mask.to(torch.bool).contiguous().view(torch.uint8)
+
+
+def flash_mh_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = False,
+                 kv_mask: Optional[torch.Tensor] = None,
+                 scale: Optional[float] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_mh_fwd_ref`'s function: on CUDA tensors one launch of
+    K17 (counted in ``flash_mh_fwd.launches``), on CPU tensors the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_mh_fwd_ref(q, k, v, causal=causal, kv_mask=kv_mask,
+                                scale=scale)
+    what = "flash_mh_fwd"
+    mask = _check(what, q, k, v, kv_mask)
+    b, l, h, d = q.shape
+    scale_q = float(torch.tensor(_default_scale(q, scale), dtype=q.dtype))
+    o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, l, h), dtype=torch.float32, device=q.device)
+    err = build.library().apex_flash_mh_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), o.data_ptr(),
+        lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, l, h, d, scale_q, int(bool(causal)), build.stream_of(q))
+    build.check(err, what)
+    flash_mh_fwd.launches += 1
+    return o, lse
+
+
+flash_mh_fwd.launches = 0
+
+
+def mh_partials_bytes(b: int, l: int, h: int, d: int) -> int:
+    """Bytes of K18's fp32 dq partial planes: one ``(b, l, h, d)`` plane
+    per 64-key tile (the JAX rule's ``(lp // block_k) * b * lp * hd *
+    4``), growing with ``l**2``."""
+    return -(-l // BWD_KEY_TILE) * b * l * h * d * 4
+
+
+def mh_fused_bwd(q: torch.Tensor) -> bool:
+    """Whether :func:`flash_mh_bwd` takes K18 for ``q``: its planes fit
+    :func:`fused_bwd_max_bytes` (the gate of ``_mh_bwd_rule``)."""
+    return mh_partials_bytes(*q.shape) <= fused_bwd_max_bytes()
+
+
+def flash_mh_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     *, dlse: Optional[torch.Tensor] = None,
+                     causal: bool = False,
+                     kv_mask: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_mh_fwd_ref` for the cotangents
+    ``do`` and ``dlse`` (None: zero), by materialising the scores."""
+    scale = _default_scale(q, scale)
+    qf = _scaled_q(q, scale)
+    dq, dk, dv = flash_attn_bwd_ref(qf, k, v, o, lse, do, dlse=dlse,
+                                    causal=causal, kv_mask=kv_mask,
+                                    scale=1.0)
+    return dq * torch.tensor(scale, dtype=dq.dtype), dk, dv
+
+
+def flash_mh_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                 dlse: Optional[torch.Tensor] = None, causal: bool = False,
+                 kv_mask: Optional[torch.Tensor] = None,
+                 scale: Optional[float] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_mh_bwd_ref`'s function, by the route the JAX rule
+    picks: while :func:`mh_fused_bwd`, on CUDA tensors one launch of K18
+    (counted in ``flash_mh_bwd.launches``), its partial planes summed
+    here in a fixed order (no atomics: two runs give equal bits); above
+    the budget the two-pass kernels K13 then K14 (counted under their own
+    names) on the pre-scaled q.  On CPU tensors the same routes run their
+    plain versions."""
+    scale = _default_scale(q, scale)
+    scale_t = torch.tensor(scale, dtype=q.dtype)
+    if not mh_fused_bwd(q):
+        qf = _scaled_q(q, scale)
+        delta = attn_delta(o, do, dlse)
+        kw = dict(causal=causal, kv_mask=kv_mask, scale=1.0)
+        dq = flash_attn_bwd_dq(qf, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attn_bwd_dkv(qf, k, v, do, lse, delta, **kw)
+        return dq * scale_t, dk, dv
+    if q.device.type == "cpu":
+        return flash_mh_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
+                                causal=causal, kv_mask=kv_mask, scale=scale)
+    what = "flash_mh_bwd"
+    mask = _check(what, q, k, v, kv_mask)
+    b, l, h, d = q.shape
+    do = do.contiguous()
+    _check_operand(what, "do", do, q.shape, q.dtype, q.device)
+    if lse.shape != (b, l, h) or lse.dtype != torch.float32:
+        raise ValueError(f"{what}: lse must be (B, L, H) float32")
+    delta = attn_delta(o, do, dlse).contiguous()
+    lse = lse.contiguous()
+    planes = torch.zeros((-(-l // BWD_KEY_TILE), b, l, h, d),
+                         dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    err = build.library().apex_flash_mh_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(mask), planes.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *do.stride()[:3], b, l, h, d,
+        float(scale_t), int(bool(causal)), build.stream_of(q))
+    build.check(err, what)
+    flash_mh_bwd.launches += 1
+    return planes.sum(dim=0).to(q.dtype) * scale_t, dk, dv
+
+
+flash_mh_bwd.launches = 0

@@ -1,6 +1,7 @@
 """The chunk table of the multi-tensor kernels (K7 ``lamb_stage1``, K8
 ``lamb_stage2``, K9 ``packed_sumsq``, K10 ``packed_axpby``, K11
-``packed_adam_tree``, K12 ``sumsq_per_tensor``), and the functional
+``packed_adam_tree``, K12 ``sumsq_per_tensor``, K15
+``packed_nonfinite``), and the functional
 multi-tensor surface of ``apex_tpu/ops/multi_tensor.py`` over it.
 
 The counterpart of the chunk-aligned metadata of
@@ -106,6 +107,7 @@ class ChunkTable:
         #: and the last one (which sums the partials) sets it back to 0
         self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
         self._rows: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+        self._codes: Dict[tuple, torch.Tensor] = {}
         self.lookups = self.uploads = 0
 
     @classmethod
@@ -154,6 +156,17 @@ class ChunkTable:
                 self._rows.popitem(last=False)
         else:
             self._rows.move_to_end(key)
+        return row
+
+    def codes(self, values: Sequence[int]) -> torch.Tensor:
+        """One int32 per leaf (K15's dtype codes), on the device, uploaded
+        once per distinct row."""
+        key = tuple(int(v) for v in values)
+        if len(key) != self.n_leaves:
+            raise ValueError(f"{len(key)} codes for {self.n_leaves} leaves")
+        row = self._codes.get(key)
+        if row is None:
+            row = self._codes[key] = to_device(key, torch.int32, self.device)
         return row
 
     def flat_views(self, shapes: Sequence[torch.Size],

@@ -53,13 +53,19 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             and equal to K5 leaf by leaf, nothing written under the noop
             flag; K12 within 1e-6 relative; all repeat bitwise; kernel /
             plain / library times and the bounds;
+   nonfinite_kernels  K15, the packed non-finite flag, against its plain
+            version at gpt_small's 148 fp32 leaves, bert_large's 303 and a
+            mixed bf16 / fp16 / fp32 tree with integer leaves: an inf,
+            then a nan, at the first, a middle and the last element of a
+            ragged leaf, the flags equal bit for bit; kernel / plain /
+            eager per-leaf check times and the bound;
    accum    gpt_small O2 + FusedAdam with ``accum_steps=4`` over B 32 x L
-            2048 (micro-batches of 8), 10 steps: losses, step p50,
-            tokens/s, peak memory, the exact launches per step (K10 4, K6
-            148, K11 1, K5 0, 4 x the passes' kernels, K12 1 for the
-            per-leaf gradient norms logged each step), pointer-row uploads
-            per step, one profiled step, and a step whose micro-batch 1 is
-            non-finite, skipped on the card;
+            2048 (micro-batches of 8), 10 steps: losses, step p50 (beside
+            PR 6's, before K15), tokens/s, peak memory, the exact launches
+            per step (K10 4, K15 1, K6 0, K11 1, K5 0, 4 x the passes'
+            kernels, K12 1 for the per-leaf gradient norms logged each
+            step), pointer-row uploads per step, one profiled step, and a
+            step whose micro-batch 1 is non-finite, skipped on the card;
    accum_reference  a 2-layer fp32 GPT at O0 with ``accum_steps=2``, 3
             steps, card against CPU;
    fp16_optimizer  gpt_small at B 8 x L 2048 under ``FP16Optimizer(
@@ -120,6 +126,32 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 15. resnet_reference  a small Bottleneck ResNet, fp32 O0, 3 steps on the
             card against the CPU with the switch off and on (9 fp32 K16
             launches a step on the card).
+   o1_train  (after long_context_reference) gpt_small at amp O1, the
+            default opt level (fp32 parameters, products cast to bf16 by
+            the op layer), FusedAdam(3e-4), B 8 x L 2048, 10 steps: p50
+            beside the O2 step's, tokens/s, peak memory, one profiled
+            step, the exact launches per step (K1 / K3 in fp32, K6 a
+            leaf in fp32, K11 1), an injected overflow skipped;
+   o1_reference  a 2-layer GPT at O1, card against CPU, losses within
+            2e-2;
+16. flash_mh_kernels  K17 and K18, the multi-head flash forward and fused
+            backward, against their plain versions at (8, 2048, 12, 64)
+            causal, (32, 512, 16, 64) with a key mask, (1, 4096, 6, 128)
+            causal and a ragged (2, 1000, 4, 64), with a cotangent on the
+            lse: the row and norm limits, bitwise repeats, the backward
+            once more at budget 0 (K13 + K14); times beside K2 / K4 on the
+            same tensors and SDPA's forward and backward; the bounds;
+17. flash_mh  the entry point ``flash_attention_mh`` with autograd at
+            BERT's masked shape (K17 1, K18 1) and at the GPT train shape
+            (K17 1, K13 + K14 at the default budget);
+18. mnist_o1  BASELINE config 1: ``MLP((256, 256))``, O1, SGD(0.05), B
+            256, 20 steps: falling losses, p50, samples/s, launches (K6 a
+            leaf), an injected overflow skipped;
+19. dcgan_o1  BASELINE config 5: DCGAN (fm 64, zdim 100, 32^2, B 64), two
+            FusedAdams with one O1 scaler each, 20 iterations: D's loss
+            falls, p50, samples/s, launches (K6 a leaf of each network,
+            K11 2); then D's loss overflowed: only D's scale halves and
+            only D's step is skipped.
 
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -1003,7 +1035,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "layer_norm_fwd", "flash_attn_fwd", "layer_norm_bwd", "flash_attn_bwd",
     "packed_adam", "packed_scale", "lamb_stage1", "lamb_stage2",
     "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor",
-    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "conv1x1_bwd")}
+    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "conv1x1_bwd",
+    "packed_nonfinite", "flash_mh_fwd", "flash_mh_bwd")}
 
 
 def fused_route(b, l, h, d) -> bool:
@@ -1581,10 +1614,12 @@ def _gpt_loss_poisoned(model, ids, poison):
 
 def phase_accum(cfg, tree):
     """gpt_small O2 + FusedAdam with ``accum_steps=4`` over B 32 x L 2048
-    (micro-batches of the train phase's 8 x 2048): per step K10 4, K6 a
-    leaf, K11 1, K5 0, 4 x a pass's forward and backward kernels, and the
-    per-leaf gradient norms a trainer logs (K12 1); then one step whose
-    micro-batch 1 is non-finite, skipped on the card."""
+    (micro-batches of the train phase's 8 x 2048): per step K10 4 (each
+    micro-batch unscaled onto the accumulators), K15 1 (the finite check
+    of the accumulated gradients), K6 0, K11 1, K5 0, 4 x a pass's forward
+    and backward kernels, and the per-leaf gradient norms a trainer logs
+    (K12 1); then one step whose micro-batch 1 is non-finite, skipped on
+    the card."""
     import torch
     from apex_tpu_torch import amp
     from apex_tpu_torch.convert import params_from_jax
@@ -1625,8 +1660,7 @@ def phase_accum(cfg, tree):
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: c / TRAIN_STEPS for k, c in counts.items()}
     want = dict(gpt_pass_launches(cfg, ACCUM_STEPS), packed_axpby=ACCUM_STEPS,
-                packed_scale=n_leaves, packed_adam_tree=1,
-                sumsq_per_tensor=1)
+                packed_nonfinite=1, packed_adam_tree=1, sumsq_per_tensor=1)
     require(per_step == want, f"accum launches per step {per_step}, want "
                               f"{want}")
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
@@ -1660,6 +1694,7 @@ def phase_accum(cfg, tree):
          micro_batch=per_micro, seq_len=TRAIN_L, steps=TRAIN_STEPS,
          losses=losses, loss_scales=scales, step_ms=[t * 1e3 for t in times],
          step_ms_p50_steps_3_to_10=p50, tokens_per_s=tokens / (p50 / 1e3),
+         record_step_ms_p50_before_k15=PR6_ACCUM_P50_MS,
          peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
          leaves=n_leaves, grad_norm_and_max_leaf_norm=norms,
          pointer_rows_per_step=rows, profile=profile,
@@ -2893,6 +2928,560 @@ def phase_resnet_reference():
          image_size=32, loss_tolerance=RN_REF_LOSS_TOL, **out)
 
 
+# -- the seventh slice: K15, K17 / K18, amp O1, MNIST, DCGAN -------------
+
+def _nonfinite_case(what, xs, ragged_leaf, ints=()):
+    """K15 over ``xs`` (the table of the floating leaves) against its plain
+    version: clean, then one inf and one nan at the first, a middle and
+    the last element of ``xs[ragged_leaf]``, each flag equal bit for bit
+    and repeated; times, the bound, the eager per-leaf check beside it."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (all_finite_packed,
+                                         packed_nonfinite,
+                                         packed_nonfinite_ref)
+    from apex_tpu_torch.ops.multi_tensor import table_for
+    table = table_for(xs)
+    placements = []
+    flat = xs[ragged_leaf].view(-1)
+    for val in (None, float("inf"), float("nan")):
+        for at in ((None,) if val is None else
+                   (0, flat.numel() // 2, flat.numel() - 1)):
+            keep = None
+            if val is not None:
+                keep = flat[at].clone()
+                flat[at] = val
+            got = packed_nonfinite(table, xs)
+            again = packed_nonfinite(table, xs)
+            ref = packed_nonfinite_ref(table, xs)
+            whole = all_finite_packed(list(xs) + list(ints))
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref) and torch.equal(got, again),
+                    f"packed_nonfinite {what} {val} at {at}: kernel "
+                    f"{int(got)} / {int(again)}, plain {int(ref)}")
+            require(int(got) == (val is not None)
+                    and bool(whole) == (val is None),
+                    f"packed_nonfinite {what}: flag {int(got)} for {val}")
+            placements.append([str(val), at, int(got)])
+            if keep is not None:
+                flat[at] = keep
+    n_bytes = sum(t.numel() * t.element_size() for t in xs)
+    ms = time_ms(lambda: packed_nonfinite(table, xs))
+    plain = time_ms(lambda: packed_nonfinite_ref(table, xs), budget_s=0.2)
+    eager = time_ms(lambda: torch.stack(
+        [torch.isfinite(t).all() for t in xs]).all(), budget_s=0.2)
+    b_ms, b_by = bound(n_bytes, sum(t.numel() for t in xs),
+                       PEAK_FP32_FLOPS)
+    dtypes = sorted({str(t.dtype).replace("torch.", "") for t in xs})
+    return _kernel_rec(
+        kernel="packed_nonfinite", case=what, leaves=len(xs),
+        integer_leaves=len(ints), dtypes=dtypes, bytes=n_bytes,
+        chunks=table.n_chunks, shape=f"{len(xs)} leaves, {n_bytes} bytes",
+        placements=placements, max_abs_err=0.0,
+        tolerance="the flag equal to the plain version's bit for bit",
+        bitwise_repeat=True, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        library_null_reason="no PyTorch call computes a read-only "
+                            "non-finite flag over a list (the eager "
+                            "per-leaf check is printed beside it)",
+        eager_all_finite_ms=eager)
+
+
+def phase_nonfinite_kernels(cfg, bert_cfg):
+    """K15 at gpt_small's 148 fp32 leaves (the accumulation path's
+    check), bert_large's 303, and a mixed bf16 / fp16 / fp32 tree with
+    integer leaves; a non-finite value at the first, a middle and the last
+    element of a ragged leaf."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    shapes = _leaf_shapes(cfg)
+    recs = []
+    xs = _fp32_leaves(shapes, gen)
+    from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE
+    # the last leaf whose elements end inside a chunk (a ragged tail)
+    ragged = max(i for i, s in enumerate(shapes)
+                 if int(np.prod(s)) % CHUNK_SIZE)
+    recs.append(_nonfinite_case("gpt_small", xs, ragged))
+    del xs
+    bshapes = _leaf_shapes(bert_cfg)
+    xs = _fp32_leaves(bshapes, gen)
+    # the largest leaf whose bytes end off a 16-byte vector (the element
+    # loads of the tail) and off a chunk
+    tail = max(range(len(bshapes)), key=lambda i: (
+        int(np.prod(bshapes[i])) % 4 != 0,
+        int(np.prod(bshapes[i])) % CHUNK_SIZE != 0, int(np.prod(bshapes[i]))))
+    recs.append(_nonfinite_case("bert_large", xs, tail))
+    del xs
+    mixed = [(70001,), (4099,), (3, 5), (768, 3072), (131073,), (37,)]
+    dts = [torch.float32, torch.bfloat16, torch.float16, torch.bfloat16,
+           torch.float16, torch.float32]
+    xs = [torch.randn(s, generator=gen, device="cuda").to(d)
+          for s, d in zip(mixed, dts)]
+    ints = (torch.arange(7, device="cuda"), torch.ones(3, 3,
+                                                       dtype=torch.int32,
+                                                       device="cuda"))
+    recs.append(_nonfinite_case("mixed bf16 / fp16 / fp32", xs, 1, ints))
+    torch.cuda.empty_cache()
+    return recs
+
+
+#: the multi-head flash cases: shape, causal, key mask
+MH_SHAPES = (((8, 2048, 12, 64), True, False),
+             ((32, 512, 16, 64), False, True),
+             ((1, 4096, 6, 128), True, False),
+             ((2, 1000, 4, 64), False, False))
+
+
+def _mh_case(shape, causal, masked, gen):
+    """K17 and K18 (the budget raised, so the fused backward runs at every
+    shape) against their plain versions (over slices of heads), with a
+    cotangent on the lse; bitwise repeats; once more with the budget at 0
+    (the K13 / K14 route); times beside K2 / K4 on the same tensors (the
+    port's strided path) and SDPA's forward and backward; the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd,
+                                         flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dq, flash_attn_fwd,
+                                         flash_mh_bwd, flash_mh_bwd_ref,
+                                         flash_mh_fwd, flash_mh_fwd_ref,
+                                         mh_partials_bytes)
+    bsz, l, h, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    dlse = torch.randn((bsz, l, h), generator=gen, device="cuda") * 0.1
+    mask = None
+    if masked:
+        mask = torch.rand((bsz, l), generator=gen, device="cuda") > 0.25
+        mask[:, 0] = True
+    kw = dict(causal=causal, kv_mask=mask)
+    tag = f"flash_mh {shape}"
+    o, lse = flash_mh_fwd(q, k, v, **kw)
+    o2, lse2 = flash_mh_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(o, o2) and torch.equal(lse, lse2),
+            f"{tag} forward: two runs differ")
+    del o2, lse2
+    ro, rlse = _plain_by_heads(flash_mh_fwd_ref, (q, k, v), kw)
+    o_err, lse_err = _max_err(o, ro), _max_err(lse, rlse)
+    require(o_err <= 2e-2 and lse_err <= 1e-3,
+            f"{tag}: o err {o_err}, lse err {lse_err}")
+    fwd_scaled = scaled_errs(f"{tag} o", o, ro)
+    del ro, rlse
+
+    def bwd_ref(q_, k_, v_, o_, lse_, do_, dlse_):
+        return flash_mh_bwd_ref(q_, k_, v_, o_, lse_, do_, dlse=dlse_, **kw)
+
+    with fused_budget(FUSED_ALWAYS):
+        got = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+        again = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{tag} backward: two runs differ")
+        del again
+        ref = _plain_by_heads(bwd_ref, (q, k, v, o, lse, do, dlse), {})
+        bwd_scaled = [scaled_errs(f"{tag} {n}", a, r)
+                      for n, a, r in zip(("dq", "dk", "dv"), got, ref)]
+        bwd_errs = [_max_err(a, r) for a, r in zip(got, ref)]
+        ms_b = time_ms(lambda: flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse,
+                                            **kw))
+        k4_ms = time_ms(lambda: flash_attn_bwd(q, k, v, o, lse, do,
+                                               dlse=dlse, **kw))
+    two_pass = None
+    if d in (64, 128):
+        with fused_budget(0):
+            before = (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
+                      flash_attn_bwd_dkv.launches)
+            tp = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+            torch.cuda.synchronize()
+            after = (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
+                     flash_attn_bwd_dkv.launches)
+            require(after == (before[0], before[1] + 1, before[2] + 1),
+                    f"{tag}: budget 0 did not take K13 + K14 ({before} -> "
+                    f"{after})")
+            two_pass = [scaled_errs(f"{tag} two-pass {n}", a, r)
+                        for n, a, r in zip(("dq", "dk", "dv"), tp, ref)]
+            del tp
+    del ref, got
+    plain_f = time_ms(lambda: _plain_by_heads(flash_mh_fwd_ref, (q, k, v),
+                                              kw), budget_s=0.2)
+    plain_b = time_ms(lambda: _plain_by_heads(
+        bwd_ref, (q, k, v, o, lse, do, dlse), {}), budget_s=0.2)
+    torch.cuda.empty_cache()
+    ms_f = time_ms(lambda: flash_mh_fwd(q, k, v, **kw))
+    k2_ms = time_ms(lambda: flash_attn_fwd(q, k, v, return_lse=True, **kw))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    if masked or (not causal):
+        am = None if mask is None else mask[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=am)
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+    with torch.no_grad():
+        lib_f = time_ms(sdpa)
+    ot = sdpa()
+    dot = do.transpose(1, 2)
+    lib_b = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                retain_graph=True))
+    pairs = _flash_pairs(bsz, l, h, causal, mask)
+    e = bsz * l * h * d
+    mbytes = bsz * l if masked else 0
+    fb_ms, fb_by = bound(4 * e * 2 + 4 * bsz * l * h + mbytes,
+                         4.0 * d * pairs, PEAK_BF16_FLOPS)
+    # reads q, k, v, o, do, lse, dlse; writes dq, dk, dv
+    bb_ms, bb_by = bound(8 * e * 2 + 8 * bsz * l * h + mbytes,
+                         10.0 * d * pairs, PEAK_BF16_FLOPS)
+    common = dict(shape=list(shape), causal=causal, kv_mask=masked,
+                  dtype="bfloat16", bitwise_repeat=True,
+                  plain="run over slices of heads (at most 2**28 fp32 "
+                        "scores at once), every head compared")
+    fwd = _kernel_rec(kernel="flash_mh_fwd", **common, max_abs_err=o_err,
+                      lse_err=lse_err, **fwd_scaled,
+                      tolerance="o within 2e-2 and the row / norm limits, "
+                                "lse within 1e-3, vs the plain version on "
+                                "the same bf16 inputs",
+                      ms=ms_f, plain_ms=plain_f, bound_ms=fb_ms,
+                      bound_by=fb_by, library_ms=lib_f,
+                      library_call="F.scaled_dot_product_attention",
+                      k2_same_shape_ms=k2_ms)
+    bwd = _kernel_rec(kernel="flash_mh_bwd", **common,
+                      max_abs_err=max(bwd_errs), errs_dq_dk_dv=bwd_errs,
+                      dq_dk_dv_scaled=bwd_scaled,
+                      row_rel_err=max(x["row_rel_err"] for x in bwd_scaled),
+                      row_rel_tol=ROW_REL_TOL,
+                      norm_rel_err=max(x["norm_rel_err"]
+                                       for x in bwd_scaled),
+                      norm_rel_tol=NORM_REL_TOL,
+                      tolerance="dq, dk, dv (with a dlse cotangent) by the "
+                                "row and norm limits vs the plain version",
+                      partials_bytes=mh_partials_bytes(*shape),
+                      two_pass_route_k13_k14=two_pass,
+                      ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms,
+                      bound_by=bb_by, library_ms=lib_b,
+                      library_call="autograd of F.scaled_dot_product_"
+                                   "attention (dq, dk, dv)",
+                      k4_same_shape_ms=k4_ms)
+    del q, k, v, do, o, lse, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_flash_mh_kernels():
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    fwd, bwd = [], []
+    for shape, causal, masked in MH_SHAPES:
+        f, b = _mh_case(shape, causal, masked, gen)
+        fwd.append(f)
+        bwd.append(b)
+    return fwd, bwd
+
+
+def phase_flash_mh():
+    """The entry point a user calls, ``flash_attention_mh`` with autograd,
+    forward and backward once at BERT's shape with a key mask (K18: its
+    planes fit the default budget) and once at the GPT train shape
+    (causal: K13 + K14 at the default budget), the counts reset before
+    each and read after."""
+    import torch
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.ops.experimental import flash_attention_mh
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    runs = {}
+    for shape, causal, masked in (((32, 512, 16, 64), False, True),
+                                  ((8, 2048, 12, 64), True, False)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16).requires_grad_() for _ in range(3))
+        mask = None
+        if masked:
+            mask = torch.rand(shape[:2], generator=gen, device="cuda") > 0.25
+            mask[:, 0] = True
+        reset_launch_counts()
+        o = flash_attention_mh(q, k, v, causal=causal, kv_mask=mask)
+        o.float().square().mean().backward()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        require(all(torch.isfinite(t.grad).all() for t in (q, k, v)),
+                f"flash_attention_mh {shape}: non-finite gradients")
+        runs[str(shape)] = {n: c for n, c in counts.items() if c}
+        require(counts["flash_mh_fwd"] == 1,
+                f"flash_attention_mh {shape}: launches {counts}")
+        del q, k, v, o
+    first = runs[str((32, 512, 16, 64))]
+    require(first.get("flash_mh_bwd") == 1,
+            f"flash_attention_mh at BERT's shape did not run K18: {first}")
+    emit("flash_mh", launches=runs)
+    torch.cuda.empty_cache()
+    return first
+
+
+#: the gpt_small O2 step p50 of the train phase (PR 6's run on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W), printed beside the O1 step as a record
+PR6_O2_TRAIN_P50_MS = 108.1
+#: the accumulated step p50 of PR 6's run (same card), before K15
+PR6_ACCUM_P50_MS = 422.3
+
+
+def phase_o1_train(cfg, tree):
+    """gpt_small at amp O1 (the default opt level: fp32 parameters, the
+    products cast to bf16 by the op layer), FusedAdam(lr 3e-4), B 8 x L
+    2048, 10 steps: falling losses, p50, tokens/s, peak memory, one
+    profiled step, the exact launches per step (K1 / K3 in fp32, K6 a
+    leaf in fp32, one K11 with no copies); then one injected overflow
+    skipped on the card."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt)
+    require(a.properties.opt_level == "O1" and a._copies is None,
+            "the default initialize is not O1 without copies")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    n_leaves = len(a.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, scales, overflows, times = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+        scales.append(float(out["loss_scale"]))
+        overflows.append(bool(out["overflow"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    want = dict(gpt_pass_launches(cfg), packed_scale=n_leaves,
+                packed_adam_tree=1)
+    require(per_step == want, f"O1 launches per step {per_step}, want "
+                              f"{want}")
+    require(all(p.dtype == torch.float32 for p in model.parameters()),
+            "O1 cast a parameter")
+    require(all(np.isfinite(losses)), f"non-finite O1 loss: {losses}")
+    require(losses[-1] < losses[0], f"O1 loss did not fall: {losses}")
+    require(not any(overflows), f"overflow in the O1 steps: {overflows}")
+    p50 = float(np.median(times[2:])) * 1e3
+    profile = profile_step(step, ids)
+    with torch.enable_grad():
+        loss = a.run(_gpt_loss, model, ids)
+        grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
+    grads[5].view(-1)[-1] = float("nan")
+    params = [p.detach().clone() for p in a.params]
+    st = opt.state[a.masters["lm_head.kernel"]]
+    moments = (st["exp_avg"].clone(), int(st["step"]))
+    scale_before = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads)
+    torch.cuda.synchronize()
+    require(bool(info["overflow"])
+            and float(info["loss_scale"]) == scale_before / 2,
+            "the O1 overflow was not seen or the scale did not halve")
+    require(all(torch.equal(p, q) for p, q in zip(a.params, params))
+            and torch.equal(st["exp_avg"], moments[0])
+            and int(st["step"]) == moments[1],
+            "parameters or moments changed on a skipped O1 step")
+    emit("o1_train", model="gpt_small", opt_level="O1",
+         optimizer="FusedAdam", lr=3e-4, batch=TRAIN_B, seq_len=TRAIN_L,
+         steps=TRAIN_STEPS, losses=losses, loss_scales=scales,
+         step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_10=p50,
+         tokens_per_s=TRAIN_B * TRAIN_L / (p50 / 1e3),
+         record_o2_step_ms_p50=PR6_O2_TRAIN_P50_MS, peak_memory_gb=peak,
+         launches=counts, launches_per_step=per_step, leaves=n_leaves,
+         parameters_dtype="float32", profile=profile,
+         injected_overflow={"skipped": True, "loss_scale": [
+             scale_before, float(info["loss_scale"])]})
+    del a, opt, model, grads, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_o1_reference():
+    """A 2-layer GPT at O1, 3 steps on the card against the same on the
+    CPU (plain versions) from the same weights: losses within 2e-2 (bf16
+    products), and the card's losses finite and falling."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    tree = gpt_small_tree(cfg, seed=5)
+    ids = train_stream(cfg.vocab_size, 4, 128)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, cfg, device=dev, trainable=True)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev), device=dev)
+        step = amp.make_train_step(a, model, _gpt_loss)
+        x = torch.as_tensor(ids, device=dev)
+        runs[dev] = [float(step(x)["loss"]) for _ in range(3)]
+    err = max(abs(x - y) for x, y in zip(runs["cuda"], runs["cpu"]))
+    require(all(np.isfinite(runs["cuda"]))
+            and runs["cuda"][-1] < runs["cuda"][0],
+            f"O1 reference losses on the card: {runs['cuda']}")
+    require(err <= 2e-2, f"O1 losses card vs CPU differ by {err}")
+    emit("o1_reference", steps=3, opt_level="O1", losses_card=runs["cuda"],
+         losses_cpu=runs["cpu"], loss_max_abs_err=err, loss_tolerance=2e-2)
+
+
+MNIST_STEPS = 20
+
+
+def phase_mnist_o1():
+    """BASELINE config 1: ``MLP((256, 256))`` at amp O1 with SGD(0.05),
+    B 256 on the synthetic stream of ``examples/mnist_amp.py``, 20 steps:
+    losses fall, p50, samples/s, launches per step (K6 a leaf, nothing
+    else of the port's: SGD is PyTorch's); then an injected overflow,
+    skipped."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.mlp import (MLP, cross_entropy_loss,
+                                           synthetic_mnist)
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    torch.manual_seed(0)
+    model = MLP((256, 256))
+    a = amp.initialize(model, torch.optim.SGD(model.parameters(), lr=0.05))
+    step = amp.make_train_step(
+        a, model, lambda m, x, y: cross_entropy_loss(m(x), y))
+    xs, ys = synthetic_mnist(torch.Generator().manual_seed(1), MNIST_STEPS,
+                             256)
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(MNIST_STEPS):
+        t0 = time.perf_counter()
+        out = step(xs[i], ys[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+    counts = launch_counts()
+    n = len(a.params)
+    per_step = {k: c / MNIST_STEPS for k, c in counts.items()}
+    require(per_step == dict(NO_LAUNCHES, packed_scale=n),
+            f"MNIST launches per step {per_step}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"MNIST O1 losses: {losses}")
+    with torch.enable_grad():
+        loss = a.run(lambda m, x, y: cross_entropy_loss(m(x), y), model,
+                     xs[0], ys[0])
+        grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
+    grads[0].view(-1)[0] = float("inf")
+    before = [p.detach().clone() for p in a.params]
+    scale = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads)
+    require(bool(info["overflow"]) and float(info["loss_scale"]) == scale / 2
+            and all(torch.equal(p, q) for p, q in zip(a.params, before)),
+            "the MNIST overflow was not skipped")
+    p50 = float(np.median(times[2:])) * 1e3
+    emit("mnist_o1", config="BASELINE 1: MLP((256, 256)), B 256, O1, "
+                            "SGD(0.05)", steps=MNIST_STEPS, losses=losses,
+         step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_20=p50,
+         samples_per_s=256 / (p50 / 1e3), launches=counts,
+         launches_per_step=per_step, leaves=n,
+         injected_overflow={"skipped": True,
+                            "loss_scale": [scale, float(info["loss_scale"])]})
+    return counts
+
+
+DCGAN_STEPS = 20
+#: how far below its first value each GAN loss must fall at some iteration
+GAN_FALL = 0.05
+
+
+def phase_dcgan_o1():
+    """BASELINE config 5: the DCGAN of ``examples/dcgan_main_amp.py`` (fm
+    64, zdim 100, 32^2, B 64), a generator and a discriminator each with
+    its own FusedAdam(2e-4, betas (0.5, 0.999)) and its own amp O1 (one
+    dynamic scaler each), 20 iterations: finite losses, each network's
+    loss falling below its first value at some iteration (the two losses
+    oscillate against each other, so the minimum is checked, not the
+    last), p50, samples/s, launches per iteration (K6 a leaf of each
+    network, K11 twice); then an iteration with D's loss overflowed,
+    which halves only D's scale and skips only D's step."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.dcgan import (Discriminator, Generator,
+                                             d_loss, dcgan_step,
+                                             synthetic_gan_batch)
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    torch.manual_seed(0)
+    G = Generator(feature_maps=64, n_upsample=2, zdim=100).train()
+    D = Discriminator(feature_maps=64, n_down=3, image_size=32).train()
+    a_g = amp.initialize(G, FusedAdam(G.parameters(), lr=2e-4,
+                                      betas=(0.5, 0.999)))
+    a_d = amp.initialize(D, FusedAdam(D.parameters(), lr=2e-4,
+                                      betas=(0.5, 0.999)))
+    gen = torch.Generator().manual_seed(2)
+    batches = [synthetic_gan_batch(gen, 64) for _ in range(DCGAN_STEPS + 1)]
+    reset_launch_counts()
+    dl, gl, times, scales = [], [], [], []
+    for z, real in batches[:DCGAN_STEPS]:
+        t0 = time.perf_counter()
+        info = dcgan_step(a_g, a_d, z, real)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        dl.append(float(info["d"]["loss"]))
+        gl.append(float(info["g"]["loss"]))
+        scales.append([float(info["d"]["loss_scale"]),
+                       float(info["g"]["loss_scale"])])
+        require(not bool(info["d"]["overflow"])
+                and not bool(info["g"]["overflow"]),
+                f"overflow in the DCGAN steps at {len(dl)}")
+    counts = launch_counts()
+    per_step = {k: c / DCGAN_STEPS for k, c in counts.items()}
+    want = dict(NO_LAUNCHES, packed_scale=len(a_g.params) + len(a_d.params),
+                packed_adam_tree=2)
+    require(per_step == want, f"DCGAN launches per step {per_step}, want "
+                              f"{want}")
+    fell = {"d": min(dl[1:]) < dl[0] - GAN_FALL,
+            "g": min(gl[1:]) < gl[0] - GAN_FALL}
+
+    def poisoned(D_, G_, z, real):
+        return d_loss(D_, G_, z, real) * float("inf")
+
+    d_before = [p.detach().clone() for p in a_d.params]
+    g_before = [p.detach().clone() for p in a_g.params]
+    s_d, s_g = (float(a_d.scaler_state.loss_scale),
+                float(a_g.scaler_state.loss_scale))
+    info = dcgan_step(a_g, a_d, *batches[-1], d_loss_fn=poisoned)
+    torch.cuda.synchronize()
+    require(bool(info["d"]["overflow"]) and not bool(info["g"]["overflow"]),
+            "the D overflow was not seen, or G's step saw one")
+    require(float(info["d"]["loss_scale"]) == s_d / 2
+            and float(info["g"]["loss_scale"]) == s_g,
+            "a scale other than D's moved on D's overflow")
+    require(all(torch.equal(p, q) for p, q in zip(a_d.params, d_before)),
+            "D's parameters moved on its skipped step")
+    require(any(not torch.equal(p, q) for p, q in zip(a_g.params, g_before)),
+            "G's step was skipped on D's overflow")
+    p50 = float(np.median(times[2:])) * 1e3
+    emit("dcgan_o1", config="BASELINE 5: DCGAN fm 64, zdim 100, 32^2, B 64, "
+                            "O1, two FusedAdam(2e-4, (0.5, 0.999)), one "
+                            "scaler each", steps=DCGAN_STEPS, d_losses=dl,
+         g_losses=gl, loss_scales_d_g=scales,
+         step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_20=p50,
+         samples_per_s=64 / (p50 / 1e3), launches=counts,
+         launches_per_step=per_step,
+         losses_fell_below_first_by=GAN_FALL, losses_fell=fell,
+         injected_d_overflow={"d_skipped": True, "g_stepped": True,
+                              "d_scale": [s_d, float(info["d"]["loss_scale"])],
+                              "g_scale": [s_g, float(info["g"]["loss_scale"])]})
+    require(all(np.isfinite(dl + gl)), f"DCGAN losses: {dl} {gl}")
+    require(all(fell.values()), f"a DCGAN loss never fell below its first: "
+                                f"D {dl}, G {gl}")
+    del a_g, a_d, G, D
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2944,12 +3533,15 @@ def main() -> int:
         from apex_tpu_torch.models import bert_large
         bert_cfg = bert_large()
         mt_recs = phase_multi_tensor_kernels(cfg, bert_cfg)
+        nf_recs = phase_nonfinite_kernels(cfg, bert_cfg)
         accum_counts = phase_accum(cfg, tree)
         phase_accum_reference()
         fp16_counts, fp16_k9 = phase_fp16_optimizer(cfg, tree)
         lc_recs, lc_fwd = phase_long_context_kernels()
         lc_counts, lc32_counts = phase_long_context(cfg, tree)
         phase_long_context_reference()
+        o1_counts = phase_o1_train(cfg, tree)
+        phase_o1_reference()
         del tree
         bert_recs = phase_bert_kernels(bert_cfg)
         bert_counts = phase_bert_train(bert_cfg)
@@ -2957,6 +3549,10 @@ def main() -> int:
         rk_recs, rk_extra, rk_others = phase_resnet_kernels()
         rn_counts, rn_off_counts = phase_resnet_train()
         phase_resnet_reference()
+        mh_fwd, mh_bwd = phase_flash_mh_kernels()
+        mh_counts = phase_flash_mh()
+        mnist_counts = phase_mnist_o1()
+        dcgan_counts = phase_dcgan_o1()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2969,7 +3565,11 @@ def main() -> int:
                    "long_context_L32768": lc32_counts[k],
                    "bert_train": bert_counts[k],
                    "resnet_train": rn_counts[k],
-                   "resnet_train_switch_off": rn_off_counts[k]}
+                   "resnet_train_switch_off": rn_off_counts[k],
+                   "o1_train": o1_counts[k],
+                   "flash_mh": mh_counts.get(k, 0),
+                   "mnist_o1": mnist_counts[k],
+                   "dcgan_o1": dcgan_counts[k]}
                for k in bert_counts}
     rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8
@@ -3031,7 +3631,16 @@ def main() -> int:
              "apex_tpu/ops/pallas/flash_attention.py:671"),
             (rk_main, rk_recs + rk_extra, rn_counts["conv1x1_bwd"],
              "apex_tpu_torch/csrc/conv1x1_bwd.cu",
-             "apex_tpu/ops/pallas/experimental/conv1x1.py:101")):
+             "apex_tpu/ops/pallas/experimental/conv1x1.py:101"),
+            (nf_recs[0], nf_recs, accum_counts["packed_nonfinite"],
+             "apex_tpu_torch/csrc/multi_tensor_nonfinite.cu",
+             "apex_tpu/ops/pallas/experimental/finite_pack.py:66"),
+            (mh_fwd[0], mh_fwd, mh_counts["flash_mh_fwd"],
+             "apex_tpu_torch/csrc/flash_mh_fwd.cu",
+             "apex_tpu/ops/pallas/experimental/flash_mh.py:202"),
+            (mh_bwd[0], mh_bwd, mh_counts["flash_mh_bwd"],
+             "apex_tpu_torch/csrc/flash_mh_bwd.cu",
+             "apex_tpu/ops/pallas/experimental/flash_mh.py:240")):
         entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
             launches=launches,
@@ -3093,6 +3702,22 @@ def main() -> int:
             entry["other_shapes"] = [{k: r[k] for k in k16}
                                      for r in rk_extra]
             entry["library"] = "aten.convolution_backward (cuDNN)"
+        if rec["kernel"] == "packed_nonfinite":
+            entry["other_cases"] = [
+                {k: r[k] for k in ("case", "leaves", "dtypes", "bytes", "ms",
+                                   "plain_ms", "bound_ms",
+                                   "eager_all_finite_ms")}
+                for r in recs[1:]]
+            entry["eager_all_finite_ms"] = rec["eager_all_finite_ms"]
+        if rec["kernel"] in ("flash_mh_fwd", "flash_mh_bwd"):
+            same = ("k2_same_shape_ms" if rec["kernel"] == "flash_mh_fwd"
+                    else "k4_same_shape_ms")
+            entry["shapes"] = [
+                {k: r[k] for k in scaled + ("causal", "kv_mask", same)}
+                for r in recs]
+            entry[same] = rec[same]
+            entry["library_call"] = rec["library_call"]
+            entry["launches_by_shape_of_the_entry_point"] = mh_counts
         if rec.get("library_null_reason"):
             entry["library_null_reason"] = rec["library_null_reason"]
         summary.append(entry)

@@ -166,7 +166,9 @@ def test_unported_conv_options_raise():
     x, w = torch.zeros(1, 4, 4, 2), torch.zeros(3, 3, 2, 2)
     with pytest.raises(NotImplementedError):
         amp_ops.conv_general_dilated(x, w, (1, 1), "SAME")    # NCHW default
-    with pytest.raises(NotImplementedError, match="lhs_dilation"):
+    # lhs_dilation is ported (the transposed conv); with a string padding
+    # it raises as lax does
+    with pytest.raises(ValueError, match="String padding"):
         amp_ops.conv_general_dilated(x, w, (1, 1), "SAME", lhs_dilation=(2, 2),
                                      dimension_numbers=DN)
     with pytest.raises(NotImplementedError, match="batch_group_count"):

@@ -475,7 +475,8 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
                       "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                      "conv1x1_bwd": 0}
+                      "conv1x1_bwd": 0, "packed_nonfinite": 0,
+                      "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
     assert all(p.dtype == want_dtype for p in model.parameters())
     assert all(np.isfinite(losses["cuda"]))
@@ -695,7 +696,8 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
                       "packed_axpby": 0, "packed_adam_tree": 0,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
                       "flash_attn_bwd_dkv": 0,
-                      "conv1x1_bwd": 0}
+                      "conv1x1_bwd": 0, "packed_nonfinite": 0,
+                      "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=0)
 
@@ -868,9 +870,10 @@ def _small_gpt(dev, state=None):
 
 def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
     """``accum_steps=4`` at O2 over 8 rows: per step K10 4 (one a
-    micro-batch), K6 one a leaf, K11 1, K5 0, and 4 x the forward and
-    backward kernels of one micro-batch; the losses agree with the CPU's
-    within O2's 2e-2."""
+    micro-batch, unscaling onto the accumulators), K15 1 (the finite
+    check of the accumulated gradients), K6 0, K11 1, K5 0, and 4 x the
+    forward and backward kernels of one micro-batch; the losses agree
+    with the CPU's within O2's 2e-2."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models import lm_loss
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -890,16 +893,16 @@ def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
         reset_launch_counts()
         losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(2)]
         counts = launch_counts()
-    n = len(list(model.parameters()))
     assert counts == {"layer_norm_fwd": 2 * 4 * 5, "flash_attn_fwd": 2 * 4 * 2,
                       "layer_norm_bwd": 2 * 4 * 10,
                       "flash_attn_bwd": 2 * 4 * 2, "packed_adam": 0,
-                      "packed_scale": 2 * n, "lamb_stage1": 0,
+                      "packed_scale": 0, "lamb_stage1": 0,
                       "lamb_stage2": 0, "packed_sumsq": 0,
                       "packed_axpby": 2 * 4, "packed_adam_tree": 2,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
                       "flash_attn_bwd_dkv": 0,
-                      "conv1x1_bwd": 0}
+                      "conv1x1_bwd": 0, "packed_nonfinite": 2,
+                      "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
                                rtol=0)
@@ -1056,7 +1059,8 @@ def test_remat_train_step_on_the_two_pass_route_matches_the_cpu(
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
                       "flash_attn_bwd_dq": 2 * 2, "flash_attn_bwd_dkv": 2 * 2,
-                      "conv1x1_bwd": 0}
+                      "conv1x1_bwd": 0, "packed_nonfinite": 0,
+                      "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
                                rtol=0)
@@ -1136,3 +1140,193 @@ def test_conv1x1_route_launches_k16_on_the_card(cuda, monkeypatch):
                                atol=1e-5)
     torch.testing.assert_close(w.grad.reshape(96, 160), rdw, rtol=1e-5,
                                atol=1e-5 * float(rdw.abs().max()))
+
+
+# -- K15, the packed non-finite flag ----------------------------------------
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("val", [float("inf"), float("nan")])
+def test_packed_nonfinite_matches_plain_on_every_placement(cuda, where, val):
+    """K15 over mixed fp32 / bf16 / fp16 leaves (ragged sizes, one of
+    several chunks, integer leaves skipped by ``all_finite_packed``):
+    the flag equals the plain version's bit for bit, for one inf or nan
+    at the first, a middle or the last element of the ragged leaf, and
+    it repeats; one launch a call."""
+    from apex_tpu_torch.ops.cuda import (all_finite_packed,
+                                         packed_nonfinite,
+                                         packed_nonfinite_ref)
+    from apex_tpu_torch.ops.multi_tensor import table_for
+    rng = np.random.RandomState(11)
+    sizes = [(37,), (70001,), (4099,), (3, 5), (131072,)]
+    dts = [torch.float32, torch.bfloat16, torch.float16, torch.bfloat16,
+           torch.float32]
+    xs = [_randn(rng, s, d, cuda) for s, d in zip(sizes, dts)]
+    table = table_for(xs)
+    clean = packed_nonfinite(table, xs)
+    assert torch.equal(clean, packed_nonfinite_ref(table, xs))
+    assert int(clean) == 0
+    for leaf in (1, 2):
+        flat = xs[leaf].view(-1)
+        at = {"first": 0, "middle": flat.numel() // 2, "last": -1}[where]
+        keep = flat[at].clone()
+        flat[at] = val
+        before = packed_nonfinite.launches
+        got = packed_nonfinite(table, xs)
+        again = packed_nonfinite(table, xs)
+        torch.cuda.synchronize()
+        assert packed_nonfinite.launches == before + 2
+        assert torch.equal(got, packed_nonfinite_ref(table, xs))
+        assert torch.equal(got, again) and int(got) == 1
+        assert not bool(all_finite_packed(xs + [torch.arange(3,
+                                                             device=cuda)]))
+        flat[at] = keep
+
+
+def test_amp_accumulation_checks_once_with_k15(cuda):
+    """The accumulation path's finite check is one K15 launch: the
+    scaler's ``all_finite`` on the card."""
+    from apex_tpu_torch.amp.scaler import all_finite
+    from apex_tpu_torch.ops.cuda import packed_nonfinite
+    xs = [torch.ones(1000, device=cuda), torch.ones(3, 3, device=cuda)]
+    before = packed_nonfinite.launches
+    assert bool(all_finite(xs))
+    xs[1][2, 2] = float("-inf")
+    assert not bool(all_finite(xs))
+    assert packed_nonfinite.launches == before + 2
+
+
+# -- K17 / K18, the multi-head flash forward and fused backward ----------
+
+MH_CASES = [(2, 256, 4, 64), (1, 200, 3, 64), (2, 130, 2, 128),
+            (1, 96, 5, 40), (2, 64, 9, 8), (1, 77, 3, 24), (1, 128, 2, 112)]
+
+
+def _mh_inputs(shape, cuda, masked, seed):
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for _ in range(4))
+    dlse = _randn(rng, (bsz, l, h), torch.float32, cuda)
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
+        mask[:, 0] = True
+    return q, k, v, do, dlse, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", MH_CASES)
+def test_flash_mh_kernels_match_plain(cuda, shape, causal, masked,
+                                      monkeypatch):
+    """K17 and K18 in bf16 at head widths 8 to 128 (40, 24, 112: the
+    zero-padded ones), ragged L, a key mask: o within the forward's
+    2e-2 and lse within 1e-3 of the plain version on the same inputs;
+    dq, dk, dv (with a cotangent on the lse) within 2 bf16 ulps of the
+    largest gradient and by ``_assert_rows_close``; one launch each a
+    call, equal bits on a second run."""
+    from apex_tpu_torch.ops.cuda import (flash_mh_bwd, flash_mh_bwd_ref,
+                                         flash_mh_fwd, flash_mh_fwd_ref)
+    monkeypatch.delenv(ENV_BUDGET, raising=False)
+    q, k, v, do, dlse, mask = _mh_inputs(shape, cuda, masked, sum(shape))
+    kw = dict(causal=causal, kv_mask=mask)
+    before = (flash_mh_fwd.launches, flash_mh_bwd.launches)
+    o, lse = flash_mh_fwd(q, k, v, **kw)
+    o2, lse2 = flash_mh_fwd(q, k, v, **kw)
+    ro, rlse = flash_mh_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    grads = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+    again = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+    torch.cuda.synchronize()
+    assert (flash_mh_fwd.launches, flash_mh_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    ref = flash_mh_bwd_ref(q, k, v, o, lse, do, dlse=dlse, **kw)
+    for a, b, r in zip(grads, again, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
+                                   rtol=0)
+        _assert_rows_close(a, r)
+
+
+def test_flash_mh_two_pass_route_and_its_limits(cuda, monkeypatch):
+    """Above the budget the backward is K13 + K14 on the pre-scaled q
+    (D 64 / 128), within 2 bf16 ulps of K18's; another head width has
+    no two-pass kernel and raises; fp32 has no K17 and raises."""
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dq, flash_mh_bwd,
+                                         flash_mh_fwd)
+    q, k, v, do, dlse, _ = _mh_inputs((2, 256, 4, 64), cuda, False, 3)
+    o, lse = flash_mh_fwd(q, k, v, causal=True)
+    monkeypatch.delenv(ENV_BUDGET, raising=False)
+    fused = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, causal=True)
+    monkeypatch.setenv(ENV_BUDGET, "0")
+    before = (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
+              flash_attn_bwd_dkv.launches)
+    two = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, causal=True)
+    assert (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
+            flash_attn_bwd_dkv.launches) == (before[0], before[1] + 1,
+                                             before[2] + 1)
+    for a, b in zip(two, fused):
+        torch.testing.assert_close(a.float(), b.float(), atol=_bf16_tol(b),
+                                   rtol=0)
+    q40 = _randn(np.random.RandomState(1), (1, 64, 2, 40), torch.bfloat16,
+                 cuda)
+    o40, lse40 = flash_mh_fwd(q40, q40, q40)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_mh_bwd(q40, q40, q40, o40, lse40, q40)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_mh_fwd(q.float(), k.float(), v.float())
+
+
+def test_flash_attention_mh_entry_point_on_the_card(cuda):
+    """``flash_attention_mh`` through autograd on the card: one K17 and
+    one K18 launch, gradients equal to the wrappers' called directly."""
+    from apex_tpu_torch.ops.cuda import flash_mh_bwd, flash_mh_fwd
+    from apex_tpu_torch.ops.experimental import flash_attention_mh
+    q, k, v, do, dlse, mask = _mh_inputs((2, 128, 4, 64), cuda, True, 9)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash_mh_fwd.launches, flash_mh_bwd.launches)
+    o, lse = flash_attention_mh(*leaves, kv_mask=mask, return_lse=True)
+    torch.autograd.backward((o, lse), (do, dlse))
+    assert (flash_mh_fwd.launches, flash_mh_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_mh_bwd(q, k, v, o.detach(), lse.detach(), do, dlse=dlse,
+                        kv_mask=mask)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_o1_train_step_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer GPT at O1 (fp32 parameters, bf16 products): the card's
+    losses within 2e-2 of the CPU's, the layer norms on K1 / K3 in fp32,
+    the unscale K6 a leaf in fp32, one K11, no copies."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    state = _small_gpt("cpu")[1].state_dict()
+    ids = torch.as_tensor((np.arange(64)[None] + np.arange(4)[:, None] * 7)
+                          % 512)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        _, model = _small_gpt(dev, state)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev), device=dev)
+        step = amp.make_train_step(
+            a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+        reset_launch_counts()
+        losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(3)]
+        counts = launch_counts()
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+    n = len(list(model.parameters()))
+    assert counts["layer_norm_fwd"] == 3 * 5
+    assert counts["layer_norm_bwd"] == 3 * 10
+    assert counts["flash_attn_fwd"] == 3 * 2
+    assert counts["packed_scale"] == 3 * n
+    assert counts["packed_adam_tree"] == 3
+    assert all(np.isfinite(losses["cuda"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
+                               rtol=0)
