@@ -2,10 +2,8 @@
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py, `_flash_bwd_fused` and
 // its kernel `_bwd_fused_kernel` (K4: the one-pass backward the TPU picks
-// while the dq-partials buffer fits its budget), and, compiled without its
-// dq planes, `_flash_bwd`'s `_dkv_kernel` (K14: the dk / dv pass of the
-// two-pass backward taken above that budget; K13 in flash_attn_bwd_dq.cu
-// is its dq pass).
+// while the dq-partials buffer fits its budget; above it the two-pass
+// backward, K13 in flash_attn_bwd_dq.cu and K14 in flash_attn_bwd_dkv.cu).
 //
 // Computes, for (B, L, H, D) q, k, v, do and the forward's lse (B, L, H)
 // fp32 and delta = rowsum(o * do) - dlse (B, L, H) fp32 (computed outside,
@@ -38,9 +36,7 @@
 // its own partial plane; the caller sums the planes in a fixed order.  No
 // atomics anywhere: two runs give equal bits.  The planes are
 // ceil(L / 64) * B * L * H * D * 4 bytes, growing with L^2, which is why the
-// wrapper gates K4 on their size.  K14 is the same block with `kDq` false:
-// the same dK / dV in the same order (bit-equal to K4's), no planes; it
-// bounds at 8 * D flops a visible pair (S, dP, dV, dK).
+// wrapper gates K4 on their size.
 //
 // fp32 inputs (tests, the fp32 reference) take two SIMT kernels: one warp
 // per key row for dK / dV (looping over the queries that see it) and one
@@ -85,7 +81,7 @@ struct Smem {
                                                          : end_stage;
 };
 
-template <int D, bool kDq>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
@@ -218,9 +214,7 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
         wmma::mma_sync(dk_acc[df], sa, bf, dk_acc[df]);
       }
     }
-    // dQ: only the fused backward (K4) writes it here; the two-pass route
-    // (K14) leaves it to K13.
-    if constexpr (kDq) {
+    {  // dQ: this key tile's contribution, into its partial plane
       __syncthreads();  // every warp's dS^T rows are in; S^T / dP^T are free
 
       // dQ partial = dS K for this warp's 16 queries (dS read through dS^T
@@ -428,7 +422,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < kCols; ++j) dq[at * D + lane + 32 * j] = acc[j];
 }
 
-template <int D, bool kDq>
+template <int D>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 const uint8_t* mask, const void* cos_t, const void* sin_t,
@@ -437,10 +431,10 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 int causal, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
   static unsigned configured = 0;
-  cudaError_t e = opt_in_smem(flash_bwd_bf16<D, kDq>, bytes, &configured);
+  cudaError_t e = opt_in_smem(flash_bwd_bf16<D>, bytes, &configured);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((L + kBK - 1) / kBK, B * H);
-  flash_bwd_bf16<D, kDq><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_bf16<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -512,11 +506,11 @@ extern "C" int apex_flash_attn_bwd(
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D == 64)
-      return launch_bf16<64, true>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
+      return launch_bf16<64>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
                                    dqp, dk, dv, sq, sk, sv, sd, B, H, L,
                                    scale, causal, s);
     if (D == 128)
-      return launch_bf16<128, true>(q, k, v, dout, lp, dl, mask, cos_t,
+      return launch_bf16<128>(q, k, v, dout, lp, dl, mask, cos_t,
                                     sin_t, dqp, dk, dv, sq, sk, sv, sd, B, H,
                                     L, scale, causal, s);
   } else if (dtype == 0) {
@@ -529,34 +523,5 @@ extern "C" int apex_flash_attn_bwd(
                              dk, dv, sq, sk, sv, sd, B, H, L, scale, causal,
                              s);
   }
-  return (int)cudaErrorInvalidValue;
-}
-
-// K14, the dk / dv pass of the two-pass backward: the bf16 kernel above
-// without its dq partial planes.  The operands as apex_flash_attn_bwd's in
-// bf16; no dq.  Returns the cudaError_t of the launch.
-extern "C" int apex_flash_attn_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* kv_mask,
-    const void* cos_t, const void* sin_t, void* dk, void* dv, long long sqb,
-    long long sql, long long sqh, long long skb, long long skl,
-    long long skh, long long svb, long long svl, long long svh,
-    long long sdb, long long sdl, long long sdh, int B, int L, int H, int D,
-    float scale, int causal, void* stream) {
-  const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh}, sv{svb, svl, svh},
-      sd{sdb, sdl, sdh};
-  const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return launch_bf16<64, false>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
-                                  nullptr, dk, dv, sq, sk, sv, sd, B, H, L,
-                                  scale, causal, s);
-  if (D == 128)
-    return launch_bf16<128, false>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
-                                   nullptr, dk, dv, sq, sk, sv, sd, B, H, L,
-                                   scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

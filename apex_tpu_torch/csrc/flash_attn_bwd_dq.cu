@@ -4,291 +4,307 @@
 // Replaces: apex_tpu/ops/pallas/flash_attention.py, `_flash_bwd`'s dq
 // kernel `_dq_kernel` (the first pass of the two-pass backward the TPU
 // takes when the fused kernel's fp32 dq partials would exceed their
-// budget; flash_attn_bwd.cu's K14 is the second, dk / dv).
+// budget; flash_attn_bwd_dkv.cu's K14 is the second, dk / dv).
 //
-// Computes, for bf16 (B, L, H, D) q, k, v, do, the forward's lse (B, L, H)
-// fp32 and delta = rowsum(o * do) - dlse (B, L, H) fp32: with q pre-scaled
-// by `scale` in bf16 and q, k rotated by the optional rope tables on load
-// (as the forward and K4 do),
-//   P = exp(S - lse) (zero where causality, the key mask or an empty row
-//   hides the pair), dP = dO V^T, dS = P * (dP - delta), dQ = dS K,
-// then dQ's inverse rotation, its rounding to bf16 and the one deferred
-// `* scale` in bf16 (the scale rounded to bf16, the product rounded again:
-// what `dq.astype(q.dtype) * scale` gives on the TPU path).  A row that sees
-// no key (lse = NEG_INF) gets dq = 0.
+// Computes, for bf16 (B, L, H, D) q^ (q pre-scaled in bf16 and rotated:
+// flash_bwd_prologue.cu), k^ (k rotated), v, do, the forward's lse and
+// delta = rowsum(o * do) - dlse ((B, L, H) fp32):
+//   P = exp(S - lse) with S = q^ k^T (zero where causality, the key mask or
+//   an empty row hides the pair), dP = dO V^T, dS = P * (dP - delta),
+//   dQ = dS k^ with dS rounded to bf16,
+// then dQ's inverse rotation in fp32, its rounding to bf16 and the one
+// deferred `* scale` in bf16 (the scale rounded to bf16, the product
+// rounded again: what `dq.astype(q.dtype) * scale` gives on the TPU path).
+// A row that sees no key (lse = NEG_INF) gets dq = 0.
 //
 // What bounds it on the H100: the three products of each visible (q, k)
 // pair (S recomputed, dP, dQ), 6 * D flops a pair, against reading q, k, v,
 // do, lse, delta once and writing dq: at B1 L16384 H12 D64 causal 0.62
 // TFLOP against 0.1 GB, so operations (~0.63 ms at 989 TFLOP/s) bound it.
-// This simple version is far from that bound (see PERF.md).
 //
-// Design: one 128-thread block per (64-row q tile, batch * head), looping
-// over the 64-key tiles up to the diagonal (causal) or over all of them;
-// the TPU's sequential k grid axis with its fp32 dq scratch becomes that
-// loop, and dQ accumulates in WMMA fp32 fragments that stay in registers
-// for the whole loop.  The q tile (pre-scaled, rotated), its dO, lse and
-// delta are loaded once.  Per key tile, rotated K and V are staged in
-// shared memory; warp w owns queries 16w..16w+15 and computes S and dP for
-// them with WMMA (bf16 operands, fp32 accumulators), P and dS elementwise
-// in fp32 (the straddling causal tile and the ragged last tile masked per
-// element, tiles past the diagonal never visited), then dQ += dS K with dS
-// rounded to bf16, as the TPU kernel feeds its MXU.  Nothing is written
-// but dq itself: no partial planes, no atomics; two runs give equal bits.
+// Design: one block of three warpgroups per (128-row q tile, batch * head),
+// tiles scheduled longest-first under causality.  The producer warpgroup
+// gives its registers to the two consumer warpgroups (setmaxnreg: 56 and
+// 224 a thread) and one of its threads issues TMA: the q^ and dO tiles
+// once, then the k^ / V tiles of 64 keys through a ring of shared-memory
+// stages (3 at DP 64, 2 at DP 128) under full / empty mbarriers, up to the
+// diagonal; with a key mask, its second warp gathers each tile's 64 mask
+// bytes into the stage and arrives on the same barrier.  Each consumer
+// warpgroup owns 64 of the q rows: S = q^ k^T and dP = dO V^T are wgmma
+// with both operands in shared memory and fp32 accumulators in registers,
+// committed as two groups so that P = exp(S - lse) (one fma and one ex2 an
+// element) is formed in the accumulator layout while dP still runs; dS,
+// packed to bf16, is the register A operand of dQ += dS k^, whose B is the
+// same k^ tile read MN-major, and which runs on into the next tile's
+// scores, the stage released once it retires.  The causal, ragged and mask
+// tests run only on tiles that need them.  dQ stays in registers for the
+// whole loop (the TPU's fp32 VMEM scratch); the epilogue stages it in
+// shared memory for the inverse rotation.  A tile wholly above a
+// warpgroup's rows is released unread.  No atomics, a fixed summation
+// order: two runs give equal bits.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "flash_attn_bwd_tiles.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using namespace apex_fa;
+using namespace apex_sm90;
 
-template <int D>
+template <int DP>
 struct DqSmem {
-  static constexpr int ldh = TileLd<D>::h;  // Q, dO, K, V rows (bf16)
-  static constexpr int lds = kBK + kPadF;   // S, dP (fp32), queries x keys
-  static constexpr int ldp = kBK + kPadH;   // dS (bf16)
-  static constexpr int ldo = TileLd<D>::f;  // fp32 staging rows
+  static constexpr int kStages = DP == 64 ? 3 : 2;
+  static constexpr size_t q_tile = 128 * DP * 2;   // q^ or dO, 128 rows
+  static constexpr size_t kv_tile = 64 * DP * 2;   // k^ or V, 64 rows
   static constexpr size_t q = 0;
-  static constexpr size_t dout =
-      align128(q + sizeof(__nv_bfloat16) * kBQ * ldh);
-  static constexpr size_t k =
-      align128(dout + sizeof(__nv_bfloat16) * kBQ * ldh);
-  static constexpr size_t v = align128(k + sizeof(__nv_bfloat16) * kBK * ldh);
-  static constexpr size_t ds = align128(v + sizeof(__nv_bfloat16) * kBK * ldh);
-  static constexpr size_t stats =
-      align128(ds + sizeof(__nv_bfloat16) * kBQ * ldp);  // lse, delta
-  static constexpr size_t s = align128(stats + sizeof(float) * 2 * kBQ);
-  static constexpr size_t dp = align128(s + sizeof(float) * kBQ * lds);
-  static constexpr size_t end_scores = align128(dp + sizeof(float) * kBQ * lds);
-  // the fp32 staging tile (64 x D) reuses the S / dP region after the loop
-  static constexpr size_t stage = s;
-  static constexpr size_t end_stage = align128(stage + sizeof(float) * 64 * ldo);
-  static constexpr size_t bytes = end_scores > end_stage ? end_scores
-                                                         : end_stage;
+  static constexpr size_t dout = q + q_tile;
+  static constexpr size_t ring = dout + q_tile;    // k^, V per stage
+  static constexpr size_t stage = ring + kStages * 2 * kv_tile;  // fp32 dQ
+  static constexpr size_t mask = stage + 128 * (DP + 8) * 4;     // 64 B each
+  static constexpr size_t bars = mask + kStages * 64;
+  // q_full, then full[kStages], empty[kStages]
+  static constexpr size_t bytes = bars + 8 * (1 + 2 * kStages);
+  static constexpr size_t alloc = bytes + 1024;    // room to align the base
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   const uint8_t* __restrict__ kv_mask,
                   const __nv_bfloat16* __restrict__ cos_t,
                   const __nv_bfloat16* __restrict__ sin_t,
-                  __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk,
-                  Strides sv, Strides sd, int H, int L, float scale,
-                  int causal) {
-  using S = DqSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q);
-  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + S::dout);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S::k);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S::v);
-  __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(smem + S::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + S::stats);
-  float* delta_s = lse_s + kBQ;
-  float* Ss = reinterpret_cast<float*>(smem + S::s);
-  float* dPs = reinterpret_cast<float*>(smem + S::dp);
-  float* stage = reinterpret_cast<float*>(smem + S::stage);
+                  __nv_bfloat16* __restrict__ dq, int H, int L, int D,
+                  float scale, int causal) {
+  using S = DqSmem<DP>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_addr(smem);
+  const uint32_t bar_q = base + S::bars;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int iq = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = iq * kBQ;
-  const int wrow = warp * 16;  // this warp's first query row
-  const uint8_t* mb = kv_mask ? kv_mask + (long long)b * L : nullptr;
-  const __nv_bfloat16* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
-  const __nv_bfloat16* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int n_qt = gridDim.y;
+  const int iq = causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = iq * 128;
+  const int n_k = (L + kBox - 1) / kBox;
+  const int last = causal ? min((q0 + 127) / kBox, n_k - 1) : n_k - 1;
 
-  load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L, true, scale, cb, sb);
-  load_tile<D>(Ds, dout + b * sd.b + h * sd.h, sd.l, q0, L, false, 1.f,
-               nullptr, nullptr);
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    const bool ok = q0 + i < L;
-    const long long at = ((long long)b * L + q0 + i) * H + h;
-    lse_s[i] = ok ? lse[at] : kNegInf;
-    delta_s[i] = ok ? delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // TMA's thread, and with a key mask the mask warp
+      mbar_init(bar_full + 8 * s, kv_mask != nullptr ? 1 + 32 : 1);
+      mbar_init(bar_empty + 8 * s, 4 * kConsumers);  // one arrival a warp
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  constexpr int kFr = D / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[kFr];
-#pragma unroll
-  for (int f = 0; f < kFr; ++f) wmma::fill_fragment(dq_acc[f], 0.f);
-
-  // kBQ == kBK: key tile ik holds a key at or before the q tile's last row
-  // exactly when ik <= iq
-  const int n_k = (L + kBK - 1) / kBK;
-  const int last = causal ? min(iq, n_k - 1) : n_k - 1;
-
-  for (int ik = 0; ik <= last; ++ik) {
-    const int k0 = ik * kBK;
-    __syncthreads();  // the previous key tile's K / V are consumed
-    load_tile<D>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L, false, 1.f, cb,
-                 sb);
-    load_tile<D>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, false, 1.f,
-                 nullptr, nullptr);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys.
-#pragma unroll
-    for (int nf = 0; nf < kBK / 16; ++nf) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf, pf;
-      wmma::fill_fragment(sf, 0.f);
-      wmma::fill_fragment(pf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bf;
-        wmma::load_matrix_sync(af, Qs + wrow * S::ldh + kk * 16, S::ldh);
-        wmma::load_matrix_sync(bf, Ks + nf * 16 * S::ldh + kk * 16, S::ldh);
-        wmma::mma_sync(sf, af, bf, sf);
-        wmma::load_matrix_sync(af, Ds + wrow * S::ldh + kk * 16, S::ldh);
-        wmma::load_matrix_sync(bf, Vs + nf * 16 * S::ldh + kk * 16, S::ldh);
-        wmma::mma_sync(pf, af, bf, pf);
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == kConsumers) {
+    // -- producer ---------------------------------------------------------
+    regs_dec<kProducerRegs>();
+    const int pt = threadIdx.x - 128 * kConsumers;  // 0 .. 127
+    if (pt == 0) {
+      mbar_expect(bar_q, 2 * S::q_tile);
+      tma_tile<DP>(base + S::q, &tm_q, bar_q, 128, h, q0, b);
+      tma_tile<DP>(base + S::dout, &tm_do, bar_q, 128, h, q0, b);
+      for (int it = 0; it <= last; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(bar_empty + 8 * s, (it / kStages - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        const uint32_t kt = base + S::ring + s * 2 * S::kv_tile;
+        mbar_expect(full, 2 * S::kv_tile);
+        tma_tile<DP>(kt, &tm_k, full, 64, h, it * kBox, b);
+        tma_tile<DP>(kt + S::kv_tile, &tm_v, full, 64, h, it * kBox, b);
       }
-      wmma::store_matrix_sync(Ss + wrow * S::lds + nf * 16, sf, S::lds,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(dPs + wrow * S::lds + nf * 16, pf, S::lds,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // dS, one query row at a time; lanes hold keys lane, lane + 32.
-    bool key_ok[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kpos = k0 + lane + 32 * j;
-      key_ok[j] = kpos < L && (mb == nullptr || mb[kpos] != 0);
-    }
-    for (int r = 0; r < 16; ++r) {
-      const int row = wrow + r;
-      const int qpos = q0 + row;
-      const float l_q = lse_s[row];
-      const float d_q = delta_s[row];
-      const bool row_ok = qpos < L && l_q > 0.5f * kNegInf;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        bool ok = row_ok && key_ok[j];
-        if (causal) ok = ok && k0 + c <= qpos;
-        const float p = ok ? expf(Ss[row * S::lds + c] - l_q) : 0.f;
-        const float ds = p * (dPs[row * S::lds + c] - d_q);
-        dSs[row * S::ldp + c] = __float2bfloat16(ds);
+    } else if (pt / 32 == 1 && kv_mask != nullptr) {
+      // the mask warp: lane i takes keys i and i + 32 of each tile (0 past
+      // L); each lane's arrive releases its own stores
+      const int lane = pt % 32;
+      for (int it = 0; it <= last; ++it) {
+        const int s = it % kStages;
+        const int k0 = it * kBox;
+        if (it >= kStages) mbar_wait(bar_empty + 8 * s, (it / kStages - 1) & 1);
+        uint8_t* mk = smem + S::mask + 64 * s;
+        for (int i = lane; i < 64; i += 32)
+          mk[i] = k0 + i < L ? kv_mask[(long long)b * L + k0 + i] : 0;
+        mbar_arrive(bar_full + 8 * s);
       }
     }
-    __syncwarp();
+  } else {
+    // -- consumers: warpgroup cw owns q rows q0 + 64 cw .. + 63 --------------
+    regs_inc<kConsumerRegs>();
+    const int cw = wg;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int t2 = 2 * (lane % 4);
+    const int first_row = q0 + 64 * cw;
+    const int my_row = first_row + (tid / 32) * 16 + lane / 4;  // and + 8
+    float lse2[2], del_r[2];  // lse2: lse log2 e
+    bool row_ok[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pos = my_row + 8 * i;
+      const long long at = ((long long)b * L + pos) * H + h;
+      const float l = pos < L ? lse[at] : kNegInf;
+      lse2[i] = l * kLog2e;
+      del_r[i] = pos < L ? delta[at] : 0.f;
+      row_ok[i] = l > 0.5f * kNegInf;
+    }
 
-    // dQ += dS K for this warp's queries.
+    float acc[DP / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> af;
-      wmma::load_matrix_sync(af, dSs + wrow * S::ldp + kk * 16, S::ldp);
-#pragma unroll
-      for (int df = 0; df < kFr; ++df) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, Ks + kk * 16 * S::ldh + df * 16, S::ldh);
-        wmma::mma_sync(dq_acc[df], af, bf, dq_acc[df]);
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float s_acc[32], p_acc[32];
+    uint32_t a_ds[16] = {};
+    // The stage whose dQ product may still be running (its k^ is read until
+    // that product retires), or -1.
+    int pending = -1;
+
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it <= last; ++it) {
+      const int s = it % kStages;
+      const int k0 = it * kBox;
+      mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+      if (causal && k0 > first_row + 63) {  // wholly above these rows
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+        continue;
       }
-    }
-  }
-
-  // Emit dQ: inverse-rotated, rounded to bf16, times the scale in bf16.
-  __syncthreads();  // every warp is done with S / dP, which staging reuses
+      const uint32_t kt = base + S::ring + s * 2 * S::kv_tile;
+      // S = q^ k^T and dP = dO V^T, two groups behind the last tile's dQ
+      wgmma_fence();
+      scores<DP, 64>(s_acc, base + S::q, 128, 64 * cw, kt, 64, 0);
+      wgmma_commit();
+      scores<DP, 64>(p_acc, base + S::dout, 128, 64 * cw, kt + S::kv_tile, 64,
+                     0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the last dQ and S have retired; dP may run on
+      pin<32>(s_acc);
+      pin<DP / 2>(acc);
+      pin<16>(a_ds);
+      if (pending >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * pending);
+      }
+      // P = exp(S - lse) in place of S, while dP runs; the tests only where
+      // causality, the ragged end or the key mask reach into the tile
+      const bool edge = (causal && k0 + kBox - 1 > first_row) ||
+                        k0 + kBox > L || kv_mask != nullptr;
+      const uint8_t* mk = smem + S::mask + 64 * s;
 #pragma unroll
-  for (int df = 0; df < kFr; ++df)
-    wmma::store_matrix_sync(stage + wrow * S::ldo + df * 16, dq_acc[df],
-                            S::ldo, wmma::mem_row_major);
-  __syncwarp();
-  if (cb != nullptr) {
-    unrotate_rows<D>(stage, wrow, q0, L, cb, sb);
-    __syncwarp();
-  }
-  for (int r = 0; r < 16; ++r) {
-    const int qpos = q0 + wrow + r;
-    if (qpos >= L) break;
-    __nv_bfloat16* row = dq + (((long long)b * L + qpos) * H + h) * D;
-    for (int c = lane; c < D; c += 32) {
-      const float x =
-          __bfloat162float(__float2bfloat16(stage[(wrow + r) * S::ldo + c]));
-      row[c] = __float2bfloat16(__fmul_rn(x, scale));
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = 8 * (i >> 2) + t2 + (i & 1);
+        bool ok = row_ok[r];
+        if (edge) {
+          const int kpos = k0 + col;
+          ok = ok && kpos < L && (kv_mask == nullptr || mk[col] != 0) &&
+               (!causal || kpos <= my_row + 8 * r);
+        }
+        s_acc[i] = ok ? exp2_approx(fmaf(s_acc[i], kLog2e, -lse2[r])) : 0.f;
+      }
+      wgmma_wait<0>();
+      pin<32>(p_acc);
+      // dS = P (dP - delta), packed to bf16: the A operand of dQ += dS k^
+      // (k^ read MN-major: its rows are the reduction)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s_acc[i] = s_acc[i] * (p_acc[i] - del_r[(i >> 1) & 1]);
+      to_a_operand<64>(s_acc, a_ds);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(acc, a_ds + 4 * kk, mnmajor(kt, 64, kk));
+      wgmma_commit();
+      pending = s;
     }
+    wgmma_wait<0>();
+    pin<DP / 2>(acc);
+    pin<16>(a_ds);
+    if (pending >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * pending);
+    }
+
+    // Emit dQ: staged, inverse-rotated, rounded to bf16, times the scale.
+    float* stage =
+        reinterpret_cast<float*>(smem + S::stage) + 64 * cw * (DP + 8);
+    stage_acc<DP>(stage, acc, tid);
+    warpgroup_sync(1 + cw);
+    write_rows<DP>(dq, stage, tid, b, h, first_row, L, H, D, cos_t, sin_t, true,
+                   scale);
   }
 }
 
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, const uint8_t* mask,
-              const void* cos_t, const void* sin_t, void* dq, Strides sq,
-              Strides sk, Strides sv, Strides sd, int B, int H, int L,
-              float scale, int causal, cudaStream_t stream) {
-  const size_t bytes = DqSmem<D>::bytes;
+template <int DP>
+int launch(const CUtensorMap* maps, const float* lse, const float* delta,
+           const uint8_t* kv_mask, const void* cos_t, const void* sin_t,
+           void* dq, int B, int H, int L, int D, float scale,
+           int causal, cudaStream_t stream) {
   static unsigned configured = 0;
-  cudaError_t e = opt_in_smem(flash_bwd_dq_bf16<D>, bytes, &configured);
+  cudaError_t e = apex_fa::opt_in_smem(flash_bwd_dq_sm90<DP>,
+                                       DqSmem<DP>::alloc, &configured);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((L + kBQ - 1) / kBQ, B * H);
-  flash_bwd_dq_bf16<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, mask,
+  const dim3 grid(B * H, (L + 127) / 128);
+  flash_bwd_dq_sm90<DP><<<grid, kThreads, DqSmem<DP>::alloc, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, kv_mask,
       static_cast<const __nv_bfloat16*>(cos_t),
       static_cast<const __nv_bfloat16*>(sin_t),
-      static_cast<__nv_bfloat16*>(dq), sq, sk, sv, sd, H, L, scale, causal);
+      static_cast<__nv_bfloat16*>(dq), H, L, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory of the dq pass at head dim D (0: unsupported).
-extern "C" int apex_flash_attn_bwd_dq_smem_bytes(int D) {
-  if (D == 64) return (int)DqSmem<64>::bytes;
-  if (D == 128) return (int)DqSmem<128>::bytes;
+// Dynamic shared memory of the dq pass at padded head width DP (64 or 128;
+// 0: unsupported).
+extern "C" int apex_flash_attn_bwd_dq_smem_bytes(int DP) {
+  if (DP == 64) return (int)DqSmem<64>::alloc;
+  if (DP == 128) return (int)DqSmem<128>::alloc;
   return 0;
 }
 
-// q, k, v, dout: bf16 (B, L, H, D), element strides (b, l, h), unit stride
-// over D, rows on 16-byte boundaries.  lse, delta: contiguous (B, L, H)
-// fp32.  kv_mask: (B, L) uint8 or null.  cos_t / sin_t: contiguous
-// (B, L, D) bf16 tables, or both null.  dq: contiguous (B, L, H, D) bf16,
-// every element written.  scale: the softmax scale, already rounded to
-// bf16: q's pre-scale and the deferred scale of dq.  Returns the
-// cudaError_t of the launch.
+// qh, kh, v, dout: bf16 (B, L, H, D) operands, each described by 7 words of
+// `geo` (dims D, H, L, B and the byte strides of H, L, B; the wrapper
+// checked them for TMA).  lse, delta: contiguous (B, L, H) fp32.  kv_mask:
+// (B, L) uint8 or null.  cos_t / sin_t: contiguous (B, L, D) bf16 tables,
+// or both null.  dq: contiguous (B, L, H, D) bf16, every element written.
+// scale: the softmax scale rounded to bf16 (dq's deferred scale).  Returns
+// 0, a cudaError_t, or an encoder error (kMapErrorBase - CUresult).
 extern "C" int apex_flash_attn_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* kv_mask,
-    const void* cos_t, const void* sin_t, void* dq, long long sqb,
-    long long sql, long long sqh, long long skb, long long skl,
-    long long skh, long long svb, long long svl, long long svh,
-    long long sdb, long long sdl, long long sdh, int B, int L, int H, int D,
-    float scale, int causal, void* stream) {
-  const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh}, sv{svb, svl, svh},
-      sd{sdb, sdl, sdh};
-  const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
+    const void* qh, const void* kh, const void* v, const void* dout,
+    const long long* geo, const void* lse, const void* delta,
+    const void* kv_mask, const void* cos_t, const void* sin_t, void* dq,
+    int B, int L, int H, int D, float scale, int causal, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || D % 8 != 0 || D <= 0 || D > 128)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {qh, kh, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int e = encode_map(&maps[i], ptrs[i], geo + kGeoWords * i);
+    if (e != 0) return e;
+  }
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  const uint8_t* mp = static_cast<const uint8_t*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return launch_dq<64>(q, k, v, dout, lp, dl, mask, cos_t, sin_t, dq, sq,
-                         sk, sv, sd, B, H, L, scale, causal, s);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, dout, lp, dl, mask, cos_t, sin_t, dq, sq,
-                          sk, sv, sd, B, H, L, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch<64>(maps, lp, dl, mp, cos_t, sin_t, dq, B, H, L, D, scale,
+                      causal, s);
+  return launch<128>(maps, lp, dl, mp, cos_t, sin_t, dq, B, H, L, D, scale,
+                     causal, s);
 }

@@ -1,10 +1,11 @@
-// Tile helpers shared by the flash-attention backward kernels for Hopper
-// (sm_90a): K4 and K14 (flash_attn_bwd.cu, one block per key tile) and K13
-// (flash_attn_bwd_dq.cu, one block per query tile).
+// Tile helpers of the fused flash-attention backward for Hopper (sm_90a),
+// K4 (flash_attn_bwd.cu, one block per key tile); the two-pass kernels K13
+// and K14 (flash_bwd_sm90.cuh) share its constants, `rot1` and
+// `opt_in_smem`.
 //
-// Both sides stage 64-row tiles of (B, L, H, D) bf16 tensors in shared
-// memory, read through the caller's strides (unit stride over D), rows past
-// L zero-filled; q is pre-scaled in its storage dtype on load and q / k are
+// K4 stages 64-row tiles of (B, L, H, D) bf16 tensors in shared memory,
+// read through the caller's strides (unit stride over D), rows past L
+// zero-filled; q is pre-scaled in its storage dtype on load and q / k are
 // rotated on load by the full-width rope tables, exactly as the forward
 // kernel does; gradients w.r.t. rotated tensors are inverse-rotated (the
 // same lane rotation with the sine negated) in an fp32 staging tile before

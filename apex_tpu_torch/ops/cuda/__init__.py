@@ -23,9 +23,13 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
+    flash_bwd_prologue,
+    flash_bwd_prologue_ref,
     fused_bwd,
     fused_bwd_max_bytes,
     fused_bwd_partials_bytes,
+    tma_geometry,
+    two_pass_bwd,
 )
 from apex_tpu_torch.ops.cuda.flash_mh import (
     flash_mh_bwd,
@@ -73,6 +77,7 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "sumsq_per_tensor": sumsq_per_tensor,
            "flash_attn_bwd_dq": flash_attn_bwd_dq,
            "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
+           "flash_bwd_prologue": flash_bwd_prologue,
            "conv1x1_bwd": conv1x1_bwd,
            "packed_nonfinite": packed_nonfinite,
            "flash_mh_fwd": flash_mh_fwd,
@@ -96,7 +101,8 @@ __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "conv1x1_bwd",
            "flash_attn_bwd", "flash_attn_bwd_dkv",
            "flash_attn_bwd_dkv_ref", "flash_attn_bwd_dq",
            "flash_attn_bwd_dq_ref", "flash_attn_bwd_ref",
-           "flash_attn_fwd", "flash_attn_fwd_ref", "fused_bwd",
+           "flash_attn_fwd", "flash_attn_fwd_ref", "flash_bwd_prologue",
+           "flash_bwd_prologue_ref", "fused_bwd",
            "fused_bwd_max_bytes", "fused_bwd_partials_bytes", "lamb_stage1",
            "lamb_stage1_ref", "lamb_stage2", "lamb_stage2_ref",
            "launch_counts", "layer_norm_bwd", "layer_norm_bwd_ref",
@@ -105,4 +111,4 @@ __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "conv1x1_bwd",
            "packed_axpby", "packed_axpby_ref", "packed_scale",
            "packed_scale_ref", "packed_sumsq", "packed_sumsq_ref",
            "reset_launch_counts", "sumsq_per_tensor",
-           "sumsq_per_tensor_ref"]
+           "sumsq_per_tensor_ref", "tma_geometry", "two_pass_bwd"]

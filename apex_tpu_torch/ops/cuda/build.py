@@ -153,14 +153,18 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_smem_bytes.restype = i32
-    lib.apex_flash_attn_bwd_dq.argtypes = ([vp] * 10 + [i64] * 12 + [i32] * 4
+    lib.apex_flash_bwd_prologue.argtypes = ([vp] * 6 + [i64] * 6 + [i32] * 4
+                                            + [f32, vp])
+    lib.apex_flash_bwd_prologue.restype = i32
+    lib.apex_flash_attn_bwd_dq.argtypes = ([vp] * 11 + [i32] * 4
                                            + [f32, i32, vp])
     lib.apex_flash_attn_bwd_dq.restype = i32
     lib.apex_flash_attn_bwd_dq_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_dq_smem_bytes.restype = i32
-    lib.apex_flash_attn_bwd_dkv.argtypes = ([vp] * 11 + [i64] * 12
-                                            + [i32] * 4 + [f32, i32, vp])
+    lib.apex_flash_attn_bwd_dkv.argtypes = [vp] * 12 + [i32] * 5 + [vp]
     lib.apex_flash_attn_bwd_dkv.restype = i32
+    lib.apex_flash_attn_bwd_dkv_smem_bytes.argtypes = [i32]
+    lib.apex_flash_attn_bwd_dkv_smem_bytes.restype = i32
     lib.apex_layer_norm_bwd.argtypes = [vp] * 10 + [i32] * 4 + [vp]
     lib.apex_layer_norm_bwd.restype = i32
     lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32]
@@ -216,12 +220,20 @@ def build_info() -> Optional[BuildInfo]:
 
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
-    with torch.cuda.device(t.device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+#: entry points that encode TMA tensor maps return this minus the
+#: driver's ``CUresult`` when the encoder refuses a map
+MAP_ERROR_BASE = -1000
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+    """Raise if a C entry point returned a CUDA error (or a tensor-map
+    encoder error)."""
+    if err <= MAP_ERROR_BASE:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a map "
+                           f"(CUresult {MAP_ERROR_BASE - err})")
     if err != 0:
         name = library().apex_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")

@@ -1,6 +1,8 @@
 """K2, K4, K13 and K14: the flash-attention forward and backward kernels
 (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``,
-``csrc/flash_attn_bwd_dq.cu``) and their plain PyTorch versions.
+``csrc/flash_attn_bwd_dq.cu``, ``csrc/flash_attn_bwd_dkv.cu``, with the
+two-pass kernels' prologue ``csrc/flash_bwd_prologue.cu``) and their plain
+PyTorch versions.
 
 The CUDA kernels replace the Pallas ``_flash_fwd`` (``_fwd_kernel``),
 ``_flash_bwd_fused`` (``_bwd_fused_kernel``) and ``_flash_bwd``
@@ -18,13 +20,22 @@ backward (K4) while its fp32 dq partial planes fit
 K14 for dk / dv) above it, as the JAX package's gate does.  Each wrapper
 launches its kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors; none falls back from one to the other.
+
+K13 and K14 are Hopper kernels: ``wgmma`` on tiles that TMA brings into a
+ring of shared-memory stages.  TMA copies bytes, so a prologue kernel
+(:func:`flash_bwd_prologue`) first writes q pre-scaled and rotated and k
+rotated, once per call; each operand then reads through a 4-D tensor map
+whose geometry :func:`tma_geometry` computes here (any head width that is
+a multiple of 8 up to 128 runs padded to 64 or 128).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
-from typing import Optional, Tuple
+import struct
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +49,11 @@ _HEAD_DIMS = (64, 128)
 BWD_KEY_TILE = 64
 #: the byte budget of K4's dq partial planes (the JAX package's variable)
 FUSED_BWD_MAX_BYTES_ENV = "APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES"
+#: rows and columns of one TMA box of the two-pass kernels (K13, K14)
+TMA_BOX = 64
+_TMA_BOX_DIMS = (TMA_BOX, 1, TMA_BOX, 1)      # (D, H, L, B)
+#: the map words of the four operands (q^, k^, v, do) of a two-pass call
+_GeoWords = ctypes.c_longlong * 28
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -119,13 +135,29 @@ def _check_operand(what: str, name: str, t: torch.Tensor, shape, dtype,
                          f"16-byte boundaries (strides {t.stride()})")
 
 
-def _check_common(what: str, q, k, v, kv_mask, rope):
-    """Validate a kernel call; returns ``(mask_u8, cos_t, sin_t)``."""
+def _two_pass_head_dim(d: int) -> bool:
+    """Whether K13 / K14 take head width ``d``: a multiple of 8 up to 128
+    (TMA zero-fills the columns up to the padded width)."""
+    return d % 8 == 0 and 8 <= d <= 128
+
+
+def _check_common(what: str, q, k, v, kv_mask, rope, two_pass=False):
+    """Validate a kernel call; returns ``(mask_u8, cos_t, sin_t)``.  The
+    two-pass kernels take bf16 and every head width that is a multiple of
+    8 up to 128; the others bf16 or fp32 and D in ``_HEAD_DIMS``."""
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be (B, L, H, D), got "
                          f"{tuple(q.shape)}")
     b, l, h, d = q.shape
-    if q.dtype not in _DTYPES or d not in _HEAD_DIMS:
+    if two_pass:
+        if q.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: the two-pass kernels take bf16, got "
+                             f"{q.dtype} (fp32 takes flash_attn_bwd's SIMT "
+                             f"kernels)")
+        if not _two_pass_head_dim(d):
+            raise ValueError(f"{what}: head dim {d} unsupported (want a "
+                             f"multiple of 8 up to 128)")
+    elif q.dtype not in _DTYPES or d not in _HEAD_DIMS:
         raise ValueError(f"{what}: dtype {q.dtype} / head dim {d} "
                          f"unsupported (want bf16/fp32, D in {_HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -322,10 +354,12 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (dq, *flash_attn_bwd_dkv_ref(q, k, v, do, lse, delta, **kw))
 
 
-def _check_bwd(what, q, k, v, do, lse, delta, kv_mask, rope):
+def _check_bwd(what, q, k, v, do, lse, delta, kv_mask, rope,
+               two_pass=False):
     """Validate a backward kernel call; returns ``(do, lse, delta, mask_u8,
     cos_t, sin_t)`` as the kernels take them."""
-    mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope)
+    mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope,
+                                       two_pass)
     b, l, h, _ = q.shape
     do = do.contiguous()
     _check_operand(what, "do", do, q.shape, q.dtype, q.device)
@@ -335,13 +369,182 @@ def _check_bwd(what, q, k, v, do, lse, delta, kv_mask, rope):
     return do, lse.contiguous(), delta.contiguous(), mask, cos_t, sin_t
 
 
-def _check_two_pass(what, q):
+class TmaGeometry(NamedTuple):
+    """The 4-D TMA map of one bf16 ``(B, L, H, D)`` operand of K13 / K14:
+    ``dims`` (D, H, L, B), innermost first; ``strides`` the byte strides
+    of H, L and B; ``box`` (64 columns, 1 head, 64 rows, 1 batch); and
+    ``padded_d``, the width the kernels run at (64 or 128: the box's
+    columns past D load as zeros, as do its rows past L)."""
+
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    padded_d: int
+
+    def words(self) -> Tuple[int, ...]:
+        """The seven words the C entry points read: dims, then strides."""
+        return self.dims + self.strides
+
+
+def tma_geometry(t: torch.Tensor, name: str = "operand") -> TmaGeometry:
+    """The map geometry of ``t`` (any device: shapes, strides and the
+    address only).  Raises ``ValueError`` on what TMA refuses: a dtype
+    other than bf16, a head width that is not a multiple of 8 up to 128,
+    a stride over D other than 1, a base address or a byte stride off a
+    16-byte boundary, a stride of 2**40 bytes or more.  A dimension of
+    extent 1 is never stepped over, so its stride is set to the row's
+    bytes, whatever PyTorch reports for it.  (Called for each operand of
+    each two-pass call: it reads the shape and strides once.)"""
+    shape, stride = t.shape, t.stride()
+    if len(shape) != 4 or t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: want a bf16 (B, L, H, D) tensor, got "
+                         f"{t.dtype} {tuple(shape)}")
+    b, l, h, d = shape
+    if not _two_pass_head_dim(d):
+        raise ValueError(f"{name}: head dim {d} unsupported (want a "
+                         f"multiple of 8 up to 128)")
+    if stride[3] != 1:
+        raise ValueError(f"{name}: needs unit stride over D, got strides "
+                         f"{stride}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base address {t.data_ptr():#x} is not "
+                         f"on a 16-byte boundary")
+    # bytes of H, L, B (bf16: 2 bytes an element)
+    strides = (2 * stride[2] if h > 1 else 2 * d,
+               2 * stride[1] if l > 1 else 2 * d,
+               2 * stride[0] if b > 1 else 2 * d)
+    for dim, nbytes in zip((2, 1, 0), strides):
+        if nbytes % 16 or not 0 < nbytes < 1 << 40:
+            raise ValueError(f"{name}: byte stride {nbytes} of dim {dim} "
+                             f"is not a multiple of 16 below 2**40 "
+                             f"(strides {stride})")
+    return TmaGeometry((d, h, l, b), strides, _TMA_BOX_DIMS,
+                       64 if d <= 64 else 128)
+
+
+def _bf16_scale(scale: float) -> float:
+    """The scale rounded to bf16 as q's pre-scale folds it (what
+    ``torch.tensor(scale, dtype=torch.bfloat16)`` gives: to fp32, then to
+    nearest, ties to even), without a tensor on the host path of every
+    call."""
+    bits = struct.unpack("<I", struct.pack("<f", scale))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+def flash_bwd_prologue_ref(q: torch.Tensor, k: torch.Tensor, *,
+                           scale: float, rope: Rope = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q^, k^)``: :func:`_scaled_rotated`, what the two passes' score
+    product reads."""
+    return _scaled_rotated(q, k, scale, rope)
+
+
+def flash_bwd_prologue(q: torch.Tensor, k: torch.Tensor, *, scale: float,
+                       rope: Rope = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q^, k^)`` of :func:`flash_bwd_prologue_ref`, once per two-pass
+    backward.  On CUDA tensors (bf16, the operand rules of the two-pass
+    kernels) one launch of ``csrc/flash_bwd_prologue.cu`` (counted in
+    ``flash_bwd_prologue.launches``) writing contiguous q^ and, with rope
+    tables, k^ (else k^ is k); no launch when there is nothing to do (no
+    tables and a scale of 1 in bf16: q^ is q).  The results are bitwise
+    the plain version's.  On CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        return flash_bwd_prologue_ref(q, k, scale=scale, rope=rope)
+    what = "flash_bwd_prologue"
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the two-pass kernels take bf16, got "
-                         f"{q.dtype} (fp32 takes flash_attn_bwd's SIMT "
-                         f"kernels)")
+    _, cos_t, sin_t = _check_common(what, q, k, k, None, rope,
+                                    two_pass=True)
+    return _prologue(q, k, _bf16_scale(scale), cos_t, sin_t,
+                     build.stream_of(q))
+
+
+def _prologue(q, k, scale_q: float, cos_t, sin_t, stream: int):
+    """:func:`flash_bwd_prologue` on operands already checked."""
+    if cos_t is None and scale_q == 1.0:
+        return q, k
+    qh = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kh = torch.empty_like(qh) if cos_t is not None else None
+    b, l, h, d = q.shape
+    err = build.library().apex_flash_bwd_prologue(
+        q.data_ptr(), k.data_ptr(), _ptr(cos_t), _ptr(sin_t), qh.data_ptr(),
+        _ptr(kh), *q.stride()[:3], *k.stride()[:3], b, l, h, d, scale_q,
+        stream)
+    build.check(err, "flash_bwd_prologue")
+    flash_bwd_prologue.launches += 1
+    return qh, (k if kh is None else kh)
+
+
+flash_bwd_prologue.launches = 0
+
+
+class _TwoPass(NamedTuple):
+    """What both passes read, made once a call: q^ / k^ (the prologue's), v
+    and do, the four maps' words, lse and delta (contiguous ``(B, L, H)``
+    fp32), the key mask as ``(B, L)`` uint8 or None, the bf16 tables or
+    None, dq's deferred scale rounded to bf16, causality, the stream."""
+
+    qh: torch.Tensor
+    kh: torch.Tensor
+    v: torch.Tensor
+    do: torch.Tensor
+    geo: ctypes.Array
+    lse: torch.Tensor
+    delta: torch.Tensor
+    mask: Optional[torch.Tensor]
+    cos_t: Optional[torch.Tensor]
+    sin_t: Optional[torch.Tensor]
+    scale_q: float
+    causal: int
+    stream: int
+
+
+def _two_pass_operands(what, q, k, v, do, lse, delta, causal, kv_mask,
+                       scale, rope) -> _TwoPass:
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
+        what, q, k, v, do, lse, delta, kv_mask, rope, two_pass=True)
+    scale_q = _bf16_scale(_default_scale(q, scale))
+    stream = build.stream_of(q)
+    qh, kh = _prologue(q, k, scale_q, cos_t, sin_t, stream)
+    words = []
+    for name, t in (("q^", qh), ("k^", kh), ("v", v), ("do", do)):
+        words += tma_geometry(t, name).words()
+    return _TwoPass(qh, kh, v, do, _GeoWords(*words), lse, delta, mask,
+                    cos_t, sin_t, scale_q, int(bool(causal)), stream)
+
+
+def _maps_args(ops: _TwoPass):
+    return (ops.qh.data_ptr(), ops.kh.data_ptr(), ops.v.data_ptr(),
+            ops.do.data_ptr(), ctypes.addressof(ops.geo), ops.lse.data_ptr(),
+            ops.delta.data_ptr(), _ptr(ops.mask), _ptr(ops.cos_t),
+            _ptr(ops.sin_t))
+
+
+def _dq_pass(ops: _TwoPass) -> torch.Tensor:
+    b, l, h, d = ops.qh.shape
+    dq = torch.empty((b, l, h, d), dtype=ops.qh.dtype, device=ops.qh.device)
+    err = build.library().apex_flash_attn_bwd_dq(
+        *_maps_args(ops), dq.data_ptr(), b, l, h, d, ops.scale_q,
+        ops.causal, ops.stream)
+    build.check(err, "flash_attn_bwd_dq")
+    flash_attn_bwd_dq.launches += 1
+    return dq
+
+
+def _dkv_pass(ops: _TwoPass) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, l, h, d = ops.qh.shape
+    dk = torch.empty((b, l, h, d), dtype=ops.qh.dtype, device=ops.qh.device)
+    dv = torch.empty_like(dk)
+    err = build.library().apex_flash_attn_bwd_dkv(
+        *_maps_args(ops), dk.data_ptr(), dv.data_ptr(), b, l, h, d,
+        ops.causal, ops.stream)
+    build.check(err, "flash_attn_bwd_dkv")
+    flash_attn_bwd_dkv.launches += 1
+    return dk, dv
 
 
 def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -351,33 +554,18 @@ def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: Optional[float] = None, rope: Rope = None
                       ) -> torch.Tensor:
     """:func:`flash_attn_bwd_dq_ref`'s function, the dq pass of the
-    two-pass backward.  On CUDA tensors one launch of K13
-    (``csrc/flash_attn_bwd_dq.cu``, counted in
-    ``flash_attn_bwd_dq.launches``): bf16, D in (64, 128), the operand
-    rules of :func:`flash_attn_fwd`; dq accumulates in registers over the
-    key tiles and is written once, scale applied, with no partial planes.
-    On CPU tensors the plain version."""
+    two-pass backward.  On CUDA tensors :func:`flash_bwd_prologue`, then
+    one launch of K13 (``csrc/flash_attn_bwd_dq.cu``, counted in
+    ``flash_attn_bwd_dq.launches``): bf16, D a multiple of 8 up to 128,
+    any strides that :func:`tma_geometry` takes; dq accumulates in
+    registers over the key tiles and is written once, scale applied, with
+    no partial planes.  On CPU tensors the plain version."""
     if q.device.type == "cpu":
         return flash_attn_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                      kv_mask=kv_mask, scale=scale,
                                      rope=rope)
-    what = "flash_attn_bwd_dq"
-    _check_two_pass(what, q)
-    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
-        what, q, k, v, do, lse, delta, kv_mask, rope)
-    b, l, h, d = q.shape
-    # q's pre-scale and dq's deferred scale: one value, rounded to bf16
-    scale_q = float(torch.tensor(_default_scale(q, scale), dtype=q.dtype))
-    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    err = build.library().apex_flash_attn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
-        _ptr(sin_t), dq.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *do.stride()[:3], b, l, h, d, scale_q,
-        int(bool(causal)), build.stream_of(q))
-    build.check(err, what)
-    flash_attn_bwd_dq.launches += 1
-    return dq
+    return _dq_pass(_two_pass_operands("flash_attn_bwd_dq", q, k, v, do, lse,
+                                       delta, causal, kv_mask, scale, rope))
 
 
 flash_attn_bwd_dq.launches = 0
@@ -390,34 +578,38 @@ def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: Optional[float] = None, rope: Rope = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attn_bwd_dkv_ref`'s function, the dk / dv pass of the
-    two-pass backward.  On CUDA tensors one launch of K14 (K4's device
-    code in ``csrc/flash_attn_bwd.cu`` compiled without its dq planes,
-    counted in ``flash_attn_bwd_dkv.launches``): bf16, D in (64, 128).  On
-    CPU tensors the plain version."""
+    two-pass backward.  On CUDA tensors :func:`flash_bwd_prologue`, then
+    one launch of K14 (``csrc/flash_attn_bwd_dkv.cu``, counted in
+    ``flash_attn_bwd_dkv.launches``), on the operands of
+    :func:`flash_attn_bwd_dq`.  On CPU tensors the plain version."""
     if q.device.type == "cpu":
         return flash_attn_bwd_dkv_ref(q, k, v, do, lse, delta,
                                       causal=causal, kv_mask=kv_mask,
                                       scale=scale, rope=rope)
-    what = "flash_attn_bwd_dkv"
-    _check_two_pass(what, q)
-    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
-        what, q, k, v, do, lse, delta, kv_mask, rope)
-    b, l, h, d = q.shape
-    scale_q = float(torch.tensor(_default_scale(q, scale), dtype=q.dtype))
-    dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    err = build.library().apex_flash_attn_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
-        _ptr(sin_t), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], b, l, h, d,
-        scale_q, int(bool(causal)), build.stream_of(q))
-    build.check(err, what)
-    flash_attn_bwd_dkv.launches += 1
-    return dk, dv
+    return _dkv_pass(_two_pass_operands("flash_attn_bwd_dkv", q, k, v, do,
+                                        lse, delta, causal, kv_mask, scale,
+                                        rope))
 
 
 flash_attn_bwd_dkv.launches = 0
+
+
+def two_pass_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 *, causal: bool = False,
+                 kv_mask: Optional[torch.Tensor] = None,
+                 scale: Optional[float] = None, rope: Rope = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` by the two-pass backward: on CUDA tensors one
+    :func:`flash_bwd_prologue` shared by K13 then K14; on CPU tensors the
+    plain versions."""
+    kw = dict(causal=causal, kv_mask=kv_mask, scale=scale, rope=rope)
+    if q.device.type == "cpu":
+        return (flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *flash_attn_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    ops = _two_pass_operands("flash_attn_bwd", q, k, v, do, lse, delta,
+                             **kw)
+    return (_dq_pass(ops), *_dkv_pass(ops))
 
 
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -430,9 +622,9 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """:func:`flash_attn_bwd_ref`'s function, by one of two routes, as the
     JAX package's ``_flash_bwd_rule`` picks them: the fused backward while
     its dq partial planes (:func:`fused_bwd_partials_bytes`) fit
-    :func:`fused_bwd_max_bytes`, else the two-pass backward,
-    :func:`flash_attn_bwd_dq` then :func:`flash_attn_bwd_dkv`.  The route
-    is the same on the CPU, where each runs its plain version.
+    :func:`fused_bwd_max_bytes`, else the two-pass backward
+    (:func:`two_pass_bwd`: one prologue, then K13 and K14).  The route is
+    the same on the CPU, where each runs its plain version.
 
     The fused route on CUDA tensors, each launch counted in
     ``flash_attn_bwd.launches`` (K4 only): in bf16 one launch, where each
@@ -444,10 +636,9 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dlse``) and the fused route's final ``dq * scale`` are plain PyTorch
     ops, as the JAX path leaves them to XLA."""
     if not fused_bwd(q):
-        delta = attn_delta(o, do, dlse)
-        kw = dict(causal=causal, kv_mask=kv_mask, scale=scale, rope=rope)
-        dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw)
-        return (dq, *flash_attn_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        return two_pass_bwd(q, k, v, do, lse, attn_delta(o, do, dlse),
+                            causal=causal, kv_mask=kv_mask, scale=scale,
+                            rope=rope)
     if q.device.type == "cpu":
         return flash_attn_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
                                   causal=causal, kv_mask=kv_mask,

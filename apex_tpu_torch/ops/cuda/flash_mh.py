@@ -18,10 +18,9 @@ else the two-pass kernels K13 / K14 on strided views of the pre-scaled q
 (the JAX rule's fallback, without its relayout).
 
 On CUDA tensors the kernels take bf16, D a multiple of 8 up to 128, Lq ==
-Lk, any strides with unit stride over D (16-byte aligned rows); anything
-else raises (the two-pass route also needs D in (64, 128)).  On CPU
-tensors each wrapper runs its plain version; none falls back from one to
-the other.
+Lk, any strides with unit stride over D (16-byte aligned rows), on both
+routes; anything else raises.  On CPU tensors each wrapper runs its plain
+version; none falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -37,11 +36,10 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     _default_scale,
     _ptr,
     attn_delta,
-    flash_attn_bwd_dkv,
-    flash_attn_bwd_dq,
     flash_attn_bwd_ref,
     flash_attn_fwd_ref,
     fused_bwd_max_bytes,
+    two_pass_bwd,
 )
 
 
@@ -155,16 +153,14 @@ def flash_mh_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (counted in ``flash_mh_bwd.launches``), its partial planes summed
     here in a fixed order (no atomics: two runs give equal bits); above
     the budget the two-pass kernels K13 then K14 (counted under their own
-    names) on the pre-scaled q.  On CPU tensors the same routes run their
-    plain versions."""
+    names) on the pre-scaled q, with no prologue launch (no rope, scale 1).
+    On CPU tensors the same routes run their plain versions."""
     scale = _default_scale(q, scale)
     scale_t = torch.tensor(scale, dtype=q.dtype)
     if not mh_fused_bwd(q):
-        qf = _scaled_q(q, scale)
-        delta = attn_delta(o, do, dlse)
-        kw = dict(causal=causal, kv_mask=kv_mask, scale=1.0)
-        dq = flash_attn_bwd_dq(qf, k, v, do, lse, delta, **kw)
-        dk, dv = flash_attn_bwd_dkv(qf, k, v, do, lse, delta, **kw)
+        dq, dk, dv = two_pass_bwd(_scaled_q(q, scale), k, v, do, lse,
+                                  attn_delta(o, do, dlse), causal=causal,
+                                  kv_mask=kv_mask, scale=1.0)
         return dq * scale_t, dk, dv
     if q.device.type == "cpu":
         return flash_mh_bwd_ref(q, k, v, o, lse, do, dlse=dlse,

@@ -73,17 +73,23 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             and one K9 launch each, an injected overflow skipped on the
             card, and a 2-layer model's steps card against CPU;
    long_context_kernels  the two-pass flash backward, K13 (dq) and K14
-            (dk / dv), against their plain versions (run over slices of
-            heads) at the train shape, at B 1 x L 16384, at BERT's
-            non-causal shape with a ragged key mask and at 6 heads of
-            128: bitwise repeats, times, bounds, the pair beside SDPA's
-            backward, and where K4's planes fit, both routes of
-            ``flash_attn_bwd`` timed whole (K14's dk / dv equal K4's);
+            (dk / dv), Hopper kernels (wgmma on TMA-loaded tiles), against
+            their plain versions (run over slices of heads) at the train
+            shape, at B 1 x L 16384, at BERT's non-causal shape with a
+            ragged key mask, at 6 heads of 128, at B 1 x L 32768 and at a
+            ragged (2, 1000, 4, 40) whose head width TMA pads to 64:
+            bitwise repeats, times, bounds, their prologue (q pre-scaled
+            and rotated, k rotated) bitwise against its plain version, the
+            pair beside SDPA's backward, and where K4 takes the shape and
+            its planes fit, both routes of ``flash_attn_bwd`` timed whole
+            (dq, dk and dv within 2 bf16 ulps and the row and norm limits
+            of K4's);
    long_context  gpt_small with ``remat=True`` (O2 + FusedAdam), B 1 x L
             16384, 10 steps (falling loss, p50, tokens/s, peak memory,
-            the exact launches per step: K13 12, K14 12, K4 0, K2 24, K1
-            49, K3 50, K6 148, K11 1; one profiled step; an injected
-            overflow skipped), then B 1 x L 32768, 3 steps; K4's planes
+            the exact launches per step: K13 12, K14 12 (and their
+            prologue 12), K4 0, K2 24, K1 49, K3 50, K6 148, K11 1; one
+            profiled step; an injected overflow skipped), then B 1 x L
+            32768, 3 steps; K4's planes
             (12.9 and 51.5 GB) printed beside the peaks;
    long_context_reference  a 2-layer remat GPT at O2, B 2 x L 1024, 3
             steps on the card with the budget at 0 (two-pass) and at its
@@ -290,8 +296,12 @@ def phase_build():
              d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)},
          flash_bwd_bf16_dynamic_smem_bytes={
              d: lib.apex_flash_attn_bwd_smem_bytes(d) for d in (64, 128)},
-         flash_bwd_dq_bf16_dynamic_smem_bytes={
-             d: lib.apex_flash_attn_bwd_dq_smem_bytes(d) for d in (64, 128)})
+         # K13 / K14 by the padded head width they run at
+         flash_bwd_dq_sm90_dynamic_smem_bytes={
+             d: lib.apex_flash_attn_bwd_dq_smem_bytes(d) for d in (64, 128)},
+         flash_bwd_dkv_sm90_dynamic_smem_bytes={
+             d: lib.apex_flash_attn_bwd_dkv_smem_bytes(d)
+             for d in (64, 128)})
 
 
 def _ln_case(n1, dtype, rng, n2=768):
@@ -1035,8 +1045,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "layer_norm_fwd", "flash_attn_fwd", "layer_norm_bwd", "flash_attn_bwd",
     "packed_adam", "packed_scale", "lamb_stage1", "lamb_stage2",
     "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor",
-    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "conv1x1_bwd",
-    "packed_nonfinite", "flash_mh_fwd", "flash_mh_bwd")}
+    "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_bwd_prologue",
+    "conv1x1_bwd", "packed_nonfinite", "flash_mh_fwd", "flash_mh_bwd")}
 
 
 def fused_route(b, l, h, d) -> bool:
@@ -1053,8 +1063,8 @@ def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
     """Launches of ``micro_batches`` GPT forward and backward passes of
     ``(b, l)`` tokens each, and none of any other kernel: the flash
     backward by the route the budget gives that shape (K4 once a layer, or
-    K13 and K14 once a layer each), and under ``cfg.remat`` each block's
-    forward kernels twice (the recompute)."""
+    the two-pass prologue, K13 and K14 once a layer each), and under
+    ``cfg.remat`` each block's forward kernels twice (the recompute)."""
     lnc = 2 * cfg.num_layers + 1
     again = cfg.num_layers if cfg.remat else 0       # blocks run again
     n = micro_batches * cfg.num_layers
@@ -1066,7 +1076,8 @@ def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
                 layer_norm_bwd=micro_batches * 2 * lnc,
                 flash_attn_bwd=n if fused else 0,
                 flash_attn_bwd_dq=0 if fused else n,
-                flash_attn_bwd_dkv=0 if fused else n)
+                flash_attn_bwd_dkv=0 if fused else n,
+                flash_bwd_prologue=0 if fused else n)
 
 
 def row_counts(tables):
@@ -1085,9 +1096,9 @@ def pointer_rows(first, tables, steps=TRAIN_STEPS):
 
 #: kernel-name fragments of the step's device time, by group
 PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
-                  ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq",)),
-                  ("flash_attn_bwd_dkv (K14)", ("flash_bwd_bf16<64, false>",
-                                                "flash_bwd_bf16<128, false>")),
+                  ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq_sm90",)),
+                  ("flash_attn_bwd_dkv (K14)", ("flash_bwd_dkv_sm90",)),
+                  ("two-pass prologue", ("flash_bwd_prologue",)),
                   ("flash_attn_bwd (K4)", ("flash_bwd",)),
                   ("flash_attn_fwd (K2)", ("flash_fwd",)),
                   ("layer_norm_bwd (K3)", ("ln_bwd",)),
@@ -1192,7 +1203,7 @@ def phase_train(cfg, tree):
     profile = profile_step(step, ids)
     fused = fused_route_steps(step, ids, cfg, want, dict(
         want, flash_attn_bwd=cfg.num_layers, flash_attn_bwd_dq=0,
-        flash_attn_bwd_dkv=0))
+        flash_attn_bwd_dkv=0, flash_bwd_prologue=0))
     # one step with a non-finite gradient: skipped on the card
     with torch.enable_grad():
         loss = a.run(_gpt_loss, model, ids)
@@ -1904,13 +1915,46 @@ LC_RUNS = ((16384, 10), (32768, 3))
 ROUTE_COMPARE_MAX_BYTES = 2 << 30
 
 
+def _prologue_case(q, k, scale, tables, shape, rope):
+    """The two-pass prologue (q^, k^) against its plain version, bitwise,
+    with its time and byte bound."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (flash_bwd_prologue,
+                                         flash_bwd_prologue_ref)
+    bsz, l, h, d = shape
+    got = flash_bwd_prologue(q, k, scale=scale, rope=tables)
+    ref = flash_bwd_prologue_ref(q, k, scale=float(torch.tensor(
+        scale, dtype=torch.bfloat16)), rope=tables)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, r) for g, r in zip(got, ref)),
+            f"flash_bwd_prologue {shape}: differs from its plain version")
+    one = bsz * l * h * d * 2
+    # q read, q^ written; with tables k read, k^ written and the tables read
+    nbytes = 2 * one + ((2 * one + 2 * bsz * l * d * 2) if rope else 0)
+    b_pro = bound(nbytes, 0.0, PEAK_BF16_FLOPS)
+    return dict(kernel="flash_bwd_prologue", shape=list(shape), rope=rope,
+                dtype="bfloat16", max_abs_err=0.0, tolerance="bitwise",
+                ms=time_ms(lambda: flash_bwd_prologue(q, k, scale=scale,
+                                                      rope=tables)),
+                plain_ms=time_ms(lambda: flash_bwd_prologue_ref(
+                    q, k, scale=scale, rope=tables)),
+                bound_ms=b_pro[0], bound_by=b_pro[1], library_ms=None,
+                library_null_reason="no PyTorch call pre-scales and rotates "
+                                    "q and k")
+
+
 def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
     """K13 and K14 at ``shape`` against their plain versions (run over
     slices of heads, every head compared), twice each for equal bits, with
-    times and bounds; the pair's time beside SDPA's backward at the shape
-    without rope; where the fused route fits, both routes of
-    ``flash_attn_bwd`` timed whole, K14's dk / dv held equal to K4's and
-    the two dq within 2 bf16 ulps."""
+    times and bounds, and their prologue bitwise against its plain
+    version.  Each kernel's ``ms`` times its launch on operands prepared
+    once (the prologue timed in its own row); ``call_ms`` times the public
+    wrapper whole, checks and prologue included, which the shared host
+    bounds at small shapes; the pair's time beside SDPA's backward at the shape without
+    rope; where the fused route takes the shape (D 64 or 128) and fits,
+    both routes of ``flash_attn_bwd`` timed whole, K14's dk / dv and
+    K13's dq within 2 bf16 ulps of K4's and the row and norm limits.  A
+    head width K2 does not take gets its forward from the plain version."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd,
@@ -1918,8 +1962,10 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                                          flash_attn_bwd_dkv_ref,
                                          flash_attn_bwd_dq,
                                          flash_attn_bwd_dq_ref,
-                                         flash_attn_fwd,
+                                         flash_attn_fwd, flash_attn_fwd_ref,
                                          fused_bwd_partials_bytes)
+    from apex_tpu_torch.ops.cuda.flash_attention import (_dkv_pass, _dq_pass,
+                                                         _two_pass_operands)
     bsz, l, h, d = shape
     dev = torch.device("cuda")
     q, k, v, do = (torch.as_tensor(rng.standard_normal(shape, np.float32),
@@ -1933,9 +1979,12 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                                device=dev)
     tables = _tables(bsz, l, d, torch.bfloat16) if rope else None
     kw = dict(causal=causal, kv_mask=mask, rope=tables)
-    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    k2_width = d in (64, 128)
+    o, lse = (flash_attn_fwd(q, k, v, return_lse=True, **kw) if k2_width
+              else flash_attn_fwd_ref(q, k, v, **kw))
     delta = attn_delta(o, do, None)
     args = (q, k, v, do, lse, delta)
+    rec_pro = _prologue_case(q, k, 1.0 / d ** 0.5, tables, shape, rope)
     dq = flash_attn_bwd_dq(*args, **kw)
     dk, dv = flash_attn_bwd_dkv(*args, **kw)
     again = (flash_attn_bwd_dq(*args, **kw),
@@ -1958,8 +2007,13 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                                         a, r)
                             for n, a, r in zip(("dk", "dv"), (dk, dv), ref))
     del ref
-    ms_dq = time_ms(lambda: flash_attn_bwd_dq(*args, **kw))
-    ms_dkv = time_ms(lambda: flash_attn_bwd_dkv(*args, **kw))
+    ops = _two_pass_operands("two-pass case", *args, causal, mask, None,
+                             tables)
+    ms_dq = time_ms(lambda: _dq_pass(ops))
+    ms_dkv = time_ms(lambda: _dkv_pass(ops))
+    call_dq = time_ms(lambda: flash_attn_bwd_dq(*args, **kw))
+    call_dkv = time_ms(lambda: flash_attn_bwd_dkv(*args, **kw))
+    del ops
     plain_dq = time_ms(lambda: _plain_by_heads(flash_attn_bwd_dq_ref, args,
                                                kw), budget_s=0.2)
     plain_dkv = time_ms(lambda: _plain_by_heads(flash_attn_bwd_dkv_ref,
@@ -1994,22 +2048,24 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                 bitwise_repeat=True, library_ms=None)
     rec_dq = _kernel_rec(
         kernel="flash_attn_bwd_dq", **base, max_abs_err=err_dq, **scaled_dq,
-        ms=ms_dq, plain_ms=plain_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
+        ms=ms_dq, call_ms=call_dq, plain_ms=plain_dq, bound_ms=b_dq[0],
+        bound_by=b_dq[1], bound_share=b_dq[0] / ms_dq,
         library_null_reason="no PyTorch call computes dq alone")
     rec_dkv = _kernel_rec(
         kernel="flash_attn_bwd_dkv", **base, max_abs_err=max(errs_dkv),
         errs_dk_dv=errs_dkv,
         **{k: max(scaled_dk[k], scaled_dv[k]) for k in scaled_dk},
         scaled_errs_dk_dv=[scaled_dk, scaled_dv], ms=ms_dkv,
-        plain_ms=plain_dkv,
-        bound_ms=b_dkv[0], bound_by=b_dkv[1],
+        call_ms=call_dkv, plain_ms=plain_dkv,
+        bound_ms=b_dkv[0], bound_by=b_dkv[1], bound_share=b_dkv[0] / ms_dkv,
         library_null_reason="no PyTorch call computes dk and dv alone")
+    emit("kernels", **rec_pro)
     pair = dict(kernel="two_pass_pair", shape=list(shape), causal=causal,
                 kv_mask=masked, rope=rope, k13_plus_k14_ms=ms_dq + ms_dkv,
-                bound_ms=b_dq[0] + b_dkv[0],
+                prologue_ms=rec_pro["ms"], bound_ms=b_dq[0] + b_dkv[0],
                 library_sdpa_backward_ms_no_rope=sdpa_bwd)
     planes = fused_bwd_partials_bytes(bsz, l, h, d, torch.bfloat16)
-    if planes <= ROUTE_COMPARE_MAX_BYTES:
+    if k2_width and planes <= ROUTE_COMPARE_MAX_BYTES:
         bwd = (q, k, v, o, lse, do)
         with fused_budget(FUSED_ALWAYS):
             fused = flash_attn_bwd(*bwd, **kw)
@@ -2017,32 +2073,42 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
             fused_ms = time_ms(lambda: flash_attn_bwd(*bwd, **kw))
         with fused_budget(0):
             two_pass_ms = time_ms(lambda: flash_attn_bwd(*bwd, **kw))
-        require(torch.equal(fused[1], dk) and torch.equal(fused[2], dv),
-                f"{shape}: K14's dk / dv differ from K4's")
-        dq_err = _max_err(fused[0], dq)
-        require(dq_err <= tol_dq, f"{shape}: the routes' dq differ by "
-                                  f"{dq_err} > {tol_dq}")
+        # K14 is its own kernel now, no longer K4's code: the routes agree
+        # within the dq check's 2-ulp limit and the row and norm limits
+        route_errs = [_max_err(f, g) for f, g in zip(fused, (dq, dk, dv))]
+        route_tols = [tol_dq] + tols_dkv
+        require(all(e <= t for e, t in zip(route_errs, route_tols)),
+                f"{shape}: the routes' dq / dk / dv differ by {route_errs} "
+                f"(limits {route_tols})")
+        route_scaled = [scaled_errs(f"{shape}: two-pass {n} vs K4's", g, f)
+                        for n, g, f in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                           fused)]
         pair.update(fused_route_ms=fused_ms, two_pass_route_ms=two_pass_ms,
-                    fused_planes_bytes=planes, k14_equals_k4_dk_dv=True,
-                    routes_dq_max_abs_err=dq_err)
+                    fused_planes_bytes=planes,
+                    routes_max_abs_err_dq_dk_dv=route_errs,
+                    routes_limits_dq_dk_dv=route_tols,
+                    routes_scaled_errs_dq_dk_dv=route_scaled)
         del fused
     emit("kernels", **pair)
     del dq, dk, dv
     torch.cuda.empty_cache()
-    return rec_dq, rec_dkv, pair
+    return rec_dq, rec_dkv, pair, rec_pro
 
 
 def phase_long_context_kernels():
-    """K13 and K14 at the train shape, at B1 x L16384, at BERT's
-    non-causal shape with a ragged key mask, at gpt_small_tpu's head width
-    and at B1 x L32768; K2 (causal, rope) at both long lengths.  Returns
-    the two-pass cases in that order and the forward cases."""
+    """K13 and K14 (and their prologue) at the train shape, at B1 x
+    L16384, at BERT's non-causal shape with a ragged key mask, at
+    gpt_small_tpu's head width, at B1 x L32768 and at a ragged L with a
+    padded head width; K2 (causal, rope) at both long lengths.  Returns the
+    two-pass cases in that order and the forward cases."""
     rng = np.random.default_rng(4)
     cases = [((TRAIN_B, TRAIN_L, 12, 64), True, False, True),
              ((1, LC_RUNS[0][0], 12, 64), True, False, True),
              ((4, 512, 16, 64), False, True, False),
              ((1, 4096, 6, 128), True, False, True),
-             ((1, LC_RUNS[1][0], 12, 64), True, False, True)]
+             ((1, LC_RUNS[1][0], 12, 64), True, False, True),
+             # a ragged L and a head width TMA pads (40 runs as 64)
+             ((2, 1000, 4, 40), True, False, True)]
     two_pass = [_two_pass_case(s, rng, causal=c, masked=m, rope=r)
                 for s, c, m, r in cases]
     forward = [_flash_rope_case((1, l, 12, 64), rng) for l, _ in LC_RUNS]
@@ -2192,10 +2258,12 @@ def phase_long_context_reference():
     n = 3 * cfg.num_layers
     require((tp["counts"]["flash_attn_bwd_dq"],
              tp["counts"]["flash_attn_bwd_dkv"],
-             tp["counts"]["flash_attn_bwd"]) == (n, n, 0),
+             tp["counts"]["flash_bwd_prologue"],
+             tp["counts"]["flash_attn_bwd"]) == (n, n, n, 0),
             f"two-pass reference launches {tp['counts']}")
     require((fu["counts"]["flash_attn_bwd_dq"],
-             fu["counts"]["flash_attn_bwd"]) == (0, n),
+             fu["counts"]["flash_bwd_prologue"],
+             fu["counts"]["flash_attn_bwd"]) == (0, 0, n),
             f"fused reference launches {fu['counts']}")
     out = {}
     for name, run in (("two_pass", tp), ("fused", fu)):
@@ -2208,7 +2276,8 @@ def phase_long_context_reference():
         out[name] = dict(losses_card=run["losses"], loss_max_abs_err=err,
                          flash_launches={k: run["counts"][k] for k in (
                              "flash_attn_bwd", "flash_attn_bwd_dq",
-                             "flash_attn_bwd_dkv", "flash_attn_fwd")})
+                             "flash_attn_bwd_dkv", "flash_bwd_prologue",
+                             "flash_attn_fwd")})
     grad_errs = [float((g - f).abs().max()) / bf16_tol(f)
                  for g, f in zip(tp["grads"], fu["grads"])]
     require(max(grad_errs) <= 1.0, f"first-step gradients of the two routes "
@@ -3627,8 +3696,14 @@ def main() -> int:
              "apex_tpu/ops/pallas/flash_attention.py:647"),
             (lc_recs[1][1], [r[1] for r in lc_recs],
              lc_counts["flash_attn_bwd_dkv"],
-             "apex_tpu_torch/csrc/flash_attn_bwd.cu",
+             "apex_tpu_torch/csrc/flash_attn_bwd_dkv.cu",
              "apex_tpu/ops/pallas/flash_attention.py:671"),
+            # K13 / K14's helper: the per-tile rotation and pre-scale of
+            # `_dq_kernel` / `_dkv_kernel`, once a call
+            (lc_recs[1][3], [r[3] for r in lc_recs],
+             lc_counts["flash_bwd_prologue"],
+             "apex_tpu_torch/csrc/flash_bwd_prologue.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:254"),
             (rk_main, rk_recs + rk_extra, rn_counts["conv1x1_bwd"],
              "apex_tpu_torch/csrc/conv1x1_bwd.cu",
              "apex_tpu/ops/pallas/experimental/conv1x1.py:101"),
@@ -3665,12 +3740,18 @@ def main() -> int:
                 k: train_recs["flash_attn_bwd"][0][k] for k in keys}
         if rec["kernel"] in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
             at = 0 if rec["kernel"] == "flash_attn_bwd_dq" else 1
-            entry["train_shape"] = {k: lc_recs[0][at][k] for k in scaled}
-            entry["other_shapes"] = [{k: r[at][k] for k in scaled}
+            per_shape = scaled + ("call_ms", "bound_share")
+            entry["call_ms"] = rec["call_ms"]
+            entry["train_shape"] = {k: lc_recs[0][at][k] for k in per_shape}
+            entry["other_shapes"] = [{k: r[at][k] for k in per_shape}
                                      for r in lc_recs[2:]]
             for k in scaled[len(keys):]:
                 entry[k] = max(r[k] for r in recs)      # over every shape
             entry["pairs"] = [r[2] for r in lc_recs]
+        if rec["kernel"] == "flash_bwd_prologue":
+            entry["helper_of"] = ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
+            entry["other_shapes"] = [{k: r[k] for k in keys + ("rope",)}
+                                     for r in recs]
         if rec["kernel"] in bert_recs and rec is not bert_recs[
                 rec["kernel"]]:
             bert = bert_recs[rec["kernel"]]

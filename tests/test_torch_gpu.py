@@ -14,8 +14,10 @@ cores, as the TPU kernel does).  The backward kernels: fp32 ``atol =
 of the largest element against the plain version in bf16 (both compute
 in fp32 and round at the same places, but sum in other orders); both run
 twice for equal bits; so do the two-pass backward's K13 (dq) and K14
-(dk / dv), whose dk and dv also equal K4's bit for bit (the same device
-code and order).  Adam and the unscale equal their plain versions
+(dk / dv), whose dq, dk and dv lie within the same 2 ulps (and the row
+and norm limits) of K4's, the two being separate kernels that sum in
+other orders; their prologue (q^, k^) equals its plain version bit for
+bit.  Adam and the unscale equal their plain versions
 bit for bit (every product and sum rounded on its own).  LAMB: stage 1's
 m, v and u equal the plain version's bit for bit, its norm partials and
 the total sum of squares are within ``rtol = 1e-5`` (sums in another
@@ -475,6 +477,7 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
                       "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+                      "flash_bwd_prologue": 0,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
@@ -696,6 +699,7 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
                       "packed_axpby": 0, "packed_adam_tree": 0,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
                       "flash_attn_bwd_dkv": 0,
+                      "flash_bwd_prologue": 0,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
@@ -901,6 +905,7 @@ def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
                       "packed_axpby": 2 * 4, "packed_adam_tree": 2,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
                       "flash_attn_bwd_dkv": 0,
+                      "flash_bwd_prologue": 0,
                       "conv1x1_bwd": 0, "packed_nonfinite": 2,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
@@ -945,18 +950,23 @@ ENV_BUDGET = "APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES"
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", CASES + [(1, 4096, 2, 64)])
+@pytest.mark.parametrize("shape", CASES + [(1, 4096, 2, 64), (2, 300, 3, 40),
+                                           (1, 333, 2, 96)])
 def test_two_pass_backward_kernels_match_plain(cuda, shape, causal, masked,
                                                rope):
-    """K13 and K14 against their plain versions in bf16 over K4's shapes
-    and L 4096: within 2 bf16 ulps of the largest gradient and by the
-    row and norm checks of ``_assert_rows_close``, one launch
-    each a call, equal bits on a second run; K14's dk and dv equal K4's
-    (the same device code), and rows that see no key get zeros."""
+    """K13 and K14 against their plain versions in bf16 over K4's shapes,
+    L 4096 and the head widths 40 and 96 that TMA pads to 64 and 128:
+    within 2 bf16 ulps of the largest gradient and by the row and norm
+    checks of ``_assert_rows_close``, one launch each a call, equal bits
+    on a second run; where K4 takes the shape, its dq, dk and dv within
+    the same limits of K13's and K14's; rows that see no key get zeros.
+    A head width K2 does not take gets its forward from the plain
+    version."""
     from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd_dkv,
                                          flash_attn_bwd_dkv_ref,
                                          flash_attn_bwd_dq,
-                                         flash_attn_bwd_dq_ref)
+                                         flash_attn_bwd_dq_ref,
+                                         flash_attn_fwd_ref)
     bsz, l, h, d = shape
     dtype = torch.bfloat16
     rng = np.random.RandomState(5 * l + d)
@@ -968,7 +978,9 @@ def test_two_pass_backward_kernels_match_plain(cuda, shape, causal, masked,
         mask[0, :] = False            # batch 0: every row sees no key
     kw = dict(causal=causal, kv_mask=mask,
               rope=_tables(bsz, l, d, dtype, cuda) if rope else None)
-    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    k2_width = d in (64, 128)
+    o, lse = (flash_attn_fwd(q, k, v, return_lse=True, **kw) if k2_width
+              else flash_attn_fwd_ref(q, k, v, **kw))
     delta = attn_delta(o, do, None)
     before = (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches)
     dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw)
@@ -987,10 +999,57 @@ def test_two_pass_backward_kernels_match_plain(cuda, shape, causal, masked,
         torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
                                    rtol=0)
         _assert_rows_close(a, r)
-    fused = flash_attn_bwd(q, k, v, o, lse, do, **kw)
-    assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
+    if k2_width:
+        for a, f in zip((dq, dk, dv), flash_attn_bwd(q, k, v, o, lse, do,
+                                                     **kw)):
+            torch.testing.assert_close(a.float(), f.float(),
+                                       atol=_bf16_tol(f), rtol=0)
+            _assert_rows_close(a, f)
     if masked:
         assert all(torch.all(g[0] == 0) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 96, 128])
+def test_two_pass_prologue_equals_plain_bitwise(cuda, d, rope):
+    """The two-pass prologue on the strided views of a fused qkv product:
+    q^ and k^ equal their plain version's bits (8- and 16-byte chunks),
+    one launch a call; with neither tables nor a scale other than 1, no
+    launch (q^ is q, k^ is k)."""
+    from apex_tpu_torch.ops.cuda import (flash_bwd_prologue,
+                                         flash_bwd_prologue_ref)
+    b, l, h = 2, 77, 3
+    qkv = _randn(np.random.RandomState(d), (b, l, 3 * h * d),
+                 torch.bfloat16, cuda)
+    q, k, _ = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    tables = _tables(b, l, d, torch.bfloat16, cuda) if rope else None
+    before = flash_bwd_prologue.launches
+    got = flash_bwd_prologue(q, k, scale=d ** -0.5, rope=tables)
+    want = flash_bwd_prologue_ref(q, k, scale=d ** -0.5, rope=tables)
+    torch.cuda.synchronize()
+    assert flash_bwd_prologue.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    same = flash_bwd_prologue(q, k, scale=1.0)
+    assert flash_bwd_prologue.launches == before + 1
+    assert same[0] is q and same[1] is k
+
+
+def test_two_pass_wrappers_refuse_what_tma_refuses(cuda):
+    """A head width off a multiple of 8, or operand rows off 16-byte
+    boundaries, raise ``ValueError`` before any launch."""
+    from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dq)
+    lse = torch.zeros((1, 64, 2), device=cuda)
+    q36 = torch.zeros((1, 64, 2, 36), device=cuda, dtype=torch.bfloat16)
+    before = (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attn_bwd_dq(q36, q36, q36, q36, lse, lse)
+    wide = torch.zeros((1, 64, 2, 72), device=cuda, dtype=torch.bfloat16)
+    off = wide[..., 4:68]                   # rows 8 bytes off a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attn_bwd_dkv(off, off, off, off, lse, attn_delta(off, off,
+                                                               None))
+    assert (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches) == before
 
 
 def test_route_switches_at_the_budget(cuda, monkeypatch):
@@ -1059,6 +1118,7 @@ def test_remat_train_step_on_the_two_pass_route_matches_the_cpu(
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
                       "flash_attn_bwd_dq": 2 * 2, "flash_attn_bwd_dkv": 2 * 2,
+                      "flash_bwd_prologue": 2 * 2,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
@@ -1252,33 +1312,70 @@ def test_flash_mh_kernels_match_plain(cuda, shape, causal, masked,
 
 
 def test_flash_mh_two_pass_route_and_its_limits(cuda, monkeypatch):
-    """Above the budget the backward is K13 + K14 on the pre-scaled q
-    (D 64 / 128), within 2 bf16 ulps of K18's; another head width has
-    no two-pass kernel and raises; fp32 has no K17 and raises."""
+    """Above the budget the backward is K13 + K14 on the pre-scaled q (no
+    prologue launch: no rope, scale 1), within 2 bf16 ulps of K18's; at a
+    head width of 40 (padded by TMA) too, within 2 bf16 ulps of the plain
+    version; fp32 has no K17 and raises."""
     from apex_tpu_torch.ops.cuda import (flash_attn_bwd_dkv,
-                                         flash_attn_bwd_dq, flash_mh_bwd,
-                                         flash_mh_fwd)
+                                         flash_attn_bwd_dq,
+                                         flash_bwd_prologue, flash_mh_bwd,
+                                         flash_mh_bwd_ref, flash_mh_fwd)
     q, k, v, do, dlse, _ = _mh_inputs((2, 256, 4, 64), cuda, False, 3)
     o, lse = flash_mh_fwd(q, k, v, causal=True)
     monkeypatch.delenv(ENV_BUDGET, raising=False)
     fused = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, causal=True)
     monkeypatch.setenv(ENV_BUDGET, "0")
     before = (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
-              flash_attn_bwd_dkv.launches)
+              flash_attn_bwd_dkv.launches, flash_bwd_prologue.launches)
     two = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, causal=True)
     assert (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
-            flash_attn_bwd_dkv.launches) == (before[0], before[1] + 1,
-                                             before[2] + 1)
+            flash_attn_bwd_dkv.launches,
+            flash_bwd_prologue.launches) == (before[0], before[1] + 1,
+                                             before[2] + 1, before[3])
     for a, b in zip(two, fused):
         torch.testing.assert_close(a.float(), b.float(), atol=_bf16_tol(b),
                                    rtol=0)
     q40 = _randn(np.random.RandomState(1), (1, 64, 2, 40), torch.bfloat16,
                  cuda)
     o40, lse40 = flash_mh_fwd(q40, q40, q40)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_mh_bwd(q40, q40, q40, o40, lse40, q40)
+    before = flash_attn_bwd_dq.launches
+    got = flash_mh_bwd(q40, q40, q40, o40, lse40, q40)
+    assert flash_attn_bwd_dq.launches == before + 1
+    for a, r in zip(got, flash_mh_bwd_ref(q40, q40, q40, o40, lse40, q40)):
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
+                                   rtol=0)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_mh_fwd(q.float(), k.float(), v.float())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_mh_above_the_budget_at_head_width_40(
+        cuda, monkeypatch, causal):
+    """``flash_attention_mh`` with autograd above the budget at D 40 (the
+    two-pass route, K13 + K14, TMA padding the head width to 64): the
+    gradients within 2 bf16 ulps of the plain version's and by
+    ``_assert_rows_close``."""
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd_dkv,
+                                         flash_attn_bwd_dq, flash_mh_bwd,
+                                         flash_mh_bwd_ref)
+    from apex_tpu_torch.ops.experimental import flash_attention_mh
+    monkeypatch.setenv(ENV_BUDGET, "0")
+    q, k, v, do, dlse, mask = _mh_inputs((2, 150, 3, 40), cuda, True, 40)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
+              flash_attn_bwd_dkv.launches)
+    o, lse = flash_attention_mh(*leaves, causal=causal, kv_mask=mask,
+                                return_lse=True)
+    torch.autograd.backward((o, lse), (do, dlse))
+    assert (flash_mh_bwd.launches, flash_attn_bwd_dq.launches,
+            flash_attn_bwd_dkv.launches) == (before[0], before[1] + 1,
+                                             before[2] + 1)
+    ref = flash_mh_bwd_ref(q, k, v, o.detach(), lse.detach(), do, dlse=dlse,
+                           causal=causal, kv_mask=mask)
+    for t, r in zip(leaves, ref):
+        torch.testing.assert_close(t.grad.float(), r.float(),
+                                   atol=_bf16_tol(r), rtol=0)
+        _assert_rows_close(t.grad, r)
 
 
 def test_flash_attention_mh_entry_point_on_the_card(cuda):
