@@ -9,8 +9,8 @@
 // JAX package's `adam_step`: g = g / scale; g = g + wd * p (only when wd is
 // not 0); m = b1 * m + (1 - b1) * g; v = b2 * v + (1 - b2) * g * g;
 // denom = sqrt(v) + eps (or sqrt(v + eps)); p = p - step_size * m / denom;
-// and, optionally, a bf16 copy of the new p (the fused half write-back that
-// refreshes the model's compute weights).  p, m, v are updated in place.
+// and, optionally, a bf16 or fp16 copy of the new p (the fused half
+// write-back that refreshes the model's compute weights).  p, m, v are updated in place.
 // Every product and sum is rounded on its own (no fused multiply-add), so
 // the kernel equals the plain PyTorch version bit for bit.
 //
@@ -37,7 +37,7 @@
 // packing copy.  Each leaf's step size (its own bias correction) is read
 // from a device vector indexed by the chunk's leaf: the TPU kernel's
 // per-chunk step table.  Rows of leaf base pointers carry p, m, v, g and
-// the optional bf16 copy; 16-byte loads (8-byte for bf16) where a leaf's
+// the optional half copy; 16-byte loads (8-byte for bf16) where a leaf's
 // pointers allow it, a scalar tail otherwise.  It reads the noop flag on
 // the card and writes nothing when it is set.  Bound: 28 B an element
 // (fp32 p, m, v, g), 30 B with the bf16 copy, 26 B with bf16 p and g;
@@ -68,10 +68,10 @@ __device__ __forceinline__ void adam_one(float& p, float& m, float& v,
   p = __fsub_rn(p, __fdiv_rn(__fmul_rn(step_size, m), denom));
 }
 
-template <typename P, typename G>
+template <typename P, typename G, typename C>
 __global__ void __launch_bounds__(256)
 adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
-            const G* __restrict__ g, __nv_bfloat16* __restrict__ p_copy,
+            const G* __restrict__ g, C* __restrict__ p_copy,
             const float* __restrict__ step_size,
             const float* __restrict__ scale, const int* __restrict__ noop,
             long long n, Hyper hp, int vec) {
@@ -97,11 +97,11 @@ adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
       reinterpret_cast<float4*>(m)[i] = mm;
       reinterpret_cast<float4*>(v)[i] = vv;
       if (p_copy != nullptr) {
-        __nv_bfloat16* pc = p_copy + 4 * i;
-        pc[0] = __float2bfloat16(pp.x);
-        pc[1] = __float2bfloat16(pp.y);
-        pc[2] = __float2bfloat16(pp.z);
-        pc[3] = __float2bfloat16(pp.w);
+        C* pc = p_copy + 4 * i;
+        pc[0] = from_f32<C>(pp.x);
+        pc[1] = from_f32<C>(pp.y);
+        pc[2] = from_f32<C>(pp.z);
+        pc[3] = from_f32<C>(pp.w);
       }
     }
     done = n4 * 4;
@@ -110,25 +110,35 @@ adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
     float pp = to_f32(p[i]);
     float mm = m[i], vv = v[i];
     adam_one(pp, mm, vv, to_f32(g[i]), ss, sc, hp);
-    if constexpr (sizeof(P) == 2) p[i] = __float2bfloat16(pp);
-    else p[i] = pp;
+    p[i] = from_f32<P>(pp);
     m[i] = mm;
     v[i] = vv;
-    if (p_copy != nullptr) p_copy[i] = __float2bfloat16(pp);
+    if (p_copy != nullptr) p_copy[i] = from_f32<C>(pp);
   }
 }
 
-template <typename P, typename G>
-void launch(void* p, void* m, void* v, const void* g, __nv_bfloat16* pc,
+template <typename P, typename G, typename C>
+void launch(void* p, void* m, void* v, const void* g, void* pc,
             const float* ssp, const float* scp, const int* np, long long n,
             const Hyper& hp, int blocks, int threads, int vec,
             cudaStream_t s) {
-  adam_kernel<P, G><<<blocks, threads, 0, s>>>(
+  adam_kernel<P, G, C><<<blocks, threads, 0, s>>>(
       static_cast<P*>(p), static_cast<float*>(m), static_cast<float*>(v),
-      static_cast<const G*>(g), pc, ssp, scp, np, n, hp, vec);
+      static_cast<const G*>(g), static_cast<C*>(pc), ssp, scp, np, n, hp,
+      vec);
 }
 
-template <typename P, typename G>
+// The half type of dtype code 1 (bf16) or 2 (fp16): one call of `f` with a
+// value of that type (its type is what counts).
+template <typename F>
+void with_half(int code, F&& f) {
+  if (code == 2)
+    f(__half());
+  else
+    f(__nv_bfloat16());
+}
+
+template <typename P, typename G, typename C>
 __global__ void __launch_bounds__(kThreads)
 adam_tree_kernel(ChunkTable t, const long long* __restrict__ p_row,
                  const long long* __restrict__ m_row,
@@ -144,8 +154,7 @@ adam_tree_kernel(ChunkTable t, const long long* __restrict__ p_row,
   float* m = leaf_ptr<float>(m_row, s);
   float* v = leaf_ptr<float>(v_row, s);
   const G* g = leaf_ptr<const G>(g_row, s);
-  __nv_bfloat16* cp =
-      copy_row != nullptr ? leaf_ptr<__nv_bfloat16>(copy_row, s) : nullptr;
+  C* cp = copy_row != nullptr ? leaf_ptr<C>(copy_row, s) : nullptr;
   const float ss = step_sizes[s.leaf];
   const float sc = *scale;
   int done = 0;
@@ -174,15 +183,16 @@ adam_tree_kernel(ChunkTable t, const long long* __restrict__ p_row,
     p[i] = from_f32<P>(pp);
     m[i] = mm;
     v[i] = vv;
-    if (cp != nullptr) cp[i] = __float2bfloat16(pp);
+    if (cp != nullptr) cp[i] = from_f32<C>(pp);
   }
 }
 
 }  // namespace
 
-// p: n elements, float32 (p_dtype 0) or bfloat16 (1); m, v: n float32;
-// g: n float32 (g_dtype 0) or, with bfloat16 p, bfloat16 (1).  p_copy: n
-// bfloat16 or null.  step_size, scale: one float32 each, in device memory.
+// p: n elements, float32 (p_dtype 0), bfloat16 (1) or float16 (2); m, v: n
+// float32; g: n float32 (g_dtype 0) or, with half p, p's dtype.  p_copy: n
+// elements of c_dtype (1 bfloat16, 2 float16) or null.  step_size, scale:
+// one float32 each, in device memory.
 // noop: one int32 in device memory (nonzero = write nothing) or null.
 // Returns the cudaError_t of the launch.
 extern "C" int apex_adam(void* p, void* m, void* v, const void* g,
@@ -191,9 +201,10 @@ extern "C" int apex_adam(void* p, void* m, void* v, const void* g,
                          float beta1, float beta2, float om_beta1,
                          float om_beta2, float eps, float weight_decay,
                          int eps_inside, int p_dtype, int g_dtype,
-                         void* stream) {
+                         int c_dtype, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  if ((p_dtype != 0 && p_dtype != 1) || (g_dtype != 0 && g_dtype != p_dtype))
+  if (p_dtype < 0 || p_dtype > 2 || (g_dtype != 0 && g_dtype != p_dtype) ||
+      (c_dtype != 1 && c_dtype != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Hyper hp{beta1, beta2, om_beta1, om_beta2, eps, weight_decay,
@@ -207,31 +218,39 @@ extern "C" int apex_adam(void* p, void* m, void* v, const void* g,
   const float* ssp = static_cast<const float*>(step_size);
   const float* scp = static_cast<const float*>(scale);
   const int* np = static_cast<const int*>(noop);
-  __nv_bfloat16* pc = static_cast<__nv_bfloat16*>(p_copy);
+  void* pc = p_copy;
   const uintptr_t bits = reinterpret_cast<uintptr_t>(p) |
                          reinterpret_cast<uintptr_t>(m) |
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(g);
-  // the bf16 copy is written 4 elements at a time too: 8-byte alignment
+  // the half copy is written 4 elements at a time too: 8-byte alignment
   const int vec = f32 && (bits % 16 == 0) &&
                   (pc == nullptr || reinterpret_cast<uintptr_t>(pc) % 8 == 0);
-  using bf16 = __nv_bfloat16;
-  if (p_dtype == 0)
-    launch<float, float>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks,
-                         threads, vec, s);
-  else if (g_dtype == 0)
-    launch<bf16, float>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks,
-                        threads, 0, s);
-  else
-    launch<bf16, bf16>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks, threads,
-                       0, s);
+  with_half(c_dtype, [&](auto c) {
+    using C = decltype(c);
+    if (p_dtype == 0) {
+      launch<float, float, C>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks,
+                              threads, vec, s);
+      return;
+    }
+    with_half(p_dtype, [&](auto x) {
+      using P = decltype(x);
+      if (g_dtype == 0)
+        launch<P, float, C>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks,
+                            threads, 0, s);
+      else
+        launch<P, P, C>(p, m, v, g, pc, ssp, scp, np, n, hp, blocks, threads,
+                        0, s);
+    });
+  });
   return (int)cudaGetLastError();
 }
 
 // K11 over the chunk table (chunk_leaf int32, chunk_start int64,
 // leaf_numel int64; n_chunks chunks of at most `chunk` elements).  Rows of
-// int64 leaf base pointers: p (p_dtype 0 = float32, 1 = bfloat16), m, v
-// (float32), g (g_dtype 0, or p's dtype), copy (bfloat16, or a null row).
+// int64 leaf base pointers: p (p_dtype 0 = float32, 1 = bfloat16, 2 =
+// float16), m, v (float32), g (g_dtype 0, or p's dtype), copy (c_dtype 1 =
+// bfloat16 or 2 = float16, or a null row).
 // step_sizes: one float32 per leaf; scale: one float32; noop: one int32
 // (nonzero = write nothing) or null.  Returns the cudaError_t of the
 // launch.
@@ -244,9 +263,10 @@ extern "C" int apex_adam_tree(const void* chunk_leaf, const void* chunk_start,
                               float beta1, float beta2, float om_beta1,
                               float om_beta2, float eps, float weight_decay,
                               int eps_inside, int p_dtype, int g_dtype,
-                              void* stream) {
+                              int c_dtype, void* stream) {
   if (n_chunks <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
-  if ((p_dtype != 0 && p_dtype != 1) || (g_dtype != 0 && g_dtype != p_dtype))
+  if (p_dtype < 0 || p_dtype > 2 || (g_dtype != 0 && g_dtype != p_dtype) ||
+      (c_dtype != 1 && c_dtype != 2))
     return (int)cudaErrorInvalidValue;
   const ChunkTable t{static_cast<const int*>(chunk_leaf),
                      static_cast<const long long*>(chunk_start),
@@ -262,12 +282,19 @@ extern "C" int apex_adam_tree(const void* chunk_leaf, const void* chunk_start,
         static_cast<LL>(copy_row), static_cast<const float*>(step_sizes),
         static_cast<const float*>(scale), static_cast<const int*>(noop), hp);
   };
-  using bf16 = __nv_bfloat16;
-  if (p_dtype == 0)
-    args(adam_tree_kernel<float, float>);
-  else if (g_dtype == 0)
-    args(adam_tree_kernel<bf16, float>);
-  else
-    args(adam_tree_kernel<bf16, bf16>);
+  with_half(c_dtype, [&](auto c) {
+    using C = decltype(c);
+    if (p_dtype == 0) {
+      args(adam_tree_kernel<float, float, C>);
+      return;
+    }
+    with_half(p_dtype, [&](auto x) {
+      using P = decltype(x);
+      if (g_dtype == 0)
+        args(adam_tree_kernel<P, float, C>);
+      else
+        args(adam_tree_kernel<P, P, C>);
+    });
+  });
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -60,6 +61,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
@@ -68,9 +70,12 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
-// four consecutive elements as fp32: one 16-byte (fp32) or 8-byte (bf16)
-// access
+// four consecutive elements as fp32: one 16-byte (fp32) or 8-byte (bf16,
+// fp16) access
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -82,12 +87,28 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  __half2 lo, hi;
+  memcpy(&lo, &r.x, 4);
+  memcpy(&hi, &r.y, 4);
+  const float2 a = __half22float2(lo), b = __half22float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 r;
+  memcpy(&r.x, &lo, 4);
+  memcpy(&r.y, &hi, 4);
+  *reinterpret_cast<uint2*>(p) = r;
+}
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  const __half2 lo = __floats2half2_rn(v.x, v.y);
+  const __half2 hi = __floats2half2_rn(v.z, v.w);
   uint2 r;
   memcpy(&r.x, &lo, 4);
   memcpy(&r.y, &hi, 4);

@@ -23,8 +23,8 @@
 // about 0.13 TFLOP against 0.2 GB, so operations (~0.13 ms at 989 TFLOP/s)
 // bound it; this simple version is far from that bound (see PERF.md).
 //
-// Design (bf16): one 128-thread block per (64-key tile, batch * head),
-// looping over the 64-row q tiles from the diagonal down (causal) or over
+// Design (bf16; "bf16" below stands for the storage type): one 128-thread
+// block per (64-key tile, batch * head), looping over the 64-row q tiles from the diagonal down (causal) or over
 // all of them.  The key tile's rotated K and its V stay in shared memory;
 // each q tile brings rotated, pre-scaled Q, dO, lse and delta.  Warp w owns
 // keys 16w..16w+15: it computes S^T and dP^T for them with WMMA (bf16
@@ -38,12 +38,13 @@
 // ceil(L / 64) * B * L * H * D * 4 bytes, growing with L^2, which is why the
 // wrapper gates K4 on their size.
 //
-// fp32 inputs (tests, the fp32 reference) take two SIMT kernels: one warp
-// per key row for dK / dV (looping over the queries that see it) and one
-// warp per query row for dQ (looping over its keys), lanes across D.
+// fp16 is the same code instantiated on __half (WMMA has fp16 fragments of
+// the same shape).  fp32, and head widths other than 64 and 128, take the
+// generic kernels (flash_simt.cu) or the two-pass route.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <mma.h>
 #include <stdint.h>
 
@@ -81,28 +82,25 @@ struct Smem {
                                                          : end_stage;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const __nv_bfloat16* __restrict__ dout,
+flash_bwd_wmma(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const uint8_t* __restrict__ kv_mask,
-               const __nv_bfloat16* __restrict__ cos_t,
-               const __nv_bfloat16* __restrict__ sin_t,
-               float* __restrict__ dq_part, __nv_bfloat16* __restrict__ dk,
-               __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk,
+               const T* __restrict__ cos_t, const T* __restrict__ sin_t,
+               float* __restrict__ dq_part, T* __restrict__ dk,
+               T* __restrict__ dv, Strides sq, Strides sk,
                Strides sv, Strides sd, int B, int H, int L, float scale,
                int causal) {
   using S = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S::k);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S::v);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q);
-  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + S::dout);
-  __nv_bfloat16* Pt = reinterpret_cast<__nv_bfloat16*>(smem + S::pt);
-  __nv_bfloat16* dSt = reinterpret_cast<__nv_bfloat16*>(smem + S::dst);
+  T* Ks = reinterpret_cast<T*>(smem + S::k);
+  T* Vs = reinterpret_cast<T*>(smem + S::v);
+  T* Qs = reinterpret_cast<T*>(smem + S::q);
+  T* Ds = reinterpret_cast<T*>(smem + S::dout);
+  T* Pt = reinterpret_cast<T*>(smem + S::pt);
+  T* dSt = reinterpret_cast<T*>(smem + S::dst);
   float* lse_s = reinterpret_cast<float*>(smem + S::stats);
   float* delta_s = lse_s + kBQ;
   float* St = reinterpret_cast<float*>(smem + S::st);
@@ -118,12 +116,12 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int k0 = ik * kBK;
   const int wrow = warp * 16;  // this warp's first key (and q) row
   const uint8_t* mb = kv_mask ? kv_mask + (long long)b * L : nullptr;
-  const __nv_bfloat16* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
-  const __nv_bfloat16* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
+  const T* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
+  const T* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
 
   load_tile<D>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L, false, 1.f, cb, sb);
-  load_tile<D>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, false, 1.f,
-               nullptr, nullptr);
+  load_tile<D, T>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, false, 1.f,
+                  nullptr, nullptr);
 
   constexpr int kFr = D / 16;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[kFr], dv_acc[kFr];
@@ -141,8 +139,8 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // the previous tile's Q / dO / P / dS / staging done
     load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L, true, scale, cb,
                  sb);
-    load_tile<D>(Ds, dout + b * sd.b + h * sd.h, sd.l, q0, L, false, 1.f,
-                 nullptr, nullptr);
+    load_tile<D, T>(Ds, dout + b * sd.b + h * sd.h, sd.l, q0, L, false, 1.f,
+                    nullptr, nullptr);
     for (int i = threadIdx.x; i < kBQ; i += kThreads) {
       const bool ok = q0 + i < L;
       const long long at = ((long long)b * L + q0 + i) * H + h;
@@ -159,9 +157,9 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
       wmma::fill_fragment(pf, 0.f);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T,
                        wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T,
                        wmma::col_major> bf;
         wmma::load_matrix_sync(af, Ks + wrow * S::ldh + kk * 16, S::ldh);
         wmma::load_matrix_sync(bf, Qs + nf * 16 * S::ldh + kk * 16, S::ldh);
@@ -191,8 +189,8 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
         if (causal) ok = ok && kpos <= qpos;
         const float p = ok ? expf(St[(wrow + r) * S::lds + c] - l_q) : 0.f;
         const float ds = p * (dPt[(wrow + r) * S::lds + c] - delta_s[c]);
-        Pt[(wrow + r) * S::ldp + c] = __float2bfloat16(p);
-        dSt[(wrow + r) * S::ldp + c] = __float2bfloat16(ds);
+        Pt[(wrow + r) * S::ldp + c] = from_f32<T>(p);
+        dSt[(wrow + r) * S::ldp + c] = from_f32<T>(ds);
       }
     }
     __syncwarp();
@@ -200,13 +198,13 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
     // dV += P^T dO, dK += dS^T Q for this warp's keys.
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T,
                      wmma::row_major> pa, sa;
       wmma::load_matrix_sync(pa, Pt + wrow * S::ldp + kk * 16, S::ldp);
       wmma::load_matrix_sync(sa, dSt + wrow * S::ldp + kk * 16, S::ldp);
 #pragma unroll
       for (int df = 0; df < kFr; ++df) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T,
                        wmma::row_major> bf;
         wmma::load_matrix_sync(bf, Ds + kk * 16 * S::ldh + df * 16, S::ldh);
         wmma::mma_sync(dv_acc[df], pa, bf, dv_acc[df]);
@@ -226,9 +224,9 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
         wmma::fill_fragment(qf, 0.f);
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, T,
                          wmma::col_major> af;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T,
                          wmma::row_major> bf;
           wmma::load_matrix_sync(af, dSt + kk * 16 * S::ldp + wrow, S::ldp);
           wmma::load_matrix_sync(bf, Ks + kk * 16 * S::ldh + df * 16, S::ldh);
@@ -267,163 +265,20 @@ flash_bwd_bf16(const __nv_bfloat16* __restrict__ q,
       unrotate_rows<D>(stage, wrow, k0, L, cb, sb);
       __syncwarp();
     }
-    __nv_bfloat16* out = pass == 0 ? dk : dv;
+    T* out = pass == 0 ? dk : dv;
     for (int r = 0; r < 16; ++r) {
       const int kpos = k0 + wrow + r;
       if (kpos >= L) break;
-      __nv_bfloat16* row = out + (((long long)b * L + kpos) * H + h) * D;
+      T* row = out + (((long long)b * L + kpos) * H + h) * D;
       for (int c = lane; c < D; c += 32)
-        row[c] = __float2bfloat16(stage[(wrow + r) * S::ldo + c]);
+        row[c] = from_f32<T>(stage[(wrow + r) * S::ldo + c]);
     }
     __syncwarp();
   }
 }
 
-// -- fp32: SIMT, lanes across D ---------------------------------------------
-
-// Rotate (sign = 1) or inverse-rotate (sign = -1) the lane's columns of one
-// row in registers: column lane + 32 j pairs with j + kCols / 2.
-template <int D>
-__device__ __forceinline__ void rot_regs(float* x, const float* cr,
-                                         const float* sr, float sign) {
-  constexpr int kCols = D / 32, kHalf = kCols / 2;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) {
-    const float lo = x[j], hi = x[j + kHalf];
-    const int c = lane + 32 * j, c2 = c + 32 * kHalf;
-    x[j] = rot1(lo, hi, cr[c], sign * sr[c]);
-    x[j + kHalf] = rot1(hi, lo, cr[c2], sign * sr[c2]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_row(float* x, const float* src,
-                                         float scale) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) x[j] = src[lane + 32 * j] * scale;
-}
-
-// dK, dV: one warp per key row.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const uint8_t* __restrict__ kv_mask,
-                   const float* __restrict__ cos_t,
-                   const float* __restrict__ sin_t, float* __restrict__ dk,
-                   float* __restrict__ dv, Strides sq, Strides sk, Strides sv,
-                   Strides sd, int H, int L, float scale, int causal) {
-  constexpr int kCols = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int kpos = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  if (kpos >= L) return;
-  const float* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
-  const float* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
-  float kr[kCols], vr[kCols], dka[kCols], dva[kCols];
-  load_row<D>(kr, k + b * sk.b + h * sk.h + kpos * sk.l, 1.f);
-  load_row<D>(vr, v + b * sv.b + h * sv.h + kpos * sv.l, 1.f);
-  if (cb != nullptr) rot_regs<D>(kr, cb + (long long)kpos * D,
-                                 sb + (long long)kpos * D, 1.f);
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) dka[j] = dva[j] = 0.f;
-  const bool key_ok = kv_mask == nullptr || kv_mask[(long long)b * L + kpos];
-  for (int qpos = causal ? kpos : 0; key_ok && qpos < L; ++qpos) {
-    const long long at = ((long long)b * L + qpos) * H + h;
-    const float l_q = lse[at];
-    if (!(l_q > 0.5f * kNegInf)) continue;  // the row saw no key
-    float qr[kCols], dor[kCols];
-    load_row<D>(qr, q + b * sq.b + h * sq.h + qpos * sq.l, scale);
-    if (cb != nullptr) rot_regs<D>(qr, cb + (long long)qpos * D,
-                                   sb + (long long)qpos * D, 1.f);
-    load_row<D>(dor, dout + b * sd.b + h * sd.h + qpos * sd.l, 1.f);
-    float s = 0.f, dp = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      s += qr[j] * kr[j];
-      dp += dor[j] * vr[j];
-    }
-    const float p = expf(warp_sum(s) - l_q);
-    const float ds = p * (warp_sum(dp) - delta[at]);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      dva[j] += p * dor[j];
-      dka[j] += ds * qr[j];
-    }
-  }
-  if (cb != nullptr) rot_regs<D>(dka, cb + (long long)kpos * D,
-                                 sb + (long long)kpos * D, -1.f);
-  const long long o = (((long long)b * L + kpos) * H + h) * D;
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    dk[o + lane + 32 * j] = dka[j];
-    dv[o + lane + 32 * j] = dva[j];
-  }
-}
-
-// dQ (fp32, before the deferred scale): one warp per query row.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const uint8_t* __restrict__ kv_mask,
-                 const float* __restrict__ cos_t,
-                 const float* __restrict__ sin_t, float* __restrict__ dq,
-                 Strides sq, Strides sk, Strides sv, Strides sd, int H, int L,
-                 float scale, int causal) {
-  constexpr int kCols = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int qpos = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  if (qpos >= L) return;
-  const float* cb = cos_t ? cos_t + (long long)b * L * D : nullptr;
-  const float* sb = sin_t ? sin_t + (long long)b * L * D : nullptr;
-  const long long at = ((long long)b * L + qpos) * H + h;
-  const float l_q = lse[at];
-  const float d_q = delta[at];
-  float qr[kCols], dor[kCols], acc[kCols];
-  load_row<D>(qr, q + b * sq.b + h * sq.h + qpos * sq.l, scale);
-  if (cb != nullptr) rot_regs<D>(qr, cb + (long long)qpos * D,
-                                 sb + (long long)qpos * D, 1.f);
-  load_row<D>(dor, dout + b * sd.b + h * sd.h + qpos * sd.l, 1.f);
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
-  const int end = (l_q > 0.5f * kNegInf) ? (causal ? qpos + 1 : L) : 0;
-  for (int kpos = 0; kpos < end; ++kpos) {
-    if (kv_mask != nullptr && kv_mask[(long long)b * L + kpos] == 0) continue;
-    float kr[kCols], vr[kCols];
-    load_row<D>(kr, k + b * sk.b + h * sk.h + kpos * sk.l, 1.f);
-    if (cb != nullptr) rot_regs<D>(kr, cb + (long long)kpos * D,
-                                   sb + (long long)kpos * D, 1.f);
-    load_row<D>(vr, v + b * sv.b + h * sv.h + kpos * sv.l, 1.f);
-    float s = 0.f, dp = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      s += qr[j] * kr[j];
-      dp += dor[j] * vr[j];
-    }
-    const float p = expf(warp_sum(s) - l_q);
-    const float ds = p * (warp_sum(dp) - d_q);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] += ds * kr[j];
-  }
-  if (cb != nullptr) rot_regs<D>(acc, cb + (long long)qpos * D,
-                                 sb + (long long)qpos * D, -1.f);
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) dq[at * D + lane + 32 * j] = acc[j];
-}
-
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v,
+template <int D, typename T>
+int launch_wmma(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 const uint8_t* mask, const void* cos_t, const void* sin_t,
                 float* dq_part, void* dk, void* dv, Strides sq, Strides sk,
@@ -431,63 +286,35 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 int causal, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
   static unsigned configured = 0;
-  cudaError_t e = opt_in_smem(flash_bwd_bf16<D>, bytes, &configured);
+  cudaError_t e = opt_in_smem(flash_bwd_wmma<D, T>, bytes, &configured);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((L + kBK - 1) / kBK, B * H);
-  flash_bwd_bf16<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, mask,
-      static_cast<const __nv_bfloat16*>(cos_t),
-      static_cast<const __nv_bfloat16*>(sin_t), dq_part,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
-      sk, sv, sd, B, H, L, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, const uint8_t* mask,
-               const void* cos_t, const void* sin_t, float* dq, void* dk,
-               void* dv, Strides sq, Strides sk, Strides sv, Strides sd,
-               int B, int H, int L, float scale, int causal,
-               cudaStream_t stream) {
-  const dim3 grid((L + kWarps - 1) / kWarps, B * H);
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* dp = static_cast<const float*>(dout);
-  const float* cp = static_cast<const float*>(cos_t);
-  const float* spp = static_cast<const float*>(sin_t);
-  flash_bwd_dkdv_f32<D><<<grid, kThreads, 0, stream>>>(
-      qp, kp, vp, dp, lse, delta, mask, cp, spp, static_cast<float*>(dk),
-      static_cast<float*>(dv), sq, sk, sv, sd, H, L, scale, causal);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_f32<D><<<grid, kThreads, 0, stream>>>(
-      qp, kp, vp, dp, lse, delta, mask, cp, spp, dq, sq, sk, sv, sd, H, L,
+  flash_bwd_wmma<D, T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
+      static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), dq_part,
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, sv, sd, B, H, L,
       scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory of the bf16 backward at head dim D (0: unsupported).
+// Dynamic shared memory of the backward at head dim D (0: unsupported).
 extern "C" int apex_flash_attn_bwd_smem_bytes(int D) {
   if (D == 64) return (int)Smem<64>::bytes;
   if (D == 128) return (int)Smem<128>::bytes;
   return 0;
 }
 
-// q, k, v, dout: (B, L, H, D), element strides (b, l, h), unit stride over
-// D; bf16 rows start on 16-byte boundaries.  lse, delta: contiguous
-// (B, L, H) fp32.  kv_mask: (B, L) uint8 or null.  cos_t / sin_t: contiguous
-// (B, L, D) tables in the input dtype, or both null.  dq: fp32; for bf16 it
-// is ceil(L / 64) zero-filled partial planes of (B, L, H, D) (key tile t
-// writes plane t; dead causal tiles leave zeros), for fp32 one (B, L, H, D)
-// tensor.  dk, dv: contiguous (B, L, H, D) in the input dtype.  dtype: 0 =
-// float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// q, k, v, dout: (B, L, H, D) of type dtype (1 bf16, 2 fp16), D 64 or 128,
+// element strides (b, l, h), unit stride over D, rows on 16-byte
+// boundaries.  lse, delta: contiguous (B, L, H) fp32.  kv_mask: (B, L)
+// uint8 or null.  cos_t / sin_t: contiguous (B, L, D) tables of that type,
+// or both null.  dq: ceil(L / 64) zero-filled fp32 partial planes of (B, L,
+// H, D) (key tile t writes plane t; dead causal tiles leave zeros).  dk, dv:
+// contiguous (B, L, H, D) of that type.  Returns the cudaError_t of the
+// launch.
 extern "C" int apex_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kv_mask,
@@ -503,25 +330,24 @@ extern "C" int apex_flash_attn_bwd(
   const float* dl = static_cast<const float*>(delta);
   float* dqp = static_cast<float*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (D == 64)
-      return launch_bf16<64>(q, k, v, dout, lp, dl, mask, cos_t, sin_t,
-                                   dqp, dk, dv, sq, sk, sv, sd, B, H, L,
-                                   scale, causal, s);
-    if (D == 128)
-      return launch_bf16<128>(q, k, v, dout, lp, dl, mask, cos_t,
-                                    sin_t, dqp, dk, dv, sq, sk, sv, sd, B, H,
-                                    L, scale, causal, s);
-  } else if (dtype == 0) {
-    if (D == 64)
-      return launch_f32<64>(q, k, v, dout, lp, dl, mask, cos_t, sin_t, dqp,
-                            dk, dv, sq, sk, sv, sd, B, H, L, scale, causal,
-                            s);
-    if (D == 128)
-      return launch_f32<128>(q, k, v, dout, lp, dl, mask, cos_t, sin_t, dqp,
-                             dk, dv, sq, sk, sv, sd, B, H, L, scale, causal,
-                             s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0 || (D != 64 && D != 128) ||
+      (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 2)
+    return D == 64
+               ? launch_wmma<64, __half>(q, k, v, dout, lp, dl, mask, cos_t,
+                                         sin_t, dqp, dk, dv, sq, sk, sv, sd,
+                                         B, H, L, scale, causal, s)
+               : launch_wmma<128, __half>(q, k, v, dout, lp, dl, mask, cos_t,
+                                          sin_t, dqp, dk, dv, sq, sk, sv, sd,
+                                          B, H, L, scale, causal, s);
+  return D == 64
+             ? launch_wmma<64, __nv_bfloat16>(q, k, v, dout, lp, dl, mask,
+                                              cos_t, sin_t, dqp, dk, dv, sq,
+                                              sk, sv, sd, B, H, L, scale,
+                                              causal, s)
+             : launch_wmma<128, __nv_bfloat16>(q, k, v, dout, lp, dl, mask,
+                                               cos_t, sin_t, dqp, dk, dv, sq,
+                                               sk, sv, sd, B, H, L, scale,
+                                               causal, s);
 }

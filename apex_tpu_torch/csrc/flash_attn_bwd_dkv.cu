@@ -6,8 +6,9 @@
 // takes above the fused kernel's partials budget; K13 in
 // flash_attn_bwd_dq.cu is the first).
 //
-// Computes, for bf16 (B, L, H, D) q^ (q pre-scaled in bf16 and rotated:
-// flash_bwd_prologue.cu), k^ (k rotated), v, do and the forward's lse and
+// Computes (in bf16, or in fp16 by the same code instantiated on __half,
+// "bf16" below then reading fp16), for (B, L, H, D) q^ (q pre-scaled in
+// bf16 and rotated: flash_bwd_prologue.cu), k^ (k rotated), v, do and the forward's lse and
 // delta ((B, L, H) fp32): with S^T = k^ q^T,
 //   P^T = exp(S^T - lse) (zero where causality, the key mask or an empty
 //   row hides the pair), dV = P^T dO with P rounded to bf16,
@@ -47,9 +48,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "flash_bwd_sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -71,7 +73,7 @@ struct DkvSmem {
   static constexpr size_t alloc = bytes + 1024;    // room to align the base
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -80,10 +82,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    const uint8_t* __restrict__ kv_mask,
-                   const __nv_bfloat16* __restrict__ cos_t,
-                   const __nv_bfloat16* __restrict__ sin_t,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int H, int L, int D,
+                   const T* __restrict__ cos_t, const T* __restrict__ sin_t,
+                   T* __restrict__ dk, T* __restrict__ dv, int H, int L, int D,
                    int causal) {
   using S = DkvSmem<DP>;
   constexpr int kStages = S::kStages;
@@ -197,9 +197,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
         const int c0 = part * kN;  // this part's first query of the tile
         // S^T = k^ q^T and dP^T = V dO^T, two groups behind the last dV / dK
         wgmma_fence();
-        scores<DP, kN>(s_acc, base + S::k, 128, 64 * cw, qt, 64, c0);
+        scores<DP, kN, T>(s_acc, base + S::k, 128, 64 * cw, qt, 64, c0);
         wgmma_commit();
-        scores<DP, kN>(p_acc, base + S::v, 128, 64 * cw, qt + S::q_tile, 64,
+        scores<DP, kN, T>(p_acc, base + S::v, 128, 64 * cw, qt + S::q_tile, 64,
                        c0);
         wgmma_commit();
         wgmma_wait<1>();  // the last dV / dK and S^T have retired
@@ -226,12 +226,12 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
                         : 0.f;
         }
         // dV += P^T dO (dO read MN-major)
-        to_a_operand<kN>(s_acc, a_p);
+        to_a_operand<kN, T>(s_acc, a_p);
         wgmma_fence();
         pin<DP / 2>(acc_v);
 #pragma unroll
         for (int kk = 0; kk < kN / 16; ++kk)
-          wgmma_rs<DP>(acc_v, a_p + 4 * kk,
+          wgmma_rs<DP, T>(acc_v, a_p + 4 * kk,
                        mnmajor(qt + S::q_tile, 64, c0 / 16 + kk));
         wgmma_commit();
         wgmma_wait<1>();  // dP^T has retired; dV may run on
@@ -242,12 +242,12 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
           const int col = c0 + 8 * (i >> 2) + t2 + (i & 1);
           p_acc[i] = s_acc[i] * (p_acc[i] - delta_s[col]);
         }
-        to_a_operand<kN>(p_acc, a_ds);
+        to_a_operand<kN, T>(p_acc, a_ds);
         wgmma_fence();
         pin<DP / 2>(acc_k);
 #pragma unroll
         for (int kk = 0; kk < kN / 16; ++kk)
-          wgmma_rs<DP>(acc_k, a_ds + 4 * kk, mnmajor(qt, 64, c0 / 16 + kk));
+          wgmma_rs<DP, T>(acc_k, a_ds + 4 * kk, mnmajor(qt, 64, c0 / 16 + kk));
         wgmma_commit();
         wgmma_wait<1>();  // dV has retired; dK may run on
         pin<DP / 2>(acc_v);
@@ -268,32 +268,30 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
         reinterpret_cast<float*>(smem + S::stage) + 64 * cw * (DP + 8);
     stage_acc<DP>(stage, acc_k, tid);
     warpgroup_sync(1 + cw);
-    write_rows<DP>(dk, stage, tid, b, h, first_key, L, H, D, cos_t, sin_t,
+    write_rows<DP, T>(dk, stage, tid, b, h, first_key, L, H, D, cos_t, sin_t,
                    false, 1.f);
     warpgroup_sync(1 + cw);
     stage_acc<DP>(stage, acc_v, tid);
     warpgroup_sync(1 + cw);
-    write_rows<DP>(dv, stage, tid, b, h, first_key, L, H, D, nullptr, nullptr,
+    write_rows<DP, T>(dv, stage, tid, b, h, first_key, L, H, D, nullptr, nullptr,
                    false, 1.f);
   }
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch(const CUtensorMap* maps, const float* lse, const float* delta,
            const uint8_t* kv_mask, const void* cos_t, const void* sin_t,
            void* dk, void* dv, int B, int H, int L, int D, int causal,
            cudaStream_t stream) {
   static unsigned configured = 0;
-  cudaError_t e = apex_fa::opt_in_smem(flash_bwd_dkv_sm90<DP>,
+  cudaError_t e = apex_fa::opt_in_smem(flash_bwd_dkv_sm90<DP, T>,
                                        DkvSmem<DP>::alloc, &configured);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (L + 127) / 128);
-  flash_bwd_dkv_sm90<DP><<<grid, kThreads, DkvSmem<DP>::alloc, stream>>>(
+  flash_bwd_dkv_sm90<DP, T><<<grid, kThreads, DkvSmem<DP>::alloc, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, kv_mask,
-      static_cast<const __nv_bfloat16*>(cos_t),
-      static_cast<const __nv_bfloat16*>(sin_t),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, L,
-      D, causal);
+      static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, L, D, causal);
   return (int)cudaGetLastError();
 }
 
@@ -308,28 +306,35 @@ extern "C" int apex_flash_attn_bwd_dkv_smem_bytes(int DP) {
 }
 
 // The operands as apex_flash_attn_bwd_dq's; dk, dv: contiguous (B, L, H, D)
-// bf16, every element written.  Returns 0, a cudaError_t, or an encoder
+// of the operands' type, every element written.  Returns 0, a cudaError_t, or an encoder
 // error (kMapErrorBase - CUresult).
 extern "C" int apex_flash_attn_bwd_dkv(
     const void* qh, const void* kh, const void* v, const void* dout,
     const long long* geo, const void* lse, const void* delta,
     const void* kv_mask, const void* cos_t, const void* sin_t, void* dk,
-    void* dv, int B, int L, int H, int D, int causal, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || D % 8 != 0 || D <= 0 || D > 128)
+    void* dv, int B, int L, int H, int D, int causal, int dtype,
+    void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || D % 8 != 0 || D <= 0 || D > 128 ||
+      (dtype != 1 && dtype != 2))
     return (int)cudaErrorInvalidValue;
+  const bool half = dtype == 2;
   CUtensorMap maps[4];
   const void* ptrs[4] = {qh, kh, v, dout};
   for (int i = 0; i < 4; ++i) {
-    const int e = encode_map(&maps[i], ptrs[i], geo + kGeoWords * i);
+    const int e = encode_map(&maps[i], ptrs[i], geo + kGeoWords * i, half);
     if (e != 0) return e;
   }
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const uint8_t* mp = static_cast<const uint8_t*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch<64>(maps, lp, dl, mp, cos_t, sin_t, dk, dv, B, H, L, D,
-                      causal, s);
-  return launch<128>(maps, lp, dl, mp, cos_t, sin_t, dk, dv, B, H, L, D,
-                     causal, s);
+  if (half)
+    return D <= 64 ? launch<64, __half>(maps, lp, dl, mp, cos_t, sin_t, dk,
+                                        dv, B, H, L, D, causal, s)
+                   : launch<128, __half>(maps, lp, dl, mp, cos_t, sin_t, dk,
+                                         dv, B, H, L, D, causal, s);
+  return D <= 64 ? launch<64, __nv_bfloat16>(maps, lp, dl, mp, cos_t, sin_t,
+                                             dk, dv, B, H, L, D, causal, s)
+                 : launch<128, __nv_bfloat16>(maps, lp, dl, mp, cos_t, sin_t,
+                                              dk, dv, B, H, L, D, causal, s);
 }

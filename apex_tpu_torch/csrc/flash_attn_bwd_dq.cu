@@ -6,8 +6,9 @@
 // takes when the fused kernel's fp32 dq partials would exceed their
 // budget; flash_attn_bwd_dkv.cu's K14 is the second, dk / dv).
 //
-// Computes, for bf16 (B, L, H, D) q^ (q pre-scaled in bf16 and rotated:
-// flash_bwd_prologue.cu), k^ (k rotated), v, do, the forward's lse and
+// Computes (in bf16, or in fp16 by the same code instantiated on __half,
+// "bf16" below then reading fp16), for (B, L, H, D) q^ (q pre-scaled in
+// bf16 and rotated: flash_bwd_prologue.cu), k^ (k rotated), v, do, the forward's lse and
 // delta = rowsum(o * do) - dlse ((B, L, H) fp32):
 //   P = exp(S - lse) with S = q^ k^T (zero where causality, the key mask or
 //   an empty row hides the pair), dP = dO V^T, dS = P * (dP - delta),
@@ -46,9 +47,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "flash_bwd_sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -70,7 +72,7 @@ struct DqSmem {
   static constexpr size_t alloc = bytes + 1024;    // room to align the base
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -79,9 +81,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   const uint8_t* __restrict__ kv_mask,
-                  const __nv_bfloat16* __restrict__ cos_t,
-                  const __nv_bfloat16* __restrict__ sin_t,
-                  __nv_bfloat16* __restrict__ dq, int H, int L, int D,
+                  const T* __restrict__ cos_t, const T* __restrict__ sin_t,
+                  T* __restrict__ dq, int H, int L, int D,
                   float scale, int causal) {
   using S = DqSmem<DP>;
   constexpr int kStages = S::kStages;
@@ -187,9 +188,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t kt = base + S::ring + s * 2 * S::kv_tile;
       // S = q^ k^T and dP = dO V^T, two groups behind the last tile's dQ
       wgmma_fence();
-      scores<DP, 64>(s_acc, base + S::q, 128, 64 * cw, kt, 64, 0);
+      scores<DP, 64, T>(s_acc, base + S::q, 128, 64 * cw, kt, 64, 0);
       wgmma_commit();
-      scores<DP, 64>(p_acc, base + S::dout, 128, 64 * cw, kt + S::kv_tile, 64,
+      scores<DP, 64, T>(p_acc, base + S::dout, 128, 64 * cw, kt + S::kv_tile, 64,
                      0);
       wgmma_commit();
       wgmma_wait<1>();  // the last dQ and S have retired; dP may run on
@@ -224,11 +225,11 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         s_acc[i] = s_acc[i] * (p_acc[i] - del_r[(i >> 1) & 1]);
-      to_a_operand<64>(s_acc, a_ds);
+      to_a_operand<64, T>(s_acc, a_ds);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DP>(acc, a_ds + 4 * kk, mnmajor(kt, 64, kk));
+        wgmma_rs<DP, T>(acc, a_ds + 4 * kk, mnmajor(kt, 64, kk));
       wgmma_commit();
       pending = s;
     }
@@ -245,26 +246,25 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
         reinterpret_cast<float*>(smem + S::stage) + 64 * cw * (DP + 8);
     stage_acc<DP>(stage, acc, tid);
     warpgroup_sync(1 + cw);
-    write_rows<DP>(dq, stage, tid, b, h, first_row, L, H, D, cos_t, sin_t, true,
+    write_rows<DP, T>(dq, stage, tid, b, h, first_row, L, H, D, cos_t, sin_t, true,
                    scale);
   }
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch(const CUtensorMap* maps, const float* lse, const float* delta,
            const uint8_t* kv_mask, const void* cos_t, const void* sin_t,
            void* dq, int B, int H, int L, int D, float scale,
            int causal, cudaStream_t stream) {
   static unsigned configured = 0;
-  cudaError_t e = apex_fa::opt_in_smem(flash_bwd_dq_sm90<DP>,
+  cudaError_t e = apex_fa::opt_in_smem(flash_bwd_dq_sm90<DP, T>,
                                        DqSmem<DP>::alloc, &configured);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (L + 127) / 128);
-  flash_bwd_dq_sm90<DP><<<grid, kThreads, DqSmem<DP>::alloc, stream>>>(
+  flash_bwd_dq_sm90<DP, T><<<grid, kThreads, DqSmem<DP>::alloc, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, kv_mask,
-      static_cast<const __nv_bfloat16*>(cos_t),
-      static_cast<const __nv_bfloat16*>(sin_t),
-      static_cast<__nv_bfloat16*>(dq), H, L, D, scale, causal);
+      static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),
+      static_cast<T*>(dq), H, L, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -278,33 +278,42 @@ extern "C" int apex_flash_attn_bwd_dq_smem_bytes(int DP) {
   return 0;
 }
 
-// qh, kh, v, dout: bf16 (B, L, H, D) operands, each described by 7 words of
-// `geo` (dims D, H, L, B and the byte strides of H, L, B; the wrapper
-// checked them for TMA).  lse, delta: contiguous (B, L, H) fp32.  kv_mask:
-// (B, L) uint8 or null.  cos_t / sin_t: contiguous (B, L, D) bf16 tables,
-// or both null.  dq: contiguous (B, L, H, D) bf16, every element written.
-// scale: the softmax scale rounded to bf16 (dq's deferred scale).  Returns
+// qh, kh, v, dout: bf16 or fp16 (dtype 1 / 2) (B, L, H, D) operands, each
+// described by 7 words of `geo` (dims D, H, L, B and the byte strides of
+// H, L, B; the wrapper checked them for TMA).  lse, delta: contiguous (B, L, H) fp32.  kv_mask:
+// (B, L) uint8 or null.  cos_t / sin_t: contiguous (B, L, D) tables of the
+// operands' type, or both null.  dq: contiguous (B, L, H, D) of that type,
+// every element written.  scale: the softmax scale rounded to that type
+// (dq's deferred scale).  Returns
 // 0, a cudaError_t, or an encoder error (kMapErrorBase - CUresult).
 extern "C" int apex_flash_attn_bwd_dq(
     const void* qh, const void* kh, const void* v, const void* dout,
     const long long* geo, const void* lse, const void* delta,
     const void* kv_mask, const void* cos_t, const void* sin_t, void* dq,
-    int B, int L, int H, int D, float scale, int causal, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || D % 8 != 0 || D <= 0 || D > 128)
+    int B, int L, int H, int D, float scale, int causal, int dtype,
+    void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || D % 8 != 0 || D <= 0 || D > 128 ||
+      (dtype != 1 && dtype != 2))
     return (int)cudaErrorInvalidValue;
+  const bool half = dtype == 2;
   CUtensorMap maps[4];
   const void* ptrs[4] = {qh, kh, v, dout};
   for (int i = 0; i < 4; ++i) {
-    const int e = encode_map(&maps[i], ptrs[i], geo + kGeoWords * i);
+    const int e = encode_map(&maps[i], ptrs[i], geo + kGeoWords * i, half);
     if (e != 0) return e;
   }
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const uint8_t* mp = static_cast<const uint8_t*>(kv_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch<64>(maps, lp, dl, mp, cos_t, sin_t, dq, B, H, L, D, scale,
-                      causal, s);
-  return launch<128>(maps, lp, dl, mp, cos_t, sin_t, dq, B, H, L, D, scale,
-                     causal, s);
+  if (half)
+    return D <= 64 ? launch<64, __half>(maps, lp, dl, mp, cos_t, sin_t, dq, B,
+                                        H, L, D, scale, causal, s)
+                   : launch<128, __half>(maps, lp, dl, mp, cos_t, sin_t, dq,
+                                         B, H, L, D, scale, causal, s);
+  return D <= 64 ? launch<64, __nv_bfloat16>(maps, lp, dl, mp, cos_t, sin_t,
+                                             dq, B, H, L, D, scale, causal, s)
+                 : launch<128, __nv_bfloat16>(maps, lp, dl, mp, cos_t, sin_t,
+                                              dq, B, H, L, D, scale, causal,
+                                              s);
 }

@@ -1,18 +1,22 @@
-// The prologue of the two-pass flash-attention backward (K13, K14) for
-// Hopper (sm_90a), with a plain C interface: q^ and k^, once per call.
+// The prologue of the Hopper flash kernels (sm_90a): of the two-pass
+// backward (K13, K14: q^ and k^) and of the forward (K2: k^ alone, q being
+// rotated in the forward's own shared memory), once per call, with a plain
+// C interface.
 //
-// TMA copies bytes and cannot rotate, so the two passes read operands that
-// are already what their score product sees: q^ = q pre-scaled in bf16 (the
-// scale rounded to bf16, the product rounded) and then, with rope tables,
-// rotated in fp32 and rounded to bf16; k^ = k rotated likewise.  This is the
-// arithmetic the TPU kernels (`_dq_kernel`, `_dkv_kernel`) apply to every
-// tile they load, done once for the call instead of once per tile pair:
+// TMA copies bytes and cannot rotate, so those kernels read operands that
+// are already what their score product sees: q^ = q pre-scaled in its
+// storage type T, bf16 or fp16 (the scale rounded to T, the product
+// rounded) and then, with rope tables, rotated in fp32 and rounded to T;
+// k^ = k rotated likewise.  This is the arithmetic the TPU kernels
+// (`_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`) apply to every tile they
+// load, done once for the call instead of once per tile pair:
 // element (c, c + D / 2) pairs rotate as
 //   lo' = lo * cos[c] + hi * sin[c],  hi' = hi * cos[c + D/2] + lo * sin[..]
 // with `sin` the signed full-width table, each product and the sum rounded
 // on their own (__fmul_rn / __fadd_rn), as the plain version
 // (`_scaled_rotated`) computes it.  Without tables only q is written (k^ is
-// k), and the wrapper launches nothing when the scale is also 1.
+// k), and the wrapper launches nothing when the scale is also 1; without
+// a q^ buffer only k^ is written.
 //
 // What bounds it on the H100: bytes (read q, k and the tables, write q^ and
 // k^; a few operations an element).  Each thread moves V-element chunks of
@@ -20,46 +24,46 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "flash_attn_bwd_tiles.cuh"
 
 namespace {
 
+using apex_fa::from_f32;
 using apex_fa::rot1;
 using apex_fa::Strides;
+using apex_fa::to_f32;
 
-template <int V>
+template <int V, typename T>
 struct alignas(2 * V) Chunk {
-  __nv_bfloat16 x[V];
+  T x[V];
 };
 
-template <int V>
-__device__ __forceinline__ void rotate(Chunk<V>& lo, Chunk<V>& hi,
-                                       const Chunk<V>& cl, const Chunk<V>& ch,
-                                       const Chunk<V>& sl,
-                                       const Chunk<V>& sh) {
+template <int V, typename T>
+__device__ __forceinline__ void rotate(Chunk<V, T>& lo, Chunk<V, T>& hi,
+                                       const Chunk<V, T>& cl,
+                                       const Chunk<V, T>& ch,
+                                       const Chunk<V, T>& sl,
+                                       const Chunk<V, T>& sh) {
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    const float xl = __bfloat162float(lo.x[j]);
-    const float xh = __bfloat162float(hi.x[j]);
-    lo.x[j] = __float2bfloat16(rot1(xl, xh, __bfloat162float(cl.x[j]),
-                                    __bfloat162float(sl.x[j])));
-    hi.x[j] = __float2bfloat16(rot1(xh, xl, __bfloat162float(ch.x[j]),
-                                    __bfloat162float(sh.x[j])));
+    const float xl = to_f32(lo.x[j]);
+    const float xh = to_f32(hi.x[j]);
+    lo.x[j] = from_f32<T>(rot1(xl, xh, to_f32(cl.x[j]), to_f32(sl.x[j])));
+    hi.x[j] = from_f32<T>(rot1(xh, xl, to_f32(ch.x[j]), to_f32(sh.x[j])));
   }
 }
 
 // One thread per (row (b, l, h), chunk of V columns of the first half).
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_prologue(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ cos_t,
-                   const __nv_bfloat16* __restrict__ sin_t,
-                   __nv_bfloat16* __restrict__ qh,
-                   __nv_bfloat16* __restrict__ kh, Strides sq, Strides sk,
-                   int L, int H, int D, float scale, long long items) {
+flash_bwd_prologue(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ cos_t, const T* __restrict__ sin_t,
+                   T* __restrict__ qh, T* __restrict__ kh, Strides sq,
+                   Strides sk, int L, int H, int D, float scale,
+                   long long items) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= items) return;
   const int hd = D / 2;
@@ -70,8 +74,8 @@ flash_bwd_prologue(const __nv_bfloat16* __restrict__ q,
   const long long bl = row / H;
   const int l = (int)(bl % L);
   const int b = (int)(bl / L);
-  using C = Chunk<V>;
-  Chunk<V> cl, ch, sl, sh;
+  using C = Chunk<V, T>;
+  C cl, ch, sl, sh;
   if (cos_t != nullptr) {
     const long long t = bl * D;  // (b, l) row of the (B, L, D) tables
     cl = *reinterpret_cast<const C*>(cos_t + t + c);
@@ -80,19 +84,22 @@ flash_bwd_prologue(const __nv_bfloat16* __restrict__ q,
     sh = *reinterpret_cast<const C*>(sin_t + t + c + hd);
   }
   const long long out = row * D + c;
-  const __nv_bfloat16* qr = q + b * sq.b + l * sq.l + h * sq.h + c;
-  C lo = *reinterpret_cast<const C*>(qr);
-  C hi = *reinterpret_cast<const C*>(qr + hd);
+  C lo, hi;
+  if (qh != nullptr) {
+    const T* qr = q + b * sq.b + l * sq.l + h * sq.h + c;
+    lo = *reinterpret_cast<const C*>(qr);
+    hi = *reinterpret_cast<const C*>(qr + hd);
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    lo.x[j] = __float2bfloat16(__bfloat162float(lo.x[j]) * scale);
-    hi.x[j] = __float2bfloat16(__bfloat162float(hi.x[j]) * scale);
+    for (int j = 0; j < V; ++j) {
+      lo.x[j] = from_f32<T>(to_f32(lo.x[j]) * scale);
+      hi.x[j] = from_f32<T>(to_f32(hi.x[j]) * scale);
+    }
+    if (cos_t != nullptr) rotate(lo, hi, cl, ch, sl, sh);
+    *reinterpret_cast<C*>(qh + out) = lo;
+    *reinterpret_cast<C*>(qh + out + hd) = hi;
   }
-  if (cos_t != nullptr) rotate(lo, hi, cl, ch, sl, sh);
-  *reinterpret_cast<C*>(qh + out) = lo;
-  *reinterpret_cast<C*>(qh + out + hd) = hi;
   if (kh == nullptr) return;
-  const __nv_bfloat16* kr = k + b * sk.b + l * sk.l + h * sk.h + c;
+  const T* kr = k + b * sk.b + l * sk.l + h * sk.h + c;
   lo = *reinterpret_cast<const C*>(kr);
   hi = *reinterpret_cast<const C*>(kr + hd);
   rotate(lo, hi, cl, ch, sl, sh);
@@ -100,43 +107,55 @@ flash_bwd_prologue(const __nv_bfloat16* __restrict__ q,
   *reinterpret_cast<C*>(kh + out + hd) = hi;
 }
 
-template <int V>
+template <int V, typename T>
 int launch(const void* q, const void* k, const void* cos_t,
            const void* sin_t, void* qh, void* kh, Strides sq, Strides sk,
            int B, int L, int H, int D, float scale, cudaStream_t stream) {
   const long long items = (long long)B * L * H * (D / 2 / V);
   const int threads = 256;
   const long long blocks = (items + threads - 1) / threads;
-  flash_bwd_prologue<V><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(cos_t),
-      static_cast<const __nv_bfloat16*>(sin_t),
-      static_cast<__nv_bfloat16*>(qh), static_cast<__nv_bfloat16*>(kh), sq,
-      sk, L, H, D, scale, items);
+  flash_bwd_prologue<V, T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),
+      static_cast<T*>(qh), static_cast<T*>(kh), sq, sk, L, H, D, scale,
+      items);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_type(const void* q, const void* k, const void* cos_t,
+                const void* sin_t, void* qh, void* kh, Strides sq, Strides sk,
+                int B, int L, int H, int D, float scale, cudaStream_t s) {
+  if ((D / 2) % 8 == 0)
+    return launch<8, T>(q, k, cos_t, sin_t, qh, kh, sq, sk, B, L, H, D, scale,
+                        s);
+  return launch<4, T>(q, k, cos_t, sin_t, qh, kh, sq, sk, B, L, H, D, scale,
+                      s);
 }
 
 }  // namespace
 
-// q, k: bf16 (B, L, H, D), element strides (b, l, h), unit stride over D,
-// rows on 16-byte boundaries; D a multiple of 8 up to 128.  cos_t / sin_t:
-// contiguous (B, L, D) bf16 tables, or both null.  qh: contiguous (B, L, H,
-// D) bf16, written with q^.  kh: contiguous (B, L, H, D) bf16, written with
-// k^ when tables are given (else null and k is not read).  scale: the
-// softmax scale rounded to bf16.  Returns the cudaError_t of the launch.
+// q, k: (B, L, H, D) of type dtype (1 bf16, 2 fp16), element strides
+// (b, l, h), unit stride over D, rows on 16-byte boundaries; D a multiple
+// of 8 up to 128.  cos_t / sin_t: contiguous (B, L, D) tables of that type,
+// or both null.  qh: contiguous (B, L, H, D), written with q^, or null (q
+// is not read).  kh: contiguous (B, L, H, D), written with k^ when tables
+// are given (else null and k is not read).  scale: the softmax scale
+// rounded to the type.  Returns the cudaError_t of the launch.
 extern "C" int apex_flash_bwd_prologue(
     const void* q, const void* k, const void* cos_t, const void* sin_t,
     void* qh, void* kh, long long sqb, long long sql, long long sqh,
     long long skb, long long skl, long long skh, int B, int L, int H, int D,
-    float scale, void* stream) {
+    float scale, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || D % 8 != 0 || D <= 0 || D > 128 ||
-      (cos_t == nullptr) != (kh == nullptr))
+      (cos_t == nullptr) != (kh == nullptr) ||
+      (qh == nullptr && kh == nullptr) || (dtype != 1 && dtype != 2))
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((D / 2) % 8 == 0)
-    return launch<8>(q, k, cos_t, sin_t, qh, kh, sq, sk, B, L, H, D, scale,
-                     s);
-  return launch<4>(q, k, cos_t, sin_t, qh, kh, sq, sk, B, L, H, D, scale, s);
+  if (dtype == 2)
+    return launch_type<__half>(q, k, cos_t, sin_t, qh, kh, sq, sk, B, L, H, D,
+                               scale, s);
+  return launch_type<__nv_bfloat16>(q, k, cos_t, sin_t, qh, kh, sq, sk, B, L,
+                                    H, D, scale, s);
 }

@@ -6,8 +6,9 @@
 // while its dq partial planes fit the budget; above it the wrapper takes the
 // two-pass kernels K13 / K14 on strided views, as `_mh_bwd_rule` does).
 //
-// Computes, for (B, L, H, D) bf16 q, k, v, do read as (B, L, H * D) through
-// the caller's strides, the forward's lse (B, L, H) fp32 and delta =
+// Computes, for (B, L, H, D) bf16 or fp16 (the same code instantiated on
+// __half; "bf16" below stands for the storage type) q, k, v, do read as
+// (B, L, H * D) through the caller's strides, the forward's lse (B, L, H) fp32 and delta =
 // rowsum(o * do) - dlse (B, L, H) fp32 (computed outside, as the TPU path
 // leaves it to XLA), with q pre-scaled by `scale` in bf16:
 //   P = exp(S - lse) (zero where causality, the key mask, a ragged L or an
@@ -23,8 +24,8 @@
 //
 // Design.  The TPU block holds all heads of a key tile with dk / dv in VMEM
 // scratch; on Hopper a block takes one 64-key tile of a group of heads that
-// share one 128-lane plane (the forward's grouping, K17) and walks them one
-// after another.  Per head it is the K4 design: the head's K and V tiles
+// share one 128-lane plane (the TPU kernel's 64-lane head slices, paired)
+// and walks them one after another.  Per head it is the K4 design: the head's K and V tiles
 // stay in shared memory, the q tiles stream past (from the diagonal down
 // when causal), warp w owns keys 16w..16w+15 and computes S^T and dP^T for
 // them with WMMA (bf16 operands, fp32 accumulators), P^T and dS^T
@@ -36,8 +37,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "flash_attn_bwd_tiles.cuh"
 
 namespace {
 
@@ -93,11 +97,10 @@ struct Smem {
                                                          : end_stage;
 };
 
-// As K17's: a (64, D) tile of one head into shared memory as (64, DP),
+// A (64, D) tile of one head into shared memory as (64, DP),
 // zero past L and past D, optionally pre-scaled in bf16.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
+template <int DP, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long stride_l, int row0,
                                           int L, int D, bool do_scale,
                                           float scale) {
@@ -110,39 +113,37 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
     if (row0 + r < L && c < D) {
       val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride_l + c);
       if (do_scale) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+        T* e = reinterpret_cast<T*>(&val);
 #pragma unroll
         for (int j = 0; j < kVec; ++j)
-          e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+          e[j] = apex_fa::from_f32<T>(apex_fa::to_f32(e[j]) * scale);
       }
     }
     *reinterpret_cast<uint4*>(dst + r * Smem<DP>::ldh + c) = val;
   }
 }
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
+flash_mh_bwd_wmma(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   const uint8_t* __restrict__ kv_mask,
-                  float* __restrict__ dq_part, __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk,
+                  float* __restrict__ dq_part, T* __restrict__ dk,
+                  T* __restrict__ dv, Strides sq, Strides sk,
                   Strides sv, Strides sd, int B, int H, int L, int D,
                   float scale, int causal) {
   using S = Smem<DP>;
   constexpr int G = heads_per_block(DP);
   constexpr int kFr = DP / 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S::k);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S::v);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q);
-  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + S::dout);
-  __nv_bfloat16* Pt = reinterpret_cast<__nv_bfloat16*>(smem + S::pt);
-  __nv_bfloat16* dSt = reinterpret_cast<__nv_bfloat16*>(smem + S::dst);
+  T* Ks = reinterpret_cast<T*>(smem + S::k);
+  T* Vs = reinterpret_cast<T*>(smem + S::v);
+  T* Qs = reinterpret_cast<T*>(smem + S::q);
+  T* Ds = reinterpret_cast<T*>(smem + S::dout);
+  T* Pt = reinterpret_cast<T*>(smem + S::pt);
+  T* dSt = reinterpret_cast<T*>(smem + S::dst);
   float* lse_s = reinterpret_cast<float*>(smem + S::stats);
   float* delta_s = lse_s + kBQ;
   float* St = reinterpret_cast<float*>(smem + S::st);
@@ -164,8 +165,8 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
 
   for (int h = h0; h < min(h0 + G, H); ++h) {
     __syncthreads();  // the previous head's K / V / staging are consumed
-    load_tile<DP>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L, D, false, 1.f);
-    load_tile<DP>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, D, false, 1.f);
+    load_tile<DP, T>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L, D, false, 1.f);
+    load_tile<DP, T>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L, D, false, 1.f);
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[kFr],
         dv_acc[kFr];
@@ -178,9 +179,9 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
     for (int iq = first; iq < n_q; ++iq) {
       const int q0 = iq * kBQ;
       __syncthreads();  // the previous tile's Q / dO / P / dS / staging done
-      load_tile<DP>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L, D, true,
+      load_tile<DP, T>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L, D, true,
                     scale);
-      load_tile<DP>(Ds, dout + b * sd.b + h * sd.h, sd.l, q0, L, D, false,
+      load_tile<DP, T>(Ds, dout + b * sd.b + h * sd.h, sd.l, q0, L, D, false,
                     1.f);
       for (int i = threadIdx.x; i < kBQ; i += kThreads) {
         const bool ok = q0 + i < L;
@@ -198,9 +199,9 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
         wmma::fill_fragment(pf, 0.f);
 #pragma unroll
         for (int kk = 0; kk < kFr; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, T,
                          wmma::row_major> af;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T,
                          wmma::col_major> bf;
           wmma::load_matrix_sync(af, Ks + wrow * S::ldh + kk * 16, S::ldh);
           wmma::load_matrix_sync(bf, Qs + nf * 16 * S::ldh + kk * 16,
@@ -232,8 +233,8 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
           if (causal) ok = ok && kpos <= qpos;
           const float p = ok ? expf(St[(wrow + r) * S::lds + c] - l_q) : 0.f;
           const float ds = p * (dPt[(wrow + r) * S::lds + c] - delta_s[c]);
-          Pt[(wrow + r) * S::ldp + c] = __float2bfloat16(p);
-          dSt[(wrow + r) * S::ldp + c] = __float2bfloat16(ds);
+          Pt[(wrow + r) * S::ldp + c] = apex_fa::from_f32<T>(p);
+          dSt[(wrow + r) * S::ldp + c] = apex_fa::from_f32<T>(ds);
         }
       }
       __syncwarp();
@@ -241,13 +242,13 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
       // dV += P^T dO, dK += dS^T Q for this warp's keys
 #pragma unroll
       for (int kk = 0; kk < kBQ / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T,
                        wmma::row_major> pa, sa;
         wmma::load_matrix_sync(pa, Pt + wrow * S::ldp + kk * 16, S::ldp);
         wmma::load_matrix_sync(sa, dSt + wrow * S::ldp + kk * 16, S::ldp);
 #pragma unroll
         for (int df = 0; df < kFr; ++df) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T,
                          wmma::row_major> bf;
           wmma::load_matrix_sync(bf, Ds + kk * 16 * S::ldh + df * 16,
                                  S::ldh);
@@ -268,9 +269,9 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
         wmma::fill_fragment(qf, 0.f);
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, T,
                          wmma::col_major> af;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T,
                          wmma::row_major> bf;
           wmma::load_matrix_sync(af, dSt + kk * 16 * S::ldp + wrow, S::ldp);
           wmma::load_matrix_sync(bf, Ks + kk * 16 * S::ldh + df * 16,
@@ -299,20 +300,20 @@ flash_mh_bwd_bf16(const __nv_bfloat16* __restrict__ q,
                                 pass == 0 ? dk_acc[df] : dv_acc[df], S::ldo,
                                 wmma::mem_row_major);
       __syncwarp();
-      __nv_bfloat16* out = pass == 0 ? dk : dv;
+      T* out = pass == 0 ? dk : dv;
       for (int r = 0; r < 16; ++r) {
         const int kpos = k0 + wrow + r;
         if (kpos >= L) break;
-        __nv_bfloat16* row = out + (((long long)b * L + kpos) * H + h) * D;
+        T* row = out + (((long long)b * L + kpos) * H + h) * D;
         for (int c = lane; c < D; c += 32)
-          row[c] = __float2bfloat16(stage[(wrow + r) * S::ldo + c]);
+          row[c] = apex_fa::from_f32<T>(stage[(wrow + r) * S::ldo + c]);
       }
       __syncwarp();
     }
   }
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const uint8_t* mask,
            float* dq, void* dk, void* dv, Strides sq, Strides sk, Strides sv,
@@ -324,7 +325,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 32 || !(configured & (1u << dev))) {
-    e = cudaFuncSetAttribute(flash_mh_bwd_bf16<DP>,
+    e = cudaFuncSetAttribute(flash_mh_bwd_wmma<DP, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
@@ -332,23 +333,23 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   }
   constexpr int G = heads_per_block(DP);
   const dim3 grid((L + kBK - 1) / kBK, B * ((H + G - 1) / G));
-  flash_mh_bwd_bf16<DP><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, mask, dq,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
-      sk, sv, sd, B, H, L, D, scale, causal);
+  flash_mh_bwd_wmma<DP, T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
+      dq, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, sv, sd, B, H, L,
+      D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, dout: (B, L, H, D) bf16, element strides (b, l, h), unit stride
-// over D, rows starting on 16-byte boundaries.  lse, delta: contiguous
+// q, k, v, dout: (B, L, H, D) of type dtype (1 bf16, 2 fp16), element
+// strides (b, l, h), unit stride over D, rows starting on 16-byte
+// boundaries.  lse, delta: contiguous
 // (B, L, H) fp32.  kv_mask: (B, L) uint8 or null.  dq: ceil(L / 64)
 // zero-filled fp32 partial planes of (B, L, H, D) (key tile t writes plane
-// t; dead causal tiles leave zeros).  dk, dv: contiguous (B, L, H, D) bf16.
+// t; dead causal tiles leave zeros).  dk, dv: contiguous (B, L, H, D) of
+// that type.
 // D: a multiple of 8 up to 128.  Returns the cudaError_t of the launch.
 extern "C" int apex_flash_mh_bwd(
     const void* q, const void* k, const void* v, const void* dout,
@@ -357,7 +358,7 @@ extern "C" int apex_flash_mh_bwd(
     long long skb, long long skl, long long skh, long long svb,
     long long svl, long long svh, long long sdb, long long sdl,
     long long sdh, int B, int L, int H, int D, float scale, int causal,
-    void* stream) {
+    int dtype, void* stream) {
   const Strides sq{sqb, sql, sqh}, sk{skb, skl, skh}, sv{svb, svl, svh},
       sd{sdb, sdl, sdh};
   const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
@@ -365,13 +366,19 @@ extern "C" int apex_flash_mh_bwd(
   const float* dl = static_cast<const float*>(delta);
   float* dqp = static_cast<float*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || H <= 0 || D < 8 || D > 128 || D % 8)
+  if (B <= 0 || L <= 0 || H <= 0 || D < 8 || D > 128 || D % 8 ||
+      (dtype != 1 && dtype != 2))
     return (int)cudaErrorInvalidValue;
   switch ((D + 15) / 16) {
-#define APEX_MH_CASE(n)                                                     \
-  case n:                                                                   \
-    return launch<16 * n>(q, k, v, dout, lp, dl, mask, dqp, dk, dv, sq, sk, \
-                          sv, sd, B, H, L, D, scale, causal, s);
+#define APEX_MH_CASE(n)                                                      \
+  case n:                                                                    \
+    return dtype == 2                                                        \
+               ? launch<16 * n, __half>(q, k, v, dout, lp, dl, mask, dqp, dk, \
+                                        dv, sq, sk, sv, sd, B, H, L, D,      \
+                                        scale, causal, s)                    \
+               : launch<16 * n, __nv_bfloat16>(q, k, v, dout, lp, dl, mask,   \
+                                               dqp, dk, dv, sq, sk, sv, sd,   \
+                                               B, H, L, D, scale, causal, s);
     APEX_MH_CASE(1)
     APEX_MH_CASE(2)
     APEX_MH_CASE(3)

@@ -29,6 +29,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -41,6 +42,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -48,6 +50,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -246,8 +251,8 @@ extern "C" int apex_layer_norm_bwd_parts(int n1, int n2) {
   return (n1 + kRowsPerWarp - 1) / kRowsPerWarp;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  dy, x, dx: contiguous (n1, n2)
-// in x_dtype; mean, inv: (n1,) fp32.  w null = no affine (dw, db, part_w,
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  dy, x, dx:
+// contiguous (n1, n2) in x_dtype; mean, inv: (n1,) fp32.  w null = no affine (dw, db, part_w,
 // part_b null too); otherwise w, dw, db are (n2,) in w_dtype (float32 or
 // x's) and part_w / part_b are the scratch of apex_layer_norm_bwd_parts.
 // Returns the cudaError_t of the launches.
@@ -270,6 +275,12 @@ extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
   if (x_dtype == 1 && w_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(dy, x, w, m, iv, dx, dw, db,
                                                  pw, pb, n1, n2, s);
+  if (x_dtype == 2 && w_dtype == 2)
+    return launch<__half, __half>(dy, x, w, m, iv, dx, dw, db, pw, pb, n1,
+                                  n2, s);
+  if (x_dtype == 2 && w_dtype == 0)
+    return launch<__half, float>(dy, x, w, m, iv, dx, dw, db, pw, pb, n1, n2,
+                                 s);
   if (x_dtype == 1 && w_dtype == 0)
     return launch<__nv_bfloat16, float>(dy, x, w, m, iv, dx, dw, db, pw, pb,
                                         n1, n2, s);

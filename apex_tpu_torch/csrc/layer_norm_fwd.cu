@@ -23,6 +23,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -33,6 +34,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -40,6 +42,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);  // round to nearest even
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -153,8 +158,9 @@ void launch(const void* x, const void* w, const void* b, void* y,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  w and b may be null (no affine);
-// when given they are float32 or x's dtype (w_dtype).  Returns the
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  w and b may be null
+// (no affine); when given they are float32 or x's dtype (w_dtype).  Returns
+// the
 // cudaError_t of the launch.
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
                                    const void* b, void* y, void* mean,
@@ -170,6 +176,10 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
     launch<__nv_bfloat16, __nv_bfloat16>(x, w, b, y, m, iv, n1, n2, eps, s);
   } else if (x_dtype == 1 && w_dtype == 0) {
     launch<__nv_bfloat16, float>(x, w, b, y, m, iv, n1, n2, eps, s);
+  } else if (x_dtype == 2 && w_dtype == 2) {
+    launch<__half, __half>(x, w, b, y, m, iv, n1, n2, eps, s);
+  } else if (x_dtype == 2 && w_dtype == 0) {
+    launch<__half, float>(x, w, b, y, m, iv, n1, n2, eps, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

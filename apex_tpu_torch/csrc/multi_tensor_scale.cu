@@ -23,6 +23,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -31,6 +32,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -38,6 +40,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even
 }
 
 template <typename In, typename Out>
@@ -70,8 +75,8 @@ void launch(const void* x, void* out, const float* scale, int* flag,
 }  // namespace
 
 // x: n elements of in_dtype; out: n elements of out_dtype (0 = float32,
-// 1 = bfloat16).  scale: one float32 and flag: one int32, both in device
-// memory.  Returns the cudaError_t of the launch.
+// 1 = bfloat16, 2 = float16).  scale: one float32 and flag: one int32, both
+// in device memory.  Returns the cudaError_t of the launch.
 extern "C" int apex_multi_tensor_scale(const void* x, void* out,
                                        const void* scale, void* flag,
                                        long long n, int in_dtype,
@@ -88,6 +93,12 @@ extern "C" int apex_multi_tensor_scale(const void* x, void* out,
     launch<__nv_bfloat16, __nv_bfloat16>(x, out, sc, fl, n, s);
   else if (in_dtype == 0 && out_dtype == 1)
     launch<float, __nv_bfloat16>(x, out, sc, fl, n, s);
+  else if (in_dtype == 2 && out_dtype == 0)
+    launch<__half, float>(x, out, sc, fl, n, s);
+  else if (in_dtype == 2 && out_dtype == 2)
+    launch<__half, __half>(x, out, sc, fl, n, s);
+  else if (in_dtype == 0 && out_dtype == 2)
+    launch<float, __half>(x, out, sc, fl, n, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

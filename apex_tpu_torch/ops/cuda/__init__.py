@@ -15,6 +15,7 @@ from apex_tpu_torch.ops.cuda.finite import (
 )
 from apex_tpu_torch.ops.cuda.flash_attention import (
     attn_delta,
+    bwd_route,
     flash_attn_bwd,
     flash_attn_bwd_dkv,
     flash_attn_bwd_dkv_ref,
@@ -25,9 +26,14 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     flash_attn_fwd_ref,
     flash_bwd_prologue,
     flash_bwd_prologue_ref,
+    flash_bwd_simt,
+    flash_fwd_prologue,
+    flash_fwd_prologue_ref,
+    flash_fwd_simt,
     fused_bwd,
     fused_bwd_max_bytes,
     fused_bwd_partials_bytes,
+    fwd_route,
     tma_geometry,
     two_pass_bwd,
 )
@@ -36,6 +42,7 @@ from apex_tpu_torch.ops.cuda.flash_mh import (
     flash_mh_bwd_ref,
     flash_mh_fwd,
     flash_mh_fwd_ref,
+    mh_bwd_route,
     mh_fused_bwd,
     mh_partials_bytes,
 )
@@ -81,7 +88,10 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "conv1x1_bwd": conv1x1_bwd,
            "packed_nonfinite": packed_nonfinite,
            "flash_mh_fwd": flash_mh_fwd,
-           "flash_mh_bwd": flash_mh_bwd}
+           "flash_mh_bwd": flash_mh_bwd,
+           "flash_fwd_prologue": flash_fwd_prologue,
+           "flash_fwd_simt": flash_fwd_simt,
+           "flash_bwd_simt": flash_bwd_simt}
 
 
 def launch_counts() -> dict:
@@ -94,7 +104,10 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "all_finite_packed", "attn_delta", "conv1x1_bwd",
+__all__ = ["KERNELS", "all_finite_packed", "attn_delta", "bwd_route",
+           "conv1x1_bwd", "flash_bwd_simt", "flash_fwd_prologue",
+           "flash_fwd_prologue_ref", "flash_fwd_simt", "fwd_route",
+           "mh_bwd_route",
            "conv1x1_bwd_ref", "flash_mh_bwd", "flash_mh_bwd_ref",
            "flash_mh_fwd", "flash_mh_fwd_ref", "mh_fused_bwd",
            "mh_partials_bytes", "packed_nonfinite", "packed_nonfinite_ref",

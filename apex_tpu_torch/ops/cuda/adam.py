@@ -31,7 +31,9 @@ EPS_MODE_OUTSIDE = 0
 #: eps under the sqrt: denom = sqrt(v + eps) (MODE_1)
 EPS_MODE_INSIDE = 1
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the types of a half copy
+_COPY_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -88,8 +90,9 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                 p_copy: Optional[torch.Tensor] = None) -> None:
     """:func:`packed_adam_ref`'s function.  On CUDA tensors one launch of
     the hand-written kernel (counted in ``packed_adam.launches``): p
-    float32 or bfloat16, g float32 or p's dtype (widened to fp32, as the
-    plain version does), m, v float32, p_copy bfloat16, all contiguous
+    float32, bfloat16 or float16, g float32 or p's dtype (widened to fp32,
+    as the plain version does), m, v float32, p_copy bfloat16 or float16,
+    all contiguous
     and of one size; ``step_size``, ``scale`` and
     ``noop_flag`` stay on the card (the kernel reads them there, so a
     step makes no host sync).  Bit for bit the plain version on the
@@ -103,12 +106,15 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"packed_adam: unsupported device {p.device}")
     if p.dtype not in _DTYPES or g.dtype not in (torch.float32, p.dtype):
         raise TypeError(f"packed_adam: p {p.dtype} with g {g.dtype} "
-                        f"unsupported (p float32 or bfloat16, g float32 "
-                        f"or p's dtype)")
+                        f"unsupported (p float32, bfloat16 or float16, g "
+                        f"float32 or p's dtype)")
+    if p_copy is not None and p_copy.dtype not in _COPY_DTYPES:
+        raise TypeError(f"packed_adam: p_copy {p_copy.dtype} unsupported "
+                        f"(bfloat16 or float16)")
     n = p.numel()
     for name, t, dt in (("p", p, p.dtype), ("m", m, torch.float32),
                         ("v", v, torch.float32), ("g", g, g.dtype)) + (
-            (("p_copy", p_copy, torch.bfloat16),) if p_copy is not None
+            (("p_copy", p_copy, p_copy.dtype),) if p_copy is not None
             else ()):
         if t.numel() != n or t.dtype != dt or t.device != p.device \
                 or not t.is_contiguous():
@@ -129,6 +135,7 @@ def packed_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         scale.data_ptr(), None if noop_flag is None else noop_flag.data_ptr(),
         n, beta1, beta2, 1.0 - beta1, 1.0 - beta2, eps, weight_decay,
         int(eps_mode == EPS_MODE_INSIDE), _DTYPES[p.dtype], _DTYPES[g.dtype],
+        _DTYPES[torch.bfloat16 if p_copy is None else p_copy.dtype],
         build.stream_of(p))
     build.check(err, "packed_adam")
     packed_adam.launches += 1
@@ -171,9 +178,9 @@ def packed_adam_tree(table: ChunkTable, p: Sequence[torch.Tensor],
                      p_copy: Optional[Sequence[torch.Tensor]] = None) -> None:
     """:func:`packed_adam_tree_ref`'s function.  On CUDA tensors one
     launch of the hand-written kernel over the whole table (counted in
-    ``packed_adam_tree.launches``): p float32 or bfloat16, g float32 or
-    p's dtype, m, v float32, p_copy bfloat16, each list contiguous and of
-    one dtype; ``step_sizes``, ``scale`` and ``noop_flag`` stay on the
+    ``packed_adam_tree.launches``): p float32, bfloat16 or float16, g
+    float32 or p's dtype, m, v float32, p_copy bfloat16 or float16, each
+    list contiguous and of one dtype; ``step_sizes``, ``scale`` and ``noop_flag`` stay on the
     card.  Bit for bit the plain version, and so K5 leaf by leaf."""
     if table.device.type == "cpu":
         return packed_adam_tree_ref(
@@ -188,8 +195,9 @@ def packed_adam_tree(table: ChunkTable, p: Sequence[torch.Tensor],
     g_dt = table.check(what, "g", g, (torch.float32, p_dt))
     for name, ts in (("m", m), ("v", v)):
         table.check(what, name, ts, (torch.float32,))
+    c_dt = torch.bfloat16
     if p_copy is not None:
-        table.check(what, "p_copy", p_copy, (torch.bfloat16,))
+        c_dt = table.check(what, "p_copy", p_copy, _COPY_DTYPES)
     table.check_scalars(
         what, step_sizes=(step_sizes, torch.float32, table.n_leaves),
         scale=(scale, torch.float32, 1),
@@ -205,7 +213,7 @@ def packed_adam_tree(table: ChunkTable, p: Sequence[torch.Tensor],
         None if noop_flag is None else noop_flag.data_ptr(),
         beta1, beta2, 1.0 - beta1, 1.0 - beta2, eps, weight_decay,
         int(eps_mode == EPS_MODE_INSIDE), _DTYPES[p_dt], _DTYPES[g_dt],
-        build.stream_of(scale))
+        _DTYPES[c_dt], build.stream_of(scale))
     build.check(err, what)
     packed_adam_tree.launches += 1
     return None

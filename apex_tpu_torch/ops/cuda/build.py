@@ -143,25 +143,31 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_layer_norm_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
                                         f32, i32, i32, vp]
     lib.apex_layer_norm_fwd.restype = i32
-    lib.apex_flash_attn_fwd.argtypes = ([vp] * 8 + [i64] * 9
+    lib.apex_flash_fwd_sm90.argtypes = [vp] * 9 + [i32] * 4 + [f32] \
+        + [i32] * 3 + [vp]
+    lib.apex_flash_fwd_sm90.restype = i32
+    lib.apex_flash_fwd_sm90_smem_bytes.argtypes = [i32]
+    lib.apex_flash_fwd_sm90_smem_bytes.restype = i32
+    lib.apex_flash_fwd_simt.argtypes = ([vp] * 8 + [i64] * 9 + [i32] * 4
+                                        + [f32, i32, i32, vp])
+    lib.apex_flash_fwd_simt.restype = i32
+    lib.apex_flash_bwd_simt.argtypes = ([vp] * 12 + [i64] * 12
                                         + [i32] * 4 + [f32, i32, i32, vp])
-    lib.apex_flash_attn_fwd.restype = i32
-    lib.apex_flash_attn_smem_bytes.argtypes = [i32]
-    lib.apex_flash_attn_smem_bytes.restype = i32
+    lib.apex_flash_bwd_simt.restype = i32
     lib.apex_flash_attn_bwd.argtypes = ([vp] * 12 + [i64] * 12
                                         + [i32] * 4 + [f32, i32, i32, vp])
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_smem_bytes.restype = i32
     lib.apex_flash_bwd_prologue.argtypes = ([vp] * 6 + [i64] * 6 + [i32] * 4
-                                            + [f32, vp])
+                                            + [f32, i32, vp])
     lib.apex_flash_bwd_prologue.restype = i32
     lib.apex_flash_attn_bwd_dq.argtypes = ([vp] * 11 + [i32] * 4
-                                           + [f32, i32, vp])
+                                           + [f32, i32, i32, vp])
     lib.apex_flash_attn_bwd_dq.restype = i32
     lib.apex_flash_attn_bwd_dq_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_dq_smem_bytes.restype = i32
-    lib.apex_flash_attn_bwd_dkv.argtypes = [vp] * 12 + [i32] * 5 + [vp]
+    lib.apex_flash_attn_bwd_dkv.argtypes = [vp] * 12 + [i32] * 6 + [vp]
     lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_flash_attn_bwd_dkv_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_dkv_smem_bytes.restype = i32
@@ -169,7 +175,7 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_layer_norm_bwd.restype = i32
     lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32]
     lib.apex_layer_norm_bwd_parts.restype = i32
-    lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32] * 3 + [vp]
+    lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32] * 4 + [vp]
     lib.apex_adam.restype = i32
     lib.apex_multi_tensor_scale.argtypes = [vp] * 4 + [i64, i32, i32, vp]
     lib.apex_multi_tensor_scale.restype = i32
@@ -183,7 +189,7 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
                                             + [i32] * 4 + [vp])
     lib.apex_multi_tensor_axpby.restype = i32
     lib.apex_adam_tree.argtypes = ([vp] * 3 + [i32, i32] + [vp] * 8
-                                   + [f32] * 6 + [i32] * 3 + [vp])
+                                   + [f32] * 6 + [i32] * 4 + [vp])
     lib.apex_adam_tree.restype = i32
     lib.apex_lamb_stage1.argtypes = ([vp] * 3 + [i32, i32] + [vp] * 11
                                      + [f32] * 7 + [i32, i32, vp])
@@ -197,14 +203,9 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_conv1x1_bwd_tickets.restype = i32
     lib.apex_conv1x1_bwd.argtypes = [vp] * 7 + [i64] + [i32] * 4 + [vp]
     lib.apex_conv1x1_bwd.restype = i32
-    lib.apex_flash_mh_fwd.argtypes = ([vp] * 6 + [i64] * 9 + [i32] * 4
-                                      + [f32, i32, vp])
-    lib.apex_flash_mh_fwd.restype = i32
     lib.apex_flash_mh_bwd.argtypes = ([vp] * 10 + [i64] * 12 + [i32] * 4
-                                      + [f32, i32, vp])
+                                      + [f32, i32, i32, vp])
     lib.apex_flash_mh_bwd.restype = i32
-    lib.apex_flash_mh_heads_per_block.argtypes = [i32]
-    lib.apex_flash_mh_heads_per_block.restype = i32
     lib.apex_packed_nonfinite.argtypes = [vp] * 3 + [i32, i32] + [vp] * 4
     lib.apex_packed_nonfinite.restype = i32
     lib.apex_cuda_error_string.argtypes = [i32]

@@ -1,8 +1,8 @@
 """K2, K4, K13 and K14: the flash-attention forward and backward kernels
-(``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``,
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attn_bwd.cu``,
 ``csrc/flash_attn_bwd_dq.cu``, ``csrc/flash_attn_bwd_dkv.cu``, with the
-two-pass kernels' prologue ``csrc/flash_bwd_prologue.cu``) and their plain
-PyTorch versions.
+prologue ``csrc/flash_bwd_prologue.cu`` and the generic kernels
+``csrc/flash_simt.cu``) and their plain PyTorch versions.
 
 The CUDA kernels replace the Pallas ``_flash_fwd`` (``_fwd_kernel``),
 ``_flash_bwd_fused`` (``_bwd_fused_kernel``) and ``_flash_bwd``
@@ -21,12 +21,21 @@ K14 for dk / dv) above it, as the JAX package's gate does.  Each wrapper
 launches its kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors; none falls back from one to the other.
 
-K13 and K14 are Hopper kernels: ``wgmma`` on tiles that TMA brings into a
-ring of shared-memory stages.  TMA copies bytes, so a prologue kernel
-(:func:`flash_bwd_prologue`) first writes q pre-scaled and rotated and k
-rotated, once per call; each operand then reads through a 4-D tensor map
-whose geometry :func:`tma_geometry` computes here (any head width that is
-a multiple of 8 up to 128 runs padded to 64 or 128).
+K2, K13 and K14 are Hopper kernels: ``wgmma`` on tiles that TMA brings
+into a ring of shared-memory stages, in bf16 or fp16.  TMA copies bytes,
+so a prologue kernel writes the rotated k (:func:`flash_fwd_prologue`,
+for K2) or q pre-scaled and rotated and k rotated
+(:func:`flash_bwd_prologue`, for K13 / K14) once per call; K2 pre-scales
+and rotates its own q tile in shared memory.  Each operand reads through a
+4-D tensor map whose geometry :func:`tma_geometry` computes here (any head
+width that is a multiple of 8 up to 128 runs padded to 64 or 128).
+
+Which kernel a call takes is a pure function of the dtype, the head width
+and, for the backward, the partial planes' bytes against the budget
+(:func:`fwd_route`, :func:`bwd_route`): bf16 and fp16 up to D 128 take the
+tensor-core kernels; fp32, and half types above D 128, the generic kernels
+(``flash_fwd_simt``, ``flash_bwd_simt``: a warp a row on CUDA cores), up to
+D 512.  Every kernel counts its own launches.
 """
 
 from __future__ import annotations
@@ -43,8 +52,16 @@ from apex_tpu_torch.ops.cuda import build
 from apex_tpu_torch.ops.rope import rotate_full
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the storage types of the tensor-core kernels
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+#: the head widths K4 takes
+_FUSED_HEAD_DIMS = (64, 128)
+#: the widest head of the tensor-core kernels (TMA pads to 64 or 128)
+MAX_TC_HEAD_DIM = 128
+#: the widest head of the generic kernels (a lane holds D / 32 columns of
+#: each row it carries in registers)
+MAX_HEAD_DIM = 512
 #: rows of one key tile of the bf16 backward (one dq partial plane each)
 BWD_KEY_TILE = 64
 #: the byte budget of K4's dq partial planes (the JAX package's variable)
@@ -54,6 +71,8 @@ TMA_BOX = 64
 _TMA_BOX_DIMS = (TMA_BOX, 1, TMA_BOX, 1)      # (D, H, L, B)
 #: the map words of the four operands (q^, k^, v, do) of a two-pass call
 _GeoWords = ctypes.c_longlong * 28
+#: the map words of the forward's three operands (q, k^, v)
+_FwdGeoWords = ctypes.c_longlong * 21
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -129,37 +148,70 @@ def _check_operand(what: str, name: str, t: torch.Tensor, shape, dtype,
             f"(self-attention: Lq == Lk)")
     if t.stride(-1) != 1:
         raise ValueError(f"{what}: {name} needs unit stride over D")
-    if dtype == torch.bfloat16 and (
+    if dtype in HALF_DTYPES and (
             t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-        raise ValueError(f"{what}: bf16 {name} rows must start on "
+        raise ValueError(f"{what}: {dtype} {name} rows must start on "
                          f"16-byte boundaries (strides {t.stride()})")
 
 
-def _two_pass_head_dim(d: int) -> bool:
-    """Whether K13 / K14 take head width ``d``: a multiple of 8 up to 128
-    (TMA zero-fills the columns up to the padded width)."""
-    return d % 8 == 0 and 8 <= d <= 128
+def _tc_head_dim(d: int) -> bool:
+    """Whether the tensor-core kernels (K2 / K17, K13 / K14) take head
+    width ``d``: a multiple of 8 up to 128 (TMA zero-fills the columns up
+    to the padded width)."""
+    return d % 8 == 0 and 8 <= d <= MAX_TC_HEAD_DIM
 
 
-def _check_common(what: str, q, k, v, kv_mask, rope, two_pass=False):
+def _check_route(what: str, dtype: torch.dtype, d: int) -> None:
+    """Raise on what no kernel takes: a dtype other than fp32, bf16 or
+    fp16, or a head width that is not a multiple of 8 up to 512."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"{what}: dtype {dtype} unsupported (want fp32, "
+                         f"bf16 or fp16)")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} unsupported (want a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM})")
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel a call takes: ``"sm90"`` (K2 / K17, ``wgmma`` +
+    TMA) for bf16 and fp16 up to D 128, else ``"simt"`` (the generic
+    kernel).  Raises ``ValueError`` on what no kernel takes."""
+    _check_route("flash forward", dtype, d)
+    return "sm90" if dtype in HALF_DTYPES and d <= MAX_TC_HEAD_DIM \
+        else "simt"
+
+
+def bwd_route(dtype: torch.dtype, d: int, partials_bytes: int,
+              budget: int, fused_dims=_FUSED_HEAD_DIMS) -> str:
+    """The backward kernels a call takes: ``"simt"`` (the generic pair)
+    for fp32 and for half types above D 128; else ``"fused"`` (K4, or K18
+    with ``fused_dims`` every width) where the head width is one the
+    fused kernel takes and its partial planes fit ``budget``; else
+    ``"two_pass"`` (K13 then K14).  Raises ``ValueError`` on what no
+    kernel takes."""
+    _check_route("flash backward", dtype, d)
+    if dtype not in HALF_DTYPES or d > MAX_TC_HEAD_DIM:
+        return "simt"
+    if (fused_dims is None or d in fused_dims) and partials_bytes <= budget:
+        return "fused"
+    return "two_pass"
+
+
+def _check_common(what: str, q, k, v, kv_mask, rope, tensor_cores=False):
     """Validate a kernel call; returns ``(mask_u8, cos_t, sin_t)``.  The
-    two-pass kernels take bf16 and every head width that is a multiple of
-    8 up to 128; the others bf16 or fp32 and D in ``_HEAD_DIMS``."""
+    tensor-core kernels (``tensor_cores``) take bf16 or fp16 and every head
+    width that is a multiple of 8 up to 128; the generic ones fp32, bf16
+    or fp16 up to D 512."""
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be (B, L, H, D), got "
                          f"{tuple(q.shape)}")
     b, l, h, d = q.shape
-    if two_pass:
-        if q.dtype != torch.bfloat16:
-            raise ValueError(f"{what}: the two-pass kernels take bf16, got "
-                             f"{q.dtype} (fp32 takes flash_attn_bwd's SIMT "
-                             f"kernels)")
-        if not _two_pass_head_dim(d):
-            raise ValueError(f"{what}: head dim {d} unsupported (want a "
-                             f"multiple of 8 up to 128)")
-    elif q.dtype not in _DTYPES or d not in _HEAD_DIMS:
-        raise ValueError(f"{what}: dtype {q.dtype} / head dim {d} "
-                         f"unsupported (want bf16/fp32, D in {_HEAD_DIMS})")
+    _check_route(what, q.dtype, d)
+    if tensor_cores and (q.dtype not in HALF_DTYPES
+                         or not _tc_head_dim(d)):
+        raise ValueError(f"{what}: the tensor-core kernels take bf16 or "
+                         f"fp16 up to D {MAX_TC_HEAD_DIM}, got {q.dtype} "
+                         f"D {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(what, name, t, q.shape, q.dtype, q.device)
     mask = None
@@ -183,6 +235,104 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+class _FwdOps(NamedTuple):
+    """What one launch of the Hopper forward reads, made once a call: q, k^
+    (the prologue's k rotated, or k), v, the three maps' words, the key
+    mask as ``(B, L)`` uint8 or None, the tables (q is rotated with them
+    in the kernel) or None, the scale rounded to q's dtype, whether the
+    kernel pre-scales and rotates q, causality, the stream."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    geo: ctypes.Array
+    mask: Optional[torch.Tensor]
+    cos_t: Optional[torch.Tensor]
+    sin_t: Optional[torch.Tensor]
+    scale_q: float
+    prep_q: int
+    causal: int
+    stream: int
+
+
+def _fwd_operands(what, q, k, v, kv_mask, causal, scale, rope) -> _FwdOps:
+    """Check a tensor-core forward call and prepare its operands: with
+    rope, one :func:`flash_fwd_prologue` launch writes k^; the maps'
+    geometry of q, k^ and v."""
+    mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope,
+                                       tensor_cores=True)
+    scale_q = _half_scale(_default_scale(q, scale), q.dtype)
+    stream = build.stream_of(q)
+    kh = k if cos_t is None else _prologue(None, k, 1.0, cos_t, sin_t,
+                                           stream, flash_fwd_prologue)[1]
+    words = []
+    for name, t in (("q", q), ("k^", kh), ("v", v)):
+        words += tma_geometry(t, name).words()
+    return _FwdOps(q, kh, v, _FwdGeoWords(*words), mask, cos_t, sin_t,
+                   scale_q, int(cos_t is not None or scale_q != 1.0),
+                   int(bool(causal)), stream)
+
+
+def _fwd_launch(ops: _FwdOps, return_lse: bool):
+    """One launch of the Hopper forward (``csrc/flash_fwd_sm90.cu``) on
+    prepared operands; returns ``(o, lse or None)``.  The caller counts
+    the launch under its own name (K2 or K17)."""
+    b, l, h, d = ops.q.shape
+    o = torch.empty((b, l, h, d), dtype=ops.q.dtype, device=ops.q.device)
+    lse = (torch.empty((b, l, h), dtype=torch.float32, device=ops.q.device)
+           if return_lse else None)
+    err = build.library().apex_flash_fwd_sm90(
+        ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(),
+        ctypes.addressof(ops.geo), _ptr(ops.mask), _ptr(ops.cos_t),
+        _ptr(ops.sin_t), o.data_ptr(), _ptr(lse), b, l, h, d, ops.scale_q,
+        ops.prep_q, ops.causal, _DTYPES[ops.q.dtype], ops.stream)
+    build.check(err, "flash_fwd_sm90")
+    return o, lse
+
+
+def _simt_fwd(what, q, k, v, kv_mask, causal, scale, rope, return_lse):
+    """The generic forward (``csrc/flash_simt.cu``), one launch counted in
+    ``flash_fwd_simt.launches``; returns ``(o, lse or None)``."""
+    mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope)
+    b, l, h, d = q.shape
+    o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, l, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    err = build.library().apex_flash_fwd_simt(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(cos_t),
+        _ptr(sin_t), o.data_ptr(), _ptr(lse), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], b, l, h, d,
+        _half_scale(_default_scale(q, scale), q.dtype), int(bool(causal)),
+        _DTYPES[q.dtype], build.stream_of(q))
+    build.check(err, what)
+    flash_fwd_simt.launches += 1
+    return o, lse
+
+
+def flash_fwd_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = False,
+                   kv_mask: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None, return_lse: bool = False,
+                   rope: Rope = None):
+    """:func:`flash_attn_fwd_ref`'s function by the generic kernel alone,
+    whatever the route (the cases :func:`fwd_route` sends it: fp32, and
+    half types above D 128; it takes bf16 / fp16 at any width too).  On
+    CUDA tensors one launch counted in ``flash_fwd_simt.launches``; on
+    CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        o, lse = flash_attn_fwd_ref(q, k, v, causal=causal,
+                                    kv_mask=kv_mask, scale=scale, rope=rope)
+        return (o, lse) if return_lse else o
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd_simt: unsupported device {q.device}")
+    o, lse = _simt_fwd("flash_fwd_simt", q, k, v, kv_mask, causal, scale,
+                       rope, return_lse)
+    return (o, lse) if return_lse else o
+
+
+flash_fwd_simt.launches = 0
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = False,
                    kv_mask: Optional[torch.Tensor] = None,
@@ -191,34 +341,28 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Exact attention of ``q``, ``k``, ``v`` ``(B, L, H, D)``; returns
     ``o`` or, with ``return_lse``, ``(o, lse)``.  ``rope``: optional
     full-width ``(cos_full, sin_signed)`` tables ``(B, L, D)``, cast to
-    q's dtype, applied to q (after its pre-scale) and k inside the
-    kernel.  On CUDA tensors one launch of the hand-written kernel
-    (counted in ``flash_attn_fwd.launches``), which takes bf16 or fp32,
-    D in (64, 128), Lq == Lk, and any strides with unit stride over D; on
-    CPU tensors :func:`flash_attn_fwd_ref`."""
+    q's dtype, applied to q (after its pre-scale) and k.  On CUDA tensors,
+    by :func:`fwd_route`: for bf16 / fp16 up to D 128 one launch of K2
+    (``csrc/flash_fwd_sm90.cu``, counted in ``flash_attn_fwd.launches``),
+    after one :func:`flash_fwd_prologue` launch with rope; for fp32, and
+    half types above D 128, the generic kernel (:func:`flash_fwd_simt`).
+    Lq == Lk; D a multiple of 8 up to 512; any strides with unit stride
+    over D (16-byte aligned rows in half types).  On CPU tensors
+    :func:`flash_attn_fwd_ref`."""
     if q.device.type == "cpu":
         o, lse = flash_attn_fwd_ref(q, k, v, causal=causal,
                                     kv_mask=kv_mask, scale=scale, rope=rope)
         return (o, lse) if return_lse else o
+    what = "flash_attn_fwd"
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
-    mask, cos_t, sin_t = _check_common("flash_attn_fwd", q, k, v, kv_mask,
-                                       rope)
-    b, l, h, d = q.shape
-    scale = _default_scale(q, scale)
-    # the TPU wrapper folds the scale into q in q's dtype: scale rounded
-    # to that dtype, product rounded back (done in the kernel's q load)
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
-    o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, l, h), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    err = build.library().apex_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), o.data_ptr(),
-        _ptr(lse), _ptr(cos_t), _ptr(sin_t), *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], b, l, h, d, scale_q,
-        int(bool(causal)), _DTYPES[q.dtype], build.stream_of(q))
-    build.check(err, "flash_attn_fwd")
-    flash_attn_fwd.launches += 1
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() == 4 and fwd_route(q.dtype, q.shape[-1]) == "simt":
+        o, lse = _simt_fwd(what, q, k, v, kv_mask, causal, scale, rope,
+                           return_lse)
+    else:
+        o, lse = _fwd_launch(_fwd_operands(what, q, k, v, kv_mask, causal,
+                                           scale, rope), return_lse)
+        flash_attn_fwd.launches += 1
     return (o, lse) if return_lse else o
 
 
@@ -253,25 +397,30 @@ def fused_bwd_max_bytes() -> int:
 
 def fused_bwd_partials_bytes(b: int, l: int, h: int, d: int,
                              dtype: torch.dtype) -> int:
-    """Bytes of the fp32 dq partial planes that K4 allocates for a bf16
-    ``(b, l, h, d)`` backward: one ``(b, l, h, d)`` plane per 64-key tile,
-    growing with ``l**2``.  0 in fp32, whose SIMT backward writes dq
-    directly.  The gate measures the port's own buffer (not the TPU's
+    """Bytes of the fp32 dq partial planes that K4 allocates for a bf16 or
+    fp16 ``(b, l, h, d)`` backward: one ``(b, l, h, d)`` plane per 64-key
+    tile, growing with ``l**2``.  0 in fp32, whose generic backward writes
+    dq directly.  The gate measures the port's own buffer (not the TPU's
     1024-row blocks): it is the port's memory that runs out."""
-    if dtype != torch.bfloat16:
+    if dtype not in HALF_DTYPES:
         return 0
     return -(-l // BWD_KEY_TILE) * b * l * h * d * 4
 
 
 def fused_bwd(q: torch.Tensor) -> bool:
-    """Whether :func:`flash_attn_bwd` takes the fused route for ``q``: its
-    partial planes fit :func:`fused_bwd_max_bytes` (the JAX package's
-    gate in ``_flash_bwd_rule``)."""
+    """Whether :func:`flash_attn_bwd` keeps to one pass for ``q`` (K4, or
+    the generic kernels), as the JAX package's gate in ``_flash_bwd_rule``
+    does while the partial planes fit :func:`fused_bwd_max_bytes`; False
+    where it takes the two-pass kernels (:func:`bwd_route`: planes over
+    the budget, or a half-type head width K4 does not take)."""
     if q.dim() != 4:
         return True              # the fused route's checks refuse it
     b, l, h, d = q.shape
-    return fused_bwd_partials_bytes(b, l, h, d, q.dtype) \
-        <= fused_bwd_max_bytes()
+    if q.dtype not in _DTYPES or d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        return True              # the fused route's checks refuse it
+    return bwd_route(q.dtype, d,
+                     fused_bwd_partials_bytes(b, l, h, d, q.dtype),
+                     fused_bwd_max_bytes()) != "two_pass"
 
 
 def _bwd_scores(q, k, v, do, lse, delta, causal, kv_mask, scale, rope):
@@ -355,11 +504,11 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_bwd(what, q, k, v, do, lse, delta, kv_mask, rope,
-               two_pass=False):
+               tensor_cores=False):
     """Validate a backward kernel call; returns ``(do, lse, delta, mask_u8,
     cos_t, sin_t)`` as the kernels take them."""
     mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope,
-                                       two_pass)
+                                       tensor_cores)
     b, l, h, _ = q.shape
     do = do.contiguous()
     _check_operand(what, "do", do, q.shape, q.dtype, q.device)
@@ -370,7 +519,8 @@ def _check_bwd(what, q, k, v, do, lse, delta, kv_mask, rope,
 
 
 class TmaGeometry(NamedTuple):
-    """The 4-D TMA map of one bf16 ``(B, L, H, D)`` operand of K13 / K14:
+    """The 4-D TMA map of one bf16 or fp16 ``(B, L, H, D)`` operand of
+    K2 / K17, K13 or K14:
     ``dims`` (D, H, L, B), innermost first; ``strides`` the byte strides
     of H, L and B; ``box`` (64 columns, 1 head, 64 rows, 1 batch); and
     ``padded_d``, the width the kernels run at (64 or 128: the box's
@@ -389,18 +539,19 @@ class TmaGeometry(NamedTuple):
 def tma_geometry(t: torch.Tensor, name: str = "operand") -> TmaGeometry:
     """The map geometry of ``t`` (any device: shapes, strides and the
     address only).  Raises ``ValueError`` on what TMA refuses: a dtype
-    other than bf16, a head width that is not a multiple of 8 up to 128,
+    other than bf16 or fp16, a head width that is not a multiple of 8 up
+    to 128,
     a stride over D other than 1, a base address or a byte stride off a
     16-byte boundary, a stride of 2**40 bytes or more.  A dimension of
     extent 1 is never stepped over, so its stride is set to the row's
     bytes, whatever PyTorch reports for it.  (Called for each operand of
-    each two-pass call: it reads the shape and strides once.)"""
+    each tensor-core call: it reads the shape and strides once.)"""
     shape, stride = t.shape, t.stride()
-    if len(shape) != 4 or t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: want a bf16 (B, L, H, D) tensor, got "
-                         f"{t.dtype} {tuple(shape)}")
+    if len(shape) != 4 or t.dtype not in HALF_DTYPES:
+        raise ValueError(f"{name}: want a bf16 or fp16 (B, L, H, D) "
+                         f"tensor, got {t.dtype} {tuple(shape)}")
     b, l, h, d = shape
-    if not _two_pass_head_dim(d):
+    if not _tc_head_dim(d):
         raise ValueError(f"{name}: head dim {d} unsupported (want a "
                          f"multiple of 8 up to 128)")
     if stride[3] != 1:
@@ -409,7 +560,7 @@ def tma_geometry(t: torch.Tensor, name: str = "operand") -> TmaGeometry:
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: base address {t.data_ptr():#x} is not "
                          f"on a 16-byte boundary")
-    # bytes of H, L, B (bf16: 2 bytes an element)
+    # bytes of H, L, B (2 bytes an element)
     strides = (2 * stride[2] if h > 1 else 2 * d,
                2 * stride[1] if l > 1 else 2 * d,
                2 * stride[0] if b > 1 else 2 * d)
@@ -432,6 +583,15 @@ def _bf16_scale(scale: float) -> float:
     return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
+def _half_scale(scale: float, dtype: torch.dtype) -> float:
+    """The scale rounded to ``dtype`` as q's pre-scale folds it:
+    ``torch.tensor(scale, dtype=dtype)``'s value (bf16 without a
+    tensor)."""
+    if dtype == torch.bfloat16:
+        return _bf16_scale(scale)
+    return float(torch.tensor(scale, dtype=dtype))
+
+
 def flash_bwd_prologue_ref(q: torch.Tensor, k: torch.Tensor, *,
                            scale: float, rope: Rope = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -444,47 +604,80 @@ def flash_bwd_prologue(q: torch.Tensor, k: torch.Tensor, *, scale: float,
                        rope: Rope = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(q^, k^)`` of :func:`flash_bwd_prologue_ref`, once per two-pass
-    backward.  On CUDA tensors (bf16, the operand rules of the two-pass
-    kernels) one launch of ``csrc/flash_bwd_prologue.cu`` (counted in
-    ``flash_bwd_prologue.launches``) writing contiguous q^ and, with rope
-    tables, k^ (else k^ is k); no launch when there is nothing to do (no
-    tables and a scale of 1 in bf16: q^ is q).  The results are bitwise
-    the plain version's.  On CPU tensors the plain version."""
+    backward.  On CUDA tensors (bf16 or fp16, the operand rules of the
+    tensor-core kernels) one launch of ``csrc/flash_bwd_prologue.cu``
+    (counted in ``flash_bwd_prologue.launches``) writing contiguous q^
+    and, with rope tables, k^ (else k^ is k); no launch when there is
+    nothing to do (no tables and a scale of 1 in q's dtype: q^ is q).
+    The results are bitwise the plain version's.  On CPU tensors the plain
+    version."""
     if q.device.type == "cpu":
         return flash_bwd_prologue_ref(q, k, scale=scale, rope=rope)
     what = "flash_bwd_prologue"
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     _, cos_t, sin_t = _check_common(what, q, k, k, None, rope,
-                                    two_pass=True)
-    return _prologue(q, k, _bf16_scale(scale), cos_t, sin_t,
-                     build.stream_of(q))
-
-
-def _prologue(q, k, scale_q: float, cos_t, sin_t, stream: int):
-    """:func:`flash_bwd_prologue` on operands already checked."""
-    if cos_t is None and scale_q == 1.0:
-        return q, k
-    qh = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kh = torch.empty_like(qh) if cos_t is not None else None
-    b, l, h, d = q.shape
-    err = build.library().apex_flash_bwd_prologue(
-        q.data_ptr(), k.data_ptr(), _ptr(cos_t), _ptr(sin_t), qh.data_ptr(),
-        _ptr(kh), *q.stride()[:3], *k.stride()[:3], b, l, h, d, scale_q,
-        stream)
-    build.check(err, "flash_bwd_prologue")
-    flash_bwd_prologue.launches += 1
-    return qh, (k if kh is None else kh)
+                                    tensor_cores=True)
+    return _prologue(q, k, _half_scale(scale, q.dtype), cos_t, sin_t,
+                     build.stream_of(q), flash_bwd_prologue)
 
 
 flash_bwd_prologue.launches = 0
 
 
+def flash_fwd_prologue_ref(k: torch.Tensor, rope) -> torch.Tensor:
+    """k^: k rotated by the full-width tables in fp32, rounded to k's
+    dtype (what K2's score product reads)."""
+    cos_t, sin_t = (t.to(k.dtype) for t in rope)
+    return rotate_full(k, cos_t, sin_t).to(k.dtype)
+
+
+def flash_fwd_prologue(k: torch.Tensor, rope) -> torch.Tensor:
+    """k^ of :func:`flash_fwd_prologue_ref`, once per rope forward: on CUDA
+    tensors (bf16 or fp16, the tensor-core operand rules) one launch of
+    ``csrc/flash_bwd_prologue.cu`` with no q (counted in
+    ``flash_fwd_prologue.launches``), contiguous, bitwise the plain
+    version's; on CPU tensors the plain version."""
+    if k.device.type == "cpu":
+        return flash_fwd_prologue_ref(k, rope)
+    what = "flash_fwd_prologue"
+    if k.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {k.device}")
+    _, cos_t, sin_t = _check_common(what, k, k, k, None, rope,
+                                    tensor_cores=True)
+    return _prologue(None, k, 1.0, cos_t, sin_t, build.stream_of(k),
+                     flash_fwd_prologue)[1]
+
+
+flash_fwd_prologue.launches = 0
+
+
+def _prologue(q, k, scale_q: float, cos_t, sin_t, stream: int, counter):
+    """One prologue launch on operands already checked, counted in
+    ``counter.launches``: q^ unless ``q`` is None, k^ with tables (else k
+    is returned as k^); no launch when q^ would be q and k^ k."""
+    if cos_t is None and (q is None or scale_q == 1.0):
+        return q, k
+    qh = None if q is None else torch.empty(q.shape, dtype=q.dtype,
+                                            device=q.device)
+    kh = torch.empty(k.shape, dtype=k.dtype, device=k.device) \
+        if cos_t is not None else None
+    b, l, h, d = k.shape
+    sq = q.stride()[:3] if q is not None else (0, 0, 0)
+    err = build.library().apex_flash_bwd_prologue(
+        _ptr(q), k.data_ptr(), _ptr(cos_t), _ptr(sin_t), _ptr(qh),
+        _ptr(kh), *sq, *k.stride()[:3], b, l, h, d, scale_q,
+        _DTYPES[k.dtype], stream)
+    build.check(err, counter.__name__)
+    counter.launches += 1
+    return qh, (k if kh is None else kh)
+
+
 class _TwoPass(NamedTuple):
     """What both passes read, made once a call: q^ / k^ (the prologue's), v
     and do, the four maps' words, lse and delta (contiguous ``(B, L, H)``
-    fp32), the key mask as ``(B, L)`` uint8 or None, the bf16 tables or
-    None, dq's deferred scale rounded to bf16, causality, the stream."""
+    fp32), the key mask as ``(B, L)`` uint8 or None, the tables or None,
+    dq's deferred scale rounded to q's dtype, causality, the stream."""
 
     qh: torch.Tensor
     kh: torch.Tensor
@@ -506,10 +699,11 @@ def _two_pass_operands(what, q, k, v, do, lse, delta, causal, kv_mask,
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     do, lse, delta, mask, cos_t, sin_t = _check_bwd(
-        what, q, k, v, do, lse, delta, kv_mask, rope, two_pass=True)
-    scale_q = _bf16_scale(_default_scale(q, scale))
+        what, q, k, v, do, lse, delta, kv_mask, rope, tensor_cores=True)
+    scale_q = _half_scale(_default_scale(q, scale), q.dtype)
     stream = build.stream_of(q)
-    qh, kh = _prologue(q, k, scale_q, cos_t, sin_t, stream)
+    qh, kh = _prologue(q, k, scale_q, cos_t, sin_t, stream,
+                       flash_bwd_prologue)
     words = []
     for name, t in (("q^", qh), ("k^", kh), ("v", v), ("do", do)):
         words += tma_geometry(t, name).words()
@@ -529,7 +723,7 @@ def _dq_pass(ops: _TwoPass) -> torch.Tensor:
     dq = torch.empty((b, l, h, d), dtype=ops.qh.dtype, device=ops.qh.device)
     err = build.library().apex_flash_attn_bwd_dq(
         *_maps_args(ops), dq.data_ptr(), b, l, h, d, ops.scale_q,
-        ops.causal, ops.stream)
+        ops.causal, _DTYPES[ops.qh.dtype], ops.stream)
     build.check(err, "flash_attn_bwd_dq")
     flash_attn_bwd_dq.launches += 1
     return dq
@@ -541,7 +735,7 @@ def _dkv_pass(ops: _TwoPass) -> Tuple[torch.Tensor, torch.Tensor]:
     dv = torch.empty_like(dk)
     err = build.library().apex_flash_attn_bwd_dkv(
         *_maps_args(ops), dk.data_ptr(), dv.data_ptr(), b, l, h, d,
-        ops.causal, ops.stream)
+        ops.causal, _DTYPES[ops.qh.dtype], ops.stream)
     build.check(err, "flash_attn_bwd_dkv")
     flash_attn_bwd_dkv.launches += 1
     return dk, dv
@@ -556,7 +750,8 @@ def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """:func:`flash_attn_bwd_dq_ref`'s function, the dq pass of the
     two-pass backward.  On CUDA tensors :func:`flash_bwd_prologue`, then
     one launch of K13 (``csrc/flash_attn_bwd_dq.cu``, counted in
-    ``flash_attn_bwd_dq.launches``): bf16, D a multiple of 8 up to 128,
+    ``flash_attn_bwd_dq.launches``): bf16 or fp16, D a multiple of 8 up to
+    128,
     any strides that :func:`tma_geometry` takes; dq accumulates in
     registers over the key tiles and is written once, scale applied, with
     no partial planes.  On CPU tensors the plain version."""
@@ -612,6 +807,57 @@ def two_pass_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (_dq_pass(ops), *_dkv_pass(ops))
 
 
+def _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t, sin_t, scale_q,
+              causal):
+    """The generic backward (``csrc/flash_simt.cu``) on checked operands:
+    two launches (dk / dv, then dq) counted in ``flash_bwd_simt.launches``;
+    returns dq in fp32 before its deferred scale, dk and dv."""
+    b, l, h, d = q.shape
+    dq = torch.empty((b, l, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    err = build.library().apex_flash_bwd_simt(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
+        _ptr(sin_t), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        b, l, h, d, scale_q, int(bool(causal)), _DTYPES[q.dtype],
+        build.stream_of(q))
+    build.check(err, what)
+    flash_bwd_simt.launches += 2
+    return dq, dk, dv
+
+
+def flash_bwd_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                   dlse: Optional[torch.Tensor] = None,
+                   causal: bool = False,
+                   kv_mask: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None, rope: Rope = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attn_bwd_ref`'s function by the generic kernels alone,
+    whatever the route (the cases :func:`bwd_route` sends them: fp32, and
+    half types above D 128).  On CUDA tensors two launches counted in
+    ``flash_bwd_simt.launches``, then dq cast and scaled in q's dtype; on
+    CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        return flash_attn_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
+                                  causal=causal, kv_mask=kv_mask,
+                                  scale=scale, rope=rope)
+    what = "flash_bwd_simt"
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    do, lse, delta, mask, cos_t, sin_t = _check_bwd(
+        what, q, k, v, do, lse, attn_delta(o, do, dlse), kv_mask, rope)
+    scale = _default_scale(q, scale)
+    dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t,
+                           sin_t, _half_scale(scale, q.dtype), causal)
+    return dq.to(q.dtype) * torch.tensor(scale, dtype=q.dtype), dk, dv
+
+
+flash_bwd_simt.launches = 0
+
+
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                    dlse: Optional[torch.Tensor] = None,
@@ -619,22 +865,25 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: Optional[torch.Tensor] = None,
                    scale: Optional[float] = None, rope: Rope = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`flash_attn_bwd_ref`'s function, by one of two routes, as the
-    JAX package's ``_flash_bwd_rule`` picks them: the fused backward while
-    its dq partial planes (:func:`fused_bwd_partials_bytes`) fit
-    :func:`fused_bwd_max_bytes`, else the two-pass backward
-    (:func:`two_pass_bwd`: one prologue, then K13 and K14).  The route is
-    the same on the CPU, where each runs its plain version.
+    """:func:`flash_attn_bwd_ref`'s function, by the route
+    :func:`bwd_route` picks, as the JAX package's ``_flash_bwd_rule``
+    picks its own: the fused backward while its dq partial planes
+    (:func:`fused_bwd_partials_bytes`) fit :func:`fused_bwd_max_bytes`,
+    else the two-pass backward (:func:`two_pass_bwd`: one prologue, then
+    K13 and K14).  The route is the same on the CPU, where each runs its
+    plain version.
 
-    The fused route on CUDA tensors, each launch counted in
-    ``flash_attn_bwd.launches`` (K4 only): in bf16 one launch, where each
+    On CUDA tensors: bf16 / fp16 at D 64 or 128 within the budget, one
+    launch of K4 (counted in ``flash_attn_bwd.launches``), where each
     64-key tile writes its fp32 dq contribution into its own partial
-    plane, and the planes are summed here in a fixed order; in fp32 two
-    launches of SIMT kernels (dk and dv, then dq) write the gradients
-    directly (no planes, so fp32 is always fused).  No atomics on either
-    route: two runs give equal bits.  ``delta`` (``rowsum(o * do) -
-    dlse``) and the fused route's final ``dq * scale`` are plain PyTorch
-    ops, as the JAX path leaves them to XLA."""
+    plane, and the planes are summed here in a fixed order; other half
+    widths up to 128, or planes over the budget, the two-pass kernels;
+    fp32 at any width, and half types above D 128, the generic kernels
+    (dk and dv, then dq, written directly: no planes, counted in
+    ``flash_bwd_simt.launches``).  No atomics on any route: two runs give
+    equal bits.  ``delta`` (``rowsum(o * do) - dlse``) and the final ``dq
+    * scale`` are plain PyTorch ops, as the JAX path leaves them to
+    XLA."""
     if not fused_bwd(q):
         return two_pass_bwd(q, k, v, do, lse, attn_delta(o, do, dlse),
                             causal=causal, kv_mask=kv_mask, scale=scale,
@@ -643,35 +892,33 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
                                   causal=causal, kv_mask=kv_mask,
                                   scale=scale, rope=rope)
+    what = "flash_attn_bwd"
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     do, lse, delta, mask, cos_t, sin_t = _check_bwd(
-        "flash_attn_bwd", q, k, v, do, lse, attn_delta(o, do, dlse),
-        kv_mask, rope)
+        what, q, k, v, do, lse, attn_delta(o, do, dlse), kv_mask, rope)
     b, l, h, d = q.shape
     scale = _default_scale(q, scale)
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
-    if q.dtype == torch.bfloat16:
-        planes = -(-l // BWD_KEY_TILE)
-        dq_acc = torch.zeros((planes, b, l, h, d), dtype=torch.float32,
-                             device=q.device)
+    scale_q = _half_scale(scale, q.dtype)
+    if bwd_route(q.dtype, d, 0, 0) == "simt":
+        dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t,
+                               sin_t, scale_q, causal)
     else:
-        dq_acc = torch.empty((b, l, h, d), dtype=torch.float32,
-                             device=q.device)
-    dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    err = build.library().apex_flash_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
-        _ptr(sin_t), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        b, l, h, d, scale_q, int(bool(causal)), _DTYPES[q.dtype],
-        build.stream_of(q))
-    build.check(err, "flash_attn_bwd")
-    flash_attn_bwd.launches += 1 if q.dtype == torch.bfloat16 else 2
-    dq = dq_acc.sum(dim=0) if dq_acc.dim() == 5 else dq_acc
-    dq = dq.to(q.dtype) * torch.tensor(scale, dtype=q.dtype)
-    return dq, dk, dv
+        dq = torch.zeros((-(-l // BWD_KEY_TILE), b, l, h, d),
+                         dtype=torch.float32, device=q.device)
+        dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        err = build.library().apex_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
+            _ptr(sin_t), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], b, l, h, d, scale_q, int(bool(causal)),
+            _DTYPES[q.dtype], build.stream_of(q))
+        build.check(err, what)
+        flash_attn_bwd.launches += 1
+        dq = dq.sum(dim=0)
+    return dq.to(q.dtype) * torch.tensor(scale, dtype=q.dtype), dk, dv
 
 
 flash_attn_bwd.launches = 0

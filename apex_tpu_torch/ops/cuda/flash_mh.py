@@ -1,5 +1,6 @@
 """K17 and K18: the multi-head flash-attention forward and fused backward
-(``csrc/flash_mh_fwd.cu``, ``csrc/flash_mh_bwd.cu``) of
+(``csrc/flash_fwd_sm90.cu``, K2's Hopper kernel, and
+``csrc/flash_mh_bwd.cu``) of
 ``apex_tpu/ops/pallas/experimental/flash_mh.py``, each beside its plain
 PyTorch version.
 
@@ -17,10 +18,13 @@ rule's ``partials_bytes`` at the port's 64-key tile) fit
 else the two-pass kernels K13 / K14 on strided views of the pre-scaled q
 (the JAX rule's fallback, without its relayout).
 
-On CUDA tensors the kernels take bf16, D a multiple of 8 up to 128, Lq ==
-Lk, any strides with unit stride over D (16-byte aligned rows), on both
-routes; anything else raises.  On CPU tensors each wrapper runs its plain
-version; none falls back from one to the other.
+On CUDA tensors the tensor-core kernels (K17, K18, K13 / K14) take bf16
+and fp16, D a multiple of 8 up to 128; fp32 at any D, and half types above
+D 128, take the generic kernels (``flash_fwd_simt``, ``flash_bwd_simt``)
+up to D 512, by the routes of :mod:`~apex_tpu_torch.ops.cuda.
+flash_attention`; Lq == Lk, any strides with unit stride over D (16-byte
+aligned rows in half types); anything else raises.  On CPU tensors each
+wrapper runs its plain version; none falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -31,14 +35,22 @@ import torch
 
 from apex_tpu_torch.ops.cuda import build
 from apex_tpu_torch.ops.cuda.flash_attention import (
+    _DTYPES,
     BWD_KEY_TILE,
-    _check_operand,
+    _check_bwd,
     _default_scale,
+    _fwd_launch,
+    _fwd_operands,
+    _half_scale,
     _ptr,
+    _simt_bwd,
+    _simt_fwd,
     attn_delta,
+    bwd_route,
     flash_attn_bwd_ref,
     flash_attn_fwd_ref,
     fused_bwd_max_bytes,
+    fwd_route,
     two_pass_bwd,
 )
 
@@ -61,50 +73,26 @@ def flash_mh_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               scale=1.0)
 
 
-def _check(what: str, q, k, v, kv_mask):
-    """Validate a kernel call; returns the uint8 mask (or None)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
-    if q.dim() != 4:
-        raise ValueError(f"{what}: q must be (B, L, H, D), got "
-                         f"{tuple(q.shape)}")
-    b, l, h, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bfloat16, got {q.dtype}")
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"{what}: head dim {d} unsupported (a multiple of "
-                         f"8 up to 128)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(what, name, t, q.shape, q.dtype, q.device)
-    if kv_mask is None:
-        return None
-    if kv_mask.shape != (b, l) or kv_mask.device != q.device:
-        raise ValueError(f"{what}: kv_mask must be ({b}, {l}) on {q.device}")
-    return kv_mask.to(torch.bool).contiguous().view(torch.uint8)
-
-
 def flash_mh_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = False,
                  kv_mask: Optional[torch.Tensor] = None,
                  scale: Optional[float] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`flash_mh_fwd_ref`'s function: on CUDA tensors one launch of
-    K17 (counted in ``flash_mh_fwd.launches``), on CPU tensors the plain
-    version."""
+    """:func:`flash_mh_fwd_ref`'s function: on CUDA tensors, for bf16 /
+    fp16 up to D 128, one launch of K17 (K2's Hopper kernel, which
+    pre-scales q in its own dtype; counted in ``flash_mh_fwd.launches``),
+    else the generic kernel (counted in ``flash_fwd_simt.launches``); on
+    CPU tensors the plain version."""
     if q.device.type == "cpu":
         return flash_mh_fwd_ref(q, k, v, causal=causal, kv_mask=kv_mask,
                                 scale=scale)
     what = "flash_mh_fwd"
-    mask = _check(what, q, k, v, kv_mask)
-    b, l, h, d = q.shape
-    scale_q = float(torch.tensor(_default_scale(q, scale), dtype=q.dtype))
-    o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, l, h), dtype=torch.float32, device=q.device)
-    err = build.library().apex_flash_mh_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), o.data_ptr(),
-        lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, l, h, d, scale_q, int(bool(causal)), build.stream_of(q))
-    build.check(err, what)
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() == 4 and fwd_route(q.dtype, q.shape[-1]) == "simt":
+        return _simt_fwd(what, q, k, v, kv_mask, causal, scale, None, True)
+    o, lse = _fwd_launch(_fwd_operands(what, q, k, v, kv_mask, causal,
+                                       scale, None), True)
     flash_mh_fwd.launches += 1
     return o, lse
 
@@ -120,9 +108,20 @@ def mh_partials_bytes(b: int, l: int, h: int, d: int) -> int:
 
 
 def mh_fused_bwd(q: torch.Tensor) -> bool:
-    """Whether :func:`flash_mh_bwd` takes K18 for ``q``: its planes fit
-    :func:`fused_bwd_max_bytes` (the gate of ``_mh_bwd_rule``)."""
+    """Whether :func:`flash_mh_bwd` keeps to one pass for ``q``: its planes
+    fit :func:`fused_bwd_max_bytes` (the gate of ``_mh_bwd_rule``).  On
+    the card that pass is K18 in bf16 / fp16 up to D 128, the generic
+    kernels otherwise (:func:`mh_bwd_route`)."""
     return mh_partials_bytes(*q.shape) <= fused_bwd_max_bytes()
+
+
+def mh_bwd_route(dtype: torch.dtype, d: int, partials_bytes: int,
+                 budget: int) -> str:
+    """The kernels :func:`flash_mh_bwd` takes on the card: ``"simt"`` for
+    fp32 and for half types above D 128, else ``"fused"`` (K18, any width
+    that is a multiple of 8) while the planes fit ``budget``, else
+    ``"two_pass"`` (K13 + K14)."""
+    return bwd_route(dtype, d, partials_bytes, budget, fused_dims=None)
 
 
 def flash_mh_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,31 +148,44 @@ def flash_mh_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: Optional[float] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`flash_mh_bwd_ref`'s function, by the route the JAX rule
-    picks: while :func:`mh_fused_bwd`, on CUDA tensors one launch of K18
-    (counted in ``flash_mh_bwd.launches``), its partial planes summed
-    here in a fixed order (no atomics: two runs give equal bits); above
+    picks (:func:`mh_bwd_route` on the card): while :func:`mh_fused_bwd`,
+    on CUDA tensors one launch of K18 (counted in
+    ``flash_mh_bwd.launches``), its partial planes summed here in a fixed
+    order (no atomics: two runs give equal bits), or, for fp32 and half
+    types above D 128, the generic kernels (``flash_bwd_simt``); above
     the budget the two-pass kernels K13 then K14 (counted under their own
-    names) on the pre-scaled q, with no prologue launch (no rope, scale 1).
-    On CPU tensors the same routes run their plain versions."""
+    names) on the pre-scaled q, with no prologue launch (no rope, scale
+    1).  On CPU tensors the same routes run their plain versions."""
     scale = _default_scale(q, scale)
     scale_t = torch.tensor(scale, dtype=q.dtype)
-    if not mh_fused_bwd(q):
+    fused = mh_fused_bwd(q)
+    if q.device.type == "cpu":
+        if fused:
+            return flash_mh_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
+                                    causal=causal, kv_mask=kv_mask,
+                                    scale=scale)
+        route = "two_pass"
+    else:
+        what = "flash_mh_bwd"
+        if q.device.type != "cuda":
+            raise ValueError(f"{what}: unsupported device {q.device}")
+        if q.dim() != 4:
+            raise ValueError(f"{what}: q must be (B, L, H, D), got "
+                             f"{tuple(q.shape)}")
+        route = mh_bwd_route(q.dtype, q.shape[-1], mh_partials_bytes(
+            *q.shape), fused_bwd_max_bytes())
+    if route == "two_pass":
         dq, dk, dv = two_pass_bwd(_scaled_q(q, scale), k, v, do, lse,
                                   attn_delta(o, do, dlse), causal=causal,
                                   kv_mask=kv_mask, scale=1.0)
         return dq * scale_t, dk, dv
-    if q.device.type == "cpu":
-        return flash_mh_bwd_ref(q, k, v, o, lse, do, dlse=dlse,
-                                causal=causal, kv_mask=kv_mask, scale=scale)
-    what = "flash_mh_bwd"
-    mask = _check(what, q, k, v, kv_mask)
+    do, lse, delta, mask, _, _ = _check_bwd(
+        what, q, k, v, do, lse, attn_delta(o, do, dlse), kv_mask, None)
+    if route == "simt":
+        dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, None,
+                               None, _half_scale(scale, q.dtype), causal)
+        return dq.to(q.dtype) * scale_t, dk, dv
     b, l, h, d = q.shape
-    do = do.contiguous()
-    _check_operand(what, "do", do, q.shape, q.dtype, q.device)
-    if lse.shape != (b, l, h) or lse.dtype != torch.float32:
-        raise ValueError(f"{what}: lse must be (B, L, H) float32")
-    delta = attn_delta(o, do, dlse).contiguous()
-    lse = lse.contiguous()
     planes = torch.zeros((-(-l // BWD_KEY_TILE), b, l, h, d),
                          dtype=torch.float32, device=q.device)
     dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -183,7 +195,8 @@ def flash_mh_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), delta.data_ptr(), _ptr(mask), planes.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *do.stride()[:3], b, l, h, d,
-        float(scale_t), int(bool(causal)), build.stream_of(q))
+        float(scale_t), int(bool(causal)), _DTYPES[q.dtype],
+        build.stream_of(q))
     build.check(err, what)
     flash_mh_bwd.launches += 1
     return planes.sum(dim=0).to(q.dtype) * scale_t, dk, dv

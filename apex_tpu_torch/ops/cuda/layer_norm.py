@@ -18,7 +18,7 @@ import torch
 
 from apex_tpu_torch.ops.cuda import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def layer_norm_fwd_ref(x2d: torch.Tensor, weight: Optional[torch.Tensor],
@@ -127,7 +127,7 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
         raise ValueError(f"layer_norm_bwd: unsupported device {x2d.device}")
     if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.dtype not in _DTYPES:
         raise ValueError("layer_norm_bwd: x must be a contiguous (n1, n2) "
-                         "float32 or bfloat16 tensor")
+                         "float32, bfloat16 or float16 tensor")
     n1, n2 = x2d.shape
     if dy.shape != x2d.shape or dy.dtype != x2d.dtype \
             or dy.device != x2d.device or not dy.is_contiguous():

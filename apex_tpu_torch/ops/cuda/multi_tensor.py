@@ -34,6 +34,8 @@ if TYPE_CHECKING:
     from apex_tpu_torch.ops.multi_tensor import ChunkTable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: K6 also takes fp16 (the gradients of an fp16 O2 step)
+_SCALE_DTYPES = {**_DTYPES, torch.float16: 2}
 
 
 def _set_flag_where(flag: torch.Tensor, bad: torch.Tensor) -> None:
@@ -64,9 +66,9 @@ def packed_scale(x: torch.Tensor, scale: torch.Tensor,
         return packed_scale_ref(x, scale, out_dtype, flag, out)
     if x.device.type != "cuda":
         raise ValueError(f"packed_scale: unsupported device {x.device}")
-    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+    if x.dtype not in _SCALE_DTYPES or out_dtype not in _SCALE_DTYPES:
         raise TypeError(f"packed_scale: {x.dtype} -> {out_dtype} "
-                        f"unsupported (float32 / bfloat16)")
+                        f"unsupported (float32 / bfloat16 / float16)")
     for name, t, dt in (("scale", scale, torch.float32),
                         ("flag", flag, torch.int32)):
         if t.numel() != 1 or t.dtype != dt or t.device != x.device:
@@ -83,7 +85,8 @@ def packed_scale(x: torch.Tensor, scale: torch.Tensor,
         return out
     err = build.library().apex_multi_tensor_scale(
         x.data_ptr(), out.data_ptr(), scale.data_ptr(), flag.data_ptr(),
-        x.numel(), _DTYPES[x.dtype], _DTYPES[out_dtype], build.stream_of(x))
+        x.numel(), _SCALE_DTYPES[x.dtype], _SCALE_DTYPES[out_dtype],
+        build.stream_of(x))
     build.check(err, "packed_scale")
     packed_scale.launches += 1
     return out

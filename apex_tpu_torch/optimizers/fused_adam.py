@@ -177,11 +177,13 @@ class FusedAdam(torch.optim.Optimizer):
             # the gradients arrive unscaled (amp's unscale ran first)
             one = torch.ones(1, dtype=torch.float32, device=params[0].device)
             gcopies = None if copies is None else copies[at:at + len(params)]
-            # the kernel writes bf16 copies; where other dtypes are among
-            # them (an fp32 normalization parameter kept beside its
-            # master), every copy is the new parameter, copied after
-            in_kernel = gcopies is not None and all(
-                c.dtype == torch.bfloat16 for c in gcopies)
+            # the kernel writes copies of one half dtype (bf16 or fp16);
+            # where other dtypes are among them (an fp32 normalization
+            # parameter kept beside its master), every copy is the new
+            # parameter, copied after
+            in_kernel = gcopies is not None and len(
+                {c.dtype for c in gcopies}) == 1 and gcopies[0].dtype in (
+                    torch.bfloat16, torch.float16)
             packed_adam_tree(
                 self._table(gi, params), params,
                 [self.state[p]["exp_avg"] for p in params],

@@ -14,7 +14,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             path's shapes: max abs error within the stated tolerance,
             kernel / plain / library-call times (CUDA events) and the
             bound (bytes over 3.35 TB/s or operations over the peak rate,
-            whichever is larger);
+            whichever is larger); the flash forward (K2, a Hopper kernel:
+            wgmma on TMA-loaded tiles) timed as its launch on prepared
+            operands (``ms``) and as the public call (``call_ms``);
 4. serve    gpt_small at full width (bf16 weights from a seed, through
             ``params_from_jax``): 16 greedy requests drained by
             ``ServeEngine.run()``; tokens/s, decode-step p50/p99, and the
@@ -25,10 +27,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 6. reference  fp32 on a small input: the card's kernels against the plain
             versions on the CPU, tokens and logits;
 7. train kernels  the training slice's kernels (layer-norm backward, flash
-            backward with in-kernel rope, the flash forward with rope, Adam,
-            the amp unscale) against their plain versions at the train
-            step's shapes, with the same timings and bounds, and the two
-            backward kernels run twice for equal bits;
+            backward with in-kernel rope, the flash forward with rope and
+            its k^ prologue, Adam, the amp unscale) against their plain
+            versions at the train step's shapes, with the same timings and
+            bounds, and the two backward kernels run twice for equal bits;
+            the forward with rope also timed the other way (the full
+            prologue writing q^ and k^, then K2 with no q preparation),
+            its output equal bit for bit;
 8. train    gpt_small at full width and depth, amp O2 + FusedAdam
             (lr 3e-4, one K11 launch a step), B 8 x L 2048 on the
             synthetic stream of ``examples/gpt_lm.py``, 10 steps from
@@ -87,7 +92,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    long_context  gpt_small with ``remat=True`` (O2 + FusedAdam), B 1 x L
             16384, 10 steps (falling loss, p50, tokens/s, peak memory,
             the exact launches per step: K13 12, K14 12 (and their
-            prologue 12), K4 0, K2 24, K1 49, K3 50, K6 148, K11 1; one
+            prologue 12), K4 0, K2 24 (and its k^ prologue 24), K1 49,
+            K3 50, K6 148, K11 1; one
             profiled step; an injected overflow skipped), then B 1 x L
             32768, 3 steps; K4's planes
             (12.9 and 51.5 GB) printed beside the peaks;
@@ -140,8 +146,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             leaf in fp32, K11 1), an injected overflow skipped;
    o1_reference  a 2-layer GPT at O1, card against CPU, losses within
             2e-2;
-16. flash_mh_kernels  K17 and K18, the multi-head flash forward and fused
-            backward, against their plain versions at (8, 2048, 12, 64)
+16. flash_mh_kernels  K17 (K2's Hopper kernel, one head a block) and
+            K18, the multi-head flash forward and fused backward, against
+            their plain versions at (8, 2048, 12, 64)
             causal, (32, 512, 16, 64) with a key mask, (1, 4096, 6, 128)
             causal and a ragged (2, 1000, 4, 64), with a cotangent on the
             lse: the row and norm limits, bitwise repeats, the backward
@@ -153,6 +160,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 18. mnist_o1  BASELINE config 1: ``MLP((256, 256))``, O1, SGD(0.05), B
             256, 20 steps: falling losses, p50, samples/s, launches (K6 a
             leaf), an injected overflow skipped;
+   flash_repairs  (after flash_mh) ``flash_attention_mh`` and
+            ``attention`` with autograd in fp16 and fp32 and at head widths
+            40, 96, 192 and 256 (the routes of ``fwd_route`` /
+            ``bwd_route``: K2 / K17, K4 / K18, K13 / K14 and the generic
+            kernels), each against its plain versions by the row and norm
+            limits, the launches of the path; the generic kernels
+            (``flash_fwd_simt``, ``flash_bwd_simt``) against their plain
+            versions in fp32 with times, SDPA's fp32 calls and the bounds;
+   fp16_o2  amp O2 with ``half_dtype=torch.float16`` at gpt_small's width
+            and 4 layers, B 8 x L 2048, 5 steps: finite, falling losses,
+            the exact launches per step (every kernel in fp16), p50, one
+            injected overflow skipped;
 19. dcgan_o1  BASELINE config 5: DCGAN (fm 64, zdim 100, 32^2, B 64), two
             FusedAdams with one O1 scaler each, 20 iterations: D's loss
             falls, p50, samples/s, launches (K6 a leaf of each network,
@@ -292,8 +311,9 @@ def phase_build():
             l for l in lines if not l.startswith("Compile time"))
     emit("build", nvcc_seconds=round(info.seconds, 3), library=info.path,
          sources=len(build.sources()), ptxas=kernels,
-         flash_bf16_dynamic_smem_bytes={
-             d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)},
+         # K2 / K17 by the padded head width they run at
+         flash_fwd_sm90_dynamic_smem_bytes={
+             d: lib.apex_flash_fwd_sm90_smem_bytes(d) for d in (64, 128)},
          flash_bwd_bf16_dynamic_smem_bytes={
              d: lib.apex_flash_attn_bwd_smem_bytes(d) for d in (64, 128)},
          # K13 / K14 by the padded head width they run at
@@ -346,14 +366,24 @@ def _ln_case(n1, dtype, rng, n2=768):
     return rec
 
 
-def _flash_case(shape, rng, masked=False, causal=True):
+def _fwd_launch_ms(q, k, v, kw, scale=None):
+    """The Hopper forward's launch alone, on operands prepared once (the
+    maps encoded, k^ written): the kernel's time without the host work
+    and the prologue of a call."""
+    from apex_tpu_torch.ops.cuda import flash_attention as fa
+    ops = fa._fwd_operands("timing", q, k, v, kw.get("kv_mask"),
+                           kw.get("causal", False), scale, kw.get("rope"))
+    return time_ms(lambda: fa._fwd_launch(ops, True))
+
+
+def _flash_case(shape, rng, masked=False, causal=True, dtype="bfloat16"):
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import flash_attn_fwd, flash_attn_fwd_ref
     bsz, l, h, d = shape
     dev = torch.device("cuda")
     q, k, v = (torch.as_tensor(rng.standard_normal(shape, np.float32),
-                               device=dev).to(torch.bfloat16)
+                               device=dev).to(getattr(torch, dtype))
                for _ in range(3))
     mask = None
     if masked:
@@ -361,7 +391,11 @@ def _flash_case(shape, rng, masked=False, causal=True):
         mask[:, 0] = True
     o, lse = flash_attn_fwd(q, k, v, causal=causal, kv_mask=mask,
                             return_lse=True)
+    again = flash_attn_fwd(q, k, v, causal=causal, kv_mask=mask,
+                           return_lse=True)
     torch.cuda.synchronize()
+    require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+            f"flash_attn_fwd {shape}: two runs differ")
     o_ref, lse_ref = flash_attn_fwd_ref(q.float(), k.float(), v.float(),
                                         causal=causal, kv_mask=mask)
     err = float((o.float() - o_ref).abs().max())
@@ -369,8 +403,9 @@ def _flash_case(shape, rng, masked=False, causal=True):
     require(err <= 2e-2 and lse_err <= 2e-2,
             f"flash_attn_fwd {shape} masked={masked}: o err {err}, "
             f"lse err {lse_err}")
-    ms = time_ms(lambda: flash_attn_fwd(q, k, v, causal=causal,
-                                        kv_mask=mask))
+    kw = dict(causal=causal, kv_mask=mask)
+    ms = _fwd_launch_ms(q, k, v, kw)
+    call = time_ms(lambda: flash_attn_fwd(q, k, v, **kw))
     plain = time_ms(lambda: flash_attn_fwd_ref(q, k, v, causal=causal,
                                                kv_mask=mask))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -384,13 +419,15 @@ def _flash_case(shape, rng, masked=False, causal=True):
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
     pairs = _flash_pairs(bsz, l, h, causal, mask)
-    nbytes = 4 * bsz * l * h * d * 2 + (bsz * l if masked else 0)
+    nbytes = 4 * bsz * l * h * d * q.element_size() + (bsz * l if masked
+                                                        else 0)
     b_ms, b_by = bound(nbytes, 4.0 * d * pairs, PEAK_BF16_FLOPS)
     rec = dict(kernel="flash_attn_fwd", shape=list(shape), causal=causal,
-               kv_mask=masked, dtype="bfloat16", max_abs_err=err,
+               kv_mask=masked, dtype=dtype, max_abs_err=err,
                lse_err=lse_err, tolerance="atol 2e-2 vs plain in fp32",
-               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-               bound_by=b_by)
+               bitwise_repeat=True, ms=ms, call_ms=call, plain_ms=plain,
+               library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / ms)
     emit("kernels", **rec)
     return rec
 
@@ -767,10 +804,18 @@ def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
 def _flash_rope_case(shape, rng):
     """K2, causal with rope, against its plain version (run over slices of
     heads, every head compared) by the absolute and the scale-aware
-    checks, twice for equal bits, with times and the bound."""
+    checks, twice for equal bits, with times and the bound: the launch on
+    prepared operands (``ms``), the public call with its k^ prologue
+    (``call_ms``), the prologue alone, and the other split measured
+    beside it: the full prologue writing q^ and k^, then K2 with no q
+    preparation (``full_prologue_call_ms``), whose output must equal the
+    default's bit for bit (the same q^ arithmetic, in the prologue or in
+    shared memory)."""
     import torch
     import torch.nn.functional as F
-    from apex_tpu_torch.ops.cuda import flash_attn_fwd, flash_attn_fwd_ref
+    from apex_tpu_torch.ops.cuda import (flash_attn_fwd, flash_attn_fwd_ref,
+                                         flash_bwd_prologue,
+                                         flash_fwd_prologue)
     bsz, l, h, d = shape
     dev = torch.device("cuda")
     q, k, v = (torch.as_tensor(rng.standard_normal(shape, np.float32),
@@ -784,6 +829,16 @@ def _flash_rope_case(shape, rng):
     require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
             f"flash_attn_fwd rope {shape}: two runs differ")
     del again
+
+    def full_prologue():
+        qh, kh = flash_bwd_prologue(q, k, scale=d ** -0.5, rope=tables)
+        return flash_attn_fwd(qh, kh, v, causal=True, scale=1.0,
+                              return_lse=True)
+    alt = full_prologue()
+    require(torch.equal(o, alt[0]) and torch.equal(lse, alt[1]),
+            f"flash_attn_fwd rope {shape}: q prepared in the kernel and by "
+            f"the full prologue differ")
+    del alt
     o_ref, lse_ref = _plain_by_heads(flash_attn_fwd_ref, (q, k, v), kw)
     err = _max_err(o, o_ref)
     lse_err = _max_err(lse, lse_ref)
@@ -791,7 +846,10 @@ def _flash_rope_case(shape, rng):
             f"flash_attn_fwd rope {shape}: o err {err}, lse err {lse_err}")
     scaled = scaled_errs(f"flash_attn_fwd rope {shape} o", o, o_ref)
     del o_ref, lse_ref
-    ms = time_ms(lambda: flash_attn_fwd(q, k, v, **kw))
+    ms = _fwd_launch_ms(q, k, v, kw)
+    call = time_ms(lambda: flash_attn_fwd(q, k, v, **kw))
+    prologue = time_ms(lambda: flash_fwd_prologue(k, tables))
+    full = time_ms(full_prologue)
     plain = time_ms(lambda: _plain_by_heads(flash_attn_fwd_ref, (q, k, v),
                                             kw), budget_s=0.2)
     torch.cuda.empty_cache()
@@ -808,10 +866,42 @@ def _flash_rope_case(shape, rng):
                                  "q, k, tables), and the row and norm "
                                  "limits",
                        **scaled, bitwise_repeat=True,
+                       equal_to_full_prologue_split=True,
                        plain="run over slices of heads (at most 2**28 fp32 "
                              "scores at once), every head compared",
-                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                       bound_by=b_by)
+                       ms=ms, call_ms=call, prologue_ms=prologue,
+                       full_prologue_call_ms=full, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / ms)
+
+
+def _fwd_prologue_case(shape, rng):
+    """K2's prologue (k^: k rotated, once a call) against its plain
+    version, bitwise, twice for equal bits, with its time and the bound
+    (bytes: k and the two tables read, k^ written)."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (flash_fwd_prologue,
+                                         flash_fwd_prologue_ref)
+    bsz, l, h, d = shape
+    k = torch.as_tensor(rng.standard_normal(shape, np.float32),
+                        device="cuda").to(torch.bfloat16)
+    tables = _tables(bsz, l, d, torch.bfloat16)
+    got = flash_fwd_prologue(k, tables)
+    again = flash_fwd_prologue(k, tables)
+    want = flash_fwd_prologue_ref(k, tables)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and torch.equal(got, again),
+            f"flash_fwd_prologue {shape}: not bitwise its plain version")
+    nbytes = 2 * bsz * l * h * d * 2 + 2 * bsz * l * d * 2
+    b_ms, b_by = bound(nbytes, 6.0 * bsz * l * h * d, PEAK_FP32_FLOPS)
+    return _kernel_rec(
+        kernel="flash_fwd_prologue", shape=list(shape), dtype="bfloat16",
+        max_abs_err=0.0, tolerance="bitwise", bitwise_repeat=True,
+        ms=time_ms(lambda: flash_fwd_prologue(k, tables)),
+        plain_ms=time_ms(lambda: flash_fwd_prologue_ref(k, tables)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_null_reason="no PyTorch call rotates by full-width "
+                            "tables")
 
 
 def _leaf_shapes(cfg):
@@ -1009,6 +1099,8 @@ def phase_train_kernels(cfg):
         _flash_bwd_case((2, 1000, 6, 128), rng),
         _flash_bwd_case((2, 512, 12, 64), rng, masked=True, rope=False)]
     recs["flash_attn_fwd_rope"] = [_flash_rope_case((8, 2048, 12, 64), rng)]
+    recs["flash_fwd_prologue"] = [_fwd_prologue_case((8, 2048, 12, 64),
+                                                     rng)]
     recs["packed_adam"] = [_adam_case(cfg, rng)]
     # bf16 -> fp32 (train), then fp32 in place (accum's accumulators)
     recs["packed_scale"] = [_scale_case(_leaf_shapes(cfg), rng),
@@ -1046,7 +1138,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "packed_adam", "packed_scale", "lamb_stage1", "lamb_stage2",
     "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor",
     "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_bwd_prologue",
-    "conv1x1_bwd", "packed_nonfinite", "flash_mh_fwd", "flash_mh_bwd")}
+    "conv1x1_bwd", "packed_nonfinite", "flash_mh_fwd", "flash_mh_bwd",
+    "flash_fwd_prologue", "flash_fwd_simt", "flash_bwd_simt")}
 
 
 def fused_route(b, l, h, d) -> bool:
@@ -1063,8 +1156,9 @@ def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
     """Launches of ``micro_batches`` GPT forward and backward passes of
     ``(b, l)`` tokens each, and none of any other kernel: the flash
     backward by the route the budget gives that shape (K4 once a layer, or
-    the two-pass prologue, K13 and K14 once a layer each), and under
-    ``cfg.remat`` each block's forward kernels twice (the recompute)."""
+    the two-pass prologue, K13 and K14 once a layer each), K2 with its
+    k^ prologue (the GPT rotates), and under ``cfg.remat`` each block's
+    forward kernels twice (the recompute)."""
     lnc = 2 * cfg.num_layers + 1
     again = cfg.num_layers if cfg.remat else 0       # blocks run again
     n = micro_batches * cfg.num_layers
@@ -1072,6 +1166,7 @@ def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
     return dict(NO_LAUNCHES,
                 layer_norm_fwd=micro_batches * (lnc + 2 * again),
                 flash_attn_fwd=micro_batches * (cfg.num_layers + again),
+                flash_fwd_prologue=micro_batches * (cfg.num_layers + again),
                 # two launches a call: dx with partials, then the dw/db sum
                 layer_norm_bwd=micro_batches * 2 * lnc,
                 flash_attn_bwd=n if fused else 0,
@@ -1096,9 +1191,10 @@ def pointer_rows(first, tables, steps=TRAIN_STEPS):
 
 #: kernel-name fragments of the step's device time, by group
 PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
+                  ("generic flash kernels", ("_simt",)),
                   ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq_sm90",)),
                   ("flash_attn_bwd_dkv (K14)", ("flash_bwd_dkv_sm90",)),
-                  ("two-pass prologue", ("flash_bwd_prologue",)),
+                  ("prologues (k^; q^ and k^)", ("flash_bwd_prologue",)),
                   ("flash_attn_bwd (K4)", ("flash_bwd",)),
                   ("flash_attn_fwd (K2)", ("flash_fwd",)),
                   ("layer_norm_bwd (K3)", ("ln_bwd",)),
@@ -1908,8 +2004,8 @@ def phase_fp16_optimizer(cfg, tree):
 LC_RUNS = ((16384, 10), (32768, 3))
 #: the launches per gpt_small O2 step with remat at B1 x L16384 or L32768
 #: (the two-pass route), as ``gpt_pass_launches`` derives them: K13 12,
-#: K14 12, K4 0, K2 24 (12 + 12 recomputed), K1 49 (25 + 24 recomputed),
-#: K3 50 (25 calls x 2), K6 148, K11 1
+#: K14 12, K4 0, K2 24 (12 + 12 recomputed) and its k^ prologue 24, K1 49
+#: (25 + 24 recomputed), K3 50 (25 calls x 2), K6 148, K11 1
 #: the two routes of flash_attn_bwd are timed whole, side by side, where
 #: K4's planes stay under this
 ROUTE_COMPARE_MAX_BYTES = 2 << 30
@@ -3105,7 +3201,9 @@ def _mh_case(shape, causal, masked, gen):
     shape) against their plain versions (over slices of heads), with a
     cotangent on the lse; bitwise repeats; once more with the budget at 0
     (the K13 / K14 route); times beside K2 / K4 on the same tensors (the
-    port's strided path) and SDPA's forward and backward; the bounds."""
+    port's strided path) and SDPA's forward and backward; the bounds.
+    K17's ``ms`` is its launch on prepared operands, ``call_ms`` the
+    wrapper's whole call."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd,
@@ -3176,7 +3274,8 @@ def _mh_case(shape, causal, masked, gen):
     plain_b = time_ms(lambda: _plain_by_heads(
         bwd_ref, (q, k, v, o, lse, do, dlse), {}), budget_s=0.2)
     torch.cuda.empty_cache()
-    ms_f = time_ms(lambda: flash_mh_fwd(q, k, v, **kw))
+    ms_f = _fwd_launch_ms(q, k, v, kw)
+    call_f = time_ms(lambda: flash_mh_fwd(q, k, v, **kw))
     k2_ms = time_ms(lambda: flash_attn_fwd(q, k, v, return_lse=True, **kw))
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -3210,8 +3309,9 @@ def _mh_case(shape, causal, masked, gen):
                       tolerance="o within 2e-2 and the row / norm limits, "
                                 "lse within 1e-3, vs the plain version on "
                                 "the same bf16 inputs",
-                      ms=ms_f, plain_ms=plain_f, bound_ms=fb_ms,
-                      bound_by=fb_by, library_ms=lib_f,
+                      ms=ms_f, call_ms=call_f, plain_ms=plain_f,
+                      bound_ms=fb_ms, bound_by=fb_by,
+                      bound_share=fb_ms / ms_f, library_ms=lib_f,
                       library_call="F.scaled_dot_product_attention",
                       k2_same_shape_ms=k2_ms)
     bwd = _kernel_rec(kernel="flash_mh_bwd", **common,
@@ -3283,6 +3383,229 @@ def phase_flash_mh():
     emit("flash_mh", launches=runs)
     torch.cuda.empty_cache()
     return first
+
+
+#: the cases the card's kernels refused before the repairs (fp16, fp32,
+#: head widths other than 64 / 128): (shape, dtype, causal, masked)
+REPAIR_CASES = (((8, 2048, 12, 64), "float16", True, False),
+                ((2, 1024, 12, 64), "float32", True, True),
+                ((2, 1000, 4, 40), "bfloat16", True, False),
+                ((2, 1000, 4, 96), "float16", False, True),
+                ((1, 1024, 4, 192), "bfloat16", True, False),
+                ((1, 1024, 4, 256), "float16", False, False),
+                ((1, 512, 4, 256), "float32", True, False))
+
+
+def _repair_case(shape, dtype, causal, masked, gen):
+    """``flash_attention_mh`` and ``attention`` (with rope) with autograd
+    on one repaired case: o and the three gradients (a cotangent on the
+    lse for the multi-head one) against the plain versions on the same
+    inputs (over slices of heads), by the row and norm limits; returns
+    the errors."""
+    import torch
+    from apex_tpu_torch.attention import attention
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd_ref,
+                                         flash_attn_fwd_ref,
+                                         flash_mh_bwd_ref, flash_mh_fwd_ref)
+    from apex_tpu_torch.ops.experimental import flash_attention_mh
+    bsz, l, h, d = shape
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    dlse = torch.randn((bsz, l, h), generator=gen, device="cuda") * 0.1
+    mask = None
+    if masked:
+        mask = torch.rand((bsz, l), generator=gen, device="cuda") > 0.25
+        mask[:, 0] = True
+    tag = f"repair {shape} {dtype}"
+    errs = {}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention_mh(*leaves, causal=causal, kv_mask=mask,
+                                return_lse=True)
+    torch.autograd.backward((o, lse), (do, dlse))
+    kw = dict(causal=causal, kv_mask=mask)
+    ro, _ = _plain_by_heads(flash_mh_fwd_ref, (q, k, v), kw)
+    errs["mh_o"] = scaled_errs(f"{tag} mh o", o, ro)
+    ref = _plain_by_heads(
+        lambda q_, k_, v_, o_, l_, do_, dl_: flash_mh_bwd_ref(
+            q_, k_, v_, o_, l_, do_, dlse=dl_, **kw),
+        (q, k, v, o.detach(), lse.detach(), do, dlse), {})
+    for n, t, r in zip(("dq", "dk", "dv"), leaves, ref):
+        require(t.grad.dtype == dt, f"{tag}: mh {n} is {t.grad.dtype}")
+        errs[f"mh_{n}"] = scaled_errs(f"{tag} mh {n}", t.grad, r)
+    del leaves, o, lse, ro, ref
+    tables = _tables(bsz, l, d, dt)
+    kw = dict(causal=causal, kv_mask=mask, rope=tables)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = attention(*leaves, return_lse=True, **kw)
+    o.backward(do)
+    ro, _ = _plain_by_heads(flash_attn_fwd_ref, (q, k, v), kw)
+    errs["attention_o"] = scaled_errs(f"{tag} attention o", o, ro)
+    ref = _plain_by_heads(
+        lambda q_, k_, v_, o_, l_, do_: flash_attn_bwd_ref(
+            q_, k_, v_, o_, l_, do_, causal=causal, kv_mask=mask,
+            rope=tables),
+        (q, k, v, o.detach(), lse.detach(), do), {})
+    for n, t, r in zip(("dq", "dk", "dv"), leaves, ref):
+        errs[f"attention_{n}"] = scaled_errs(f"{tag} attention {n}",
+                                             t.grad, r)
+    del leaves, o, lse, ro, ref, q, k, v, do
+    torch.cuda.empty_cache()
+    return {n: e["row_rel_err"] for n, e in errs.items()}
+
+
+def _simt_records(gen):
+    """The generic kernels against their plain versions at an fp32 shape
+    (their main case, the fp32 references): times, SDPA's fp32 forward /
+    backward as the library calls, the bounds at the fp32 rate (they run
+    on CUDA cores)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd_ref,
+                                         flash_attn_fwd_ref, flash_bwd_simt,
+                                         flash_fwd_simt)
+    shape = (2, 1024, 12, 64)
+    bsz, l, h, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    kw = dict(causal=True)
+    o, lse = flash_fwd_simt(q, k, v, return_lse=True, **kw)
+    again = flash_fwd_simt(q, k, v, return_lse=True, **kw)
+    got = flash_bwd_simt(q, k, v, o, lse, do, **kw)
+    got2 = flash_bwd_simt(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(o, again[0]) and all(
+        torch.equal(a, b) for a, b in zip(got, got2)),
+        "generic kernels: two runs differ")
+    ro, rlse = flash_attn_fwd_ref(q, k, v, **kw)
+    ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
+    f_err = max(_max_err(o, ro), _max_err(lse, rlse))
+    b_errs = [_max_err(a, r) for a, r in zip(got, ref)]
+    require(f_err <= 2e-5 and max(b_errs) <= 1e-4,
+            f"generic kernels fp32 {shape}: forward {f_err}, backward "
+            f"{b_errs}")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    pairs = _flash_pairs(bsz, l, h, True, None)
+    e = bsz * l * h * d
+    fb = bound(4 * e * 4 + 4 * bsz * l * h, 4.0 * d * pairs,
+               PEAK_FP32_FLOPS)
+    bb = bound(8 * e * 4 + 8 * bsz * l * h, 10.0 * d * pairs,
+               PEAK_FP32_FLOPS)
+    common = dict(shape=list(shape), causal=True, dtype="float32",
+                  bitwise_repeat=True)
+    fwd = _kernel_rec(kernel="flash_fwd_simt", **common, max_abs_err=f_err,
+                      tolerance="o and lse within 2e-5 of the plain fp32",
+                      ms=time_ms(lambda: flash_fwd_simt(q, k, v, **kw)),
+                      plain_ms=time_ms(lambda: flash_attn_fwd_ref(
+                          q, k, v, **kw)),
+                      bound_ms=fb[0], bound_by=fb[1], library_ms=lib_f,
+                      library_call="F.scaled_dot_product_attention (fp32)")
+    bwd = _kernel_rec(kernel="flash_bwd_simt", **common,
+                      max_abs_err=max(b_errs), errs_dq_dk_dv=b_errs,
+                      tolerance="dq, dk, dv within 1e-4 of the plain fp32",
+                      ms=time_ms(lambda: flash_bwd_simt(q, k, v, o, lse, do,
+                                                        **kw)),
+                      plain_ms=time_ms(lambda: flash_attn_bwd_ref(
+                          q, k, v, o, lse, do, **kw)),
+                      bound_ms=bb[0], bound_by=bb[1], library_ms=lib_b,
+                      library_call="autograd of F.scaled_dot_product_"
+                                   "attention (fp32)")
+    del q, k, v, do, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_flash_repairs():
+    """The entry points on the cases the card refused before (fp16, fp32,
+    head widths 40, 96, 192, 256: the routes of ``fwd_route`` /
+    ``bwd_route``), each against its plain versions, the counts reset
+    before and read after (the generic kernels' and the tensor-core
+    kernels' launches on this path); then the generic kernels' records."""
+    import torch
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    reset_launch_counts()
+    cases = [dict(shape=list(sh), dtype=dt, causal=c, kv_mask=m,
+                  row_rel_errs=_repair_case(sh, dt, c, m, gen))
+             for sh, dt, c, m in REPAIR_CASES]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("flash_fwd_simt", "flash_bwd_simt", "flash_attn_fwd",
+                 "flash_mh_fwd", "flash_fwd_prologue", "flash_attn_bwd_dq",
+                 "flash_attn_bwd_dkv"):
+        require(counts[name] > 0, f"flash_repairs: {name} never launched")
+    emit("flash_repairs", cases=cases, row_rel_tol=ROW_REL_TOL,
+         norm_rel_tol=NORM_REL_TOL,
+         launches={k: c for k, c in counts.items() if c})
+    return counts, _simt_records(gen)
+
+
+FP16_LAYERS = 4
+FP16_STEPS = 5
+
+
+def phase_fp16_o2(cfg):
+    """amp O2 with ``half_dtype=torch.float16`` (NVIDIA Apex's classic O2:
+    fp16 compute, fp32 masters, a dynamic loss scale) at gpt_small's width
+    and 4 of its layers, FusedAdam(3e-4), B 8 x L 2048, 5 steps: finite,
+    falling losses, the exact launches per step (K1 / K3, K2 with its
+    prologue, K13 / K14, K6 and K11 in fp16), p50, peak memory; then one
+    injected overflow skipped on the card."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    fcfg = dataclasses.replace(cfg, num_layers=FP16_LAYERS)
+    model = params_from_jax(gpt_small_tree(fcfg, seed=5), fcfg,
+                            trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt, opt_level="O2", half_dtype=torch.float16)
+    require(all(p.dtype == torch.float16 for p in model.parameters()),
+            "fp16 O2: the compute parameters are not fp16")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, scales, overflows, times = [], [], [], []
+    for _ in range(FP16_STEPS):
+        t0 = time.perf_counter()
+        out = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+        scales.append(float(out["loss_scale"]))
+        overflows.append(bool(out["overflow"]))
+    counts = launch_counts()
+    per_step = {k: c / FP16_STEPS for k, c in counts.items()}
+    want = dict(gpt_pass_launches(fcfg), packed_scale=len(a.params),
+                packed_adam_tree=1)
+    require(per_step == want, f"fp16 O2 launches per step {per_step}, "
+                              f"want {want}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"fp16 O2 losses: {losses}")
+    p50 = float(np.median(times[2:])) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    overflow = _inject_overflow(a, opt, model, ids)
+    emit("fp16_o2", model=f"gpt_small width, {FP16_LAYERS} layers",
+         opt_level="O2", half_dtype="float16", batch=TRAIN_B,
+         seq_len=TRAIN_L, steps=FP16_STEPS, losses=losses,
+         loss_scales=scales, overflows=overflows,
+         step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_5=p50,
+         tokens_per_s=TRAIN_B * TRAIN_L / (p50 / 1e3), peak_memory_gb=peak,
+         launches_per_step=per_step, injected_overflow=overflow)
+    del a, opt, model
+    torch.cuda.empty_cache()
+    return counts
 
 
 #: the gpt_small O2 step p50 of the train phase (PR 6's run on an NVIDIA
@@ -3620,6 +3943,8 @@ def main() -> int:
         phase_resnet_reference()
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
         mh_counts = phase_flash_mh()
+        repair_counts, (simt_fwd, simt_bwd) = phase_flash_repairs()
+        half_o2_counts = phase_fp16_o2(cfg)
         mnist_counts = phase_mnist_o1()
         dcgan_counts = phase_dcgan_o1()
     except SmokeFailure as e:
@@ -3637,6 +3962,8 @@ def main() -> int:
                    "resnet_train_switch_off": rn_off_counts[k],
                    "o1_train": o1_counts[k],
                    "flash_mh": mh_counts.get(k, 0),
+                   "flash_repairs": repair_counts[k],
+                   "fp16_o2": half_o2_counts[k],
                    "mnist_o1": mnist_counts[k],
                    "dcgan_o1": dcgan_counts[k]}
                for k in bert_counts}
@@ -3651,8 +3978,23 @@ def main() -> int:
              "apex_tpu/ops/pallas/layer_norm_kernels.py:132"),
             (fl_recs[0], fl_recs + [rope_main] + lc_fwd,
              solo_counts["flash_attn_fwd"],
-             "apex_tpu_torch/csrc/flash_attn_fwd.cu",
+             "apex_tpu_torch/csrc/flash_fwd_sm90.cu",
              "apex_tpu/ops/pallas/flash_attention.py:587"),
+            # K2's helper: the per-tile rotation of k in `_fwd_kernel`,
+            # once a call
+            (train_recs["flash_fwd_prologue"][0],
+             train_recs["flash_fwd_prologue"],
+             train_counts["flash_fwd_prologue"],
+             "apex_tpu_torch/csrc/flash_bwd_prologue.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:142"),
+            # the generic kernels of the cases the Hopper kernels do not
+            # take (fp32, half types above D 128)
+            (simt_fwd, [simt_fwd], repair_counts["flash_fwd_simt"],
+             "apex_tpu_torch/csrc/flash_simt.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:587"),
+            (simt_bwd, [simt_bwd], repair_counts["flash_bwd_simt"],
+             "apex_tpu_torch/csrc/flash_simt.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:477"),
             (train_recs["layer_norm_bwd"][0], train_recs["layer_norm_bwd"],
              train_counts["layer_norm_bwd"],
              "apex_tpu_torch/csrc/layer_norm_bwd.cu",
@@ -3711,7 +4053,7 @@ def main() -> int:
              "apex_tpu_torch/csrc/multi_tensor_nonfinite.cu",
              "apex_tpu/ops/pallas/experimental/finite_pack.py:66"),
             (mh_fwd[0], mh_fwd, mh_counts["flash_mh_fwd"],
-             "apex_tpu_torch/csrc/flash_mh_fwd.cu",
+             "apex_tpu_torch/csrc/flash_fwd_sm90.cu",
              "apex_tpu/ops/pallas/experimental/flash_mh.py:202"),
             (mh_bwd[0], mh_bwd, mh_counts["flash_mh_bwd"],
              "apex_tpu_torch/csrc/flash_mh_bwd.cu",
@@ -3731,9 +4073,18 @@ def main() -> int:
         scaled = keys + ("row_rel_err", "row_rel_tol", "norm_rel_err",
                          "norm_rel_tol")
         if rec["kernel"] == "flash_attn_fwd":
+            # ms: the launch on prepared operands; call_ms: the wrapper
+            # with its k^ prologue; full_prologue_call_ms: the other split
+            rope_keys = scaled + ("call_ms", "prologue_ms",
+                                  "full_prologue_call_ms", "bound_share")
+            entry["call_ms"] = rec["call_ms"]
+            entry["serving_shapes"] = [
+                {k: r[k] for k in keys + ("call_ms", "kv_mask",
+                                          "bound_share")}
+                for r in fl_recs]
             entry["train_shape_with_rope"] = {k: rope_main[k]
-                                              for k in scaled}
-            entry["long_context_with_rope"] = [{k: r[k] for k in scaled}
+                                              for k in rope_keys}
+            entry["long_context_with_rope"] = [{k: r[k] for k in rope_keys}
                                                for r in lc_fwd]
         if rec["kernel"] == "flash_attn_bwd":
             entry["train_shape_fused_route"] = {
@@ -3748,6 +4099,12 @@ def main() -> int:
             for k in scaled[len(keys):]:
                 entry[k] = max(r[k] for r in recs)      # over every shape
             entry["pairs"] = [r[2] for r in lc_recs]
+        if rec["kernel"] == "flash_fwd_prologue":
+            entry["helper_of"] = ["flash_attn_fwd"]
+        if rec["kernel"] in ("flash_fwd_simt", "flash_bwd_simt"):
+            entry["library_call"] = rec["library_call"]
+            entry["route"] = "cuda"
+            entry["takes"] = "fp32 at D up to 512; bf16 / fp16 above D 128"
         if rec["kernel"] == "flash_bwd_prologue":
             entry["helper_of"] = ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
             entry["other_shapes"] = [{k: r[k] for k in keys + ("rope",)}
@@ -3793,9 +4150,13 @@ def main() -> int:
         if rec["kernel"] in ("flash_mh_fwd", "flash_mh_bwd"):
             same = ("k2_same_shape_ms" if rec["kernel"] == "flash_mh_fwd"
                     else "k4_same_shape_ms")
+            extra = (("call_ms", "bound_share")
+                     if rec["kernel"] == "flash_mh_fwd" else ())
             entry["shapes"] = [
-                {k: r[k] for k in scaled + ("causal", "kv_mask", same)}
-                for r in recs]
+                {k: r[k] for k in scaled + ("causal", "kv_mask", same)
+                 + extra} for r in recs]
+            if extra:
+                entry["call_ms"] = rec["call_ms"]
             entry[same] = rec[same]
             entry["library_call"] = rec["library_call"]
             entry["launches_by_shape_of_the_entry_point"] = mh_counts

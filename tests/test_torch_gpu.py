@@ -43,6 +43,8 @@ from apex_tpu_torch.ops.cuda import (
     flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
+    flash_bwd_simt,
+    flash_fwd_simt,
     lamb_stage1,
     lamb_stage1_ref,
     lamb_stage2,
@@ -132,11 +134,13 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype, causal, masked):
     if masked:
         mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
         mask[0, :] = False            # batch 0: every row sees no key
-    before = flash_attn_fwd.launches
+    # K2 in bf16, the generic kernel in fp32 (the route's own counter)
+    counter = flash_attn_fwd if dtype == torch.bfloat16 else flash_fwd_simt
+    before = counter.launches
     o, lse = flash_attn_fwd(q, k, v, causal=causal, kv_mask=mask,
                             return_lse=True)
     torch.cuda.synchronize()
-    assert flash_attn_fwd.launches == before + 1
+    assert counter.launches == before + 1
     o_ref, lse_ref = flash_attn_fwd_ref(q.float(), k.float(), v.float(),
                                         causal=causal, kv_mask=mask)
     atol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -160,9 +164,11 @@ def test_flash_kernel_reads_strided_qkv_split(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros((1, 8, 2, 32), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attn_fwd(q, q, q)
+    # a head width off a multiple of 8, or above 512: no kernel takes it
+    for d in (36, 520):
+        q = torch.zeros((1, 8, 2, d), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attn_fwd(q, q, q)
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
     k = torch.zeros((1, 9, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Lq == Lk"):
@@ -177,13 +183,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_serve_engine_launches_layer_norm_kernel_per_step(cuda):
     """The launch counters replace the JAX engine's trace counts: every
     decode step launches the layer-norm kernel 2 x layers + 1 times,
-    and solo generate() launches flash attention once per layer."""
+    and solo generate() launches flash attention once per layer (this
+    fp32 model's on the generic kernel, the route of fp32)."""
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.models.generate import generate
     from apex_tpu_torch.serve import Request, ServeConfig, ServeEngine
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    # 2 layers, 2 heads of 64 (the kernel takes D in (64, 128))
+    # 2 layers, 2 heads of 64
     cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                     num_heads=2, intermediate_size=256)
     torch.manual_seed(0)
@@ -208,7 +215,8 @@ def test_serve_engine_launches_layer_norm_kernel_per_step(cuda):
     for i, p in enumerate(prompts):
         reset_launch_counts()
         solo = generate(model, cfg, p[None], 6, device=cuda)
-        assert launch_counts()["flash_attn_fwd"] == cfg.num_layers
+        assert launch_counts()["flash_fwd_simt"] == cfg.num_layers
+        assert launch_counts()["flash_attn_fwd"] == 0
         assert out[f"r{i}"].shape == (6,)
         assert solo.shape == (1, len(p) + 6)
 
@@ -275,12 +283,14 @@ def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal,
     kw = dict(causal=causal, kv_mask=mask,
               rope=_tables(bsz, l, d, dtype, cuda) if rope else None)
     o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
-    before = flash_attn_bwd.launches
+    counter = flash_attn_bwd if dtype == torch.bfloat16 else flash_bwd_simt
+    before = counter.launches
     got = flash_attn_bwd(q, k, v, o, lse, do, **kw)
     again = flash_attn_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    # one launch a call in bf16, two (dk/dv, then dq) in fp32
-    assert flash_attn_bwd.launches == before + 2 * (
+    # one launch of K4 a call in bf16, two of the generic pair (dk/dv,
+    # then dq) in fp32
+    assert counter.launches == before + 2 * (
         1 if dtype == torch.bfloat16 else 2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -469,9 +479,13 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
         counts = launch_counts()
     n = len(list(model.parameters()))
     per_call, atol = TRAIN_LEVELS[opt_level]
-    # FusedAdam: one K11 launch a step over every leaf, no K5
-    assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4,
-                      "layer_norm_bwd": 20, "flash_attn_bwd": 4 * per_call,
+    # FusedAdam: one K11 launch a step over every leaf, no K5; attention
+    # in bf16 on K2 (after its k^ prologue: the GPT rotates) and K4, in
+    # fp32 on the generic kernels (two backward launches a call)
+    half = opt_level != "O0"
+    assert per_call == (1 if half else 2)
+    assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4 * half,
+                      "layer_norm_bwd": 20, "flash_attn_bwd": 4 * half,
                       "packed_adam": 0, "packed_scale": 2 * n,
                       "lamb_stage1": 0, "lamb_stage2": 0,
                       "packed_sumsq": 0, "packed_axpby": 0,
@@ -479,7 +493,10 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
                       "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
                       "flash_bwd_prologue": 0,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
-                      "flash_mh_fwd": 0, "flash_mh_bwd": 0}
+                      "flash_mh_fwd": 0, "flash_mh_bwd": 0,
+                      "flash_fwd_prologue": 4 * half,
+                      "flash_fwd_simt": 4 * (not half),
+                      "flash_bwd_simt": 4 * per_call * (not half)}
     want_dtype = torch.float32 if opt_level == "O0" else torch.bfloat16
     assert all(p.dtype == want_dtype for p in model.parameters())
     assert all(np.isfinite(losses["cuda"]))
@@ -690,8 +707,11 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
         reset_launch_counts()
         losses[dev] = [float(step(*batch)["loss"]) for _ in range(2)]
         counts = launch_counts()
-    assert counts == {"layer_norm_fwd": 2 * 6, "flash_attn_fwd": 2 * 2,
-                      "layer_norm_bwd": 2 * 6 * 2, "flash_attn_bwd": 2 * 2 * 2,
+    # attention in fp32: the generic kernels (two backward launches)
+    assert counts == {"layer_norm_fwd": 2 * 6, "flash_attn_fwd": 0,
+                      "flash_fwd_simt": 2 * 2, "flash_bwd_simt": 2 * 2 * 2,
+                      "flash_fwd_prologue": 0,
+                      "layer_norm_bwd": 2 * 6 * 2, "flash_attn_bwd": 0,
                       "packed_adam": 0,
                       "packed_scale": 2 * len(list(model.parameters())),
                       "lamb_stage1": 2,
@@ -898,7 +918,8 @@ def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
         losses[dev] = [float(step(ids.to(dev))["loss"]) for _ in range(2)]
         counts = launch_counts()
     assert counts == {"layer_norm_fwd": 2 * 4 * 5, "flash_attn_fwd": 2 * 4 * 2,
-                      "layer_norm_bwd": 2 * 4 * 10,
+                      "flash_fwd_prologue": 2 * 4 * 2, "flash_fwd_simt": 0,
+                      "flash_bwd_simt": 0, "layer_norm_bwd": 2 * 4 * 10,
                       "flash_attn_bwd": 2 * 4 * 2, "packed_adam": 0,
                       "packed_scale": 0, "lamb_stage1": 0,
                       "lamb_stage2": 0, "packed_sumsq": 0,
@@ -1112,6 +1133,8 @@ def test_remat_train_step_on_the_two_pass_route_matches_the_cpu(
         counts = launch_counts()
     n = len(list(model.parameters()))
     assert counts == {"layer_norm_fwd": 2 * 9, "flash_attn_fwd": 2 * 4,
+                      "flash_fwd_prologue": 2 * 4, "flash_fwd_simt": 0,
+                      "flash_bwd_simt": 0,
                       "layer_norm_bwd": 2 * 10, "flash_attn_bwd": 0,
                       "packed_adam": 0, "packed_scale": 2 * n,
                       "lamb_stage1": 0, "lamb_stage2": 0,
@@ -1315,11 +1338,13 @@ def test_flash_mh_two_pass_route_and_its_limits(cuda, monkeypatch):
     """Above the budget the backward is K13 + K14 on the pre-scaled q (no
     prologue launch: no rope, scale 1), within 2 bf16 ulps of K18's; at a
     head width of 40 (padded by TMA) too, within 2 bf16 ulps of the plain
-    version; fp32 has no K17 and raises."""
+    version; fp32 takes the generic kernel, within 2e-5 of the plain
+    version."""
     from apex_tpu_torch.ops.cuda import (flash_attn_bwd_dkv,
                                          flash_attn_bwd_dq,
                                          flash_bwd_prologue, flash_mh_bwd,
-                                         flash_mh_bwd_ref, flash_mh_fwd)
+                                         flash_mh_bwd_ref, flash_mh_fwd,
+                                         flash_mh_fwd_ref)
     q, k, v, do, dlse, _ = _mh_inputs((2, 256, 4, 64), cuda, False, 3)
     o, lse = flash_mh_fwd(q, k, v, causal=True)
     monkeypatch.delenv(ENV_BUDGET, raising=False)
@@ -1344,8 +1369,12 @@ def test_flash_mh_two_pass_route_and_its_limits(cuda, monkeypatch):
     for a, r in zip(got, flash_mh_bwd_ref(q40, q40, q40, o40, lse40, q40)):
         torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
                                    rtol=0)
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash_mh_fwd(q.float(), k.float(), v.float())
+    before = flash_fwd_simt.launches
+    o32, lse32 = flash_mh_fwd(q.float(), k.float(), v.float())
+    assert flash_fwd_simt.launches == before + 1
+    ro, rlse = flash_mh_fwd_ref(q.float(), k.float(), v.float())
+    torch.testing.assert_close(o32, ro, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse32, rlse, atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -1427,3 +1456,274 @@ def test_o1_train_step_on_the_card_matches_the_cpu(cuda):
     assert all(np.isfinite(losses["cuda"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=2e-2,
                                rtol=0)
+
+
+# -- the Hopper forward (K2 / K17) and the repaired routes -----------------
+
+#: fp32 scores one plain-version call may hold at once (the long shapes
+#: run their plain version over slices of heads, every head compared)
+PLAIN_SCORES = 1 << 28
+
+
+def _by_heads(fn, args, kw):
+    b, l, h = args[0].shape[:3]
+    step = max(1, min(h, PLAIN_SCORES // (b * l * l)))
+    parts = [fn(*(t[:, :, h0:h0 + step] for t in args), **kw)
+             for h0 in range(0, h, step)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+    return torch.cat(parts, dim=2)
+
+
+def _check_forward(cuda, shape, dtype, causal, rope, masked, seed,
+                   mh=False):
+    """One forward kernel call (K2, or K17 with ``mh``) against its plain
+    version on the same inputs: o within 2e-2 and by
+    ``_assert_rows_close``, lse within 2e-2 (1e-3 for K17, no rope),
+    equal bits on a second run, one launch (and one k^ prologue launch
+    with rope)."""
+    from apex_tpu_torch.ops.cuda import (flash_fwd_prologue, flash_mh_fwd,
+                                         flash_mh_fwd_ref)
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(seed)
+    q, k, v = (_randn(rng, shape, dtype, cuda) for _ in range(3))
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
+        mask[:, 0] = True
+        mask[0, :] = False            # batch 0: every row sees no key
+    kw = dict(causal=causal, kv_mask=mask)
+    if mh:
+        fn, ref_fn, counter = flash_mh_fwd, flash_mh_fwd_ref, flash_mh_fwd
+    else:
+        kw["rope"] = _tables(bsz, l, d, dtype, cuda) if rope else None
+        fn = lambda *a, **k_: flash_attn_fwd(*a, return_lse=True, **k_)
+        ref_fn, counter = flash_attn_fwd_ref, flash_attn_fwd
+    before = (counter.launches, flash_fwd_prologue.launches)
+    o, lse = fn(q, k, v, **kw)
+    o2, lse2 = fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (counter.launches, flash_fwd_prologue.launches) == (
+        before[0] + 2, before[1] + 2 * bool(rope and not mh))
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = _by_heads(ref_fn, (q, k, v), kw)
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3 if mh else 2e-2,
+                               rtol=0)
+    _assert_rows_close(o, ro)
+    if masked:
+        assert torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)
+
+
+#: the forward's shapes in ``chip_smoke.py`` (GPT train with rope, long
+#: context, BERT's masked non-causal, serving's prefill) and the cases of
+#: the new design: a ragged L, a fully masked row, D 40 and 96, fp16
+K2_CASES = {
+    "gpt_train": ((8, 2048, 12, 64), torch.bfloat16, True, True, False),
+    "long_16384": ((1, 16384, 12, 64), torch.bfloat16, True, True, False),
+    "long_32768": ((1, 32768, 12, 64), torch.bfloat16, True, True, False),
+    "bert_masked": ((32, 512, 16, 64), torch.bfloat16, False, False, True),
+    "prefill": ((1, 512, 12, 64), torch.bfloat16, True, True, False),
+    "prefill_ragged": ((2, 1000, 6, 128), torch.bfloat16, True, False,
+                       False),
+    "ragged_rope": ((2, 1000, 4, 64), torch.bfloat16, True, True, False),
+    "ragged_masked": ((2, 1000, 4, 64), torch.bfloat16, False, False, True),
+    "d40_rope": ((2, 300, 3, 40), torch.bfloat16, True, True, False),
+    "d96_masked": ((2, 300, 3, 96), torch.bfloat16, True, False, True),
+    "fp16_rope": ((2, 1000, 4, 64), torch.float16, True, True, False),
+    "fp16_d40_masked": ((1, 257, 2, 40), torch.float16, False, False, True),
+    "fp16_d96_rope": ((1, 333, 2, 96), torch.float16, True, True, False),
+    "one_row": ((1, 1, 2, 64), torch.bfloat16, True, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_hopper_forward_matches_plain(cuda, case):
+    shape, dtype, causal, rope, masked = K2_CASES[case]
+    _check_forward(cuda, shape, dtype, causal, rope, masked, len(case))
+
+
+K17_CASES = {
+    "gpt": ((8, 2048, 12, 64), torch.bfloat16, True, False),
+    "bert_masked": ((32, 512, 16, 64), torch.bfloat16, False, True),
+    "d128": ((1, 4096, 6, 128), torch.bfloat16, True, False),
+    "ragged": ((2, 1000, 4, 64), torch.bfloat16, False, False),
+    "d40_masked": ((2, 300, 3, 40), torch.float16, False, True),
+    "d96": ((1, 333, 2, 96), torch.float16, True, False),
+    "d8": ((2, 64, 9, 8), torch.bfloat16, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K17_CASES))
+def test_hopper_multi_head_forward_matches_plain(cuda, case):
+    shape, dtype, causal, masked = K17_CASES[case]
+    _check_forward(cuda, shape, dtype, causal, False, masked, len(case),
+                   mh=True)
+
+
+REPAIRED = {  # (shape, dtype, causal, masked): what the card refused before
+    "fp16_d64": ((2, 200, 3, 64), torch.float16, True, False),
+    "fp16_d40": ((1, 150, 2, 40), torch.float16, False, True),
+    "fp16_d96": ((1, 150, 2, 96), torch.float16, True, False),
+    "bf16_d40": ((2, 200, 3, 40), torch.bfloat16, True, True),
+    "bf16_d96": ((1, 150, 2, 96), torch.bfloat16, False, False),
+    "fp32_d64": ((2, 100, 3, 64), torch.float32, True, True),
+    "fp32_d40": ((1, 100, 2, 40), torch.float32, False, False),
+    "fp32_d96": ((1, 100, 2, 96), torch.float32, True, False),
+    "bf16_d192": ((1, 100, 2, 192), torch.bfloat16, True, True),
+    "fp16_d256": ((1, 100, 2, 256), torch.float16, False, False),
+    "fp32_d256": ((1, 64, 2, 256), torch.float32, True, False),
+}
+
+
+def _close(got, ref, dtype):
+    tol = 1e-5 if dtype == torch.float32 else _bf16_tol(ref)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("route", ["fused", "two_pass"])
+@pytest.mark.parametrize("case", sorted(REPAIRED))
+def test_repaired_entry_points_match_plain(cuda, case, route, monkeypatch):
+    """``flash_attention_mh`` and ``attention`` on the card in fp16 and
+    fp32 and at D 40, 96, 192 and 256, forward and gradients (a cotangent
+    on the lse for the multi-head one), against their plain versions on
+    the same inputs: fp32 within 1e-5, half types within 2 ulps (bf16's)
+    of the largest element; both sides of the partials budget."""
+    from apex_tpu_torch.attention import attention
+    from apex_tpu_torch.ops.cuda import flash_mh_bwd_ref, flash_mh_fwd_ref
+    from apex_tpu_torch.ops.experimental import flash_attention_mh
+    shape, dtype, causal, masked = REPAIRED[case]
+    monkeypatch.setenv(ENV_BUDGET, str(1 << 40) if route == "fused" else "0")
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(len(case))
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    dlse = _randn(rng, (bsz, l, h), torch.float32, cuda) * 0.1
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
+        mask[:, 0] = True
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention_mh(*leaves, causal=causal, kv_mask=mask,
+                                return_lse=True)
+    torch.autograd.backward((o, lse), (do, dlse))
+    ro, rlse = flash_mh_fwd_ref(q, k, v, causal=causal, kv_mask=mask)
+    _close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, atol=2e-5 if dtype ==
+                               torch.float32 else 1e-3, rtol=0)
+    # the backward's reference from the kernel's own o and lse, as the
+    # kernel's backward reads them
+    ref = flash_mh_bwd_ref(q, k, v, o.detach(), lse.detach(), do, dlse=dlse,
+                           causal=causal, kv_mask=mask)
+    for t, r in zip(leaves, ref):
+        assert t.grad.dtype == dtype
+        _close(t.grad, r, dtype)
+    tables = _tables(bsz, l, d, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = attention(*leaves, causal=causal, kv_mask=mask, rope=tables,
+                       return_lse=True)
+    o.backward(do)
+    ro, rlse = flash_attn_fwd_ref(q, k, v, causal=causal, kv_mask=mask,
+                                  rope=tables)
+    _close(o, ro, dtype)
+    ref = flash_attn_bwd_ref(q, k, v, o.detach(), lse.detach(), do,
+                             causal=causal, kv_mask=mask, rope=tables)
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r, dtype)
+
+
+def test_fp16_kernels_match_plain(cuda):
+    """The kernels an fp16 O2 step reaches, in fp16: the layer norms (fp16
+    and fp32 weights) within 1 fp16 ulp-scale of the plain version, the
+    unscale and both Adam kernels (fp16 half copies) bit for bit."""
+    rng = np.random.RandomState(16)
+    x = _randn(rng, (64, 768), torch.float16, cuda) * 3 + 1
+    dy = _randn(rng, (64, 768), torch.float16, cuda)
+    for wdt in (torch.float16, torch.float32):
+        w, b = (_randn(rng, (768,), wdt, cuda) for _ in range(2))
+        y, mean, inv = layer_norm_fwd(x, w, b, 1e-5)
+        yr, mr, ir = layer_norm_fwd_ref(x, w, b, 1e-5)
+        torch.testing.assert_close(y.float(), yr.float(), atol=2e-3,
+                                   rtol=2e-3)
+        got = layer_norm_bwd(dy, x, w, mean, inv)
+        want = layer_norm_bwd_ref(dy, x, w, mean, inv)
+        for a, r in zip(got, want):
+            assert a.dtype == r.dtype
+            torch.testing.assert_close(a.float(), r.float(), atol=2e-3,
+                                       rtol=2e-3)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    scale = torch.full((1,), 2.0 ** -16, device=cuda)
+    g = _randn(rng, (1000,), torch.float16, cuda) * 1000
+    g[7] = float("inf")
+    flag_ref = flag.clone()
+    assert torch.equal(packed_scale(g, scale, torch.float32, flag),
+                       packed_scale_ref(g, scale, torch.float32, flag_ref))
+    assert int(flag) == int(flag_ref) == 1
+    n = 1001
+    p = _randn(rng, (n,), torch.float32, cuda)
+    m = torch.zeros(n, device=cuda)
+    v2 = torch.zeros(n, device=cuda)
+    gr = _randn(rng, (n,), torch.float32, cuda)
+    pc = torch.zeros(n, dtype=torch.float16, device=cuda)
+    ss = torch.full((1,), 1e-3, device=cuda)
+    one = torch.ones(1, device=cuda)
+    refs = [t.clone() for t in (p, m, v2, pc)]
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    packed_adam(p, m, v2, gr, ss, one, None, p_copy=pc, **kw)
+    packed_adam_ref(*refs[:3], gr, ss, one, None, p_copy=refs[3], **kw)
+    assert all(torch.equal(a, r) for a, r in zip((p, m, v2, pc), refs))
+    leaves = [_randn(rng, (s,), torch.float32, cuda) for s in (1000, 7, 4096)]
+    table = ChunkTable.of(leaves)
+    grads = [torch.randn_like(t) for t in leaves]
+    copies = [torch.zeros(t.shape, dtype=torch.float16, device=cuda)
+              for t in leaves]
+    state = [[torch.zeros_like(t) for t in leaves] for _ in range(2)]
+    ref_state = [[t.clone() for t in ls] for ls in
+                 (leaves, *state, copies)]
+    steps = torch.full((3,), 1e-3, device=cuda)
+    packed_adam_tree(table, leaves, *state, grads, steps, one, None,
+                     p_copy=copies, **kw)
+    packed_adam_tree_ref(table, ref_state[0], ref_state[1], ref_state[2],
+                         grads, steps, one, None, p_copy=ref_state[3], **kw)
+    for got, want in zip((leaves, *state, copies), ref_state):
+        assert all(torch.equal(a, r) for a, r in zip(got, want))
+
+
+def test_fp16_o2_train_step_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer GPT at O2 with ``half_dtype=torch.float16`` (NVIDIA
+    Apex's classic O2): fp16 parameters, the layer norms, K2 (after its
+    k^ prologue) and K4 in fp16, the unscale K6 a leaf fp16 to fp32, one
+    K11 writing the fp16 copies; the card's losses within 2e-2 of the
+    CPU's, loss scale and overflow equal."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    state = _small_gpt("cpu")[1].state_dict()
+    ids = torch.as_tensor((np.arange(64)[None] + np.arange(4)[:, None] * 7)
+                          % 512)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        _, model = _small_gpt(dev, state)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O2", half_dtype=torch.float16,
+                           device=dev)
+        step = amp.make_train_step(
+            a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+        reset_launch_counts()
+        runs[dev] = [{k: float(v) for k, v in step(ids.to(dev)).items()
+                      if k in ("loss", "loss_scale", "overflow")}
+                     for _ in range(3)]
+        counts = launch_counts()
+        assert all(p.dtype == torch.float16 for p in model.parameters())
+    n = len(list(model.parameters()))
+    assert {k: c for k, c in counts.items() if c} == {
+        "layer_norm_fwd": 3 * 5, "layer_norm_bwd": 3 * 10,
+        "flash_attn_fwd": 3 * 2, "flash_fwd_prologue": 3 * 2,
+        "flash_attn_bwd": 3 * 2, "packed_scale": 3 * n,
+        "packed_adam_tree": 3}
+    for c, g in zip(runs["cuda"], runs["cpu"]):
+        assert abs(c["loss"] - g["loss"]) <= 2e-2, runs
+        assert c["loss_scale"] == g["loss_scale"]
+        assert c["overflow"] == g["overflow"]
