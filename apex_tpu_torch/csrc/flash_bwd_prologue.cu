@@ -27,7 +27,7 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "flash_attn_bwd_tiles.cuh"
+#include "flash_common.cuh"
 
 namespace {
 

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward, K2 / K17
-// (flash_fwd_sm90.cu), and of the two-pass backward, K13
+// (flash_fwd_sm90.cu), of the fused backward, K4 / K18
+// (flash_bwd_fused_sm90.cu), and of the two-pass backward, K13
 // (flash_attn_bwd_dq.cu) and K14 (flash_attn_bwd_dkv.cu): mbarriers, TMA
 // tile loads, wgmma descriptors and instructions in inline PTX (bf16 or
 // fp16 operands, fp32 accumulators), and the host-side encoding of the
@@ -17,8 +18,9 @@
 // boundary.
 //
 // The same tile serves as a K-major operand (its columns are the reduction:
-// S = Q K^T reads Q and K so) and as an MN-major B operand (its rows are the
-// reduction: dQ = dS K reads K so).  A warpgroup's accumulator holds, for
+// S = Q K^T reads Q and K so) and as an MN-major operand (its rows are the
+// reduction: dQ = dS K reads K so, and the fused backward's dS from a dS^T
+// tile its consumers store in this layout).  A warpgroup's accumulator holds, for
 // thread (warp w, lane l), rows 16 w + l / 4 (+ 8) and columns
 // 8 n + 2 (l % 4) (+ 1): register 4 n + 2 i + j is (row + 8 i, column + j).
 // Converted to bf16 / fp16 pairs, the accumulator of a 64 x 64 product is,
@@ -35,7 +37,7 @@
 
 #include <type_traits>
 
-#include "flash_attn_bwd_tiles.cuh"
+#include "flash_common.cuh"
 
 namespace apex_sm90 {
 
@@ -175,7 +177,7 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0,
   return sw128_desc(a, 16, 8 * kRowBytes);
 }
 
-// MN-major B operand: rows 16 kk .. 16 kk + 15 of a tile of `rows` rows are
+// MN-major operand: rows 16 kk .. 16 kk + 15 of a tile of `rows` rows are
 // the reduction, its columns the output's; column halves are rows * 128
 // bytes apart, eight rows 1024.
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
@@ -406,6 +408,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
                    "r"(1));
 }
 
+// The SS form with both operands MN-major (the two transpose bits).
+#define APEX_WGMMA_SS_MN_N64(TY) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+
+// D (64 x 64 fp32) = A B (kAccumulate: += A B), A and B of type T both
+// MN-major in shared memory (descriptors from `mnmajor`): A's rows are its
+// columns in the tile, B as the RS products read it.
+template <bool kAccumulate, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_mn(float* d, uint64_t da,
+                                            uint64_t db) {
+  if constexpr (kAccumulate) {
+    if constexpr (kIsHalf<T>)
+      asm volatile(APEX_WGMMA_SS_MN_N64("f16") : APEX_D32_RW
+                   : "l"(da), "l"(db), "r"(1));
+    else
+      asm volatile(APEX_WGMMA_SS_MN_N64("bf16") : APEX_D32_RW
+                   : "l"(da), "l"(db), "r"(1));
+  } else {
+    if constexpr (kIsHalf<T>)
+      asm volatile(APEX_WGMMA_SS_MN_N64("f16") : APEX_D32_W
+                   : "l"(da), "l"(db), "r"(0));
+    else
+      asm volatile(APEX_WGMMA_SS_MN_N64("bf16") : APEX_D32_W
+                   : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+#undef APEX_WGMMA_SS_MN_N64
 #undef APEX_WGMMA_SS_N32
 #undef APEX_WGMMA_SS_N64
 #undef APEX_WGMMA_SS_N128

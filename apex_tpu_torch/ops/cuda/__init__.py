@@ -24,6 +24,8 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     flash_attn_bwd_ref,
     flash_attn_fwd,
     flash_attn_fwd_ref,
+    flash_bwd_finish,
+    flash_bwd_finish_ref,
     flash_bwd_prologue,
     flash_bwd_prologue_ref,
     flash_bwd_simt,
@@ -91,7 +93,8 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
            "flash_mh_bwd": flash_mh_bwd,
            "flash_fwd_prologue": flash_fwd_prologue,
            "flash_fwd_simt": flash_fwd_simt,
-           "flash_bwd_simt": flash_bwd_simt}
+           "flash_bwd_simt": flash_bwd_simt,
+           "flash_bwd_finish": flash_bwd_finish}
 
 
 def launch_counts() -> dict:
@@ -105,7 +108,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "bwd_route",
-           "conv1x1_bwd", "flash_bwd_simt", "flash_fwd_prologue",
+           "conv1x1_bwd", "flash_bwd_finish", "flash_bwd_finish_ref",
+           "flash_bwd_simt", "flash_fwd_prologue",
            "flash_fwd_prologue_ref", "flash_fwd_simt", "fwd_route",
            "mh_bwd_route",
            "conv1x1_bwd_ref", "flash_mh_bwd", "flash_mh_bwd_ref",

@@ -154,11 +154,13 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_flash_bwd_simt.argtypes = ([vp] * 12 + [i64] * 12
                                         + [i32] * 4 + [f32, i32, i32, vp])
     lib.apex_flash_bwd_simt.restype = i32
-    lib.apex_flash_attn_bwd.argtypes = ([vp] * 12 + [i64] * 12
-                                        + [i32] * 4 + [f32, i32, i32, vp])
-    lib.apex_flash_attn_bwd.restype = i32
-    lib.apex_flash_attn_bwd_smem_bytes.argtypes = [i32]
-    lib.apex_flash_attn_bwd_smem_bytes.restype = i32
+    lib.apex_flash_bwd_fused.argtypes = [vp] * 13 + [i32] * 6 + [vp]
+    lib.apex_flash_bwd_fused.restype = i32
+    lib.apex_flash_bwd_fused_smem_bytes.argtypes = [i32]
+    lib.apex_flash_bwd_fused_smem_bytes.restype = i32
+    lib.apex_flash_bwd_finish.argtypes = [vp] * 4 + [i32] * 5 + [f32, i32,
+                                                                 i32, vp]
+    lib.apex_flash_bwd_finish.restype = i32
     lib.apex_flash_bwd_prologue.argtypes = ([vp] * 6 + [i64] * 6 + [i32] * 4
                                             + [f32, i32, vp])
     lib.apex_flash_bwd_prologue.restype = i32
@@ -203,9 +205,6 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_conv1x1_bwd_tickets.restype = i32
     lib.apex_conv1x1_bwd.argtypes = [vp] * 7 + [i64] + [i32] * 4 + [vp]
     lib.apex_conv1x1_bwd.restype = i32
-    lib.apex_flash_mh_bwd.argtypes = ([vp] * 10 + [i64] * 12 + [i32] * 4
-                                      + [f32, i32, i32, vp])
-    lib.apex_flash_mh_bwd.restype = i32
     lib.apex_packed_nonfinite.argtypes = [vp] * 3 + [i32, i32] + [vp] * 4
     lib.apex_packed_nonfinite.restype = i32
     lib.apex_cuda_error_string.argtypes = [i32]

@@ -1,7 +1,7 @@
 """K2, K4, K13 and K14: the flash-attention forward and backward kernels
-(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attn_bwd.cu``,
-``csrc/flash_attn_bwd_dq.cu``, ``csrc/flash_attn_bwd_dkv.cu``, with the
-prologue ``csrc/flash_bwd_prologue.cu`` and the generic kernels
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_fused_sm90.cu`` with its
+finish pass, ``csrc/flash_attn_bwd_dq.cu``, ``csrc/flash_attn_bwd_dkv.cu``,
+with the prologue ``csrc/flash_bwd_prologue.cu`` and the generic kernels
 ``csrc/flash_simt.cu``) and their plain PyTorch versions.
 
 The CUDA kernels replace the Pallas ``_flash_fwd`` (``_fwd_kernel``),
@@ -21,21 +21,24 @@ K14 for dk / dv) above it, as the JAX package's gate does.  Each wrapper
 launches its kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors; none falls back from one to the other.
 
-K2, K13 and K14 are Hopper kernels: ``wgmma`` on tiles that TMA brings
-into a ring of shared-memory stages, in bf16 or fp16.  TMA copies bytes,
-so a prologue kernel writes the rotated k (:func:`flash_fwd_prologue`,
+K2, K4, K13 and K14 are Hopper kernels: ``wgmma`` on tiles that TMA
+brings into a ring of shared-memory stages, in bf16 or fp16.  TMA copies
+bytes, so a prologue kernel writes the rotated k (:func:`flash_fwd_prologue`,
 for K2) or q pre-scaled and rotated and k rotated
-(:func:`flash_bwd_prologue`, for K13 / K14) once per call; K2 pre-scales
-and rotates its own q tile in shared memory.  Each operand reads through a
-4-D tensor map whose geometry :func:`tma_geometry` computes here (any head
-width that is a multiple of 8 up to 128 runs padded to 64 or 128).
+(:func:`flash_bwd_prologue`, for K4, K13 and K14) once per call; K2
+pre-scales and rotates its own q tile in shared memory.  Each operand
+reads through a 4-D tensor map whose geometry :func:`tma_geometry`
+computes here (any head width that is a multiple of 8 up to 128 runs
+padded to 64 or 128).  K4 writes dq as fp32 partial planes, one per
+64 keys; :func:`flash_bwd_finish` sums them, inverse-rotates, rounds and
+scales.
 
 Which kernel a call takes is a pure function of the dtype, the head width
 and, for the backward, the partial planes' bytes against the budget
 (:func:`fwd_route`, :func:`bwd_route`): bf16 and fp16 up to D 128 take the
 tensor-core kernels; fp32, and half types above D 128, the generic kernels
 (``flash_fwd_simt``, ``flash_bwd_simt``: a warp a row on CUDA cores), up to
-D 512.  Every kernel counts its own launches.
+D :data:`MAX_HEAD_DIM`.  Every kernel counts its own launches.
 """
 
 from __future__ import annotations
@@ -55,14 +58,14 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the storage types of the tensor-core kernels
 HALF_DTYPES = (torch.bfloat16, torch.float16)
-#: the head widths K4 takes
-_FUSED_HEAD_DIMS = (64, 128)
 #: the widest head of the tensor-core kernels (TMA pads to 64 or 128)
 MAX_TC_HEAD_DIM = 128
-#: the widest head of the generic kernels (a lane holds D / 32 columns of
-#: each row it carries in registers)
-MAX_HEAD_DIM = 512
-#: rows of one key tile of the bf16 backward (one dq partial plane each)
+#: the widest head of the generic kernels: above D 512 a warp keeps each of
+#: its rows in shared memory, and the dk / dv pass's six fp32 rows of one
+#: warp (64 * ceil(D / 64) floats each) must fit one block's 227 KB
+MAX_HEAD_DIM = 9664
+#: keys of one consumer warpgroup of the fused backward (K4 / K18): one
+#: dq partial plane each
 BWD_KEY_TILE = 64
 #: the byte budget of K4's dq partial planes (the JAX package's variable)
 FUSED_BWD_MAX_BYTES_ENV = "APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES"
@@ -163,13 +166,16 @@ def _tc_head_dim(d: int) -> bool:
 
 def _check_route(what: str, dtype: torch.dtype, d: int) -> None:
     """Raise on what no kernel takes: a dtype other than fp32, bf16 or
-    fp16, or a head width that is not a multiple of 8 up to 512."""
+    fp16, or a head width that is not a multiple of 8 up to
+    :data:`MAX_HEAD_DIM`."""
     if dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {dtype} unsupported (want fp32, "
                          f"bf16 or fp16)")
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"{what}: head dim {d} unsupported (want a "
-                         f"multiple of 8 up to {MAX_HEAD_DIM})")
+                         f"multiple of 8 up to {MAX_HEAD_DIM}: the generic "
+                         f"kernels' six fp32 rows of a warp fill one "
+                         f"block's 227 KB of shared memory there)")
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
@@ -182,19 +188,15 @@ def fwd_route(dtype: torch.dtype, d: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, d: int, partials_bytes: int,
-              budget: int, fused_dims=_FUSED_HEAD_DIMS) -> str:
+              budget: int) -> str:
     """The backward kernels a call takes: ``"simt"`` (the generic pair)
-    for fp32 and for half types above D 128; else ``"fused"`` (K4, or K18
-    with ``fused_dims`` every width) where the head width is one the
-    fused kernel takes and its partial planes fit ``budget``; else
-    ``"two_pass"`` (K13 then K14).  Raises ``ValueError`` on what no
-    kernel takes."""
+    for fp32 and for half types above D 128; else ``"fused"`` (K4, or
+    K18) where its partial planes fit ``budget``; else ``"two_pass"``
+    (K13 then K14).  Raises ``ValueError`` on what no kernel takes."""
     _check_route("flash backward", dtype, d)
     if dtype not in HALF_DTYPES or d > MAX_TC_HEAD_DIM:
         return "simt"
-    if (fused_dims is None or d in fused_dims) and partials_bytes <= budget:
-        return "fused"
-    return "two_pass"
+    return "fused" if partials_bytes <= budget else "two_pass"
 
 
 def _check_common(what: str, q, k, v, kv_mask, rope, tensor_cores=False):
@@ -398,10 +400,11 @@ def fused_bwd_max_bytes() -> int:
 def fused_bwd_partials_bytes(b: int, l: int, h: int, d: int,
                              dtype: torch.dtype) -> int:
     """Bytes of the fp32 dq partial planes that K4 allocates for a bf16 or
-    fp16 ``(b, l, h, d)`` backward: one ``(b, l, h, d)`` plane per 64-key
-    tile, growing with ``l**2``.  0 in fp32, whose generic backward writes
-    dq directly.  The gate measures the port's own buffer (not the TPU's
-    1024-row blocks): it is the port's memory that runs out."""
+    fp16 ``(b, l, h, d)`` backward: one ``(b, l, h, d)`` plane per 64 keys
+    (:data:`BWD_KEY_TILE`), growing with ``l**2``.  0 in fp32, whose
+    generic backward writes dq directly.  The gate measures the port's own
+    buffer (not the TPU's 1024-row blocks): it is the port's memory that
+    runs out."""
     if dtype not in HALF_DTYPES:
         return 0
     return -(-l // BWD_KEY_TILE) * b * l * h * d * 4
@@ -412,7 +415,7 @@ def fused_bwd(q: torch.Tensor) -> bool:
     the generic kernels), as the JAX package's gate in ``_flash_bwd_rule``
     does while the partial planes fit :func:`fused_bwd_max_bytes`; False
     where it takes the two-pass kernels (:func:`bwd_route`: planes over
-    the budget, or a half-type head width K4 does not take)."""
+    the budget)."""
     if q.dim() != 4:
         return True              # the fused route's checks refuse it
     b, l, h, d = q.shape
@@ -673,11 +676,12 @@ def _prologue(q, k, scale_q: float, cos_t, sin_t, stream: int, counter):
     return qh, (k if kh is None else kh)
 
 
-class _TwoPass(NamedTuple):
-    """What both passes read, made once a call: q^ / k^ (the prologue's), v
-    and do, the four maps' words, lse and delta (contiguous ``(B, L, H)``
-    fp32), the key mask as ``(B, L)`` uint8 or None, the tables or None,
-    dq's deferred scale rounded to q's dtype, causality, the stream."""
+class _BwdOps(NamedTuple):
+    """What the Hopper backward kernels read (K4, or K13 then K14), made
+    once a call: q^ / k^ (the prologue's), v and do, the four maps' words,
+    lse and delta (contiguous ``(B, L, H)`` fp32), the key mask as ``(B,
+    L)`` uint8 or None, the tables or None, dq's deferred scale rounded to
+    q's dtype, causality, the stream."""
 
     qh: torch.Tensor
     kh: torch.Tensor
@@ -694,8 +698,8 @@ class _TwoPass(NamedTuple):
     stream: int
 
 
-def _two_pass_operands(what, q, k, v, do, lse, delta, causal, kv_mask,
-                       scale, rope) -> _TwoPass:
+def _bwd_operands(what, q, k, v, do, lse, delta, causal, kv_mask, scale,
+                  rope) -> _BwdOps:
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     do, lse, delta, mask, cos_t, sin_t = _check_bwd(
@@ -707,18 +711,18 @@ def _two_pass_operands(what, q, k, v, do, lse, delta, causal, kv_mask,
     words = []
     for name, t in (("q^", qh), ("k^", kh), ("v", v), ("do", do)):
         words += tma_geometry(t, name).words()
-    return _TwoPass(qh, kh, v, do, _GeoWords(*words), lse, delta, mask,
-                    cos_t, sin_t, scale_q, int(bool(causal)), stream)
+    return _BwdOps(qh, kh, v, do, _GeoWords(*words), lse, delta, mask,
+                   cos_t, sin_t, scale_q, int(bool(causal)), stream)
 
 
-def _maps_args(ops: _TwoPass):
+def _maps_args(ops: _BwdOps):
     return (ops.qh.data_ptr(), ops.kh.data_ptr(), ops.v.data_ptr(),
             ops.do.data_ptr(), ctypes.addressof(ops.geo), ops.lse.data_ptr(),
             ops.delta.data_ptr(), _ptr(ops.mask), _ptr(ops.cos_t),
             _ptr(ops.sin_t))
 
 
-def _dq_pass(ops: _TwoPass) -> torch.Tensor:
+def _dq_pass(ops: _BwdOps) -> torch.Tensor:
     b, l, h, d = ops.qh.shape
     dq = torch.empty((b, l, h, d), dtype=ops.qh.dtype, device=ops.qh.device)
     err = build.library().apex_flash_attn_bwd_dq(
@@ -729,7 +733,7 @@ def _dq_pass(ops: _TwoPass) -> torch.Tensor:
     return dq
 
 
-def _dkv_pass(ops: _TwoPass) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dkv_pass(ops: _BwdOps) -> Tuple[torch.Tensor, torch.Tensor]:
     b, l, h, d = ops.qh.shape
     dk = torch.empty((b, l, h, d), dtype=ops.qh.dtype, device=ops.qh.device)
     dv = torch.empty_like(dk)
@@ -739,6 +743,103 @@ def _dkv_pass(ops: _TwoPass) -> Tuple[torch.Tensor, torch.Tensor]:
     build.check(err, "flash_attn_bwd_dkv")
     flash_attn_bwd_dkv.launches += 1
     return dk, dv
+
+
+def _fused_launch(ops: _BwdOps, counter):
+    """One launch of the fused backward (``csrc/flash_bwd_fused_sm90.cu``)
+    on prepared operands, counted in ``counter.launches`` (K4 or K18);
+    returns ``(planes, dk, dv)``: the fp32 dq partial planes (unreached
+    causal rows left unwritten) and dk, dv in q's dtype."""
+    b, l, h, d = ops.qh.shape
+    planes = torch.empty((-(-l // BWD_KEY_TILE), b, l, h, d),
+                         dtype=torch.float32, device=ops.qh.device)
+    dk = torch.empty((b, l, h, d), dtype=ops.qh.dtype, device=ops.qh.device)
+    dv = torch.empty_like(dk)
+    err = build.library().apex_flash_bwd_fused(
+        *_maps_args(ops), planes.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, l, h, d, ops.causal, _DTYPES[ops.qh.dtype], ops.stream)
+    build.check(err, counter.__name__)
+    counter.launches += 1
+    return planes, dk, dv
+
+
+def _finish(planes: torch.Tensor, cos_t, sin_t, scale_q: float,
+            causal: int, dtype: torch.dtype, stream: int) -> torch.Tensor:
+    """One launch of the finish pass on checked operands, counted in
+    ``flash_bwd_finish.launches``: dq in ``dtype``."""
+    n, b, l, h, d = planes.shape
+    dq = torch.empty((b, l, h, d), dtype=dtype, device=planes.device)
+    err = build.library().apex_flash_bwd_finish(
+        planes.data_ptr(), _ptr(cos_t), _ptr(sin_t), dq.data_ptr(), b, l, h,
+        d, n, scale_q, causal, _DTYPES[dtype], stream)
+    build.check(err, "flash_bwd_finish")
+    flash_bwd_finish.launches += 1
+    return dq
+
+
+def _fused_pass(ops: _BwdOps, counter
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` by the fused route on prepared operands: one K4 /
+    K18 launch (counted in ``counter.launches``), then the finish pass."""
+    planes, dk, dv = _fused_launch(ops, counter)
+    return (_finish(planes, ops.cos_t, ops.sin_t, ops.scale_q, ops.causal,
+                    ops.qh.dtype, ops.stream), dk, dv)
+
+
+def flash_bwd_finish_ref(planes: torch.Tensor, *, causal: bool = False,
+                         rope: Rope = None, scale: float,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """dq from the fused backward's fp32 partial planes ``(n, B, L, H,
+    D)`` (plane j: the keys ``64 j ..``): each row's planes summed in
+    ascending j in fp32, under causality only those that reach the row (j
+    <= l / 64: the other rows of a plane are never written); the sum
+    inverse-rotated in fp32 by the tables (cast to ``dtype``), rounded to
+    ``dtype`` and multiplied by the scale in ``dtype`` (the scale rounded
+    to it)."""
+    n, b, l, h, d = planes.shape
+    acc = torch.zeros((b, l, h, d), dtype=torch.float32,
+                      device=planes.device)
+    for j in range(n):
+        r0 = BWD_KEY_TILE * j if causal else 0
+        acc[:, r0:] += planes[j, :, r0:]
+    return _unrotate(acc, rope, dtype).to(dtype) \
+        * torch.tensor(scale, dtype=dtype)
+
+
+def flash_bwd_finish(planes: torch.Tensor, *, causal: bool = False,
+                     rope: Rope = None, scale: float,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """:func:`flash_bwd_finish_ref`'s function: on CUDA tensors one launch
+    of the finish pass (``csrc/flash_bwd_fused_sm90.cu``, counted in
+    ``flash_bwd_finish.launches``; bitwise the plain version's), contiguous
+    fp32 planes, ``dtype`` bf16 or fp16, D a multiple of 8; on CPU tensors
+    the plain version."""
+    if planes.device.type == "cpu":
+        return flash_bwd_finish_ref(planes, causal=causal, rope=rope,
+                                    scale=scale, dtype=dtype)
+    what = "flash_bwd_finish"
+    if planes.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {planes.device}")
+    if planes.dim() != 5 or planes.dtype != torch.float32 \
+            or not planes.is_contiguous() or dtype not in HALF_DTYPES \
+            or planes.shape[-1] % 8:
+        raise ValueError(f"{what}: want contiguous fp32 (n, B, L, H, D) "
+                         f"planes, D a multiple of 8, and a bf16 / fp16 "
+                         f"dtype; got {planes.dtype} {tuple(planes.shape)}"
+                         f" -> {dtype}")
+    _, b, l, _, d = planes.shape
+    cos_t = sin_t = None
+    if rope is not None:
+        cos_t, sin_t = (t.to(dtype).contiguous() for t in rope)
+        for t in (cos_t, sin_t):
+            if t.shape != (b, l, d) or t.device != planes.device:
+                raise ValueError(f"{what}: rope tables must be ({b}, {l}, "
+                                 f"{d}) on {planes.device}")
+    return _finish(planes, cos_t, sin_t, _half_scale(scale, dtype),
+                   int(bool(causal)), dtype, build.stream_of(planes))
+
+
+flash_bwd_finish.launches = 0
 
 
 def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -759,8 +860,8 @@ def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                      kv_mask=kv_mask, scale=scale,
                                      rope=rope)
-    return _dq_pass(_two_pass_operands("flash_attn_bwd_dq", q, k, v, do, lse,
-                                       delta, causal, kv_mask, scale, rope))
+    return _dq_pass(_bwd_operands("flash_attn_bwd_dq", q, k, v, do, lse,
+                                  delta, causal, kv_mask, scale, rope))
 
 
 flash_attn_bwd_dq.launches = 0
@@ -781,9 +882,8 @@ def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_bwd_dkv_ref(q, k, v, do, lse, delta,
                                       causal=causal, kv_mask=kv_mask,
                                       scale=scale, rope=rope)
-    return _dkv_pass(_two_pass_operands("flash_attn_bwd_dkv", q, k, v, do,
-                                        lse, delta, causal, kv_mask, scale,
-                                        rope))
+    return _dkv_pass(_bwd_operands("flash_attn_bwd_dkv", q, k, v, do, lse,
+                                   delta, causal, kv_mask, scale, rope))
 
 
 flash_attn_bwd_dkv.launches = 0
@@ -802,8 +902,7 @@ def two_pass_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return (flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw),
                 *flash_attn_bwd_dkv(q, k, v, do, lse, delta, **kw))
-    ops = _two_pass_operands("flash_attn_bwd", q, k, v, do, lse, delta,
-                             **kw)
+    ops = _bwd_operands("flash_attn_bwd", q, k, v, do, lse, delta, **kw)
     return (_dq_pass(ops), *_dkv_pass(ops))
 
 
@@ -873,17 +972,18 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K13 and K14).  The route is the same on the CPU, where each runs its
     plain version.
 
-    On CUDA tensors: bf16 / fp16 at D 64 or 128 within the budget, one
-    launch of K4 (counted in ``flash_attn_bwd.launches``), where each
-    64-key tile writes its fp32 dq contribution into its own partial
-    plane, and the planes are summed here in a fixed order; other half
-    widths up to 128, or planes over the budget, the two-pass kernels;
-    fp32 at any width, and half types above D 128, the generic kernels
-    (dk and dv, then dq, written directly: no planes, counted in
+    On CUDA tensors: bf16 / fp16 up to D 128 within the budget,
+    :func:`flash_bwd_prologue`, one launch of K4 (counted in
+    ``flash_attn_bwd.launches``), where each 64 keys write their fp32 dq
+    contribution into their own partial plane, then one launch of the
+    finish pass (``flash_bwd_finish.launches``), which sums the planes in
+    a fixed order, inverse-rotates, rounds and applies the deferred
+    scale; planes over the budget, the two-pass kernels; fp32 at any
+    width, and half types above D 128, the generic kernels (dk and dv,
+    then dq, written directly: no planes, counted in
     ``flash_bwd_simt.launches``).  No atomics on any route: two runs give
-    equal bits.  ``delta`` (``rowsum(o * do) - dlse``) and the final ``dq
-    * scale`` are plain PyTorch ops, as the JAX path leaves them to
-    XLA."""
+    equal bits.  ``delta`` (``rowsum(o * do) - dlse``) is plain PyTorch,
+    as the JAX path leaves it to XLA."""
     if not fused_bwd(q):
         return two_pass_bwd(q, k, v, do, lse, attn_delta(o, do, dlse),
                             causal=causal, kv_mask=kv_mask, scale=scale,
@@ -895,29 +995,16 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     what = "flash_attn_bwd"
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    delta = attn_delta(o, do, dlse)
+    if q.dim() == 4 and bwd_route(q.dtype, q.shape[-1], 0, 0) != "simt":
+        return _fused_pass(_bwd_operands(what, q, k, v, do, lse, delta,
+                                         causal, kv_mask, scale, rope),
+                           flash_attn_bwd)
     do, lse, delta, mask, cos_t, sin_t = _check_bwd(
-        what, q, k, v, do, lse, attn_delta(o, do, dlse), kv_mask, rope)
-    b, l, h, d = q.shape
+        what, q, k, v, do, lse, delta, kv_mask, rope)
     scale = _default_scale(q, scale)
-    scale_q = _half_scale(scale, q.dtype)
-    if bwd_route(q.dtype, d, 0, 0) == "simt":
-        dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t,
-                               sin_t, scale_q, causal)
-    else:
-        dq = torch.zeros((-(-l // BWD_KEY_TILE), b, l, h, d),
-                         dtype=torch.float32, device=q.device)
-        dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-        dv = torch.empty_like(dk)
-        err = build.library().apex_flash_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(cos_t),
-            _ptr(sin_t), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], b, l, h, d, scale_q, int(bool(causal)),
-            _DTYPES[q.dtype], build.stream_of(q))
-        build.check(err, what)
-        flash_attn_bwd.launches += 1
-        dq = dq.sum(dim=0)
+    dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t,
+                           sin_t, _half_scale(scale, q.dtype), causal)
     return dq.to(q.dtype) * torch.tensor(scale, dtype=q.dtype), dk, dv
 
 

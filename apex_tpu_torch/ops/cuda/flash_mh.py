@@ -1,8 +1,8 @@
 """K17 and K18: the multi-head flash-attention forward and fused backward
 (``csrc/flash_fwd_sm90.cu``, K2's Hopper kernel, and
-``csrc/flash_mh_bwd.cu``) of
-``apex_tpu/ops/pallas/experimental/flash_mh.py``, each beside its plain
-PyTorch version.
+``csrc/flash_bwd_fused_sm90.cu``, K4's Hopper kernel, with its finish
+pass) of ``apex_tpu/ops/pallas/experimental/flash_mh.py``, each beside its
+plain PyTorch version.
 
 The semantics are the JAX module's (``_mh_core``, ``_mh_bwd_rule``): q is
 multiplied by ``scale`` in its own dtype before the kernels (the scale
@@ -33,16 +33,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from apex_tpu_torch.ops.cuda import build
 from apex_tpu_torch.ops.cuda.flash_attention import (
-    _DTYPES,
     BWD_KEY_TILE,
+    _bwd_operands,
     _check_bwd,
     _default_scale,
+    _fused_pass,
     _fwd_launch,
     _fwd_operands,
     _half_scale,
-    _ptr,
     _simt_bwd,
     _simt_fwd,
     attn_delta,
@@ -119,9 +118,9 @@ def mh_bwd_route(dtype: torch.dtype, d: int, partials_bytes: int,
                  budget: int) -> str:
     """The kernels :func:`flash_mh_bwd` takes on the card: ``"simt"`` for
     fp32 and for half types above D 128, else ``"fused"`` (K18, any width
-    that is a multiple of 8) while the planes fit ``budget``, else
-    ``"two_pass"`` (K13 + K14)."""
-    return bwd_route(dtype, d, partials_bytes, budget, fused_dims=None)
+    that is a multiple of 8 up to 128) while the planes fit ``budget``,
+    else ``"two_pass"`` (K13 + K14): :func:`bwd_route`'s table."""
+    return bwd_route(dtype, d, partials_bytes, budget)
 
 
 def flash_mh_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,11 +148,13 @@ def flash_mh_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`flash_mh_bwd_ref`'s function, by the route the JAX rule
     picks (:func:`mh_bwd_route` on the card): while :func:`mh_fused_bwd`,
-    on CUDA tensors one launch of K18 (counted in
-    ``flash_mh_bwd.launches``), its partial planes summed here in a fixed
-    order (no atomics: two runs give equal bits), or, for fp32 and half
-    types above D 128, the generic kernels (``flash_bwd_simt``); above
-    the budget the two-pass kernels K13 then K14 (counted under their own
+    on CUDA tensors the prologue (q pre-scaled in its dtype, counted in
+    ``flash_bwd_prologue.launches``), one launch of K18 (K4's kernel,
+    counted in ``flash_mh_bwd.launches``) and the finish pass, which sums
+    its partial planes in a fixed order (no atomics: two runs give equal
+    bits) and applies the scale in q's dtype; or, for fp32 and half types
+    above D 128, the generic kernels (``flash_bwd_simt``); above the
+    budget the two-pass kernels K13 then K14 (counted under their own
     names) on the pre-scaled q, with no prologue launch (no rope, scale
     1).  On CPU tensors the same routes run their plain versions."""
     scale = _default_scale(q, scale)
@@ -179,27 +180,16 @@ def flash_mh_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   attn_delta(o, do, dlse), causal=causal,
                                   kv_mask=kv_mask, scale=1.0)
         return dq * scale_t, dk, dv
-    do, lse, delta, mask, _, _ = _check_bwd(
-        what, q, k, v, do, lse, attn_delta(o, do, dlse), kv_mask, None)
-    if route == "simt":
-        dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, None,
-                               None, _half_scale(scale, q.dtype), causal)
-        return dq.to(q.dtype) * scale_t, dk, dv
-    b, l, h, d = q.shape
-    planes = torch.zeros((-(-l // BWD_KEY_TILE), b, l, h, d),
-                         dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    err = build.library().apex_flash_mh_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(mask), planes.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *do.stride()[:3], b, l, h, d,
-        float(scale_t), int(bool(causal)), _DTYPES[q.dtype],
-        build.stream_of(q))
-    build.check(err, what)
-    flash_mh_bwd.launches += 1
-    return planes.sum(dim=0).to(q.dtype) * scale_t, dk, dv
+    delta = attn_delta(o, do, dlse)
+    if route == "fused":
+        return _fused_pass(_bwd_operands(what, q, k, v, do, lse, delta,
+                                         causal, kv_mask, scale, None),
+                           flash_mh_bwd)
+    do, lse, delta, mask, _, _ = _check_bwd(what, q, k, v, do, lse, delta,
+                                            kv_mask, None)
+    dq, dk, dv = _simt_bwd(what, q, k, v, do, lse, delta, mask, None, None,
+                           _half_scale(scale, q.dtype), causal)
+    return dq.to(q.dtype) * scale_t, dk, dv
 
 
 flash_mh_bwd.launches = 0

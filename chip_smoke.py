@@ -9,7 +9,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             limit (also printed alone on a line);
 2. build    ``nvcc`` builds every kernel from ``apex_tpu_torch/csrc`` for
             sm_90a: seconds, and registers / shared memory / spills per
-            kernel from ``-Xptxas -v``;
+            kernel from ``-Xptxas -v`` (the fused backward's four
+            instantiations must show no spills);
 3. kernels  each kernel against its plain PyTorch version at the serving
             path's shapes: max abs error within the stated tolerance,
             kernel / plain / library-call times (CUDA events) and the
@@ -26,8 +27,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             engine under the near-tie rule;
 6. reference  fp32 on a small input: the card's kernels against the plain
             versions on the CPU, tokens and logits;
-7. train kernels  the training slice's kernels (layer-norm backward, flash
-            backward with in-kernel rope, the flash forward with rope and
+7. train kernels  the training slice's kernels (layer-norm backward, the
+            fused flash backward K4 with rope and its finish pass, also
+            in fp16 at a padded head width, the flash forward with rope and
             its k^ prologue, Adam, the amp unscale) against their plain
             versions at the train step's shapes, with the same timings and
             bounds, and the two backward kernels run twice for equal bits;
@@ -41,9 +43,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             over steps 3-10, tokens/s, peak memory, launches per step of
             every kernel (the layer-norm backward launches twice a call:
             dx, then the dw/db sum; the flash backward takes the
-            two-pass route, K13 + K14, since K4's planes, 1.61 GB, exceed
-            the 1 GiB budget), the pointer rows uploaded; 5 more steps
-            with the budget raised (the fused route, K4) for both
+            two-pass route, its prologue, K13 and K14, since K4's
+            planes, 1.61 GB, exceed the 1 GiB budget), the pointer rows
+            uploaded; 5 more pairs of steps alternating the fused route
+            (K4 and its finish pass) and the two-pass route for both
             routes' p50; then one step with an injected non-finite
             gradient, which must be skipped on the card (masters and
             moments unchanged, scale halved);
@@ -85,8 +88,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             ragged (2, 1000, 4, 40) whose head width TMA pads to 64:
             bitwise repeats, times, bounds, their prologue (q pre-scaled
             and rotated, k rotated) bitwise against its plain version, the
-            pair beside SDPA's backward, and where K4 takes the shape and
-            its planes fit, both routes of ``flash_attn_bwd`` timed whole
+            pair beside SDPA's backward, and where K4's planes fit 2 GiB,
+            both routes of ``flash_attn_bwd`` timed whole
             (dq, dk and dv within 2 bf16 ulps and the row and norm limits
             of K4's);
    long_context  gpt_small with ``remat=True`` (O2 + FusedAdam), B 1 x L
@@ -147,7 +150,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    o1_reference  a 2-layer GPT at O1, card against CPU, losses within
             2e-2;
 16. flash_mh_kernels  K17 (K2's Hopper kernel, one head a block) and
-            K18, the multi-head flash forward and fused backward, against
+            K18 (K4's Hopper kernel), the multi-head flash forward and
+            fused backward, against
             their plain versions at (8, 2048, 12, 64)
             causal, (32, 512, 16, 64) with a key mask, (1, 4096, 6, 128)
             causal and a ragged (2, 1000, 4, 64), with a cotangent on the
@@ -155,17 +159,19 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             once more at budget 0 (K13 + K14); times beside K2 / K4 on the
             same tensors and SDPA's forward and backward; the bounds;
 17. flash_mh  the entry point ``flash_attention_mh`` with autograd at
-            BERT's masked shape (K17 1, K18 1) and at the GPT train shape
-            (K17 1, K13 + K14 at the default budget);
+            BERT's masked shape (K17 1, K18 1 and its finish pass 1) and
+            at the GPT train shape (K17 1, K13 + K14 at the default
+            budget);
 18. mnist_o1  BASELINE config 1: ``MLP((256, 256))``, O1, SGD(0.05), B
             256, 20 steps: falling losses, p50, samples/s, launches (K6 a
             leaf), an injected overflow skipped;
    flash_repairs  (after flash_mh) ``flash_attention_mh`` and
             ``attention`` with autograd in fp16 and fp32 and at head widths
-            40, 96, 192 and 256 (the routes of ``fwd_route`` /
-            ``bwd_route``: K2 / K17, K4 / K18, K13 / K14 and the generic
-            kernels), each against its plain versions by the row and norm
-            limits, the launches of the path; the generic kernels
+            40, 96, 192, 256, 520 and 1024 (the routes of ``fwd_route`` /
+            ``bwd_route``: K2 / K17, K4 / K18 and the generic kernels),
+            each against its plain versions by the row and norm limits,
+            the launches of the path, K4 and K18 timed in fp16; the
+            generic kernels
             (``flash_fwd_simt``, ``flash_bwd_simt``) against their plain
             versions in fp32 with times, SDPA's fp32 calls and the bounds;
    fp16_o2  amp O2 with ``half_dtype=torch.float16`` at gpt_small's width
@@ -193,6 +199,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -309,13 +316,24 @@ def phase_build():
             else mangled
         kernels[short] = "; ".join(
             l for l in lines if not l.startswith("Compile time"))
+    # K4 / K18's four instantiations (DP 64 / 128, bf16 / fp16): no spills
+    fused = {k: v for k, v in kernels.items()
+             if "flash_bwd_fused_sm90" in k}
+    require(len(fused) == 4, f"flash_bwd_fused_sm90: {len(fused)} "
+                             f"instantiations in the build, want 4")
+    require(all(re.search(r"(^|\D)0 bytes spill stores", v)
+                and re.search(r"(^|\D)0 bytes spill loads", v)
+                for v in fused.values()),
+            f"flash_bwd_fused_sm90 spills: {fused}")
     emit("build", nvcc_seconds=round(info.seconds, 3), library=info.path,
          sources=len(build.sources()), ptxas=kernels,
          # K2 / K17 by the padded head width they run at
          flash_fwd_sm90_dynamic_smem_bytes={
              d: lib.apex_flash_fwd_sm90_smem_bytes(d) for d in (64, 128)},
-         flash_bwd_bf16_dynamic_smem_bytes={
-             d: lib.apex_flash_attn_bwd_smem_bytes(d) for d in (64, 128)},
+         # K4 / K18 by the padded head width they run at
+         flash_bwd_fused_sm90_dynamic_smem_bytes={
+             d: lib.apex_flash_bwd_fused_smem_bytes(d) for d in (64, 128)},
+         flash_bwd_fused_sm90=fused,
          # K13 / K14 by the padded head width they run at
          flash_bwd_dq_sm90_dynamic_smem_bytes={
              d: lib.apex_flash_attn_bwd_dq_smem_bytes(d) for d in (64, 128)},
@@ -742,24 +760,76 @@ def _flash_pairs(b, l, h, causal, mask):
     return b * h * (l * (l + 1) / 2 if causal else l * l)
 
 
+def _planes_bytes(bsz, l, h, d, causal):
+    """The dq partial plane bytes K4 writes (and the finish pass reads)
+    for these inputs: under causality only the rows a plane's 64 keys
+    reach."""
+    n = -(-l // 64)
+    rows = sum(l - 64 * j for j in range(n)) if causal else n * l
+    return rows * bsz * h * d * 4
+
+
+def _finish_case(ops, planes, shape, causal, tables, dtype):
+    """The finish pass on K4's own planes, bitwise against its plain
+    version, with its time and byte bound."""
+    import torch
+    from apex_tpu_torch.ops.cuda import flash_bwd_finish_ref
+    from apex_tpu_torch.ops.cuda.flash_attention import _finish
+    bsz, l, h, d = shape
+
+    def run():
+        return _finish(planes, ops.cos_t, ops.sin_t, ops.scale_q,
+                       ops.causal, dtype, ops.stream)
+
+    def plain():
+        return flash_bwd_finish_ref(planes, causal=causal, rope=tables,
+                                    scale=1.0 / d ** 0.5, dtype=dtype)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    require(torch.equal(got, ref), f"flash_bwd_finish {shape}: differs "
+                                   f"from its plain version")
+    nbytes = (_planes_bytes(bsz, l, h, d, causal) + bsz * l * h * d * 2
+              + (2 * bsz * l * d * 2 if tables is not None else 0))
+    b_ms, b_by = bound(nbytes, 0.0, PEAK_BF16_FLOPS)
+    return dict(kernel="flash_bwd_finish", shape=list(shape), causal=causal,
+                rope=tables is not None, dtype=str(dtype).split(".")[-1],
+                max_abs_err=0.0, tolerance="bitwise", ms=time_ms(run),
+                plain_ms=time_ms(plain, budget_s=0.2), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                library_null_reason="no PyTorch call sums the planes, "
+                                    "inverse-rotates and scales")
+
+
 @fused_budget(FUSED_ALWAYS)
-def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
+def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True,
+                    dtype="bfloat16"):
     """K4, the fused backward (the budget raised so that every shape takes
-    it), against its plain version, with times and the bound."""
+    it), against its plain version (run over slices of heads, every head
+    compared) within 2 ulps (bf16's) of the largest gradient and the row
+    and norm limits, twice for equal bits; its finish pass bitwise
+    against the finish's plain version.  ``ms`` times the public call
+    whole (the q^ / k^ prologue, delta, K4 and the finish pass),
+    ``launch_ms`` K4's launch on prepared
+    operands, ``finish_ms`` the finish pass; the bound counts the call's
+    own operands and outputs beside 10 D flops a visible pair (the planes
+    are the design's, and count in the finish pass's own bound)."""
     import torch
     import torch.nn.functional as F
-    from apex_tpu_torch.ops.cuda import (flash_attn_bwd, flash_attn_bwd_ref,
-                                         flash_attn_fwd)
+    from apex_tpu_torch.ops.cuda import (attn_delta, flash_attn_bwd,
+                                         flash_attn_bwd_ref, flash_attn_fwd)
+    from apex_tpu_torch.ops.cuda.flash_attention import (_bwd_operands,
+                                                         _fused_launch)
     bsz, l, h, d = shape
+    dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     q, k, v, do = (torch.as_tensor(rng.standard_normal(shape, np.float32),
-                                   device=dev).to(torch.bfloat16)
+                                   device=dev).to(dt)
                    for _ in range(4))
     mask = None
     if masked:
         mask = torch.as_tensor(rng.random((bsz, l)) > 0.25, device=dev)
         mask[:, 0] = True
-    tables = _tables(bsz, l, d, torch.bfloat16) if rope else None
+    tables = _tables(bsz, l, d, dt) if rope else None
     kw = dict(causal=causal, kv_mask=mask, rope=tables)
     o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
     got = flash_attn_bwd(q, k, v, o, lse, do, **kw)
@@ -767,13 +837,24 @@ def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
     torch.cuda.synchronize()
     same = all(torch.equal(a, c) for a, c in zip(got, again))
     require(same, f"flash_attn_bwd {shape}: two runs differ")
-    ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
+    del again
+    ref = _plain_by_heads(flash_attn_bwd_ref, (q, k, v, o, lse, do), kw)
     errs = [_max_err(a, r) for a, r in zip(got, ref)]
     require(all(e <= bf16_tol(r) for e, r in zip(errs, ref)),
             f"flash_attn_bwd {shape} masked={masked}: errors {errs}")
+    scaled = [scaled_errs(f"flash_attn_bwd {shape} d{n}", a, r)
+              for n, a, r in zip("qkv", got, ref)]
+    del ref, got
+    ops = _bwd_operands("K4 case", q, k, v, do, lse, attn_delta(o, do, None),
+                        causal, mask, None, tables)
+    launch_ms = time_ms(lambda: _fused_launch(ops, flash_attn_bwd))
+    planes = _fused_launch(ops, flash_attn_bwd)[0]
+    fin = _finish_case(ops, planes, shape, causal, tables, dt)
+    del ops, planes
     ms = time_ms(lambda: flash_attn_bwd(q, k, v, o, lse, do, **kw))
-    plain = time_ms(lambda: flash_attn_bwd_ref(q, k, v, o, lse, do, **kw),
-                    budget_s=0.2)
+    plain = time_ms(lambda: _plain_by_heads(
+        flash_attn_bwd_ref, (q, k, v, o, lse, do), kw), budget_s=0.2)
+    torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     if masked:
@@ -786,19 +867,29 @@ def _flash_bwd_case(shape, rng, causal=True, masked=False, rope=True):
     dot = do.transpose(1, 2)
     lib = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                               retain_graph=True))
+    del ot, qt, kt, vt
     pairs = _flash_pairs(bsz, l, h, causal, mask)
-    nbytes = (8 * bsz * l * h * d * 2 + 4 * bsz * l * h
+    one = bsz * l * h * d * 2
+    # q, k, v, o, do read, dq, dk, dv written; lse (and dlse's delta) and
+    # the tables and mask read
+    nbytes = (8 * one + 4 * bsz * l * h
               + (2 * bsz * l * d * 2 if rope else 0)
               + (bsz * l if masked else 0))
     b_ms, b_by = bound(nbytes, 10.0 * d * pairs, PEAK_BF16_FLOPS)
-    return _kernel_rec(kernel="flash_attn_bwd", shape=list(shape),
-                       causal=causal, kv_mask=masked, rope=rope,
-                       dtype="bfloat16", max_abs_err=max(errs),
-                       errs_dq_dk_dv=errs,
-                       tolerance="2 bf16 ulps of the largest gradient vs "
-                                 "the plain version in bf16",
-                       bitwise_repeat=same, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    rec = _kernel_rec(kernel="flash_attn_bwd", shape=list(shape),
+                      causal=causal, kv_mask=masked, rope=rope, dtype=dtype,
+                      max_abs_err=max(errs), errs_dq_dk_dv=errs,
+                      **{k_: max(x[k_] for x in scaled) for k_ in scaled[0]},
+                      tolerance="2 bf16 ulps of the largest gradient vs "
+                                "the plain version in the same dtype, and "
+                                "the row and norm limits",
+                      bitwise_repeat=same, ms=ms, launch_ms=launch_ms,
+                      finish_ms=fin["ms"],
+                      plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                      bound_by=b_by, bound_share=b_ms / ms,
+                      planes_bytes=_planes_bytes(bsz, l, h, d, causal))
+    emit("kernels", **fin)
+    return rec, fin
 
 
 def _flash_rope_case(shape, rng):
@@ -1094,10 +1185,13 @@ def phase_train_kernels(cfg):
     recs = {}
     recs["layer_norm_bwd"] = [_ln_bwd_case(16384, 768, dt, rng)
                               for dt in (torch.bfloat16, torch.float32)]
-    recs["flash_attn_bwd"] = [
-        _flash_bwd_case((8, 2048, 12, 64), rng),
-        _flash_bwd_case((2, 1000, 6, 128), rng),
-        _flash_bwd_case((2, 512, 12, 64), rng, masked=True, rope=False)]
+    k4 = [_flash_bwd_case((8, 2048, 12, 64), rng),
+          _flash_bwd_case((2, 1000, 6, 128), rng),
+          _flash_bwd_case((2, 512, 12, 64), rng, masked=True, rope=False),
+          # a head width TMA pads (40 runs as 64), in fp16, at a ragged L
+          _flash_bwd_case((2, 1000, 4, 40), rng, dtype="float16")]
+    recs["flash_attn_bwd"] = [r for r, _ in k4]
+    recs["flash_bwd_finish"] = [f for _, f in k4]
     recs["flash_attn_fwd_rope"] = [_flash_rope_case((8, 2048, 12, 64), rng)]
     recs["flash_fwd_prologue"] = [_fwd_prologue_case((8, 2048, 12, 64),
                                                      rng)]
@@ -1139,7 +1233,8 @@ NO_LAUNCHES = {k: 0 for k in (
     "packed_sumsq", "packed_axpby", "packed_adam_tree", "sumsq_per_tensor",
     "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_bwd_prologue",
     "conv1x1_bwd", "packed_nonfinite", "flash_mh_fwd", "flash_mh_bwd",
-    "flash_fwd_prologue", "flash_fwd_simt", "flash_bwd_simt")}
+    "flash_fwd_prologue", "flash_fwd_simt", "flash_bwd_simt",
+    "flash_bwd_finish")}
 
 
 def fused_route(b, l, h, d) -> bool:
@@ -1155,10 +1250,10 @@ def fused_route(b, l, h, d) -> bool:
 def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
     """Launches of ``micro_batches`` GPT forward and backward passes of
     ``(b, l)`` tokens each, and none of any other kernel: the flash
-    backward by the route the budget gives that shape (K4 once a layer, or
-    the two-pass prologue, K13 and K14 once a layer each), K2 with its
-    k^ prologue (the GPT rotates), and under ``cfg.remat`` each block's
-    forward kernels twice (the recompute)."""
+    backward's q^ / k^ prologue once a layer (the GPT rotates), then by
+    the route the budget gives that shape K4 and its finish pass, or K13
+    and K14, once a layer each; K2 with its k^ prologue, and under
+    ``cfg.remat`` each block's forward kernels twice (the recompute)."""
     lnc = 2 * cfg.num_layers + 1
     again = cfg.num_layers if cfg.remat else 0       # blocks run again
     n = micro_batches * cfg.num_layers
@@ -1170,9 +1265,10 @@ def gpt_pass_launches(cfg, micro_batches=1, b=TRAIN_B, l=TRAIN_L):
                 # two launches a call: dx with partials, then the dw/db sum
                 layer_norm_bwd=micro_batches * 2 * lnc,
                 flash_attn_bwd=n if fused else 0,
+                flash_bwd_finish=n if fused else 0,
                 flash_attn_bwd_dq=0 if fused else n,
                 flash_attn_bwd_dkv=0 if fused else n,
-                flash_bwd_prologue=0 if fused else n)
+                flash_bwd_prologue=n)
 
 
 def row_counts(tables):
@@ -1195,7 +1291,8 @@ PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
                   ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq_sm90",)),
                   ("flash_attn_bwd_dkv (K14)", ("flash_bwd_dkv_sm90",)),
                   ("prologues (k^; q^ and k^)", ("flash_bwd_prologue",)),
-                  ("flash_attn_bwd (K4)", ("flash_bwd",)),
+                  ("finish pass (K4's dq planes)", ("flash_bwd_finish",)),
+                  ("flash_attn_bwd (K4)", ("flash_bwd_fused",)),
                   ("flash_attn_fwd (K2)", ("flash_fwd",)),
                   ("layer_norm_bwd (K3)", ("ln_bwd",)),
                   ("layer_norm_fwd (K1)", ("ln_fwd",)),
@@ -1297,9 +1394,8 @@ def phase_train(cfg, tree):
     p50 = float(np.median(times[2:])) * 1e3
     tokens = TRAIN_B * TRAIN_L
     profile = profile_step(step, ids)
-    fused = fused_route_steps(step, ids, cfg, want, dict(
-        want, flash_attn_bwd=cfg.num_layers, flash_attn_bwd_dq=0,
-        flash_attn_bwd_dkv=0, flash_bwd_prologue=0))
+    routes = route_steps(step, ids, cfg, dict(packed_scale=n_leaves,
+                                              packed_adam_tree=1))
     # one step with a non-finite gradient: skipped on the card
     with torch.enable_grad():
         loss = a.run(_gpt_loss, model, ids)
@@ -1334,7 +1430,7 @@ def phase_train(cfg, tree):
          flash_backward_route="fused (K4)" if fused_route(
              TRAIN_B, TRAIN_L, cfg.num_heads, cfg.head_dim)
          else "two-pass (K13 + K14)",
-         route_comparison=fused,
+         route_comparison=routes,
          injected_overflow={
              "skipped": True, "loss_scale": [scale_before,
                                              float(info["loss_scale"])]})
@@ -1347,23 +1443,26 @@ def phase_train(cfg, tree):
 ROUTE_PAIRS = 5
 
 
-def fused_route_steps(step, ids, cfg, want, want_fused):
+def route_steps(step, ids, cfg, extra):
     """``ROUTE_PAIRS`` pairs of steps of ``step``, alternating step by step
-    between the default budget (launching ``want``) and a budget raised
-    above K4's planes (the fused route, launching ``want_fused``): both
-    routes' step times and peak memory under the same conditions; p50s
-    over pairs 2 to ``ROUTE_PAIRS``."""
+    between a budget above K4's planes (the fused route: K4 and its
+    finish pass) and a budget of 0 (the two-pass route: K13 + K14), each
+    launching exactly its route's kernels (``gpt_pass_launches`` under
+    that budget, and ``extra``): both routes' step times and peak memory
+    under the same conditions; p50s over pairs 2 to ``ROUTE_PAIRS``."""
     import torch
     from apex_tpu_torch.ops.cuda import (fused_bwd_partials_bytes,
                                          launch_counts, reset_launch_counts)
-    runs = {"default": (None, want), "fused": (FUSED_ALWAYS, want_fused)}
+    b, l = ids.shape
+    runs = {"fused": FUSED_ALWAYS, "two_pass": 0}
     times = {r: [] for r in runs}
     peaks = {r: 0.0 for r in runs}
+    wants = {}
     for _ in range(ROUTE_PAIRS):
-        for route, (budget, launches) in runs.items():
-            with contextlib.ExitStack() as stack:
-                if budget is not None:
-                    stack.enter_context(fused_budget(budget))
+        for route, budget in runs.items():
+            with fused_budget(budget):
+                wants[route] = dict(gpt_pass_launches(cfg, b=b, l=l),
+                                    **extra)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 reset_launch_counts()
@@ -1372,26 +1471,25 @@ def fused_route_steps(step, ids, cfg, want, want_fused):
                 torch.cuda.synchronize()
                 times[route].append(time.perf_counter() - t0)
                 counts = launch_counts()
-            require(counts == launches, f"{route}-route step launched "
-                                        f"{counts}, want {launches}")
+            require(counts == wants[route], f"{route}-route step launched "
+                                            f"{counts}, want {wants[route]}")
             require(not bool(out["overflow"]),
                     f"overflow in a {route}-route step")
             peaks[route] = max(peaks[route],
                                torch.cuda.max_memory_allocated() / 1e9)
-    b, l = ids.shape
     p50 = {r: float(np.median(t[1:])) * 1e3 for r, t in times.items()}
-    return dict(pairs=ROUTE_PAIRS, order="default, fused; alternated step "
+    return dict(pairs=ROUTE_PAIRS, order="fused, two-pass; alternated step "
                                          "by step",
-                default_step_ms=[t * 1e3 for t in times["default"]],
                 fused_step_ms=[t * 1e3 for t in times["fused"]],
-                default_step_ms_p50_pairs_2_to_5=p50["default"],
+                two_pass_step_ms=[t * 1e3 for t in times["two_pass"]],
                 fused_step_ms_p50_pairs_2_to_5=p50["fused"],
-                fused_minus_default_ms=p50["fused"] - p50["default"],
-                default_peak_memory_gb=peaks["default"],
+                two_pass_step_ms_p50_pairs_2_to_5=p50["two_pass"],
+                fused_minus_two_pass_ms=p50["fused"] - p50["two_pass"],
                 fused_peak_memory_gb=peaks["fused"],
+                two_pass_peak_memory_gb=peaks["two_pass"],
                 planes_gb=fused_bwd_partials_bytes(
                     b, l, cfg.num_heads, cfg.head_dim, torch.bfloat16) / 1e9,
-                launches_per_step={"default": want, "fused": want_fused})
+                launches_per_step=wants)
 
 
 def masters_np(a):
@@ -2047,9 +2145,9 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
     once (the prologue timed in its own row); ``call_ms`` times the public
     wrapper whole, checks and prologue included, which the shared host
     bounds at small shapes; the pair's time beside SDPA's backward at the shape without
-    rope; where the fused route takes the shape (D 64 or 128) and fits,
-    both routes of ``flash_attn_bwd`` timed whole, K14's dk / dv and
-    K13's dq within 2 bf16 ulps of K4's and the row and norm limits.  A
+    rope; where K4's planes fit ``ROUTE_COMPARE_MAX_BYTES``, both routes
+    of ``flash_attn_bwd`` timed whole, K14's dk / dv and K13's dq within
+    2 bf16 ulps of K4's and the row and norm limits.  A
     head width K2 does not take gets its forward from the plain version."""
     import torch
     import torch.nn.functional as F
@@ -2061,7 +2159,7 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                                          flash_attn_fwd, flash_attn_fwd_ref,
                                          fused_bwd_partials_bytes)
     from apex_tpu_torch.ops.cuda.flash_attention import (_dkv_pass, _dq_pass,
-                                                         _two_pass_operands)
+                                                         _bwd_operands)
     bsz, l, h, d = shape
     dev = torch.device("cuda")
     q, k, v, do = (torch.as_tensor(rng.standard_normal(shape, np.float32),
@@ -2103,7 +2201,7 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                                         a, r)
                             for n, a, r in zip(("dk", "dv"), (dk, dv), ref))
     del ref
-    ops = _two_pass_operands("two-pass case", *args, causal, mask, None,
+    ops = _bwd_operands("two-pass case", *args, causal, mask, None,
                              tables)
     ms_dq = time_ms(lambda: _dq_pass(ops))
     ms_dkv = time_ms(lambda: _dkv_pass(ops))
@@ -2161,7 +2259,7 @@ def _two_pass_case(shape, rng, causal=True, masked=False, rope=True):
                 prologue_ms=rec_pro["ms"], bound_ms=b_dq[0] + b_dkv[0],
                 library_sdpa_backward_ms_no_rope=sdpa_bwd)
     planes = fused_bwd_partials_bytes(bsz, l, h, d, torch.bfloat16)
-    if k2_width and planes <= ROUTE_COMPARE_MAX_BYTES:
+    if planes <= ROUTE_COMPARE_MAX_BYTES:
         bwd = (q, k, v, o, lse, do)
         with fused_budget(FUSED_ALWAYS):
             fused = flash_attn_bwd(*bwd, **kw)
@@ -2359,7 +2457,8 @@ def phase_long_context_reference():
             f"two-pass reference launches {tp['counts']}")
     require((fu["counts"]["flash_attn_bwd_dq"],
              fu["counts"]["flash_bwd_prologue"],
-             fu["counts"]["flash_attn_bwd"]) == (0, 0, n),
+             fu["counts"]["flash_attn_bwd"],
+             fu["counts"]["flash_bwd_finish"]) == (0, n, n, n),
             f"fused reference launches {fu['counts']}")
     out = {}
     for name, run in (("two_pass", tp), ("fused", fu)):
@@ -2373,7 +2472,7 @@ def phase_long_context_reference():
                          flash_launches={k: run["counts"][k] for k in (
                              "flash_attn_bwd", "flash_attn_bwd_dq",
                              "flash_attn_bwd_dkv", "flash_bwd_prologue",
-                             "flash_attn_fwd")})
+                             "flash_bwd_finish", "flash_attn_fwd")})
     grad_errs = [float((g - f).abs().max()) / bf16_tol(f)
                  for g, f in zip(tp["grads"], fu["grads"])]
     require(max(grad_errs) <= 1.0, f"first-step gradients of the two routes "
@@ -2615,8 +2714,8 @@ def phase_bert_kernels(cfg):
     shape = (BERT_B, BERT_L, cfg.num_heads, cfg.head_dim)
     recs["flash_attn_fwd"] = _flash_case(shape, rng, masked=True,
                                          causal=False)
-    recs["flash_attn_bwd"] = _flash_bwd_case(shape, rng, causal=False,
-                                             masked=True, rope=False)
+    recs["flash_attn_bwd"], recs["flash_bwd_finish"] = _flash_bwd_case(
+        shape, rng, causal=False, masked=True, rope=False)
     torch.cuda.empty_cache()
     return recs
 
@@ -2668,6 +2767,9 @@ def phase_bert_train(cfg):
                 flash_attn_fwd=cfg.num_layers,
                 # two launches a call: dx with partials, then the dw/db sum
                 layer_norm_bwd=2 * lnc, flash_attn_bwd=cfg.num_layers,
+                # K4's q^ prologue (q pre-scaled; no rope) and finish pass
+                flash_bwd_prologue=cfg.num_layers,
+                flash_bwd_finish=cfg.num_layers,
                 packed_scale=n_leaves, lamb_stage1=1, lamb_stage2=1,
                 packed_sumsq=1)
     require(per_step == want, f"bert launches per step {per_step}, want "
@@ -3326,7 +3428,8 @@ def _mh_case(shape, causal, masked, gen):
                                 "row and norm limits vs the plain version",
                       partials_bytes=mh_partials_bytes(*shape),
                       two_pass_route_k13_k14=two_pass,
-                      ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms,
+                      ms=ms_b,
+                      plain_ms=plain_b, bound_ms=bb_ms,
                       bound_by=bb_by, library_ms=lib_b,
                       library_call="autograd of F.scaled_dot_product_"
                                    "attention (dq, dk, dv)",
@@ -3349,10 +3452,10 @@ def phase_flash_mh_kernels():
 
 def phase_flash_mh():
     """The entry point a user calls, ``flash_attention_mh`` with autograd,
-    forward and backward once at BERT's shape with a key mask (K18: its
-    planes fit the default budget) and once at the GPT train shape
-    (causal: K13 + K14 at the default budget), the counts reset before
-    each and read after."""
+    forward and backward once at BERT's shape with a key mask (K18 with
+    its q^ prologue and finish pass: its planes fit the default budget)
+    and once at the GPT train shape (causal: K13 + K14 at the default
+    budget), the counts reset before each and read after."""
     import torch
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from apex_tpu_torch.ops.experimental import flash_attention_mh
@@ -3378,7 +3481,8 @@ def phase_flash_mh():
                 f"flash_attention_mh {shape}: launches {counts}")
         del q, k, v, o
     first = runs[str((32, 512, 16, 64))]
-    require(first.get("flash_mh_bwd") == 1,
+    require(first.get("flash_mh_bwd") == 1
+            and first.get("flash_bwd_finish") == 1,
             f"flash_attention_mh at BERT's shape did not run K18: {first}")
     emit("flash_mh", launches=runs)
     torch.cuda.empty_cache()
@@ -3386,14 +3490,17 @@ def phase_flash_mh():
 
 
 #: the cases the card's kernels refused before the repairs (fp16, fp32,
-#: head widths other than 64 / 128): (shape, dtype, causal, masked)
+#: head widths other than 64 / 128, and above 512): (shape, dtype, causal,
+#: masked)
 REPAIR_CASES = (((8, 2048, 12, 64), "float16", True, False),
                 ((2, 1024, 12, 64), "float32", True, True),
                 ((2, 1000, 4, 40), "bfloat16", True, False),
                 ((2, 1000, 4, 96), "float16", False, True),
                 ((1, 1024, 4, 192), "bfloat16", True, False),
                 ((1, 1024, 4, 256), "float16", False, False),
-                ((1, 512, 4, 256), "float32", True, False))
+                ((1, 512, 4, 256), "float32", True, False),
+                ((1, 256, 2, 520), "float32", True, True),
+                ((1, 256, 2, 1024), "bfloat16", False, False))
 
 
 def _repair_case(shape, dtype, causal, masked, gen):
@@ -3522,12 +3629,52 @@ def _simt_records(gen):
     return fwd, bwd
 
 
+@fused_budget(FUSED_ALWAYS)
+def _fp16_backward_times(gen):
+    """K4 (with rope) and K18, each called whole on fp16 inputs at the GPT
+    train shape, causal, on the fused route (the budget raised: the
+    planes' 1.61 GB exceed the default), each call required to launch the
+    fused kernel and its finish pass."""
+    import torch
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd, flash_attn_fwd,
+                                         flash_bwd_finish, flash_mh_bwd,
+                                         flash_mh_fwd)
+    shape = (8, 2048, 12, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.float16) for _ in range(4))
+    tables = _tables(shape[0], shape[1], shape[3], torch.float16)
+
+    def fused(wrapper, call):
+        before = (wrapper.launches, flash_bwd_finish.launches)
+        call()
+        torch.cuda.synchronize()
+        after = (wrapper.launches, flash_bwd_finish.launches)
+        require(after == (before[0] + 1, before[1] + 1),
+                f"fp16 {wrapper.__name__}: the fused route did not run "
+                f"({before} -> {after})")
+        return time_ms(call)
+
+    o, lse = flash_attn_fwd(q, k, v, causal=True, rope=tables,
+                            return_lse=True)
+    k4 = fused(flash_attn_bwd, lambda: flash_attn_bwd(
+        q, k, v, o, lse, do, causal=True, rope=tables))
+    o, lse = flash_mh_fwd(q, k, v, causal=True)
+    k18 = fused(flash_mh_bwd, lambda: flash_mh_bwd(q, k, v, o, lse, do,
+                                                   causal=True))
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return dict(shape=list(shape), dtype="float16", causal=True,
+                route="fused", k4_rope_call_ms=k4, k18_call_ms=k18)
+
+
 def phase_flash_repairs():
     """The entry points on the cases the card refused before (fp16, fp32,
-    head widths 40, 96, 192, 256: the routes of ``fwd_route`` /
-    ``bwd_route``), each against its plain versions, the counts reset
-    before and read after (the generic kernels' and the tensor-core
-    kernels' launches on this path); then the generic kernels' records."""
+    head widths 40, 96, 192, 256, 520 and 1024: the routes of
+    ``fwd_route`` / ``bwd_route``), each against its plain versions, the
+    counts reset before and read after (the generic kernels' and the
+    tensor-core kernels' launches on this path: K4 and K18 at every half
+    width up to 128 at the default budget); then the generic kernels'
+    records."""
     import torch
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -3538,12 +3685,13 @@ def phase_flash_repairs():
     torch.cuda.synchronize()
     counts = launch_counts()
     for name in ("flash_fwd_simt", "flash_bwd_simt", "flash_attn_fwd",
-                 "flash_mh_fwd", "flash_fwd_prologue", "flash_attn_bwd_dq",
-                 "flash_attn_bwd_dkv"):
+                 "flash_mh_fwd", "flash_fwd_prologue", "flash_attn_bwd",
+                 "flash_mh_bwd", "flash_bwd_prologue", "flash_bwd_finish"):
         require(counts[name] > 0, f"flash_repairs: {name} never launched")
     emit("flash_repairs", cases=cases, row_rel_tol=ROW_REL_TOL,
          norm_rel_tol=NORM_REL_TOL,
-         launches={k: c for k, c in counts.items() if c})
+         launches={k: c for k, c in counts.items() if c},
+         fp16_backward=_fp16_backward_times(gen))
     return counts, _simt_records(gen)
 
 
@@ -4002,8 +4150,15 @@ def main() -> int:
             (bert_recs["flash_attn_bwd"],
              train_recs["flash_attn_bwd"] + [bert_recs["flash_attn_bwd"]],
              bert_counts["flash_attn_bwd"],
-             "apex_tpu_torch/csrc/flash_attn_bwd.cu",
+             "apex_tpu_torch/csrc/flash_bwd_fused_sm90.cu",
              "apex_tpu/ops/pallas/flash_attention.py:477"),
+            # K4's and K18's helper: the plane sum, inverse rotation and
+            # deferred scale XLA applies after `_flash_bwd_fused`
+            (bert_recs["flash_bwd_finish"],
+             train_recs["flash_bwd_finish"] + [bert_recs["flash_bwd_finish"]],
+             bert_counts["flash_bwd_finish"],
+             "apex_tpu_torch/csrc/flash_bwd_fused_sm90.cu",
+             "apex_tpu/ops/pallas/flash_attention.py:519"),
             (train_recs["packed_adam"][0], train_recs["packed_adam"],
              fp16_counts["packed_adam"], "apex_tpu_torch/csrc/adam.cu",
              "apex_tpu/ops/pallas/adam_kernel.py:216"),
@@ -4055,8 +4210,8 @@ def main() -> int:
             (mh_fwd[0], mh_fwd, mh_counts["flash_mh_fwd"],
              "apex_tpu_torch/csrc/flash_fwd_sm90.cu",
              "apex_tpu/ops/pallas/experimental/flash_mh.py:202"),
-            (mh_bwd[0], mh_bwd, mh_counts["flash_mh_bwd"],
-             "apex_tpu_torch/csrc/flash_mh_bwd.cu",
+            (mh_bwd[1], mh_bwd, mh_counts["flash_mh_bwd"],
+             "apex_tpu_torch/csrc/flash_bwd_fused_sm90.cu",
              "apex_tpu/ops/pallas/experimental/flash_mh.py:240")):
         entry = dict(
             name=rec["kernel"], route="cuda", source=src, replaces=rep,
@@ -4087,8 +4242,18 @@ def main() -> int:
             entry["long_context_with_rope"] = [{k: r[k] for k in rope_keys}
                                                for r in lc_fwd]
         if rec["kernel"] == "flash_attn_bwd":
+            k4 = scaled + ("launch_ms", "finish_ms", "bound_share",
+                           "planes_bytes", "dtype")
+            for k in k4:
+                entry[k] = rec[k]
             entry["train_shape_fused_route"] = {
-                k: train_recs["flash_attn_bwd"][0][k] for k in keys}
+                k: train_recs["flash_attn_bwd"][0][k] for k in k4}
+            entry["other_shapes"] = [{k: r[k] for k in k4}
+                                     for r in train_recs["flash_attn_bwd"][1:]]
+        if rec["kernel"] == "flash_bwd_finish":
+            entry["helper_of"] = ["flash_attn_bwd", "flash_mh_bwd"]
+            entry["other_shapes"] = [{k: r[k] for k in keys + ("rope",)}
+                                     for r in recs[:-1]]
         if rec["kernel"] in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
             at = 0 if rec["kernel"] == "flash_attn_bwd_dq" else 1
             per_shape = scaled + ("call_ms", "bound_share")
@@ -4106,7 +4271,8 @@ def main() -> int:
             entry["route"] = "cuda"
             entry["takes"] = "fp32 at D up to 512; bf16 / fp16 above D 128"
         if rec["kernel"] == "flash_bwd_prologue":
-            entry["helper_of"] = ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
+            entry["helper_of"] = ["flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                                  "flash_attn_bwd", "flash_mh_bwd"]
             entry["other_shapes"] = [{k: r[k] for k in keys + ("rope",)}
                                      for r in recs]
         if rec["kernel"] in bert_recs and rec is not bert_recs[
@@ -4155,7 +4321,7 @@ def main() -> int:
             entry["shapes"] = [
                 {k: r[k] for k in scaled + ("causal", "kv_mask", same)
                  + extra} for r in recs]
-            if extra:
+            if rec["kernel"] == "flash_mh_fwd":
                 entry["call_ms"] = rec["call_ms"]
             entry[same] = rec[same]
             entry["library_call"] = rec["library_call"]

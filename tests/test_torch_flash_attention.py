@@ -213,3 +213,40 @@ def test_backward_is_the_plain_version_and_no_grad_builds_no_node():
     want = flash_attn_bwd_ref(tq, tk, tv, o, lse, do, causal=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert flash_attn_bwd.launches == before
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_wide_heads_match_jax(causal, masked):
+    """A head width above 512 (D 520, which the card's generic kernels
+    take since their rows moved to shared memory): ``attention``'s
+    forward and gradients against JAX's ``_jnp_attention`` and
+    ``jax.grad`` of it, fp32 (``atol = 2e-5``; the gradients ``1e-4``,
+    the bound of the other gradient tests)."""
+    shape = (1, 40, 2, 520)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, "float32", 520)
+    do = np.random.RandomState(3).standard_normal(shape).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.random.RandomState(4).rand(1, 40) > 0.3
+        mask[:, 0] = True
+    jmask = None if mask is None else jnp.asarray(mask)
+    scale = 1 / 520 ** 0.5
+
+    def f(q, k, v):
+        return _jnp_attention(q, k, v, causal=causal, kv_mask=jmask,
+                              scale=scale, return_lse=True)
+
+    (jo, jlse), vjp = jax.vjp(f, jq, jk, jv)
+    want = vjp((jnp.asarray(do), jnp.zeros_like(jlse)))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    o, lse = attention(*leaves, causal=causal, return_lse=True,
+                       kv_mask=None if mask is None
+                       else torch.from_numpy(mask))
+    o.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(o.detach().numpy(), _np(jo), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.detach().numpy(), _np(jlse), atol=2e-5,
+                               rtol=1e-5)
+    for name, t, w in zip("qkv", leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), _np(w), atol=1e-4,
+                                   rtol=0, err_msg=f"d{name}")

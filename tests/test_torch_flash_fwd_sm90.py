@@ -46,6 +46,7 @@ from apex_tpu_torch.ops.cuda import (
     mh_bwd_route,
     tma_geometry,
 )
+from apex_tpu_torch.ops.cuda.flash_attention import MAX_HEAD_DIM
 from apex_tpu_torch.ops.experimental import flash_attention_mh
 from apex_tpu_torch.ops.rope import rope_kernel_tables, rope_tables
 
@@ -190,8 +191,8 @@ BWD_ROUTES = [  # (dtype, (b, l, h, d), budget, flash_attn_bwd, flash_mh_bwd)
     (torch.bfloat16, (8, 2048, 12, 64), GiB, "two_pass", "two_pass"),
     (torch.float16, (8, 2048, 12, 64), GiB, "two_pass", "two_pass"),
     (torch.bfloat16, (8, 2048, 12, 64), 2 * GiB, "fused", "fused"),
-    (torch.bfloat16, (2, 256, 4, 40), GiB, "two_pass", "fused"),
-    (torch.float16, (2, 256, 4, 96), GiB, "two_pass", "fused"),
+    (torch.bfloat16, (2, 256, 4, 40), GiB, "fused", "fused"),
+    (torch.float16, (2, 256, 4, 96), GiB, "fused", "fused"),
     (torch.float16, (2, 256, 4, 96), 0, "two_pass", "two_pass"),
     (torch.bfloat16, (2, 256, 4, 192), GiB, "simt", "simt"),
     (torch.float16, (2, 256, 4, 256), 0, "simt", "simt"),
@@ -203,28 +204,44 @@ BWD_ROUTES = [  # (dtype, (b, l, h, d), budget, flash_attn_bwd, flash_mh_bwd)
 @pytest.mark.parametrize("dtype,shape,budget,route,mh_route", BWD_ROUTES)
 def test_backward_routes(dtype, shape, budget, route, mh_route):
     """The backward's kernels as a pure function of the dtype, the head
-    width and the partial planes' bytes against the budget: K4 takes D 64
-    and 128, K18 every width up to 128, within the budget; the two-pass
-    kernels the other half-type cases up to 128; the generic pair fp32
-    and half types above 128."""
+    width and the partial planes' bytes (one plane a 64-key tile) against
+    the budget: K4 and K18 take every half-type width up to 128 within the
+    budget; the two-pass kernels the half-type cases over it (gpt_small's
+    (8, 2048) planes, 1.61 GB, exceed 1 GiB); the generic pair fp32 and
+    half types above 128."""
     b, l, h, d = shape
     planes = -(-l // 64) * b * l * h * d * 4
     assert bwd_route(dtype, d, planes, budget) == route
     assert mh_bwd_route(dtype, d, planes, budget) == mh_route
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 520),
-                                     (torch.float32, 1024),
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 9672),
+                                     (torch.float32, 1020),
                                      (torch.float16, 44),
                                      (torch.int32, 64),
                                      (torch.float64, 64)])
 def test_routes_refuse_what_no_kernel_takes(dtype, d):
-    """D above 512 (a lane's registers), D not a multiple of 8, and
+    """D above MAX_HEAD_DIM (9664: the generic kernels' six fp32 rows of a
+    warp fill one block's shared memory), D not a multiple of 8, and
     dtypes other than fp32 / bf16 / fp16 raise on every route."""
+    assert MAX_HEAD_DIM == 9664
     with pytest.raises(ValueError):
         fwd_route(dtype, d)
     with pytest.raises(ValueError):
         bwd_route(dtype, d, 0, GiB)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [520, 1024, 2048])
+def test_wide_heads_take_the_generic_kernels(dtype, d):
+    """Head widths above 512, which the generic kernels refused before
+    (their rows now live in shared memory there), route to them forward
+    and backward, within the budget or not."""
+    assert fwd_route(dtype, d) == "simt"
+    for budget in (0, GiB):
+        assert bwd_route(dtype, d, 0, budget) == "simt"
+        assert mh_bwd_route(dtype, d, 0, budget) == "simt"
 
 
 def test_every_route_kernel_counts_its_own_launches():
@@ -233,7 +250,7 @@ def test_every_route_kernel_counts_its_own_launches():
     for name in ("flash_attn_fwd", "flash_mh_fwd", "flash_fwd_prologue",
                  "flash_fwd_simt", "flash_bwd_simt", "flash_attn_bwd",
                  "flash_mh_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                 "flash_bwd_prologue"):
+                 "flash_bwd_prologue", "flash_bwd_finish"):
         assert name in KERNELS and name in launch_counts()
 
 

@@ -164,8 +164,9 @@ def test_flash_kernel_reads_strided_qkv_split(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    # a head width off a multiple of 8, or above 512: no kernel takes it
-    for d in (36, 520):
+    # a head width off a multiple of 8, or above 9664 (the generic
+    # kernels' rows fill a block's shared memory there): no kernel takes it
+    for d in (36, 9672):
         q = torch.zeros((1, 8, 2, d), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attn_fwd(q, q, q)
@@ -480,8 +481,9 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
     n = len(list(model.parameters()))
     per_call, atol = TRAIN_LEVELS[opt_level]
     # FusedAdam: one K11 launch a step over every leaf, no K5; attention
-    # in bf16 on K2 (after its k^ prologue: the GPT rotates) and K4, in
-    # fp32 on the generic kernels (two backward launches a call)
+    # in bf16 on K2 (after its k^ prologue: the GPT rotates) and K4 (after
+    # its q^ / k^ prologue, then the finish pass), in fp32 on the generic
+    # kernels (two backward launches a call)
     half = opt_level != "O0"
     assert per_call == (1 if half else 2)
     assert counts == {"layer_norm_fwd": 10, "flash_attn_fwd": 4 * half,
@@ -491,7 +493,8 @@ def test_train_step_launches_every_kernel_and_matches_the_cpu(cuda,
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
                       "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                      "flash_bwd_prologue": 0,
+                      "flash_bwd_prologue": 4 * half,
+                      "flash_bwd_finish": 4 * half,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0,
                       "flash_fwd_prologue": 4 * half,
@@ -719,7 +722,7 @@ def test_bert_train_step_launches_every_kernel_and_matches_the_cpu(cuda):
                       "packed_axpby": 0, "packed_adam_tree": 0,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
                       "flash_attn_bwd_dkv": 0,
-                      "flash_bwd_prologue": 0,
+                      "flash_bwd_prologue": 0, "flash_bwd_finish": 0,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
@@ -926,7 +929,8 @@ def test_accumulated_train_step_launches_and_matches_the_cpu(cuda):
                       "packed_axpby": 2 * 4, "packed_adam_tree": 2,
                       "sumsq_per_tensor": 0, "flash_attn_bwd_dq": 0,
                       "flash_attn_bwd_dkv": 0,
-                      "flash_bwd_prologue": 0,
+                      "flash_bwd_prologue": 2 * 4 * 2,
+                      "flash_bwd_finish": 2 * 4 * 2,
                       "conv1x1_bwd": 0, "packed_nonfinite": 2,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
@@ -1141,7 +1145,7 @@ def test_remat_train_step_on_the_two_pass_route_matches_the_cpu(
                       "packed_sumsq": 0, "packed_axpby": 0,
                       "packed_adam_tree": 2, "sumsq_per_tensor": 0,
                       "flash_attn_bwd_dq": 2 * 2, "flash_attn_bwd_dkv": 2 * 2,
-                      "flash_bwd_prologue": 2 * 2,
+                      "flash_bwd_prologue": 2 * 2, "flash_bwd_finish": 0,
                       "conv1x1_bwd": 0, "packed_nonfinite": 0,
                       "flash_mh_fwd": 0, "flash_mh_bwd": 0}
     assert all(np.isfinite(losses["cuda"]))
@@ -1692,7 +1696,8 @@ def test_fp16_kernels_match_plain(cuda):
 def test_fp16_o2_train_step_on_the_card_matches_the_cpu(cuda):
     """A 2-layer GPT at O2 with ``half_dtype=torch.float16`` (NVIDIA
     Apex's classic O2): fp16 parameters, the layer norms, K2 (after its
-    k^ prologue) and K4 in fp16, the unscale K6 a leaf fp16 to fp32, one
+    k^ prologue) and K4 (after its q^ / k^ prologue, then the finish
+    pass) in fp16, the unscale K6 a leaf fp16 to fp32, one
     K11 writing the fp16 copies; the card's losses within 2e-2 of the
     CPU's, loss scale and overflow equal."""
     from apex_tpu_torch import amp
@@ -1721,9 +1726,167 @@ def test_fp16_o2_train_step_on_the_card_matches_the_cpu(cuda):
     assert {k: c for k, c in counts.items() if c} == {
         "layer_norm_fwd": 3 * 5, "layer_norm_bwd": 3 * 10,
         "flash_attn_fwd": 3 * 2, "flash_fwd_prologue": 3 * 2,
-        "flash_attn_bwd": 3 * 2, "packed_scale": 3 * n,
+        "flash_attn_bwd": 3 * 2, "flash_bwd_prologue": 3 * 2,
+        "flash_bwd_finish": 3 * 2, "packed_scale": 3 * n,
         "packed_adam_tree": 3}
     for c, g in zip(runs["cuda"], runs["cpu"]):
         assert abs(c["loss"] - g["loss"]) <= 2e-2, runs
         assert c["loss_scale"] == g["loss_scale"]
         assert c["overflow"] == g["overflow"]
+
+
+# -- the Hopper fused backward (K4 / K18) and the wide heads ----------------
+
+#: (shape, dtype, causal, masked, rope): BERT's masked shape with a batch
+#: row of empty rows, the GPT train shape, the head widths 40 / 96 / 128,
+#: fp16, a ragged L
+FUSED = {
+    "bert_masked": ((32, 512, 16, 64), torch.bfloat16, False, True, False),
+    "gpt_train": ((8, 2048, 12, 64), torch.bfloat16, True, False, True),
+    "d40": ((2, 300, 3, 40), torch.bfloat16, True, False, True),
+    "d96": ((2, 300, 3, 96), torch.bfloat16, False, True, True),
+    "d128": ((1, 1000, 4, 128), torch.bfloat16, True, False, True),
+    "fp16": ((2, 256, 4, 64), torch.float16, True, False, True),
+    "fp16_d96_masked": ((2, 333, 2, 96), torch.float16, False, True, False),
+    "ragged": ((1, 1000, 4, 64), torch.bfloat16, True, True, True),
+}
+
+
+def _fused_inputs(case, cuda):
+    shape, dtype, causal, masked, rope = FUSED[case]
+    bsz, l, h, d = shape
+    rng = np.random.RandomState(len(case) + l)
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    dlse = _randn(rng, (bsz, l, h), torch.float32, cuda) * 0.1
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=cuda)
+        mask[:, 0] = True
+        mask[0] = False                        # a batch row of empty rows
+    tables = _tables(bsz, l, d, dtype, cuda) if rope else None
+    return q, k, v, do, dlse, mask, tables, causal
+
+
+@pytest.mark.parametrize("case", sorted(FUSED))
+def test_fused_backward_matches_plain(cuda, case, monkeypatch):
+    """K4 (through :func:`flash_attn_bwd`, the budget raised) against its
+    plain version: dq, dk, dv within 2 ulps (bf16's) of the largest
+    element and by ``_assert_rows_close``; the q^ / k^ prologue, one K4
+    and one finish-pass launch a call; equal bits on a second run; empty
+    rows give zero gradients."""
+    from apex_tpu_torch.ops.cuda import launch_counts
+    q, k, v, do, _, mask, tables, causal = _fused_inputs(case, cuda)
+    monkeypatch.setenv(ENV_BUDGET, str(1 << 40))
+    kw = dict(causal=causal, kv_mask=mask, rope=tables)
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    before = launch_counts()
+    got = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    after = launch_counts()
+    again = flash_attn_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"flash_attn_bwd": 1,
+                                          "flash_bwd_finish": 1,
+                                          "flash_bwd_prologue": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _by_heads(flash_attn_bwd_ref, (q, k, v, o, lse, do), kw)
+    for a, r in zip(got, ref):
+        assert a.dtype == q.dtype
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
+                                   rtol=0)
+        _assert_rows_close(a, r)
+    if mask is not None:
+        assert all(torch.all(a[0] == 0) for a in got)
+
+
+@pytest.mark.parametrize("case", ["bert_masked", "gpt_train", "d40",
+                                  "fp16", "ragged"])
+def test_fused_multi_head_backward_matches_plain(cuda, case, monkeypatch):
+    """K18 (through :func:`flash_mh_bwd`, with a cotangent on the lse, the
+    budget raised) against its plain version by the same limits; one
+    K18 and one finish-pass launch a call; equal bits on a second run."""
+    from apex_tpu_torch.ops.cuda import (flash_mh_bwd, flash_mh_bwd_ref,
+                                         flash_mh_fwd, launch_counts)
+    q, k, v, do, dlse, mask, _, causal = _fused_inputs(case, cuda)
+    monkeypatch.setenv(ENV_BUDGET, str(1 << 40))
+    kw = dict(causal=causal, kv_mask=mask)
+    o, lse = flash_mh_fwd(q, k, v, **kw)
+    before = launch_counts()
+    got = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+    after = launch_counts()
+    again = flash_mh_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+    torch.cuda.synchronize()
+    assert (after["flash_mh_bwd"] - before["flash_mh_bwd"],
+            after["flash_bwd_finish"] - before["flash_bwd_finish"]) == (1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _by_heads(lambda *a: flash_mh_bwd_ref(*a[:6], dlse=a[6], **kw),
+                    (q, k, v, o, lse, do, dlse), {})
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.float(), r.float(), atol=_bf16_tol(r),
+                                   rtol=0)
+        _assert_rows_close(a, r)
+
+
+@pytest.mark.parametrize("causal,rope,dtype", [
+    (True, True, torch.bfloat16), (False, False, torch.float16),
+    (True, False, torch.float16), (False, True, torch.bfloat16)])
+def test_finish_pass_equals_plain_bitwise(cuda, causal, rope, dtype):
+    """The finish pass against its plain version bit for bit: the planes
+    added in ascending order (under causality only those that reach a
+    row: the others hold NaN here and are never read), the inverse
+    rotation, the rounding and the scale in the storage type."""
+    from apex_tpu_torch.ops.cuda import flash_bwd_finish, flash_bwd_finish_ref
+    from apex_tpu_torch.ops.cuda.flash_attention import BWD_KEY_TILE
+    n, b, l, h, d = 5, 2, 300, 3, 72
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    planes = torch.randn((n, b, l, h, d), generator=gen, device=cuda)
+    if causal:
+        for j in range(n):
+            planes[j, :, :BWD_KEY_TILE * j] = float("nan")
+    tables = _tables(b, l, d, dtype, cuda) if rope else None
+    got = flash_bwd_finish(planes, causal=causal, rope=tables, scale=0.125,
+                           dtype=dtype)
+    ref = flash_bwd_finish_ref(planes, causal=causal, rope=tables,
+                               scale=0.125, dtype=dtype)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("d,dtype", [(520, torch.float32),
+                                     (520, torch.bfloat16),
+                                     (1024, torch.float16),
+                                     (1024, torch.float32)])
+def test_entry_points_at_heads_above_512(cuda, d, dtype):
+    """``attention`` (with rope) and ``flash_attention_mh`` at D 520 and
+    1024, which raised before: the generic kernels hold each row in
+    shared memory there; forward and gradients against the plain
+    versions (fp32 within 1e-5, half types within 2 ulps of the largest
+    element)."""
+    from apex_tpu_torch.attention import attention
+    from apex_tpu_torch.ops.cuda import flash_mh_bwd_ref, flash_mh_fwd_ref
+    from apex_tpu_torch.ops.experimental import flash_attention_mh
+    shape = (1, 130, 2, d)
+    rng = np.random.RandomState(d)
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    mask = torch.as_tensor(rng.rand(1, 130) > 0.3, device=cuda)
+    mask[:, 0] = True
+    tables = _tables(1, 130, d, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = attention(*leaves, causal=True, rope=tables, return_lse=True)
+    o.backward(do)
+    ro, _ = flash_attn_fwd_ref(q, k, v, causal=True, rope=tables)
+    _close(o, ro, dtype)
+    ref = flash_attn_bwd_ref(q, k, v, o.detach(), lse.detach(), do,
+                             causal=True, rope=tables)
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r, dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention_mh(*leaves, kv_mask=mask, return_lse=True)
+    o.backward(do)
+    ro, _ = flash_mh_fwd_ref(q, k, v, kv_mask=mask)
+    _close(o, ro, dtype)
+    ref = flash_mh_bwd_ref(q, k, v, o.detach(), lse.detach(), do,
+                           kv_mask=mask)
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r, dtype)
