@@ -4,10 +4,10 @@ The scale, the good-step counter and the overflow flag are device
 tensors, and every transition is tensor arithmetic: nothing here reads a
 value back to the host, so a train step makes no host sync.  The unscale
 runs the K6 kernel (:func:`apex_tpu_torch.ops.cuda.packed_scale`) on the
-card, one launch per gradient into one shared flag; the unscale onto
-stashed gradients runs K10 (:func:`apex_tpu_torch.ops.cuda.packed_axpby`),
-and the finite check of unscaled gradients K15 (:func:`all_finite`), each
-one launch over the whole tree.
+card, the unscale onto stashed gradients K10
+(:func:`apex_tpu_torch.ops.cuda.packed_axpby`), and the finite check of
+unscaled gradients K15 (:func:`all_finite`), each one launch over the
+whole tree.
 
 Semantics as the reference's: a dynamic scale starts at ``2**16``,
 doubles after ``scale_window`` (2000) overflow-free steps, halves on
@@ -26,7 +26,11 @@ import torch
 from apex_tpu_torch.amp.policy import DYNAMIC
 from apex_tpu_torch.ops.cuda import packed_scale
 from apex_tpu_torch.ops.cuda.finite import all_finite_packed
-from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, multi_tensor_axpby
+from apex_tpu_torch.ops.multi_tensor import (
+    CHUNK_SIZE,
+    multi_tensor_axpby,
+    table_for,
+)
 
 
 class LossScaleState(NamedTuple):
@@ -96,18 +100,26 @@ class LossScaler:
         gradient (into ``out``, one tensor per gradient, when given, each
         in its own dtype; ``out`` may be ``grads`` itself), and one int32
         flag ``(1,)``: nonzero when any incoming (still scaled) gradient
-        holds a non-finite value.  On the card, one K6 launch per
-        gradient, all into the same flag."""
+        holds a non-finite value.  On the card, one K6 launch over the
+        chunk table of the gradients (:func:`~apex_tpu_torch.ops.
+        multi_tensor.table_for`), whatever dtypes they mix.  A gradient
+        that is not contiguous is read through a contiguous copy; ``out``
+        must be contiguous (K6 refuses it otherwise).  Without ``out`` the
+        results are views of one new buffer."""
         dev = state.loss_scale.device
         inv = (1.0 / state.loss_scale).reshape(1)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        outs = [None] * len(grads) if out is None else list(out)
-        if len(outs) != len(grads):
-            raise ValueError(f"{len(outs)} out tensors for {len(grads)} "
+        if out is not None and len(out) != len(grads):
+            raise ValueError(f"{len(out)} out tensors for {len(grads)} "
                              f"gradients")
-        res = [packed_scale(g, inv, out_dtype if o is None else o.dtype,
-                            flag, o) for g, o in zip(grads, outs)]
-        return res, flag
+        if not grads:
+            return [], flag
+        xs = [g.contiguous() for g in grads]
+        table = table_for(xs)
+        outs = list(out) if out is not None else table.empty_views(
+            [g.shape for g in grads], [out_dtype] * len(grads))
+        packed_scale(table, xs, inv, flag, outs)
+        return outs, flag
 
     def unscale_with_stashed(self, new_grads: Sequence[torch.Tensor],
                              stashed: Sequence[torch.Tensor],

@@ -5,30 +5,47 @@
 //
 // Computes, per row of x (n1, n2): fp32 mean, the centred two-pass
 // variance, inv = rsqrt(var + eps), y = (x - mean) * inv * w + b in fp32,
-// stored in x's dtype; also stores mean and inv (n1,) fp32 for a backward.
+// stored in x's dtype; also stores mean and inv (n1,) fp32 for a backward,
+// unless the caller passes no stats buffer (a forward nobody
+// differentiates), which skips only those two stores.
 //
 // What bounds it on the H100: bytes.  Each element is read once and written
 // once and costs about ten flops, far below the ~295 flops per byte where the
 // tensor cores would become the limit, so the floor is (2 * n1 * n2 * itemsize
-// + 8 * n1) bytes over 3.35 TB/s.
+// + 8 * n1) bytes over 3.35 TB/s.  At decode (a few rows) nothing is
+// bound by the card: the call's host path and one trip to device memory are
+// the whole cost.
 //
-// Design: one warp per row, four rows per 128-thread block.  The TPU kernel
-// streamed large row blocks through VMEM; here the row lives in registers
-// (VPL values per lane, column lane + 32 * i so that a warp's loads are
-// coalesced), the two reductions are warp shuffles, and x is read from
-// device memory exactly once.  Rows wider than 32 * 32 take the loop
-// variant, which re-reads the row from L1/L2 for its second and third pass.
-// Every width works: the ragged tail of a row is masked per element.  Rows
-// are independent, so nothing of the TPU's sequential grid carries over.
+// Design.  The TPU kernel streamed large row blocks through VMEM; here a
+// row lives in registers as groups of V = 16 / sizeof(T) consecutive
+// elements (8 bf16 / fp16, 4 fp32), each group one 16-byte load and one
+// 16-byte store where the row and n2 allow it (`VEC`), else V element
+// accesses masked at n2 (a view at an odd offset, a ragged width).  x is
+// read from device memory once.  Python picks one of three routes
+// (`ln_fwd_route` in ops/cuda/layer_norm.py):
+//   warp   training's many rows: one warp a row, four rows a block, the
+//          lane's groups lane + 32 i, both sums warp shuffles;
+//   block  decode's and prefill's few rows: one row a block of up to 1024
+//          threads, one or two groups a thread, the sums through shared
+//          memory, so every SM that can take a row gets one;
+//   loop   rows too wide for the warp's registers: one warp a row, three
+//          passes, the later two from L1 / L2.
+// Every sum runs in one fixed order (per thread in group order, then a
+// shuffle tree, then the warps in index order), so two runs give equal bits.
+// Rows are independent, so nothing of the TPU's sequential grid carries over.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;          // warp route: rows a block
+constexpr int kMaxGroupsWarp = 8;  // warp route: groups a lane
+constexpr int kMaxThreads = 1024;  // block route
+constexpr int kMaxGroupsBlock = 2; // block route: groups a thread
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -47,141 +64,338 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half_rn(v);  // round to nearest even
 }
 
+// 16 bytes as fp32 values: 4 fp32, or 8 bf16 / fp16
+__device__ __forceinline__ void unpack16(uint4 r, float* o, float*) {
+  o[0] = __uint_as_float(r.x);
+  o[1] = __uint_as_float(r.y);
+  o[2] = __uint_as_float(r.z);
+  o[3] = __uint_as_float(r.w);
+}
+template <typename H>
+__device__ __forceinline__ void unpack16(uint4 r, float* o, H*) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    H lo, hi;
+    const uint16_t a = (uint16_t)(w[q] & 0xffffu);
+    const uint16_t b = (uint16_t)(w[q] >> 16);
+    memcpy(&lo, &a, 2);
+    memcpy(&hi, &b, 2);
+    o[2 * q] = to_f(lo);
+    o[2 * q + 1] = to_f(hi);
+  }
+}
+
+// G consecutive elements of type E from p as fp32: 16-byte loads when VEC
+// (p 16-byte aligned, all G in range), else element loads masked at
+// `valid` (elements past it read as 0).
+template <typename E, int G, bool VEC>
+__device__ __forceinline__ void load_group(const E* __restrict__ p, int valid,
+                                           float (&o)[G]) {
+  if constexpr (VEC) {
+    constexpr int kPer = 16 / (int)sizeof(E);
+    static_assert(G % kPer == 0, "a group is whole 16-byte words");
+#pragma unroll
+    for (int q = 0; q < G / kPer; ++q)
+      unpack16(__ldg(reinterpret_cast<const uint4*>(p) + q), o + q * kPer,
+               (E*)nullptr);
+  } else {
+#pragma unroll
+    for (int k = 0; k < G; ++k) o[k] = k < valid ? to_f(p[k]) : 0.f;
+  }
+}
+
+template <typename T, int G, bool VEC>
+__device__ __forceinline__ void store_group(T* __restrict__ p, int valid,
+                                            const float (&v)[G]) {
+  if constexpr (VEC) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int q = 0; q < G / kPer; ++q) {
+      uint4 r;
+      T h[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) h[k] = from_f<T>(v[q * kPer + k]);
+      memcpy(&r, h, 16);
+      reinterpret_cast<uint4*>(p)[q] = r;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      if (k < valid) p[k] = from_f<T>(v[k]);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Row held in registers: n2 <= 32 * VPL.
-template <typename T, typename W, int VPL>
-__global__ void __launch_bounds__(32 * kWarps)
-ln_fwd_reg(const T* __restrict__ x, const W* __restrict__ w,
-           const W* __restrict__ b, T* __restrict__ y,
-           float* __restrict__ mean_out, float* __restrict__ inv_out,
-           int n1, int n2, float eps) {
+// The sum over the block, in every thread: each warp's shuffle tree, then
+// the warp sums in warp order.  `red` holds 32 floats and is used by one
+// sum only (two sums take two buffers, so one barrier each suffices).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int nw = (int)(blockDim.x >> 5);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int i = 0; i < nw; ++i) s += red[i];
+  return s;
+}
+
+struct Args {
+  const void* x;
+  const void* w;
+  const void* b;
+  void* y;
+  float* mean;  // null: no stats stores (inv is null too)
+  float* inv;
+  int n1;
+  int n2;
+  float eps;
+};
+
+// y for one group from its centred values
+template <typename W, int V, bool VEC>
+__device__ __forceinline__ void affine(const W* w, const W* b, int c,
+                                       int valid, float mean, float inv,
+                                       float (&v)[V]) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = (v[k] - mean) * inv;
+  if (w != nullptr) {
+    float wv[V], bv[V];
+    load_group<W, V, VEC>(w + c, valid, wv);
+    load_group<W, V, VEC>(b + c, valid, bv);
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = v[k] * wv[k] + bv[k];
+  }
+}
+
+// Warp route: one warp a row, the row's groups in the lane's registers.
+template <typename T, typename W, int NG, bool VEC>
+__global__ void __launch_bounds__(32 * kWarps) ln_fwd_warp(Args a) {
+  constexpr int V = 16 / (int)sizeof(T);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n1) return;
-  const T* xr = x + (size_t)row * n2;
-  float v[VPL];
+  if (row >= a.n1) return;
+  const int n2 = a.n2;
+  const T* xr = static_cast<const T*>(a.x) + (size_t)row * n2;
+  float v[NG][V];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c < n2 ? to_f(xr[c]) : 0.f;
-    s += v[i];
+  for (int i = 0; i < NG; ++i) {
+    const int c = (lane + 32 * i) * V;
+    if (c < n2) {
+      load_group<T, V, VEC>(xr + c, n2 - c, v[i]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[i][k] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) s += v[i][k];
   }
   const float mean = warp_sum(s) / (float)n2;
   float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    const float d = c < n2 ? v[i] - mean : 0.f;
-    ss += d * d;
-  }
-  const float inv = rsqrtf(warp_sum(ss) / (float)n2 + eps);
-  T* yr = y + (size_t)row * n2;
+  for (int i = 0; i < NG; ++i) {
+    const int c = (lane + 32 * i) * V;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < n2) {
-      float o = (v[i] - mean) * inv;
-      if (w != nullptr) o *= to_f(w[c]);
-      if (b != nullptr) o += to_f(b[c]);
-      yr[c] = from_f<T>(o);
+    for (int k = 0; k < V; ++k) {
+      const float d = c + k < n2 ? v[i][k] - mean : 0.f;
+      ss += d * d;
     }
   }
-  if (lane == 0) {
-    mean_out[row] = mean;
-    inv_out[row] = inv;
+  const float inv = rsqrtf(warp_sum(ss) / (float)n2 + a.eps);
+  const W* w = static_cast<const W*>(a.w);
+  const W* b = static_cast<const W*>(a.b);
+  T* yr = static_cast<T*>(a.y) + (size_t)row * n2;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int c = (lane + 32 * i) * V;
+    if (c < n2) {
+      affine<W, V, VEC>(w, b, c, n2 - c, mean, inv, v[i]);
+      store_group<T, V, VEC>(yr + c, n2 - c, v[i]);
+    }
+  }
+  if (lane == 0 && a.mean != nullptr) {
+    a.mean[row] = mean;
+    a.inv[row] = inv;
   }
 }
 
-// Any width: three passes over the row, the later two from cache.
-template <typename T, typename W>
-__global__ void __launch_bounds__(32 * kWarps)
-ln_fwd_loop(const T* __restrict__ x, const W* __restrict__ w,
-            const W* __restrict__ b, T* __restrict__ y,
-            float* __restrict__ mean_out, float* __restrict__ inv_out,
-            int n1, int n2, float eps) {
+// Block route: one row a block, NG groups a thread (group t + blockDim i).
+template <typename T, typename W, int NG, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads) ln_fwd_block(Args a) {
+  constexpr int V = 16 / (int)sizeof(T);
+  __shared__ float red[2][32];
+  const int row = blockIdx.x;
+  const int n2 = a.n2;
+  const T* xr = static_cast<const T*>(a.x) + (size_t)row * n2;
+  float v[NG][V];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int c = (threadIdx.x + blockDim.x * i) * V;
+    if (c < n2) {
+      load_group<T, V, VEC>(xr + c, n2 - c, v[i]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[i][k] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) s += v[i][k];
+  }
+  const float mean = block_sum(s, red[0]) / (float)n2;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int c = (threadIdx.x + blockDim.x * i) * V;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = c + k < n2 ? v[i][k] - mean : 0.f;
+      ss += d * d;
+    }
+  }
+  const float inv = rsqrtf(block_sum(ss, red[1]) / (float)n2 + a.eps);
+  const W* w = static_cast<const W*>(a.w);
+  const W* b = static_cast<const W*>(a.b);
+  T* yr = static_cast<T*>(a.y) + (size_t)row * n2;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int c = (threadIdx.x + blockDim.x * i) * V;
+    if (c < n2) {
+      affine<W, V, VEC>(w, b, c, n2 - c, mean, inv, v[i]);
+      store_group<T, V, VEC>(yr + c, n2 - c, v[i]);
+    }
+  }
+  if (threadIdx.x == 0 && a.mean != nullptr) {
+    a.mean[row] = mean;
+    a.inv[row] = inv;
+  }
+}
+
+// Loop route: any width, one warp a row, three passes over the row (the
+// later two from cache), the same group layout as the warp route.
+template <typename T, typename W, bool VEC>
+__global__ void __launch_bounds__(32 * kWarps) ln_fwd_loop(Args a) {
+  constexpr int V = 16 / (int)sizeof(T);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n1) return;
-  const T* xr = x + (size_t)row * n2;
+  if (row >= a.n1) return;
+  const int n2 = a.n2;
+  const T* xr = static_cast<const T*>(a.x) + (size_t)row * n2;
   float s = 0.f;
-  for (int c = lane; c < n2; c += 32) s += to_f(xr[c]);
+  for (int c = lane * V; c < n2; c += 32 * V) {
+    float v[V];
+    load_group<T, V, VEC>(xr + c, n2 - c, v);
+#pragma unroll
+    for (int k = 0; k < V; ++k) s += v[k];
+  }
   const float mean = warp_sum(s) / (float)n2;
   float ss = 0.f;
-  for (int c = lane; c < n2; c += 32) {
-    const float d = to_f(xr[c]) - mean;
-    ss += d * d;
+  for (int c = lane * V; c < n2; c += 32 * V) {
+    float v[V];
+    load_group<T, V, VEC>(xr + c, n2 - c, v);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = c + k < n2 ? v[k] - mean : 0.f;
+      ss += d * d;
+    }
   }
-  const float inv = rsqrtf(warp_sum(ss) / (float)n2 + eps);
-  T* yr = y + (size_t)row * n2;
-  for (int c = lane; c < n2; c += 32) {
-    float o = (to_f(xr[c]) - mean) * inv;
-    if (w != nullptr) o *= to_f(w[c]);
-    if (b != nullptr) o += to_f(b[c]);
-    yr[c] = from_f<T>(o);
+  const float inv = rsqrtf(warp_sum(ss) / (float)n2 + a.eps);
+  const W* w = static_cast<const W*>(a.w);
+  const W* b = static_cast<const W*>(a.b);
+  T* yr = static_cast<T*>(a.y) + (size_t)row * n2;
+  for (int c = lane * V; c < n2; c += 32 * V) {
+    float v[V];
+    load_group<T, V, VEC>(xr + c, n2 - c, v);
+    affine<W, V, VEC>(w, b, c, n2 - c, mean, inv, v);
+    store_group<T, V, VEC>(yr + c, n2 - c, v);
   }
-  if (lane == 0) {
-    mean_out[row] = mean;
-    inv_out[row] = inv;
+  if (lane == 0 && a.mean != nullptr) {
+    a.mean[row] = mean;
+    a.inv[row] = inv;
   }
 }
 
+// route codes, as ops/cuda/layer_norm.py numbers them
+constexpr int kRouteWarp = 0, kRouteBlock = 1, kRouteLoop = 2;
+
+// cudaLaunchKernel itself, not <<< >>> and cudaGetLastError: the
+// decode call is host-bound, and this is its cheapest launch
+int go(const void* kernel, dim3 grid, dim3 block, const Args& a,
+       cudaStream_t stream) {
+  void* args[] = {const_cast<Args*>(&a)};
+  return (int)cudaLaunchKernel(kernel, grid, block, args, 0, stream);
+}
+
+template <typename T, typename W, bool VEC>
+int launch(const Args& a, int route, cudaStream_t stream) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int groups = (a.n2 + V - 1) / V;
+  if (route == kRouteBlock) {
+    if (groups > kMaxThreads * kMaxGroupsBlock)
+      return (int)cudaErrorInvalidValue;
+    const int ng = groups <= kMaxThreads ? 1 : 2;
+    const int threads = ((groups + ng - 1) / ng + 31) / 32 * 32;
+    return go(ng == 1 ? (const void*)ln_fwd_block<T, W, 1, VEC>
+                      : (const void*)ln_fwd_block<T, W, 2, VEC>,
+              dim3(a.n1), dim3(threads), a, stream);
+  }
+  const dim3 grid((a.n1 + kWarps - 1) / kWarps), block(32 * kWarps);
+  if (route == kRouteLoop)
+    return go((const void*)ln_fwd_loop<T, W, VEC>, grid, block, a, stream);
+  if (route != kRouteWarp || groups > 32 * kMaxGroupsWarp)
+    return (int)cudaErrorInvalidValue;
+  const int per_lane = (groups + 31) / 32;
+  const void* k =
+      per_lane <= 1   ? (const void*)ln_fwd_warp<T, W, 1, VEC>
+      : per_lane <= 2 ? (const void*)ln_fwd_warp<T, W, 2, VEC>
+      : per_lane <= 3 ? (const void*)ln_fwd_warp<T, W, 3, VEC>
+      : per_lane <= 4 ? (const void*)ln_fwd_warp<T, W, 4, VEC>
+      : per_lane <= 6 ? (const void*)ln_fwd_warp<T, W, 6, VEC>
+                      : (const void*)ln_fwd_warp<T, W, 8, VEC>;
+  return go(k, grid, block, a, stream);
+}
+
 template <typename T, typename W>
-void launch(const void* x, const void* w, const void* b, void* y,
-            float* mean, float* inv, int n1, int n2, float eps,
-            cudaStream_t stream) {
-  const dim3 grid((n1 + kWarps - 1) / kWarps), block(32 * kWarps);
-  const T* xp = static_cast<const T*>(x);
-  const W* wp = static_cast<const W*>(w);
-  const W* bp = static_cast<const W*>(b);
-  T* yp = static_cast<T*>(y);
-  const int vpl = (n2 + 31) / 32;
-#define APEX_LN_REG(N)                                                  \
-  ln_fwd_reg<T, W, N><<<grid, block, 0, stream>>>(xp, wp, bp, yp, mean, \
-                                                   inv, n1, n2, eps)
-  if (vpl <= 2) APEX_LN_REG(2);
-  else if (vpl <= 4) APEX_LN_REG(4);
-  else if (vpl <= 8) APEX_LN_REG(8);
-  else if (vpl <= 16) APEX_LN_REG(16);
-  else if (vpl <= 24) APEX_LN_REG(24);
-  else if (vpl <= 32) APEX_LN_REG(32);
-  else
-    ln_fwd_loop<T, W><<<grid, block, 0, stream>>>(xp, wp, bp, yp, mean, inv,
-                                                  n1, n2, eps);
-#undef APEX_LN_REG
+int launch_vec(const Args& a, int route, bool vec, cudaStream_t stream) {
+  return vec ? launch<T, W, true>(a, route, stream)
+             : launch<T, W, false>(a, route, stream);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  w and b may be null
-// (no affine); when given they are float32 or x's dtype (w_dtype).  Returns
-// the
-// cudaError_t of the launch.
+// mode, one int: x's dtype (bits 0-1: 0 = float32, 1 = bfloat16,
+// 2 = float16), w's (bits 2-3: float32 or x's), the route (bits 4-5: 0 warp,
+// 1 block, 2 loop) and bit 6: 16-byte accesses (the caller checked that
+// x, w, b are 16-byte aligned and n2 a multiple of 16 / itemsize).  w and b
+// may be null (no affine).  mean and inv: n1 floats each, or both null (no
+// statistics stored).  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a route the row does not fit).
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
                                    const void* b, void* y, void* mean,
                                    void* inv, int n1, int n2, float eps,
-                                   int x_dtype, int w_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* m = static_cast<float*>(mean);
-  float* iv = static_cast<float*>(inv);
-  if (n1 <= 0 || n2 <= 0) return (int)cudaErrorInvalidValue;
-  if (x_dtype == 0 && w_dtype == 0) {
-    launch<float, float>(x, w, b, y, m, iv, n1, n2, eps, s);
-  } else if (x_dtype == 1 && w_dtype == 1) {
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, b, y, m, iv, n1, n2, eps, s);
-  } else if (x_dtype == 1 && w_dtype == 0) {
-    launch<__nv_bfloat16, float>(x, w, b, y, m, iv, n1, n2, eps, s);
-  } else if (x_dtype == 2 && w_dtype == 2) {
-    launch<__half, __half>(x, w, b, y, m, iv, n1, n2, eps, s);
-  } else if (x_dtype == 2 && w_dtype == 0) {
-    launch<__half, float>(x, w, b, y, m, iv, n1, n2, eps, s);
-  } else {
+                                   int mode, void* stream) {
+  if (n1 <= 0 || n2 <= 0 || (mean == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{x, w, b, y, static_cast<float*>(mean),
+               static_cast<float*>(inv), n1, n2, eps};
+  const int x_dtype = mode & 3, w_dtype = (mode >> 2) & 3;
+  const int route = (mode >> 4) & 3;
+  const bool vec = (mode >> 6) & 1;
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch_vec<float, float>(a, route, vec, s);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch_vec<__nv_bfloat16, __nv_bfloat16>(a, route, vec, s);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch_vec<__nv_bfloat16, float>(a, route, vec, s);
+  if (x_dtype == 2 && w_dtype == 2)
+    return launch_vec<__half, __half>(a, route, vec, s);
+  if (x_dtype == 2 && w_dtype == 0)
+    return launch_vec<__half, float>(a, route, vec, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -51,23 +51,29 @@ def fused_layer_norm_affine(x: torch.Tensor, weight: Optional[torch.Tensor],
                             eps: float = 1e-5) -> torch.Tensor:
     """Affine layer norm over the trailing ``normalized_shape`` dims.
     Differentiable; under ``torch.no_grad`` (or when nothing requires
-    grad) it is one forward kernel call and no autograd node."""
+    grad) it is one forward kernel call over x's rows in place (no
+    reshape there and back for one normalized dim), with no statistics
+    stored, and no autograd node."""
     nshape = _normalized_shape(normalized_shape)
-    if tuple(x.shape[x.dim() - len(nshape):]) != nshape:
+    if x.shape[x.dim() - len(nshape):] != nshape:
         raise ValueError(f"trailing dims of {tuple(x.shape)} must equal "
                          f"normalized_shape {nshape}")
-    n2 = 1
-    for d in nshape:
+    n2 = nshape[0]
+    for d in nshape[1:]:
         n2 *= d
-    x2d = x.reshape(-1, n2).contiguous()
-    w = None if weight is None else weight.reshape(n2)
-    b = None if bias is None else bias.reshape(n2)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x2d, w, b)):
-        y = LayerNormFunction.apply(x2d, w, b, eps)
-    else:
-        y, _mean, _inv = layer_norm_fwd(x2d, w, b, eps)
-    return y.reshape(x.shape)
+    w = weight if weight is None or weight.dim() == 1 \
+        else weight.reshape(n2)
+    b = bias if bias is None or bias.dim() == 1 else bias.reshape(n2)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t is not None and t.requires_grad for t in (w, b))):
+        y = LayerNormFunction.apply(x.reshape(-1, n2).contiguous(), w, b,
+                                    eps)
+        return y.reshape(x.shape)
+    # nobody keeps the statistics: the kernel skips their stores
+    if len(nshape) == 1:
+        return layer_norm_fwd(x.contiguous(), w, b, eps, stats=False)[0]
+    rows = x.reshape(-1, n2).contiguous()
+    return layer_norm_fwd(rows, w, b, eps, stats=False)[0].reshape(x.shape)
 
 
 def fused_layer_norm(x: torch.Tensor, normalized_shape: Shape,

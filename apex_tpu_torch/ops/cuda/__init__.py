@@ -59,6 +59,7 @@ from apex_tpu_torch.ops.cuda.layer_norm import (
     layer_norm_bwd_ref,
     layer_norm_fwd,
     layer_norm_fwd_ref,
+    ln_fwd_route,
 )
 from apex_tpu_torch.ops.cuda.multi_tensor import (
     packed_axpby,
@@ -123,7 +124,8 @@ __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "bwd_route",
            "fused_bwd_max_bytes", "fused_bwd_partials_bytes", "lamb_stage1",
            "lamb_stage1_ref", "lamb_stage2", "lamb_stage2_ref",
            "launch_counts", "layer_norm_bwd", "layer_norm_bwd_ref",
-           "layer_norm_fwd", "layer_norm_fwd_ref", "packed_adam",
+           "layer_norm_fwd", "layer_norm_fwd_ref", "ln_fwd_route",
+           "packed_adam",
            "packed_adam_ref", "packed_adam_tree", "packed_adam_tree_ref",
            "packed_axpby", "packed_axpby_ref", "packed_scale",
            "packed_scale_ref", "packed_sumsq", "packed_sumsq_ref",

@@ -140,8 +140,7 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so_path))
     vp, i32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                          ctypes.c_longlong)
-    lib.apex_layer_norm_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
-                                        f32, i32, i32, vp]
+    lib.apex_layer_norm_fwd.argtypes = [vp] * 6 + [i32, i32, f32, i32, vp]
     lib.apex_layer_norm_fwd.restype = i32
     lib.apex_flash_fwd_sm90.argtypes = [vp] * 9 + [i32] * 4 + [f32] \
         + [i32] * 3 + [vp]
@@ -179,7 +178,7 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_layer_norm_bwd_parts.restype = i32
     lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32] * 4 + [vp]
     lib.apex_adam.restype = i32
-    lib.apex_multi_tensor_scale.argtypes = [vp] * 4 + [i64, i32, i32, vp]
+    lib.apex_multi_tensor_scale.argtypes = [vp] * 3 + [i32, i32] + [vp] * 6
     lib.apex_multi_tensor_scale.restype = i32
     lib.apex_multi_tensor_sumsq.argtypes = ([vp] * 3 + [i32, i32, vp, i32]
                                             + [vp] * 4)
@@ -218,8 +217,17 @@ def build_info() -> Optional[BuildInfo]:
     return _INFO
 
 
+#: the current stream's handle by device index, with no ``torch.cuda.
+#: Stream`` object: PyTorch's private ``torch._C._cuda_getCurrentRawStream``
+#: (the accessor Triton's launcher uses), where this PyTorch has it;
+#: ``chip_smoke.py`` times it against ``torch.cuda.current_stream``
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

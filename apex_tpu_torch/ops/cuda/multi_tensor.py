@@ -2,9 +2,8 @@
 multi_tensor_kernels.py``, each beside its plain PyTorch version:
 
 - K6 :func:`packed_scale` (``csrc/multi_tensor_scale.cu``, replacing
-  ``packed_scale``): scale with a non-finite check, the amp unscale.  It
-  takes one leaf at a time (no packing into a flat buffer), and every
-  leaf of a step raises the same device flag.
+  ``packed_scale``): scale with a non-finite check, the amp unscale,
+  over leaves whose dtypes may mix (one dtype code a leaf).
 - K9 :func:`packed_sumsq` (``csrc/multi_tensor_sumsq.cu``, replacing
   ``packed_sumsq``): the total sum of squares over a tree, the LAMB and
   FP16Optimizer global-norm clip.
@@ -15,7 +14,7 @@ multi_tensor_kernels.py``, each beside its plain PyTorch version:
   replacing ``packed_sumsq_per_chunk`` and its segment add): one sum of
   squares per leaf, the per-tensor norms.
 
-K9, K10 and K12 run over a
+Each runs over a
 :class:`~apex_tpu_torch.ops.multi_tensor.ChunkTable`, one launch over the
 whole tree.  Each wrapper launches its kernel for CUDA tensors and runs
 its ``*_ref`` plain version for CPU tensors; it never falls back from one
@@ -24,7 +23,7 @@ to the other.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional, Sequence
+from typing import TYPE_CHECKING, List, Sequence
 
 import torch
 
@@ -42,54 +41,76 @@ def _set_flag_where(flag: torch.Tensor, bad: torch.Tensor) -> None:
     flag.copy_(torch.where(bad, torch.ones_like(flag), flag))
 
 
-def packed_scale_ref(x: torch.Tensor, scale: torch.Tensor,
-                     out_dtype: torch.dtype, flag: torch.Tensor,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``(x.float() * scale).to(out_dtype)``, written into ``out`` when
-    given; sets ``flag`` (one int32) to 1 when any value of ``x`` is not
-    finite, without reading it back to the host."""
-    _set_flag_where(flag, ~torch.isfinite(x).all())
-    y = (x.float() * scale.float()).to(out_dtype)
-    return y if out is None else out.copy_(y.view(out.shape))
+def packed_scale_ref(table: ChunkTable, x: Sequence[torch.Tensor],
+                     scale: torch.Tensor, flag: torch.Tensor,
+                     out: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``out[i] = (float(x[i]) * scale)`` cast to ``out[i]``'s dtype for
+    every leaf (``out[i]`` may be ``x[i]``: in place); sets ``flag`` (one
+    int32) to 1 when any value of any ``x[i]`` is not finite, without
+    reading it back to the host.  Returns ``out``."""
+    if not (table.fits(x) and table.fits(out)):
+        raise ValueError("packed_scale: the tensors do not match the chunk "
+                         "table's leaf sizes")
+    s = scale.float()
+    for xi, oi in zip(x, out):
+        xf = xi.float()
+        _set_flag_where(flag, ~torch.isfinite(xf).all())
+        oi.copy_((xf * s).view(oi.shape))
+    return list(out)
 
 
-def packed_scale(x: torch.Tensor, scale: torch.Tensor,
-                 out_dtype: torch.dtype, flag: torch.Tensor,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`packed_scale_ref`'s function.  ``scale``: one float32 and
-    ``flag``: one int32, on x's device; ``out``, when given, a contiguous
-    ``out_dtype`` tensor of x's size there (a buffer kept across steps).
-    On a CUDA tensor one launch of the hand-written kernel (counted in
-    ``packed_scale.launches``), any shape, read as its flat contiguous
-    view."""
-    if x.device.type == "cpu":
-        return packed_scale_ref(x, scale, out_dtype, flag, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"packed_scale: unsupported device {x.device}")
-    if x.dtype not in _SCALE_DTYPES or out_dtype not in _SCALE_DTYPES:
-        raise TypeError(f"packed_scale: {x.dtype} -> {out_dtype} "
-                        f"unsupported (float32 / bfloat16 / float16)")
-    for name, t, dt in (("scale", scale, torch.float32),
-                        ("flag", flag, torch.int32)):
-        if t.numel() != 1 or t.dtype != dt or t.device != x.device:
-            raise ValueError(f"packed_scale: {name} must be one {dt} on "
-                             f"{x.device}")
-    x = x.contiguous()
-    if out is None:
-        out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    elif out.dtype != out_dtype or out.numel() != x.numel() \
-            or out.device != x.device or not out.is_contiguous():
-        raise ValueError(f"packed_scale: out must be {x.numel()} "
-                         f"contiguous {out_dtype} on {x.device}")
-    if x.numel() == 0:
-        return out
+def packed_scale(table: ChunkTable, x: Sequence[torch.Tensor],
+                 scale: torch.Tensor, flag: torch.Tensor,
+                 out: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`packed_scale_ref`'s function.  On CUDA tensors one launch of
+    the hand-written kernel over the whole table (counted in
+    ``packed_scale.launches``): ``x`` and ``out`` each one list of the
+    table's leaves, float32, bfloat16 or float16 each, in any mix (a
+    leaf's input and output dtypes may differ; ``out`` may be ``x``
+    itself).  Every leaf must be contiguous: a leaf that is not is
+    refused (``ValueError``), not copied, so an in-place call always
+    writes where it reads; the callers (``LossScaler.unscale``,
+    ``multi_tensor_scale``) make their inputs contiguous first.
+    ``scale``: one fp32, ``flag``: one int32, on the card.  Bit for bit
+    the plain version."""
+    if table.device.type == "cpu":
+        return packed_scale_ref(table, x, scale, flag, out)
+    if table.device.type != "cuda":
+        raise ValueError(f"packed_scale: unsupported device {table.device}")
+    what = "packed_scale"
+    sizes = table.sizes
+    if len(x) != len(sizes) or len(out) != len(sizes):
+        raise ValueError(f"{what}: the tensors do not match the chunk "
+                         f"table's {table.n_leaves} leaf sizes")
+    # one pass over the leaves: a call's host cost grows with their count
+    dev = table.device.index
+    codes = []
+    for xi, oi, n in zip(x, out, sizes):
+        if xi.numel() != n or oi.numel() != n:
+            raise ValueError(f"{what}: the tensors do not match the chunk "
+                             f"table's {table.n_leaves} leaf sizes")
+        ci, co = _SCALE_DTYPES.get(xi.dtype), _SCALE_DTYPES.get(oi.dtype)
+        if ci is None or co is None:
+            raise TypeError(f"{what}: {xi.dtype} -> {oi.dtype} unsupported "
+                            f"(float32 / bfloat16 / float16)")
+        if not (xi.is_contiguous() and oi.is_contiguous()) \
+                or xi.get_device() != dev or oi.get_device() != dev:
+            raise ValueError(f"{what}: every leaf must be contiguous on "
+                             f"{table.device}")
+        codes.append(ci + 3 * co)
+    table.check_scalars(what, scale=(scale, torch.float32, 1),
+                        flag=(flag, torch.int32, 1))
+    if table.n_chunks == 0:
+        return list(out)
     err = build.library().apex_multi_tensor_scale(
-        x.data_ptr(), out.data_ptr(), scale.data_ptr(), flag.data_ptr(),
-        x.numel(), _SCALE_DTYPES[x.dtype], _SCALE_DTYPES[out_dtype],
-        build.stream_of(x))
-    build.check(err, "packed_scale")
+        table.chunk_leaf.data_ptr(), table.chunk_start.data_ptr(),
+        table.leaf_numel.data_ptr(), table.n_chunks, table.chunk_size,
+        table.pointers(x).data_ptr(), table.pointers(out).data_ptr(),
+        table.codes(codes).data_ptr(), scale.data_ptr(), flag.data_ptr(),
+        build.stream_of(flag))
+    build.check(err, what)
     packed_scale.launches += 1
-    return out
+    return list(out)
 
 
 packed_scale.launches = 0

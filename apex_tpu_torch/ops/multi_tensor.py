@@ -1,6 +1,6 @@
-"""The chunk table of the multi-tensor kernels (K7 ``lamb_stage1``, K8
-``lamb_stage2``, K9 ``packed_sumsq``, K10 ``packed_axpby``, K11
-``packed_adam_tree``, K12 ``sumsq_per_tensor``, K15
+"""The chunk table of the multi-tensor kernels (K6 ``packed_scale``, K7
+``lamb_stage1``, K8 ``lamb_stage2``, K9 ``packed_sumsq``, K10
+``packed_axpby``, K11 ``packed_adam_tree``, K12 ``sumsq_per_tensor``, K15
 ``packed_nonfinite``), and the functional
 multi-tensor surface of ``apex_tpu/ops/multi_tensor.py`` over it.
 
@@ -26,11 +26,12 @@ The surface (:func:`multi_tensor_scale`, :func:`multi_tensor_axpby`,
 signatures ``op(chunk_size, tensor_lists, ...)``, with ``[ins]`` or
 ``[ins, out_templates]`` giving the output dtype, and returns ``(outs,
 flag)`` with the flag one int32 on the device: nothing is read back to
-the host.  Mixed-dtype lists are grouped by dtype, one launch per group,
-each group over a table cached by its leaf sizes and ``chunk_size``
-(:func:`table_for`).  ``multi_tensor_axpby`` also takes ``out=``:
-tensors to write into (kept buffers, or the inputs themselves) instead of
-new ones.
+the host.  ``multi_tensor_scale`` is one launch over the whole list,
+whatever dtypes it mixes; the others group mixed-dtype lists by dtype,
+one launch per group, each group over a table cached by its leaf sizes
+and ``chunk_size`` (:func:`table_for`).  ``multi_tensor_axpby`` also
+takes ``out=``: tensors to write into (kept buffers, or the inputs
+themselves) instead of new ones.
 """
 
 from __future__ import annotations
@@ -169,20 +170,42 @@ class ChunkTable:
             row = self._codes[key] = to_device(key, torch.int32, self.device)
         return row
 
+    def _view_offsets(self, dtypes: Sequence[torch.dtype]
+                      ) -> Tuple[List[int], Dict[torch.dtype, int]]:
+        """Each leaf's first element in its dtype's buffer, every leaf on a
+        :data:`VIEW_ALIGN` element boundary, and each buffer's length."""
+        offsets, ends = [], {}
+        for n, dt in zip(self.sizes, dtypes):
+            at = ends.get(dt, 0)
+            offsets.append(at)
+            ends[dt] = at + -(-n // VIEW_ALIGN) * VIEW_ALIGN
+        return offsets, ends
+
     def flat_views(self, shapes: Sequence[torch.Size],
                    dtype: torch.dtype = torch.float32
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """One zeroed buffer and a view of it per leaf (of ``shapes``, one
         per leaf of the table), each starting on a :data:`VIEW_ALIGN`
         element boundary: scratch such as LAMB's update ``u``."""
-        offsets, at = [], 0
-        for n in self.sizes:
-            offsets.append(at)
-            at += -(-n // VIEW_ALIGN) * VIEW_ALIGN
-        buf = torch.zeros(at, dtype=dtype, device=self.device)
+        offsets, ends = self._view_offsets([dtype] * self.n_leaves)
+        buf = torch.zeros(ends.get(dtype, 0), dtype=dtype,
+                          device=self.device)
         views = [buf[o:o + n].view(s) for o, n, s in
                  zip(offsets, self.sizes, shapes)]
         return buf, views
+
+    def empty_views(self, shapes: Sequence[torch.Size],
+                    dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
+        """:meth:`flat_views` without the fill and with a dtype a leaf:
+        one uninitialised buffer per dtype, a view of it per leaf (of
+        ``shapes`` and ``dtypes``), each on a :data:`VIEW_ALIGN` element
+        boundary (16-byte accesses), for outputs every element of which
+        a kernel writes (the unscale's)."""
+        offsets, ends = self._view_offsets(dtypes)
+        bufs = {dt: torch.empty(n, dtype=dt, device=self.device)
+                for dt, n in ends.items()}
+        return [bufs[dt][o:o + n].view(s) for o, n, s, dt in
+                zip(offsets, self.sizes, shapes, dtypes)]
 
     def check_scalars(self, what: str, **specs) -> None:
         """Each ``name=(tensor or None, dtype, numel)`` must be that many
@@ -282,16 +305,19 @@ def multi_tensor_scale(chunk_size: int,
     """``outs[i] = ins[i] * scale`` in fp32, cast to the output dtype, and
     a 0-dim int32 flag (1 when any input value is not finite).
     ``tensor_lists`` is ``[ins]`` or ``[ins, out_templates]`` (the second
-    list gives only the dtype).  K6, one launch per leaf into one flag
-    (``chunk_size`` is accepted for the signature: K6 takes no table)."""
-    ins = list(tensor_lists[0])
+    list gives only the dtype).  K6, one launch over the chunk table of
+    ``ins`` at ``chunk_size``, whatever dtypes the leaves mix; the outputs
+    are views of one new buffer per output dtype."""
+    ins = [t.contiguous() for t in tensor_lists[0]]
     odt = _resolve_out_dtype(tensor_lists, out_dtype)
     if not ins:
         return [], _no_flag()
     dev = ins[0].device
-    s = _scalar(scale, dev)
+    table = table_for(ins, chunk_size)
+    outs = table.empty_views([x.shape for x in ins],
+                             [odt or x.dtype for x in ins])
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    outs = [packed_scale(x, s, odt or x.dtype, flag) for x in ins]
+    packed_scale(table, ins, _scalar(scale, dev), flag, outs)
     return outs, flag.reshape(())
 
 

@@ -11,14 +11,7 @@ import torch
 BF16_CANCEL_ATOL = 2.0 ** -16
 
 
-def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor,
-                      atol: float = 0.0) -> int:
-    """Largest distance, in units in the last place, between two bf16
-    tensors of one shape (adjacent bf16 values are 1 apart; +0 and -0
-    are 0 apart), ignoring elements whose absolute difference is at
-    most ``atol``."""
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError("bf16_ulp_distance compares two bf16 tensors")
+def _ulp16_distance(a: torch.Tensor, b: torch.Tensor, atol: float) -> int:
     if a.numel() == 0:
         return 0
 
@@ -31,6 +24,28 @@ def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor,
         close = (a.float() - b.float()).abs() <= atol
         dist = torch.where(close, torch.zeros_like(dist), dist)
     return int(dist.max())
+
+
+def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor,
+                      atol: float = 0.0) -> int:
+    """Largest distance, in units in the last place, between two bf16
+    tensors of one shape (adjacent bf16 values are 1 apart; +0 and -0
+    are 0 apart), ignoring elements whose absolute difference is at
+    most ``atol``."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("bf16_ulp_distance compares two bf16 tensors")
+    return _ulp16_distance(a, b, atol)
+
+
+def half_ulp_distance(a: torch.Tensor, b: torch.Tensor,
+                      atol: float = 0.0) -> int:
+    """:func:`bf16_ulp_distance` for two tensors of one 16-bit float
+    type, bf16 or fp16 (both order their bit patterns as sign and
+    magnitude)."""
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError("half_ulp_distance compares two bf16 or two fp16 "
+                        "tensors")
+    return _ulp16_distance(a, b, atol)
 
 
 def assert_tokens_match_above_margin(got, want, margins,

@@ -15,7 +15,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             path's shapes: max abs error within the stated tolerance,
             kernel / plain / library-call times (CUDA events) and the
             bound (bytes over 3.35 TB/s or operations over the peak rate,
-            whichever is larger); the flash forward (K2, a Hopper kernel:
+            whichever is larger); the layer-norm forward (K1) also at the
+            training shapes (16384 x 768 and x 1024 bf16), timed in turns
+            with ``F.layer_norm`` as the call without statistics (``ms``,
+            what a decode step makes) and with them (``stats_ms``), and
+            the device's time a call of each (``device_ms``: calls queued
+            behind a device-side sleep, timed by CUDA events); every
+            K1 route (a row a warp, a row a block, three passes; 16-byte or
+            element accesses, a view at an odd element offset) in every
+            dtype pair, and the two routes' device times by row count (the
+            crossover); the flash forward (K2, a Hopper kernel:
             wgmma on TMA-loaded tiles) timed as its launch on prepared
             operands (``ms``) and as the public call (``call_ms``);
 4. serve    gpt_small at full width (bf16 weights from a seed, through
@@ -30,7 +39,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 7. train kernels  the training slice's kernels (layer-norm backward, the
             fused flash backward K4 with rope and its finish pass, also
             in fp16 at a padded head width, the flash forward with rope and
-            its k^ prologue, Adam, the amp unscale) against their plain
+            its k^ prologue, Adam, the amp unscale: one launch over the
+            chunk table of the 148 leaves) against their plain
             versions at the train step's shapes, with the same timings and
             bounds, and the two backward kernels run twice for equal bits;
             the forward with rope also timed the other way (the full
@@ -41,11 +51,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             synthetic stream of ``examples/gpt_lm.py``, 10 steps from
             seeded weights: per-step loss (finite, falling), step ms p50
             over steps 3-10, tokens/s, peak memory, launches per step of
-            every kernel (the layer-norm backward launches twice a call:
-            dx, then the dw/db sum; the flash backward takes the
+            every kernel (one unscale, K6, a step; the layer-norm backward
+            launches twice a call: dx, then the dw/db sum; the flash
+            backward takes the
             two-pass route, its prologue, K13 and K14, since K4's
             planes, 1.61 GB, exceed the 1 GiB budget), the pointer rows
-            uploaded; 5 more pairs of steps alternating the fused route
+            uploaded (the optimizer's: none after step 1; the unscale's:
+            by step, its input row following autograd's gradients); 5
+            more pairs of steps alternating the fused route
             (K4 and its finish pass) and the two-pass route for both
             routes' p50; then one step with an injected non-finite
             gradient, which must be skipped on the card (masters and
@@ -96,7 +109,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             16384, 10 steps (falling loss, p50, tokens/s, peak memory,
             the exact launches per step: K13 12, K14 12 (and their
             prologue 12), K4 0, K2 24 (and its k^ prologue 24), K1 49,
-            K3 50, K6 148, K11 1; one
+            K3 50, K6 1, K11 1; one
             profiled step; an injected overflow skipped), then B 1 x L
             32768, 3 steps; K4's planes
             (12.9 and 51.5 GB) printed beside the peaks;
@@ -133,7 +146,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             synthetic batch of ``examples/imagenet_main_amp.py``: 10 steps
             with ``APEX_TPU_FUSED_CONV1X1`` off, then 10 with it on, each
             with step p50 over steps 3-10, images/s, peak memory, one
-            profiled step and the exact launches per step (K6 161, K11 1,
+            profiled step and the exact launches per step (K6 1, K11 1,
             K16 33 with the switch on, 0 off); the loss must fall; an eval
             pass on the running stats (top-1 / top-5 on that batch); one
             injected overflow skipped on the card while its forward still
@@ -145,8 +158,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             default opt level (fp32 parameters, products cast to bf16 by
             the op layer), FusedAdam(3e-4), B 8 x L 2048, 10 steps: p50
             beside the O2 step's, tokens/s, peak memory, one profiled
-            step, the exact launches per step (K1 / K3 in fp32, K6 a
-            leaf in fp32, K11 1), an injected overflow skipped;
+            step, the exact launches per step (K1 / K3 in fp32, K6 1 over
+            the fp32 gradients, K11 1), an injected overflow skipped;
    o1_reference  a 2-layer GPT at O1, card against CPU, losses within
             2e-2;
 16. flash_mh_kernels  K17 (K2's Hopper kernel, one head a block) and
@@ -163,8 +176,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             at the GPT train shape (K17 1, K13 + K14 at the default
             budget);
 18. mnist_o1  BASELINE config 1: ``MLP((256, 256))``, O1, SGD(0.05), B
-            256, 20 steps: falling losses, p50, samples/s, launches (K6 a
-            leaf), an injected overflow skipped;
+            256, 20 steps: falling losses, p50, samples/s, launches (K6
+            1), an injected overflow skipped;
    flash_repairs  (after flash_mh) ``flash_attention_mh`` and
             ``attention`` with autograd in fp16 and fp32 and at head widths
             40, 96, 192, 256, 520 and 1024 (the routes of ``fwd_route`` /
@@ -180,9 +193,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             injected overflow skipped;
 19. dcgan_o1  BASELINE config 5: DCGAN (fm 64, zdim 100, 32^2, B 64), two
             FusedAdams with one O1 scaler each, 20 iterations: D's loss
-            falls, p50, samples/s, launches (K6 a leaf of each network,
-            K11 2); then D's loss overflowed: only D's scale halves and
+            falls, p50, samples/s, launches (K6 1 a network, K11 2); then
+            D's loss overflowed: only D's scale halves and
             only D's step is skipped.
+20. serve_profile  last (a profiled run can slow the host's later
+            calls): one decode step of gpt_small's 8 slots profiled (device
+            ms by group, busy share) after one whose host ms in K1's calls
+            is timed.
 
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -342,11 +359,111 @@ def phase_build():
              for d in (64, 128)})
 
 
+def device_us(fn, frags, n=100):
+    """Mean device microseconds a kernel whose name holds one of
+    ``frags``, over ``n`` calls of ``fn`` under ``torch.profiler``.  Run it
+    after a case's host timings: a profiled run can slow the host's later
+    calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if any(f in ev.key for f in frags):
+            total += ev.device_time_total
+            count += ev.count
+    require(count > 0, f"no device event named {frags} in the profile")
+    return total / count
+
+
+#: cycles of the device-side sleep ``device_queued_ms`` queues calls
+#: behind: ~25 ms at the H100's 1980 MHz, longer than the host takes to
+#: launch the calls
+QUEUE_SLEEP_CYCLES = 50_000_000
+
+
+def device_queued_ms(fn, n=50):
+    """Mean device milliseconds a call of ``fn`` takes, its ``n`` calls
+    queued behind a device-side sleep (``torch.cuda._sleep``) so that the
+    card runs them back to back whatever the host's speed: CUDA events
+    then time the device (each kernel and the gap before the next), not
+    the host's launching.  No profiler: nothing lingers into later
+    phases."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(fn, n=5000):
+    """Host microseconds a call of ``fn`` (perf_counter, the best of
+    three runs of ``n`` calls, the device drained between runs)."""
+    import torch
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def in_turns(calls, rounds=3):
+    """``time_ms`` of each of ``calls`` (name: fn), the calls taken in
+    turns ``rounds`` times over: the median of each (the host's speed
+    drifts within a run)."""
+    times = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            times[k].append(time_ms(fn))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _ln_tolerance(y, y_ref):
+    """``(max abs err, ulps, tolerance)`` of K1's y against its plain
+    version; raises past it (fp32 1e-5; bf16 / fp16 1 ulp, or 2**-16
+    abs where the affine sum cancels)."""
+    import torch
+    from apex_tpu_torch.testing import BF16_CANCEL_ATOL, half_ulp_distance
+    err = float((y.float() - y_ref.float()).abs().max())
+    if y.dtype == torch.float32:
+        require(torch.allclose(y, y_ref, atol=1e-5, rtol=1e-5),
+                f"layer_norm_fwd fp32: max err {err}")
+        return err, None, "atol=rtol=1e-5"
+    ulps = half_ulp_distance(y, y_ref, BF16_CANCEL_ATOL)
+    require(ulps <= 1, f"layer_norm_fwd {y.dtype}: {ulps} ulps")
+    return err, ulps, "<= 1 ulp, or 2**-16 abs where the sum cancels"
+
+
 def _ln_case(n1, dtype, rng, n2=768):
+    """K1 at ``(n1, n2)`` against its plain version (bitwise repeats, the
+    stats-free call bitwise the stats call); times in turns: ``ms`` the
+    call as serving makes it (no statistics), ``stats_ms`` with them (a
+    train forward), ``library_ms`` ``F.layer_norm``; the device's time a
+    call of each (``device_queued_ms``)."""
     import torch
     import torch.nn.functional as F
-    from apex_tpu_torch.ops.cuda import layer_norm_fwd, layer_norm_fwd_ref
-    from apex_tpu_torch.testing import BF16_CANCEL_ATOL, bf16_ulp_distance
+    from apex_tpu_torch.ops.cuda import (layer_norm_fwd, layer_norm_fwd_ref,
+                                         ln_fwd_route)
     dev = torch.device("cuda")
     x = torch.as_tensor(rng.standard_normal((n1, n2), np.float32) * 2 + 0.3,
                         device=dev).to(dtype)
@@ -355,31 +472,143 @@ def _ln_case(n1, dtype, rng, n2=768):
     b = torch.as_tensor(rng.standard_normal(n2, np.float32),
                         device=dev).to(dtype)
     y, mean, inv = layer_norm_fwd(x, w, b, 1e-5)
+    again = layer_norm_fwd(x, w, b, 1e-5)
+    bare = layer_norm_fwd(x, w, b, 1e-5, stats=False)
     torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip((y, mean, inv), again))
+            and torch.equal(y, bare[0]) and bare[1] is None,
+            f"layer_norm_fwd {n1}x{n2}: runs, or the stats-free call, "
+            f"differ")
     y_ref, mean_ref, inv_ref = layer_norm_fwd_ref(x, w, b, 1e-5)
-    err = float((y.float() - y_ref.float()).abs().max())
     stat_err = max(float((mean - mean_ref).abs().max()),
                    float(((inv - inv_ref) / inv_ref).abs().max()))
     require(stat_err <= 1e-5, f"layer_norm_fwd stats off by {stat_err}")
-    if dtype == torch.float32:
-        tol = "atol=rtol=1e-5"
-        require(torch.allclose(y, y_ref, atol=1e-5, rtol=1e-5),
-                f"layer_norm_fwd fp32 n1={n1}: max err {err}")
-        ulps = None
-    else:
-        tol = "<= 1 bf16 ulp, or 2**-16 abs where the sum cancels"
-        ulps = bf16_ulp_distance(y, y_ref, BF16_CANCEL_ATOL)
-        require(ulps <= 1, f"layer_norm_fwd bf16 n1={n1}: {ulps} ulps")
-    ms = time_ms(lambda: layer_norm_fwd(x, w, b, 1e-5))
+    err, ulps, tol = _ln_tolerance(y, y_ref)
+    t = in_turns({
+        "ms": lambda: layer_norm_fwd(x, w, b, 1e-5, stats=False),
+        "stats_ms": lambda: layer_norm_fwd(x, w, b, 1e-5),
+        "library_ms": lambda: F.layer_norm(x, (n2,), w, b, 1e-5)})
     plain = time_ms(lambda: layer_norm_fwd_ref(x, w, b, 1e-5))
-    lib = time_ms(lambda: F.layer_norm(x, (n2,), w, b, 1e-5))
     isz = x.element_size()
     nbytes = 2 * n1 * n2 * isz + 2 * n2 * w.element_size() + 8 * n1
     b_ms, b_by = bound(nbytes, 8.0 * n1 * n2, PEAK_FP32_FLOPS)
+    dev_ms = device_queued_ms(lambda: layer_norm_fwd(x, w, b, 1e-5))
+    lib_dev_ms = device_queued_ms(lambda: F.layer_norm(x, (n2,), w, b, 1e-5))
     rec = dict(kernel="layer_norm_fwd", n1=n1, n2=n2,
-               dtype=str(dtype).split(".")[-1], max_abs_err=err, ulps=ulps,
-               tolerance=tol, ms=ms, plain_ms=plain, library_ms=lib,
-               bound_ms=b_ms, bound_by=b_by)
+               dtype=str(dtype).split(".")[-1],
+               route=ln_fwd_route(n1, n2, dtype), max_abs_err=err, ulps=ulps,
+               tolerance=tol, ms=t["ms"], stats_ms=t["stats_ms"],
+               plain_ms=plain, library_ms=t["library_ms"],
+               device_ms=dev_ms, library_device_ms=lib_dev_ms,
+               bound_ms=b_ms, bound_by=b_by, device_bound_share=b_ms / dev_ms)
+    emit("kernels", **rec)
+    return rec
+
+
+#: K1's routes as ``ln_fwd_route`` names them
+LN_ROUTES = ("warp_vec", "warp_scalar", "block_vec", "block_scalar",
+             "loop_vec", "loop_scalar")
+
+
+def _ln_routes(rng):
+    """Every K1 route that takes a shape, in every dtype pair (x fp32 /
+    bf16 / fp16, w fp32 or x's), with and without the affine, at a few
+    shapes (a ragged width, rows wider than a warp or a block holds), the
+    scalar routes also on a view at an odd element offset: each against
+    the plain version within K1's tolerance, repeating bitwise, the
+    stats-free call bitwise the stats call, and the vector and scalar
+    forms of one route bitwise equal (the same sums in the same
+    order)."""
+    import torch
+    from apex_tpu_torch.ops.cuda import layer_norm_fwd, layer_norm_fwd_ref
+    from apex_tpu_torch.ops.cuda.layer_norm import (BLOCK_GROUPS_MAX,
+                                                    WARP_GROUPS_MAX)
+    dev = torch.device("cuda")
+    pairs = [(torch.float32, torch.float32),
+             (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+             (torch.float16, torch.float32)]
+    checked, worst = {r: 0 for r in LN_ROUTES}, {}
+    for xdt, wdt in pairs:
+        per = 16 // xdt.itemsize
+        for n1, n2 in ((8, 768), (300, 1024), (37, 770), (5, 4096),
+                       (3, 20000)):
+            groups = -(-n2 // per)
+            outs = {}
+            for route in LN_ROUTES:
+                kind, access = route.split("_")
+                if (kind == "warp" and groups > WARP_GROUPS_MAX) or (
+                        kind == "block" and groups > BLOCK_GROUPS_MAX) or (
+                        access == "vec" and n2 % per):
+                    continue
+                for affine in (True, False):
+                    for offset in ((0, 1) if access == "scalar" else (0,)):
+                        base = torch.as_tensor(
+                            rng.standard_normal(n1 * n2 + offset,
+                                                np.float32) * 2 + 0.3,
+                            device=dev).to(xdt)
+                        x = base[offset:].view(n1, n2)
+                        w = b = None
+                        if affine:
+                            w, b = (torch.as_tensor(rng.standard_normal(
+                                n2, np.float32), device=dev).to(wdt)
+                                for _ in range(2))
+                        got = layer_norm_fwd(x, w, b, 1e-5, route=route)
+                        again = layer_norm_fwd(x, w, b, 1e-5, route=route)
+                        bare = layer_norm_fwd(x, w, b, 1e-5, stats=False,
+                                              route=route)[0]
+                        torch.cuda.synchronize()
+                        what = f"{route} {xdt}/{wdt} {n1}x{n2} off {offset}"
+                        require(all(torch.equal(a, c) for a, c in
+                                    zip(got, again))
+                                and torch.equal(got[0], bare),
+                                f"layer_norm_fwd {what}: runs differ")
+                        ref = layer_norm_fwd_ref(x, w, b, 1e-5)
+                        require(float((got[1] - ref[1]).abs().max()) <= 1e-5
+                                and float(((got[2] - ref[2]) / ref[2]).abs()
+                                          .max()) <= 1e-5,
+                                f"layer_norm_fwd {what}: stats")
+                        err, _, _ = _ln_tolerance(got[0], ref[0])
+                        worst[str(xdt).split(".")[-1]] = max(
+                            worst.get(str(xdt).split(".")[-1], 0.0), err)
+                        checked[route] += 1
+                        if affine and offset == 0:
+                            outs[route] = (x.clone(), w, b, got[0])
+            for kind in ("warp", "block", "loop"):
+                if f"{kind}_vec" in outs:
+                    x, w, b, yv = outs[f"{kind}_vec"]
+                    ys = layer_norm_fwd(x, w, b, 1e-5,
+                                        route=f"{kind}_scalar")[0]
+                    require(torch.equal(yv, ys),
+                            f"layer_norm_fwd {kind} vec != scalar at "
+                            f"{n1}x{n2} {xdt}")
+    rec = dict(kernel="layer_norm_fwd", case="routes", checked=checked,
+               max_abs_err_by_dtype=worst,
+               tolerance="fp32 1e-5; bf16 / fp16 <= 1 ulp (2**-16 abs "
+                         "where the sum cancels); bitwise repeats; vec == "
+                         "scalar bitwise")
+    emit("kernels", **rec)
+    return rec
+
+
+def _ln_crossover():
+    """K1's device microseconds on the warp and the block route by row
+    count (768 and 1024 bf16 rows): where ``BLOCK_ROWS_MAX`` belongs."""
+    import torch
+    from apex_tpu_torch.ops.cuda import layer_norm_fwd
+    from apex_tpu_torch.ops.cuda.layer_norm import BLOCK_ROWS_MAX
+    dev = torch.device("cuda")
+    table = {}
+    for n2 in (768, 1024):
+        for n1 in (8, 64, 256, 512, 1024, 2048, 4096, 16384):
+            x = torch.randn(n1, n2, device=dev).to(torch.bfloat16)
+            w, b = (torch.randn(n2, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            table[f"{n1}x{n2}"] = {r: 1e3 * device_queued_ms(
+                lambda: layer_norm_fwd(x, w, b, 1e-5, route=r))
+                for r in ("warp_vec", "block_vec")}
+    rec = dict(kernel="layer_norm_fwd", case="crossover",
+               device_us_by_route=table, block_rows_max=BLOCK_ROWS_MAX)
     emit("kernels", **rec)
     return rec
 
@@ -455,11 +684,16 @@ def phase_kernels(solo_lengths):
     rng = np.random.default_rng(0)
     ln = [_ln_case(n1, dt, rng) for dt in (torch.bfloat16, torch.float32)
           for n1 in (1, 8, 16, 64, 2048, 8192)]
+    # the training shapes (gpt_small's and bert_large's rows of a step),
+    # and decode in fp16
+    ln += [_ln_case(16384, torch.bfloat16, rng, n2=n2) for n2 in (768, 1024)]
+    ln.append(_ln_case(8, torch.float16, rng))
+    ln_extra = {"routes": _ln_routes(rng), "crossover": _ln_crossover()}
     shapes = [(1, 512, 12, 64), (4, 1024, 12, 64), (1, 2048, 12, 64),
               (2, 1000, 6, 128)] + [(1, l, 12, 64) for l in solo_lengths]
     fl = [_flash_case(s, rng) for s in shapes]
     fl.append(_flash_case((2, 512, 12, 64), rng, masked=True))
-    return ln, fl
+    return ln, fl, ln_extra
 
 
 def gpt_small_tree(cfg, seed: int):
@@ -504,6 +738,93 @@ def first_divergence(a, b):
         if int(x) != int(y):
             return t
     return None
+
+
+@contextlib.contextmanager
+def host_timed(spots):
+    """Inside the block, each ``(module, name)`` of ``spots`` (a function)
+    is timed on the host; yields ``{name: [ms, calls]}``, summed over the
+    spots of one name."""
+    spent, saved = {}, []
+    for module, name in spots:
+        orig = getattr(module, name)
+        saved.append((module, name, orig))
+        acc = spent.setdefault(name, [0.0, 0])
+
+        def timed(*args, _orig=orig, _acc=acc, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*args, **kwargs)
+            finally:
+                _acc[0] += (time.perf_counter() - t0) * 1e3
+                _acc[1] += 1
+        setattr(module, name, timed)
+    try:
+        yield spent
+    finally:
+        for module, name, orig in saved:
+            setattr(module, name, orig)
+
+
+def profile_decode_step(model, cfg, seed=7):
+    """One decode step of a full batch (8 slots, prompts of 64 tokens)
+    under ``torch.profiler`` (device ms by group, busy share), after one
+    unprofiled decode step whose host ms in K1's calls
+    (``layer_norm_fwd``) and in the whole layer-norm calls of the step
+    (``fused_layer_norm_affine``: the checks and reshapes around K1) are
+    timed.  Both are plain decode steps: every request was admitted and
+    prefilled before."""
+    import importlib
+
+    import torch
+    from apex_tpu_torch.serve import Request, ServeConfig, ServeEngine
+    # the modules (the packages export functions of the same names)
+    gen_mod = importlib.import_module("apex_tpu_torch.models.generate")
+    fln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    scfg = ServeConfig(num_slots=8, block_size=16, max_blocks_per_slot=64,
+                       num_blocks=8 * 64 + 1, prefill_chunk=64)
+    eng = ServeEngine(model, cfg, scfg)
+    rng = np.random.default_rng(seed)
+    for i in range(scfg.num_slots):
+        eng.submit(Request(uid=f"p{i}", prompt=rng.integers(
+            0, cfg.vocab_size, 64), max_new_tokens=32))
+    for _ in range(3):           # admit and prefill, then decode steps
+        eng.step()
+    require(eng.sched.n_active() == scfg.num_slots and not eng.sched.queue,
+            "decode profile: not every slot decoding")
+    torch.cuda.synchronize()
+    spots = [(fln, "layer_norm_fwd"), (fln, "fused_layer_norm_affine"),
+             (gen_mod, "fused_layer_norm_affine")]
+    with host_timed(spots) as spent:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof = profile_step(eng.step)
+    return dict(slots=scfg.num_slots, timed_step_wall_ms=wall,
+                k1_calls=spent["layer_norm_fwd"][1],
+                k1_host_ms=spent["layer_norm_fwd"][0],
+                layer_norm_calls=spent["fused_layer_norm_affine"][1],
+                layer_norm_host_ms=spent["fused_layer_norm_affine"][0],
+                profile=prof)
+
+
+def phase_serve_profile(cfg):
+    """One profiled decode step of gpt_small (bf16 weights from its seeded
+    tree), made last, after every timed phase: ``torch.profiler`` can
+    slow the host's later calls, and a parent tree's run has no such
+    session before its timed phases."""
+    import torch
+    from apex_tpu_torch.convert import params_from_jax
+    model = params_from_jax(gpt_small_tree(cfg, seed=0), cfg,
+                            dtype=torch.bfloat16)
+    decode = profile_decode_step(model, cfg)
+    emit("serve_profile", model="gpt_small", dtype="bfloat16",
+         decode_step=decode)
+    del model
+    torch.cuda.empty_cache()
+    return decode
 
 
 def phase_serve(model, cfg, requests):
@@ -1084,78 +1405,90 @@ def _adam_case(cfg, rng):
 
 
 def _scale_case(shapes, rng, in_place=False, dtypes=None):
-    """K6 over one gradient per shape of ``shapes`` (a model's leaves)
-    against its plain version: bitwise, with and without one inf leaf;
-    timings.  By default bf16 -> fp32 out of place (amp's unscale of a
-    step's gradients; ``dtypes``: each leaf's gradient dtype, for a model
-    whose O2 keeps some leaves fp32); ``in_place``: fp32 over itself (the
-    unscale of the accumulated gradients, ``out`` aliasing ``x``)."""
+    """K6 over one gradient per shape of ``shapes`` (a model's leaves),
+    one launch over their chunk table, against its plain version:
+    bitwise, clean, with one inf leaf, then with one nan leaf; timings.
+    By default bf16 -> fp32 into kept buffers (amp's unscale of a step's
+    gradients; ``dtypes``: each leaf's gradient dtype, for a model whose
+    O2 keeps some leaves fp32: still one launch); ``in_place``: fp32
+    over itself (``out`` aliasing ``x``), the function of PyTorch's own
+    ``torch._amp_foreach_non_finite_check_and_unscale_``."""
     import torch
     from apex_tpu_torch.ops.cuda import packed_scale, packed_scale_ref
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable
     dev = torch.device("cuda")
     n = sum(int(np.prod(s)) for s in shapes)
     dt = torch.float32 if in_place else torch.bfloat16
     dtypes = dtypes or [dt] * len(shapes)
     grads = [torch.as_tensor(rng.standard_normal(s, np.float32) * 1e3,
                              device=dev).to(d) for s, d in zip(shapes, dtypes)]
+    table = ChunkTable.of(grads)
     inv = torch.full((1,), 2.0 ** -16, device=dev)
     results = {}
-    for bad in (False, True):
+    for bad in (None, "inf", "nan"):
         if bad:
-            grads[5].view(-1)[17] = float("inf")
+            grads[5].view(-1)[17] = float(bad)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
         flag_ref = torch.zeros_like(flag)
         if in_place:
             outs = [g.clone() for g in grads]
             refs = [g.clone() for g in grads]
-            for o, r in zip(outs, refs):
-                packed_scale(o, inv, torch.float32, flag, out=o)
-                packed_scale_ref(r, inv, torch.float32, flag_ref, out=r)
+            ins, ins_ref = outs, refs
         else:
-            outs = [packed_scale(g, inv, torch.float32, flag) for g in grads]
-            refs = [packed_scale_ref(g, inv, torch.float32, flag_ref)
-                    for g in grads]
+            outs = table.empty_views(shapes, [torch.float32] * len(shapes))
+            refs = [torch.empty(s, device=dev) for s in shapes]
+            ins = ins_ref = grads
+        before = packed_scale.launches
+        packed_scale(table, ins, inv, flag, outs)
+        require(packed_scale.launches == before + 1,
+                "packed_scale: not one launch over the table")
+        packed_scale_ref(table, ins_ref, inv, flag_ref, refs)
         torch.cuda.synchronize()
-        require(int(flag) == int(flag_ref) == int(bad),
+        require(int(flag) == int(flag_ref) == int(bad is not None),
                 f"packed_scale flag {int(flag)} (plain {int(flag_ref)}), "
-                f"want {int(bad)}")
-        require(all(torch.equal(a, b) for a, b in zip(outs, refs)),
-                f"packed_scale ({set(dtypes)}, in place {in_place}) differs "
-                f"from its plain version")
+                f"want {int(bad is not None)}")
+        require(all(torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num(), b.nan_to_num()) for a, b in zip(outs, refs)),
+            f"packed_scale ({set(dtypes)}, in place {in_place}, {bad}) "
+            f"differs from its plain version")
         # the scale was applied: 2**-16 is exact away from underflow
         require(torch.equal(outs[0], grads[0].float() * 2.0 ** -16),
                 "packed_scale did not apply the scale")
-        results[bad] = int(flag)
+        results[bad or "clean"] = int(flag)
         del outs, refs
     grads[5].view(-1)[17] = 1.0
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    # in place, each timed call scales the leaves again (toward zero and
-    # the subnormals, which the card reads and writes at the same rate)
-    out = grads if in_place else [None] * len(grads)
-    ms = time_ms(lambda: [packed_scale(g, inv, torch.float32, flag, o)
-                          for g, o in zip(grads, out)])
-    plain = time_ms(lambda: [packed_scale_ref(g, inv, torch.float32, flag, o)
-                             for g, o in zip(grads, out)])
     found = torch.zeros(1, device=dev)
+    names = sorted({str(d).replace("torch.", "") for d in dtypes})
+    rec = dict(kernel="packed_scale", leaves=len(shapes), elements=n,
+               shape=f"{len(shapes)} leaves, {n} elements", scale=2.0 ** -16,
+               launches_a_call=1, chunks=table.n_chunks, max_abs_err=0.0,
+               tolerance="bitwise equal to the plain version; flag raised "
+                         "by the one inf, then the one nan leaf",
+               flags=results, per="one unscale over every leaf")
     if in_place:
-        # PyTorch's own unscale computes this function: fp32 in place,
-        # one found-inf flag
-        lib = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
-            grads, found, inv))
+        # in place, each timed call scales the leaves again (toward zero
+        # and the subnormals, which the card reads and writes at the same
+        # rate); PyTorch's own unscale computes this function
+        t = in_turns({
+            "ms": lambda: packed_scale(table, grads, inv, flag, grads),
+            "library_ms": lambda: torch.
+            _amp_foreach_non_finite_check_and_unscale_(grads, found, inv)})
+        plain = time_ms(lambda: packed_scale_ref(table, grads, inv, flag,
+                                                 grads))
         b_ms, b_by = bound(8.0 * n, 2.0 * n, PEAK_FP32_FLOPS)
         return _kernel_rec(
-            kernel="packed_scale", leaves=len(shapes), elements=n,
-            shape=f"{len(shapes)} leaves, {n} elements",
-            dtype="float32 -> float32, in place", scale=2.0 ** -16,
-            max_abs_err=0.0, tolerance="bitwise equal to the plain version; "
-            "flag raised by the one inf leaf", flag_clean=results[False],
-            flag_with_inf=results[True], ms=ms, plain_ms=plain,
-            library_ms=lib, library_call="torch._amp_foreach_non_finite_"
-            "check_and_unscale_", bound_ms=b_ms, bound_by=b_by,
-            per="one unscale over every leaf")
+            **rec, dtype="float32 -> float32, in place", ms=t["ms"],
+            plain_ms=plain, library_ms=t["library_ms"],
+            library_call="torch._amp_foreach_non_finite_check_and_unscale_",
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t["ms"])
+    outs = table.empty_views(shapes, [torch.float32] * len(shapes))
+    ms = time_ms(lambda: packed_scale(table, grads, inv, flag, outs))
+    plain = time_ms(lambda: packed_scale_ref(table, grads, inv, flag, outs))
     # PyTorch's own unscale takes no bf16 gradients (it unscales float
     # tensors in place): no call computes this function on these inputs,
-    # so library_ms is null and the fp32 in-place call is timed beside it
+    # so library_ms is null; the fp32 in-place call is timed beside it
+    # (in_place=True holds K6 against it on the same inputs)
     one = torch.ones(1, device=dev)
     grads32 = [g.float() for g in grads]
     lib32 = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
@@ -1163,20 +1496,12 @@ def _scale_case(shapes, rng, in_place=False, dtypes=None):
     del grads32
     nbytes = sum((g.element_size() + 4) * g.numel() for g in grads)
     b_ms, b_by = bound(nbytes, 2.0 * n, PEAK_FP32_FLOPS)
-    names = sorted({str(d).replace("torch.", "") for d in dtypes})
-    return _kernel_rec(kernel="packed_scale", leaves=len(shapes), elements=n,
-                       shape=f"{len(shapes)} leaves, {n} elements",
-                       dtype=" / ".join(names) + " -> float32",
-                       scale=2.0 ** -16,
-                       max_abs_err=0.0,
-                       tolerance="bitwise equal to the plain version; flag "
-                                 "raised by the one inf leaf",
-                       flag_clean=results[False], flag_with_inf=results[True],
+    return _kernel_rec(**rec, dtype=" / ".join(names) + " -> float32",
                        ms=ms, plain_ms=plain, library_ms=None,
                        library_null_reason="no PyTorch call unscales bf16 "
                                            "gradients into fp32",
                        library_fp32_in_place_ms=lib32, bound_ms=b_ms,
-                       bound_by=b_by, per="one unscale over every leaf")
+                       bound_by=b_by, bound_share=b_ms / ms)
 
 
 def phase_train_kernels(cfg):
@@ -1285,6 +1610,41 @@ def pointer_rows(first, tables, steps=TRAIN_STEPS):
                 uploads_per_later_step=(now[1] - first[1]) / (steps - 1))
 
 
+class TableRows:
+    """Pointer-row lookups and uploads of ``table_for``'s chunk tables
+    (the unscale's, K6: its input row holds autograd's gradients, whose
+    addresses move until the caching allocator settles in the first
+    steps; its output row amp's kept buffers) over a phase's steps:
+    ``mark()`` after each step, then ``report()``: a record, no check
+    (the optimizer's own tables, whose rows are amp's kept buffers, are
+    checked by ``pointer_rows``)."""
+
+    def __init__(self):
+        from apex_tpu_torch.ops.multi_tensor import cached_tables
+        self._tables = cached_tables
+        self._base = {id(t): (t.lookups, t.uploads) for t in cached_tables()}
+        self.after = []
+
+    def mark(self):
+        lk = up = 0
+        for t in self._tables():
+            base = self._base.get(id(t), (0, 0))
+            lk += t.lookups - base[0]
+            up += t.uploads - base[1]
+        self.after.append((lk, up))
+
+    def report(self):
+        """Lookups and uploads in step 1, uploads in each step, and the
+        last step that uploaded a row."""
+        up = [u for _, u in self.after]
+        by_step = [up[0]] + [b - a for a, b in zip(up, up[1:])]
+        return dict(lookups_step_1=self.after[0][0], uploads_step_1=up[0],
+                    uploads_later=up[-1] - up[0], uploads_by_step=by_step,
+                    last_step_uploading=max((i + 1 for i, u in
+                                             enumerate(by_step) if u),
+                                            default=0))
+
+
 #: kernel-name fragments of the step's device time, by group
 PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
                   ("generic flash kernels", ("_simt",)),
@@ -1367,12 +1727,14 @@ def phase_train(cfg, tree):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    rows6 = TableRows()
     losses, scales, overflows, times = [], [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         out = step(ids)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         losses.append(float(out["loss"]))
         scales.append(float(out["loss_scale"]))
         overflows.append(bool(out["overflow"]))
@@ -1381,20 +1743,21 @@ def phase_train(cfg, tree):
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-    want = dict(gpt_pass_launches(cfg), packed_scale=n_leaves,
-                packed_adam_tree=1)
+    # one K6 launch a step: the unscale over the whole tree
+    want = dict(gpt_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
     require(per_step == want, f"train launches per step {per_step}, want "
                               f"{want}")
     rows = pointer_rows(rows_first, opt.tables)
     require(rows["uploads_later"] == 0,
             f"pointer rows uploaded after the first step: {rows}")
+    unscale_rows = rows6.report()
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     require(not any(overflows), f"overflow in the train steps: {overflows}")
     p50 = float(np.median(times[2:])) * 1e3
     tokens = TRAIN_B * TRAIN_L
     profile = profile_step(step, ids)
-    routes = route_steps(step, ids, cfg, dict(packed_scale=n_leaves,
+    routes = route_steps(step, ids, cfg, dict(packed_scale=1,
                                               packed_adam_tree=1))
     # one step with a non-finite gradient: skipped on the card
     with torch.enable_grad():
@@ -1426,7 +1789,8 @@ def phase_train(cfg, tree):
          step_ms_p50_steps_3_to_10=p50, tokens_per_s=tokens / (p50 / 1e3),
          record_step_ms_p50_before_k11=PR3_TRAIN_P50_MS,
          peak_memory_gb=peak, launches=counts, launches_per_step=per_step,
-         pointer_rows=rows, leaves=n_leaves, profile=profile,
+         pointer_rows=rows, unscale_pointer_rows=unscale_rows,
+         leaves=n_leaves, profile=profile,
          flash_backward_route="fused (K4)" if fused_route(
              TRAIN_B, TRAIN_L, cfg.num_heads, cfg.head_dim)
          else "two-pass (K13 + K14)",
@@ -2103,7 +2467,7 @@ LC_RUNS = ((16384, 10), (32768, 3))
 #: the launches per gpt_small O2 step with remat at B1 x L16384 or L32768
 #: (the two-pass route), as ``gpt_pass_launches`` derives them: K13 12,
 #: K14 12, K4 0, K2 24 (12 + 12 recomputed) and its k^ prologue 24, K1 49
-#: (25 + 24 recomputed), K3 50 (25 calls x 2), K6 148, K11 1
+#: (25 + 24 recomputed), K3 50 (25 calls x 2), K6 1, K11 1
 #: the two routes of flash_attn_bwd are timed whole, side by side, where
 #: K4's planes stay under this
 ROUTE_COMPARE_MAX_BYTES = 2 << 30
@@ -2331,19 +2695,21 @@ def phase_long_context(cfg, tree):
     runs, counts_by_len, overflow = [], {}, None
     for l, steps in LC_RUNS:
         want = dict(gpt_pass_launches(rcfg, b=1, l=l),
-                    packed_scale=n_leaves, packed_adam_tree=1)
+                    packed_scale=1, packed_adam_tree=1)
         ids = torch.as_tensor(train_stream(cfg.vocab_size, 1, l),
                               device="cuda")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        rows6 = TableRows()
         losses, scales, overflows, times = [], [], [], []
         for _ in range(steps):
             t0 = time.perf_counter()
             out = step(ids)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            rows6.mark()
             losses.append(float(out["loss"]))
             scales.append(float(out["loss_scale"]))
             overflows.append(bool(out["overflow"]))
@@ -2360,7 +2726,8 @@ def phase_long_context(cfg, tree):
                    fused_route_planes_gb=fused_bwd_partials_bytes(
                        1, l, cfg.num_heads, cfg.head_dim,
                        torch.bfloat16) / 1e9,
-                   launches=counts, launches_per_step=per_step)
+                   launches=counts, launches_per_step=per_step,
+                   unscale_pointer_rows=rows6.report())
         if steps >= 10:
             require(losses[-1] < losses[0], f"L {l}: loss did not fall: "
                                             f"{losses}")
@@ -2741,12 +3108,14 @@ def phase_bert_train(cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    rows6 = TableRows()
     losses, scales, overflows, times = [], [], [], []
     for i in range(BERT_STEPS):
         t0 = time.perf_counter()
         out = step(*batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         losses.append(float(out["loss"]))
         scales.append(float(out["loss_scale"]))
         overflows.append(bool(out["overflow"]))
@@ -2760,6 +3129,7 @@ def phase_bert_train(cfg):
                 uploads_later=opt.table.uploads - rows_first[1])
     require(rows["uploads_later"] == 0,
             f"pointer rows uploaded after the first step: {rows}")
+    unscale_rows = rows6.report()
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: c / BERT_STEPS for k, c in counts.items()}
     lnc = 2 * cfg.num_layers + 2
@@ -2770,7 +3140,7 @@ def phase_bert_train(cfg):
                 # K4's q^ prologue (q pre-scaled; no rope) and finish pass
                 flash_bwd_prologue=cfg.num_layers,
                 flash_bwd_finish=cfg.num_layers,
-                packed_scale=n_leaves, lamb_stage1=1, lamb_stage2=1,
+                packed_scale=1, lamb_stage1=1, lamb_stage2=1,
                 packed_sumsq=1)
     require(per_step == want, f"bert launches per step {per_step}, want "
                               f"{want}")
@@ -2816,6 +3186,7 @@ def phase_bert_train(cfg):
          leaves=n_leaves, weights_from_seed_s=setup_s, losses=losses,
          loss_scales=scales, step_ms=[t * 1e3 for t in times],
          step_ms_p50_steps_3_to_10=p50,
+         unscale_pointer_rows=unscale_rows,
          sequences_per_s=BERT_B / (p50 / 1e3),
          tokens_per_s=BERT_B * BERT_L / (p50 / 1e3), peak_memory_gb=peak,
          launches=counts, launches_per_step=per_step, pointer_rows=rows,
@@ -3028,12 +3399,14 @@ def _rn_run(step, x, y, steps, want):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    rows6 = TableRows()
     losses, scales, overflows, times = [], [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         out = step(x, y)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         losses.append(float(out["loss"]))
         scales.append(float(out["loss_scale"]))
         overflows.append(bool(out["overflow"]))
@@ -3049,7 +3422,8 @@ def _rn_run(step, x, y, steps, want):
         losses=losses, loss_scales=scales, step_ms=[t * 1e3 for t in times],
         step_ms_p50_steps_3_to_10=p50, images_per_s=RN_B / (p50 / 1e3),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=counts, launches_per_step=per_step)
+        launches=counts, launches_per_step=per_step,
+        unscale_pointer_rows=rows6.report())
 
 
 def phase_resnet_train():
@@ -3077,7 +3451,7 @@ def phase_resnet_train():
     # bias), 33 routed convs
     require((n_leaves, routed) == (161, 33),
             f"resnet50: {n_leaves} leaves, {routed} routed convs")
-    want_off = dict(NO_LAUNCHES, packed_scale=n_leaves, packed_adam_tree=1)
+    want_off = dict(NO_LAUNCHES, packed_scale=1, packed_adam_tree=1)
     want_on = dict(want_off, conv1x1_bwd=routed)
     runs = {}
     for on, want in ((False, want_off), (True, want_on)):
@@ -3724,21 +4098,23 @@ def phase_fp16_o2(cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    rows6 = TableRows()
     losses, scales, overflows, times = [], [], [], []
     for _ in range(FP16_STEPS):
         t0 = time.perf_counter()
         out = step(ids)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         losses.append(float(out["loss"]))
         scales.append(float(out["loss_scale"]))
         overflows.append(bool(out["overflow"]))
     counts = launch_counts()
     per_step = {k: c / FP16_STEPS for k, c in counts.items()}
-    want = dict(gpt_pass_launches(fcfg), packed_scale=len(a.params),
-                packed_adam_tree=1)
+    want = dict(gpt_pass_launches(fcfg), packed_scale=1, packed_adam_tree=1)
     require(per_step == want, f"fp16 O2 launches per step {per_step}, "
                               f"want {want}")
+    unscale_rows = rows6.report()
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"fp16 O2 losses: {losses}")
     p50 = float(np.median(times[2:])) * 1e3
@@ -3750,7 +4126,8 @@ def phase_fp16_o2(cfg):
          loss_scales=scales, overflows=overflows,
          step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_5=p50,
          tokens_per_s=TRAIN_B * TRAIN_L / (p50 / 1e3), peak_memory_gb=peak,
-         launches_per_step=per_step, injected_overflow=overflow)
+         launches_per_step=per_step, unscale_pointer_rows=unscale_rows,
+         injected_overflow=overflow)
     del a, opt, model
     torch.cuda.empty_cache()
     return counts
@@ -3767,8 +4144,9 @@ def phase_o1_train(cfg, tree):
     """gpt_small at amp O1 (the default opt level: fp32 parameters, the
     products cast to bf16 by the op layer), FusedAdam(lr 3e-4), B 8 x L
     2048, 10 steps: falling losses, p50, tokens/s, peak memory, one
-    profiled step, the exact launches per step (K1 / K3 in fp32, K6 a
-    leaf in fp32, one K11 with no copies); then one injected overflow
+    profiled step, the exact launches per step (K1 / K3 in fp32, one K6
+    over the fp32 gradients, one K11 with no copies); then one injected
+    overflow
     skipped on the card."""
     import torch
     from apex_tpu_torch import amp
@@ -3787,22 +4165,24 @@ def phase_o1_train(cfg, tree):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    rows6 = TableRows()
     losses, scales, overflows, times = [], [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         out = step(ids)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         losses.append(float(out["loss"]))
         scales.append(float(out["loss_scale"]))
         overflows.append(bool(out["overflow"]))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-    want = dict(gpt_pass_launches(cfg), packed_scale=n_leaves,
-                packed_adam_tree=1)
+    want = dict(gpt_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
     require(per_step == want, f"O1 launches per step {per_step}, want "
                               f"{want}")
+    unscale_rows = rows6.report()
     require(all(p.dtype == torch.float32 for p in model.parameters()),
             "O1 cast a parameter")
     require(all(np.isfinite(losses)), f"non-finite O1 loss: {losses}")
@@ -3834,6 +4214,7 @@ def phase_o1_train(cfg, tree):
          tokens_per_s=TRAIN_B * TRAIN_L / (p50 / 1e3),
          record_o2_step_ms_p50=PR6_O2_TRAIN_P50_MS, peak_memory_gb=peak,
          launches=counts, launches_per_step=per_step, leaves=n_leaves,
+         unscale_pointer_rows=unscale_rows,
          parameters_dtype="float32", profile=profile,
          injected_overflow={"skipped": True, "loss_scale": [
              scale_before, float(info["loss_scale"])]})
@@ -3878,8 +4259,8 @@ MNIST_STEPS = 20
 def phase_mnist_o1():
     """BASELINE config 1: ``MLP((256, 256))`` at amp O1 with SGD(0.05),
     B 256 on the synthetic stream of ``examples/mnist_amp.py``, 20 steps:
-    losses fall, p50, samples/s, launches per step (K6 a leaf, nothing
-    else of the port's: SGD is PyTorch's); then an injected overflow,
+    losses fall, p50, samples/s, launches per step (K6 1, nothing else
+    of the port's: SGD is PyTorch's); then an injected overflow,
     skipped."""
     import torch
     from apex_tpu_torch import amp
@@ -3894,18 +4275,20 @@ def phase_mnist_o1():
     xs, ys = synthetic_mnist(torch.Generator().manual_seed(1), MNIST_STEPS,
                              256)
     reset_launch_counts()
+    rows6 = TableRows()
     losses, times = [], []
     for i in range(MNIST_STEPS):
         t0 = time.perf_counter()
         out = step(xs[i], ys[i])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         losses.append(float(out["loss"]))
     counts = launch_counts()
-    n = len(a.params)
     per_step = {k: c / MNIST_STEPS for k, c in counts.items()}
-    require(per_step == dict(NO_LAUNCHES, packed_scale=n),
+    require(per_step == dict(NO_LAUNCHES, packed_scale=1),
             f"MNIST launches per step {per_step}")
+    unscale_rows = rows6.report()
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"MNIST O1 losses: {losses}")
     with torch.enable_grad():
@@ -3924,7 +4307,8 @@ def phase_mnist_o1():
                             "SGD(0.05)", steps=MNIST_STEPS, losses=losses,
          step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_20=p50,
          samples_per_s=256 / (p50 / 1e3), launches=counts,
-         launches_per_step=per_step, leaves=n,
+         launches_per_step=per_step, leaves=len(a.params),
+         unscale_pointer_rows=unscale_rows,
          injected_overflow={"skipped": True,
                             "loss_scale": [scale, float(info["loss_scale"])]})
     return counts
@@ -3942,8 +4326,8 @@ def phase_dcgan_o1():
     dynamic scaler each), 20 iterations: finite losses, each network's
     loss falling below its first value at some iteration (the two losses
     oscillate against each other, so the minimum is checked, not the
-    last), p50, samples/s, launches per iteration (K6 a leaf of each
-    network, K11 twice); then an iteration with D's loss overflowed,
+    last), p50, samples/s, launches per iteration (K6 once a network,
+    K11 twice); then an iteration with D's loss overflowed,
     which halves only D's scale and skips only D's step."""
     import torch
     from apex_tpu_torch import amp
@@ -3962,12 +4346,14 @@ def phase_dcgan_o1():
     gen = torch.Generator().manual_seed(2)
     batches = [synthetic_gan_batch(gen, 64) for _ in range(DCGAN_STEPS + 1)]
     reset_launch_counts()
+    rows6 = TableRows()
     dl, gl, times, scales = [], [], [], []
     for z, real in batches[:DCGAN_STEPS]:
         t0 = time.perf_counter()
         info = dcgan_step(a_g, a_d, z, real)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        rows6.mark()
         dl.append(float(info["d"]["loss"]))
         gl.append(float(info["g"]["loss"]))
         scales.append([float(info["d"]["loss_scale"]),
@@ -3977,10 +4363,11 @@ def phase_dcgan_o1():
                 f"overflow in the DCGAN steps at {len(dl)}")
     counts = launch_counts()
     per_step = {k: c / DCGAN_STEPS for k, c in counts.items()}
-    want = dict(NO_LAUNCHES, packed_scale=len(a_g.params) + len(a_d.params),
-                packed_adam_tree=2)
+    # one unscale a network: D's, then G's
+    want = dict(NO_LAUNCHES, packed_scale=2, packed_adam_tree=2)
     require(per_step == want, f"DCGAN launches per step {per_step}, want "
                               f"{want}")
+    unscale_rows = rows6.report()
     fell = {"d": min(dl[1:]) < dl[0] - GAN_FALL,
             "g": min(gl[1:]) < gl[0] - GAN_FALL}
 
@@ -4009,7 +4396,7 @@ def phase_dcgan_o1():
          g_losses=gl, loss_scales_d_g=scales,
          step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_20=p50,
          samples_per_s=64 / (p50 / 1e3), launches=counts,
-         launches_per_step=per_step,
+         launches_per_step=per_step, unscale_pointer_rows=unscale_rows,
          losses_fell_below_first_by=GAN_FALL, losses_fell=fell,
          injected_d_overflow={"d_skipped": True, "g_stepped": True,
                               "d_scale": [s_d, float(info["d"]["loss_scale"])],
@@ -4055,7 +4442,8 @@ def main() -> int:
                                            int(rng.integers(32, 513))),
                      int(rng.integers(32, 129))) for i in range(16)]
         solo_reqs = requests[:4]
-        ln_recs, fl_recs = phase_kernels([len(p) for _, p, _ in solo_reqs])
+        ln_recs, fl_recs, ln_extra = phase_kernels(
+            [len(p) for _, p, _ in solo_reqs])
         tree = gpt_small_tree(cfg, seed=0)
         model = params_from_jax(tree, cfg, dtype=torch.bfloat16)
         engine_out, serve_counts = phase_serve(model, cfg, requests)
@@ -4095,6 +4483,7 @@ def main() -> int:
         half_o2_counts = phase_fp16_o2(cfg)
         mnist_counts = phase_mnist_o1()
         dcgan_counts = phase_dcgan_o1()
+        phase_serve_profile(cfg)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4282,9 +4671,27 @@ def main() -> int:
                                                    bert.get("n2")])
                                    for k in keys}
             entry["bert_shape"]["launches"] = bert_counts[rec["kernel"]]
+        if rec["kernel"] == "layer_norm_fwd":
+            # ms: the call as a decode step makes it (no statistics)
+            entry["kernel_route"] = rec["route"]
+            entry["stats_ms"] = rec["stats_ms"]
+            entry["device_ms"] = rec["device_ms"]
+            entry["library_device_ms"] = rec["library_device_ms"]
+            entry["train_shapes"] = [
+                {k: r[k] for k in ("n1", "n2", "dtype", "route", "ms",
+                                   "stats_ms", "device_ms", "plain_ms",
+                                   "library_ms", "library_device_ms",
+                                   "bound_ms", "device_bound_share")}
+                for r in recs if r["n1"] == 16384]
+            entry["crossover"] = ln_extra["crossover"]
+            entry["routes_checked"] = ln_extra["routes"]["checked"]
+            entry["max_abs_err_by_dtype"] = ln_extra["routes"][
+                "max_abs_err_by_dtype"]
         if rec["kernel"] == "packed_scale":
-            entry["accum_in_place"] = {k: recs[1][k] for k in keys}
-            entry["accum_in_place"]["launches"] = accum_counts["packed_scale"]
+            entry["launches_a_call"] = rec["launches_a_call"]
+            entry["bound_share"] = rec["bound_share"]
+            entry["fp32_in_place"] = {k: recs[1][k] for k in keys + (
+                "library_call", "bound_share")}
         if rec["kernel"] == "packed_sumsq":
             entry["fp16_optimizer_flat"] = dict(
                 {k: fp16_k9[k] for k in keys}, rel_err=fp16_k9["rel_err"],

@@ -97,6 +97,58 @@ def test_unscale_with_an_inf_leaf_matches_jax():
     assert int(flag[0]) == 0
 
 
+#: a gradient tree mixing bf16 and fp32 leaves of odd sizes (none a
+#: multiple of 8), one above a chunk of 65536 elements
+TREE = [((3, 5), "bf16"), ((7,), "f32"), ((65537,), "bf16"), ((11, 91), "f32"),
+        ((1,), "bf16"), ((333,), "f32")]
+
+
+def _tree(seed, bad):
+    rng = np.random.RandomState(seed)
+    leaves = [(rng.standard_normal(s) * 3000).astype(np.float32)
+              for s, _ in TREE]
+    if bad:
+        leaves[2][40000] = np.inf
+        leaves[3][5, 6] = np.nan
+    kinds = {"bf16": (torch.bfloat16, jnp.bfloat16),
+             "f32": (torch.float32, jnp.float32)}
+    ts = [torch.from_numpy(a.copy()).to(kinds[k][0])
+          for a, (_, k) in zip(leaves, TREE)]
+    js = [jnp.asarray(a).astype(kinds[k][1])
+          for a, (_, k) in zip(leaves, TREE)]
+    return ts, js
+
+
+@pytest.mark.parametrize("bad", [False, True])
+@pytest.mark.parametrize("where", ["new", "kept_buffers", "in_place"])
+def test_unscale_of_a_mixed_tree_matches_jax(where, bad):
+    """``LossScaler.unscale`` (one K6 call over the whole list: its plain
+    version here) against JAX's ``unscale`` on a mixed bf16 / fp32 tree
+    with an inf in one leaf and a nan in another: every fp32 output bit
+    for bit, the flag raised exactly when JAX's finite check fails; into
+    new tensors, into kept fp32 buffers, and in place (fp32 leaves over
+    themselves, as an fp32 list's unscale may run)."""
+    ts, js = _tree(5, bad)
+    jscaler, tscaler = JaxLossScaler(), LossScaler()
+    jstate, tstate = jscaler.init_state(), tscaler.init_state()
+    if where == "in_place":
+        ts = [t.float() for t in ts]
+        js = [j.astype(jnp.float32) for j in js]
+        out = ts
+    elif where == "kept_buffers":
+        out = [torch.empty(t.shape) for t in ts]
+    else:
+        out = None
+    jout, jfinite = jscaler.unscale(js, jstate)
+    tout, flag = tscaler.unscale(ts, tstate, out=out)
+    assert bool(jfinite) == (not bad) and int(flag[0]) == int(bad)
+    for i, (j, t) in enumerate(zip(jout, tout)):
+        assert t.dtype == torch.float32 and t.shape == ts[i].shape
+        if out is not None:
+            assert t is out[i]
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
 def _params(seed=0):
     rng = np.random.RandomState(seed)
     return {"dense": {"kernel": rng.standard_normal((4, 3)).astype(

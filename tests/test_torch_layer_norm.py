@@ -158,3 +158,88 @@ def test_no_grad_calls_build_no_autograd_node():
         y = fused_layer_norm(x, 32)
     assert y.grad_fn is None
     assert fused_layer_norm(x, 32).grad_fn is not None
+
+
+@pytest.mark.parametrize("n1,n2,dtype,aligned,want", [
+    (8, 768, torch.bfloat16, True, "block_vec"),          # decode
+    (8, 768, torch.float32, True, "block_vec"),
+    (16384, 768, torch.bfloat16, True, "warp_vec"),       # training
+    (16384, 1024, torch.bfloat16, True, "warp_vec"),
+    (16384, 1024, torch.float16, True, "warp_vec"),
+    (16384, 770, torch.bfloat16, True, "warp_scalar"),    # ragged widths
+    (8, 1030, torch.bfloat16, True, "block_scalar"),
+    (16384, 1030, torch.float32, True, "block_scalar"),   # > 1024 fp32
+    (8, 768, torch.bfloat16, False, "block_scalar"),      # misaligned view
+    (16384, 768, torch.bfloat16, False, "warp_scalar"),
+    (16384, 4096, torch.bfloat16, True, "block_vec"),     # wider than a warp
+    (4, 40000, torch.float32, True, "loop_vec"),          # wider than a block
+])
+def test_ln_fwd_route_pins_the_choice(n1, n2, dtype, aligned, want):
+    from apex_tpu_torch.ops.cuda import ln_fwd_route
+    from apex_tpu_torch.ops.cuda.layer_norm import (
+        BLOCK_GROUPS_MAX,
+        BLOCK_ROWS_MAX,
+        WARP_GROUPS_MAX,
+    )
+    assert ln_fwd_route(n1, n2, dtype, aligned) == want
+    per = 16 // dtype.itemsize
+    groups = -(-n2 // per)
+    kind = want.split("_")[0]
+    assert (kind == "loop") == (groups > BLOCK_GROUPS_MAX)
+    if kind == "warp":
+        assert n1 > BLOCK_ROWS_MAX and groups <= WARP_GROUPS_MAX
+
+
+def test_ln_fwd_route_crosses_at_block_rows_max():
+    from apex_tpu_torch.ops.cuda import ln_fwd_route
+    from apex_tpu_torch.ops.cuda.layer_norm import BLOCK_ROWS_MAX
+    assert ln_fwd_route(BLOCK_ROWS_MAX, 768, torch.bfloat16) == "block_vec"
+    assert ln_fwd_route(BLOCK_ROWS_MAX + 1, 768, torch.bfloat16) \
+        == "warp_vec"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n1,n2", [(8, 768), (8, 770), (5, 1030)])
+def test_plain_forward_matches_jax_at_decode_and_ragged_widths(n1, n2,
+                                                               dtype):
+    """K1's plain version (what the CPU runs for every route) against the
+    JAX package at the decode shape and at widths that take the scalar
+    routes: fp32 within 1e-5, bf16 within 1 ulp (2**-16 where the affine
+    sum cancels, as above)."""
+    rng = np.random.RandomState(n1 * n2)
+    x = (rng.standard_normal((n1, n2)) * 2 + 0.3).astype(np.float32)
+    w = rng.standard_normal(n2).astype(np.float32)
+    b = rng.standard_normal(n2).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jax_layer_norm(jnp.asarray(x).astype(jdt), jnp.asarray(w),
+                          jnp.asarray(b), n2, 1e-5)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    got, mean, inv = layer_norm_fwd_ref(torch.from_numpy(x).to(tdt),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(b), 1e-5)
+    assert got.dtype == tdt and mean.shape == inv.shape == (n1,)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert bf16_ulp_distance(got, want.to(tdt), BF16_CANCEL_ATOL) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_no_grad_branch_gives_the_grad_branch_output(dtype):
+    """The no-grad branch asks the forward for no statistics
+    (``stats=False``: ``(y, None, None)``); its ``y`` is the grad
+    branch's, bit for bit."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 96)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal(96).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.standard_normal(96).astype(np.float32)).to(dtype)
+    with torch.no_grad():
+        plain = fused_layer_norm_affine(x, w, b, 96, 1e-5)
+    wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+    graded = fused_layer_norm_affine(x, wg, bg, 96, 1e-5)
+    assert graded.grad_fn is not None and plain.grad_fn is None
+    assert torch.equal(plain, graded.detach())
+    y, mean, inv = layer_norm_fwd(x.reshape(-1, 96), w, b, 1e-5, stats=False)
+    assert mean is None and inv is None
+    assert torch.equal(y, layer_norm_fwd(x.reshape(-1, 96), w, b, 1e-5)[0])

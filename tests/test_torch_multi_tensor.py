@@ -192,3 +192,104 @@ def test_empty_lists_and_refusals():
     with pytest.raises(ValueError, match="leaf sizes"):
         packed_axpby(table, x, [torch.ones(4)], torch.ones(1),
                      torch.ones(1), torch.zeros(1, dtype=torch.int32), x)
+
+
+#: a tree that mixes bf16 and fp32 leaves of odd sizes (none a multiple
+#: of 8), one of them above a chunk
+MIXED_SIZES = [1, 7, 65537, 1001, 3, 333]
+MIXED_KINDS = ["bf16", "f32", "bf16", "f32", "f32", "bf16"]
+
+
+@pytest.mark.parametrize("where", ["kept_buffers", "in_place"])
+@pytest.mark.parametrize("out_kind", ["f32", "own"])
+def test_table_scale_matches_jax_bitwise(where, out_kind):
+    """K6's plain version over the chunk table (what ``LossScaler.
+    unscale`` and ``multi_tensor_scale`` launch once a call) against
+    JAX's ``multi_tensor_scale`` on a mixed bf16 / fp32 tree with an inf
+    in one leaf and a nan in another: the outputs bit for bit, the flags
+    equal; into kept buffers (fp32, or each leaf's own dtype) and in
+    place."""
+    from apex_tpu_torch.ops.cuda import packed_scale, packed_scale_ref
+    arrays = _arrays(7, MIXED_SIZES)
+    arrays[2][40000] = np.inf
+    arrays[5][100] = np.nan
+    ts, js = _pair(arrays, MIXED_KINDS)
+    scale = 2.0 ** -9
+    odt = torch.float32 if out_kind == "f32" else None
+    if where == "in_place":
+        odt = None
+        outs = ts
+    else:
+        table_dt = [odt or t.dtype for t in ts]
+        outs = mt.ChunkTable.of(ts).empty_views([t.shape for t in ts],
+                                                table_dt)
+    table = mt.table_for(ts)
+    flag = torch.zeros(1, dtype=torch.int32)
+    s = torch.full((1,), scale)
+    before = packed_scale.launches
+    got = packed_scale(table, ts, s, flag, outs)
+    assert packed_scale.launches == before      # the CPU runs no kernel
+    j_out, j_flag = jmt.multi_tensor_scale(
+        mt.CHUNK_SIZE, [js], scale,
+        jnp.float32 if odt == torch.float32 else None)
+    assert int(flag) == int(j_flag) == 1
+    for t, j, o in zip(got, j_out, outs):
+        assert t is o
+        assert str(t.dtype).split(".")[-1] == str(j.dtype)
+        np.testing.assert_array_equal(_np(t), _np(j))
+    # and the plain version is the wrapper's CPU path
+    fresh, _ = _pair(arrays, MIXED_KINDS)
+    again = [torch.empty_like(o) for o in outs]
+    flag2 = torch.zeros(1, dtype=torch.int32)
+    packed_scale_ref(table, fresh, s, flag2, again)
+    assert int(flag2) == 1
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num())
+               for a, b in zip(again, got))
+
+
+def test_table_scale_refuses_what_it_cannot_take():
+    from apex_tpu_torch.ops.cuda import packed_scale_ref
+    ts = [torch.ones(5), torch.ones(3)]
+    table = mt.ChunkTable.of(ts)
+    flag = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="leaf sizes"):
+        packed_scale_ref(table, ts[:1], torch.ones(1), flag, ts[:1])
+
+
+def test_empty_views_align_each_leaf_in_one_buffer_a_dtype():
+    sizes = [3, 65, 1, 128]
+    dts = [torch.float32, torch.bfloat16, torch.float32, torch.bfloat16]
+    table = mt.ChunkTable(sizes, "cpu")
+    views = table.empty_views([(n,) for n in sizes], dts)
+    assert [v.numel() for v in views] == sizes
+    assert [v.dtype for v in views] == dts
+    for v in views:
+        assert v.is_contiguous()
+        assert v.storage_offset() % mt.VIEW_ALIGN == 0
+    # one storage per dtype
+    assert views[0].untyped_storage().data_ptr() \
+        == views[2].untyped_storage().data_ptr()
+    assert views[1].untyped_storage().data_ptr() \
+        == views[3].untyped_storage().data_ptr()
+    # flat_views keeps its zero fill
+    buf, zs = table.flat_views([(n,) for n in sizes])
+    assert float(buf.abs().sum()) == 0.0 and zs[1].numel() == 65
+
+
+def test_multi_tensor_scale_is_one_call_over_a_mixed_list(monkeypatch):
+    """``multi_tensor_scale`` makes one K6 call over the whole list,
+    whatever dtypes it mixes (on the card: one launch)."""
+    calls = []
+    orig = mt.packed_scale
+
+    def spy(table, x, scale, flag, out):
+        calls.append((table.n_leaves, [o.dtype for o in out]))
+        return orig(table, x, scale, flag, out)
+    monkeypatch.setattr(mt, "packed_scale", spy)
+    ts, _ = _pair(_arrays(3, MIXED_SIZES), MIXED_KINDS)
+    outs, flag = mt.multi_tensor_scale(mt.CHUNK_SIZE, [ts], 0.5)
+    assert len(calls) == 1 and calls[0][0] == len(ts)
+    assert calls[0][1] == [t.dtype for t in ts]
+    assert int(flag) == 0
+    assert all(torch.equal(o, (t.float() * 0.5).to(t.dtype))
+               for o, t in zip(outs, ts))

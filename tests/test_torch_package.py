@@ -1,6 +1,7 @@
 """The port's package boundary: no module of ``apex_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the entry points
-run on the card unless the caller asks for the CPU."""
+``chip_smoke.py`` or ``chip_split.py``) imports JAX or the JAX package,
+and the entry points run on the card unless the caller asks for the
+CPU."""
 
 import ast
 import pathlib
@@ -34,7 +35,7 @@ def _forbidden(name):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "apex_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_split.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
