@@ -36,6 +36,7 @@ from apex_tpu_torch.ops.cuda.flash_attention import (
     fused_bwd_max_bytes,
     fused_bwd_partials_bytes,
     fwd_route,
+    simt_layout,
     tma_geometry,
     two_pass_bwd,
 )
@@ -129,5 +130,5 @@ __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "bwd_route",
            "packed_adam_ref", "packed_adam_tree", "packed_adam_tree_ref",
            "packed_axpby", "packed_axpby_ref", "packed_scale",
            "packed_scale_ref", "packed_sumsq", "packed_sumsq_ref",
-           "reset_launch_counts", "sumsq_per_tensor",
+           "reset_launch_counts", "simt_layout", "sumsq_per_tensor",
            "sumsq_per_tensor_ref", "tma_geometry", "two_pass_bwd"]

@@ -148,10 +148,11 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_flash_fwd_sm90_smem_bytes.argtypes = [i32]
     lib.apex_flash_fwd_sm90_smem_bytes.restype = i32
     lib.apex_flash_fwd_simt.argtypes = ([vp] * 8 + [i64] * 9 + [i32] * 4
-                                        + [f32, i32, i32, vp])
+                                        + [f32, i32, i32, i32, vp])
     lib.apex_flash_fwd_simt.restype = i32
     lib.apex_flash_bwd_simt.argtypes = ([vp] * 12 + [i64] * 12
-                                        + [i32] * 4 + [f32, i32, i32, vp])
+                                        + [i32] * 4
+                                        + [f32, i32, i32, i32, vp])
     lib.apex_flash_bwd_simt.restype = i32
     lib.apex_flash_bwd_fused.argtypes = [vp] * 13 + [i32] * 6 + [vp]
     lib.apex_flash_bwd_fused.restype = i32

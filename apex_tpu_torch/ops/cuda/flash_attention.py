@@ -37,8 +37,12 @@ Which kernel a call takes is a pure function of the dtype, the head width
 and, for the backward, the partial planes' bytes against the budget
 (:func:`fwd_route`, :func:`bwd_route`): bf16 and fp16 up to D 128 take the
 tensor-core kernels; fp32, and half types above D 128, the generic kernels
-(``flash_fwd_simt``, ``flash_bwd_simt``: a warp a row on CUDA cores), up to
-D :data:`MAX_HEAD_DIM`.  Every kernel counts its own launches.
+(``flash_fwd_simt``, ``flash_bwd_simt``, on CUDA cores in fp32), up to D
+:data:`MAX_HEAD_DIM`.  The generic kernels take one of two layouts, which
+:func:`simt_layout` picks from the dtype and the head width: ``"tiled"``
+(query and key tiles in shared memory, register micro-tiles on FFMA, one
+softmax reduction a tile) up to D :data:`TILED_MAX_HEAD_DIM`, ``"rows"``
+(a warp a row) above.  Every kernel counts its own launches.
 """
 
 from __future__ import annotations
@@ -60,10 +64,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 #: the widest head of the tensor-core kernels (TMA pads to 64 or 128)
 MAX_TC_HEAD_DIM = 128
-#: the widest head of the generic kernels: above D 512 a warp keeps each of
-#: its rows in shared memory, and the dk / dv pass's six fp32 rows of one
-#: warp (64 * ceil(D / 64) floats each) must fit one block's 227 KB
+#: the widest head of the generic kernels: above D 512 their rows layout
+#: keeps each of a warp's rows in shared memory, and the dk / dv pass's six
+#: fp32 rows of one warp (64 * ceil(D / 64) floats each) must fit one
+#: block's 227 KB
 MAX_HEAD_DIM = 9664
+#: the widest head of the generic kernels' tiled layout (their output's
+#: register micro-tile: 16 columns a thread at D 256)
+TILED_MAX_HEAD_DIM = 256
+#: the C entry points' mode word of each layout of the generic kernels
+_LAYOUTS = {"tiled": 0, "rows": 1}
 #: keys of one consumer warpgroup of the fused backward (K4 / K18): one
 #: dq partial plane each
 BWD_KEY_TILE = 64
@@ -199,11 +209,24 @@ def bwd_route(dtype: torch.dtype, d: int, partials_bytes: int,
     return "fused" if partials_bytes <= budget else "two_pass"
 
 
+def simt_layout(dtype: torch.dtype, d: int) -> str:
+    """The layout the generic kernels take for ``dtype`` and head width
+    ``d`` (passed to their C entry points as a mode word): ``"tiled"``
+    (query and key tiles in shared memory, register micro-tiles on FFMA)
+    for every ``d`` up to :data:`TILED_MAX_HEAD_DIM`, whatever the dtype;
+    ``"rows"`` (a warp a row) above, up to :data:`MAX_HEAD_DIM`, whose
+    output rows a thread's registers cannot hold as a tile.  Raises
+    ``ValueError`` on what no kernel takes."""
+    _check_route("flash generic kernels", dtype, d)
+    return "tiled" if d <= TILED_MAX_HEAD_DIM else "rows"
+
+
 def _check_common(what: str, q, k, v, kv_mask, rope, tensor_cores=False):
     """Validate a kernel call; returns ``(mask_u8, cos_t, sin_t)``.  The
     tensor-core kernels (``tensor_cores``) take bf16 or fp16 and every head
     width that is a multiple of 8 up to 128; the generic ones fp32, bf16
-    or fp16 up to D 512."""
+    or fp16 at every head width that is a multiple of 8 up to
+    :data:`MAX_HEAD_DIM`."""
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be (B, L, H, D), got "
                          f"{tuple(q.shape)}")
@@ -293,8 +316,9 @@ def _fwd_launch(ops: _FwdOps, return_lse: bool):
 
 
 def _simt_fwd(what, q, k, v, kv_mask, causal, scale, rope, return_lse):
-    """The generic forward (``csrc/flash_simt.cu``), one launch counted in
-    ``flash_fwd_simt.launches``; returns ``(o, lse or None)``."""
+    """The generic forward (``csrc/flash_simt.cu``) in the layout of
+    :func:`simt_layout`, one launch counted in ``flash_fwd_simt.launches``;
+    returns ``(o, lse or None)``."""
     mask, cos_t, sin_t = _check_common(what, q, k, v, kv_mask, rope)
     b, l, h, d = q.shape
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -305,7 +329,8 @@ def _simt_fwd(what, q, k, v, kv_mask, causal, scale, rope, return_lse):
         _ptr(sin_t), o.data_ptr(), _ptr(lse), *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], b, l, h, d,
         _half_scale(_default_scale(q, scale), q.dtype), int(bool(causal)),
-        _DTYPES[q.dtype], build.stream_of(q))
+        _DTYPES[q.dtype], _LAYOUTS[simt_layout(q.dtype, d)],
+        build.stream_of(q))
     build.check(err, what)
     flash_fwd_simt.launches += 1
     return o, lse
@@ -348,9 +373,9 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``csrc/flash_fwd_sm90.cu``, counted in ``flash_attn_fwd.launches``),
     after one :func:`flash_fwd_prologue` launch with rope; for fp32, and
     half types above D 128, the generic kernel (:func:`flash_fwd_simt`).
-    Lq == Lk; D a multiple of 8 up to 512; any strides with unit stride
-    over D (16-byte aligned rows in half types).  On CPU tensors
-    :func:`flash_attn_fwd_ref`."""
+    Lq == Lk; D a multiple of 8 up to :data:`MAX_HEAD_DIM`; any strides
+    with unit stride over D (16-byte aligned rows in half types).  On CPU
+    tensors :func:`flash_attn_fwd_ref`."""
     if q.device.type == "cpu":
         o, lse = flash_attn_fwd_ref(q, k, v, causal=causal,
                                     kv_mask=kv_mask, scale=scale, rope=rope)
@@ -908,9 +933,10 @@ def two_pass_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t, sin_t, scale_q,
               causal):
-    """The generic backward (``csrc/flash_simt.cu``) on checked operands:
-    two launches (dk / dv, then dq) counted in ``flash_bwd_simt.launches``;
-    returns dq in fp32 before its deferred scale, dk and dv."""
+    """The generic backward (``csrc/flash_simt.cu``) on checked operands,
+    in the layout of :func:`simt_layout`: two launches (dk / dv, then dq)
+    counted in ``flash_bwd_simt.launches``; returns dq in fp32 before its
+    deferred scale, dk and dv."""
     b, l, h, d = q.shape
     dq = torch.empty((b, l, h, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -921,7 +947,7 @@ def _simt_bwd(what, q, k, v, do, lse, delta, mask, cos_t, sin_t, scale_q,
         _ptr(sin_t), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         b, l, h, d, scale_q, int(bool(causal)), _DTYPES[q.dtype],
-        build.stream_of(q))
+        _LAYOUTS[simt_layout(q.dtype, d)], build.stream_of(q))
     build.check(err, what)
     flash_bwd_simt.launches += 2
     return dq, dk, dv

@@ -2,6 +2,14 @@
 """Drive the apex_tpu_torch port on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --repo DIR --only o0_train,generic_kernels
+
+With no arguments it runs every phase below on the checkout beside it.
+``--repo`` drives another checkout's package (a parent tree unpacked
+elsewhere) with this script's phase code, and ``--only`` runs just the
+named phases after ``device`` and ``build`` (``o0_train``, and
+``generic_kernels``: the generic flash kernels' records), printing their
+lines and no ``kernels`` or ``ok`` line.
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -10,7 +18,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 2. build    ``nvcc`` builds every kernel from ``apex_tpu_torch/csrc`` for
             sm_90a: seconds, and registers / shared memory / spills per
             kernel from ``-Xptxas -v`` (the fused backward's four
-            instantiations must show no spills);
+            instantiations must show no spills, nor the generic kernels'
+            tiled ones but for the register budgets kept with a few
+            spilled words, ``SIMT_SPILLS_KEPT``);
 3. kernels  each kernel against its plain PyTorch version at the serving
             path's shapes: max abs error within the stated tolerance,
             kernel / plain / library-call times (CUDA events) and the
@@ -162,6 +172,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             the fp32 gradients, K11 1), an injected overflow skipped;
    o1_reference  a 2-layer GPT at O1, card against CPU, losses within
             2e-2;
+   o0_train  gpt_small at amp O0 (fp32 throughout, attention on the
+            generic kernels' tiled layout, with rope inside them),
+            FusedAdam(3e-4), B 8 x L 2048, 10 steps: falling losses, p50,
+            tokens/s, peak memory, the exact launches per step
+            (flash_fwd_simt 12, flash_bwd_simt 24, K1 25, K3 50, K6 1,
+            K11 1) and one profiled step with the generic kernels named;
 16. flash_mh_kernels  K17 (K2's Hopper kernel, one head a block) and
             K18 (K4's Hopper kernel), the multi-head flash forward and
             fused backward, against
@@ -183,10 +199,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             40, 96, 192, 256, 520 and 1024 (the routes of ``fwd_route`` /
             ``bwd_route``: K2 / K17, K4 / K18 and the generic kernels),
             each against its plain versions by the row and norm limits,
-            the launches of the path, K4 and K18 timed in fp16; the
-            generic kernels
-            (``flash_fwd_simt``, ``flash_bwd_simt``) against their plain
-            versions in fp32 with times, SDPA's fp32 calls and the bounds;
+            the launches of the path, K4 and K18 timed in fp16;
    fp16_o2  amp O2 with ``half_dtype=torch.float16`` at gpt_small's width
             and 4 layers, B 8 x L 2048, 5 steps: finite, falling losses,
             the exact launches per step (every kernel in fp16), p50, one
@@ -196,6 +209,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             falls, p50, samples/s, launches (K6 1 a network, K11 2); then
             D's loss overflowed: only D's scale halves and
             only D's step is skipped.
+   generic_kernels  the generic kernels (``flash_fwd_simt``,
+            ``flash_bwd_simt``) against their plain versions, causal, at
+            fp32 (2, 1024, 12, 64), fp32 (8, 2048, 12, 64) with rope (the
+            O0 GPT step's), fp32 (8, 2048, 6, 128) and bf16 (1, 1024, 4,
+            256): bitwise repeats, times (CUDA events), device ms (calls
+            queued behind a device-side sleep), the bounds (each at the
+            card's peak rate for the dtype), SDPA's calls where they
+            compute the same function (no rope); in a partial run
+            (``--only generic_kernels``) also the device kernels SDPA ran
+            (the profiler: none in the whole run, before serve_profile);
 20. serve_profile  last (a profiled run can slow the host's later
             calls): one decode step of gpt_small's 8 slots profiled (device
             ms by group, busy share) after one whose host ms in K1's calls
@@ -212,6 +235,7 @@ the phases that compare the two routes; likewise it clears
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -322,6 +346,22 @@ def phase_device():
     return name, count, line
 
 
+#: the generic kernels' tiled configurations kept at two 256-thread blocks
+#: an SM (128 registers a thread) with a few spilled words, by the mangled
+#: name's ``Cfg<DP, BR, BC, NT, MINB>``: the forward at DP 128 and both
+#: backward passes at DP 64 (one block an SM, spill-free, ran about 35%
+#: slower on the H100); their spills stay within ``SIMT_SPILL_CAP`` bytes
+SIMT_SPILLS_KEPT = ("CfgILi128ELi64ELi64ELi256ELi2E",
+                    "CfgILi64ELi64ELi64ELi256ELi2E")
+SIMT_SPILL_CAP = 128
+
+
+def _spill_bytes(ptxas_line):
+    """(spill stores, spill loads) in bytes from one ``-Xptxas -v`` line."""
+    return tuple(int(re.search(rf"(\d+) bytes spill {w}", ptxas_line)[1])
+                 for w in ("stores", "loads"))
+
+
 def phase_build():
     from apex_tpu_torch.ops.cuda import build
     lib = build.library(rebuild=True)
@@ -342,6 +382,16 @@ def phase_build():
                 and re.search(r"(^|\D)0 bytes spill loads", v)
                 for v in fused.values()),
             f"flash_bwd_fused_sm90 spills: {fused}")
+    # the generic kernels' tiled instantiations: forward, dk / dv and dq at
+    # DP 64 / 128 / 192 / 256 in fp32, bf16 and fp16
+    tiled = {k: _spill_bytes(v) for k, v in kernels.items()
+             if "_simt_tiled" in k}
+    require(len(tiled) == 36, f"flash_*_simt_tiled: {len(tiled)} "
+                              f"instantiations in the build, want 36")
+    for k, spills in tiled.items():
+        cap = SIMT_SPILL_CAP if any(c in k for c in SIMT_SPILLS_KEPT) else 0
+        require(max(spills) <= cap,
+                f"{k} spills {spills} bytes (stores, loads), cap {cap}")
     emit("build", nvcc_seconds=round(info.seconds, 3), library=info.path,
          sources=len(build.sources()), ptxas=kernels,
          # K2 / K17 by the padded head width they run at
@@ -351,6 +401,7 @@ def phase_build():
          flash_bwd_fused_sm90_dynamic_smem_bytes={
              d: lib.apex_flash_bwd_fused_smem_bytes(d) for d in (64, 128)},
          flash_bwd_fused_sm90=fused,
+         flash_simt_tiled_spills={k: v for k, v in tiled.items() if any(v)},
          # K13 / K14 by the padded head width they run at
          flash_bwd_dq_sm90_dynamic_smem_bytes={
              d: lib.apex_flash_attn_bwd_dq_smem_bytes(d) for d in (64, 128)},
@@ -1647,7 +1698,9 @@ class TableRows:
 
 #: kernel-name fragments of the step's device time, by group
 PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
-                  ("generic flash kernels", ("_simt",)),
+                  ("generic flash forward", ("fwd_simt",)),
+                  ("generic flash dk / dv", ("dkdv_simt",)),
+                  ("generic flash dq", ("dq_simt",)),
                   ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq_sm90",)),
                   ("flash_attn_bwd_dkv (K14)", ("flash_bwd_dkv_sm90",)),
                   ("prologues (k^; q^ and k^)", ("flash_bwd_prologue",)),
@@ -1671,6 +1724,20 @@ PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
                                         "sm90_", "nvjet")))
 
 
+def device_kernel_ms(prof) -> dict:
+    """Device ms by kernel name of a finished ``torch.profiler`` session:
+    device events only, without the ranges that annotate a span of them
+    (the optimizer's ``Optimizer.step#...``), which would count the same
+    kernels twice."""
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                and not getattr(ev, "is_user_annotation", False):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    return kernels
+
+
 def profile_step(step, *batch):
     """One train step under ``torch.profiler``: the device time of every
     kernel, summed by group (the port's kernels, cuBLAS matmuls, the rest
@@ -1686,15 +1753,7 @@ def profile_step(step, *batch):
         step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for ev in prof.key_averages():
-        # device events only, without the ranges that annotate a span of
-        # them (the optimizer's ``Optimizer.step#...``): those would count
-        # the same kernels twice
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA") \
-                and not getattr(ev, "is_user_annotation", False):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    kernels = device_kernel_ms(prof)
     busy = sum(kernels.values())
     if busy == 0.0:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
@@ -3935,71 +3994,171 @@ def _repair_case(shape, dtype, causal, masked, gen):
     return {n: e["row_rel_err"] for n, e in errs.items()}
 
 
-def _simt_records(gen):
-    """The generic kernels against their plain versions at an fp32 shape
-    (their main case, the fp32 references): times, SDPA's fp32 forward /
-    backward as the library calls, the bounds at the fp32 rate (they run
-    on CUDA cores)."""
+#: the generic kernels' recorded causal shapes, (shape, dtype, rope): the
+#: row comparable with earlier PRs', the O0 GPT step's (with rope),
+#: gpt_small_tpu's 6 heads of 128, and a half type above D 128
+SIMT_SHAPES = (((2, 1024, 12, 64), "float32", False),
+               ((8, 2048, 12, 64), "float32", True),
+               ((8, 2048, 6, 128), "float32", False),
+               ((1, 1024, 4, 256), "bfloat16", False))
+
+
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` ran (the profiler's names,
+    cut to 100 characters) with their device ms, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {k[:100]: ms for k, ms in device_kernel_ms(prof).items()}
+
+
+def _simt_case(shape, dtype, rope, gen, profile):
+    """The generic kernels against their plain versions at one causal
+    shape, ``(fwd, bwd, sdpa_kernels)`` (SDPA's device kernels when
+    ``profile``, else None): in fp32 o and lse within 2e-5 and
+    dq, dk, dv within 1e-4 of the plain fp32 version; in bf16 (both round
+    o, dk, dv and the scaled dq to bf16, and P and dS inside, at the same
+    places but sum in other orders) by the row and norm limits of
+    ``scaled_errs``; two runs equal bit for bit; kernel and plain times,
+    SDPA's time where it computes the same function (no rope), and the
+    bounds at the card's peak rate for the dtype (the kernels run on CUDA
+    cores, but the card computes a half type on its tensor cores)."""
     import torch
     import torch.nn.functional as F
+    from apex_tpu_torch.ops import cuda as kernels
     from apex_tpu_torch.ops.cuda import (flash_attn_bwd_ref,
                                          flash_attn_fwd_ref, flash_bwd_simt,
                                          flash_fwd_simt)
-    shape = (2, 1024, 12, 64)
     bsz, l, h, d = shape
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for _ in range(4))
-    kw = dict(causal=True)
+    kw = dict(causal=True, rope=_tables(bsz, l, d, dt) if rope else None)
     o, lse = flash_fwd_simt(q, k, v, return_lse=True, **kw)
     again = flash_fwd_simt(q, k, v, return_lse=True, **kw)
     got = flash_bwd_simt(q, k, v, o, lse, do, **kw)
     got2 = flash_bwd_simt(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    require(torch.equal(o, again[0]) and all(
-        torch.equal(a, b) for a, b in zip(got, got2)),
-        "generic kernels: two runs differ")
+    tag = f"generic kernels {dtype} {shape}"
+    require(torch.equal(o, again[0]) and torch.equal(lse, again[1])
+            and all(torch.equal(a, b) for a, b in zip(got, got2)),
+            f"{tag}: two runs differ")
     ro, rlse = flash_attn_fwd_ref(q, k, v, **kw)
     ref = flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)
     f_err = max(_max_err(o, ro), _max_err(lse, rlse))
     b_errs = [_max_err(a, r) for a, r in zip(got, ref)]
-    require(f_err <= 2e-5 and max(b_errs) <= 1e-4,
-            f"generic kernels fp32 {shape}: forward {f_err}, backward "
-            f"{b_errs}")
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    with torch.no_grad():
-        lib_f = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_b = time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-    pairs = _flash_pairs(bsz, l, h, True, None)
-    e = bsz * l * h * d
-    fb = bound(4 * e * 4 + 4 * bsz * l * h, 4.0 * d * pairs,
-               PEAK_FP32_FLOPS)
-    bb = bound(8 * e * 4 + 8 * bsz * l * h, 10.0 * d * pairs,
-               PEAK_FP32_FLOPS)
-    common = dict(shape=list(shape), causal=True, dtype="float32",
-                  bitwise_repeat=True)
-    fwd = _kernel_rec(kernel="flash_fwd_simt", **common, max_abs_err=f_err,
-                      tolerance="o and lse within 2e-5 of the plain fp32",
-                      ms=time_ms(lambda: flash_fwd_simt(q, k, v, **kw)),
-                      plain_ms=time_ms(lambda: flash_attn_fwd_ref(
-                          q, k, v, **kw)),
-                      bound_ms=fb[0], bound_by=fb[1], library_ms=lib_f,
-                      library_call="F.scaled_dot_product_attention (fp32)")
-    bwd = _kernel_rec(kernel="flash_bwd_simt", **common,
-                      max_abs_err=max(b_errs), errs_dq_dk_dv=b_errs,
-                      tolerance="dq, dk, dv within 1e-4 of the plain fp32",
-                      ms=time_ms(lambda: flash_bwd_simt(q, k, v, o, lse, do,
-                                                        **kw)),
-                      plain_ms=time_ms(lambda: flash_attn_bwd_ref(
-                          q, k, v, o, lse, do, **kw)),
-                      bound_ms=bb[0], bound_by=bb[1], library_ms=lib_b,
-                      library_call="autograd of F.scaled_dot_product_"
-                                   "attention (fp32)")
-    del q, k, v, do, qt, kt, vt, ot
+    checks = {}
+    if dt == torch.float32:
+        require(f_err <= 2e-5 and max(b_errs) <= 1e-4,
+                f"{tag}: forward {f_err}, backward {b_errs}")
+        f_tol = "o and lse within 2e-5 of the plain fp32"
+        b_tol = "dq, dk, dv within 1e-4 of the plain fp32"
+    else:
+        # without rope the kernels pre-scale q in bf16, where the plain
+        # forward scales the fp32 scores: 2 bf16 ulps of the largest lse
+        require(_max_err(lse, rlse) <= bf16_tol(rlse),
+                f"{tag}: lse off by {_max_err(lse, rlse)}")
+        checks = {n: scaled_errs(f"{tag} {n}", t, r) for n, t, r in
+                  zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *ref))}
+        f_tol = ("lse within 2 bf16 ulps of its largest element, o by "
+                 "the row and norm limits of the plain version in bf16")
+        b_tol = "dq, dk, dv by the row and norm limits"
+    del ro, rlse, ref, again, got2
     torch.cuda.empty_cache()
+    call_f = lambda: flash_fwd_simt(q, k, v, **kw)
+    call_b = lambda: flash_bwd_simt(q, k, v, o, lse, do, **kw)
+    ms = (time_ms(call_f), time_ms(call_b))
+    plain_ms = (time_ms(lambda: flash_attn_fwd_ref(q, k, v, **kw)),
+                time_ms(lambda: flash_attn_bwd_ref(q, k, v, o, lse, do,
+                                                   **kw)))
+    lib_f = lib_b = None
+    sdpa_kernels = None
+    if not rope:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        with torch.no_grad():
+            sdpa_f = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+            lib_f = time_ms(sdpa_f)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_b = lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+        lib_b = time_ms(sdpa_b)
+        with torch.no_grad():
+            lib_dev = {"forward": device_queued_ms(sdpa_f, 20)}
+        lib_dev["backward"] = device_queued_ms(sdpa_b, 20)
+        if profile:
+            with torch.no_grad():
+                fwd_names = _device_kernels(sdpa_f)
+            sdpa_kernels = {"forward": fwd_names,
+                            "backward": _device_kernels(sdpa_b)}
+        del qt, kt, vt, ot
+    else:
+        lib_dev = {"forward": None, "backward": None}
+    # the device's time a call (queued behind a device-side sleep): ``ms``
+    # above times queued calls with CUDA events too, but a slow host can
+    # inflate it for the short ones
+    dev_f = device_queued_ms(call_f, 20)
+    dev_b = device_queued_ms(call_b, 20)
+    pairs = _flash_pairs(bsz, l, h, True, None)
+    es = q.element_size()
+    e = bsz * l * h * d
+    tables = 2 * bsz * l * d * es if rope else 0
+    peak = PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS
+    fb = bound(4 * e * es + 4 * bsz * l * h + tables, 4.0 * d * pairs, peak)
+    bb = bound(8 * e * es + 8 * bsz * l * h + tables, 10.0 * d * pairs, peak)
+    common = dict(shape=list(shape), causal=True, rope=rope, dtype=dtype,
+                  layout=kernels.simt_layout(dt, d), bitwise_repeat=True)
+    sdpa = "F.scaled_dot_product_attention" + f" ({dtype})"
+    fwd = _kernel_rec(
+        kernel="flash_fwd_simt", **common, max_abs_err=f_err,
+        tolerance=f_tol, checks={n: c for n, c in checks.items()
+                                 if n == "o"},
+        ms=ms[0], plain_ms=plain_ms[0], bound_ms=fb[0],
+        bound_by=fb[1], library_ms=lib_f,
+        device_ms=dev_f, library_device_ms=lib_dev["forward"],
+        library_call=sdpa if lib_f is not None else None,
+        library_null_reason=None if lib_f is not None else
+        "no PyTorch call rotates by full-width tables inside attention")
+    bwd = _kernel_rec(
+        kernel="flash_bwd_simt", **common, max_abs_err=max(b_errs),
+        errs_dq_dk_dv=b_errs, tolerance=b_tol,
+        checks={n: c for n, c in checks.items() if n != "o"},
+        ms=ms[1], plain_ms=plain_ms[1], bound_ms=bb[0],
+        bound_by=bb[1], library_ms=lib_b,
+        device_ms=dev_b, library_device_ms=lib_dev["backward"],
+        library_call="autograd of " + sdpa if lib_b is not None else None,
+        library_null_reason=None if lib_b is not None else
+        "no PyTorch call rotates by full-width tables inside attention",
+        flops_a_visible_pair={"bound": "10 D", "kernels": "14 D (dk / dv "
+                              "8 D, dq 6 D)"})
+    del q, k, v, do, o, lse, got
+    torch.cuda.empty_cache()
+    return fwd, bwd, sdpa_kernels
+
+
+def phase_generic_kernels(profile=False):
+    """The generic kernels at each of ``SIMT_SHAPES``: two lists of
+    records (forward, backward), the first shape's first.  With
+    ``profile`` (a partial run: a profiled run slows the host's later
+    calls, and late in the whole run a session may return no kernels)
+    also a line of SDPA's device kernels by shape."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    fwd, bwd, sdpa = [], [], {}
+    for shape, dtype, rope in SIMT_SHAPES:
+        f, b, kernels = _simt_case(shape, dtype, rope, gen, profile)
+        fwd.append(f)
+        bwd.append(b)
+        if kernels is not None:
+            sdpa[f"{dtype} {shape}"] = kernels
+    if profile:
+        emit("sdpa_kernels", by_shape=sdpa)
     return fwd, bwd
 
 
@@ -4047,8 +4206,7 @@ def phase_flash_repairs():
     ``fwd_route`` / ``bwd_route``), each against its plain versions, the
     counts reset before and read after (the generic kernels' and the
     tensor-core kernels' launches on this path: K4 and K18 at every half
-    width up to 128 at the default budget); then the generic kernels'
-    records."""
+    width up to 128 at the default budget)."""
     import torch
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -4066,7 +4224,7 @@ def phase_flash_repairs():
          norm_rel_tol=NORM_REL_TOL,
          launches={k: c for k, c in counts.items() if c},
          fp16_backward=_fp16_backward_times(gen))
-    return counts, _simt_records(gen)
+    return counts
 
 
 FP16_LAYERS = 4
@@ -4253,6 +4411,69 @@ def phase_o1_reference():
          losses_cpu=runs["cpu"], loss_max_abs_err=err, loss_tolerance=2e-2)
 
 
+def o0_pass_launches(cfg):
+    """Launches of one fp32 GPT forward and backward pass: K1 / K3 in fp32
+    (K3 twice a call), and attention on the generic kernels (one forward
+    launch a layer, two backward launches: dk / dv, then dq; rope inside
+    them, so no prologue); none of the tensor-core kernels'."""
+    lnc = 2 * cfg.num_layers + 1
+    return dict(NO_LAUNCHES, layer_norm_fwd=lnc, layer_norm_bwd=2 * lnc,
+                flash_fwd_simt=cfg.num_layers,
+                flash_bwd_simt=2 * cfg.num_layers)
+
+
+def phase_o0_train(cfg, tree):
+    """gpt_small at amp O0 (fp32 throughout, the baseline of every amp
+    level: attention on the generic kernels, K1 / K3 in fp32),
+    FusedAdam(lr 3e-4), B 8 x L 2048, 10 steps: falling losses, step p50
+    over steps 3-10, tokens/s, peak memory, the exact launches per step
+    (flash_fwd_simt 12, flash_bwd_simt 24, K1 25, K3 50, K6 1, K11 1) and
+    one profiled step's device ms by group, the generic kernels named."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt, opt_level="O0")
+    require(all(p.dtype == torch.float32 for p in model.parameters()),
+            "O0 holds a parameter that is not fp32")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    want = dict(o0_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
+    require(per_step == want, f"O0 launches per step {per_step}, want "
+                              f"{want}")
+    require(all(np.isfinite(losses)), f"non-finite O0 loss: {losses}")
+    require(losses[-1] < losses[0], f"O0 loss did not fall: {losses}")
+    p50 = float(np.median(times[2:])) * 1e3
+    profile = profile_step(step, ids)
+    emit("o0_train", model="gpt_small", opt_level="O0",
+         optimizer="FusedAdam", lr=3e-4, batch=TRAIN_B, seq_len=TRAIN_L,
+         steps=TRAIN_STEPS, losses=losses, step_ms=[t * 1e3 for t in times],
+         step_ms_p50_steps_3_to_10=p50,
+         tokens_per_s=TRAIN_B * TRAIN_L / (p50 / 1e3), peak_memory_gb=peak,
+         launches=counts, launches_per_step=per_step,
+         parameters_dtype="float32", profile=profile)
+    del a, opt, model, out
+    torch.cuda.empty_cache()
+    return counts
+
+
 MNIST_STEPS = 20
 
 
@@ -4409,7 +4630,39 @@ def phase_dcgan_o1():
     return counts
 
 
-def main() -> int:
+#: the phases a partial run (``--only``) takes, by name: to time another
+#: checkout of the port (``--repo``) with this script's phase code
+PARTIAL_PHASES = ("o0_train", "generic_kernels")
+
+
+def partial_run(names) -> int:
+    """The device and build phases, then each named phase of
+    ``PARTIAL_PHASES``; no ``kernels`` or ``ok`` line (not the whole
+    run)."""
+    from apex_tpu_torch.models import gpt_small
+    phase_device()
+    phase_build()
+    cfg = gpt_small()
+    for name in names:
+        if name == "o0_train":
+            phase_o0_train(cfg, gpt_small_tree(cfg, seed=0))
+        else:
+            phase_generic_kernels(profile=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(HERE),
+                    help="the checkout whose apex_tpu_torch is driven "
+                         "(default: the one beside this script)")
+    ap.add_argument("--only", default=None,
+                    help="a partial run: comma-separated phases of "
+                         + ", ".join(PARTIAL_PHASES))
+    args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else None
+    if only and not set(only) <= set(PARTIAL_PHASES):
+        ap.error(f"--only takes {PARTIAL_PHASES}, got {only}")
     try:
         import torch
     except ImportError:
@@ -4419,17 +4672,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
-    if not (HERE / "apex_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: apex_tpu_torch is not beside this script",
-              file=sys.stderr)
+    repo = Path(args.repo).resolve()
+    if not (repo / "apex_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no apex_tpu_torch in {repo}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(repo))
     # the launch expectations below assume the default partials budget
     # and the 1x1-conv switch off
     os.environ.pop(BUDGET_ENV, None)
     os.environ.pop(CONV1X1_ENV, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if only:
+        try:
+            return partial_run(only)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
     t_start = time.perf_counter()
     try:
         name, count, smi = phase_device()
@@ -4470,6 +4729,7 @@ def main() -> int:
         phase_long_context_reference()
         o1_counts = phase_o1_train(cfg, tree)
         phase_o1_reference()
+        o0_counts = phase_o0_train(cfg, tree)
         del tree
         bert_recs = phase_bert_kernels(bert_cfg)
         bert_counts = phase_bert_train(bert_cfg)
@@ -4479,10 +4739,11 @@ def main() -> int:
         phase_resnet_reference()
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
         mh_counts = phase_flash_mh()
-        repair_counts, (simt_fwd, simt_bwd) = phase_flash_repairs()
+        repair_counts = phase_flash_repairs()
         half_o2_counts = phase_fp16_o2(cfg)
         mnist_counts = phase_mnist_o1()
         dcgan_counts = phase_dcgan_o1()
+        simt_fwd, simt_bwd = phase_generic_kernels()
         phase_serve_profile(cfg)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -4498,6 +4759,7 @@ def main() -> int:
                    "resnet_train": rn_counts[k],
                    "resnet_train_switch_off": rn_off_counts[k],
                    "o1_train": o1_counts[k],
+                   "o0_train": o0_counts[k],
                    "flash_mh": mh_counts.get(k, 0),
                    "flash_repairs": repair_counts[k],
                    "fp16_o2": half_o2_counts[k],
@@ -4526,10 +4788,10 @@ def main() -> int:
              "apex_tpu/ops/pallas/flash_attention.py:142"),
             # the generic kernels of the cases the Hopper kernels do not
             # take (fp32, half types above D 128)
-            (simt_fwd, [simt_fwd], repair_counts["flash_fwd_simt"],
+            (simt_fwd[0], simt_fwd, o0_counts["flash_fwd_simt"],
              "apex_tpu_torch/csrc/flash_simt.cu",
              "apex_tpu/ops/pallas/flash_attention.py:587"),
-            (simt_bwd, [simt_bwd], repair_counts["flash_bwd_simt"],
+            (simt_bwd[0], simt_bwd, o0_counts["flash_bwd_simt"],
              "apex_tpu_torch/csrc/flash_simt.cu",
              "apex_tpu/ops/pallas/flash_attention.py:477"),
             (train_recs["layer_norm_bwd"][0], train_recs["layer_norm_bwd"],
@@ -4657,8 +4919,17 @@ def main() -> int:
             entry["helper_of"] = ["flash_attn_fwd"]
         if rec["kernel"] in ("flash_fwd_simt", "flash_bwd_simt"):
             entry["library_call"] = rec["library_call"]
-            entry["route"] = "cuda"
-            entry["takes"] = "fp32 at D up to 512; bf16 / fp16 above D 128"
+            entry["takes"] = ("fp32 at every D up to 9664, bf16 / fp16 "
+                              "above D 128: the tiled layout up to D 256, "
+                              "a warp a row above")
+            entry["layout"] = rec["layout"]
+            entry["device_ms"] = rec["device_ms"]
+            entry["library_device_ms"] = rec["library_device_ms"]
+            entry["other_shapes"] = [
+                {k: r[k] for k in keys + ("dtype", "rope", "layout",
+                                          "library_call", "device_ms",
+                                          "library_device_ms")}
+                for r in recs[1:]]
         if rec["kernel"] == "flash_bwd_prologue":
             entry["helper_of"] = ["flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                                   "flash_attn_bwd", "flash_mh_bwd"]

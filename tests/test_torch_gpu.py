@@ -32,7 +32,12 @@ order) and repeat bitwise.  The fused 1x1-conv backward (K16): dx and dW
 within 2 ulps of each result's largest element in bf16 / fp16 and
 ``1e-5`` of it in fp32 (both sum in fp32 and round once, in other
 orders), at ResNet-50's 12 shapes and at small and ragged ones; two runs
-equal bit for bit.
+equal bit for bit.  The generic flash kernels (tiled up to D 256, a warp a
+row above): o and lse within 2e-5 and the gradients within 1e-5 of the
+plain version in fp32, half types within 2 bf16 ulps of each result's
+largest element (q is pre-scaled in the half type); two runs equal bit
+for bit, and a strided or misaligned view equal bit for bit to the same
+call on contiguous copies.
 """
 
 import numpy as np
@@ -2102,3 +2107,120 @@ def test_entry_points_at_heads_above_512(cuda, d, dtype):
                            kv_mask=mask)
     for t, r in zip(leaves, ref):
         _close(t.grad, r, dtype)
+
+
+#: the tiled generic kernels' widths: fp32 at every tile configuration
+#: (D 8 .. 256), bf16 / fp16 above the tensor-core kernels' 128
+SIMT_TILED = ([(torch.float32, d) for d in (8, 40, 64, 128, 192, 256)]
+              + [(dt, d) for dt in (torch.bfloat16, torch.float16)
+                 for d in (136, 192, 256)])
+
+
+def _simt_mask(bsz, l, rng, dev):
+    """Batch 0 masks every key (its rows see none); batch 1 keeps key 0."""
+    mask = torch.as_tensor(rng.rand(bsz, l) > 0.3, device=dev)
+    mask[0] = False
+    mask[1:, 0] = True
+    return mask
+
+
+def _simt_check(q, k, v, do, kw, dtype):
+    """The generic kernels on (q, k, v, do): one forward and two backward
+    launches a call, two calls equal bit for bit, and the results against
+    the plain versions (o and lse within 2e-5 in fp32, the gradients
+    within 1e-5; half types within 2 bf16 ulps of the largest element,
+    for lse of the largest live row's: without rope the kernels pre-scale
+    q in the half type, where the plain forward scales the fp32 scores;
+    a row that sees no key has lse NEG_INF exactly); returns (o, lse, dq,
+    dk, dv)."""
+    before = (flash_fwd_simt.launches, flash_bwd_simt.launches)
+    o, lse = flash_fwd_simt(q, k, v, return_lse=True, **kw)
+    o2, lse2 = flash_fwd_simt(q, k, v, return_lse=True, **kw)
+    got = flash_bwd_simt(q, k, v, o, lse, do, **kw)
+    got2 = flash_bwd_simt(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd_simt.launches, flash_bwd_simt.launches) == (
+        before[0] + 2, before[1] + 4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+    ro, rlse = flash_attn_fwd_ref(q, k, v, **kw)
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(o.float(), ro.float(),
+                               atol=2e-5 if fp32 else _bf16_tol(ro), rtol=0)
+    blank = rlse <= -1e30 / 2
+    assert torch.all(lse[blank] == -1e30)
+    live = rlse[~blank]
+    torch.testing.assert_close(lse[~blank], live, atol=2e-5 if fp32
+                               else _bf16_tol(live), rtol=1e-5 if fp32 else 0)
+    for a, r in zip(got, flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert a.dtype == dtype and a.shape == q.shape
+        _close(a, r, dtype)
+    return (o, lse, *got)
+
+
+@pytest.mark.parametrize("causal,masked,rope", [(True, True, True),
+                                                (False, True, False),
+                                                (True, False, False),
+                                                (False, False, True)])
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("dtype,d", SIMT_TILED)
+def test_tiled_generic_kernels_match_plain(cuda, dtype, d, l, causal,
+                                           masked, rope):
+    """The tiled layout (``simt_layout``: every D up to 256) at the tiles'
+    edges (L 1, 63, 64, 65 around the 64- and 32-row tiles, and 1000),
+    causal or not, with a key mask whose batch 0 sees no key (zeros, lse
+    NEG_INF, zero gradients), with rope."""
+    from apex_tpu_torch.ops.cuda import simt_layout
+    assert simt_layout(dtype, d) == "tiled"
+    shape = (2, l, 2, d)
+    rng = np.random.RandomState(l + d)
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    kw = dict(causal=causal,
+              kv_mask=_simt_mask(2, l, rng, cuda) if masked else None,
+              rope=_tables(2, l, d, dtype, cuda) if rope else None)
+    o, lse, *grads = _simt_check(q, k, v, do, kw, dtype)
+    if masked:
+        assert torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)
+        assert all(torch.all(g[0] == 0) for g in grads)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tiled_generic_kernels_read_views(cuda, d, rope):
+    """Non-contiguous fp32 views (q, k, v split out of one fused
+    projection; a head-major layout transposed) take the 4-element vector
+    loads, a view one element off a 16-byte boundary the element loads:
+    each against the plain version, and every result equal bit for bit
+    to the same call on contiguous copies (both loads widen the same
+    values)."""
+    bsz, l, h = 2, 97, 3
+    rng = np.random.RandomState(d)
+    qkv = _randn(rng, (bsz, l, 3, h, d), torch.float32, cuda)
+    q, k = qkv[:, :, 0], qkv[:, :, 1]
+    v = _randn(rng, (bsz, h, l, d), torch.float32, cuda).transpose(1, 2)
+    flat = _randn(rng, (bsz * l * h * d + 1,), torch.float32, cuda)
+    do = flat[1:].view(bsz, l, h, d)          # 4 bytes off 16
+    assert not (q.is_contiguous() or v.is_contiguous())
+    assert do.data_ptr() % 16 == 4
+    kw = dict(causal=True, kv_mask=_simt_mask(bsz, l, rng, cuda),
+              rope=_tables(bsz, l, d, torch.float32, cuda) if rope else None)
+    got = _simt_check(q, k, v, do, kw, torch.float32)
+    want = _simt_check(*(t.contiguous() for t in (q, k, v, do)), kw,
+                       torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    odd = flat[1:].view(bsz, l, h, d)
+    o_odd = flash_fwd_simt(odd, k, v, **kw)
+    assert torch.equal(o_odd, flash_fwd_simt(odd.contiguous(), k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_heads_keep_the_rows_kernels(cuda, dtype):
+    """Above D 256 the generic kernels keep a warp a row (``simt_layout``
+    "rows"): D 520 against the plain versions, with the same launches."""
+    from apex_tpu_torch.ops.cuda import simt_layout
+    assert simt_layout(dtype, 520) == "rows"
+    shape = (1, 130, 2, 520)
+    rng = np.random.RandomState(520)
+    q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
+    kw = dict(causal=True, rope=_tables(1, 130, 520, dtype, cuda))
+    _simt_check(q, k, v, do, kw, dtype)
