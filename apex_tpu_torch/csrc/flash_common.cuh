@@ -2,7 +2,8 @@
 // K4 / K18, K13 and K14 (through flash_sm90.cuh), the prologue
 // (flash_bwd_prologue.cu) and the generic kernels (flash_simt.cu): the
 // NEG_INF of an empty row, the element conversions of the storage types,
-// the lane rotation `rot1` and the shared-memory opt-in.
+// the lane rotation `rot1`; and two host helpers K3 and K16 use too, the
+// shared-memory opt-in and the SM count.
 
 #pragma once
 
@@ -72,6 +73,23 @@ inline cudaError_t opt_in_smem(Kernel kernel, size_t bytes,
                            (int)bytes);
   if (e == cudaSuccess && dev < 32) *configured |= 1u << dev;
   return e;
+}
+
+// The current device's SM count, read once a device (132 if it cannot be
+// read).
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n <= 0)
+      n = 132;
+    counts[dev] = n;
+  }
+  return counts[dev];
 }
 
 }  // namespace apex_fa

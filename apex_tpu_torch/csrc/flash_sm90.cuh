@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward, K2 / K17
 // (flash_fwd_sm90.cu), of the fused backward, K4 / K18
-// (flash_bwd_fused_sm90.cu), and of the two-pass backward, K13
-// (flash_attn_bwd_dq.cu) and K14 (flash_attn_bwd_dkv.cu): mbarriers, TMA
+// (flash_bwd_fused_sm90.cu), of the two-pass backward, K13
+// (flash_attn_bwd_dq.cu) and K14 (flash_attn_bwd_dkv.cu), and of the 1x1
+// conv backward, K16 (conv1x1_bwd.cu, which reads its (rows, channels)
+// matrices through the same maps as (channels, 1, rows, 1)): mbarriers, TMA
 // tile loads, wgmma descriptors and instructions in inline PTX (bf16 or
 // fp16 operands, fp32 accumulators), and the host-side encoding of the
 // tensor maps.
@@ -441,6 +443,33 @@ __device__ __forceinline__ void wgmma_ss_mn(float* d, uint64_t da,
   }
 }
 
+#define APEX_WGMMA_SS_MN_N128(TY) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63" \
+  "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+
+// D (64 x 128 fp32) += A B, A and B of type T both MN-major in shared
+// memory (the 1x1-conv backward's dW = x^T dy: B spans two column halves).
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_mn_n128(float* d, uint64_t da,
+                                                 uint64_t db) {
+  if constexpr (kIsHalf<T>)
+    asm volatile(APEX_WGMMA_SS_MN_N128("f16") : APEX_D64_RW
+                 : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile(APEX_WGMMA_SS_MN_N128("bf16") : APEX_D64_RW
+                 : "l"(da), "l"(db), "r"(1));
+}
+
+#undef APEX_WGMMA_SS_MN_N128
 #undef APEX_WGMMA_SS_MN_N64
 #undef APEX_WGMMA_SS_N32
 #undef APEX_WGMMA_SS_N64

@@ -7,7 +7,11 @@ from apex_tpu_torch.ops.cuda.adam import (
     packed_adam_tree,
     packed_adam_tree_ref,
 )
-from apex_tpu_torch.ops.cuda.conv1x1 import conv1x1_bwd, conv1x1_bwd_ref
+from apex_tpu_torch.ops.cuda.conv1x1 import (
+    conv1x1_bwd,
+    conv1x1_bwd_ref,
+    conv1x1_route,
+)
 from apex_tpu_torch.ops.cuda.finite import (
     all_finite_packed,
     packed_nonfinite,
@@ -60,6 +64,7 @@ from apex_tpu_torch.ops.cuda.layer_norm import (
     layer_norm_bwd_ref,
     layer_norm_fwd,
     layer_norm_fwd_ref,
+    ln_bwd_route,
     ln_fwd_route,
 )
 from apex_tpu_torch.ops.cuda.multi_tensor import (
@@ -110,7 +115,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "bwd_route",
-           "conv1x1_bwd", "flash_bwd_finish", "flash_bwd_finish_ref",
+           "conv1x1_bwd", "conv1x1_route", "flash_bwd_finish", "flash_bwd_finish_ref",
            "flash_bwd_simt", "flash_fwd_prologue",
            "flash_fwd_prologue_ref", "flash_fwd_simt", "fwd_route",
            "mh_bwd_route",
@@ -125,7 +130,8 @@ __all__ = ["KERNELS", "all_finite_packed", "attn_delta", "bwd_route",
            "fused_bwd_max_bytes", "fused_bwd_partials_bytes", "lamb_stage1",
            "lamb_stage1_ref", "lamb_stage2", "lamb_stage2_ref",
            "launch_counts", "layer_norm_bwd", "layer_norm_bwd_ref",
-           "layer_norm_fwd", "layer_norm_fwd_ref", "ln_fwd_route",
+           "layer_norm_fwd", "layer_norm_fwd_ref", "ln_bwd_route",
+           "ln_fwd_route",
            "packed_adam",
            "packed_adam_ref", "packed_adam_tree", "packed_adam_tree_ref",
            "packed_axpby", "packed_axpby_ref", "packed_scale",

@@ -173,9 +173,9 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_flash_attn_bwd_dkv_smem_bytes.argtypes = [i32]
     lib.apex_flash_attn_bwd_dkv_smem_bytes.restype = i32
-    lib.apex_layer_norm_bwd.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+    lib.apex_layer_norm_bwd.argtypes = [vp] * 10 + [i32] * 3 + [vp]
     lib.apex_layer_norm_bwd.restype = i32
-    lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32]
+    lib.apex_layer_norm_bwd_parts.argtypes = [i32, i32, i32]
     lib.apex_layer_norm_bwd_parts.restype = i32
     lib.apex_adam.argtypes = [vp] * 8 + [i64] + [f32] * 6 + [i32] * 4 + [vp]
     lib.apex_adam.restype = i32
@@ -199,11 +199,13 @@ def library(rebuild: bool = False) -> ctypes.CDLL:
     lib.apex_lamb_stage2.argtypes = ([vp] * 4 + [i32, i32] + [vp] * 6
                                      + [f32, i32, vp])
     lib.apex_lamb_stage2.restype = i32
-    lib.apex_conv1x1_bwd_split.argtypes = [i64, i32, i32]
-    lib.apex_conv1x1_bwd_split.restype = i32
-    lib.apex_conv1x1_bwd_tickets.argtypes = [i64, i32, i32]
+    lib.apex_conv1x1_bwd_part_floats.argtypes = [i64, i32, i32, i32]
+    lib.apex_conv1x1_bwd_part_floats.restype = i64
+    lib.apex_conv1x1_bwd_tickets.argtypes = [i64, i32, i32, i32]
     lib.apex_conv1x1_bwd_tickets.restype = i32
-    lib.apex_conv1x1_bwd.argtypes = [vp] * 7 + [i64] + [i32] * 4 + [vp]
+    lib.apex_conv1x1_bwd_plan.argtypes = [i64, i32, i32, i32, vp]
+    lib.apex_conv1x1_bwd_plan.restype = None
+    lib.apex_conv1x1_bwd.argtypes = [vp] * 7 + [i64] + [i32] * 3 + [vp]
     lib.apex_conv1x1_bwd.restype = i32
     lib.apex_packed_nonfinite.argtypes = [vp] * 3 + [i32, i32] + [vp] * 4
     lib.apex_packed_nonfinite.restype = i32

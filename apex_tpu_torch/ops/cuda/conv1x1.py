@@ -14,12 +14,16 @@ JAX package's eligibility predicate, :func:`enabled` its switch
 :func:`apex_tpu_torch.amp.ops.conv_general_dilated` asks both.
 :func:`conv1x1_bwd` launches the kernel for CUDA tensors and runs
 :func:`conv1x1_bwd_ref` for CPU tensors; it never falls back from one to
-the other.
+the other.  On the card it takes one of three routes that
+:func:`conv1x1_route` picks (two Hopper kernels on TMA and ``wgmma`` for
+bf16 / fp16, CUDA-core FMAs for fp32 and for what TMA cannot take).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+from functools import lru_cache
 from typing import Dict, Tuple
 
 import torch
@@ -30,6 +34,49 @@ from apex_tpu_torch.ops.cuda import build
 ENV = "APEX_TPU_FUSED_CONV1X1"
 DN = ("NHWC", "HWIO", "NHWC")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: K16's routes (``conv1x1_route``) and their codes in the C entry point
+ROUTES = {"fma": 0, "one_pass": 1, "two_role": 2}
+#: one_pass holds all of dW in the consumers' registers: at most this many
+#: 64 x 64 tiles of it (cin x cout <= 256 x 128)
+ONE_PASS_TILES_MAX = 8
+
+
+def conv1x1_route(m: int, cin: int, cout: int, dtype: torch.dtype,
+                  aligned: bool = True) -> str:
+    """K16's kernel for ``x (m, cin)``, ``dy (m, cout)`` of ``dtype``:
+    ``"fma"`` (CUDA-core fp32 FMAs) for fp32, and for bf16 / fp16 whose
+    channel counts are not multiples of 8 or whose pointers are not
+    16-byte ``aligned`` (TMA needs a 16-byte row pitch and base);
+    ``"one_pass"`` (x and dy read once, dW in registers) where dW is at
+    most :data:`ONE_PASS_TILES_MAX` tiles of 64 x 64; ``"two_role"`` (dx
+    blocks and split-M dW blocks in one launch) above.  ``m`` sizes each
+    route's grid; it decides the route only from 2^31 rows up (``fma``:
+    TMA's coordinates are 32-bit)."""
+    if dtype == torch.float32 or not aligned or cin % 8 or cout % 8 \
+            or m >= 2 ** 31:
+        return "fma"
+    if -(-cin // 64) * -(-cout // 64) <= ONE_PASS_TILES_MAX:
+        return "one_pass"
+    return "two_role"
+
+
+@lru_cache(maxsize=256)
+def _sizes(m: int, cin: int, cout: int, code: int) -> Tuple[int, int]:
+    """(fp32 partial floats, ticket words) a launch on route ``code``
+    needs, by shape: the call's host path skips the C calls."""
+    lib = build.library()
+    return (lib.apex_conv1x1_bwd_part_floats(m, cin, cout, code),
+            lib.apex_conv1x1_bwd_tickets(m, cin, cout, code))
+
+
+def plan(m: int, cin: int, cout: int, route: str) -> Dict[str, int]:
+    """The launch a route makes for a shape (for records): ``blocks``,
+    ``dw_blocks`` (two_role, fma), ``planes`` (fp32 dW partial planes)
+    and ``stages`` (the TMA ring's, on the Hopper routes)."""
+    out = (ctypes.c_longlong * 4)()
+    build.library().apex_conv1x1_bwd_plan(m, cin, cout, ROUTES[route], out)
+    return dict(zip(("blocks", "dw_blocks", "planes", "stages"), out))
 
 
 def enabled() -> bool:
@@ -75,12 +122,21 @@ def conv1x1_bwd_ref(x2d: torch.Tensor, dy2d: torch.Tensor,
             (x2d.float().t() @ dy).to(w2d.dtype))
 
 
-#: per device, the dW tiles' tickets (uint32, zero between launches: each
-#: launch leaves them zero); grown to the largest tile count seen
+#: per device, the fma route's dW tiles' tickets (uint32, zero between
+#: launches: each launch leaves them zero); grown to the largest count seen
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
+#: per device, the Hopper routes' grid barrier (arrivals, generation; the
+#: arrivals are zero between launches)
+_GRID_SYNC: Dict[torch.device, torch.Tensor] = {}
 
 
-def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+def _tickets(dev: torch.device, n: int, route: str) -> torch.Tensor:
+    if route != "fma":
+        t = _GRID_SYNC.get(dev)
+        if t is None:
+            t = _GRID_SYNC[dev] = torch.zeros(2, dtype=torch.int32,
+                                              device=dev)
+        return t
     t = _TICKETS.get(dev)
     if t is None or t.numel() < n:
         t = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -93,10 +149,10 @@ def conv1x1_bwd(x2d: torch.Tensor, dy2d: torch.Tensor, w2d: torch.Tensor
     """:func:`conv1x1_bwd_ref`'s function for contiguous ``x2d (M, cin)``,
     ``dy2d (M, cout)`` and ``w2d (cin, cout)`` of one dtype.  On CUDA
     tensors one launch of the hand-written kernel (counted in
-    ``conv1x1_bwd.launches``): dx, the dW partial planes over chunks of M,
-    and their fixed-order sum in two levels by the last blocks of each dW
-    tile, so two runs give equal bits.  Calls on one device share the
-    tickets: run them on one stream."""
+    ``conv1x1_bwd.launches``) on the route :func:`conv1x1_route` picks:
+    dx, and dW summed in fp32 over chunks of M into partial planes that
+    are added in a fixed order, so two runs give equal bits.  Calls on
+    one device share the tickets: run them on one stream."""
     if x2d.device.type == "cpu":
         return conv1x1_bwd_ref(x2d, dy2d, w2d)
     if x2d.device.type != "cuda":
@@ -124,18 +180,18 @@ def conv1x1_bwd(x2d: torch.Tensor, dy2d: torch.Tensor, w2d: torch.Tensor
         dx.zero_()
         return dx, dw.zero_()
     lib = build.library()
-    split = lib.apex_conv1x1_bwd_split(m, cin, cout)
-    part = torch.empty(split * cin * cout, dtype=torch.float32,
-                       device=x2d.device)
-    tickets = _tickets(x2d.device,
-                       lib.apex_conv1x1_bwd_tickets(m, cin, cout))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2d, dy2d, w2d, dx, dw))
+    route = conv1x1_route(m, cin, cout, x2d.dtype, aligned)
+    code = ROUTES[route]
+    floats, words = _sizes(m, cin, cout, code)
+    part = torch.empty(floats, dtype=torch.float32, device=x2d.device)
+    tickets = _tickets(x2d.device, words, route)
     per_vec = 16 // x2d.element_size()
-    vec = int(cin % per_vec == 0 and cout % per_vec == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x2d, dy2d, w2d, dx, dw)))
+    vec = int(aligned and cin % per_vec == 0 and cout % per_vec == 0)
     err = lib.apex_conv1x1_bwd(
         x2d.data_ptr(), dy2d.data_ptr(), w2d.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), part.data_ptr(), tickets.data_ptr(), m, cin, cout,
-        _DTYPES[x2d.dtype], vec, build.stream_of(x2d))
+        _DTYPES[x2d.dtype] | code << 2 | vec << 4, build.stream_of(x2d))
     build.check(err, "conv1x1_bwd")
     conv1x1_bwd.launches += 1
     return dx, dw

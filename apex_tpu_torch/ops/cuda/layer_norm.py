@@ -75,6 +75,58 @@ def _mode(n1: int, n2: int, dtype: torch.dtype, w_code: int,
             | (access == "vec") << 6)
 
 
+#: K3's routes (``ln_bwd_route``) and their codes in the C entry point
+LN_BWD_ROUTES = {"warp": 0, "block": 1, "loop": 2}
+#: K3's warp route holds a row in one warp's registers: at most 32
+#: 16-bit or 24 fp32 elements a lane (1024 or 768 in all)
+BWD_WARP_ELEMS_MAX = {2: 32 * 32, 4: 32 * 24}
+#: K3's block route holds a row in one block's registers: at most 512
+#: threads of up to 16 elements (8192 elements in all, in any dtype)
+BWD_BLOCK_ELEMS_MAX = 8192
+#: at most this many rows take K3's block route (a row a block) where the
+#: warp route could hold them, so that few rows still reach many SMs
+BWD_BLOCK_ROWS_MAX = 64
+
+
+def ln_bwd_route(n1: int, n2: int, dtype: torch.dtype,
+                 aligned: bool = True) -> str:
+    """K3's stage 1 for ``(n1, n2)`` rows of ``dtype``: ``"<kind>_vec"``
+    (16-byte groups: ``aligned`` says that dy, x, dx and w start on
+    16-byte boundaries, and n2 must be a multiple of ``16 / itemsize``) or
+    ``"<kind>_scalar"`` (element accesses).  ``kind``: ``"warp"`` (a row a
+    warp, each warp walking rows in a fixed stride) for rows of up to
+    :data:`BWD_WARP_ELEMS_MAX` elements (by itemsize) and more than
+    :data:`BWD_BLOCK_ROWS_MAX` rows; ``"block"`` (a row a block) for fewer
+    rows or wider rows, up to :data:`BWD_BLOCK_ELEMS_MAX` elements;
+    ``"loop"`` (three passes a row, element accesses) above."""
+    per = 16 // dtype.itemsize
+    if n2 > BWD_BLOCK_ELEMS_MAX:
+        return "loop_scalar"
+    if n2 <= BWD_WARP_ELEMS_MAX[dtype.itemsize] and n1 > BWD_BLOCK_ROWS_MAX:
+        kind = "warp"
+    else:
+        kind = "block"
+    vec = aligned and n2 % per == 0
+    return f"{kind}_{'vec' if vec else 'scalar'}"
+
+
+@lru_cache(maxsize=512)
+def _bwd_mode(n1: int, n2: int, dtype: torch.dtype, w_code: int,
+              aligned: bool) -> int:
+    """K3's C entry point ``mode`` word: x's and w's dtype codes, the
+    route of :func:`ln_bwd_route` and the vector bit."""
+    kind, _, access = ln_bwd_route(n1, n2, dtype, aligned).partition("_")
+    return (_DTYPES[dtype] | w_code << 2 | LN_BWD_ROUTES[kind] << 4
+            | (access == "vec") << 6)
+
+
+@lru_cache(maxsize=512)
+def _bwd_parts(n1: int, n2: int, mode: int) -> int:
+    """Partial rows K3's stage 1 writes on ``mode``'s route (the C entry
+    point's count, by shape: the call's host path skips the C call)."""
+    return build.library().apex_layer_norm_bwd_parts(n1, n2, mode)
+
+
 def layer_norm_fwd_ref(x2d: torch.Tensor, weight: Optional[torch.Tensor],
                        bias: Optional[torch.Tensor], eps: float
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -218,8 +270,9 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
                               Optional[torch.Tensor]]:
     """:func:`layer_norm_bwd_ref`'s function; on CUDA tensors the
     hand-written kernels, bitwise repeatable: dx with per-block dw/db
-    partials, then (with a weight) their fixed-order sum, two launches
-    counted in ``layer_norm_bwd.launches`` (one without a weight)."""
+    partials on the route :func:`ln_bwd_route` picks, then (with a
+    weight) their fixed-order sum, two launches counted in
+    ``layer_norm_bwd.launches`` (one without a weight)."""
     if x2d.device.type == "cpu":
         return layer_norm_bwd_ref(dy, x2d, weight, mean, inv)
     if x2d.device.type != "cuda":
@@ -241,6 +294,7 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
     dw = db = part_w = part_b = None
     w_code = 0
     lib = build.library()
+    ptrs = [dy.data_ptr(), x2d.data_ptr(), dx.data_ptr()]
     if weight is not None:
         if weight.shape != (n2,) or not weight.is_contiguous() \
                 or weight.device != x2d.device \
@@ -248,10 +302,14 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
             raise ValueError("layer_norm_bwd: weight must be a contiguous "
                              f"({n2},) tensor, float32 or x's dtype")
         w_code = _DTYPES[weight.dtype]
+        ptrs.append(weight.data_ptr())
+    mode = _bwd_mode(n1, n2, x2d.dtype, w_code,
+                     all(p % 16 == 0 for p in ptrs))
+    if weight is not None:
         dw = torch.empty_like(weight)
         db = torch.empty_like(weight)
-        parts = lib.apex_layer_norm_bwd_parts(n1, n2)
-        part_w = torch.empty((parts, n2), dtype=torch.float32,
+        parts = _bwd_parts(n1, n2, mode)
+        part_w = torch.empty((max(parts, 1), n2), dtype=torch.float32,
                              device=x2d.device)
         part_b = torch.empty_like(part_w)
     if n1 == 0:
@@ -265,8 +323,7 @@ def layer_norm_bwd(dy: torch.Tensor, x2d: torch.Tensor,
     err = lib.apex_layer_norm_bwd(
         dy.data_ptr(), x2d.data_ptr(), ptr(weight), mean.data_ptr(),
         inv.data_ptr(), dx.data_ptr(), ptr(dw), ptr(db), ptr(part_w),
-        ptr(part_b), n1, n2, _DTYPES[x2d.dtype], w_code,
-        build.stream_of(x2d))
+        ptr(part_b), n1, n2, mode, build.stream_of(x2d))
     build.check(err, "layer_norm_bwd")
     layer_norm_bwd.launches += 1 if weight is None else 2
     return dx, dw, db

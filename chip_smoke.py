@@ -7,9 +7,11 @@
 With no arguments it runs every phase below on the checkout beside it.
 ``--repo`` drives another checkout's package (a parent tree unpacked
 elsewhere) with this script's phase code, and ``--only`` runs just the
-named phases after ``device`` and ``build`` (``o0_train``, and
-``generic_kernels``: the generic flash kernels' records), printing their
-lines and no ``kernels`` or ``ok`` line.
+named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
+(``o0_train``, ``generic_kernels``, ``train_kernels``, ``train``,
+``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
+``resnet_kernels``, ``resnet_train``), printing their lines and no
+``kernels`` or ``ok`` line: how one card times a parent against a change.
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -20,7 +22,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             kernel from ``-Xptxas -v`` (the fused backward's four
             instantiations must show no spills, nor the generic kernels'
             tiled ones but for the register budgets kept with a few
-            spilled words, ``SIMT_SPILLS_KEPT``);
+            spilled words, ``SIMT_SPILLS_KEPT``, nor K16's Hopper kernels,
+            nor K3's but ``LN_BWD_SPILLS_KEPT``; K16's CUDA-core kernel
+            within ``CONV1X1_FMA_SPILL_CAP``);
 3. kernels  each kernel against its plain PyTorch version at the serving
             path's shapes: max abs error within the stated tolerance,
             kernel / plain / library-call times (CUDA events) and the
@@ -146,11 +150,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             and bf16 O2.
 13. resnet_kernels  K16, the fused 1x1-conv backward, against its plain
             version at ResNet-50's 12 shapes of 1x1 stride-1 convs (bf16,
-            B 256 x 224^2), in fp32 and at ragged shapes: dx by
+            B 256 x 224^2), in fp32 and at ragged shapes (every route of
+            ``conv1x1_route``: one_pass, two_role, fma), each record with
+            its route and launch plan: dx by
             ``scaled_errs`` and within 2 ulps of its largest element, dW
             within that bound, bitwise repeats; kernel / plain / cuDNN
             ``convolution_backward`` times, the HWIO-to-OIHW weight copy
-            cuDNN makes, and the bounds;
+            cuDNN makes, and the bounds; the step's 33 calls summed
+            against cuDNN's (``k16_ms_a_step``,
+            ``convolution_backward_ms_a_step``);
 14. resnet_train  ResNet-50 at full width and depth (seeded weights on
             the card), amp O2 + FusedAdam (lr 1e-3), B 256 x 224^2 on one
             synthetic batch of ``examples/imagenet_main_amp.py``: 10 steps
@@ -356,6 +364,17 @@ SIMT_SPILLS_KEPT = ("CfgILi128ELi64ELi64ELi256ELi2E",
 SIMT_SPILL_CAP = 128
 
 
+#: K16's CUDA-core kernel (fp32, and half types TMA cannot take) keeps
+#: two 256-thread blocks an SM at 128 registers with a few spilled words:
+#: faster over ResNet-50's fp32 shapes than one block at ~200 registers
+#: (the source note, measured when it was ported); fp32 spills 548 / 492
+#: bytes (stores / loads), the half types 28 / 60
+CONV1X1_FMA_SPILL_CAP = 640
+#: K3's instantiations kept at their register budget with a few spilled
+#: words, by a fragment of the mangled name and a cap in bytes: LN_BWD_KEPT
+LN_BWD_SPILLS_KEPT = ()
+
+
 def _spill_bytes(ptxas_line):
     """(spill stores, spill loads) in bytes from one ``-Xptxas -v`` line."""
     return tuple(int(re.search(rf"(\d+) bytes spill {w}", ptxas_line)[1])
@@ -392,6 +411,27 @@ def phase_build():
         cap = SIMT_SPILL_CAP if any(c in k for c in SIMT_SPILLS_KEPT) else 0
         require(max(spills) <= cap,
                 f"{k} spills {spills} bytes (stores, loads), cap {cap}")
+    # K16: the Hopper kernels (one_pass, two_role; bf16, fp16) spill
+    # nothing; the CUDA-core kernel keeps its two blocks an SM at 128
+    # registers, a few spilled words, within CONV1X1_FMA_SPILL_CAP
+    k16 = {k: _spill_bytes(v) for k, v in kernels.items()
+           if "conv1x1_" in k}
+    hopper16 = {k: v for k, v in k16.items()
+                if "one_pass" in k or "two_role" in k}
+    require(len(hopper16) == 4 and len(k16) == 7,
+            f"conv1x1: {len(hopper16)} Hopper and {len(k16)} in all "
+            "instantiations in the build, want 4 and 7")
+    for k, spills in k16.items():
+        cap = 0 if k in hopper16 else CONV1X1_FMA_SPILL_CAP
+        require(max(spills) <= cap,
+                f"{k} spills {spills} bytes (stores, loads), cap {cap}")
+    # K3: no spills but the kept instantiations of LN_BWD_SPILLS_KEPT
+    k3 = {k: _spill_bytes(v) for k, v in kernels.items() if "ln_bwd_" in k}
+    require(k3, "ln_bwd: no instantiation in the build")
+    for k, spills in k3.items():
+        cap = next((c for frag, c in LN_BWD_SPILLS_KEPT if frag in k), 0)
+        require(max(spills) <= cap,
+                f"{k} spills {spills} bytes (stores, loads), cap {cap}")
     emit("build", nvcc_seconds=round(info.seconds, 3), library=info.path,
          sources=len(build.sources()), ptxas=kernels,
          # K2 / K17 by the padded head width they run at
@@ -402,6 +442,8 @@ def phase_build():
              d: lib.apex_flash_bwd_fused_smem_bytes(d) for d in (64, 128)},
          flash_bwd_fused_sm90=fused,
          flash_simt_tiled_spills={k: v for k, v in tiled.items() if any(v)},
+         conv1x1_spills={k: v for k, v in k16.items() if any(v)},
+         ln_bwd_spills={k: v for k, v in k3.items() if any(v)},
          # K13 / K14 by the padded head width they run at
          flash_bwd_dq_sm90_dynamic_smem_bytes={
              d: lib.apex_flash_attn_bwd_dq_smem_bytes(d) for d in (64, 128)},
@@ -1078,9 +1120,15 @@ def _tables(b, l, d, dtype):
 
 
 def _ln_bwd_case(n1, n2, dtype, rng):
+    """K3 against its plain version at one shape: the route
+    ``ln_bwd_route`` picks (on a tree that has it), launches a call, two
+    runs equal bit for bit, kernel / plain / ``native_layer_norm_backward``
+    times, the kernel's and the library call's device times (calls queued
+    behind a device-side sleep) and the bytes bound."""
     import torch
     from apex_tpu_torch.ops.cuda import (layer_norm_bwd, layer_norm_bwd_ref,
                                          layer_norm_fwd)
+    from apex_tpu_torch.ops.cuda import layer_norm as ln_mod
     dev = torch.device("cuda")
     x = torch.as_tensor(rng.standard_normal((n1, n2), np.float32) * 2 + 0.3,
                         device=dev).to(dtype)
@@ -1090,7 +1138,9 @@ def _ln_bwd_case(n1, n2, dtype, rng):
                         device=dev).to(dtype)
     b = torch.zeros_like(w)
     _, mean, inv = layer_norm_fwd(x, w, b, 1e-5)
+    before = layer_norm_bwd.launches
     got = layer_norm_bwd(dy, x, w, mean, inv)
+    launches = layer_norm_bwd.launches - before
     again = layer_norm_bwd(dy, x, w, mean, inv)
     torch.cuda.synchronize()
     require(all(torch.equal(a, c) for a, c in zip(got, again)),
@@ -1106,19 +1156,38 @@ def _ln_bwd_case(n1, n2, dtype, rng):
         tol = "2 bf16 ulps of the largest element"
         ok = all(e <= bf16_tol(r) for e, r in zip(errs, ref))
     require(ok, f"layer_norm_bwd {n1}x{n2} {dtype}: errors {errs}")
+    route = parts = None
+    if hasattr(ln_mod, "ln_bwd_route"):   # a parent tree may lack it
+        aligned = all(t.data_ptr() % 16 == 0 for t in (dy, x, w))
+        route = ln_mod.ln_bwd_route(n1, n2, dtype, aligned)
+        from apex_tpu_torch.ops.cuda import build
+        parts = build.library().apex_layer_norm_bwd_parts(
+            n1, n2, ln_mod._bwd_mode(n1, n2, dtype, ln_mod._DTYPES[w.dtype],
+                                     aligned))
     ms = time_ms(lambda: layer_norm_bwd(dy, x, w, mean, inv))
     plain = time_ms(lambda: layer_norm_bwd_ref(dy, x, w, mean, inv))
     _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], w, b, 1e-5)
-    lib = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-        dy, x, [n2], lmean, lrstd, w, b, [True, True, True]))
+
+    def library():
+        return torch.ops.aten.native_layer_norm_backward(
+            dy, x, [n2], lmean, lrstd, w, b, [True, True, True])
+    lib = time_ms(library)
+    # the device's time a call, whatever the host's speed late in a long
+    # process (``ms`` above times back-to-back calls from the host)
+    dev = device_queued_ms(lambda: layer_norm_bwd(dy, x, w, mean, inv))
+    lib_dev = device_queued_ms(library)
     isz, wsz = x.element_size(), w.element_size()
     nbytes = 3 * n1 * n2 * isz + 8 * n1 + 3 * n2 * wsz
     b_ms, b_by = bound(nbytes, 14.0 * n1 * n2, PEAK_FP32_FLOPS)
     return _kernel_rec(kernel="layer_norm_bwd", n1=n1, n2=n2,
-                       dtype=str(dtype).split(".")[-1], max_abs_err=max(
-                           errs), errs_dx_dw_db=errs, tolerance=tol,
-                       bitwise_repeat=True, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                       dtype=str(dtype).split(".")[-1], route=route,
+                       partial_rows=parts, launches_a_call=launches,
+                       max_abs_err=max(errs), errs_dx_dw_db=errs,
+                       tolerance=tol, bitwise_repeat=True, ms=ms,
+                       plain_ms=plain, library_ms=lib, device_ms=dev,
+                       library_device_ms=lib_dev, bound_ms=b_ms,
+                       bound_by=b_by, bound_share=b_ms / ms,
+                       device_bound_share=b_ms / dev)
 
 
 def _flash_pairs(b, l, h, causal, mask):
@@ -1697,7 +1766,9 @@ class TableRows:
 
 
 #: kernel-name fragments of the step's device time, by group
-PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",)),
+PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",
+                                         "conv1x1_one_pass",
+                                         "conv1x1_two_role")),
                   ("generic flash forward", ("fwd_simt",)),
                   ("generic flash dk / dv", ("dkdv_simt",)),
                   ("generic flash dq", ("dq_simt",)),
@@ -3345,6 +3416,7 @@ def _conv1x1_case(m, cin, cout, dtype, seed, calls=None):
     of that view to OIHW, and the bound."""
     import torch
     from apex_tpu_torch.ops.cuda import build, conv1x1_bwd, conv1x1_bwd_ref
+    from apex_tpu_torch.ops.cuda import conv1x1 as c1_mod
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((m, cin), generator=g, device="cuda").to(dtype)
     dy = torch.randn((m, cout), generator=g, device="cuda").to(dtype)
@@ -3385,6 +3457,14 @@ def _conv1x1_case(m, cin, cout, dtype, seed, calls=None):
             [True, True, False])
 
     ldx, ldw, _ = library()
+    if hasattr(c1_mod, "conv1x1_route"):   # a parent tree may lack it
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, w, dx, dw))
+        route = c1_mod.conv1x1_route(m, cin, cout, dtype, aligned)
+        plan = dict(c1_mod.plan(m, cin, cout, route))
+    else:
+        route = None
+        plan = {"planes": build.library().apex_conv1x1_bwd_split(
+            m, cin, cout)}
     lib_err = [_max_err(ldx.permute(0, 2, 3, 1).reshape(m, cin), rdx),
                _max_err(ldw.reshape(cout, cin).t(), rdw)]
     rec = dict(kernel="conv1x1_bwd", shape=[m, cin, cout],
@@ -3392,8 +3472,7 @@ def _conv1x1_case(m, cin, cout, dtype, seed, calls=None):
                dx_max_abs_err=tol["dx"][0], dx_tolerance=tol["dx"][1],
                dw_max_abs_err=tol["dw"][0], dw_tolerance=tol["dw"][1],
                max_abs_err=max(tol["dx"][0], tol["dw"][0]),
-               dw_partial_planes=build.library().apex_conv1x1_bwd_split(
-                   m, cin, cout),
+               route=route, plan=plan, dw_partial_planes=plan["planes"],
                ms=time_ms(lambda: conv1x1_bwd(x, dy, w)),
                plain_ms=time_ms(lambda: conv1x1_bwd_ref(x, dy, w)),
                library_ms=time_ms(library),
@@ -3424,19 +3503,25 @@ def phase_resnet_kernels():
                                                   torch.float32, False)}
     recs = [_conv1x1_case(m, cin, cout, torch.bfloat16, i, calls)
             for i, (m, cin, cout, calls) in enumerate(RN50_CONV1X1)]
+    # every route off the ResNet path: fp32 and a half type off the 8 grid
+    # (fma), a ragged two_role shape, one 64 x 64 dW tile (one_pass)
     extra = [_conv1x1_case(50176, 1024, 256, torch.float32, 20),
              _conv1x1_case(12345, 192, 320, torch.bfloat16, 21),
-             _conv1x1_case(1001, 24, 40, torch.float32, 22)]
-    step_ms = sum(r["ms"] * r["calls_a_step"] for r in recs)
-    emit("resnet_kernels", k16_calls_a_step=sum(r["calls_a_step"]
-                                               for r in recs),
-         k16_ms_a_step=step_ms,
-         bound_ms_a_step=sum(r["bound_ms"] * r["calls_a_step"]
-                             for r in recs),
-         convolution_backward_ms_a_step=sum(
-             r["library_ms"] * r["calls_a_step"] for r in recs))
+             _conv1x1_case(1001, 24, 40, torch.float32, 22),
+             _conv1x1_case(1001, 20, 36, torch.bfloat16, 23),
+             _conv1x1_case(1000, 24, 40, torch.float16, 24)]
+    step = dict(
+        k16_calls_a_step=sum(r["calls_a_step"] for r in recs),
+        k16_ms_a_step=sum(r["ms"] * r["calls_a_step"] for r in recs),
+        bound_ms_a_step=sum(r["bound_ms"] * r["calls_a_step"]
+                            for r in recs),
+        convolution_backward_ms_a_step=sum(
+            r["library_ms"] * r["calls_a_step"] for r in recs),
+        worst_vs_convolution_backward=max(r["ms"] / r["library_ms"]
+                                          for r in recs))
+    emit("resnet_kernels", **step)
     torch.cuda.empty_cache()
-    return recs, extra, others
+    return recs, extra, others, step
 
 
 def _rn_loss(model, x, y):
@@ -3572,7 +3657,8 @@ def phase_resnet_train():
              "running_stats_moved": moved})
     del a, opt, model, grads, masters, step, x, y, logits
     torch.cuda.empty_cache()
-    return runs["switch_on"][0], runs["switch_off"][0]
+    p50 = {k: r[1]["step_ms_p50_steps_3_to_10"] for k, r in runs.items()}
+    return runs["switch_on"][0], runs["switch_off"][0], p50
 
 
 #: the small ResNet's fp32 card-vs-CPU losses: both run fp32 (no TF32 on
@@ -4632,22 +4718,44 @@ def phase_dcgan_o1():
 
 #: the phases a partial run (``--only``) takes, by name: to time another
 #: checkout of the port (``--repo``) with this script's phase code
-PARTIAL_PHASES = ("o0_train", "generic_kernels")
+PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
+                  "multi_tensor_kernels", "bert_kernels", "bert_train",
+                  "resnet_kernels", "resnet_train")
 
 
 def partial_run(names) -> int:
-    """The device and build phases, then each named phase of
-    ``PARTIAL_PHASES``; no ``kernels`` or ``ok`` line (not the whole
-    run)."""
-    from apex_tpu_torch.models import gpt_small
+    """The device phase, the tree's kernel library (built if it has none,
+    with no spill checks), then each named phase of ``PARTIAL_PHASES`` in
+    that order; no ``kernels`` or ``ok`` line (not the whole run)."""
+    from apex_tpu_torch.models import bert_large, gpt_small
+    from apex_tpu_torch.ops.cuda import build
     phase_device()
-    phase_build()
-    cfg = gpt_small()
-    for name in names:
+    build.library()   # this tree's library, compiled only if it has none
+    info = build.build_info()
+    emit("build", library=info.path, compiled=info.compiled,
+         nvcc_seconds=round(info.seconds, 3))
+    cfg, bert_cfg = gpt_small(), bert_large()
+    for name in PARTIAL_PHASES:
+        if name not in names:
+            continue
         if name == "o0_train":
             phase_o0_train(cfg, gpt_small_tree(cfg, seed=0))
-        else:
+        elif name == "generic_kernels":
             phase_generic_kernels(profile=True)
+        elif name == "train_kernels":
+            phase_train_kernels(cfg)
+        elif name == "train":
+            phase_train(cfg, gpt_small_tree(cfg, seed=0))
+        elif name == "multi_tensor_kernels":
+            phase_multi_tensor_kernels(cfg, bert_cfg)
+        elif name == "bert_kernels":
+            phase_bert_kernels(bert_cfg)
+        elif name == "bert_train":
+            phase_bert_train(bert_cfg)
+        elif name == "resnet_kernels":
+            phase_resnet_kernels()
+        else:
+            phase_resnet_train()
     return 0
 
 
@@ -4734,8 +4842,8 @@ def main(argv=None) -> int:
         bert_recs = phase_bert_kernels(bert_cfg)
         bert_counts = phase_bert_train(bert_cfg)
         phase_bert_train_reference()
-        rk_recs, rk_extra, rk_others = phase_resnet_kernels()
-        rn_counts, rn_off_counts = phase_resnet_train()
+        rk_recs, rk_extra, rk_others, rk_step = phase_resnet_kernels()
+        rn_counts, rn_off_counts, rn_p50 = phase_resnet_train()
         phase_resnet_reference()
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
         mh_counts = phase_flash_mh()
@@ -4976,14 +5084,26 @@ def main(argv=None) -> int:
             entry["resnet50_shape"] = {k: rn[k] for k in keys + ("dtype",)}
             entry["resnet50_shape"]["launches"] = rn_counts[rec["kernel"]]
         if rec["kernel"] == "conv1x1_bwd":
-            k16 = keys + ("calls_a_step", "dtype", "dw_partial_planes",
+            k16 = keys + ("calls_a_step", "dtype", "route", "plan",
                           "weight_to_oihw_copy_ms", "row_rel_err",
                           "norm_rel_err")
+            entry["kernel_route"] = rec["route"]
             entry["resnet50_shapes"] = [{k: r[k] for k in k16}
                                         for r in rk_recs]
             entry["other_shapes"] = [{k: r[k] for k in k16}
                                      for r in rk_extra]
             entry["library"] = "aten.convolution_backward (cuDNN)"
+            entry.update(rk_step)
+            entry["resnet50_o2_step_ms_p50"] = rn_p50
+        if rec["kernel"] == "layer_norm_bwd":
+            k3 = ("n1", "n2", "dtype", "route", "partial_rows",
+                  "launches_a_call", "ms", "device_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                  "max_abs_err", "bound_share", "device_bound_share")
+            entry["kernel_route"] = rec["route"]
+            entry["launches_a_call"] = rec["launches_a_call"]
+            entry["shapes"] = [{k: r[k] for k in k3}
+                               for r in recs + [bert_recs[rec["kernel"]]]]
         if rec["kernel"] == "packed_nonfinite":
             entry["other_cases"] = [
                 {k: r[k] for k in ("case", "leaves", "dtypes", "bytes", "ms",

@@ -31,8 +31,11 @@ per-tensor sums of squares (K12) are within ``rtol = 1e-6`` (another
 order) and repeat bitwise.  The fused 1x1-conv backward (K16): dx and dW
 within 2 ulps of each result's largest element in bf16 / fp16 and
 ``1e-5`` of it in fp32 (both sum in fp32 and round once, in other
-orders), at ResNet-50's 12 shapes and at small and ragged ones; two runs
-equal bit for bit.  The generic flash kernels (tiled up to D 256, a warp a
+orders), at ResNet-50's 12 shapes, at small and ragged ones and on each
+route of ``conv1x1_route`` (a misaligned view takes the CUDA-core
+route); two runs equal bit for bit.  The layer-norm backward on each
+route of ``ln_bwd_route`` holds the same tolerances, and a view at an
+odd element offset equals the 16-byte groups' result bit for bit.  The generic flash kernels (tiled up to D 256, a warp a
 row above): o and lse within 2e-5 and the gradients within 1e-5 of the
 plain version in fp32, half types within 2 bf16 ulps of each result's
 largest element (q is pre-scaled in the half type); two runs equal bit
@@ -451,6 +454,71 @@ def test_layer_norm_backward_kernel_matches_plain(cuda, n1, n2, dtype,
                                            atol=_bf16_tol(r), rtol=0)
     if not affine:
         assert got[1] is None and got[2] is None
+
+
+# K3's routes (``ln_bwd_route``): a row a warp (16-byte groups or element
+# accesses), a row a block (few rows, wide rows), three passes a row
+@pytest.mark.parametrize("n1,n2,dtype,wdtype,route", [
+    (16384, 768, torch.bfloat16, torch.bfloat16, "warp_vec"),
+    (16384, 1024, torch.float16, torch.float16, "warp_vec"),
+    (16384, 768, torch.bfloat16, torch.float32, "warp_vec"),
+    (16384, 768, torch.float32, torch.float32, "warp_vec"),
+    (300, 1000, torch.bfloat16, torch.bfloat16, "warp_vec"),
+    (300, 1001, torch.float16, torch.float32, "warp_scalar"),
+    (1, 768, torch.float32, torch.float32, "block_vec"),
+    (64, 1000, torch.bfloat16, torch.bfloat16, "block_vec"),
+    (37, 4096, torch.float32, torch.float32, "block_vec"),
+    (16, 8192, torch.bfloat16, torch.bfloat16, "block_vec"),
+    (16, 8192, torch.float32, torch.float32, "block_vec"),
+    (300, 1025, torch.bfloat16, torch.bfloat16, "block_scalar"),
+    (3, 20000, torch.bfloat16, torch.bfloat16, "loop_scalar"),
+])
+def test_layer_norm_backward_routes_match_plain(cuda, n1, n2, dtype, wdtype,
+                                                route):
+    from apex_tpu_torch.ops.cuda import ln_bwd_route
+    assert ln_bwd_route(n1, n2, dtype) == route
+    rng = np.random.RandomState(n1 + n2)
+    x = _randn(rng, (n1, n2), dtype, cuda) * 2 + 0.3
+    dy = _randn(rng, (n1, n2), dtype, cuda)
+    w = _randn(rng, (n2,), wdtype, cuda)
+    _, mean, inv = layer_norm_fwd(x, w, torch.zeros_like(w), 1e-5)
+    before = layer_norm_bwd.launches
+    got = layer_norm_bwd(dy, x, w, mean, inv)
+    again = layer_norm_bwd(dy, x, w, mean, inv)
+    torch.cuda.synchronize()
+    assert layer_norm_bwd.launches == before + 4
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ref = layer_norm_bwd_ref(dy, x, w, mean, inv)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got[0].float(), ref[0].float(),
+                                   atol=_bf16_tol(ref[0]), rtol=0)
+    for a, r in zip(got[1:], ref[1:]):
+        assert a.dtype == wdtype
+        if wdtype == torch.float32:
+            torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
+        else:
+            torch.testing.assert_close(a.float(), r.float(),
+                                       atol=_bf16_tol(r), rtol=0)
+
+
+@pytest.mark.parametrize("route", ["warp", "block"])
+def test_layer_norm_backward_vector_and_scalar_accesses_agree_bitwise(
+        cuda, route):
+    """A view at an odd element offset takes the element accesses, and its
+    dx, dw, db equal the 16-byte groups' on a contiguous copy bit for bit
+    (the same sums in the same order)."""
+    n1, n2 = (300, 768) if route == "warp" else (16, 4096)
+    rng = np.random.RandomState(7)
+    buf = _randn(rng, (2 * n1 * n2 + 1,), torch.bfloat16, cuda)
+    x = buf[1:1 + n1 * n2].view(n1, n2)
+    dy = buf[1 + n1 * n2:1 + 2 * n1 * n2].view(n1, n2)
+    w = _randn(rng, (n2,), torch.bfloat16, cuda)
+    _, mean, inv = layer_norm_fwd(x.clone(), w, torch.zeros_like(w), 1e-5)
+    odd = layer_norm_bwd(dy, x, w, mean, inv)
+    aligned = layer_norm_bwd(dy.clone(), x.clone(), w, mean, inv)
+    assert all(torch.equal(a, b) for a, b in zip(odd, aligned))
 
 
 def test_layer_norm_backward_kernel_fp32_weight_on_bf16(cuda):
@@ -1415,6 +1483,46 @@ def test_conv1x1_kernel_matches_plain_at_resnet50_shapes(cuda, m, cin, cout):
 def test_conv1x1_kernel_matches_plain_small_and_ragged(cuda, m, cin, cout,
                                                         dtype):
     _conv1x1_check(cuda, m, cin, cout, dtype, m + cin)
+
+
+# K16's routes (``conv1x1_route``): fp16 at two ResNet-50 shapes, a
+# ragged two_role shape, one 64 x 64 dW tile, a half type off the 8 grid
+# and a misaligned view (the CUDA-core route), fp32
+@pytest.mark.parametrize("m,cin,cout,dtype,route", [
+    (802816, 64, 256, torch.float16, "one_pass"),
+    (50176, 1024, 256, torch.float16, "two_role"),
+    (12345, 192, 320, torch.bfloat16, "two_role"),
+    (1000, 24, 40, torch.float16, "one_pass"),
+    (1001, 20, 36, torch.bfloat16, "fma"),
+    (50176, 1024, 256, torch.float32, "fma"),
+])
+def test_conv1x1_kernel_routes_match_plain(cuda, m, cin, cout, dtype, route):
+    from apex_tpu_torch.ops.cuda import conv1x1_route
+    assert conv1x1_route(m, cin, cout, dtype) == route
+    _conv1x1_check(cuda, m, cin, cout, dtype, m + cout)
+
+
+def test_conv1x1_misaligned_view_takes_the_fma_route(cuda):
+    """x at an odd element offset: TMA cannot take it, so the CUDA-core
+    route does, within the same 2 ulps of each result's largest element
+    as the other routes."""
+    from apex_tpu_torch.ops.cuda import (conv1x1_bwd, conv1x1_bwd_ref,
+                                         conv1x1_route)
+    m, cin, cout = 4096, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(9)
+    buf = torch.randn((m * cin + 1,), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(m, cin)
+    dy = torch.randn((m, cout), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((cin, cout), generator=g, device=cuda)
+         * 0.05).to(torch.bfloat16)
+    assert conv1x1_route(m, cin, cout, torch.bfloat16, aligned=False) == "fma"
+    dx, dw = conv1x1_bwd(x, dy, w)
+    rdx, rdw = conv1x1_bwd_ref(x, dy, w)
+    for got, ref in ((dx, rdx), (dw, rdw)):
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=0,
+            atol=2.0 ** -7 * max(1.0, float(ref.float().abs().max())))
 
 
 def test_conv1x1_route_launches_k16_on_the_card(cuda, monkeypatch):
