@@ -15,7 +15,10 @@ surface (:mod:`apex_tpu_torch.multi_tensor_apply`,
 fp16_utils`.  Layer norm and flash attention (forward and backward, rope
 inside), the Adam steps, the LAMB stages, the amp unscale, axpby and the
 sums of squares run as hand-written CUDA kernels (``apex_tpu_torch/csrc``)
-on the card and as their plain PyTorch versions on the CPU.  Entry points
+on the card and as their plain PyTorch versions on the CPU.  Data
+parallelism across processes: :mod:`apex_tpu_torch.parallel`
+(``multiproc``, ``DistributedDataParallel``, a synchronized
+``SyncBatchNorm``) over ``torch.distributed``.  Entry points
 default to the card and raise when there is none unless given
 ``device="cpu"``.
 """

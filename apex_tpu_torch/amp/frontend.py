@@ -49,8 +49,17 @@ loss, :meth:`Amp.scale_loss` / :meth:`Amp.unscale_gradients` by
 overflow in any backward skips the step, and each scaler moves only by
 its own loss.
 
-Not ported yet: data-parallel reduction (``axis_name`` / ``reduce_fn``),
-fp8 (O4), the AOT cache and ``add_params``.
+Data parallelism (``make_train_step(..., axis_name=, reduce_fn=)``, and
+``reduce_fn`` on :meth:`Amp.apply_gradients` /
+:meth:`Amp.apply_gradients_multi`): the reduce (e.g.
+:class:`~apex_tpu_torch.parallel.DistributedDataParallel`'s) runs on the
+scaled compute-dtype gradients before the unscale, as the JAX package's
+and the reference DDP's do; with ``accum_steps`` once, on the
+accumulated gradients, before the finite check, so an overflow on any
+rank skips the step on every rank.
+
+Not ported yet: ``finite_axes`` (it waits for the pipeline and expert
+shards), fp8 (O4), the AOT cache and ``add_params``.
 """
 
 from __future__ import annotations
@@ -241,11 +250,14 @@ class Amp:
     @torch.no_grad()
     def apply_gradients(self, grads: Sequence[torch.Tensor],
                         stashed_grads: Optional[Sequence[torch.Tensor]]
-                        = None, loss_id: int = 0
+                        = None, loss_id: int = 0,
+                        reduce_fn: Optional[Callable] = None
                         ) -> Dict[str, torch.Tensor]:
         """Unscale, finite check, scaler update and the conditional
         optimizer step, for ``grads`` w.r.t. :attr:`params` (still scaled
-        by scaler ``loss_id``, in the compute dtype).  ``stashed_grads``
+        by scaler ``loss_id``, in the compute dtype).  ``reduce_fn`` (a
+        data-parallel reduce) runs first, on those scaled gradients.
+        ``stashed_grads``
         (unscaled, one per parameter) selects the accumulation path,
         ``(1 / scale) * grads + stashed`` (K10), whose finite check (K15,
         :func:`~apex_tpu_torch.amp.scaler.all_finite`) covers the
@@ -253,6 +265,8 @@ class Amp:
         persists through the adds, as in the JAX package.  Returns device
         tensors ``overflow``, ``loss_scale`` (after the update) and
         ``pinned_at_floor``."""
+        if reduce_fn is not None:
+            grads = reduce_fn(grads)
         self._check_count(grads)
         if not self.properties.enabled:
             return self.step_if([g.float() for g in grads], None)
@@ -331,19 +345,22 @@ class Amp:
     @torch.no_grad()
     def apply_gradients_multi(self,
                               grads_list: Sequence[Sequence[torch.Tensor]],
-                              loss_ids: Optional[Sequence[int]] = None
+                              loss_ids: Optional[Sequence[int]] = None,
+                              reduce_fn: Optional[Callable] = None
                               ) -> Dict[str, Any]:
         """One optimizer fed by several backwards: ``grads_list[i]``
-        (still scaled, zeros where a loss does not reach a parameter) is
-        unscaled by scaler ``loss_ids[i]`` at the scale it was scaled
-        with, checked, and that scaler updated; the unscaled gradients
-        sum, and the step is skipped when any backward overflowed.
-        Returns ``overflow`` and per-scaler tuples ``loss_scale`` and
-        ``pinned_at_floor``."""
+        (still scaled, zeros where a loss does not reach a parameter;
+        reduced by ``reduce_fn`` first where given) is unscaled by scaler
+        ``loss_ids[i]`` at the scale it was scaled with, checked, and that
+        scaler updated; the unscaled gradients sum, and the step is
+        skipped when any backward overflowed.  Returns ``overflow`` and
+        per-scaler tuples ``loss_scale`` and ``pinned_at_floor``."""
         if loss_ids is None:
             loss_ids = list(range(len(grads_list)))
         if len(loss_ids) != len(grads_list):
             raise ValueError("loss_ids and grads_list length mismatch")
+        if reduce_fn is not None:
+            grads_list = [reduce_fn(g) for g in grads_list]
         if not self.properties.enabled:
             total = [torch.stack(gs).sum(0).float()
                      for gs in zip(*grads_list)]
@@ -436,6 +453,7 @@ def _split_batch(tree: Any, n: int) -> List[Any]:
 
 
 def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
+                    axis_name=None, reduce_fn: Optional[Callable] = None,
                     accum_steps: Optional[int] = None) -> Callable:
     """``step(*batch) -> {"loss", "overflow", "loss_scale",
     "pinned_at_floor"}`` (device tensors): ``loss_fn(model, *batch)`` at
@@ -443,21 +461,38 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
     :meth:`Amp.apply_gradients`.  ``model`` is the one ``amp`` was
     initialized with.  The step makes no host sync.
 
+    Data parallelism, as the JAX package resolves it: ``reduce_fn``
+    (e.g. ``DistributedDataParallel(...).reduce``) reduces the scaled
+    gradients before the unscale; ``axis_name`` (``"data"`` or a
+    ``ProcessGroup``) without ``reduce_fn`` is a mean over the group
+    (:func:`~apex_tpu_torch.parallel.reduce_gradients` with the default
+    knobs); ``reduce_fn`` without ``axis_name`` takes its owner's
+    ``axis_name``.  The loss returned is this rank's.
+
     ``accum_steps=N`` (> 1): every batch tensor's leading dimension splits
     into N micro-batches (``ValueError`` when it does not divide); each
     micro-batch's gradients are unscaled onto fp32 accumulators (one K10
     launch, ``acc = (1 / scale) * g + acc``: the stashed path of
-    :meth:`Amp.apply_gradients`), which are divided by N, checked once
-    (K15 over the whole tree: an inf of any micro-batch persists through
-    the adds) and applied once, so the step is the large-batch mean-loss
-    step; the returned loss is the mean of the micro-batch losses.  With
-    a power-of-two scale (a dynamic one always is) unscaling before the
-    sum gives the bits of unscaling after it."""
+    :meth:`Amp.apply_gradients`), which are divided by N, reduced once
+    (``reduce_fn`` / ``axis_name``), checked once (K15 over the whole
+    tree: an inf of any micro-batch, or of any rank, persists through the
+    adds and the sum) and applied once, so the step is the large-batch
+    mean-loss step; the returned loss is the mean of the micro-batch
+    losses.  With a power-of-two scale (a dynamic one always is)
+    unscaling before the sum gives the bits of unscaling after it."""
     if model is not amp.model:
         raise ValueError("make_train_step: model is not the one amp was "
                          "initialized with")
     if accum_steps is not None and int(accum_steps) < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if axis_name is None and reduce_fn is not None:
+        axis_name = getattr(getattr(reduce_fn, "__self__", None),
+                            "axis_name", None)
+    if axis_name is not None and reduce_fn is None:
+        from apex_tpu_torch.parallel.distributed import reduce_gradients
+
+        def reduce_fn(grads):
+            return reduce_gradients(grads, axis_name)
 
     def backward(batch):
         with torch.enable_grad():
@@ -468,7 +503,7 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
     if accum_steps is None or int(accum_steps) == 1:
         def step(*batch) -> Dict[str, torch.Tensor]:
             loss, grads = backward(batch)
-            info = amp.apply_gradients(grads)
+            info = amp.apply_gradients(grads, reduce_fn=reduce_fn)
             return {"loss": loss, **info}
 
         return step
@@ -493,13 +528,17 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
             del grads
         # the mean-loss step; JAX divides outside any kernel too
         torch._foreach_div_(acc, float(n))
+        total = acc
+        if reduce_fn is not None:
+            with torch.no_grad():
+                total = list(reduce_fn(acc))
         overflow = None
         if enabled:
-            overflow = amp.update_scaler(0, all_finite(acc))
+            overflow = amp.update_scaler(0, all_finite(total))
         grads = amp.grad_buffers()
-        if grads is not acc:
+        if grads is not total:
             # kept buffers in the masters' dtype (bf16 under O3)
-            torch._foreach_copy_(grads, acc)
+            torch._foreach_copy_(grads, total)
         info = amp.step_if(grads, overflow)
         return {"loss": torch.stack(losses).mean(), **info}
 

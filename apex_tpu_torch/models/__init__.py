@@ -23,6 +23,7 @@ from apex_tpu_torch.models.resnet import (
     ResNet152,
     accuracy,
     resnet_loss,
+    shard_rows,
     synthetic_batch,
 )
 from apex_tpu_torch.models.dcgan import (
@@ -44,7 +45,7 @@ from apex_tpu_torch.models.gpt import (
 __all__ = ["AmpDense", "Discriminator", "Generator", "MLP",
            "cross_entropy_loss", "dcgan_step", "gan_losses", "ARCHS", "BasicBlock", "Bottleneck", "ResNet", "ResNet18",
            "ResNet34", "ResNet50", "ResNet50S2D", "ResNet101", "ResNet152",
-           "accuracy", "resnet_loss", "synthetic_batch", "BertConfig", "BertForPreTraining", "BertModel", "GPTConfig",
+           "accuracy", "resnet_loss", "shard_rows", "synthetic_batch", "BertConfig", "BertForPreTraining", "BertModel", "GPTConfig",
            "GPTModel", "SelfAttention", "TransformerLayer", "bert_base",
            "bert_large", "bert_large_tpu", "bert_tiny", "gpt_small",
            "gpt_small_tpu", "gpt_tiny", "lm_loss", "pretraining_loss"]

@@ -5,7 +5,9 @@ loss and top-k accuracy.
 As in the JAX package: activations NHWC, kernels HWIO, the stride on the
 bottleneck's 3x3 (v1.5), lax "SAME" padding (asymmetric at stride 2),
 every BatchNorm a :class:`~apex_tpu_torch.parallel.SyncBatchNorm` with
-momentum 0.1 and eps 1e-5, and submodules named as the flax tree
+momentum 0.1 and eps 1e-5, synchronized over ``bn_axis_name`` /
+``bn_process_group`` where the model is built with them (or converted by
+:func:`~apex_tpu_torch.parallel.convert_syncbn_model`), and submodules named as the flax tree
 (``stem_conv``, ``stem_bn``, ``stage{s}_block{b}`` with ``conv1..3``,
 ``bn1..3``, ``downsample_conv``, ``downsample_bn``; ``fc``), so
 :func:`apex_tpu_torch.convert.resnet_params_from_jax` copies name for
@@ -30,8 +32,11 @@ from apex_tpu_torch.ops import DeviceLike, resolve_device
 from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 
-def _bn(features, dev) -> SyncBatchNorm:
-    return SyncBatchNorm(features, momentum=0.1, epsilon=1e-5, device=dev)
+def _bn(features, dev, axis_name=None, process_group=None
+        ) -> SyncBatchNorm:
+    return SyncBatchNorm(features, momentum=0.1, epsilon=1e-5,
+                         axis_name=axis_name, process_group=process_group,
+                         device=dev)
 
 
 def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -49,21 +54,25 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 downsample: bool = False, device: DeviceLike = None):
+                 downsample: bool = False, device: DeviceLike = None,
+                 bn_axis_name=None, bn_process_group=None):
         super().__init__()
         dev = resolve_device(device, allow_meta=True)
+        self.bn_axis_name = bn_axis_name
+        self.bn_process_group = bn_process_group
+        sync = (bn_axis_name, bn_process_group)
         out = features * 4
         self.conv1 = Conv(in_features, features, 1, device=dev)
-        self.bn1 = _bn(features, dev)
+        self.bn1 = _bn(features, dev, *sync)
         self.conv2 = Conv(features, features, 3, strides=strides,
                           device=dev)
-        self.bn2 = _bn(features, dev)
+        self.bn2 = _bn(features, dev, *sync)
         self.conv3 = Conv(features, out, 1, device=dev)
-        self.bn3 = _bn(out, dev)
+        self.bn3 = _bn(out, dev, *sync)
         if downsample:
             self.downsample_conv = Conv(in_features, out, 1,
                                         strides=strides, device=dev)
-            self.downsample_bn = _bn(out, dev)
+            self.downsample_bn = _bn(out, dev, *sync)
         else:
             self.downsample_conv = self.downsample_bn = None
 
@@ -84,18 +93,22 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 downsample: bool = False, device: DeviceLike = None):
+                 downsample: bool = False, device: DeviceLike = None,
+                 bn_axis_name=None, bn_process_group=None):
         super().__init__()
         dev = resolve_device(device, allow_meta=True)
+        self.bn_axis_name = bn_axis_name
+        self.bn_process_group = bn_process_group
+        sync = (bn_axis_name, bn_process_group)
         self.conv1 = Conv(in_features, features, 3, strides=strides,
                           device=dev)
-        self.bn1 = _bn(features, dev)
+        self.bn1 = _bn(features, dev, *sync)
         self.conv2 = Conv(features, features, 3, device=dev)
-        self.bn2 = _bn(features, dev)
+        self.bn2 = _bn(features, dev, *sync)
         if downsample:
             self.downsample_conv = Conv(in_features, features, 1,
                                         strides=strides, device=dev)
-            self.downsample_bn = _bn(features, dev)
+            self.downsample_bn = _bn(features, dev, *sync)
         else:
             self.downsample_conv = self.downsample_bn = None
 
@@ -113,25 +126,32 @@ class ResNet(nn.Module):
     """ResNet v1.5; ``stage_sizes=(3, 4, 6, 3)`` with :class:`Bottleneck`
     is ResNet-50.  ``forward(x, train=None)`` takes NHWC RGB images
     (``train`` None: ``self.training``) and returns ``(B, num_classes)``
-    logits.  BatchNorm runs at world size one (no ``bn_axis_name``).
-    ``stem="s2d"`` needs spatial dims divisible by 4.  Built on the card
-    unless ``device`` says otherwise (``"meta"``: shapes only)."""
+    logits.  ``bn_axis_name`` (``"data"``: the default process group,
+    or a ``ProcessGroup``) and ``bn_process_group`` (rank lists)
+    synchronize every BatchNorm, as ``convert_syncbn_model`` does; None
+    (the default) keeps them local.  ``stem="s2d"`` needs spatial dims
+    divisible by 4.  Built on the card unless ``device`` says otherwise
+    (``"meta"``: shapes only)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 1000, width: int = 64,
                  block_cls=Bottleneck, stem: str = "conv7",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, bn_axis_name=None,
+                 bn_process_group=None):
         super().__init__()
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
         dev = resolve_device(device, allow_meta=True)
         self.stage_sizes = tuple(stage_sizes)
         self.stem = stem
+        self.bn_axis_name = bn_axis_name
+        self.bn_process_group = bn_process_group
+        sync = (bn_axis_name, bn_process_group)
         if stem == "s2d":
             self.stem_conv = Conv(16 * 3, width, 2, device=dev)
         else:
             self.stem_conv = Conv(3, width, 7, strides=2, device=dev)
-        self.stem_bn = _bn(width, dev)
+        self.stem_bn = _bn(width, dev, *sync)
         self.block_names: List[str] = []
         feats = width
         for stage, n_blocks in enumerate(self.stage_sizes):
@@ -143,8 +163,10 @@ class ResNet(nn.Module):
                     stage > 0 or block_cls.expansion != 1)
                 name = f"stage{stage}_block{block}"
                 base = width * 2 ** stage
-                self.add_module(name, block_cls(feats, base, strides,
-                                                downsample, device=dev))
+                self.add_module(name, block_cls(
+                    feats, base, strides, downsample, device=dev,
+                    bn_axis_name=bn_axis_name,
+                    bn_process_group=bn_process_group))
                 self.block_names.append(name)
                 feats = base * block_cls.expansion
         self.fc = Dense(feats, num_classes, init_std=0.01, device=dev)
@@ -210,6 +232,21 @@ def synthetic_batch(gen: torch.Generator, batch: int, size: int,
     x = torch.randn((batch, size, size, 3), generator=gen, device=dev)
     y = torch.randint(0, num_classes, (batch,), generator=gen, device=dev)
     return x, y
+
+
+def shard_rows(tensors: Sequence[torch.Tensor], rank: int,
+               world: int) -> List[torch.Tensor]:
+    """Rank ``rank``'s rows ``[rank * B / world, (rank + 1) * B / world)``
+    of each tensor's leading dimension ``B`` (the example's data-parallel
+    batch split); ``B`` must divide by ``world``."""
+    out = []
+    for t in tensors:
+        if t.shape[0] % world:
+            raise ValueError(f"batch {t.shape[0]} does not divide into "
+                             f"{world} ranks")
+        n = t.shape[0] // world
+        out.append(t[rank * n:(rank + 1) * n])
+    return out
 
 
 def resnet_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@ from apex_tpu_torch.optimizers.fused_adam import (
     adam_step,
 )
 from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB, lamb_step
+from apex_tpu_torch.optimizers.larc import LARC, larc
 
 __all__ = ["EPS_MODE_INSIDE", "EPS_MODE_OUTSIDE", "FP16Optimizer",
-           "FusedAdam", "FusedLAMB", "adam_step", "lamb_step"]
+           "FusedAdam", "FusedLAMB", "LARC", "adam_step", "lamb_step", "larc"]

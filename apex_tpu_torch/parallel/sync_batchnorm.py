@@ -1,25 +1,39 @@
 """BatchNorm with the JAX package's numerics
-(``apex_tpu/parallel/sync_batchnorm.py``), at world size one.
+(``apex_tpu/parallel/sync_batchnorm.py``), synchronized over processes.
 
 - Statistics: the one-pass fp32 pair ``E[x^2] - E[x]^2`` over every axis
   but the channel one (:func:`local_mean_var`), clamped at 0, whatever the
   input dtype.
+- Across processes (``axis_name``: ``"data"``, the default group, or a
+  ``ProcessGroup``): with no ``process_group``, Chan's merge as two sum
+  rounds over the group (``:333-344``): one ``all_reduce`` of the count
+  and ``count * mean`` packed, one of ``count * var + count * (mean -
+  global_mean)^2``.  With ``process_group`` rank lists
+  (:func:`~apex_tpu_torch.parallel.create_syncbn_process_group`): one
+  ``all_gather`` of ``(mean, var, count)`` within this rank's group, then
+  :func:`welford_parallel` (``:345-360``).
 - Normalize in fp32, cast back to the input dtype
   (:func:`batchnorm_forward`).
 - Backward: the reference's hand-written two-stage split, ``reduce_bn ->
-  batchnorm_backward``, as a ``torch.autograd.Function``
+  all_reduce -> batchnorm_backward``, as a ``torch.autograd.Function``
   (:func:`_bn_train_apply`) that saves only the input at its own dtype and
   per-channel fp32 vectors; the cotangents of the batch mean and invstd
-  are zero, their dependence on x folded into ``grad_input``.
+  are zero, their dependence on x folded into ``grad_input``.  Across
+  processes ``mean_dy`` and ``mean_dy_xmu`` go out packed in one
+  ``all_reduce`` and are divided by the group's size (the grouped form
+  gathers them and takes the mean).  The scale and bias gradients stay
+  per rank, as in the reference: data parallelism reduces them with every
+  other leaf (the JAX package sums them over the axis inside the
+  backward, where ``shard_map`` would otherwise sum them itself).
   ``fused_backward=False`` differentiates the stats graph instead (the
-  same total derivative).
+  same total derivative; not with ``process_group`` rank lists).
 - Running stats: momentum 0.1 (``new = (1 - m) * old + m * batch``), the
-  unbiased ``n / (n - 1)`` variance, in ``running_dtype``.
+  unbiased ``n / (n - 1)`` variance over the group's total count, in
+  ``running_dtype``.  Eval makes no collective.
 
 No ``F.batch_norm``: cuDNN's statistics and rounding are not the JAX
 package's.  Unlike the fork's Python path, the module returns its output
-(SURVEY.md section 0.2).  Synchronizing over processes (``axis_name``,
-``process_group``) is not ported yet and raises.
+(SURVEY.md section 0.2).
 """
 
 from __future__ import annotations
@@ -143,10 +157,22 @@ def batchnorm_backward_c_last(grad_out, x, mean, invstd, weight, mean_dy,
                               mean_dy_xmu, channel_axis=-1)
 
 
+def _group_mean_(t: torch.Tensor, sync) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``sync`` (``(group, ranks)``:
+    ranks None for the whole group, summed; else gathered)."""
+    from apex_tpu_torch.parallel.distributed import _all_gather, _all_reduce_
+    group, ranks = sync
+    if ranks is None:
+        import torch.distributed as dist
+        return _all_reduce_(t, group).div_(dist.get_world_size(group))
+    return _all_gather(t, group).mean(dim=0)
+
+
 class _BNTrainApply(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mean, invstd, weight, bias, channel_axis):
+    def forward(ctx, x, mean, invstd, weight, bias, channel_axis, sync):
         ctx.channel_axis = channel_axis
+        ctx.sync = sync
         ctx.bias_dtype = None if bias is None else bias.dtype
         ctx.save_for_backward(x, mean, invstd, weight)
         return batchnorm_forward(x, mean, invstd, weight, bias,
@@ -158,21 +184,64 @@ class _BNTrainApply(torch.autograd.Function):
         ch = ctx.channel_axis
         mean_dy, mean_dy_xmu, gw, gb = reduce_bn(dy, x, mean, invstd,
                                                  weight, ch)
+        if ctx.sync is not None:
+            c = mean_dy.numel()
+            with torch.profiler.record_function("sync_bn_backward"):
+                both = _group_mean_(torch.cat([mean_dy, mean_dy_xmu]),
+                                    ctx.sync)
+            mean_dy, mean_dy_xmu = both[:c], both[c:]
         gi = batchnorm_backward(dy, x, mean, invstd, weight, mean_dy,
                                 mean_dy_xmu, ch)
         return (gi, None, None,
                 None if weight is None else gw.to(weight.dtype),
                 None if ctx.bias_dtype is None else gb.to(ctx.bias_dtype),
-                None)
+                None, None)
 
 
 def _bn_train_apply(channel_axis: int, x: torch.Tensor, mean: torch.Tensor,
                     invstd: torch.Tensor, weight: Optional[torch.Tensor],
-                    bias: Optional[torch.Tensor]) -> torch.Tensor:
+                    bias: Optional[torch.Tensor], sync=None) -> torch.Tensor:
     """Normalize with (detached) batch statistics; the backward is the
-    total derivative through them, ``reduce_bn -> batchnorm_backward``."""
+    total derivative through them, ``reduce_bn -> (the group's mean of
+    mean_dy and mean_dy_xmu) -> batchnorm_backward``.  ``sync``: None
+    (local), or ``(group, ranks)`` as :meth:`SyncBatchNorm.group` gives."""
     return _BNTrainApply.apply(x, mean.detach(), invstd.detach(), weight,
-                               bias, channel_axis)
+                               bias, channel_axis, sync)
+
+
+def _synced_stats(mean: torch.Tensor, var: torch.Tensor, count: int,
+                  sync, differentiable: bool):
+    """The group's ``(mean, biased var, total count)`` from this rank's.
+    Whole group: two sum rounds (the count and ``count * mean`` packed,
+    then ``count * var + count * (mean - global_mean)^2``).  Rank lists:
+    one gather of ``(mean, var, count)`` and :func:`welford_parallel`.
+    ``differentiable`` sums through ``torch.distributed.nn`` (whose
+    backward sums the cotangents over the group) for the unfused
+    backward."""
+    from apex_tpu_torch.parallel.distributed import (_COUNTS, _all_gather,
+                                                     _all_reduce_)
+    group, ranks = sync
+    c = torch.full((1,), float(count), dtype=torch.float32,
+                   device=mean.device)
+    if ranks is not None:
+        g = _all_gather(torch.cat([mean, var, c]), group)
+        n = mean.numel()
+        gmean, gvar = welford_parallel(g[:, :n], g[:, n:2 * n], g[:, 2 * n:])
+        return gmean, gvar, g[:, 2 * n].sum()
+    if differentiable:
+        from torch.distributed.nn.functional import all_reduce
+
+        def total(t):
+            _COUNTS["all_reduce"] += 1
+            return all_reduce(t, group=group)
+    else:
+        def total(t):
+            return _all_reduce_(t, group)
+    first = total(torch.cat([c, c * mean]))
+    count_all = first[:1]
+    gmean = first[1:] / count_all
+    m2 = total(c * var + c * (mean - gmean).square())
+    return gmean, m2 / count_all, count_all.reshape(())
 
 
 class SyncBatchNorm(nn.Module):
@@ -182,30 +251,30 @@ class SyncBatchNorm(nn.Module):
 
     ``use_running_average`` (here or per call; by default ``not
     self.training``) normalizes with the running stats; otherwise with the
-    batch's, updating the running stats.  ``fused_backward=False`` takes
-    plain autograd through the stats graph.  ``axis_name`` /
-    ``process_group`` (synchronizing over processes) raise
-    ``NotImplementedError`` until ROADMAP.md Queue 1 #4 ports them."""
+    batch's, updating the running stats.  ``axis_name`` (``"data"``: the
+    default ``torch.distributed`` group, or a ``ProcessGroup``; None:
+    local) synchronizes the statistics over processes, within the rank
+    lists of ``process_group`` where given (made into subgroups at the
+    first synchronized forward).  ``fused_backward=False`` takes plain
+    autograd through the stats graph (not with ``process_group``)."""
 
     def __init__(self, num_features: int,
                  use_running_average: Optional[bool] = None,
                  momentum: float = 0.1, epsilon: float = 1e-5,
-                 affine: bool = True, axis_name: Optional[str] = None,
+                 affine: bool = True, axis_name=None,
                  process_group=None, channel_axis: int = -1,
                  param_dtype: torch.dtype = torch.float32,
                  running_dtype: torch.dtype = torch.float32,
                  fused_backward: bool = True, device: DeviceLike = None):
         super().__init__()
-        if axis_name is not None or process_group is not None:
-            raise NotImplementedError(
-                "SyncBatchNorm across processes (axis_name / "
-                "process_group) is not ported yet (ROADMAP.md Queue 1 #4); "
-                "world size one only")
+        self.check_sync(axis_name, process_group)
         dev = resolve_device(device, allow_meta=True)
         self.num_features = num_features
         self.use_running_average = use_running_average
         self.momentum = momentum
         self.epsilon = epsilon
+        self.axis_name = axis_name
+        self.process_group = process_group
         self.channel_axis = channel_axis
         self.running_dtype = running_dtype
         self.fused_backward = fused_backward
@@ -222,6 +291,34 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(
             num_features, dtype=running_dtype, device=dev))
 
+    @staticmethod
+    def check_sync(axis_name, process_group) -> None:
+        """``axis_name`` must be None, ``"data"`` or a ``ProcessGroup``;
+        ``process_group`` None, rank lists, or (with ``axis_name``) a
+        ``ProcessGroup``."""
+        if isinstance(axis_name, str) and axis_name != "data":
+            raise ValueError(f"axis_name {axis_name!r}: the port knows the "
+                             "default group \"data\" or a ProcessGroup")
+        if process_group is not None and axis_name is None:
+            raise ValueError("process_group needs an axis_name")
+
+    def group(self):
+        """``(torch.distributed group, ranks)`` the statistics are summed
+        over (ranks None) or gathered within (this rank's group of the
+        rank lists); None when local.  Raises ``RuntimeError`` naming
+        ``initialize`` when no process group is formed."""
+        if self.axis_name is None:
+            return None
+        from apex_tpu_torch.parallel.distributed import process_group
+        pg = self.process_group
+        if pg is None:
+            return process_group(self.axis_name), None
+        if isinstance(pg, (list, tuple)):
+            process_group(self.axis_name)       # formed, and the default
+            from apex_tpu_torch.parallel.groups import subgroup_of
+            return subgroup_of(pg)
+        return process_group(pg), None
+
     def forward(self, x: torch.Tensor,
                 use_running_average: Optional[bool] = None) -> torch.Tensor:
         use_ra = use_running_average
@@ -237,15 +334,31 @@ class SyncBatchNorm(nn.Module):
             invstd = torch.rsqrt(self.var.float() + self.epsilon)
             return batchnorm_forward(x, self.mean.float(), invstd,
                                      self.scale, self.bias, ch)
+        sync = self.group()
+        if sync is not None and sync[1] is not None \
+                and not self.fused_backward:
+            raise ValueError(
+                "fused_backward=False is unsupported with a BN "
+                "process_group: the grouped gather of the statistics has "
+                "no autograd rule here, as JAX's cannot be transposed "
+                "under shard_map")
         reduce_axes = [a for a in range(x.dim()) if a != ch]
         # the fused backward differentiates through the stats itself
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.fused_backward):
             mean, var, count = local_mean_var(x, reduce_axes)
+            if sync is not None:
+                with torch.profiler.record_function("sync_bn_stats"):
+                    mean, var, count = _synced_stats(
+                        mean, var, count, sync,
+                        differentiable=torch.is_grad_enabled())
             invstd = torch.rsqrt(var + self.epsilon)
         with torch.no_grad():
             m = self.momentum
-            unbiased = var * count / max(count - 1.0, 1.0)
+            # the group's total count (a device scalar when synchronized)
+            unbiased = var * count / (max(count - 1.0, 1.0)
+                                      if sync is None
+                                      else torch.clamp_min(count - 1.0, 1.0))
             self.mean.copy_(((1.0 - m) * self.mean.float() + m * mean)
                             .to(self.running_dtype))
             self.var.copy_(((1.0 - m) * self.var.float() + m * unbiased)
@@ -253,8 +366,9 @@ class SyncBatchNorm(nn.Module):
         if not self.fused_backward:
             return batchnorm_forward(x, mean, invstd, self.scale, self.bias,
                                      ch)
-        return _bn_train_apply(ch, x, mean, invstd, self.scale, self.bias)
+        return _bn_train_apply(ch, x, mean, invstd, self.scale, self.bias,
+                               sync)
 
 
-#: local BatchNorm is SyncBatchNorm at world size one
+#: local BatchNorm is SyncBatchNorm without an ``axis_name``
 BatchNorm = SyncBatchNorm

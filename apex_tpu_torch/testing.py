@@ -1,4 +1,6 @@
-"""Comparison helpers shared by the port's tests and ``chip_smoke.py``."""
+"""Comparison helpers shared by the port's tests and ``chip_smoke.py``,
+and :func:`start_ranks` / :func:`run_ranks`, the tests' multi-process
+launcher with a deadline."""
 
 from __future__ import annotations
 
@@ -71,3 +73,60 @@ def assert_tokens_match_above_margin(got, want, margins,
                     f"margin {float(margins[t]):.3g} > {min_margin}")
             return t
     return None
+
+
+def start_ranks(source: str, world: int, workdir,
+                deadline_s: float = 120.0, init_timeout_s: float = 60.0):
+    """Start the Python ``source`` as ``world`` ranks on this machine
+    through ``python -m apex_tpu_torch.parallel.multiproc``, in
+    ``workdir`` (the script, the ranks' logs and whatever they write go
+    there; the script gets ``workdir`` as its argument), and return a
+    function that waits for them.  The ranks form their group with
+    ``APEX_TPU_INIT_TIMEOUT_S=init_timeout_s``; the launcher and every
+    rank are killed ``deadline_s`` after the start.  The wait raises
+    ``AssertionError`` with the launcher's stderr (a failing rank's tail)
+    when a rank fails or the deadline passes."""
+    import os
+    import pathlib
+    import signal
+    import subprocess
+    import sys
+    import time
+    workdir = pathlib.Path(workdir)
+    script = workdir / "rank.py"
+    script.write_text(source)
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    env = dict(os.environ, WORLD_SIZE=str(world),
+               APEX_TPU_INIT_TIMEOUT_S=str(init_timeout_s),
+               APEX_TPU_INIT_RETRIES="0", OMP_NUM_THREADS="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "apex_tpu_torch.parallel.multiproc",
+         str(script), str(workdir)], cwd=workdir, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    end = time.monotonic() + deadline_s
+
+    def wait() -> None:
+        try:
+            out, err = proc.communicate(
+                timeout=max(0.0, end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+            raise AssertionError(f"ranks still running at the "
+                                 f"{deadline_s:g} s deadline; killed."
+                                 f"\n{out}\n{err}")
+        if proc.returncode != 0:
+            raise AssertionError(f"ranks failed (launcher exit "
+                                 f"{proc.returncode}):\n{out}\n{err}")
+
+    return wait
+
+
+def run_ranks(source: str, world: int, workdir, deadline_s: float = 120.0,
+              init_timeout_s: float = 60.0) -> None:
+    """:func:`start_ranks` and wait for them."""
+    start_ranks(source, world, workdir, deadline_s, init_timeout_s)()

@@ -10,8 +10,10 @@ elsewhere) with this script's phase code, and ``--only`` runs just the
 named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 (``o0_train``, ``generic_kernels``, ``train_kernels``, ``train``,
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
-``resnet_kernels``, ``resnet_train``), printing their lines and no
-``kernels`` or ``ok`` line: how one card times a parent against a change.
+``resnet_kernels``, ``resnet_train``, ``ddp``), printing their lines and
+no ``kernels`` or ``ok`` line: how one card times a parent against a
+change.  The ``ddp`` phase re-runs this script as its ranks
+(``--ddp-rank``, through ``python -m apex_tpu_torch.parallel.multiproc``).
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -172,6 +174,22 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 15. resnet_reference  a small Bottleneck ResNet, fp32 O0, 3 steps on the
             card against the CPU with the switch off and on (9 fp32 K16
             launches a step on the card).
+   ddp      data parallelism across processes, each rank this script
+            started by the port's spawner: NCCL at world size one,
+            ResNet-50 O2 + FusedAdam at B 256 x 224^2, 3 world-one steps
+            and 10 timed, then ``convert_syncbn_model`` +
+            ``DistributedDataParallel`` from the same seeded weights: 3
+            steps held against the world-one ones (losses within 2e-2,
+            masters within 2 x 3 x lr), 10 timed (p50, peak memory, K6 1
+            and K11 1 a step, the collectives a step: 3 a BatchNorm and
+            one a bucket), one profiled (NCCL kernels, the bucket pack /
+            unpack and the BatchNorm statistics ranges); gloo, two
+            processes on ``cuda:0``, B 2 x 32, 3 steps against the
+            whole-batch B 64 world-one run, the ranks' masters and running
+            stats equal bit for bit, an inf on rank 1 skipped on both;
+            LARC's per-leaf norms (K12, two launches) at ResNet-50's 161
+            leaves against the plain version.  No path across several
+            cards runs (one card);
    o1_train  (after long_context_reference) gpt_small at amp O1, the
             default opt level (fp32 parameters, products cast to bf16 by
             the op layer), FusedAdam(3e-4), B 8 x L 2048, 10 steps: p50
@@ -1766,7 +1784,8 @@ class TableRows:
 
 
 #: kernel-name fragments of the step's device time, by group
-PROFILE_GROUPS = (("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",
+PROFILE_GROUPS = (("NCCL collectives", ("nccl",)),
+                  ("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",
                                          "conv1x1_one_pass",
                                          "conv1x1_two_role")),
                   ("generic flash forward", ("fwd_simt",)),
@@ -1809,12 +1828,13 @@ def device_kernel_ms(prof) -> dict:
     return kernels
 
 
-def profile_step(step, *batch):
+def profile_step(step, *batch, ranges=()):
     """One train step under ``torch.profiler``: the device time of every
     kernel, summed by group (the port's kernels, cuBLAS matmuls, the rest
     of PyTorch's kernels), against the step's wall time; kernels on one
     stream do not overlap, so their sum over the wall time is the
-    device's busy share."""
+    device's busy share.  ``ranges``: ``record_function`` names whose
+    kernels' device ms (and calls) are summed too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1836,9 +1856,18 @@ def profile_step(step, *batch):
                   if any(f in low for f in frags)), "other PyTorch kernels")
         groups[g] += ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    return {"wall_ms": wall_ms, "device_ms": busy,
-            "device_busy_share": busy / wall_ms, "by_group_ms": groups,
-            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+    rec = {"wall_ms": wall_ms, "device_ms": busy,
+           "device_busy_share": busy / wall_ms, "by_group_ms": groups,
+           "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+    if ranges:
+        # the host-side range: the device time of the kernels it launched
+        rec["ranges"] = {
+            ev.key: {"calls": ev.count,
+                     "device_ms": getattr(ev, "device_time_total", 0.0)
+                     / 1e3}
+            for ev in prof.key_averages() if ev.key in ranges
+            and not str(getattr(ev, "device_type", "")).endswith("CUDA")}
+    return rec
 
 
 def phase_train(cfg, tree):
@@ -3714,6 +3743,397 @@ def phase_resnet_reference():
          image_size=32, loss_tolerance=RN_REF_LOSS_TOL, **out)
 
 
+# -- the fourteenth slice: data parallelism across processes -------------
+
+DDP_REF_STEPS = 3
+
+
+def adam_drift_bound(steps: int, lr: float, betas=(0.9, 0.999)) -> float:
+    """The most two Adam runs from the same masters can drift apart per
+    element in ``steps`` steps, whatever their gradients: twice the sum
+    of each step's largest update, ``lr * max |m_hat| / sqrt(v_hat)``,
+    which Cauchy-Schwarz bounds by ``sqrt(sum(w1^2 / w2) * sum(w2)) /
+    sum(w1)`` over the moments' weights ``w1 = (1 - b1) b1^(t-i)``, ``w2
+    = (1 - b2) b2^(t-i)`` (1 at step 1, 1.0014 at 2, 1.0036 at 3)."""
+    b1, b2 = betas
+    total = 0.0
+    for t in range(1, steps + 1):
+        w1 = [(1 - b1) * b1 ** (t - i) for i in range(1, t + 1)]
+        w2 = [(1 - b2) * b2 ** (t - i) for i in range(1, t + 1)]
+        total += (sum(a * a / b for a, b in zip(w1, w2)) * sum(w2)) ** 0.5 \
+            / sum(w1)
+    return 2.0 * lr * total
+
+
+#: ResNet-50 O2 at random init is chaotic in its gradients: a one-ulp
+#: change of the BatchNorm means (what the synchronized merge's ``c * mean
+#: / c`` makes) moves them as much as they move at all (the ``ddp`` line's
+#: ``first_gradients``), so Adam's sign-like first steps send up to half
+#: the masters opposite ways.  The masters are held to Adam's drift
+#: bound (plus fp32 rounding of 3 updates of masters below 2 in size:
+#: 1e-5), which only a non-finite or runaway master breaks; the losses
+#: carry the comparison, within the card-vs-CPU bf16 limit (PERF.md
+#: section 2); the CPU tests hold the same steps bitwise and against JAX
+DDP_MASTER_TOL = adam_drift_bound(DDP_REF_STEPS, RN_LR) + 1e-5
+DDP_LOSS_TOL = 2e-2
+DDP_GLOO_B = 64
+DDP_GLOO_WORLD = 2
+DDP_DEADLINE_S = 600
+#: the device ranges the port annotates in a DDP step
+DDP_RANGES = ("ddp_bucket_pack", "ddp_bucket_unpack", "sync_bn_stats",
+              "sync_bn_backward")
+
+
+def _rn_loss_poisoned(model, x, y, poison):
+    from apex_tpu_torch.models import resnet_loss
+    return resnet_loss(model(x, train=True), y) * (1 + poison.sum())
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes in order (bitwise equality across
+    processes)."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _masters_err(a_masters, b_masters) -> dict:
+    errs = [float((a_masters[n] - b_masters[n]).abs().max())
+            for n in a_masters]
+    beyond = sum(int(((a_masters[n] - b_masters[n]).abs() > 1e-3).sum())
+                 for n in a_masters)
+    total = sum(t.numel() for t in a_masters.values())
+    return {"max_abs_err": max(errs), "share_beyond_1e-3": beyond / total}
+
+
+def _ddp_model(state, sync: bool):
+    """ResNet-50 on the card from ``state``; with ``sync`` converted by
+    ``convert_syncbn_model`` (every BatchNorm over the default group)."""
+    from apex_tpu_torch.models import ARCHS
+    from apex_tpu_torch.parallel import convert_syncbn_model
+    model = ARCHS["resnet50"]()
+    model.load_state_dict(state)
+    return convert_syncbn_model(model) if sync else model
+
+
+def _grads_err(ref, got) -> dict:
+    """Each leaf's max |got - ref| over its largest |ref| (the worst and
+    the median leaf), and the share of elements whose sign differs."""
+    rel = sorted(float((g.float() - r.float()).abs().max()
+                       / r.float().abs().max().clamp(min=1e-30))
+                 for r, g in zip(ref, got))
+    flips = sum(int(((g > 0) != (r > 0)).sum()) for r, g in zip(ref, got))
+    return {"worst_leaf": rel[-1], "median_leaf": rel[len(rel) // 2],
+            "sign_flip_share": flips / sum(r.numel() for r in ref)}
+
+
+def _ddp_rank_nccl(out: Path) -> None:
+    """One rank of the NCCL world-size-one run (a ``--ddp-rank nccl``
+    process): ResNet-50 O2 + FusedAdam at B 256 x 224^2 from seeded
+    weights, world-one and through ``convert_syncbn_model`` +
+    ``DistributedDataParallel``: the first gradients of each (and of the
+    world-one model twice: the card's own spread), 3 steps of each held
+    against each other, then 10 timed steps of each (launches and
+    collectives a step) and one profiled DDP step.  The results go to
+    ``nccl.json`` before any check."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ARCHS, synthetic_batch
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (DistributedDataParallel,
+                                         collective_counts, multiproc,
+                                         reset_collective_counts)
+    from apex_tpu_torch.parallel import sync_batchnorm as sbn
+    multiproc.initialize()
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"nccl world: {dist.get_backend()} x {dist.get_world_size()}")
+    torch.manual_seed(0)
+    state = ARCHS["resnet50"]().state_dict()
+    x, y = synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
+                           RN_B, RN_SIZE)
+    want = dict(NO_LAUNCHES, packed_scale=1, packed_adam_tree=1)
+    ddp = DistributedDataParallel()
+    runs = {}
+    for name, sync in (("world_one", False), ("ddp", True)):
+        model = _ddp_model(state, sync)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=RN_LR),
+                           opt_level="O2")
+        runs[name] = (model, a, amp.make_train_step(
+            a, model, _rn_loss, reduce_fn=ddp.reduce if sync else None))
+
+    def first_grads(name, nudge=False):
+        """The first (unscaled) gradients; ``nudge``: every BatchNorm's
+        batch mean one fp32 ulp up, the model's own sensitivity."""
+        model, a, _ = runs[name]
+        plain = sbn.local_mean_var
+        if nudge:
+            def nudged(t, axes):
+                mean, var, count = plain(t, axes)
+                return mean * (1 + 2.0 ** -23), var, count
+            sbn.local_mean_var = nudged
+        try:
+            with torch.enable_grad():
+                loss = a.run(_rn_loss, model, x, y)
+                grads = torch.autograd.grad(loss, a.params)
+        finally:
+            sbn.local_mean_var = plain
+        return list(ddp.reduce(grads)) if name == "ddp" else list(grads)
+
+    g_one = first_grads("world_one")
+    res = {"first_gradients": {
+        "world_one_again": _grads_err(g_one, first_grads("world_one")),
+        "world_one_means_one_ulp_up": _grads_err(
+            g_one, first_grads("world_one", nudge=True)),
+        "ddp": _grads_err(g_one, first_grads("ddp"))}}
+    del g_one
+    snap = {}
+    for name in ("world_one", "ddp"):
+        model, a, step = runs[name]
+        infos = [step(x, y) for _ in range(DDP_REF_STEPS)]
+        snap[name] = {n: t.clone() for n, t in a.masters.items()}
+        reset_collective_counts()
+        counts, run = _rn_run(step, x, y, RN_STEPS, want)
+        run["first_losses"] = [float(i["loss"]) for i in infos]
+        run["first_overflows"] = [bool(i["overflow"]) for i in infos]
+        run["collectives_a_step"] = {
+            k: v / RN_STEPS for k, v in collective_counts().items()}
+        if name == "ddp":
+            by_dtype = {}
+            for p in a.params:
+                by_dtype.setdefault(str(p.dtype).replace("torch.", ""),
+                                    []).append(p)
+            run["buckets"] = {dt: int(ddp.plan_buckets(ps)[-1]) + 1
+                              for dt, ps in by_dtype.items()}
+            run["batchnorms"] = sum(1 for n, _ in model.named_buffers()
+                                    if n.endswith(".mean"))
+            run["profile"] = profile_step(step, x, y, ranges=DDP_RANGES)
+        res[name] = run
+        del runs[name], model, a, step
+        torch.cuda.empty_cache()
+    res["losses_max_abs_err"] = max(
+        abs(p - q) for p, q in zip(res["world_one"]["first_losses"],
+                                   res["ddp"]["first_losses"]))
+    res["masters"] = _masters_err(snap["world_one"], snap["ddp"])
+    res["step_ms_p50"] = {k: res[k]["step_ms_p50_steps_3_to_10"]
+                          for k in ("world_one", "ddp")}
+    (out / "nccl.json").write_text(json.dumps(res))
+    expect = 3 * res["ddp"]["batchnorms"] + sum(
+        res["ddp"]["buckets"].values())
+    require(res["ddp"]["collectives_a_step"] == {"all_reduce": expect},
+            f"collectives a step {res['ddp']['collectives_a_step']}, want "
+            f"{expect} all_reduces (3 a BatchNorm and one a bucket)")
+    require(res["losses_max_abs_err"] <= DDP_LOSS_TOL,
+            f"ddp losses {res['ddp']['first_losses']} vs world-one "
+            f"{res['world_one']['first_losses']}")
+    require(res["masters"]["max_abs_err"] <= DDP_MASTER_TOL,
+            f"ddp masters off the world-one ones: {res['masters']}")
+    dist.destroy_process_group()
+
+
+def _ddp_rank_gloo(out: Path) -> None:
+    """One rank of the two-process gloo run on ``cuda:0`` (a
+    ``--ddp-rank gloo`` process): ResNet-50 O2 + FusedAdam, this rank's
+    32 of 64 images (``shard_rows``), 3 DDP + SyncBatchNorm steps from
+    the seeded weights (``broadcast_params`` from rank 0 first), digests
+    of the masters and running stats, then a step with an inf on rank 1
+    only.  Rank 0 first runs the world-one reference: the whole batch, 3
+    steps, local BatchNorm."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ARCHS, shard_rows, synthetic_batch
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import DistributedDataParallel, multiproc
+    multiproc.initialize(backend="gloo")
+    r, w = dist.get_rank(), dist.get_world_size()
+    torch.manual_seed(0)
+    state = ARCHS["resnet50"]().state_dict()
+    x, y = synthetic_batch(torch.Generator(device="cuda").manual_seed(2),
+                           DDP_GLOO_B, RN_SIZE)
+    res = {"rank": r, "world": w, "backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    if r == 0:
+        model = _ddp_model(state, False)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=RN_LR),
+                           opt_level="O2")
+        step = amp.make_train_step(a, model, _rn_loss)
+        res["reference_losses"] = [float(step(x, y)["loss"])
+                                   for _ in range(DDP_REF_STEPS)]
+        ref = {n: t.clone() for n, t in a.masters.items()}
+        del a, model, step
+    model = _ddp_model(state, True)
+    ddp = DistributedDataParallel()
+    ddp.broadcast_params(model, root=0)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=RN_LR),
+                       opt_level="O2")
+    step = amp.make_train_step(a, model, _rn_loss_poisoned,
+                               reduce_fn=ddp.reduce)
+    xl, yl = shard_rows([x, y], r, w)
+    clean = torch.zeros(xl.shape[0], device="cuda")
+    infos = [step(xl, yl, clean) for _ in range(DDP_REF_STEPS)]
+    res["losses"] = [float(i["loss"]) for i in infos]
+    res["overflow"] = [bool(i["overflow"]) for i in infos]
+    res["masters_sha256"] = _digest(a.masters.values())
+    res["running_stats_sha256"] = _digest(model.buffers())
+    if r == 0:
+        res["masters_vs_reference"] = _masters_err(ref, a.masters)
+    poison = clean.clone()
+    if r == 1:
+        poison[0] = float("inf")
+    scale = float(a.scaler_state.loss_scale)
+    info = step(xl, yl, poison)
+    res["inf_on_rank_1"] = {
+        "overflow": bool(info["overflow"]),
+        "loss_scale": [scale, float(info["loss_scale"])],
+        "masters_kept": _digest(a.masters.values())
+        == res["masters_sha256"]}
+    (out / f"gloo{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(mode: str, world: int, repo: Path, out: Path) -> float:
+    """``python -m apex_tpu_torch.parallel.multiproc chip_smoke.py
+    --ddp-rank mode`` (the port's spawner: rank 0's stdout, every rank's
+    stderr in ``out``), killed with every rank at ``DDP_DEADLINE_S``;
+    fails the phase with the launcher's stderr when a rank fails.
+    Returns the seconds it took."""
+    import signal
+    env = dict(os.environ, WORLD_SIZE=str(world),
+               APEX_TPU_INIT_TIMEOUT_S="300", APEX_TPU_INIT_RETRIES="0",
+               PYTHONPATH=str(repo) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "apex_tpu_torch.parallel.multiproc",
+         str(Path(__file__).resolve()), "--repo", str(repo), "--ddp-rank",
+         mode, "--ddp-out", str(out)], cwd=out, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        so, se = proc.communicate(timeout=DDP_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"ddp {mode} ranks still running at "
+                           f"{DDP_DEADLINE_S} s; killed")
+    require(proc.returncode == 0, f"ddp {mode} ranks failed "
+                                  f"({proc.returncode}): {se[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def _larc_case():
+    """LARC at ResNet-50's 161 fp32 leaves on the card: the per-leaf
+    parameter and gradient norms of K12 (two launches) against its plain
+    version, and the rescaled gradients against LARC's on the CPU."""
+    import torch
+    from apex_tpu_torch.models import ARCHS
+    from apex_tpu_torch.ops.cuda import (launch_counts, reset_launch_counts,
+                                         sumsq_per_tensor_ref)
+    from apex_tpu_torch.ops.multi_tensor import (CHUNK_SIZE, ChunkTable,
+                                                 per_tensor_sumsq)
+    from apex_tpu_torch.optimizers import larc
+    shapes = [tuple(p.shape) for p in
+              ARCHS["resnet50"](device="meta").parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    ps = _fp32_leaves(shapes, gen, 1e-2)
+    gs = _fp32_leaves(shapes, gen, 1e-3)
+    rel = 0.0
+    for xs in (ps, gs):
+        got = per_tensor_sumsq(CHUNK_SIZE, [xs])
+        ref = sumsq_per_tensor_ref(ChunkTable.of(xs), xs)
+        rel = max(rel, float(((got - ref).abs()
+                              / ref.abs().clamp(min=1e-30)).max()))
+    require(rel <= 1e-6, f"LARC norms (K12) off by {rel} (relative)")
+    reset_launch_counts()
+    out = larc(gs, ps, 0.1, weight_decay=1e-4)
+    torch.cuda.synchronize()
+    k12 = launch_counts()["sumsq_per_tensor"]
+    require(k12 == 2, f"larc launched K12 {k12} times, want 2")
+    cpu = larc([g.cpu() for g in gs], [p.cpu() for p in ps], 0.1,
+               weight_decay=1e-4)
+    err = max(float(((o.cpu() - c).abs()
+                      / c.abs().max().clamp(min=1e-30)).max())
+              for o, c in zip(out, cpu))
+    require(err <= 1e-5, f"LARC on the card vs the CPU: {err}")
+    return dict(leaves=len(shapes), norms_rel_err=rel,
+                norms_tolerance="rtol 1e-6 per leaf vs the plain sums",
+                k12_launches=k12, rescaled_vs_cpu_rel_err=err,
+                ms=time_ms(lambda: larc(gs, ps, 0.1, weight_decay=1e-4)))
+
+
+def phase_ddp(repo: Path):
+    """Data parallelism across processes: the port's ``multiproc``
+    spawner re-runs this script as the ranks.  NCCL at world size one
+    (ResNet-50 O2, B 256 x 224^2: DDP + SyncBatchNorm held against the
+    world-one step, both timed); gloo, two processes on ``cuda:0``
+    (ResNet-50 O2, B 2 x 32, against the whole-batch B 64 world-one run;
+    bitwise-equal masters and running stats; an inf on rank 1 skipped
+    on both); LARC's K12 norms at ResNet-50's 161 leaves.  No path across
+    several cards runs here."""
+    import shutil
+    import torch
+    torch.cuda.empty_cache()
+    out = HERE / "build" / "ddp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # both runs go before a failure of either is raised
+    failed, secs = [], {}
+    for mode, world in (("nccl", 1), ("gloo", DDP_GLOO_WORLD)):
+        try:
+            secs[mode] = _spawn_ranks(mode, world, repo, out)
+        except SmokeFailure as e:
+            failed.append(str(e))
+    for name in ("nccl.json", "gloo0.json", "gloo1.json") if failed else ():
+        if (out / name).exists():
+            print(f"ddp {name}: {(out / name).read_text()[:20000]}",
+                  file=sys.stderr)
+    require(not failed, "; ".join(failed))
+    nccl_s, gloo_s = secs["nccl"], secs["gloo"]
+    nccl = json.loads((out / "nccl.json").read_text())
+    ranks = [json.loads((out / f"gloo{r}.json").read_text())
+             for r in range(DDP_GLOO_WORLD)]
+    ref = ranks[0]["reference_losses"]
+    mean = [float(np.mean(ls)) for ls in zip(*(rk["losses"]
+                                               for rk in ranks))]
+    loss_err = max(abs(p - q) for p, q in zip(ref, mean))
+    require(all(rk["backend"] == "gloo" and rk["device"] == 0
+                for rk in ranks), f"gloo ranks: {ranks}")
+    require(loss_err <= DDP_LOSS_TOL,
+            f"gloo DDP losses {mean} vs the whole batch {ref}")
+    mr = ranks[0]["masters_vs_reference"]
+    require(mr["max_abs_err"] <= DDP_MASTER_TOL,
+            f"gloo DDP masters off the whole batch's: {mr}")
+    require(len({rk["masters_sha256"] for rk in ranks}) == 1,
+            "the gloo ranks' masters differ")
+    require(len({rk["running_stats_sha256"] for rk in ranks}) == 1,
+            "the gloo ranks' running stats differ")
+    for rk in ranks:
+        inf = rk["inf_on_rank_1"]
+        require(inf["overflow"] and inf["masters_kept"]
+                and inf["loss_scale"][1] == inf["loss_scale"][0] / 2,
+                f"rank {rk['rank']}: the inf on rank 1 was not skipped: "
+                f"{inf}")
+    larc_rec = _larc_case()
+    emit("ddp", nccl_world_one=dict(
+        model="resnet50", opt_level="O2", batch=RN_B, image_size=RN_SIZE,
+        seconds=nccl_s, **nccl),
+        gloo_two_processes_on_cuda0=dict(
+            batch=[DDP_GLOO_WORLD, DDP_GLOO_B // DDP_GLOO_WORLD],
+            seconds=gloo_s, reference_losses=ref, mean_rank_losses=mean,
+            losses_max_abs_err=loss_err, loss_tolerance=DDP_LOSS_TOL,
+            masters_vs_reference=mr, master_tolerance=DDP_MASTER_TOL,
+            masters_bitwise_equal=True, running_stats_bitwise_equal=True,
+            inf_on_rank_1=[rk["inf_on_rank_1"] for rk in ranks]),
+        larc=larc_rec,
+        multi_card="not run: the machine has one card")
+    return nccl["ddp"]["launches"]
+
+
 # -- the seventh slice: K15, K17 / K18, amp O1, MNIST, DCGAN -------------
 
 def _nonfinite_case(what, xs, ragged_leaf, ints=()):
@@ -4720,10 +5140,10 @@ def phase_dcgan_o1():
 #: checkout of the port (``--repo``) with this script's phase code
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
-                  "resnet_kernels", "resnet_train")
+                  "resnet_kernels", "resnet_train", "ddp")
 
 
-def partial_run(names) -> int:
+def partial_run(names, repo: Path) -> int:
     """The device phase, the tree's kernel library (built if it has none,
     with no spill checks), then each named phase of ``PARTIAL_PHASES`` in
     that order; no ``kernels`` or ``ok`` line (not the whole run)."""
@@ -4754,8 +5174,10 @@ def partial_run(names) -> int:
             phase_bert_train(bert_cfg)
         elif name == "resnet_kernels":
             phase_resnet_kernels()
-        else:
+        elif name == "resnet_train":
             phase_resnet_train()
+        else:
+            phase_ddp(repo)
     return 0
 
 
@@ -4767,6 +5189,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="a partial run: comma-separated phases of "
                          + ", ".join(PARTIAL_PHASES))
+    ap.add_argument("--ddp-rank", choices=("nccl", "gloo"), default=None,
+                    help=argparse.SUPPRESS)   # a rank of the ddp phase
+    ap.add_argument("--ddp-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only.split(",") if args.only else None
     if only and not set(only) <= set(PARTIAL_PHASES):
@@ -4791,9 +5216,15 @@ def main(argv=None) -> int:
     os.environ.pop(CONV1X1_ENV, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ddp_rank:
+        # a rank of the ddp phase, started by the port's spawner: results
+        # go to --ddp-out, failures to stderr
+        rank = {"nccl": _ddp_rank_nccl, "gloo": _ddp_rank_gloo}
+        rank[args.ddp_rank](Path(args.ddp_out))
+        return 0
     if only:
         try:
-            return partial_run(only)
+            return partial_run(only, repo)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -4845,6 +5276,7 @@ def main(argv=None) -> int:
         rk_recs, rk_extra, rk_others, rk_step = phase_resnet_kernels()
         rn_counts, rn_off_counts, rn_p50 = phase_resnet_train()
         phase_resnet_reference()
+        ddp_counts = phase_ddp(repo)
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
         mh_counts = phase_flash_mh()
         repair_counts = phase_flash_repairs()
@@ -4866,6 +5298,7 @@ def main(argv=None) -> int:
                    "bert_train": bert_counts[k],
                    "resnet_train": rn_counts[k],
                    "resnet_train_switch_off": rn_off_counts[k],
+                   "ddp_resnet_nccl": ddp_counts.get(k, 0),
                    "o1_train": o1_counts[k],
                    "o0_train": o0_counts[k],
                    "flash_mh": mh_counts.get(k, 0),

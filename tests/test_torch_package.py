@@ -119,7 +119,11 @@ def test_the_new_modules_are_covered_by_the_import_check():
             "apex_tpu_torch/models/bert.py",
             "apex_tpu_torch/optimizers/fp16_optimizer.py",
             "apex_tpu_torch/multi_tensor_apply/multi_tensor_apply.py",
-            "apex_tpu_torch/fp16_utils/fp16util.py"} <= names
+            "apex_tpu_torch/fp16_utils/fp16util.py",
+            "apex_tpu_torch/parallel/distributed.py",
+            "apex_tpu_torch/parallel/groups.py",
+            "apex_tpu_torch/parallel/multiproc.py",
+            "apex_tpu_torch/optimizers/larc.py"} <= names
 
 
 def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():

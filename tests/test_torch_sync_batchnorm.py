@@ -147,10 +147,18 @@ def test_channel_axis_one_matches_jax():
                                np.asarray(jy), rtol=1e-5, atol=1e-5)
 
 
-def test_process_groups_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        SyncBatchNorm(8, axis_name="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="process_group"):
+def test_a_synced_batchnorm_without_a_process_group_names_initialize():
+    x = torch.zeros(2, 3, 3, 8)
+    for kw in (dict(axis_name="data"),
+               dict(axis_name="data", process_group=[[0, 1]])):
+        bn = SyncBatchNorm(8, device="cpu", **kw)
+        with pytest.raises(RuntimeError, match="initialize"):
+            bn(x)
+        # eval makes no collective, so it needs no group
+        assert bn.eval()(x).shape == x.shape
+    with pytest.raises(ValueError, match="ProcessGroup"):
+        SyncBatchNorm(8, axis_name="model", device="cpu")
+    with pytest.raises(ValueError, match="axis_name"):
         SyncBatchNorm(8, process_group=[[0, 1]], device="cpu")
 
 
