@@ -58,8 +58,10 @@ and the reference DDP's do; with ``accum_steps`` once, on the
 accumulated gradients, before the finite check, so an overflow on any
 rank skips the step on every rank.
 
+:meth:`Amp.add_params` grows a live ``Amp`` by new parameters mid-run.
+
 Not ported yet: ``finite_axes`` (it waits for the pipeline and expert
-shards), fp8 (O4), the AOT cache and ``add_params``.
+shards), fp8 (O4) and the AOT cache.
 """
 
 from __future__ import annotations
@@ -200,6 +202,71 @@ class Amp:
             out = _cast_floats(out, p.cast_model_outputs or torch.float32)
         return out
 
+    @torch.no_grad()
+    def add_params(self, new_params: Union[nn.Module,
+                                           Dict[str, torch.Tensor]],
+                   prefix: Optional[str] = None,
+                   new_group: bool = False) -> List[torch.Tensor]:
+        """Grow this ``Amp`` by new parameters mid-run (the JAX
+        package's ``Amp.add_params``; the reference's patched
+        ``add_param_group``): a module's parameters (named as its
+        ``named_parameters``, under ``prefix.`` when given) or a dict of
+        named parameters, on the model's device, their names disjoint
+        from :attr:`masters`'.  Each is cast in place by the same policy
+        as the model's (its name decides the normalization filter), gets
+        an fp32 master where master weights are on, and a gradient
+        buffer; the optimizer takes the masters into its last parameter
+        group, or with ``new_group`` into a group of its own (the
+        optimizer's defaults).  The existing leaves keep their moments and
+        step counts; the new ones start at step 0 (FusedAdam's and
+        FusedLAMB's per-leaf counts).  The chunk tables follow: the next
+        step's unscale (K6) and whole-tree optimizer (K11) cover every
+        leaf, old and new.  ``loss_fn`` must use the new parameters (they
+        join :attr:`params`, whose gradients a step takes).  Returns the
+        new compute parameters."""
+        if isinstance(new_params, nn.Module):
+            named = list(new_params.named_parameters())
+            if prefix:
+                named = [(f"{prefix}.{n}", p) for n, p in named]
+        elif isinstance(new_params, dict):
+            named = list(new_params.items())
+        else:
+            raise TypeError("add_params takes a module or a dict of named "
+                            "parameters")
+        if not named:
+            raise ValueError("add_params: no parameters")
+        overlap = sorted({n for n, _ in named} & set(self.masters))
+        if overlap:
+            raise ValueError(f"params already present: {overlap}")
+        dev = self.step.device
+        for n, p in named:
+            if not same_device(p.device, dev):
+                raise ValueError(f"{n} is on {p.device}, not {dev}")
+        use_masters = self._copies is not None
+        targets = []
+        for n, p in named:
+            master = p.detach().to(torch.float32, copy=True) \
+                if use_masters else p
+            dt = self._cast_leaf_dtype(n)
+            if dt is not None and p.is_floating_point() and p.dtype != dt:
+                p.data = p.data.to(dt)
+            self.masters[n] = master
+            self.params.append(p)
+            targets.append(master)
+            if use_masters:
+                self._copies.append(p)
+        if new_group:
+            self.optimizer.add_param_group({"params": targets})
+        else:
+            self.optimizer.param_groups[-1]["params"].extend(targets)
+        # the kept buffers grow; the old ones keep their storage
+        if self._grads is not None:
+            self._grads.extend(torch.empty_like(t) for t in targets)
+        if self._acc is not None:
+            self._acc.extend(torch.empty_like(t, dtype=torch.float32)
+                             for t in targets)
+        return [p for _, p in named]
+
     def scale_loss(self, loss: torch.Tensor,
                    loss_id: int = 0) -> torch.Tensor:
         """``loss.float() * loss_scale`` of scaler ``loss_id``."""
@@ -334,6 +401,12 @@ class Amp:
             self.optimizer.step(noop_flag=flag, model_params=self._copies)
         elif not bool(skip):
             self.optimizer.step()
+            if self._copies is not None:
+                # the compute params take the new masters (the fused
+                # optimizers write them in their own pass)
+                torch._foreach_copy_(self._copies, [
+                    t for g in self.optimizer.param_groups
+                    for t in g["params"]])
         for t in self.masters.values():
             t.grad = None
         self.step += 1

@@ -1,14 +1,19 @@
-"""Local attention, as the ``axis_name=None`` branch of
-``apex_tpu/attention/ring.py`` ``attention``: exact attention over
-``(B, L, H, D)`` through the flash kernels of
-:mod:`apex_tpu_torch.ops.cuda` (the CUDA kernels on the card, their plain
-versions on the CPU), differentiable through :class:`FlashAttention`, the
-counterpart of the JAX package's ``_flash`` custom VJP.  Its backward is
-the fused flash backward (K4), or the two-pass one (K13 for dq, K14 for
-dk / dv) where K4's fp32 dq partial planes would exceed
-``APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES`` (1 GiB by default), as the JAX
-package routes it.  Ring and Ulysses sequence parallelism are not ported
-yet."""
+"""Attention, as ``apex_tpu/attention``.
+
+:func:`local_attention` is the ``axis_name=None`` branch of the JAX
+package's ``attention``: exact attention over ``(B, L, H, D)`` through
+the flash kernels of :mod:`apex_tpu_torch.ops.cuda` (the CUDA kernels on
+the card, their plain versions on the CPU), differentiable through
+:class:`FlashAttention`, the counterpart of the JAX package's ``_flash``
+custom VJP.  Its backward is the fused flash backward (K4), or the
+two-pass one (K13 for dq, K14 for dk / dv) where K4's fp32 dq partial
+planes would exceed ``APEX_TPU_FLASH_FUSED_BWD_MAX_BYTES`` (1 GiB by
+default), as the JAX package routes it.
+
+:mod:`~apex_tpu_torch.attention.ring` holds the sequence-parallel
+engines (:func:`ring_attention`, :func:`ulysses_attention`) and the
+dispatcher :func:`attention`, which is :func:`local_attention` when no
+``axis_name`` is given."""
 
 from __future__ import annotations
 
@@ -52,11 +57,12 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = False, kv_mask: Optional[torch.Tensor] = None,
-              scale: Optional[float] = None, return_lse: bool = False,
-              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              layout: str = "blhd"):
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None, return_lse: bool = False,
+                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                    = None, layout: str = "blhd"):
     """``o (B, L, H, D)`` in q's dtype, or ``(o, lse (B, L, H) fp32)``
     with ``return_lse``.  ``layout="bhld"`` takes and returns ``(B, H,
     L, D)`` tensors, as the JAX ``flash_attention`` does: they reach the
@@ -95,4 +101,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, lse) if return_lse else o
 
 
-__all__ = ["FlashAttention", "attention"]
+# the dispatcher and the sequence-parallel engines read local_attention
+from apex_tpu_torch.attention.ring import (  # noqa: E402
+    attention,
+    ring_attention,
+    ulysses_attention,
+)
+
+__all__ = ["FlashAttention", "attention", "local_attention",
+           "ring_attention", "ulysses_attention"]

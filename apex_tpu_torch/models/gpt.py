@@ -15,13 +15,27 @@ rotates q and k inside the flash kernels (the JAX model's ``use_pallas()``
 branch); the KV-cache paths of :mod:`~apex_tpu_torch.models.generate`
 and the serve engine rotate before caching instead.  :func:`lm_loss` is
 the JAX package's next-token loss.
+
+``GPTConfig.seq_axis_name`` (``"data"``, the default group, or a
+``ProcessGroup``) shards the sequence over a group's ranks (context
+parallelism): each rank runs ``forward`` on its block of the sequence
+with its slice of the *global* positions, q and k are rotated there
+(the JAX model's pre-rotated branch: ``apply_rope`` on the half-width
+tables), and attention is :func:`~apex_tpu_torch.attention.
+ring_attention` over the group, causal (``seq_impl="ulysses"``:
+:func:`~apex_tpu_torch.attention.ulysses_attention`).  ``lm_loss(...,
+seq_axis_name=)`` divides each rank's sum by the global token count.
+Each rank's parameter gradients are then its own share: a train step
+must *sum* them over the group (``reduce_fn`` of
+``Reducer(axis_name=..., gradient_average=False)``), as JAX's autodiff
+sums the replicated parameters' gradients over ``shard_map``'s shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +49,7 @@ from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 from apex_tpu_torch.ops.rope import (
     KernelRopeTables,
+    apply_rope,
     rope_kernel_tables,
     rope_tables,
 )
@@ -49,6 +64,13 @@ class GPTConfig:
     intermediate_size: int = 3072
     layer_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    #: shard the sequence over this group (``"data"`` or a
+    #: ``ProcessGroup``: ring attention); None = local
+    seq_axis_name: Optional[Any] = None
+    #: the sequence-parallel attention under ``seq_axis_name``: the
+    #: dispatcher's ``impl`` (``"ring"``, ``"ulysses"``, or the ring's
+    #: engine ``"flash"`` / ``"jnp"``)
+    seq_impl: str = "ring"
     #: recompute each block's activations in the backward (the JAX
     #: model's ``nn.remat(GPTBlock)``): only the block inputs are kept
     remat: bool = False
@@ -87,16 +109,24 @@ class CausalSelfAttention(nn.Module):
         self.qkv = Dense(e, 3 * e, dtype=dtype, device=device)
         self.out = Dense(e, e, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor,
-                rope: KernelRopeTables) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope) -> torch.Tensor:
         c = self.cfg
         b, l = x.shape[0], x.shape[1]
         q, k, v = (t.reshape(b, l, c.num_heads, c.head_dim)
                    for t in self.qkv(x).split(c.hidden_size, dim=-1))
-        # q / k reach the kernels unrotated: the rotation happens on the
-        # loaded tiles, and the rotated tensors never exist in memory
-        o = attention(q, k, v, causal=True,
-                      scale=1.0 / math.sqrt(c.head_dim), rope=rope)
+        scale = 1.0 / math.sqrt(c.head_dim)
+        if isinstance(rope, KernelRopeTables):
+            # q / k reach the kernels unrotated: the rotation happens on
+            # the loaded tiles, and the rotated tensors never exist in
+            # memory
+            o = attention(q, k, v, causal=True, scale=scale, rope=rope)
+        else:
+            # sequence-parallel: rotated here at the global positions,
+            # then the ring over the group
+            cos, sin = rope
+            o = attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
+                          v, axis_name=c.seq_axis_name, impl=c.seq_impl,
+                          causal=True, scale=scale)
         return self.out(o.reshape(b, l, c.hidden_size))
 
 
@@ -112,7 +142,7 @@ class GPTBlock(nn.Module):
         self.ffn_out = Dense(cfg.intermediate_size, e, dtype=dtype,
                              device=device)
 
-    def forward(self, x, rope: KernelRopeTables):
+    def forward(self, x, rope):
         x = x + self.attention(self.ln1(x), rope)
         return x + self.ffn_out(gelu(self.ffn_in(self.ln2(x))))
 
@@ -154,7 +184,8 @@ class GPTModel(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits ``(B, L, vocab)`` of ``input_ids (B, L)`` at global
-        ``positions (B, L)`` (default ``0..L-1``)."""
+        ``positions (B, L)`` (default ``0..L-1``; with ``seq_axis_name``
+        pass this rank's slice of the global positions)."""
         c = self.cfg
         b, l = input_ids.shape
         if positions is None:
@@ -162,9 +193,11 @@ class GPTModel(nn.Module):
                 .expand(b, l)
         x = self.tok_emb(input_ids)
         # the tables depend only on the positions: built once per call,
-        # shared by q and k of every layer, in the activations' dtype
-        cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
-        rope = rope_kernel_tables(cos, sin, b, l, c.head_dim, x.dtype)
+        # shared by q and k of every layer (the kernel-format ones in the
+        # activations' dtype, on the local path only)
+        rope = rope_tables(positions, c.head_dim, c.rope_theta)
+        if c.seq_axis_name is None:
+            rope = rope_kernel_tables(*rope, b, l, c.head_dim, x.dtype)
         for blk in self.blocks:
             x = run_layer(blk, c.remat, x, rope)
         return self.lm_head(self.ln_f(x))
@@ -187,13 +220,25 @@ def run_layer(layer: nn.Module, remat: bool, *args):
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None,
+            seq_axis_name: Optional[Any] = None) -> torch.Tensor:
     """Mean next-token cross entropy in fp32, as the JAX package's
     ``lm_loss``: ``logsumexp(logits) - logits[target]`` per position
     (the picked logit read in the logits' dtype, then widened), averaged
     over ``mask`` (all positions by default; the count is at least 1).
-    ``targets`` are the shifted labels."""
+    ``targets`` are the shifted labels.
+
+    With ``seq_axis_name`` (sequence-sharded training) the count is the
+    group's total (one ``all_reduce``), so each rank returns ``local_sum
+    / global_count``: the ranks' losses sum to the global mean, and their
+    gradients, summed over the group, to its gradient."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     picked = logits.gather(-1, targets[..., None])[..., 0].float()
     m = torch.ones_like(picked) if mask is None else mask.float()
-    return ((lse - picked) * m).sum() / torch.clamp(m.sum(), min=1.0)
+    count = m.sum()
+    if seq_axis_name is not None:
+        from apex_tpu_torch.parallel.distributed import (_all_reduce_,
+                                                         process_group)
+        count = _all_reduce_(count.detach().clone(),
+                             process_group(seq_axis_name))
+    return ((lse - picked) * m).sum() / torch.clamp(count, min=1.0)

@@ -4,7 +4,7 @@ descale, both moments and the update fused into one pass.
 Two surfaces: :func:`adam_step`, the raw update of one leaf (K5,
 :func:`apex_tpu_torch.ops.cuda.packed_adam`, on the card), and
 :class:`FusedAdam`, a ``torch.optim.Optimizer`` over fp32 (master)
-tensors whose step is one K11 launch per parameter group
+tensors whose step is one K11 launch per parameter group and dtype
 (:func:`apex_tpu_torch.ops.cuda.packed_adam_tree`, over a chunk table of
 the group's leaves: the reference's one ``multi_tensor_apply`` launch).
 Bias correction is per leaf: each parameter carries its own step count
@@ -26,7 +26,7 @@ import torch
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
 from apex_tpu_torch.ops.cuda import packed_adam, packed_adam_tree
 from apex_tpu_torch.ops.cuda.adam import EPS_MODE_INSIDE, EPS_MODE_OUTSIDE
-from apex_tpu_torch.ops.multi_tensor import ChunkTable
+from apex_tpu_torch.ops.multi_tensor import ChunkTable, group_by_dtype
 
 
 def bias_corrected_step_sizes(lr: float, beta1: float, beta2: float,
@@ -75,8 +75,10 @@ class FusedAdam(torch.optim.Optimizer):
     a bf16 copy of each new parameter in the same pass, the reference's
     fused half write-back.  Gradients are the parameters' ``.grad``.
     Each parameter group steps in one K11 launch over a chunk table kept
-    from step to step; its parameters share one dtype, and so do its
-    gradients (fp32 or the parameters' dtype).  The parameters must lie on
+    from step to step, one launch for each pair of parameter and gradient
+    dtypes it holds (a gradient is fp32 or its parameter's dtype; O3 with
+    an fp32-kept normalization leaf mixes bf16 and fp32 parameters).  The
+    parameters must lie on
     ``device`` (the card by default; pass ``device="cpu"`` for the plain
     versions)."""
 
@@ -105,8 +107,9 @@ class FusedAdam(torch.optim.Optimizer):
                 if not same_device(p.device, device):
                     raise ValueError(f"FusedAdam: a parameter is on "
                                      f"{p.device}, not {device}")
-        #: group index -> the chunk table of its leaves
-        self._tables: Dict[int, ChunkTable] = {}
+        #: (group index, parameter and gradient dtypes) -> the chunk
+        #: table of those leaves
+        self._tables: Dict[tuple, ChunkTable] = {}
 
     @property
     def tables(self) -> List[ChunkTable]:
@@ -115,27 +118,35 @@ class FusedAdam(torch.optim.Optimizer):
 
     def _group_steps(self, group) -> torch.Tensor:
         """The group's per-leaf step counts, one int32 vector; each
-        parameter's ``state['step']`` is a 0-dim view into it."""
+        parameter's ``state['step']`` is a 0-dim view into it.  A
+        parameter seen for the first time (a group grown by
+        ``Amp.add_params``) starts at 0 with zero moments; the others
+        keep theirs."""
         params = group["params"]
         steps = group.get("leaf_steps")
-        if steps is None or steps.numel() != len(params):
-            steps = torch.zeros(len(params), dtype=torch.int32,
-                                device=params[0].device)
-            group["leaf_steps"] = steps
-            for i, p in enumerate(params):
-                st = self.state[p]
-                st["step"] = steps[i]
+        if steps is not None and steps.numel() == len(params) and all(
+                p in self.state for p in params):
+            return steps
+        steps = torch.zeros(len(params), dtype=torch.int32,
+                            device=params[0].device)
+        for i, p in enumerate(params):
+            st = self.state[p]
+            if "step" in st:
+                steps[i] = st["step"]
+            else:
                 st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
                 st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+            st["step"] = steps[i]
+        group["leaf_steps"] = steps
         return steps
 
-    def _table(self, gi: int, params: List[torch.Tensor]) -> ChunkTable:
-        """Group ``gi``'s chunk table, built anew when its leaves' sizes or
-        device change."""
-        table = self._tables.get(gi)
+    def _table(self, key, params: List[torch.Tensor]) -> ChunkTable:
+        """The chunk table of ``key`` (a group and a dtype pair), built
+        anew when its leaves' sizes or device change."""
+        table = self._tables.get(key)
         if table is None or not table.fits(params) \
                 or table.device != params[0].device:
-            table = self._tables[gi] = ChunkTable.of(params)
+            table = self._tables[key] = ChunkTable.of(params)
         return table
 
     @torch.no_grad()
@@ -161,11 +172,10 @@ class FusedAdam(torch.optim.Optimizer):
                                    "(every leaf steps, as in the JAX "
                                    "optimizer)")
             grads = [p.grad.contiguous() for p in params]
-            for name, ts in (("parameters", params), ("gradients", grads)):
-                if len({t.dtype for t in ts}) > 1:
-                    raise TypeError(f"FusedAdam: a parameter group's {name} "
-                                    f"mix dtypes; put each dtype in a group "
-                                    f"of its own")
+            # one launch per (parameter, gradient) dtype pair: O3 with an
+            # fp32-kept normalization leaf mixes bf16 and fp32 parameters
+            subsets = group_by_dtype([(p.dtype, g.dtype)
+                                      for p, g in zip(params, grads)])
             steps = self._group_steps(group)
             if noop_flag is None:
                 steps += 1
@@ -177,22 +187,27 @@ class FusedAdam(torch.optim.Optimizer):
             # the gradients arrive unscaled (amp's unscale ran first)
             one = torch.ones(1, dtype=torch.float32, device=params[0].device)
             gcopies = None if copies is None else copies[at:at + len(params)]
-            # the kernel writes copies of one half dtype (bf16 or fp16);
-            # where other dtypes are among them (an fp32 normalization
-            # parameter kept beside its master), every copy is the new
-            # parameter, copied after
-            in_kernel = gcopies is not None and len(
-                {c.dtype for c in gcopies}) == 1 and gcopies[0].dtype in (
-                    torch.bfloat16, torch.float16)
-            packed_adam_tree(
-                self._table(gi, params), params,
-                [self.state[p]["exp_avg"] for p in params],
-                [self.state[p]["exp_avg_sq"] for p in params], grads, sizes,
-                one, noop_flag, beta1=beta1, beta2=beta2, eps=group["eps"],
-                weight_decay=group["weight_decay"],
-                eps_mode=group["eps_mode"],
-                p_copy=gcopies if in_kernel else None)
-            if gcopies is not None and not in_kernel:
-                torch._foreach_copy_(gcopies, params)
+            for key, idx in subsets.items():
+                ps = [params[i] for i in idx]
+                cs = None if gcopies is None else [gcopies[i] for i in idx]
+                # the kernel writes copies of one half dtype (bf16 or
+                # fp16); where other dtypes are among them (an fp32
+                # normalization parameter kept beside its master), every
+                # copy is the new parameter, copied after
+                in_kernel = cs is not None and len(
+                    {c.dtype for c in cs}) == 1 and cs[0].dtype in (
+                        torch.bfloat16, torch.float16)
+                packed_adam_tree(
+                    self._table((gi,) + key, ps), ps,
+                    [self.state[p]["exp_avg"] for p in ps],
+                    [self.state[p]["exp_avg_sq"] for p in ps],
+                    [grads[i] for i in idx],
+                    sizes if len(subsets) == 1 else sizes[idx], one,
+                    noop_flag, beta1=beta1, beta2=beta2, eps=group["eps"],
+                    weight_decay=group["weight_decay"],
+                    eps_mode=group["eps_mode"],
+                    p_copy=cs if in_kernel else None)
+                if cs is not None and not in_kernel:
+                    torch._foreach_copy_(cs, ps)
             at += len(params)
         return loss

@@ -10,10 +10,12 @@ elsewhere) with this script's phase code, and ``--only`` runs just the
 named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 (``o0_train``, ``generic_kernels``, ``train_kernels``, ``train``,
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
-``resnet_kernels``, ``resnet_train``, ``ddp``), printing their lines and
-no ``kernels`` or ``ok`` line: how one card times a parent against a
-change.  The ``ddp`` phase re-runs this script as its ranks
-(``--ddp-rank``, through ``python -m apex_tpu_torch.parallel.multiproc``).
+``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
+``data_prefetch``, ``seq_parallel``), printing their lines and no
+``kernels`` or ``ok`` line: how one card times a parent against a
+change.  The ``ddp`` and ``seq_parallel`` phases re-run this script as
+their ranks (``--ddp-rank``, through ``python -m
+apex_tpu_torch.parallel.multiproc``).
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -190,6 +192,36 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             LARC's per-leaf norms (K12, two launches) at ResNet-50's 161
             leaves against the plain version.  No path across several
             cards runs (one card);
+   amp_surface  (after ddp) the legacy ``FP16_Optimizer`` on BASELINE
+            config 1's MLP in bf16 (SGD with momentum, dynamic scaling,
+            an inf at step 2) against the same run on the CPU (scales and
+            skips equal, losses within 2e-2; K6 and K9, the clip's norm,
+            once a step) and on
+            gpt_small (FusedAdam, B 8 x L 2048, 10 steps: K6 1, K11 1,
+            p50 beside the ``train`` phase's); ``Amp.add_params`` growing a
+            gpt_small O2 state by a ``Dense`` after 2 steps (the next
+            step's K6 and K11 one launch each over all 150 leaves, masters
+            and moments equal bit for bit to the plain Adam on the CPU);
+            K15 (the legacy scaler's overflow scan) and K6 (its unscale)
+            against their plain versions on those leaf lists;
+   data_prefetch  ResNet-50 O2 at B 256 x 224^2 fed uint8 host batches
+            through ``DataPrefetcher`` with ``normalize_uint8`` (pinned
+            copies and the normalize on a side stream), in turns with
+            steps on a batch already on the card: both p50s, K6 1 and K11
+            1 a step, the normalized batch equal bit for bit to the CPU's;
+   seq_parallel  the ring's block calls at gpt_small's width (K2 with its
+            lse, the backward with the lse's cotangent: K13 + K14 at L
+            8192, K4 on a masked block with a row of keys all masked)
+            against their plain versions; NCCL at world size 1 in this
+            process: gpt_small O2 + FusedAdam, remat, B 1 x L 16384 with
+            ``seq_axis_name``, 10 steps in turns with the local step
+            (p50s, launches); two gloo processes on ``cuda:0``: ring and
+            Ulysses at (1, 16384, 12, 64) causal and (4, 2048, 16, 64)
+            masked against the local call, then gpt_small's ring and
+            Ulysses steps (3 each, 8192 tokens a rank) against the
+            whole-sequence run (losses within 2e-2, first gradients within
+            4 bf16 ulps of each leaf's largest element, masters equal bit
+            for bit across the ranks; every block through the host);
    o1_train  (after long_context_reference) gpt_small at amp O1, the
             default opt level (fp32 parameters, products cast to bf16 by
             the op layer), FusedAdam(3e-4), B 8 x L 2048, 10 steps: p50
@@ -1914,6 +1946,7 @@ def phase_train(cfg, tree):
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     require(not any(overflows), f"overflow in the train steps: {overflows}")
     p50 = float(np.median(times[2:])) * 1e3
+    STEP_P50["train"] = p50
     tokens = TRAIN_B * TRAIN_L
     profile = profile_step(step, ids)
     routes = route_steps(step, ids, cfg, dict(packed_scale=1,
@@ -2891,6 +2924,7 @@ def phase_long_context(cfg, tree):
             require(losses[-1] < losses[0], f"L {l}: loss did not fall: "
                                             f"{losses}")
             p50 = float(np.median(times[2:])) * 1e3
+            STEP_P50.setdefault("long_context", p50)
             run.update(step_ms_p50_steps_3_to_10=p50,
                        tokens_per_s=l / (p50 / 1e3),
                        profile=profile_step(step, ids))
@@ -3687,6 +3721,7 @@ def phase_resnet_train():
     del a, opt, model, grads, masters, step, x, y, logits
     torch.cuda.empty_cache()
     p50 = {k: r[1]["step_ms_p50_steps_3_to_10"] for k, r in runs.items()}
+    STEP_P50["resnet_train"] = p50["switch_off"]
     return runs["switch_on"][0], runs["switch_off"][0], p50
 
 
@@ -5138,9 +5173,805 @@ def phase_dcgan_o1():
 
 #: the phases a partial run (``--only``) takes, by name: to time another
 #: checkout of the port (``--repo``) with this script's phase code
+# -- amp's legacy surface, add_params, the input pipeline, sequence
+# -- parallelism ----------------------------------------------------------
+
+#: step p50s (ms) of earlier phases of this run, for the records that
+#: print a step beside them (None in a partial run that skipped them)
+STEP_P50 = {}
+LEGACY_STEPS = 8
+LEGACY_INF_AT = 2
+#: the legacy MNIST run's ``clip_norm`` (``clip_master_grads``: K9)
+LEGACY_CLIP = 1.0
+#: card-vs-CPU limit of bf16 losses (PERF.md section 2)
+LEGACY_LOSS_TOL = 2e-2
+
+
+def _legacy_mnist(device):
+    """BASELINE config 1's MLP((256, 256)) in bf16 under the legacy
+    ``FP16_Optimizer(SGD(0.05, momentum 0.9), dynamic_loss_scale=True)``,
+    B 256, ``LEGACY_STEPS`` steps clipped at ``LEGACY_CLIP`` with an inf
+    in step ``LEGACY_INF_AT``'s input, from the same seeded weights and
+    data on ``device``."""
+    import copy
+    import torch
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.models.mlp import (MLP, cross_entropy_loss,
+                                           synthetic_mnist)
+    torch.manual_seed(0)
+    model = copy.deepcopy(MLP((256, 256), device="cpu")).to(
+        device=device, dtype=torch.bfloat16)
+    xs, ys = synthetic_mnist(torch.Generator().manual_seed(1), LEGACY_STEPS,
+                             256, device="cpu")
+    xs = xs.to(torch.bfloat16)
+    xs[LEGACY_INF_AT, 0, 0] = float("inf")
+    xs, ys = xs.to(device), ys.to(device)
+    opt = FP16_Optimizer(torch.optim.SGD(model.parameters(), lr=0.05,
+                                         momentum=0.9),
+                         dynamic_loss_scale=True)
+    losses, scales, overflows, times = [], [], [], []
+    for i in range(LEGACY_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = cross_entropy_loss(model(xs[i]).float(), ys[i])
+        opt.backward(loss)
+        info = opt.step(clip_norm=LEGACY_CLIP)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        scales.append(float(info["loss_scale"]))
+        overflows.append(bool(info["overflow"]))
+    grads = [p.grad for p in opt.model_params]
+    return dict(losses=losses, scales=scales, overflows=overflows,
+                times=times, grads=grads)
+
+
+def _legacy_gpt(cfg, tree):
+    """gpt_small in bf16 under the legacy ``FP16_Optimizer(FusedAdam(3e-4),
+    dynamic_loss_scale=True)`` at B 8 x L 2048, 10 steps: the inner
+    FusedAdam takes the overflow flag on the card and writes the bf16
+    copies in its pass (K11), the unscale is K6; nothing is read back."""
+    import torch
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, dtype=torch.bfloat16, trainable=True)
+    opt = FP16_Optimizer(FusedAdam(model.parameters(), lr=3e-4),
+                         dynamic_loss_scale=True)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, overflows, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = opt.backward(_gpt_loss(model, ids))
+        info = opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        overflows.append(bool(info["overflow"]))
+    counts = launch_counts()
+    per_step = {k: c / TRAIN_STEPS for k, c in counts.items()}
+    want = dict(gpt_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
+    require(per_step == want, f"legacy FP16_Optimizer launches per step "
+                              f"{per_step}, want {want}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and not any(overflows),
+            f"legacy FP16_Optimizer losses {losses}, overflows {overflows}")
+    p50 = float(np.median(times[2:])) * 1e3
+    grads = [p.grad for p in opt.model_params]
+    run = dict(model="gpt_small", dtype="bfloat16", batch=TRAIN_B,
+               seq_len=TRAIN_L, optimizer="FP16_Optimizer(FusedAdam(3e-4))",
+               steps=TRAIN_STEPS, losses=losses,
+               step_ms=[t * 1e3 for t in times],
+               step_ms_p50_steps_3_to_10=p50,
+               amp_o2_train_step_ms_p50=STEP_P50.get("train"),
+               tokens_per_s=TRAIN_B * TRAIN_L / (p50 / 1e3),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step=per_step, host_reads_a_step=0)
+    return counts, run, grads, model, opt
+
+
+def _add_params_case(cfg, tree):
+    """gpt_small O2 + FusedAdam(3e-4), B 8 x L 2048: 2 steps, then
+    ``Amp.add_params`` of a new ``Dense(768, 768)`` (an auxiliary loss on
+    the embeddings uses it), then one step: K6 1 and K11 1 over all 150
+    leaves, the old leaves at step 3 and the new at 1, and the masters,
+    moments equal bit for bit to the plain Adam on the CPU from that
+    step's gradients (the kept buffers) and the states before it."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.layers import Dense
+    from apex_tpu_torch.ops.cuda import (launch_counts, packed_adam_tree_ref,
+                                         reset_launch_counts)
+    from apex_tpu_torch.ops.multi_tensor import ChunkTable, cached_tables
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.fused_adam import \
+        bias_corrected_step_sizes
+    model = params_from_jax(tree, cfg, trainable=True)
+    opt = FusedAdam(model.parameters(), lr=3e-4)
+    a = amp.initialize(model, opt, opt_level="O2")
+    torch.manual_seed(5)
+    extra = Dense(cfg.hidden_size, cfg.hidden_size, device="cuda")
+    grown = []
+
+    def loss_fn(m, ids):
+        loss = _gpt_loss(m, ids)
+        if grown:
+            aux = extra(m.tok_emb(ids)).float().square().mean()
+            loss = loss + 1e-3 * aux
+        return loss
+
+    step = amp.make_train_step(a, model, loss_fn)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    before = [float(step(ids)["loss"]) for _ in range(2)]
+    a.add_params(extra, prefix="extra")
+    grown.append(True)
+    names = list(a.masters)
+    cpu = {k: [t.detach().cpu() for t in ts] for k, ts in (
+        ("p", [a.masters[n] for n in names]),
+        ("m", [opt.state[a.masters[n]]["exp_avg"]
+               if "exp_avg" in opt.state[a.masters[n]]
+               else torch.zeros_like(a.masters[n]) for n in names]),
+        ("v", [opt.state[a.masters[n]]["exp_avg_sq"]
+               if "exp_avg_sq" in opt.state[a.masters[n]]
+               else torch.zeros_like(a.masters[n]) for n in names]))}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    info = step(ids)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(not bool(info["overflow"]), "add_params: the step overflowed")
+    require(counts["packed_scale"] == 1 and counts["packed_adam_tree"] == 1,
+            f"add_params: K6 {counts['packed_scale']}, K11 "
+            f"{counts['packed_adam_tree']} launches in the step, want 1 / 1")
+    n = len(names)
+    k11_leaves = sum(t.n_leaves for t in opt.tables)
+    k6_leaves = cached_tables()[-1].n_leaves
+    require(n == 150 and k11_leaves == n and k6_leaves == n,
+            f"add_params: {n} leaves, K11's tables {k11_leaves}, K6's "
+            f"{k6_leaves}")
+    steps = torch.stack([opt.state[a.masters[x]]["step"] for x in names])
+    require(steps[:-2].eq(3).all() and steps[-2:].eq(1).all(),
+            f"add_params: step counts {steps.tolist()}")
+    sizes = bias_corrected_step_sizes(3e-4, 0.9, 0.999, steps).cpu()
+    grads = [g.detach().cpu() for g in a.grad_buffers()]
+    packed_adam_tree_ref(ChunkTable.of(cpu["p"]), cpu["p"], cpu["m"],
+                         cpu["v"], grads, sizes, torch.ones(1), None,
+                         beta1=0.9, beta2=0.999, eps=1e-8)
+    same = all(torch.equal(a.masters[x].cpu(), p)
+               and torch.equal(opt.state[a.masters[x]]["exp_avg"].cpu(), m)
+               and torch.equal(opt.state[a.masters[x]]["exp_avg_sq"].cpu(),
+                               v)
+               for x, p, m, v in zip(names, cpu["p"], cpu["m"], cpu["v"]))
+    require(same, "add_params: masters or moments differ from the plain "
+                  "Adam on the CPU")
+    rec = dict(model="gpt_small", opt_level="O2", grown_by="Dense(768, 768)",
+               leaves_before=n - 2, leaves_after=n,
+               losses_before=before, loss_after=float(info["loss"]),
+               launches_in_the_step=counts, k11_table_leaves=k11_leaves,
+               k6_table_leaves=k6_leaves,
+               step_counts={"old": 3, "new": 1},
+               masters_and_moments_equal_cpu_plain_adam=True)
+    shapes = [tuple(a.masters[x].shape) for x in names]
+    del a, opt, model, extra, step, cpu, grads
+    torch.cuda.empty_cache()
+    return counts, rec, shapes
+
+
+def phase_amp_surface(cfg, tree):
+    """The rest of amp's surface on the card: the legacy
+    ``FP16_Optimizer`` on BASELINE config 1's MLP (bf16, SGD with
+    momentum, dynamic scaling, clipped, an inf in step 2) against the
+    same run on the CPU (scales and skips equal, losses within 2e-2) and on
+    gpt_small (FusedAdam, 10 steps, timed beside the amp O2 step);
+    ``Amp.add_params`` growing a gpt_small O2 state mid-run; K15 (the
+    legacy ``DynamicLossScaler.has_overflow``) and K6 (the legacy
+    unscale) against their plain versions on these leaf lists."""
+    import torch
+    from apex_tpu_torch.fp16_utils import DynamicLossScaler
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    card = _legacy_mnist("cuda")
+    mnist_counts = launch_counts()
+    host = _legacy_mnist("cpu")
+    require(card["overflows"] == host["overflows"]
+            and card["overflows"][LEGACY_INF_AT]
+            and sum(card["overflows"]) == 1,
+            f"legacy MNIST skips: card {card['overflows']}, CPU "
+            f"{host['overflows']}")
+    require(card["scales"] == host["scales"]
+            and card["scales"][LEGACY_INF_AT] == 2.0 ** 15,
+            f"legacy MNIST scales: card {card['scales']}, CPU "
+            f"{host['scales']}")
+    taken = [i for i, o in enumerate(card["overflows"]) if not o]
+    loss_err = max(abs(card["losses"][i] - host["losses"][i])
+                   for i in taken)
+    require(loss_err <= LEGACY_LOSS_TOL, f"legacy MNIST losses: card "
+            f"{card['losses']}, CPU {host['losses']}")
+    require(mnist_counts["packed_scale"] == LEGACY_STEPS
+            and mnist_counts["packed_sumsq"] == LEGACY_STEPS
+            and sum(mnist_counts.values()) == 2 * LEGACY_STEPS,
+            f"legacy MNIST launches {mnist_counts}: want K6 (the "
+            f"unscale) and K9 (the clip's norm) once a step")
+    gpt_counts, gpt_run, gpt_grads, model, opt = _legacy_gpt(cfg, tree)
+    # the legacy scaler's overflow scan (one K15 launch, one host read)
+    # and unscale (K6) on the two runs' gradient lists
+    scaler = DynamicLossScaler()
+    require(not scaler.has_overflow(gpt_grads), "legacy scan: overflow")
+    nf = [_nonfinite_case("legacy_mnist_bf16_grads", card["grads"], 4),
+          _nonfinite_case("legacy_gpt_small_bf16_grads", gpt_grads, 3)]
+    del model, opt, gpt_grads
+    torch.cuda.empty_cache()
+    addp_counts, addp, grown = _add_params_case(cfg, tree)
+    # K6 as the legacy unscale runs it (bf16 into fp32 buffers) on the
+    # MLP's leaves, and on gpt_small's 150 after the growth
+    rng = np.random.default_rng(15)
+    # (the MLP's leaves last to first: the case plants its inf in leaf 5)
+    k6 = [_scale_case([tuple(g.shape) for g in card["grads"]][::-1], rng),
+          _scale_case(grown, rng)]
+    emit("amp_surface",
+         legacy_mnist=dict(
+             config="BASELINE 1: MLP((256, 256)) in bf16, B 256, "
+                    "FP16_Optimizer(SGD(0.05, momentum=0.9), "
+                    "dynamic_loss_scale=True), step(clip_norm=1.0)",
+             steps=LEGACY_STEPS, inf_at=LEGACY_INF_AT,
+             losses=card["losses"], cpu_losses=host["losses"],
+             losses_max_abs_err=loss_err, loss_tolerance=LEGACY_LOSS_TOL,
+             scales=card["scales"], overflows=card["overflows"],
+             step_ms=[t * 1e3 for t in card["times"]],
+             launches=mnist_counts, host_reads_a_step=1),
+         legacy_gpt_small=gpt_run, add_params=addp,
+         k15_cases=[{k: r[k] for k in ("case", "leaves", "ms", "plain_ms",
+                                        "bound_ms")} for r in nf],
+         k6_cases=[{k: r[k] for k in ("leaves", "ms", "plain_ms",
+                                       "bound_ms")} for r in k6])
+    return dict(legacy_gpt=gpt_counts, legacy_mnist=mnist_counts,
+                add_params=addp_counts, k6=k6, k15=nf)
+
+
+DP_PAIRS = 10
+
+
+def phase_data_prefetch():
+    """ResNet-50 O2 + FusedAdam at B 256 x 224^2 fed uint8 host batches
+    (``host_synthetic_loader``) through ``DataPrefetcher`` with
+    ``normalize_uint8`` (pinned copies and the normalize on a side
+    stream), in turns with steps on a batch already on the card: the two
+    p50s, the exact launches a step (K6 1, K11 1), and the normalized
+    batches equal bit for bit to ``normalize_uint8`` on the CPU."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.data import (DataPrefetcher, host_synthetic_loader,
+                                     normalize_uint8)
+    from apex_tpu_torch.models import ARCHS
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    torch.manual_seed(0)
+    model = ARCHS["resnet50"]()
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=RN_LR),
+                       opt_level="O2")
+    step = amp.make_train_step(a, model, _rn_loss)
+    host = list(host_synthetic_loader(4, RN_B, RN_SIZE, seed=0))
+    staged = [t.cuda() for t in normalize_uint8(
+        (torch.from_numpy(host[0][0]), torch.from_numpy(host[0][1])))]
+    pf = DataPrefetcher(host_synthetic_loader(DP_PAIRS + 2, RN_B, RN_SIZE,
+                                              seed=0),
+                        transform=normalize_uint8)
+    first = pf.next()
+    want = normalize_uint8((torch.from_numpy(host[0][0]),
+                            torch.from_numpy(host[0][1])))
+    bitwise = torch.equal(first[0].cpu(), want[0]) \
+        and torch.equal(first[1].cpu(), want[1])
+    require(bitwise, "the prefetched batch differs from normalize_uint8 "
+                     "on the CPU")
+    step(*first)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = {"prefetched": [], "staged": []}
+    for _ in range(DP_PAIRS):
+        for kind in ("prefetched", "staged"):
+            t0 = time.perf_counter()
+            batch = pf.next() if kind == "prefetched" else staged
+            out = step(*batch)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+            require(np.isfinite(float(out["loss"])),
+                    "data_prefetch: a non-finite loss")
+    counts = launch_counts()
+    per_step = {k: c / (2 * DP_PAIRS) for k, c in counts.items()}
+    require(per_step == dict(NO_LAUNCHES, packed_scale=1,
+                             packed_adam_tree=1),
+            f"data_prefetch launches per step {per_step}")
+    p50 = {k: float(np.median(v[2:])) * 1e3 for k, v in times.items()}
+    emit("data_prefetch", model="resnet50", opt_level="O2", batch=RN_B,
+         image_size=RN_SIZE, lookahead=2, pairs=DP_PAIRS,
+         uint8_batch_mb=host[0][0].nbytes / 1e6,
+         step_ms={k: [t * 1e3 for t in v] for k, v in times.items()},
+         step_ms_p50_steps_3_to_10=p50,
+         prefetched_over_staged=p50["prefetched"] / p50["staged"],
+         resnet_train_step_ms_p50=STEP_P50.get("resnet_train"),
+         normalized_equal_cpu_bitwise=True, launches_per_step=per_step)
+    del a, model, step, pf, staged
+    torch.cuda.empty_cache()
+    return counts
+
+
+#: the ring's and Ulysses' local calls at gpt_small's width: (shape,
+#: causal, masked) of the ring's causal diagonal block and full block at
+#: L 8192 a rank (K13 + K14: K4's planes, 3.2 GB, pass the budget), and
+#: of a masked block with a batch row whose keys are all masked (K4)
+SP_BLOCKS = (((1, 8192, 12, 64), True, False),
+             ((1, 8192, 12, 64), False, False),
+             ((4, 1024, 16, 64), False, True))
+SP_WORLD = 2
+SP_STEPS = 3
+SP_L = 16384
+SP_PAIRS = 10
+SP_LOSS_TOL = 2e-2
+SP_DEADLINE_S = 600
+
+
+def _sp_block_case(shape, causal, masked, gen):
+    """K2 with ``return_lse`` and the backward with a cotangent on the lse
+    (the ring's merge differentiates through it) at one ring block,
+    against their plain versions (over slices of heads) by ``bf16_tol``
+    and the row and norm limits; the route the backward takes; times and
+    the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops.cuda import (flash_attn_bwd, flash_attn_bwd_ref,
+                                         flash_attn_fwd, flash_attn_fwd_ref,
+                                         launch_counts, reset_launch_counts)
+    b, l, h, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    dlse = torch.randn((b, l, h), generator=gen, device="cuda") * 0.1
+    mask = None
+    if masked:
+        mask = torch.rand((b, l), generator=gen, device="cuda") > 0.3
+        mask[-1] = False                   # a row of keys all masked
+    kw = dict(causal=causal, kv_mask=mask, scale=d ** -0.5)
+    reset_launch_counts()
+    o, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+    grads = flash_attn_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in launch_counts().items() if c}
+    ro, rlse = _plain_by_heads(flash_attn_fwd_ref, (q, k, v), kw)
+    ref = _plain_by_heads(
+        lambda q_, k_, v_, o_, lse_, do_, dlse_, **kw_: flash_attn_bwd_ref(
+            q_, k_, v_, o_, lse_, do_, dlse=dlse_, **kw_),
+        (q, k, v, o, lse, do, dlse), kw)
+    errs = {"o": _max_err(o, ro)}
+    require(errs["o"] <= bf16_tol(ro), f"ring block {shape}: o off by "
+                                       f"{errs['o']}")
+    live = rlse > -1e29
+    require(torch.equal(live, lse > -1e29)
+            and _max_err(lse[live], rlse[live]) <= 1e-3,
+            f"ring block {shape}: lse differs from the plain version's")
+    scaled = scaled_errs(f"ring block {shape} o", o, ro)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        errs[name] = _max_err(g, r)
+        require(errs[name] <= bf16_tol(r) and torch.isfinite(
+            g.float()).all(), f"ring block {shape}: {name} off by "
+                              f"{errs[name]} (limit {bf16_tol(r)})")
+        scaled_errs(f"ring block {shape} {name}", g, r)
+    fused = fused_route(b, l, h, d)
+    fwd_ms = time_ms(lambda: flash_attn_fwd(q, k, v, return_lse=True, **kw))
+    bwd_ms = time_ms(lambda: flash_attn_bwd(q, k, v, o, lse, do, dlse=dlse,
+                                            **kw))
+    plain_fwd = time_ms(lambda: _plain_by_heads(flash_attn_fwd_ref,
+                                                (q, k, v), kw))
+    plain_bwd = time_ms(lambda: _plain_by_heads(
+        lambda q_, k_, v_, o_, lse_, do_, dlse_, **kw_: flash_attn_bwd_ref(
+            q_, k_, v_, o_, lse_, do_, dlse=dlse_, **kw_),
+        (q, k, v, o, lse, do, dlse), kw))
+    attn_mask = None if mask is None else mask[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=attn_mask, is_causal=causal))
+    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
+    elem = b * l * h * d
+    f_ms, f_by = bound(2 * (4 * elem) + 4 * b * l * h, 4 * d * pairs,
+                       PEAK_BF16_FLOPS)
+    b_ms, b_by = bound(2 * (7 * elem) + 8 * b * l * h, 10 * d * pairs,
+                       PEAK_BF16_FLOPS)
+    return _kernel_rec(
+        kernel="ring_block", shape=list(shape), causal=causal,
+        kv_mask=masked, all_masked_key_row=masked, launches=launches,
+        backward_route="fused (K4)" if fused else "two-pass (K13 + K14)",
+        max_abs_err=max(errs.values()), errs=errs, **scaled,
+        fwd_ms=fwd_ms, fwd_plain_ms=plain_fwd, fwd_bound_ms=f_ms,
+        fwd_bound_by=f_by, fwd_library_ms=sdpa,
+        fwd_library_call="scaled_dot_product_attention (no lse)",
+        bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd, bwd_bound_ms=b_ms,
+        bwd_bound_by=b_by,
+        bwd_library_ms=None,
+        bwd_library_null_reason="no PyTorch call's attention backward "
+                                "takes a cotangent on the lse")
+
+
+def _sp_batch(ids, rank, world):
+    """This rank's block of ``ids (B, L)``: the ids, their global
+    positions, the next tokens and the mask hiding the global last
+    position (which has none)."""
+    import torch
+    b, l = ids.shape
+    n = l // world
+    lo, hi = rank * n, (rank + 1) * n
+    nxt = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+    mask = torch.ones((b, n), device=ids.device)
+    if rank == world - 1:
+        mask[:, -1] = 0
+    pos = torch.arange(lo, hi, device=ids.device)[None].expand(b, n)
+    return ids[:, lo:hi], pos, nxt[:, lo:hi], mask
+
+
+def _sp_loss(model, ids, pos, tgt, mask):
+    from apex_tpu_torch.models import lm_loss
+    return lm_loss(model(ids, pos), tgt, mask,
+                   seq_axis_name=model.cfg.seq_axis_name)
+
+
+def _sp_engines(rank, world, gen_seed=21):
+    """``ring_attention`` and ``ulysses_attention`` (flash engine) on this
+    rank's block at two gpt_small-width shapes, against the local kernel
+    call on the whole sequence (the same inputs on every rank): the
+    output and dq / dk / dv under a random cotangent within
+    ``bf16_tol``; launches and collectives a call."""
+    import torch
+    from apex_tpu_torch.attention import (local_attention, ring_attention,
+                                          ulysses_attention)
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.parallel import (collective_counts,
+                                         reset_collective_counts)
+    out = []
+    for shape, causal, masked in (((1, SP_L, 12, 64), True, False),
+                                  ((4, 2048, 16, 64), False, True)):
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        mask = None
+        b, l = shape[:2]
+        n = l // world
+        if masked:
+            mask = torch.rand((b, l), generator=gen, device="cuda") > 0.3
+            mask[-1, n:] = False           # rank 1's block of keys masked
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_o = local_attention(*leaves, causal=causal, kv_mask=mask)
+        ref_o.backward(do)
+        sl = slice(rank * n, (rank + 1) * n)
+        refs = [ref_o.detach()[:, sl]] + [t.grad[:, sl] for t in leaves]
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            mine = [t[:, sl].clone().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            reset_collective_counts()
+            t0 = time.perf_counter()
+            o = fn(*mine, "data", causal=causal,
+                   kv_mask=None if mask is None else mask[:, sl])
+            o.backward(do[:, sl])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = [o.detach()] + [t.grad for t in mine]
+            errs = {}
+            for part, g, r in zip(("o", "dq", "dk", "dv"), got, refs):
+                errs[part] = _max_err(g, r)
+                require(errs[part] <= bf16_tol(r)
+                        and torch.isfinite(g.float()).all(),
+                        f"rank {rank} {name} {shape}: {part} off the local "
+                        f"call by {errs[part]} (limit {bf16_tol(r)})")
+            out.append(dict(engine=name, shape=list(shape), causal=causal,
+                            kv_mask=masked, errs=errs,
+                            launches={k_: c for k_, c in
+                                      launch_counts().items() if c},
+                            collectives=collective_counts(),
+                            seconds=secs))
+    return out
+
+
+def _sp_train(cfg, tree, ids, rank, world, impl, reference_grads=None):
+    """``SP_STEPS`` steps of gpt_small O2 + FusedAdam(3e-4) with remat and
+    ``seq_axis_name="data"`` on this rank's block, the gradients summed
+    over the group; the first step's summed gradients against
+    ``reference_grads`` where given; the global losses, the masters'
+    sha256, launches and collectives a step."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (Reducer, all_reduce,
+                                         collective_counts,
+                                         reset_collective_counts)
+    scfg = dataclasses.replace(cfg, remat=True, seq_axis_name="data",
+                               seq_impl=impl)
+    model = params_from_jax(tree, scfg, trainable=True)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                       opt_level="O2")
+    reducer = Reducer(gradient_average=False)
+    batch = _sp_batch(ids, rank, world)
+    res = {}
+    # every rank takes part (the hops and the sum); rank 0 compares
+    with torch.enable_grad():
+        loss = a.run(_sp_loss, model, *batch)
+        grads = reducer.reduce(list(torch.autograd.grad(loss, a.params)))
+    if reference_grads is not None:
+        res["first_gradients"] = _grads_vs(reference_grads, grads)
+    del grads
+    step = amp.make_train_step(a, model, _sp_loss, reduce_fn=reducer.reduce)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_collective_counts()
+    losses, times = [], []
+    for _ in range(SP_STEPS):
+        t0 = time.perf_counter()
+        info = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(all_reduce(info["loss"])))
+    counts = launch_counts()
+    colls = collective_counts()
+    colls["all_reduce"] -= SP_STEPS          # the reported losses
+    res.update(losses=losses, step_s=times,
+               launches_per_step={k: c / SP_STEPS for k, c in counts.items()
+                                  if c},
+               collectives_per_step={k: c / SP_STEPS
+                                     for k, c in colls.items()},
+               masters_sha256=_digest(a.masters.values()))
+    del a, model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the sequence-parallel first gradients against the whole sequence's,
+#: in bf16 ulps (2**-8 of each leaf's largest |ref|): twice the flash
+#: rows' 2, since each rank's partial gradient and their sum are rounded
+#: to bf16, two roundings the whole-sequence gradient does not make (the
+#: averaging reducer's error is half of every gradient: 128 such ulps)
+SP_GRAD_ULPS = 4
+
+
+def _grads_vs(ref, got) -> dict:
+    """Each leaf's max |got - ref| in units of ``2**-8`` of the leaf's
+    largest |ref| (``SP_GRAD_ULPS`` is the limit, which the phase
+    checks): the worst and the median leaf."""
+    ulps = sorted((_max_err(g, r) / (2.0 ** -8 * max(
+        float(r.float().abs().max()), 1e-30)), i)
+        for i, (r, g) in enumerate(zip(ref, got)))
+    return {"worst_leaf_ulps": ulps[-1][0], "worst_leaf": ulps[-1][1],
+            "median_leaf_ulps": ulps[len(ulps) // 2][0],
+            "limit_ulps": SP_GRAD_ULPS}
+
+
+def _sp_rank_gloo(out: Path) -> None:
+    """One rank of the two-process gloo run on ``cuda:0`` (a ``--ddp-rank
+    sp_gloo`` process): the engines against the local call; rank 0 then
+    runs gpt_small's whole-sequence reference (B 1 x L 16384, remat, O2,
+    3 steps, and its first gradients); then both ranks the ring and the
+    Ulysses sequence-parallel steps from the same weights, 8192 tokens a
+    rank.  Every block travels through the host (gloo)."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import gpt_small
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import multiproc
+    multiproc.initialize(backend="gloo")
+    r, w = dist.get_rank(), dist.get_world_size()
+    res = {"rank": r, "world": w, "backend": dist.get_backend(),
+           "device": torch.cuda.current_device(),
+           "engines": _sp_engines(r, w)}
+    cfg = gpt_small()
+    tree = gpt_small_tree(cfg, seed=0)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, 1, SP_L),
+                          device="cuda")
+    ref_grads = None
+    if r == 0:
+        rcfg = dataclasses.replace(cfg, remat=True)
+        model = params_from_jax(tree, rcfg, trainable=True)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                           opt_level="O2")
+        with torch.enable_grad():
+            loss = a.run(_gpt_loss, model, ids)
+            ref_grads = [g.clone() for g in
+                         torch.autograd.grad(loss, a.params)]
+        step = amp.make_train_step(a, model, _gpt_loss)
+        res["reference_losses"] = [float(step(ids)["loss"])
+                                   for _ in range(SP_STEPS)]
+        del a, model, step
+        torch.cuda.empty_cache()
+    for impl in ("ring", "ulysses"):
+        res[impl] = _sp_train(cfg, tree, ids, r, w, impl, ref_grads)
+    (out / f"sp_gloo{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _sp_nccl_world_one(cfg, tree):
+    """NCCL at world size 1 in this process: gpt_small O2 + FusedAdam,
+    remat, B 1 x L 16384, ``seq_axis_name`` set (the ring at one rank: no
+    hop), ``SP_PAIRS`` steps in turns with the local remat model of the
+    ``long_context`` phase from the same weights; both p50s, the launches
+    and collectives a sequence-parallel step."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (Reducer, collective_counts,
+                                         reset_collective_counts)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        ids = torch.as_tensor(train_stream(cfg.vocab_size, 1, SP_L),
+                              device="cuda")
+        steps = {}
+        for kind, c in (("local", dataclasses.replace(cfg, remat=True)),
+                        ("seq_parallel", dataclasses.replace(
+                            cfg, remat=True, seq_axis_name="data"))):
+            model = params_from_jax(tree, c, trainable=True)
+            a = amp.initialize(model, FusedAdam(model.parameters(),
+                                                lr=3e-4), opt_level="O2")
+            if kind == "local":
+                steps[kind] = (amp.make_train_step(a, model, _gpt_loss),
+                               (ids,))
+            else:
+                steps[kind] = (amp.make_train_step(
+                    a, model, _sp_loss,
+                    reduce_fn=Reducer(gradient_average=False).reduce),
+                    _sp_batch(ids, 0, 1))
+        times = {k: [] for k in steps}
+        losses = {k: [] for k in steps}
+        counts = {}
+        for _ in range(SP_PAIRS):
+            for kind, (step, batch) in steps.items():
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                reset_collective_counts()
+                t0 = time.perf_counter()
+                info = step(*batch)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+                losses[kind].append(float(info["loss"]))
+                for k_, c in launch_counts().items():
+                    counts.setdefault(kind, dict(NO_LAUNCHES))[k_] += c
+                if kind == "seq_parallel":
+                    colls = collective_counts()
+        per_step = {k: {n: c / SP_PAIRS for n, c in v.items()}
+                    for k, v in counts.items()}
+        # the same kernels as the local step, but the prologues: q and k
+        # arrive rotated (no k^ prologue before K2)
+        prologues = ("flash_fwd_prologue", "flash_bwd_prologue")
+        sp = per_step["seq_parallel"]
+        same = {k: v for k, v in per_step["local"].items()
+                if k not in prologues}
+        require({k: sp[k] for k in same} == same
+                and sp["flash_fwd_prologue"] == 0,
+                f"sequence-parallel launches per step {sp}, want {same} "
+                f"and no forward prologue")
+        loss_err = max(abs(p - q) for p, q in zip(losses["local"],
+                                                  losses["seq_parallel"]))
+        require(loss_err <= SP_LOSS_TOL and all(np.isfinite(
+            losses["seq_parallel"])), f"NCCL world-one losses "
+                                      f"{losses['seq_parallel']} vs local "
+                                      f"{losses['local']}")
+        p50 = {k: float(np.median(v[2:])) * 1e3 for k, v in times.items()}
+        rec = dict(model="gpt_small", remat=True, opt_level="O2", batch=1,
+                   seq_len=SP_L, steps_each=SP_PAIRS, in_turns=True,
+                   losses=losses, losses_max_abs_err=loss_err,
+                   step_ms={k: [t * 1e3 for t in v]
+                            for k, v in times.items()},
+                   step_ms_p50_steps_3_to_10=p50,
+                   seq_parallel_over_local=p50["seq_parallel"]
+                   / p50["local"],
+                   long_context_phase_step_ms_p50=STEP_P50.get(
+                       "long_context"),
+                   launches_per_step=per_step,
+                   collectives_per_step=colls, hop_via_host=False,
+                   backend="nccl")
+        del steps
+        torch.cuda.empty_cache()
+        return counts["seq_parallel"], rec
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_seq_parallel(cfg, tree, repo: Path):
+    """Sequence parallelism at gpt_small's width: the ring's block calls
+    (K2 with its lse, the backward with the lse's cotangent) against their
+    plain versions; NCCL at world size 1 in this process (the step in
+    turns with the local one); two gloo processes on ``cuda:0`` (the
+    engines against the local call, then gpt_small's ring and Ulysses
+    steps against the whole-sequence run).  No path across several cards
+    runs here (one card), and gloo moves every block through the host."""
+    import shutil
+    import torch
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    blocks = [_sp_block_case(s, c, m, gen) for s, c, m in SP_BLOCKS]
+    require(blocks[0]["launches"].get("flash_attn_bwd_dq") == 1
+            and blocks[2]["launches"].get("flash_attn_bwd") == 1,
+            f"ring block routes: {[b['launches'] for b in blocks]}")
+    torch.cuda.empty_cache()
+    nccl_counts, nccl = _sp_nccl_world_one(cfg, tree)
+    out = HERE / "build" / "sp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        secs = _spawn_ranks("sp_gloo", SP_WORLD, repo, out)
+    except SmokeFailure:
+        for r in range(SP_WORLD):
+            if (out / f"sp_gloo{r}.json").exists():
+                print(f"sp rank {r}: "
+                      f"{(out / f'sp_gloo{r}.json').read_text()[:20000]}",
+                      file=sys.stderr)
+        raise
+    ranks = [json.loads((out / f"sp_gloo{r}.json").read_text())
+             for r in range(SP_WORLD)]
+    require(all(rk["backend"] == "gloo" and rk["device"] == 0
+                for rk in ranks), "sp gloo ranks not gloo on cuda:0")
+    ref = ranks[0]["reference_losses"]
+    gloo = {}
+    for impl in ("ring", "ulysses"):
+        runs = [rk[impl] for rk in ranks]
+        err = max(abs(p - q) for p, q in zip(ref, runs[0]["losses"]))
+        require(err <= SP_LOSS_TOL, f"gloo {impl} losses "
+                                    f"{runs[0]['losses']} vs whole-sequence "
+                                    f"{ref}")
+        require(len({r_["masters_sha256"] for r_ in runs}) == 1,
+                f"gloo {impl}: the ranks' masters differ")
+        first = runs[0]["first_gradients"]
+        require(first["worst_leaf_ulps"] <= SP_GRAD_ULPS,
+                f"gloo {impl}: summed first gradients off the "
+                f"whole-sequence ones: {first}")
+        gloo[impl] = dict(losses=runs[0]["losses"],
+                          reference_losses=ref, losses_max_abs_err=err,
+                          loss_tolerance=SP_LOSS_TOL,
+                          first_gradients=runs[0]["first_gradients"],
+                          masters_bitwise_equal=True,
+                          step_s=[r_["step_s"] for r_ in runs],
+                          launches_per_step_by_rank=[
+                              r_["launches_per_step"] for r_ in runs],
+                          collectives_per_step_by_rank=[
+                              r_["collectives_per_step"] for r_ in runs])
+    for rk in ranks:
+        for e in rk["engines"]:
+            want = "flash_attn_bwd" if e["kv_mask"] else "flash_attn_bwd_dq"
+            require(e["launches"].get("flash_attn_fwd", 0) > 0
+                    and e["launches"].get(want, 0) > 0,
+                    f"rank {rk['rank']} {e['engine']} {e['shape']}: "
+                    f"launches {e['launches']}")
+    emit("seq_parallel", ring_blocks=[
+        {k: b[k] for k in ("shape", "causal", "kv_mask", "backward_route",
+                           "launches", "errs", "fwd_ms", "bwd_ms",
+                           "fwd_bound_ms", "bwd_bound_ms")} for b in blocks],
+        nccl_world_one=nccl,
+        gloo_two_processes_on_cuda0=dict(
+            world=SP_WORLD, tokens_a_rank=SP_L // SP_WORLD,
+            hop_via_host=True, seconds=secs, gpt_small=gloo,
+            engines=[rk["engines"] for rk in ranks]),
+        multi_card="not run: the machine has one card")
+    return nccl_counts, blocks
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
-                  "resnet_kernels", "resnet_train", "ddp")
+                  "resnet_kernels", "resnet_train", "ddp", "amp_surface",
+                  "data_prefetch", "seq_parallel")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -5176,8 +6007,14 @@ def partial_run(names, repo: Path) -> int:
             phase_resnet_kernels()
         elif name == "resnet_train":
             phase_resnet_train()
-        else:
+        elif name == "ddp":
             phase_ddp(repo)
+        elif name == "amp_surface":
+            phase_amp_surface(cfg, gpt_small_tree(cfg, seed=0))
+        elif name == "data_prefetch":
+            phase_data_prefetch()
+        else:
+            phase_seq_parallel(cfg, gpt_small_tree(cfg, seed=0), repo)
     return 0
 
 
@@ -5189,8 +6026,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="a partial run: comma-separated phases of "
                          + ", ".join(PARTIAL_PHASES))
-    ap.add_argument("--ddp-rank", choices=("nccl", "gloo"), default=None,
-                    help=argparse.SUPPRESS)   # a rank of the ddp phase
+    ap.add_argument("--ddp-rank", choices=("nccl", "gloo", "sp_gloo"),
+                    default=None,
+                    help=argparse.SUPPRESS)   # a rank of ddp / seq_parallel
     ap.add_argument("--ddp-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only.split(",") if args.only else None
@@ -5219,7 +6057,8 @@ def main(argv=None) -> int:
     if args.ddp_rank:
         # a rank of the ddp phase, started by the port's spawner: results
         # go to --ddp-out, failures to stderr
-        rank = {"nccl": _ddp_rank_nccl, "gloo": _ddp_rank_gloo}
+        rank = {"nccl": _ddp_rank_nccl, "gloo": _ddp_rank_gloo,
+                "sp_gloo": _sp_rank_gloo}
         rank[args.ddp_rank](Path(args.ddp_out))
         return 0
     if only:
@@ -5277,6 +6116,11 @@ def main(argv=None) -> int:
         rn_counts, rn_off_counts, rn_p50 = phase_resnet_train()
         phase_resnet_reference()
         ddp_counts = phase_ddp(repo)
+        tree = gpt_small_tree(cfg, seed=0)
+        surface = phase_amp_surface(cfg, tree)
+        dp_counts = phase_data_prefetch()
+        sp_counts, sp_blocks = phase_seq_parallel(cfg, tree, repo)
+        del tree
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
         mh_counts = phase_flash_mh()
         repair_counts = phase_flash_repairs()
@@ -5305,7 +6149,13 @@ def main(argv=None) -> int:
                    "flash_repairs": repair_counts[k],
                    "fp16_o2": half_o2_counts[k],
                    "mnist_o1": mnist_counts[k],
-                   "dcgan_o1": dcgan_counts[k]}
+                   "dcgan_o1": dcgan_counts[k],
+                   "legacy_fp16_optimizer": surface["legacy_gpt"][k],
+                   "legacy_fp16_optimizer_mnist":
+                       surface["legacy_mnist"][k],
+                   "add_params_step": surface["add_params"][k],
+                   "data_prefetch": dp_counts[k],
+                   "seq_parallel_nccl": sp_counts[k]}
                for k in bert_counts}
     rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8
@@ -5557,6 +6407,30 @@ def main(argv=None) -> int:
             entry[same] = rec[same]
             entry["library_call"] = rec["library_call"]
             entry["launches_by_shape_of_the_entry_point"] = mh_counts
+        if rec["kernel"] == "flash_attn_fwd":
+            # the ring's block calls: K2 with its lse (seq_parallel)
+            entry["seq_parallel_ring_blocks"] = [
+                {k: b[k] for k in ("shape", "causal", "kv_mask", "fwd_ms",
+                                   "fwd_plain_ms", "fwd_bound_ms",
+                                   "fwd_bound_by", "fwd_library_ms")}
+                for b in sp_blocks]
+        if rec["kernel"] in ("flash_attn_bwd", "flash_attn_bwd_dq",
+                             "flash_attn_bwd_dkv"):
+            # the ring's backward calls with a cotangent on the lse
+            fused = rec["kernel"] == "flash_attn_bwd"
+            entry["seq_parallel_ring_blocks_with_dlse"] = [
+                {k: b[k] for k in ("shape", "causal", "kv_mask",
+                                   "backward_route", "bwd_ms",
+                                   "bwd_plain_ms", "bwd_bound_ms",
+                                   "bwd_bound_by", "errs")}
+                for b in sp_blocks
+                if b["backward_route"].startswith("fused") == fused]
+        if rec["kernel"] in ("packed_scale", "packed_nonfinite"):
+            cases = surface["k6" if rec["kernel"] == "packed_scale"
+                            else "k15"]
+            entry["amp_surface_cases"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")} for r in cases]
         if rec.get("library_null_reason"):
             entry["library_null_reason"] = rec["library_null_reason"]
         summary.append(entry)

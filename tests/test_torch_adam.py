@@ -301,7 +301,9 @@ def test_fused_adam_splits_a_group_of_mixed_dtypes():
     """A group of fp32 parameters with bf16 and fp32 compute copies (O2
     with an fp32-kept normalization leaf) steps each leaf as ``adam_step``
     would, in one K11 call: an fp32 copy is the new parameter itself.  A
-    group whose parameters mix dtypes is refused, and nothing steps."""
+    group whose parameters mix dtypes (O3 with an fp32-kept normalization
+    leaf) steps each leaf as ``adam_step`` would too, one K11 call per
+    dtype, each leaf at its own step count."""
     rng = np.random.RandomState(6)
     arrs = [rng.standard_normal(n).astype(np.float32) for n in (9, 5, 12)]
     grads = [rng.standard_normal(a.shape).astype(np.float32) for a in arrs]
@@ -323,10 +325,19 @@ def test_fused_adam_splits_a_group_of_mixed_dtypes():
         assert torch.equal(c, pc)
     with pytest.raises(ValueError, match="model_params has"):
         opt.step(model_params=copies[:2])
-    mixed = [torch.zeros(3), torch.zeros(4, dtype=torch.bfloat16)]
+    mixed = [torch.zeros(3), torch.zeros(4, dtype=torch.bfloat16),
+             torch.zeros(5)]
     for t in mixed:
         t.grad = torch.ones_like(t)
     opt = FusedAdam(mixed, lr=1e-2, device="cpu")
-    with pytest.raises(TypeError, match="parameters mix dtypes"):
-        opt.step()
-    assert all(torch.equal(t, torch.zeros_like(t)) for t in mixed)
+    opt.step()
+    assert len(opt.tables) == 2
+    assert [int(opt.state[t]["step"]) for t in mixed] == [1, 1, 1]
+    for t in mixed:
+        want = torch.zeros_like(t)
+        m = torch.zeros(t.shape)
+        v = torch.zeros(t.shape)
+        adam_step(want, m, v, torch.ones_like(t), lr=1e-2, beta1=0.9,
+                  beta2=0.999, eps=1e-8, step=torch.tensor(1))
+        assert torch.equal(t, want)
+        assert torch.equal(opt.state[t]["exp_avg"], m)

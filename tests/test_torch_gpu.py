@@ -2332,3 +2332,87 @@ def test_wide_heads_keep_the_rows_kernels(cuda, dtype):
     q, k, v, do = (_randn(rng, shape, dtype, cuda) for _ in range(4))
     kw = dict(causal=True, rope=_tables(1, 130, 520, dtype, cuda))
     _simt_check(q, k, v, do, kw, dtype)
+
+
+@pytest.fixture
+def nccl_world_one(cuda):
+    """A one-rank NCCL group on the card for the test, destroyed after."""
+    import socket
+    import torch.distributed as dist
+    if dist.is_initialized():
+        pytest.skip("a process group is already formed")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("engine", ["ring", "ulysses"])
+def test_sequence_parallel_engines_at_world_one_match_the_local_call(
+        cuda, nccl_world_one, engine, causal, masked):
+    """``ring_attention`` / ``ulysses_attention`` (the flash engine) over a
+    one-rank NCCL group against the local kernel call on the same bf16
+    inputs, forward and gradients, within the flash rows' bf16 tolerance;
+    with a key mask whose batch 1 is all masked (a block with no visible
+    key: zeros, no NaN from the merge).  K2 launches once a call, no hop
+    or all-to-all is sent."""
+    from apex_tpu_torch.attention import (local_attention, ring_attention,
+                                          ulysses_attention)
+    from apex_tpu_torch.parallel import (collective_counts,
+                                         reset_collective_counts)
+    fn = ring_attention if engine == "ring" else ulysses_attention
+    shape = (2, 1024, 4, 64)
+    rng = np.random.RandomState(3)
+    q, k, v, do = (_randn(rng, shape, torch.bfloat16, cuda)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.as_tensor(rng.rand(2, 1024) > 0.3, device=cuda)
+        mask[1] = False
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_collective_counts()
+    before = flash_attn_fwd.launches
+    o = fn(*leaves, "data", causal=causal, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attn_fwd.launches == before + 1
+    o.backward(do)
+    assert collective_counts() == {}
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ro = local_attention(*ref, causal=causal, kv_mask=mask)
+    ro.backward(do)
+    _close(o.detach(), ro.detach(), torch.bfloat16)
+    for t, r in zip(leaves, ref):
+        assert torch.isfinite(t.grad.float()).all()
+        _close(t.grad, r.grad, torch.bfloat16)
+    if masked:
+        assert not o[1].float().abs().max()
+
+
+def test_data_prefetcher_runs_on_a_side_stream(cuda):
+    """``DataPrefetcher`` on the card (its default): uint8 batches copied
+    from pinned memory on a side stream and normalized there, each equal
+    bit for bit to ``normalize_uint8`` on the CPU; the consumer's stream
+    stays the default one."""
+    from apex_tpu_torch.data import (DataPrefetcher, host_synthetic_loader,
+                                     normalize_uint8)
+    main = torch.cuda.current_stream()
+    pf = DataPrefetcher(host_synthetic_loader(6, 4, 32, seed=2),
+                        transform=normalize_uint8)
+    want = list(host_synthetic_loader(6, 4, 32, seed=2))
+    got = []
+    batch = pf.next()
+    while batch is not None:
+        assert torch.cuda.current_stream() == main
+        x, y = batch
+        assert x.is_cuda and x.dtype == torch.float32 and y.is_cuda
+        got.append((x.cpu(), y.cpu()))
+        batch = pf.next()
+    assert len(got) == len(want) == 6
+    for (x, y), (wx, wy) in zip(got, want):
+        cx, cy = normalize_uint8((torch.from_numpy(wx), torch.from_numpy(wy)))
+        assert torch.equal(x, cx) and torch.equal(y, cy)

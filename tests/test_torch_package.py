@@ -123,7 +123,12 @@ def test_the_new_modules_are_covered_by_the_import_check():
             "apex_tpu_torch/parallel/distributed.py",
             "apex_tpu_torch/parallel/groups.py",
             "apex_tpu_torch/parallel/multiproc.py",
-            "apex_tpu_torch/optimizers/larc.py"} <= names
+            "apex_tpu_torch/optimizers/larc.py",
+            "apex_tpu_torch/fp16_utils/fp16_optimizer.py",
+            "apex_tpu_torch/fp16_utils/loss_scaler.py",
+            "apex_tpu_torch/ops/packing.py",
+            "apex_tpu_torch/data.py",
+            "apex_tpu_torch/attention/ring.py"} <= names
 
 
 def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
