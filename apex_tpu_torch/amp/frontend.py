@@ -58,10 +58,19 @@ and the reference DDP's do; with ``accum_steps`` once, on the
 accumulated gradients, before the finite check, so an overflow on any
 rank skips the step on every rank.
 
+Sharded parameters (``finite_axes=`` on :meth:`Amp.apply_gradients`,
+:meth:`Amp.apply_gradients_multi` and :func:`make_train_step`): where the
+parameters, and so the gradients, are split over groups (pipeline stages
+over ``"pipe"``, experts over ``"expert"``), the finite flag is
+AND-reduced over each named group (an axis name of
+:mod:`~apex_tpu_torch.parallel.mesh`, ``"data"`` or a ``ProcessGroup``)
+before the scaler update: one ``all_reduce`` (MIN) of one int32 on the
+device an axis, so an overflow on any rank skips the step on every rank
+and the scalers move together.  Nothing is read back to the host.
+
 :meth:`Amp.add_params` grows a live ``Amp`` by new parameters mid-run.
 
-Not ported yet: ``finite_axes`` (it waits for the pipeline and expert
-shards), fp8 (O4) and the AOT cache.
+Not ported yet: fp8 (O4) and the AOT cache.
 """
 
 from __future__ import annotations
@@ -91,6 +100,22 @@ def default_keep_fp32_filter(path: Sequence[str]) -> bool:
     """True for parameter paths that look like normalization params."""
     return any(frag in str(name).lower() for name in path
                for frag in _NORM_NAME_FRAGMENTS)
+
+
+def _and_over(finite: torch.Tensor, finite_axes) -> torch.Tensor:
+    """``finite`` (a bool device tensor) AND-reduced over the group of
+    each of ``finite_axes``: an int32 ``all_reduce`` (MIN) an axis."""
+    if not finite_axes:
+        return finite
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel.distributed import (_all_reduce_,
+                                                     process_group)
+    if isinstance(finite_axes, str):
+        finite_axes = (finite_axes,)
+    f = finite.to(torch.int32, copy=True)
+    for ax in finite_axes:
+        _all_reduce_(f, process_group(ax), dist.ReduceOp.MIN)
+    return f.bool()
 
 
 def _cast_floats(tree: Any, dtype: torch.dtype) -> Any:
@@ -318,7 +343,8 @@ class Amp:
     def apply_gradients(self, grads: Sequence[torch.Tensor],
                         stashed_grads: Optional[Sequence[torch.Tensor]]
                         = None, loss_id: int = 0,
-                        reduce_fn: Optional[Callable] = None
+                        reduce_fn: Optional[Callable] = None,
+                        finite_axes: Optional[Sequence] = None
                         ) -> Dict[str, torch.Tensor]:
         """Unscale, finite check, scaler update and the conditional
         optimizer step, for ``grads`` w.r.t. :attr:`params` (still scaled
@@ -329,7 +355,9 @@ class Amp:
         ``(1 / scale) * grads + stashed`` (K10), whose finite check (K15,
         :func:`~apex_tpu_torch.amp.scaler.all_finite`) covers the
         combined unscaled gradients: an inf from an earlier micro-batch
-        persists through the adds, as in the JAX package.  Returns device
+        persists through the adds, as in the JAX package.
+        ``finite_axes``: the groups the parameters are sharded over; the
+        finite flag is AND-reduced over each.  Returns device
         tensors ``overflow``, ``loss_scale`` (after the update) and
         ``pinned_at_floor``."""
         if reduce_fn is not None:
@@ -347,7 +375,8 @@ class Amp:
             unscaled, flag = self.scaler.unscale(
                 grads, self.scaler_states[loss_id], out=self.grad_buffers())
             finite = flag == 0
-        overflow = self.update_scaler(loss_id, finite)
+        overflow = self.update_scaler(loss_id, _and_over(finite,
+                                                         finite_axes))
         return self.step_if(unscaled, overflow, loss_id)
 
     @torch.no_grad()
@@ -419,14 +448,16 @@ class Amp:
     def apply_gradients_multi(self,
                               grads_list: Sequence[Sequence[torch.Tensor]],
                               loss_ids: Optional[Sequence[int]] = None,
-                              reduce_fn: Optional[Callable] = None
+                              reduce_fn: Optional[Callable] = None,
+                              finite_axes: Optional[Sequence] = None
                               ) -> Dict[str, Any]:
         """One optimizer fed by several backwards: ``grads_list[i]``
         (still scaled, zeros where a loss does not reach a parameter;
         reduced by ``reduce_fn`` first where given) is unscaled by scaler
         ``loss_ids[i]`` at the scale it was scaled with, checked, and that
         scaler updated; the unscaled gradients sum, and the step is
-        skipped when any backward overflowed.  Returns ``overflow`` and
+        skipped when any backward overflowed (each finite flag
+        AND-reduced over ``finite_axes`` first).  Returns ``overflow`` and
         per-scaler tuples ``loss_scale`` and ``pinned_at_floor``."""
         if loss_ids is None:
             loss_ids = list(range(len(grads_list)))
@@ -450,7 +481,8 @@ class Amp:
         for grads, lid in zip(grads_list, loss_ids):
             self._check_count(grads)
             unscaled, flag = self.scaler.unscale(grads, entry[lid])
-            overflow = self.update_scaler(lid, flag == 0)
+            overflow = self.update_scaler(lid, _and_over(flag == 0,
+                                                         finite_axes))
             if total is None:
                 total = unscaled
             else:
@@ -527,7 +559,8 @@ def _split_batch(tree: Any, n: int) -> List[Any]:
 
 def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
                     axis_name=None, reduce_fn: Optional[Callable] = None,
-                    accum_steps: Optional[int] = None) -> Callable:
+                    accum_steps: Optional[int] = None,
+                    finite_axes: Optional[Sequence] = None) -> Callable:
     """``step(*batch) -> {"loss", "overflow", "loss_scale",
     "pinned_at_floor"}`` (device tensors): ``loss_fn(model, *batch)`` at
     compute precision, its fp32 loss scaled, the backward, then
@@ -540,7 +573,9 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
     ``ProcessGroup``) without ``reduce_fn`` is a mean over the group
     (:func:`~apex_tpu_torch.parallel.reduce_gradients` with the default
     knobs); ``reduce_fn`` without ``axis_name`` takes its owner's
-    ``axis_name``.  The loss returned is this rank's.
+    ``axis_name``.  The loss returned is this rank's.  ``finite_axes``:
+    the groups the parameters are sharded over (pipeline stages,
+    experts); the skip decision is AND-reduced over them.
 
     ``accum_steps=N`` (> 1): every batch tensor's leading dimension splits
     into N micro-batches (``ValueError`` when it does not divide); each
@@ -576,7 +611,8 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
     if accum_steps is None or int(accum_steps) == 1:
         def step(*batch) -> Dict[str, torch.Tensor]:
             loss, grads = backward(batch)
-            info = amp.apply_gradients(grads, reduce_fn=reduce_fn)
+            info = amp.apply_gradients(grads, reduce_fn=reduce_fn,
+                                       finite_axes=finite_axes)
             return {"loss": loss, **info}
 
         return step
@@ -607,7 +643,8 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
                 total = list(reduce_fn(acc))
         overflow = None
         if enabled:
-            overflow = amp.update_scaler(0, all_finite(total))
+            overflow = amp.update_scaler(
+                0, _and_over(all_finite(total), finite_axes))
         grads = amp.grad_buffers()
         if grads is not total:
             # kept buffers in the masters' dtype (bf16 under O3)

@@ -45,12 +45,14 @@ all-to-all is counted there too (``ring_hop``, ``send_recv``,
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional
 
 import torch
 
 from apex_tpu_torch.attention import local_attention
-from apex_tpu_torch.parallel.distributed import _COUNTS, process_group
+from apex_tpu_torch.parallel.distributed import _COUNTS
+from apex_tpu_torch.parallel.p2p import (AllToAll, Anchor, Hop, group_of,
+                                         shift, unwire, via_host, wire)
 
 #: the masked score of the plain engine (the JAX package's ``NEG_INF``)
 NEG_INF = -1e30
@@ -58,103 +60,13 @@ NEG_INF = -1e30
 _IMPLS = (None, "flash", "jnp")
 
 
-def _group(axis_name):
-    import torch.distributed as dist
-    group = process_group(axis_name)
-    return group, dist.get_rank(group), dist.get_world_size(group)
-
-
-def _via_host(t: torch.Tensor, group) -> bool:
-    """Whether ``t`` must be staged on the host for ``group``'s backend
-    (gloo moves host memory only)."""
-    import torch.distributed as dist
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
-def _wire(t: torch.Tensor, via_host: bool) -> torch.Tensor:
-    """``t`` as a contiguous tensor of a dtype every backend moves: the
-    16-bit floats as int16 and bool as uint8 (the bits unchanged), on the
-    host when ``via_host``."""
-    t = t.contiguous()
-    if t.dtype in (torch.bfloat16, torch.float16):
-        t = t.view(torch.int16)
-    elif t.dtype == torch.bool:
-        t = t.view(torch.uint8)
-    if via_host:
-        t = t.cpu()
-        _COUNTS["via_host"] += 1
-    return t
-
-
-def _unwire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return t.to(like.device).view(like.dtype)
-
-
-def _shift(tensors: Sequence[torch.Tensor], group, shift: int
-           ) -> List[torch.Tensor]:
-    """Each tensor sent to group rank ``rank + shift`` and received from
-    ``rank - shift`` (modulo the world), all in one batch of point-to-
-    point operations."""
-    import torch.distributed as dist
-    rank, world = dist.get_rank(group), dist.get_world_size(group)
-    dst = dist.get_global_rank(group, (rank + shift) % world)
-    src = dist.get_global_rank(group, (rank - shift) % world)
-    ops, outs = [], []
-    for t in tensors:
-        send = _wire(t, _via_host(t, group))
-        recv = torch.empty_like(send)
-        ops += [dist.P2POp(dist.isend, send, dst, group),
-                dist.P2POp(dist.irecv, recv, src, group)]
-        outs.append(recv)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    _COUNTS["ring_hop"] += 1
-    _COUNTS["send_recv"] += len(tensors)
-    return [_unwire(o, t) for o, t in zip(outs, tensors)]
-
-
-class _Hop(torch.autograd.Function):
-    """The key and value blocks one rank forward; the backward sends
-    their cotangents one rank back (JAX's transpose of ``ppermute``).
-    One node a hop keeps every rank's backward in the same order."""
-
-    @staticmethod
-    def forward(ctx, group, k, v):
-        ctx.group = group
-        k2, v2 = _shift([k, v], group, 1)
-        return k2, v2
-
-    @staticmethod
-    def backward(ctx, dk, dv):
-        dk2, dv2 = _shift([dk, dv], ctx.group, -1)
-        return None, dk2, dv2
-
-
-class _Anchor(torch.autograd.Function):
-    """``o`` itself, with the last hop's blocks as inputs whose
-    cotangents are zeros: every hop of the chain is then on the path to
-    the loss on every rank, so every rank runs every hop's backward (a
-    rank whose later blocks were all skipped, under causality, would
-    otherwise leave its neighbours waiting for their cotangents)."""
-
-    @staticmethod
-    def forward(ctx, o, k, v):
-        ctx.like = (k.shape, k.dtype, v.shape, v.dtype, k.device)
-        return o.view_as(o)
-
-    @staticmethod
-    def backward(ctx, do):
-        ks, kd, vs, vd, dev = ctx.like
-        return (do, torch.zeros(ks, dtype=kd, device=dev),
-                torch.zeros(vs, dtype=vd, device=dev))
-
-
 def _hop(group, k, v, mask):
-    """The next step's blocks: ``(k, v)`` through :class:`_Hop`, the mask
+    """The next step's blocks: ``(k, v)`` through :class:`~apex_tpu_torch.
+    parallel.p2p.Hop`, the mask
     beside them."""
-    k, v = _Hop.apply(group, k, v)
+    k, v = Hop.apply(group, "ring_hop", k, v)
     if mask is not None:
-        mask = _shift([mask], group, 1)[0]
+        mask = shift([mask], group, 1)[0]
     return k, v, mask
 
 
@@ -216,7 +128,7 @@ def _ring_flash(q, k, v, group, rank, world, causal, kv_mask, scale):
         if t < world - 1:
             k_t, v_t, mask_t = _hop(group, k_t, v_t, mask_t)
     if world > 1 and torch.is_grad_enabled() and k_t.requires_grad:
-        o = _Anchor.apply(o, k_t, v_t)
+        o = Anchor.apply(o, k_t, v_t)
     return o.to(q.dtype)
 
 
@@ -263,64 +175,21 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     convention) and the mean of the values under ``"jnp"`` (the JAX
     package's plain path)."""
     engine = _engine(impl, q)
-    group, rank, world = _group(axis_name)
+    group, rank, world = group_of(axis_name)
     scale = _scale_of(q, scale)
     run = _ring_flash if engine == "flash" else _ring_plain
     return run(q, k, v, group, rank, world, causal, kv_mask, scale)
-
-
-def _all_to_all(tensors: Sequence[torch.Tensor], group, split: int,
-                concat: int) -> List[torch.Tensor]:
-    """Each tensor cut into W chunks along ``split``, chunk j sent to rank
-    j, the chunks received joined along ``concat`` in rank order (JAX's
-    tiled ``all_to_all``), as one batch of point-to-point operations a
-    tensor (gloo has no all-to-all in every PyTorch release; NCCL groups
-    the batch as its own all-to-all does)."""
-    import torch.distributed as dist
-    rank, world = dist.get_rank(group), dist.get_world_size(group)
-    outs = []
-    for t in tensors:
-        parts = [c.contiguous() for c in _wire(t, _via_host(t, group))
-                 .chunk(world, dim=split)]
-        got, ops = list(parts), []
-        for j in range(world):
-            if j != rank:
-                peer = dist.get_global_rank(group, j)
-                got[j] = torch.empty_like(parts[j])
-                ops += [dist.P2POp(dist.isend, parts[j], peer, group),
-                        dist.P2POp(dist.irecv, got[j], peer, group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        _COUNTS["all_to_all"] += 1
-        outs.append(torch.cat([_unwire(g, t) for g in got], dim=concat))
-    return outs
-
-
-class _AllToAll(torch.autograd.Function):
-    """Tensors cut along ``split`` and joined along ``concat`` across the
-    group; the backward is the inverse all-to-all."""
-
-    @staticmethod
-    def forward(ctx, group, split, concat, *tensors):
-        ctx.group, ctx.split, ctx.concat = group, split, concat
-        return tuple(_all_to_all(tensors, group, split, concat))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        return (None, None, None) + tuple(
-            _all_to_all(grads, ctx.group, ctx.concat, ctx.split))
 
 
 def _gather_mask(kv_mask: torch.Tensor, group) -> torch.Tensor:
     """``(B, L/W)`` masks of every rank joined into ``(B, L)``."""
     import torch.distributed as dist
     world = dist.get_world_size(group)
-    via = _via_host(kv_mask, group)
-    send = _wire(kv_mask, via)
+    send = wire(kv_mask, via_host(kv_mask, group))
     parts = [torch.empty_like(send) for _ in range(world)]
     dist.all_gather(parts, send, group=group)
     _COUNTS["all_gather"] += 1
-    return torch.cat([_unwire(p, kv_mask) for p in parts], dim=1)
+    return torch.cat([unwire(p, kv_mask) for p in parts], dim=1)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -334,7 +203,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash kernels; ``"jnp"``, the plain path), and the output goes back
     to ``(B, L/W, H, D)``.  The heads must divide by the world size."""
     engine = _engine(impl, q)
-    group, _, world = _group(axis_name)
+    group, _, world = group_of(axis_name)
     h = q.shape[2]
     if h % world:
         raise ValueError(f"heads ({h}) must divide by the axis size "
@@ -343,7 +212,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if world == 1:
         qf, kf, vf, mask_f = q, k, v, kv_mask
     else:
-        qf, kf, vf = _AllToAll.apply(group, 2, 1, q, k, v)
+        qf, kf, vf = AllToAll.apply(group, 2, 1, q, k, v)
         mask_f = None if kv_mask is None else _gather_mask(kv_mask, group)
     if engine == "flash":
         out = local_attention(qf, kf, vf, causal=causal, kv_mask=mask_f,
@@ -352,7 +221,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = _plain_softmax_attention(qf, kf, vf, scale, causal, mask_f)[0]
     if world == 1:
         return out
-    return _AllToAll.apply(group, 1, 2, out)[0]
+    return AllToAll.apply(group, 1, 2, out)[0]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,7 @@
-"""Bring a JAX GPT, BERT, ResNet, MLP or DCGAN checkpoint across
+"""Bring a JAX GPT, BERT, ResNet, MLP, DCGAN or RNN checkpoint across
 (``params_from_jax``, ``bert_params_from_jax``, ``resnet_params_from_jax``,
-``mlp_params_from_jax``, ``dcgan_params_from_jax``) and back
-(``params_to_numpy``).
+``mlp_params_from_jax``, ``dcgan_params_from_jax``,
+``rnn_params_from_jax``) and back (``params_to_numpy``).
 
 The JAX parameter tree arrives as nested dicts of numpy arrays, in the
 loop layout (``block_{i}`` subtrees for GPT, ``bert/layer_{i}`` for
@@ -212,6 +212,31 @@ def dcgan_params_from_jax(g_vars: Mapping, d_vars: Mapping,
                    _with_stats(d_vars["params"], d_vars["batch_stats"]),
                    device, None, trainable)
     return g, d
+
+
+def rnn_params_from_jax(tree: Mapping, model: nn.Module) -> nn.Module:
+    """``model`` (an :class:`~apex_tpu_torch.rnn.RNN`, or any module
+    holding one) with the JAX RNN parameters ``tree`` (``layer_{i}_fwd/
+    w_ih``, ...) copied into its parameters, in their dtype and on their
+    device.  A tree with weight-norm leaves (``w_hh_g`` / ``w_hh_v``)
+    goes into a model given :func:`~apex_tpu_torch.reparameterization.
+    apply_weight_norm` first; names and shapes are checked one for
+    one."""
+    flat = {".".join(p): v for p, v in _flatten(tree).items()}
+    want = dict(model.named_parameters())
+    if set(flat) != set(want):
+        raise ValueError(
+            f"parameter names differ from {type(model).__name__}'s: "
+            f"missing {sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}")
+    with torch.no_grad():
+        for name, p in want.items():
+            t = _to_tensor(flat[name])
+            if t.shape != p.shape:
+                raise ValueError(f"{name}: {tuple(t.shape)} for "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t)
+    return model
 
 
 def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]]

@@ -19,8 +19,10 @@ default 10,000,000 elements (3 of bf16 gradients under O2, 1 of the fp32
 BatchNorm leaves).
 
 ``axis_name`` keeps JAX's name and its default ``"data"``: here it names
-``torch.distributed``'s default (world) group, and a ``ProcessGroup``
-may stand in its place; any other string raises ``ValueError``.  The JAX
+``torch.distributed``'s default (world) group, or this rank's group
+along a mesh axis of that name (:mod:`~apex_tpu_torch.parallel.mesh`),
+and a ``ProcessGroup`` may stand in its place; any other string raises
+``ValueError``.  The JAX
 package's ``pvary_params`` has no counterpart: PyTorch's gradients are
 per rank already, which is what ``pvary_params`` restores under
 ``shard_map``.
@@ -69,25 +71,34 @@ class ReduceOp(enum.Enum):
 AxisName = Union[str, Any]
 
 
+#: this rank's group of each axis a mesh names
+#: (:func:`~apex_tpu_torch.parallel.mesh.make_mesh` registers them)
+_AXIS_GROUPS: Dict[str, Any] = {}
+
+
 def process_group(axis_name: AxisName = "data"):
-    """The ``torch.distributed`` group ``axis_name`` names: ``"data"``
-    is the default (world) group, a ``ProcessGroup`` is itself.  Raises
-    ``RuntimeError`` naming :func:`~apex_tpu_torch.parallel.multiproc.
-    initialize` when no group is formed."""
+    """The ``torch.distributed`` group ``axis_name`` names: an axis of the
+    last :func:`~apex_tpu_torch.parallel.mesh.make_mesh` (this rank's
+    group along it), else ``"data"`` is the default (world) group; a
+    ``ProcessGroup`` is itself.  Raises ``RuntimeError`` naming
+    :func:`~apex_tpu_torch.parallel.multiproc.initialize` when no group
+    is formed, and ``ValueError`` for another name."""
     import torch.distributed as dist
     if isinstance(axis_name, str):
-        if axis_name != "data":
-            raise ValueError(f"axis_name {axis_name!r}: the port knows the "
-                             "default group \"data\" or a ProcessGroup")
+        if axis_name != "data" and axis_name not in _AXIS_GROUPS:
+            raise ValueError(
+                f"axis_name {axis_name!r}: the port knows the default "
+                f"group \"data\", a mesh's axes "
+                f"({sorted(_AXIS_GROUPS)}) or a ProcessGroup")
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError(
                 "no process group is formed: call apex_tpu_torch.parallel."
                 "multiproc.initialize() (or torch.distributed."
                 "init_process_group) in every rank first")
-        return dist.group.WORLD
+        return _AXIS_GROUPS.get(axis_name, dist.group.WORLD)
     if not isinstance(axis_name, dist.ProcessGroup):
-        raise ValueError(f"axis_name must be \"data\" or a ProcessGroup, "
-                         f"got {type(axis_name).__name__}")
+        raise ValueError(f"axis_name must be an axis name or a "
+                         f"ProcessGroup, got {type(axis_name).__name__}")
     return axis_name
 
 

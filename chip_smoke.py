@@ -11,11 +11,11 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 (``o0_train``, ``generic_kernels``, ``train_kernels``, ``train``,
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
-``data_prefetch``, ``seq_parallel``), printing their lines and no
-``kernels`` or ``ok`` line: how one card times a parent against a
-change.  The ``ddp`` and ``seq_parallel`` phases re-run this script as
-their ranks (``--ddp-rank``, through ``python -m
-apex_tpu_torch.parallel.multiproc``).
+``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``),
+printing their lines and no ``kernels`` or ``ok`` line: how one card
+times a parent against a change.  The ``ddp``, ``seq_parallel`` and
+``pipeline_moe`` phases re-run this script as their ranks
+(``--ddp-rank``, through ``python -m apex_tpu_torch.parallel.multiproc``).
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -222,6 +222,35 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             whole-sequence run (losses within 2e-2, first gradients within
             4 bf16 ulps of each leaf's largest element, masters equal bit
             for bit across the ranks; every block through the host);
+   pipeline_moe  (after seq_parallel) NCCL at world size 1 in this
+            process: gpt_small's 12 blocks as one pipeline stage (O2 +
+            FusedAdam, B 8 x L 2048 in 4 microbatches, ``finite_axes=
+            ("pipe",)``; the embedding, ``ln_f`` and the head outside,
+            the embedding's gradient summed over the group) in turns with
+            the local O2 step: both p50s and their ratio, the launches and
+            collectives a step, each step profiled; the expert mode of
+            ``examples/pipeline_moe.py`` at gpt_small's FFN width (8
+            experts 768 -> 3072 -> 768, gelu, cf 2.0, 16384 tokens, O2 +
+            FusedAdam, the router's gradient averaged by ``reduce_fn``,
+            ``finite_axes=("expert",)``): p50, all-to-alls a step, one
+            profiled step; two gloo processes on ``cuda:0``: 6 blocks a
+            stage, 3 steps against the unpipelined run (losses within
+            2e-2, masters within Adam's drift bound, hops a step), 4
+            experts and 8192 tokens a rank against one process holding
+            all 8 (the first y and aux, 3 steps' losses within 2e-2), and
+            in both an inf in rank 1's gradients skipping both ranks;
+   rnn      every RNN mode card against CPU (H 512, B 16, T 32, both
+            directions, ragged lengths) in fp32 (1e-4 of each tensor's
+            largest element; the chaotic mLSTM 1e-3, beside each case's
+            fp64 response to one fp32 rounding of the weights) and amp O2
+            (2e-2; the mLSTM 0.1); the byte-level mLSTM language model
+            (Radford et al.: 256 -> 64 embedding, ``mLSTM(4096)`` weight-
+            normed, a 4096 -> 256 decoder, 86.3 M parameters), O2 +
+            FusedAdam, B 128 x T 256, 10 steps: losses falling, the first
+            within 2e-2 of an fp32 forward of the same weights, p50,
+            bytes/s, peak memory, K6 1 and K11 1 a step, one profiled step
+            by group, the weight-norm recompute timed alone, an injected
+            inf skipped;
    o1_train  (after long_context_reference) gpt_small at amp O1, the
             default opt level (fp32 parameters, products cast to bf16 by
             the op layer), FusedAdam(3e-4), B 8 x L 2048, 10 steps: p50
@@ -2953,24 +2982,9 @@ def _inject_overflow(a, opt, model, ids):
         loss = a.run(_gpt_loss, model, ids)
         grads = list(torch.autograd.grad(a.scale_loss(loss), a.params))
     grads[3].view(-1)[0] = float("inf")
-    masters = {n: t.clone() for n, t in a.masters.items()}
-    st = opt.state[a.masters["lm_head.kernel"]]
-    moments = (st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
-               int(st["step"]))
-    scale_before = float(a.scaler_state.loss_scale)
-    info = a.apply_gradients(grads)
-    torch.cuda.synchronize()
-    require(bool(info["overflow"]), "the injected inf was not seen")
-    require(float(info["loss_scale"]) == scale_before / 2,
-            "the scale did not halve on overflow")
-    require(all(torch.equal(masters[n], t) for n, t in a.masters.items()),
-            "masters changed on a skipped step")
-    require(torch.equal(st["exp_avg"], moments[0])
-            and torch.equal(st["exp_avg_sq"], moments[1])
-            and int(st["step"]) == moments[2],
-            "moments or step counts changed on a skipped step")
-    return {"skipped": True,
-            "loss_scale": [scale_before, float(info["loss_scale"])]}
+    inf = _skipped(a, grads, opt, "lm_head.kernel")
+    require(inf["skipped"], f"the injected inf was not skipped: {inf}")
+    return {"skipped": True, "loss_scale": inf["loss_scale"]}
 
 
 def phase_long_context_reference():
@@ -5968,10 +5982,804 @@ def phase_seq_parallel(cfg, tree, repo: Path):
     return nccl_counts, blocks
 
 
+# -- the sixteenth slice: the RNN stack and weight norm, pipeline and
+# -- expert parallelism ------------------------------------------------------
+
+RNN_MODES = ("relu", "tanh", "gru", "lstm", "mlstm")
+#: the card-against-CPU check of every mode: T x B x F -> H, both
+#: directions, ragged lengths
+RNN_T, RNN_B, RNN_F, RNN_H = 32, 16, 64, 512
+RNN_TOL = {"fp32": 1e-4, "bf16_o2": 2e-2}
+#: the mLSTM at flax's ``[0, 1/sqrt(H))`` init is chaotic: one fp32
+#: rounding of its weights moves its outputs by 1.2e-6 of their largest
+#: element (the fp32 case's ``rounding_response``, in fp64), the other
+#: modes' by 1e-8 to 1.1e-7, and the card parts from the CPU by 12 to 120
+#: times that response in every mode: 1.4e-4 / 3.1e-4 (outputs /
+#: gradients) for the mLSTM, 2.3e-2 / 7.3e-2 at O2 (on an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+RNN_TOL_MLSTM = {"fp32": 1e-3, "bf16_o2": 0.1}
+#: the byte-level mLSTM of Radford et al. (arXiv:1704.01444, section 3):
+#: 256 bytes embedded in 64, one mLSTM of 4096, a 4096 -> 256 decoder,
+#: minibatches of 128 subsequences of 256 bytes
+LM_VOCAB, LM_EMBED, LM_HIDDEN = 256, 64, 4096
+LM_B, LM_T, LM_STEPS = 128, 256, 10
+LM_LR = 5e-4
+LM_FP32_TOL = 2e-2
+
+
+def _rel_max_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    g, r = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+
+
+def _flat_states(finals):
+    import torch
+    if isinstance(finals, torch.Tensor):
+        return [finals]
+    return [t for f in finals for t in _flat_states(f)]
+
+
+def _rnn_case(mode: str, kind: str, seed: int) -> dict:
+    """One mode, bidirectional, ragged lengths: the card against the CPU
+    from the same weights, fp32 (``kind="fp32"``) or amp O2: outputs,
+    final states and the gradients of every parameter and of the input
+    under a random cotangent, each tensor's error over its largest
+    element."""
+    import copy
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.rnn import RNN
+    gen = torch.Generator().manual_seed(seed)
+    cpu = RNN(mode, RNN_F, RNN_H, bidirectional=True, device="cpu",
+              generator=gen)
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.randn((RNN_T, RNN_B, RNN_F), generator=gen)
+    lengths = torch.randint(1, RNN_T + 1, (RNN_B,), generator=gen)
+    lengths[0] = RNN_T
+    cot = torch.randn((RNN_T, RNN_B, 2 * RNN_H), generator=gen)
+    got = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        if kind == "fp32":
+            params, run = list(model.parameters()), (lambda f, *a: f(*a))
+        else:
+            a = amp.initialize(model, FusedAdam(model.parameters(),
+                                                device=dev),
+                               opt_level="O2", device=dev)
+            params, run = a.params, a.run
+        xd = x.to(dev).requires_grad_(True)
+        with torch.enable_grad():
+            ys, finals = run(model, xd, None, lengths.to(dev))
+            grads = torch.autograd.grad((ys.float() * cot.to(dev)).sum(),
+                                        params + [xd])
+        got[dev] = ([ys] + _flat_states(finals), list(grads))
+    errs = {part: max(_rel_max_err(g, r) for g, r in
+                      zip(got["cuda"][i], got["cpu"][i]))
+            for i, part in enumerate(("outputs", "grads"))}
+    tol = (RNN_TOL_MLSTM if mode == "mlstm" else RNN_TOL)[kind]
+    require(max(errs.values()) <= tol,
+            f"rnn {mode} {kind}: card vs CPU {errs} over {tol}")
+    rec = dict(mode=mode, kind=kind, errs=errs, tolerance=tol)
+    if kind == "fp32":
+        rec["rounding_response"] = _rounding_response(cpu, x, lengths)
+    return rec
+
+
+def _rounding_response(model, x, lengths) -> float:
+    """How far one fp32 rounding of the weights (relative noise of
+    2**-24) moves the outputs, in fp64 on the CPU, over their largest
+    element: the check's conditioning."""
+    import copy
+    import torch
+    m64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        y0, _ = m64(x.double(), None, lengths)
+        gen = torch.Generator().manual_seed(1)
+        for p in m64.parameters():
+            p.mul_(1 + 2.0 ** -24 * torch.randn(p.shape, generator=gen,
+                                                  dtype=torch.float64))
+        y1, _ = m64(x.double(), None, lengths)
+    return float((y1 - y0).abs().max() / y0.abs().max())
+
+
+def byte_stream(b: int, t: int, seed: int = 0):
+    """``(t, b)`` bytes, each column counting up by one from a seeded
+    start (the next byte is the byte plus one)."""
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, LM_VOCAB, (1, b))
+    return (base + np.arange(t)[:, None]) % LM_VOCAB
+
+
+def byte_lm(generator):
+    """The byte-level mLSTM language model on the card: a 256 -> 64
+    embedding, ``mLSTM(64, 4096)`` with every weight of at least 2
+    dimensions weight-normed (the module form), and a ``Dense`` 4096 ->
+    256 decoder; ``forward(ids (T, B)) -> logits (T, B, 256)``."""
+    import torch
+    from torch import nn
+    from apex_tpu_torch.layers import Dense, Embed
+    from apex_tpu_torch.reparameterization import apply_weight_norm
+    from apex_tpu_torch.rnn import mLSTM
+
+    class ByteLM(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = Embed(LM_VOCAB, LM_EMBED, device="cuda")
+            self.rnn = apply_weight_norm(mLSTM(LM_EMBED, LM_HIDDEN,
+                                               generator=generator))
+            self.decoder = Dense(LM_HIDDEN, LM_VOCAB, device="cuda")
+
+        def forward(self, ids):
+            h, _ = self.rnn(self.embed(ids))
+            return self.decoder(h)
+
+    torch.manual_seed(0)
+    return ByteLM()
+
+
+def _byte_loss(model, ids):
+    from apex_tpu_torch.models import lm_loss
+    logits = model(ids).transpose(0, 1)
+    return lm_loss(logits[:, :-1], ids.t()[:, 1:])
+
+
+def _skipped(a, grads, opt, leaf: str, **apply_kw) -> dict:
+    """``apply_gradients(grads)`` must skip: masters, ``leaf``'s moments
+    and step count unchanged, the scale halved."""
+    import torch
+    masters = {n: t.clone() for n, t in a.masters.items()}
+    st = opt.state[a.masters[leaf]]
+    moments = (st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+               int(st["step"]))
+    before = float(a.scaler_state.loss_scale)
+    info = a.apply_gradients(grads, **apply_kw)
+    torch.cuda.synchronize()
+    ok = (bool(info["overflow"])
+          and float(info["loss_scale"]) == before / 2
+          and all(torch.equal(masters[n], t) for n, t in a.masters.items())
+          and torch.equal(st["exp_avg"], moments[0])
+          and torch.equal(st["exp_avg_sq"], moments[1])
+          and int(st["step"]) == moments[2])
+    return {"skipped": ok, "overflow": bool(info["overflow"]),
+            "loss_scale": [before, float(info["loss_scale"])]}
+
+
+def _wn_recompute_ms(model) -> float:
+    """Device ms of one forward and backward of every weight-norm
+    recompute of ``model`` (the hooks' own computation, CUDA events)."""
+    import torch
+    hooks = [(m, h) for m in model.modules()
+             for h in m.__dict__.get("_reparam_hooks", {}).values()]
+
+    def run():
+        with torch.enable_grad():
+            ws = [h.compute(m) for m, h in hooks]
+            torch.autograd.backward(ws, [torch.ones_like(w) for w in ws])
+
+    ms = time_ms(run)
+    for p in model.parameters():
+        p.grad = None
+    return ms
+
+
+def rnn_card_vs_cpu():
+    """Every mode, fp32 and amp O2, card against CPU (``_rnn_case``)."""
+    return [_rnn_case(mode, kind, 40 + i)
+            for i, mode in enumerate(RNN_MODES)
+            for kind in ("fp32", "bf16_o2")]
+
+
+def byte_lm_run():
+    """The byte-level mLSTM language model at full width, amp O2 +
+    FusedAdam: losses, p50, bytes/s, peak memory, launches, one profiled
+    step, the weight-norm recompute timed alone, an injected overflow
+    skipped, the first O2 loss against an fp32 forward of the same
+    weights.  Returns ``(record, launch counts)``."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    gen = torch.Generator().manual_seed(0)
+    model = byte_lm(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.as_tensor(byte_stream(LM_B, LM_T), device="cuda")
+    with torch.no_grad():
+        fp32_loss = float(_byte_loss(model, ids))
+    opt = FusedAdam(model.parameters(), lr=LM_LR)
+    a = amp.initialize(model, opt, opt_level="O2")
+    step = amp.make_train_step(a, model, _byte_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        info = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(info["loss"]))
+        require(not bool(info["overflow"]), "lm step overflowed")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: c / LM_STEPS for k, c in counts.items()}
+    want = dict(NO_LAUNCHES, packed_scale=1, packed_adam_tree=1)
+    require(per_step == want, f"lm launches per step {per_step}, want "
+                              f"{want}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"lm losses {losses}")
+    require(abs(losses[0] - fp32_loss) <= LM_FP32_TOL,
+            f"lm first O2 loss {losses[0]} vs fp32 {fp32_loss}")
+    p50 = float(np.median(times[2:])) * 1e3
+    profile = profile_step(step, ids)
+    wn_ms = _wn_recompute_ms(model)
+    with torch.enable_grad():
+        grads = list(torch.autograd.grad(
+            a.scale_loss(a.run(_byte_loss, model, ids)), a.params))
+    grads[0].view(-1)[0] = float("inf")
+    inf = _skipped(a, grads, opt, "decoder.kernel")
+    require(inf["skipped"], f"lm injected inf not skipped: {inf}")
+    groups = profile.get("by_group_ms", {})
+    rec = dict(
+        model="mLSTM 4096, 64-wide byte embedding, weight norm",
+        source="Radford et al. arXiv:1704.01444 section 3",
+        parameters=n_params, batch=LM_B, seq_len=LM_T, opt_level="O2",
+        optimizer="FusedAdam", lr=LM_LR, steps=LM_STEPS, losses=losses,
+        fp32_first_loss=fp32_loss,
+        first_loss_vs_fp32=abs(losses[0] - fp32_loss),
+        first_loss_tolerance=LM_FP32_TOL,
+        step_ms=[t * 1e3 for t in times], step_ms_p50_steps_3_to_10=p50,
+        bytes_per_s=LM_B * LM_T / (p50 / 1e3), peak_memory_gb=peak,
+        launches_per_step={k: v for k, v in per_step.items() if v},
+        profile=profile,
+        device_ms_by_group=dict(
+            gemms=groups.get("matmuls (cuBLAS)"),
+            optimizer=(groups.get("adam_tree (K11)", 0.0)
+                       + groups.get("packed_scale (K6)", 0.0))
+            if groups else None,
+            elementwise_cell_math_and_other=groups.get(
+                "other PyTorch kernels"),
+            weight_norm_recompute_fwd_bwd_alone_ms=wn_ms),
+        injected_overflow=inf)
+    del a, opt, model, step, grads
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def phase_rnn():
+    """The RNN stack: every mode card against CPU (fp32 and amp O2), then
+    the byte-level mLSTM language model at full width."""
+    import torch
+    torch.cuda.empty_cache()
+    cases = rnn_card_vs_cpu()
+    lm, counts = byte_lm_run()
+    emit("rnn", card_vs_cpu=dict(
+        shape=dict(steps=RNN_T, batch=RNN_B, features=RNN_F, hidden=RNN_H,
+                   bidirectional=True, seq_lengths="ragged"),
+        cases=cases), byte_lm=lm)
+    return counts
+
+
+PM_MICRO = 4
+PM_PAIRS = 10
+PM_GLOO_WORLD = 2
+PM_GLOO_STEPS = 3
+PM_LOSS_TOL = 2e-2
+PM_LR = 3e-4
+PM_MASTER_TOL = adam_drift_bound(PM_GLOO_STEPS, PM_LR) + 1e-5
+#: the expert mode of examples/pipeline_moe.py at gpt_small's FFN width
+MOE_D, MOE_HIDDEN, MOE_EXPERTS = 768, 3072, 8
+MOE_TOKENS, MOE_CF, MOE_LR, MOE_STEPS = 16384, 2.0, 3e-3, 10
+MOE_MASTER_TOL = adam_drift_bound(PM_GLOO_STEPS, MOE_LR) + 1e-5
+
+
+def piped_gpt(full, blocks):
+    """gpt_small with ``blocks`` (this rank's) as its pipeline stage over
+    ``"pipe"``, ``PM_MICRO`` microbatches; the embedding, ``ln_f`` and
+    the head outside the pipeline, on every rank."""
+    from torch import nn
+    import torch
+    from apex_tpu_torch.ops.rope import rope_kernel_tables, rope_tables
+    from apex_tpu_torch.parallel import pipeline_apply
+
+    class PipedGPT(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cfg = full.cfg
+            self.tok_emb, self.ln_f = full.tok_emb, full.ln_f
+            self.lm_head = full.lm_head
+            self.stage = nn.ModuleList(blocks)
+
+        def forward(self, ids):
+            c = self.cfg
+            b, l = ids.shape
+            mb = b // PM_MICRO
+            x = self.tok_emb(ids)
+            pos = torch.arange(l, device=ids.device)[None].expand(mb, l)
+            rope = rope_kernel_tables(
+                *rope_tables(pos, c.head_dim, c.rope_theta), mb, l,
+                c.head_dim, x.dtype)
+
+            def stage(blks, h):
+                for blk in blks:
+                    h = blk(h, rope)
+                return h
+
+            y = pipeline_apply(stage, self.stage, x, "pipe",
+                               n_microbatches=PM_MICRO, stacked=False)
+            return self.lm_head(self.ln_f(y))
+
+    return PipedGPT()
+
+
+def _embedding_reduce(a, axis):
+    """``reduce_fn`` of the pipelined GPT: the embedding feeds stage 0
+    alone, so its gradient is summed over the pipe group; the head's and
+    ``ln_f``'s are whole on every rank, the blocks' are the stage's."""
+    from apex_tpu_torch.parallel import all_reduce
+    names = list(a.masters)
+    emb = names.index("tok_emb.embedding")
+
+    def reduce_fn(grads):
+        grads = list(grads)
+        grads[emb] = all_reduce(grads[emb], axis)
+        return grads
+
+    return reduce_fn
+
+
+def _pipe_launches(cfg, stage_layers, ticks):
+    """A pipelined gpt_small step's launches: ``ticks`` runs of a stage
+    of ``stage_layers`` blocks on a microbatch, ``ln_f`` once, one
+    unscale and one Adam."""
+    mb = TRAIN_B // PM_MICRO
+    blk = gpt_pass_launches(dataclasses.replace(cfg,
+                                                num_layers=stage_layers),
+                            micro_batches=ticks, b=mb)
+    # gpt_pass_launches counts a ln_f a pass: the pipeline's runs once
+    blk["layer_norm_fwd"] -= ticks - 1
+    blk["layer_norm_bwd"] -= 2 * (ticks - 1)
+    return dict(blk, packed_scale=1, packed_adam_tree=1)
+
+
+def moe_data(seed: int = 5):
+    """The expert mode's tokens, targets and weights (numpy): ``x``
+    ``(16384, 768)`` normal, ``tanh(x W)`` targets, experts 768 -> 3072
+    -> 768 and the router drawn N(0, 1/fan_in) as gpt_small's kernels."""
+    rng = np.random.default_rng(seed)
+    d, h, e = MOE_D, MOE_HIDDEN, MOE_EXPERTS
+    x = rng.standard_normal((MOE_TOKENS, d), np.float32)
+    t = np.tanh(x @ (rng.standard_normal((d, d), np.float32) * d ** -0.5))
+    return dict(x=x, target=t.astype(np.float32),
+                wi=rng.standard_normal((e, d, h), np.float32) * d ** -0.5,
+                wo=rng.standard_normal((e, h, d), np.float32) * h ** -0.5,
+                router=rng.standard_normal((d, e), np.float32) * d ** -0.5)
+
+
+def moe_model(data, first: int, count: int):
+    """Experts ``first .. first + count - 1`` and the router, on the
+    card."""
+    import torch
+    from torch import nn
+    m = nn.Module()
+    for k in ("wi", "wo"):
+        setattr(m, k, nn.Parameter(torch.as_tensor(
+            data[k][first:first + count], device="cuda")))
+    m.router = nn.Parameter(torch.as_tensor(data["router"], device="cuda"))
+    return m
+
+
+def _moe_ffn(p, h):
+    import torch.nn.functional as F
+    return F.gelu(h @ p["wi"], approximate="tanh") @ p["wo"]
+
+
+def moe_loss(model, xb, tgt, axis="expert"):
+    """The example's loss: the residual, its mean square error, and 0.01
+    times the aux loss; ``(loss, y, aux)``."""
+    from apex_tpu_torch.parallel import moe_apply
+    y, aux = moe_apply(_moe_ffn, {"wi": model.wi, "wo": model.wo},
+                       model.router, xb, axis, capacity_factor=MOE_CF)
+    out = xb + y
+    return ((out - tgt).float() ** 2).mean() + 0.01 * aux.float(), y, aux
+
+
+def _router_mean(a, axis, world):
+    from apex_tpu_torch.parallel import all_reduce
+    i = list(a.masters).index("router")
+
+    def reduce_fn(grads):
+        grads = list(grads)
+        grads[i] = all_reduce(grads[i], axis) / world
+        return grads
+
+    return reduce_fn
+
+
+def _timed_steps(steps, n):
+    """``n`` rounds of every step of ``steps`` (name: (step, batch)), in
+    turns: seconds and losses by name, and the launches and collectives
+    of each name's steps."""
+    import torch
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.parallel import (collective_counts,
+                                         reset_collective_counts)
+    times = {k: [] for k in steps}
+    losses = {k: [] for k in steps}
+    counts = {k: dict(NO_LAUNCHES) for k in steps}
+    colls = {k: {} for k in steps}
+    for _ in range(n):
+        for k, (step, batch) in steps.items():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            reset_collective_counts()
+            t0 = time.perf_counter()
+            info = step(*batch)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+            losses[k].append(float(info["loss"]))
+            require(not bool(info["overflow"]), f"{k} step overflowed")
+            for name, c in launch_counts().items():
+                counts[k][name] += c
+            for name, c in collective_counts().items():
+                colls[k][name] = colls[k].get(name, 0) + c
+    per = {k: {n_: c / n for n_, c in v.items()} for k, v in counts.items()}
+    per_coll = {k: {n_: c / n for n_, c in v.items()}
+                for k, v in colls.items()}
+    return times, losses, per, per_coll
+
+
+def _pm_nccl_world_one(cfg, tree):
+    """NCCL at world size 1 in this process: gpt_small's 12 blocks as one
+    stage (4 microbatches) in turns with the local O2 step; the expert
+    mode with all 8 experts local.  p50s, launches and collectives a
+    step."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        make_mesh((1,), ("pipe",))
+        ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                              device="cuda")
+        steps = {}
+        for kind in ("local", "pipelined"):
+            model = params_from_jax(tree, cfg, trainable=True)
+            if kind == "pipelined":
+                model = piped_gpt(model, model.blocks)
+            a = amp.initialize(model, FusedAdam(model.parameters(),
+                                                lr=PM_LR), opt_level="O2")
+            kw = {} if kind == "local" else dict(
+                reduce_fn=_embedding_reduce(a, "pipe"),
+                finite_axes=("pipe",))
+            steps[kind] = (amp.make_train_step(a, model, _gpt_loss, **kw),
+                           (ids,))
+        times, losses, per, colls = _timed_steps(steps, PM_PAIRS)
+        want = _pipe_launches(cfg, cfg.num_layers, PM_MICRO)
+        require(per["pipelined"] == want, f"pipelined launches "
+                                          f"{per['pipelined']}, want {want}")
+        err = max(abs(p - q) for p, q in zip(losses["local"],
+                                             losses["pipelined"]))
+        require(err <= PM_LOSS_TOL, f"pipelined losses "
+                                    f"{losses['pipelined']} vs local "
+                                    f"{losses['local']}")
+        p50 = {k: float(np.median(v[2:])) * 1e3 for k, v in times.items()}
+        profiles = {k: profile_step(step, *batch)
+                    for k, (step, batch) in steps.items()}
+        pipe = dict(model="gpt_small", opt_level="O2", batch=TRAIN_B,
+                    seq_len=TRAIN_L, microbatches=PM_MICRO, stages=1,
+                    steps_each=PM_PAIRS, in_turns=True, losses=losses,
+                    losses_max_abs_err=err,
+                    step_ms={k: [t * 1e3 for t in v]
+                             for k, v in times.items()},
+                    step_ms_p50_steps_3_to_10=p50,
+                    pipelined_over_local=p50["pipelined"] / p50["local"],
+                    train_phase_step_ms_p50=STEP_P50.get("train"),
+                    launches_per_step=per, collectives_per_step=colls,
+                    profiles=profiles,
+                    flash_backward_route_a_microbatch="fused (K4)"
+                    if fused_route(TRAIN_B // PM_MICRO, TRAIN_L,
+                                   cfg.num_heads, cfg.head_dim)
+                    else "two-pass (K13 + K14)")
+        pipe_counts = {k: c * PM_PAIRS for k, c in per["pipelined"].items()}
+        del steps
+        torch.cuda.empty_cache()
+        make_mesh((1,), ("expert",))
+        data = moe_data()
+        model = moe_model(data, 0, MOE_EXPERTS)
+        opt = FusedAdam(model.parameters(), lr=MOE_LR)
+        a = amp.initialize(model, opt, opt_level="O2")
+        xb = torch.as_tensor(data["x"], device="cuda")
+        tgt = torch.as_tensor(data["target"], device="cuda")
+        step = amp.make_train_step(
+            a, model, lambda m, x_: moe_loss(m, x_, tgt)[0],
+            reduce_fn=_router_mean(a, "expert", 1), finite_axes=("expert",))
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, per, colls = _timed_steps({"moe": (step, (xb,))},
+                                                 MOE_STEPS)
+        require(per["moe"]["packed_scale"] == 1
+                and per["moe"]["packed_adam_tree"] == 1,
+                f"moe launches per step {per['moe']}")
+        require(all(np.isfinite(losses["moe"]))
+                and losses["moe"][-1] < losses["moe"][0],
+                f"moe losses {losses['moe']}")
+        p50 = float(np.median(times["moe"][2:])) * 1e3
+        profile = profile_step(step, xb)
+        moe = dict(d=MOE_D, hidden=MOE_HIDDEN, experts=MOE_EXPERTS,
+                   tokens=MOE_TOKENS, capacity_factor=MOE_CF,
+                   opt_level="O2", lr=MOE_LR, steps=MOE_STEPS,
+                   losses=losses["moe"],
+                   step_ms=[t * 1e3 for t in times["moe"]],
+                   step_ms_p50_steps_3_to_10=p50,
+                   tokens_per_s=MOE_TOKENS / (p50 / 1e3),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches_per_step={k: v for k, v in per["moe"].items()
+                                      if v},
+                   collectives_per_step=colls["moe"], profile=profile)
+        moe_counts = {k: c * MOE_STEPS for k, c in per["moe"].items()}
+        del a, opt, model, step
+        torch.cuda.empty_cache()
+        return pipe, pipe_counts, moe, moe_counts
+    finally:
+        dist.destroy_process_group()
+
+
+def _pm_rank_gloo(out: Path) -> None:
+    """One rank of the two-process gloo run on ``cuda:0`` (a ``--ddp-rank
+    pm_gloo`` process).  Pipeline: gpt_small's unpipelined O2 reference
+    (B 8 x L 2048, 3 steps, on each rank), then 6 blocks a stage over the
+    2 ranks (4 microbatches), 3 steps, then one step whose gradients hold
+    an inf on rank 1 alone.  Experts: 4 a rank, 8192 tokens a rank: the
+    first forward against one process holding all 8 (each rank's shard
+    alone, a group of one rank), then 3 steps against that process's
+    steps, and an inf on rank 1 alone.  Every hop and all-to-all goes
+    through the host (gloo)."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import gpt_small
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (collective_counts, make_mesh,
+                                         multiproc, reset_collective_counts)
+    multiproc.initialize(backend="gloo")
+    r, w = dist.get_rank(), dist.get_world_size()
+    res = {"rank": r, "world": w, "backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    make_mesh((w,), ("pipe",))
+    cfg = gpt_small()
+    tree = gpt_small_tree(cfg, seed=0)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    model = params_from_jax(tree, cfg, trainable=True)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=PM_LR),
+                       opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ref_losses = [float(step(ids)["loss"]) for _ in range(PM_GLOO_STEPS)]
+    ref = {n: t.detach().clone() for n, t in a.masters.items()}
+    del a, model, step
+    torch.cuda.empty_cache()
+    per = cfg.num_layers // w
+    full = params_from_jax(tree, cfg, trainable=True)
+    mine = list(range(r * per, (r + 1) * per))
+    model = piped_gpt(full, [full.blocks[i] for i in mine])
+    del full
+    opt = FusedAdam(model.parameters(), lr=PM_LR)
+    a = amp.initialize(model, opt, opt_level="O2")
+    reduce_fn = _embedding_reduce(a, "pipe")
+    step = amp.make_train_step(a, model, _gpt_loss, reduce_fn=reduce_fn,
+                               finite_axes=("pipe",))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_collective_counts()
+    losses, times = [], []
+    for _ in range(PM_GLOO_STEPS):
+        t0 = time.perf_counter()
+        info = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(info["loss"]))
+    counts = {k: c / PM_GLOO_STEPS for k, c in launch_counts().items() if c}
+    colls = {k: c / PM_GLOO_STEPS for k, c in collective_counts().items()}
+
+    def ref_name(n):
+        if not n.startswith("stage."):
+            return n
+        i, rest = n[len("stage."):].split(".", 1)
+        return f"block_{mine[int(i)]}.{rest}"
+
+    err = max(float((t - ref[ref_name(n)]).abs().max())
+              for n, t in a.masters.items())
+    with torch.enable_grad():
+        grads = list(torch.autograd.grad(
+            a.scale_loss(a.run(_gpt_loss, model, ids)), a.params))
+    grads = reduce_fn(grads)
+    if r == 1:
+        grads[-1].view(-1)[0] = float("inf")
+    inf = _skipped(a, grads, opt, "lm_head.kernel", finite_axes=("pipe",))
+    res["pipeline"] = dict(
+        stages=w, blocks_a_stage=per, microbatches=PM_MICRO,
+        reference_losses=ref_losses, losses=losses,
+        masters_vs_reference_max_abs_err=err, step_s=times,
+        launches_per_step=counts, collectives_per_step=colls,
+        inf_on_rank_1=inf)
+    del a, opt, model, step, grads, ref
+    torch.cuda.empty_cache()
+    res["moe"] = _moe_gloo(r, w)
+    (out / f"pm_gloo{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _moe_gloo(r, w):
+    """The expert mode over the two gloo ranks against one process
+    holding all 8 experts (each rank's shard through a group of its
+    own)."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (all_reduce, collective_counts,
+                                         make_mesh, reset_collective_counts)
+    make_mesh((w,), ("expert",))
+    alone = [dist.new_group([i]) for i in range(w)]
+    data = moe_data()
+    el, t = MOE_EXPERTS // w, MOE_TOKENS // w
+    xs = torch.as_tensor(data["x"], device="cuda")
+    ts = torch.as_tensor(data["target"], device="cuda")
+    shard = slice(r * t, (r + 1) * t)
+    # one process holding all 8 experts: every shard's loss, summed (the
+    # group's objective), the router's gradient divided by W (the
+    # group's reduce_fn averages it)
+    ref_model = moe_model(data, 0, MOE_EXPERTS)
+    ref_opt = FusedAdam(ref_model.parameters(), lr=MOE_LR)
+    ra = amp.initialize(ref_model, ref_opt, opt_level="O2")
+    with torch.no_grad():
+        _, y_ref, aux_ref = ra.run(moe_loss, ref_model, xs[shard],
+                                   ts[shard], alone[r])
+
+    def ref_loss(m, x_):
+        return sum(moe_loss(m, x_[i * t:(i + 1) * t], ts[i * t:(i + 1) * t],
+                            alone[r])[0] for i in range(w))
+
+    ri = list(ra.masters).index("router")
+
+    def ref_reduce(grads):
+        grads = list(grads)
+        grads[ri] = grads[ri] / w
+        return grads
+
+    ref_step = amp.make_train_step(ra, ref_model, ref_loss,
+                                   reduce_fn=ref_reduce)
+    ref_losses = [float(ref_step(xs)["loss"]) / w
+                  for _ in range(PM_GLOO_STEPS)]
+    ref = {n: v.detach().clone() for n, v in ra.masters.items()}
+    del ra, ref_opt, ref_model, ref_step
+    torch.cuda.empty_cache()
+    model = moe_model(data, r * el, el)
+    opt = FusedAdam(model.parameters(), lr=MOE_LR)
+    a = amp.initialize(model, opt, opt_level="O2")
+    with torch.no_grad():
+        _, y, aux = a.run(moe_loss, model, xs[shard], ts[shard])
+    aux_ref_mean = float(all_reduce(aux_ref.float().reshape(1))) / w
+    first = dict(y_err=_rel_max_err(y, y_ref),
+                 aux=float(aux), aux_reference=aux_ref_mean,
+                 aux_err=abs(float(aux) - aux_ref_mean),
+                 tokens_dropped=int((y.float().abs().sum(-1) == 0).sum()),
+                 tokens_dropped_reference=int(
+                     (y_ref.float().abs().sum(-1) == 0).sum()))
+    step = amp.make_train_step(
+        a, model, lambda m, x_: moe_loss(m, x_, ts[shard])[0],
+        reduce_fn=_router_mean(a, "expert", w), finite_axes=("expert",))
+    reset_collective_counts()
+    losses, times = [], []
+    for _ in range(PM_GLOO_STEPS):
+        t0 = time.perf_counter()
+        info = step(xs[shard])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(all_reduce(info["loss"].reshape(1))) / w)
+    colls = collective_counts()
+    colls["all_reduce"] -= PM_GLOO_STEPS          # the reported losses
+    err = max(float((v - ref[n] if n == "router"
+                     else v - ref[n][r * el:(r + 1) * el]).abs().max())
+              for n, v in a.masters.items())
+    with torch.enable_grad():
+        grads = list(torch.autograd.grad(a.scale_loss(a.run(
+            lambda m, x_: moe_loss(m, x_, ts[shard])[0], model,
+            xs[shard])), a.params))
+    grads = _router_mean(a, "expert", w)(grads)
+    if r == 1:
+        grads[0].view(-1)[0] = float("inf")
+    inf = _skipped(a, grads, opt, "router", finite_axes=("expert",))
+    return dict(experts_a_rank=el, tokens_a_rank=t, first_forward=first,
+                reference_losses=ref_losses, losses=losses,
+                masters_vs_reference_max_abs_err=err, step_s=times,
+                collectives_per_step={k: c / PM_GLOO_STEPS
+                                      for k, c in colls.items()},
+                inf_on_rank_1=inf)
+
+
+def phase_pipeline_moe(cfg, tree, repo: Path):
+    """Pipeline and expert parallelism: NCCL at world size 1 in this
+    process (the pipelined gpt_small step in turns with the local one;
+    the expert mode's step), then two gloo processes on ``cuda:0`` (6
+    blocks a stage, 4 experts a rank) against one-process references,
+    and one rank's inf skipping both ranks' step.  No path across several
+    cards runs here (one card), and gloo moves every hop through the
+    host."""
+    import shutil
+    import torch
+    torch.cuda.empty_cache()
+    pipe, pipe_counts, moe, moe_counts = _pm_nccl_world_one(cfg, tree)
+    out = HERE / "build" / "pm"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        secs = _spawn_ranks("pm_gloo", PM_GLOO_WORLD, repo, out)
+    except SmokeFailure:
+        for r in range(PM_GLOO_WORLD):
+            if (out / f"pm_gloo{r}.json").exists():
+                print(f"pm rank {r}: "
+                      f"{(out / f'pm_gloo{r}.json').read_text()[:20000]}",
+                      file=sys.stderr)
+        raise
+    ranks = [json.loads((out / f"pm_gloo{r}.json").read_text())
+             for r in range(PM_GLOO_WORLD)]
+    require(all(rk["backend"] == "gloo" and rk["device"] == 0
+                for rk in ranks), "pm gloo ranks not gloo on cuda:0")
+    for rk in ranks:
+        p, m = rk["pipeline"], rk["moe"]
+        perr = max(abs(a - b) for a, b in zip(p["losses"],
+                                              p["reference_losses"]))
+        require(perr <= PM_LOSS_TOL, f"rank {rk['rank']} pipelined losses "
+                                     f"{p['losses']} vs "
+                                     f"{p['reference_losses']}")
+        require(p["masters_vs_reference_max_abs_err"] <= PM_MASTER_TOL,
+                f"rank {rk['rank']} pipelined masters off: "
+                f"{p['masters_vs_reference_max_abs_err']}")
+        require(p["inf_on_rank_1"]["skipped"],
+                f"rank {rk['rank']}: rank 1's inf not skipped: "
+                f"{p['inf_on_rank_1']}")
+        f = m["first_forward"]
+        require(f["y_err"] <= PM_LOSS_TOL and f["aux_err"] <= PM_LOSS_TOL,
+                f"rank {rk['rank']} moe first forward {f}")
+        merr = max(abs(a - b) for a, b in zip(m["losses"],
+                                              m["reference_losses"]))
+        require(merr <= PM_LOSS_TOL, f"rank {rk['rank']} moe losses "
+                                     f"{m['losses']} vs "
+                                     f"{m['reference_losses']}")
+        require(m["masters_vs_reference_max_abs_err"] <= MOE_MASTER_TOL,
+                f"rank {rk['rank']} moe masters off: "
+                f"{m['masters_vs_reference_max_abs_err']}")
+        require(m["inf_on_rank_1"]["skipped"],
+                f"rank {rk['rank']}: moe rank 1's inf not skipped")
+        p["losses_max_abs_err"], m["losses_max_abs_err"] = perr, merr
+    emit("pipeline_moe", pipeline_nccl_world_one=pipe,
+         moe_nccl_world_one=moe,
+         gloo_two_processes_on_cuda0=dict(
+             world=PM_GLOO_WORLD, seconds=secs, hop_via_host=True,
+             loss_tolerance=PM_LOSS_TOL,
+             pipeline_master_tolerance=PM_MASTER_TOL,
+             moe_master_tolerance=MOE_MASTER_TOL,
+             pipeline=[rk["pipeline"] for rk in ranks],
+             moe=[rk["moe"] for rk in ranks]),
+         multi_card="not run: the machine has one card")
+    return pipe_counts, moe_counts
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
-                  "data_prefetch", "seq_parallel")
+                  "data_prefetch", "seq_parallel", "rnn", "pipeline_moe")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -6013,8 +6821,12 @@ def partial_run(names, repo: Path) -> int:
             phase_amp_surface(cfg, gpt_small_tree(cfg, seed=0))
         elif name == "data_prefetch":
             phase_data_prefetch()
-        else:
+        elif name == "seq_parallel":
             phase_seq_parallel(cfg, gpt_small_tree(cfg, seed=0), repo)
+        elif name == "rnn":
+            phase_rnn()
+        else:
+            phase_pipeline_moe(cfg, gpt_small_tree(cfg, seed=0), repo)
     return 0
 
 
@@ -6026,7 +6838,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="a partial run: comma-separated phases of "
                          + ", ".join(PARTIAL_PHASES))
-    ap.add_argument("--ddp-rank", choices=("nccl", "gloo", "sp_gloo"),
+    ap.add_argument("--ddp-rank", choices=("nccl", "gloo", "sp_gloo",
+                                           "pm_gloo"),
                     default=None,
                     help=argparse.SUPPRESS)   # a rank of ddp / seq_parallel
     ap.add_argument("--ddp-out", default=None, help=argparse.SUPPRESS)
@@ -6058,7 +6871,7 @@ def main(argv=None) -> int:
         # a rank of the ddp phase, started by the port's spawner: results
         # go to --ddp-out, failures to stderr
         rank = {"nccl": _ddp_rank_nccl, "gloo": _ddp_rank_gloo,
-                "sp_gloo": _sp_rank_gloo}
+                "sp_gloo": _sp_rank_gloo, "pm_gloo": _pm_rank_gloo}
         rank[args.ddp_rank](Path(args.ddp_out))
         return 0
     if only:
@@ -6120,7 +6933,9 @@ def main(argv=None) -> int:
         surface = phase_amp_surface(cfg, tree)
         dp_counts = phase_data_prefetch()
         sp_counts, sp_blocks = phase_seq_parallel(cfg, tree, repo)
+        pipe_counts, moe_counts = phase_pipeline_moe(cfg, tree, repo)
         del tree
+        lm_counts = phase_rnn()
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
         mh_counts = phase_flash_mh()
         repair_counts = phase_flash_repairs()
@@ -6155,7 +6970,10 @@ def main(argv=None) -> int:
                        surface["legacy_mnist"][k],
                    "add_params_step": surface["add_params"][k],
                    "data_prefetch": dp_counts[k],
-                   "seq_parallel_nccl": sp_counts[k]}
+                   "seq_parallel_nccl": sp_counts[k],
+                   "pipeline_nccl": pipe_counts.get(k, 0),
+                   "moe_nccl": moe_counts.get(k, 0),
+                   "rnn_byte_lm": lm_counts.get(k, 0)}
                for k in bert_counts}
     rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8

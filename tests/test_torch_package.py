@@ -15,6 +15,7 @@ from apex_tpu_torch.convert import params_from_jax
 from apex_tpu_torch.models import GPTModel, gpt_tiny
 from apex_tpu_torch.models.generate import generate
 from apex_tpu_torch.ops import resolve_device
+from apex_tpu_torch.rnn import RNN, init_state
 from apex_tpu_torch.serve import ServeConfig, ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -56,6 +57,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPTModel(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RNN("mlstm", 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state("lstm", 2, 8)
+    assert RNN("mlstm", 4, 8, device="cpu").layer_0_fwd.w_hh.device.type \
+        == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, cfg, ServeConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
