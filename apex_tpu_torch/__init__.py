@@ -18,7 +18,10 @@ sums of squares run as hand-written CUDA kernels (``apex_tpu_torch/csrc``)
 on the card and as their plain PyTorch versions on the CPU.  Data
 parallelism across processes: :mod:`apex_tpu_torch.parallel`
 (``multiproc``, ``DistributedDataParallel``, a synchronized
-``SyncBatchNorm``) over ``torch.distributed``.  Entry points
-default to the card and raise when there is none unless given
+``SyncBatchNorm``) over ``torch.distributed``.  Checkpoints and
+resumes: :mod:`apex_tpu_torch.checkpoint` over the durable snapshots of
+:mod:`apex_tpu_torch.resilience`, whose ``run_resilient`` is the
+self-healing train loop (watchdog, IO retry, divergence rewind).  Entry
+points default to the card and raise when there is none unless given
 ``device="cpu"``.
 """

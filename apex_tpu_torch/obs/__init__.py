@@ -1,3 +1,4 @@
+from apex_tpu_torch.obs.flight import FlightRecorder
 from apex_tpu_torch.obs.metrics import (
     DEFAULT,
     Counter,
@@ -6,4 +7,5 @@ from apex_tpu_torch.obs.metrics import (
     Registry,
 )
 
-__all__ = ["Counter", "DEFAULT", "Gauge", "Histogram", "Registry"]
+__all__ = ["Counter", "DEFAULT", "FlightRecorder", "Gauge", "Histogram",
+           "Registry"]

@@ -6,13 +6,16 @@ Values are host numbers, applied when recorded.  The JAX package defers
 device values and resolves them a step late; in eager PyTorch the engine
 records host numbers only, so :meth:`Registry.tick` is a no-op kept for
 the engine's step-boundary call.  Histogram buckets and quantile
-interpolation are the JAX package's, so p50/p99 mean the same in both.
+interpolation are the JAX package's, so p50/p99 mean the same in both,
+and :meth:`Registry.snapshot` writes the JAX package's rows, so a
+snapshot in an incident record reads the same from either package.
 """
 
 from __future__ import annotations
 
 import bisect
 import math
+import threading
 from typing import Dict, Sequence
 
 import numpy as np
@@ -110,12 +113,15 @@ class Registry:
 
     def __init__(self):
         self._instruments: Dict[str, object] = {}
+        # a watchdog thread snapshots while the loop registers
+        self._lock = threading.Lock()
 
     def _get(self, cls, name: str, help: str, **kwargs):
-        inst = self._instruments.get(name)
-        if inst is None:
-            inst = self._instruments[name] = cls(name, help, **kwargs)
-        elif not isinstance(inst, cls):
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                inst = self._instruments[name] = cls(name, help, **kwargs)
+        if not isinstance(inst, cls):
             raise TypeError(f"metric {name!r} already registered as "
                             f"{inst.kind}, not {cls.kind}")
         return inst
@@ -132,6 +138,34 @@ class Registry:
 
     def tick(self) -> None:
         """Step boundary.  Nothing is deferred in eager mode."""
+
+    def snapshot(self) -> dict:
+        """JSON-serializable export of every instrument, by name, in the
+        JAX package's rows: ``{"name", "type", "help", "value"}`` for a
+        counter or gauge, and for a histogram ``"buckets"`` (cumulative
+        counts by upper bound, ``"+Inf"`` last), ``"sum"`` and
+        ``"count"``."""
+        out = []
+        with self._lock:
+            for name in sorted(self._instruments):
+                inst = self._instruments[name]
+                rec: dict = {"name": name, "type": inst.kind,
+                             "help": inst.help}
+                if isinstance(inst, Histogram):
+                    rec["buckets"] = {
+                        _fmt_le(b): int(c) for b, c in
+                        zip(inst.bounds + (math.inf,),
+                            np.cumsum(inst.counts).tolist())}
+                    rec["sum"] = round(float(inst.sum), 9)
+                    rec["count"] = int(inst.count)
+                else:
+                    rec["value"] = float(inst.value)
+                out.append(rec)
+        return {"metrics": out}
+
+
+def _fmt_le(bound: float) -> str:
+    return "+Inf" if math.isinf(bound) else repr(round(bound, 12))
 
 
 #: the process-default registry, used unless a caller passes its own

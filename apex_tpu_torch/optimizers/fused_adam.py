@@ -140,6 +140,24 @@ class FusedAdam(torch.optim.Optimizer):
         group["leaf_steps"] = steps
         return steps
 
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Make every parameter's moments and step count now (zeros and 0
+        for a new one, as the first step would), so that a checkpoint can
+        name them before the first step."""
+        for group in self.param_groups:
+            if group["params"]:
+                self._group_steps(group)
+
+    def schedule_step(self) -> torch.Tensor:
+        """The updates applied so far (the JAX package's global
+        ``FusedAdamState.step``): the largest per-leaf count, since a
+        leaf added mid-run counts from 0.  A new 0-dim int32 tensor."""
+        self.init_state()
+        counts = [g["leaf_steps"].max() for g in self.param_groups
+                  if g["params"]]
+        return torch.stack(counts).max()
+
     def _table(self, key, params: List[torch.Tensor]) -> ChunkTable:
         """The chunk table of ``key`` (a group and a dtype pair), built
         anew when its leaves' sizes or device change."""

@@ -124,6 +124,21 @@ class FusedLAMB(torch.optim.Optimizer):
             self._table = t
         return t
 
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Make every parameter's moments and step count, and the global
+        count, now (zeros and 0 where new, as the first step would), so
+        that a checkpoint can name them before the first step."""
+        for group in self.param_groups:
+            if group["params"]:
+                self._leaf_steps(group)
+
+    def schedule_step(self) -> torch.Tensor:
+        """The global schedule counter (the JAX package's
+        ``FusedLAMBState.step``): the group's own 0-dim int32 tensor."""
+        self.init_state()
+        return self.param_groups[0]["step"]
+
     def _leaf_steps(self, group) -> torch.Tensor:
         """The group's per-leaf step counts, one int32 vector; each
         parameter's ``state['step']`` is a 0-dim view into it.  A

@@ -11,7 +11,8 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 (``o0_train``, ``generic_kernels``, ``train_kernels``, ``train``,
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
-``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``),
+``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``,
+``resilience``),
 printing their lines and no ``kernels`` or ``ok`` line: how one card
 times a parent against a change.  The ``ddp``, ``seq_parallel`` and
 ``pipeline_moe`` phases re-run this script as their ranks
@@ -239,6 +240,23 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             experts and 8192 tokens a rank against one process holding
             all 8 (the first y and aux, 3 steps' losses within 2e-2), and
             in both an inf in rank 1's gradients skipping both ranks;
+   resilience  (after pipeline_moe) durable checkpoints and
+            ``run_resilient`` on gpt_small O2 + FusedAdam at B 8 x L 2048
+            (12 steps, batches a function of the step index, a checkpoint
+            every 4, at most 2 snapshots kept, under a temporary directory
+            the phase deletes): the plain loop and the resilient loop in
+            turns (both step p50s, the save's blocking ms, the writer's
+            ms, the snapshot's bytes, the restore's ms, K6 1 and K11 1 a
+            resolved step, K15 once a checkpoint); a preemption at step 8
+            resumed by a fresh model, Amp and manager, equal to the
+            uninterrupted run (bit for bit where the uninterrupted runs
+            agree bit for bit, else within their spread); a NaN storm
+            pinning the scale after the commit of step index 7 was
+            corrupted: the rewind skips it and lands on step index 3, and
+            the losses fall again; a flaky save absorbed by ``retry_io``; a
+            4 s hang under a 2 s watchdog: a valid incident written
+            within the hang, then ``WatchdogTimeout``; the card's snapshot
+            restored into a CPU template bit for bit;
    rnn      every RNN mode card against CPU (H 512, B 16, T 32, both
             directions, ragged lengths) in fp32 (1e-4 of each tensor's
             largest element; the chaotic mLSTM 1e-3, beside each case's
@@ -6776,10 +6794,453 @@ def phase_pipeline_moe(cfg, tree, repo: Path):
     return pipe_counts, moe_counts
 
 
+# -- resilience: durable checkpoints and the self-healing loop ----------------
+
+RES_STEPS = 12
+RES_EVERY = 4
+RES_PREEMPT_AT = 8
+RES_MIN_SCALE = 2.0 ** 14
+RES_KEEP = 2
+RES_WATCHDOG_S = 2.0
+RES_HANG_S = 4.0
+RES_TURNS = 2
+#: the storm: poisoned from step index 8 for 4 firings; with the scale's
+#: floor at 2**14 (from 2**16) it pins at step 9, and 2 pinned overflows
+#: in a row (steps 9 and 10) call the rewind before the save of step 11
+RES_STORM = dict(step=8, duration=4)
+RES_PATIENCE = 2
+#: the corrupted commit: the snapshot of step index 7 (8 steps done)
+RES_CORRUPT_AT = 7
+
+
+def _res_batches(cfg):
+    """The resilience phase's batches, a function of the step index: the
+    train stream shifted by the index, and a zero poison row (the
+    floating tensor a NaN storm poisons; ``_gpt_loss_poisoned``), on the
+    card, made once."""
+    import torch
+    base = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                           device="cuda")
+    made = [((base + i) % cfg.vocab_size,
+             torch.zeros(TRAIN_B, device="cuda"))
+            for i in range(RES_STEPS)]
+    return lambda i: made[i]
+
+
+def _res_amp(cfg, tree, device="cuda"):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True, device=device)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4,
+                                        device=device),
+                       opt_level="O2", min_loss_scale=RES_MIN_SCALE,
+                       device=device)
+    return a, amp.make_train_step(a, model, _gpt_loss_poisoned)
+
+
+def _host_state(a):
+    """``{leaf name: CPU tensor}`` of an amp state's checkpoint payload."""
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.resilience.durable import tree_leaves_with_path
+    return dict(tree_leaves_with_path(checkpoint.state_dict(a)))
+
+
+def _state_diff(got: dict, want: dict) -> dict:
+    """Bitwise equality of two host states, and the largest absolute
+    difference of the masters and of each moment where they differ."""
+    import torch
+    require(list(got) == list(want), "the states name other leaves")
+    out = {"bitwise": True, "masters": 0.0, "m": 0.0, "v": 0.0,
+           "counts_equal": True}
+    for k, w in want.items():
+        g = got[k]
+        if torch.equal(g, w):
+            continue
+        out["bitwise"] = False
+        if k.startswith("['master_params']"):
+            cat = "masters"
+        elif k.startswith("['opt_state'].m"):
+            cat = "m"
+        elif k.startswith("['opt_state'].v"):
+            cat = "v"
+        else:
+            out["counts_equal"] = False
+            continue
+        out[cat] = max(out[cat], float((g.double() - w.double()).abs()
+                                       .max()))
+    return out
+
+
+def _timed_step(step, stamps):
+    def timed(*batch):
+        stamps.append(time.perf_counter())
+        return step(*batch)
+    return timed
+
+
+def _p50_intervals(stamps):
+    gaps = np.diff(np.asarray(stamps)) * 1e3
+    return float(np.median(gaps)), gaps.tolist()
+
+
+def _plain_run(step, batch, n):
+    """The plain loop: each step queued, the previous step's loss read
+    (the same one-step lag as the resilient loop's)."""
+    import torch
+    stamps, losses, prev = [], [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        stamps.append(time.perf_counter())
+        m = step(*batch(i))
+        if prev is not None:
+            losses.append(float(prev["loss"]))
+        prev = m
+    losses.append(float(prev["loss"]))
+    torch.cuda.synchronize()
+    return stamps, losses, time.perf_counter() - t0
+
+
+def _timed_manager(directory, **kw):
+    """A durable manager whose ``save`` (the training thread's blocking
+    part) and commits (the writer thread: from the save hook to the
+    commit hook) are timed."""
+    from apex_tpu_torch.resilience import DurableCheckpointManager
+    rec = {"save_ms": [], "writer_ms": [], "commits": []}
+    starts = []
+    mgr = DurableCheckpointManager(
+        directory, max_to_keep=RES_KEEP,
+        io_hook=lambda op: starts.append(time.perf_counter())
+        if op == "save" else None,
+        on_commit=lambda s, p: (rec["writer_ms"].append(
+            (time.perf_counter() - starts[-1]) * 1e3),
+            rec["commits"].append(s)), **kw)
+    save = mgr.save
+
+    def timed_save(step, state, extras=None):
+        t0 = time.perf_counter()
+        save(step, state, extras)
+        rec["save_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    mgr.save = timed_save
+    return mgr, rec
+
+
+def _snapshot_bytes(path) -> int:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return sum(m["bytes"] for m in json.load(f)["leaves"].values())
+
+
+def phase_resilience(cfg, tree):
+    """Durable checkpoints and the self-healing loop on gpt_small O2 +
+    FusedAdam at B 8 x L 2048 (12 layers, seeded weights; batches a
+    function of the step index), under a temporary directory deleted at
+    the end (at most 2 snapshots of ~1.5 GB kept): (a) the plain loop and
+    ``run_resilient`` (a checkpoint every 4 steps) in turns, from the same
+    initial state restored in place each time; (b) a preemption at step
+    8, then a fresh model, Amp and manager restore and run to step 12;
+    (c) a NaN storm that pins the scale after the snapshot of step index
+    7 was corrupted on commit: the rewind skips it and lands on step
+    index 3; (d) a flaky save absorbed by ``retry_io``; (e) a hung step
+    under a 2 s watchdog; (f) the card's snapshot restored into a CPU
+    template, bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.resilience import (
+        CorruptCheckpoint, DurableCheckpointManager, FaultInjector, FlakyIO,
+        HangStep, NaNStorm, Preempt, ResilienceConfig, SimulatedPreemption,
+        WatchdogTimeout, read_snapshot, run_resilient, validate_incident)
+    from apex_tpu_torch.obs import Registry
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="apex_tpu_torch_resilience_")
+    try:
+        a, step = _res_amp(cfg, tree)
+        batch = _res_batches(cfg)
+        init = checkpoint.state_dict(a)
+        step(*batch(0))                       # warm-up, then back to init
+        torch.cuda.synchronize()
+
+        def reset():
+            checkpoint.load_state_dict(a, init)
+            torch.cuda.synchronize()
+
+        cfg_a = ResilienceConfig(checkpoint_every=RES_EVERY,
+                                 watchdog_timeout_s=120.0)
+        # (a) the loop's overhead, in turns with the plain loop
+        plain, resil, ref, spread, runs = [], [], None, [], []
+        counts = None
+        for turn in range(RES_TURNS):
+            reset()
+            stamps, losses, wall = _plain_run(step, batch, RES_STEPS)
+            p50, gaps = _p50_intervals(stamps)
+            plain.append(dict(step_ms_p50=p50, step_gaps_ms=gaps,
+                              wall_s=wall, losses=losses))
+            state = _host_state(a)
+            if ref is None:
+                ref, ref_losses = state, losses
+            else:
+                spread.append(_state_diff(state, ref))
+            runs.append(("plain", losses))
+            reset()
+            d = os.path.join(root, f"overhead{turn}")
+            mgr, rec = _timed_manager(d)
+            stamps = []
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = run_resilient(_timed_step(step, stamps), a, batch,
+                                   RES_STEPS, manager=mgr, config=cfg_a,
+                                   registry=Registry())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if counts is None:
+                counts = launch_counts()
+            p50, gaps = _p50_intervals(stamps)
+            losses = [v for _, v in result.losses]
+            resil.append(dict(step_ms_p50=p50, step_gaps_ms=gaps,
+                              wall_s=wall, losses=losses,
+                              save_blocking_ms=rec["save_ms"],
+                              writer_ms=rec["writer_ms"],
+                              commits=rec["commits"],
+                              on_disk=mgr.all_steps()))
+            spread.append(_state_diff(_host_state(a), ref))
+            runs.append(("resilient", losses))
+            require(rec["commits"] == [3, 7, 11],
+                    f"commits {rec['commits']}, want [3, 7, 11]")
+            require(mgr.all_steps() == [7, 11],
+                    f"retention kept {mgr.all_steps()}")
+            if turn == RES_TURNS - 1:
+                # restore timing on this run's last snapshot (warm reads),
+                # and (f): the card's snapshot into a CPU template
+                path = mgr.path_of(11)
+                nbytes = _snapshot_bytes(path)
+                t0 = time.perf_counter()
+                read_snapshot(path)
+                read_ms = (time.perf_counter() - t0) * 1e3
+                final = _host_state(a)
+                reset()
+                t0 = time.perf_counter()
+                mgr.restore(a)
+                torch.cuda.synchronize()
+                restore_ms = (time.perf_counter() - t0) * 1e3
+                require(_state_diff(_host_state(a), final)["bitwise"],
+                        "the card's restore is not bit for bit")
+                cpu_a, _ = _res_amp(cfg, tree, device="cpu")
+                t0 = time.perf_counter()
+                DurableCheckpointManager(d).restore(cpu_a)
+                cpu_restore_ms = (time.perf_counter() - t0) * 1e3
+                to_cpu = _state_diff(_host_state(cpu_a), final)
+                require(to_cpu["bitwise"],
+                        f"card -> CPU restore not bitwise: {to_cpu}")
+                compute_ok = all(
+                    torch.equal(p, m.to(torch.bfloat16)) for p, m in
+                    zip(cpu_a.params, cpu_a.masters.values()))
+                require(compute_ok, "the CPU compute params are not the "
+                                    "bf16 rounding of the restored masters")
+                del cpu_a, final
+            mgr.close()
+            shutil.rmtree(d)
+        deterministic = all(s["bitwise"] for s in spread) and all(
+            l == ref_losses for _, l in runs)
+        per = {k: v / RES_STEPS for k, v in counts.items()}
+        want = dict(gpt_pass_launches(cfg), packed_scale=1,
+                    packed_adam_tree=1,
+                    packed_nonfinite=3 / RES_STEPS)    # the save's check
+        require(per == want, f"resilient launches a step {per}, want "
+                             f"{want}")
+        p_p50 = float(np.median([r["step_ms_p50"] for r in plain]))
+        r_p50 = float(np.median([r["step_ms_p50"] for r in resil]))
+        overhead = dict(
+            turns=RES_TURNS, plain=plain, resilient=resil,
+            plain_step_ms_p50=p_p50, resilient_step_ms_p50=r_p50,
+            overhead_p50=r_p50 / p_p50 - 1.0,
+            plain_wall_s=[r["wall_s"] for r in plain],
+            resilient_wall_s=[r["wall_s"] for r in resil],
+            save_blocking_ms=[x for r in resil for x in
+                              r["save_blocking_ms"]],
+            writer_ms=[x for r in resil for x in r["writer_ms"]],
+            snapshot_bytes=nbytes, restore_read_verify_ms=read_ms,
+            restore_ms=restore_ms, restore_upload_ms=restore_ms - read_ms,
+            restore_into_cpu_ms=cpu_restore_ms,
+            uninterrupted_runs_spread=spread, deterministic=deterministic)
+
+        # (b) preempted at step 8, resumed by a fresh model, Amp, manager
+        reset()
+        d = os.path.join(root, "preempt")
+        mgr = DurableCheckpointManager(d, max_to_keep=RES_KEEP)
+        inj = FaultInjector([Preempt(step=RES_PREEMPT_AT)])
+        inc = os.path.join(root, "INCIDENT_preempt.json")
+        try:
+            run_resilient(step, a, batch, RES_STEPS, manager=mgr,
+                          config=ResilienceConfig(
+                              checkpoint_every=RES_EVERY,
+                              watchdog_timeout_s=120.0, incident_path=inc),
+                          injector=inj, registry=Registry())
+            raise SmokeFailure("the preemption did not fire")
+        except SimulatedPreemption:
+            pass
+        mgr.close()
+        with open(inc) as f:
+            rec = json.load(f)
+        require(rec["status"] == "preempted" and validate_incident(rec) == [],
+                f"preemption incident {rec.get('status')}: "
+                f"{validate_incident(rec)}")
+        b, step_b = _res_amp(cfg, tree)
+        mgr_b = DurableCheckpointManager(d, max_to_keep=RES_KEEP)
+        mgr_b.restore(b)
+        restored_at = mgr_b.last_restore["step"]
+        require(restored_at == RES_PREEMPT_AT - 1,
+                f"restored step {restored_at}, want {RES_PREEMPT_AT - 1}")
+        resumed = run_resilient(step_b, b, batch, RES_STEPS, manager=mgr_b,
+                                config=cfg_a, registry=Registry(),
+                                start_step=RES_PREEMPT_AT)
+        mgr_b.close()
+        resumed_losses = [v for _, v in resumed.losses]
+        vs_ref = _state_diff(_host_state(b), ref)
+        loss_err = max(abs(x - y) for x, y in
+                       zip(resumed_losses, ref_losses[RES_PREEMPT_AT:]))
+        if deterministic:
+            require(vs_ref["bitwise"] and loss_err == 0.0,
+                    f"the resumed run is not bit for bit: {vs_ref}, "
+                    f"losses {resumed_losses}")
+            held = "bitwise (the uninterrupted runs agree bit for bit)"
+        else:
+            worst = {c: max(s[c] for s in spread)
+                     for c in ("masters", "m", "v")}
+            require(all(vs_ref[c] <= worst[c] for c in worst)
+                    and vs_ref["counts_equal"],
+                    f"the resumed run {vs_ref} is outside the spread "
+                    f"{worst} of the uninterrupted runs")
+            held = f"within the uninterrupted runs' spread {worst}"
+        preempt = dict(preempt_at=RES_PREEMPT_AT, restored_step=restored_at,
+                       resumed_losses=resumed_losses,
+                       uninterrupted_losses=ref_losses[RES_PREEMPT_AT:],
+                       loss_max_abs_err=loss_err, vs_uninterrupted=vs_ref,
+                       held=held, incident_status=rec["status"])
+        del b, step_b
+        shutil.rmtree(d)
+        torch.cuda.empty_cache()
+
+        # (c) a NaN storm pinning the scale after a corrupted commit
+        reset()
+        d = os.path.join(root, "storm")
+        inj = FaultInjector([CorruptCheckpoint(step=RES_CORRUPT_AT,
+                                               kind="corrupt"),
+                             NaNStorm(**RES_STORM)], seed=0)
+        mgr = DurableCheckpointManager(d, max_to_keep=RES_KEEP, fsync=False,
+                                       on_commit=inj.on_commit)
+        reset_launch_counts()
+        storm = run_resilient(
+            step, a, batch, RES_STEPS, manager=mgr,
+            config=ResilienceConfig(checkpoint_every=RES_EVERY,
+                                    overflow_patience=RES_PATIENCE,
+                                    max_rewinds=2, watchdog_timeout_s=120.0),
+            injector=inj, registry=Registry())
+        storm_counts = launch_counts()
+        last = mgr.last_restore
+        mgr.close()
+        rewinds = [e for e in storm.events if e["event"] == "rewind"]
+        require(storm.rewinds == 1 and rewinds[0]["to_step"] == 3,
+                f"storm rewinds {storm.events}")
+        require(last["step"] == 3 and [s["step"] for s in last["skipped"]]
+                == [RES_CORRUPT_AT],
+                f"the rewind did not skip the corrupt snapshot: {last}")
+        # resolving step 10 (the second pinned overflow) called the rewind
+        at = [j for j, _ in storm.losses].index(10)
+        after = [v for _, v in storm.losses[at + 1:]]
+        require(all(np.isfinite(after)) and after[-1] < after[0],
+                f"losses after the rewind do not fall: {storm.losses}")
+        require(float(a.scaler_state.loss_scale) > RES_MIN_SCALE,
+                "the scaler was not re-initialized by the rewind")
+        storm_rec = dict(
+            events=storm.events, injector_events=[
+                {k: v for k, v in e.items() if k != "utc"}
+                for e in inj.events],
+            last_restore={"step": last["step"],
+                          "skipped": [s["step"] for s in last["skipped"]]},
+            losses=storm.losses, losses_after_rewind=after,
+            steps_dispatched=storm_counts["packed_adam_tree"],
+            steps_resolved=len(storm.losses),
+            launches_k6=storm_counts["packed_scale"],
+            launches_k11=storm_counts["packed_adam_tree"],
+            loss_scale_after=float(a.scaler_state.loss_scale))
+        shutil.rmtree(d)
+
+        # (d) a flaky save, absorbed by retry_io
+        reset()
+        d = os.path.join(root, "flaky")
+        inj = FaultInjector([FlakyIO(op="save", fails=2)])
+        mgr = DurableCheckpointManager(d, async_save=False, io_retries=0,
+                                       fsync=False, io_hook=inj.io_hook)
+        flaky = run_resilient(
+            step, a, batch, RES_EVERY, manager=mgr,
+            config=ResilienceConfig(checkpoint_every=RES_EVERY,
+                                    io_retries=3, io_backoff_s=0.05,
+                                    watchdog_timeout_s=120.0),
+            injector=inj, registry=Registry())
+        retries = [e for e in flaky.events if e["event"] == "save_retry"]
+        require(len(retries) == 2 and mgr.all_steps() == [RES_EVERY - 1],
+                f"flaky save: {flaky.events}, on disk {mgr.all_steps()}")
+        mgr.close()
+        shutil.rmtree(d)
+
+        # (e) a hung step under a 2 s watchdog
+        reset()
+        inc = os.path.join(root, "INCIDENT_watchdog.json")
+        inj = FaultInjector([HangStep(step=2, seconds=RES_HANG_S)])
+        t0 = time.time()
+        try:
+            run_resilient(step, a, batch, 4, config=ResilienceConfig(
+                watchdog_timeout_s=RES_WATCHDOG_S, watchdog_poll_s=0.05,
+                incident_path=inc), injector=inj, registry=Registry())
+            raise SmokeFailure("the watchdog did not fire")
+        except WatchdogTimeout:
+            raised_s = time.time() - t0
+        hang_start = next(e for e in inj.events if e["fault"] == "hang_step")
+        with open(inc) as f:
+            rec = json.load(f)
+        written_s = os.path.getmtime(inc) - t0
+        require(rec["status"] == "watchdog-timeout"
+                and validate_incident(rec) == [],
+                f"watchdog incident {rec.get('status')}: "
+                f"{validate_incident(rec)}")
+        # the record lands while the hang still holds the loop
+        require(written_s < RES_HANG_S, f"incident written {written_s} s "
+                                        f"after the run began")
+        hang = dict(budget_s=RES_WATCHDOG_S, hang_s=RES_HANG_S,
+                    incident_written_s=written_s, raised_s=raised_s,
+                    hang_step=hang_start["step"],
+                    flight_kinds=sorted({e["kind"] for e in
+                                         rec["flight"]["events"]}))
+        emit("resilience", model="gpt_small", opt_level="O2",
+             optimizer="FusedAdam", lr=3e-4, batch=TRAIN_B, seq_len=TRAIN_L,
+             steps=RES_STEPS, checkpoint_every=RES_EVERY,
+             min_loss_scale=RES_MIN_SCALE, max_to_keep=RES_KEEP,
+             fsync={"overhead_and_preempt": True, "storm_and_flaky": False},
+             overhead=overhead, launches=counts,
+             launches_per_resolved_step=per, preempt_and_resume=preempt,
+             nan_storm_on_corrupt_snapshot=storm_rec,
+             flaky_save={"retries": retries, "events": flaky.events},
+             hang=hang,
+             card_to_cpu_restore={"bitwise": True,
+                                  "restore_ms": cpu_restore_ms},
+             seconds=time.perf_counter() - t_phase)
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
-                  "data_prefetch", "seq_parallel", "rnn", "pipeline_moe")
+                  "data_prefetch", "seq_parallel", "rnn", "pipeline_moe",
+                  "resilience")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -6825,8 +7286,10 @@ def partial_run(names, repo: Path) -> int:
             phase_seq_parallel(cfg, gpt_small_tree(cfg, seed=0), repo)
         elif name == "rnn":
             phase_rnn()
-        else:
+        elif name == "pipeline_moe":
             phase_pipeline_moe(cfg, gpt_small_tree(cfg, seed=0), repo)
+        else:
+            phase_resilience(cfg, gpt_small_tree(cfg, seed=0))
     return 0
 
 
@@ -6934,6 +7397,7 @@ def main(argv=None) -> int:
         dp_counts = phase_data_prefetch()
         sp_counts, sp_blocks = phase_seq_parallel(cfg, tree, repo)
         pipe_counts, moe_counts = phase_pipeline_moe(cfg, tree, repo)
+        res_counts = phase_resilience(cfg, tree)
         del tree
         lm_counts = phase_rnn()
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
@@ -6973,7 +7437,8 @@ def main(argv=None) -> int:
                    "seq_parallel_nccl": sp_counts[k],
                    "pipeline_nccl": pipe_counts.get(k, 0),
                    "moe_nccl": moe_counts.get(k, 0),
-                   "rnn_byte_lm": lm_counts.get(k, 0)}
+                   "rnn_byte_lm": lm_counts.get(k, 0),
+                   "resilient_loop": res_counts.get(k, 0)}
                for k in bert_counts}
     rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8

@@ -2416,3 +2416,85 @@ def test_data_prefetcher_runs_on_a_side_stream(cuda):
     for (x, y), (wx, wy) in zip(got, want):
         cx, cy = normalize_uint8((torch.from_numpy(wx), torch.from_numpy(wy)))
         assert torch.equal(x, cx) and torch.equal(y, cy)
+
+
+def _tiny_o2(dev, seed=0):
+    """gpt_tiny at amp O2 + FusedAdam on ``dev`` from seeded weights, its
+    step, and a batch."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTModel, gpt_tiny, lm_loss
+    from apex_tpu_torch.optimizers import FusedAdam
+    torch.manual_seed(seed)
+    model = GPTModel(gpt_tiny(), device="cpu").to(dev)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                        device=dev),
+                       opt_level="O2", device=dev)
+    step = amp.make_train_step(
+        a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+    ids = (torch.arange(64).reshape(2, 32) * 7 % 512).to(dev)
+    return a, step, ids
+
+
+def _host_leaves(a):
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.resilience.durable import tree_leaves_with_path
+    return dict(tree_leaves_with_path(checkpoint.state_dict(a)))
+
+
+def _equal_states(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_durable_round_trip_card_cpu_card_is_bitwise(cuda, tmp_path):
+    """An amp O2 state saved on the card restores bit for bit into a CPU
+    template, and the CPU's snapshot back into a fresh card state; the
+    compute params follow the masters on both."""
+    from apex_tpu_torch.resilience import DurableCheckpointManager
+    a, step, ids = _tiny_o2(cuda)
+    for _ in range(3):
+        step(ids)
+    want = _host_leaves(a)
+    mgr = DurableCheckpointManager(str(tmp_path / "card"), fsync=False)
+    mgr.save(2, a)
+    mgr.close()
+    cpu_a, _, _ = _tiny_o2("cpu", seed=1)
+    DurableCheckpointManager(str(tmp_path / "card")).restore(cpu_a)
+    _equal_states(_host_leaves(cpu_a), want)
+    mgr = DurableCheckpointManager(str(tmp_path / "cpu"), fsync=False)
+    mgr.save(2, cpu_a)
+    mgr.close()
+    back, _, _ = _tiny_o2(cuda, seed=2)
+    DurableCheckpointManager(str(tmp_path / "cpu")).restore(back)
+    _equal_states(_host_leaves(back), want)
+    for b in (cpu_a, back):
+        for p, m in zip(b.params, b.masters.values()):
+            assert torch.equal(p, m.to(torch.bfloat16))
+
+
+def test_first_step_after_a_restore_equals_the_uninterrupted_step(
+        cuda, tmp_path):
+    """A restore into the Amp that ran on copies into its own tensors:
+    K11 reads the restored per-leaf counts and moments (no stale views or
+    chunk-table rows), so the first step after the restore equals the
+    uninterrupted step bit for bit, with one K6 and one K11 launch."""
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.resilience import DurableCheckpointManager
+    a, step, ids = _tiny_o2(cuda)
+    for _ in range(2):
+        step(ids)
+    mgr = DurableCheckpointManager(str(tmp_path), fsync=False,
+                                   async_save=False)
+    mgr.save(1, a)
+    want_loss = step(ids)["loss"].clone()
+    want = _host_leaves(a)
+    for _ in range(2):
+        step(ids)
+    mgr.restore(a)
+    reset_launch_counts()
+    loss = step(ids)["loss"]
+    counts = launch_counts()
+    assert counts["packed_scale"] == 1 and counts["packed_adam_tree"] == 1
+    assert torch.equal(loss, want_loss)
+    _equal_states(_host_leaves(a), want)

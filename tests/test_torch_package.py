@@ -1,5 +1,6 @@
 """The port's package boundary: no module of ``apex_tpu_torch`` (nor
-``chip_smoke.py`` or ``chip_split.py``) imports JAX or the JAX package,
+``chip_smoke.py``, ``chip_split.py`` or ``chip_io.py``) imports JAX or
+the JAX package,
 and the entry points run on the card unless the caller asks for the
 CPU."""
 
@@ -36,11 +37,25 @@ def _forbidden(name):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "apex_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_split.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_split.py",
+              ROOT / "chip_io.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []
+
+
+@pytest.mark.parametrize("module", [
+    "checkpoint.py", "obs/flight.py", "obs/metrics.py",
+    "resilience/__init__.py", "resilience/durable.py",
+    "resilience/faults.py", "resilience/incidents.py",
+    "resilience/loop.py"])
+def test_the_resilience_modules_import_nothing_of_jax(module):
+    """Every import of the module, at the top or inside a function."""
+    path = ROOT / "apex_tpu_torch" / module
+    names = list(_imports(path))
+    assert names
+    assert [n for n in names if _forbidden(n)] == []
 
 
 def test_the_check_tells_the_packages_apart():
@@ -135,7 +150,15 @@ def test_the_new_modules_are_covered_by_the_import_check():
             "apex_tpu_torch/fp16_utils/loss_scaler.py",
             "apex_tpu_torch/ops/packing.py",
             "apex_tpu_torch/data.py",
-            "apex_tpu_torch/attention/ring.py"} <= names
+            "apex_tpu_torch/attention/ring.py",
+            "apex_tpu_torch/checkpoint.py",
+            "apex_tpu_torch/obs/flight.py",
+            "apex_tpu_torch/obs/metrics.py",
+            "apex_tpu_torch/resilience/__init__.py",
+            "apex_tpu_torch/resilience/durable.py",
+            "apex_tpu_torch/resilience/faults.py",
+            "apex_tpu_torch/resilience/incidents.py",
+            "apex_tpu_torch/resilience/loop.py"} <= names
 
 
 def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
