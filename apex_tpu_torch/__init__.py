@@ -6,7 +6,7 @@ batching over a paged KV cache) and solo
 :func:`~apex_tpu_torch.models.generate.generate`, with weights brought
 across from a JAX checkpoint by :func:`~apex_tpu_torch.convert.
 params_from_jax`.  Training GPT and BERT: :mod:`apex_tpu_torch.amp`
-(O0-O3, device-side loss scaling, ``make_train_step`` with gradient
+(O0-O4, device-side loss scaling, ``make_train_step`` with gradient
 accumulation) with :class:`~apex_tpu_torch.optimizers.FusedAdam` or
 :class:`~apex_tpu_torch.optimizers.FusedLAMB`; the flat-buffer
 :class:`~apex_tpu_torch.optimizers.FP16Optimizer`; the multi-tensor
@@ -21,7 +21,9 @@ parallelism across processes: :mod:`apex_tpu_torch.parallel`
 ``SyncBatchNorm``) over ``torch.distributed``.  Checkpoints and
 resumes: :mod:`apex_tpu_torch.checkpoint` over the durable snapshots of
 :mod:`apex_tpu_torch.resilience`, whose ``run_resilient`` is the
-self-healing train loop (watchdog, IO retry, divergence rewind).  Entry
+self-healing train loop (watchdog, IO retry, divergence rewind).  fp8
+training (amp O4) and the int8 KV cache (``kv_dtype="int8"`` in
+``generate`` and the serve engine): :mod:`apex_tpu_torch.quant`.  Entry
 points default to the card and raise when there is none unless given
 ``device="cpu"``.
 """

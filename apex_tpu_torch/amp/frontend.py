@@ -70,7 +70,24 @@ and the scalers move together.  Nothing is read back to the host.
 
 :meth:`Amp.add_params` grows a live ``Amp`` by new parameters mid-run.
 
-Not ported yet: fp8 (O4) and the AOT cache.
+fp8 training (O4: ``initialize(..., opt_level="O4")``) follows the JAX
+package's step: the ``Amp`` carries :attr:`Amp.fp8_state`, an
+:class:`~apex_tpu_torch.quant.fp8.Fp8TrainState` of device tensors (the
+input, weight and grad classes' amax histories and delayed scales); the
+step opens :func:`~apex_tpu_torch.amp.ops.fp8_trace` around the forward,
+with the e5m2 cotangent scale ``grad.scale / loss_scale``, so the op
+layer's contractions quantize their operands at the delayed scales and
+collect their amaxes; the grad class's amax is ``tree_amax`` of the
+still-scaled gradients times ``1 / loss_scale`` (of the unscaled fp32
+accumulators with ``accum_steps``, each forward class the max over the
+micro-batches); then every step, an overflowed one too (its grad amax is
+non-finite and records 0), rolls the histories
+(``update_train_state``), and the metrics gain ``fp8_amax_saturation``
+and ``fp8_rescales``, device tensors.  The quantize-dequantize chains
+and the amaxes are eager PyTorch, as the JAX package computes them
+outside any kernel; nothing is read back to the host.
+
+Not ported: the AOT cache.
 """
 
 from __future__ import annotations
@@ -90,6 +107,7 @@ from apex_tpu_torch.amp.policy import Properties
 from apex_tpu_torch.amp.scaler import LossScaler, LossScaleState, all_finite
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
 from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, multi_tensor_axpby
+from apex_tpu_torch.quant import fp8 as fp8_lib
 
 #: name fragments of normalization parameters kept in fp32 under
 #: keep_batchnorm_fp32 (the JAX package's ``default_keep_fp32_filter``)
@@ -134,8 +152,10 @@ class Amp:
     ``params`` (the compute params, in the model's parameter order),
     ``masters`` (``{name: fp32 tensor}``; the compute params themselves
     when master weights are off), ``scaler_states`` (one per loss;
-    ``scaler_state`` is loss 0's), ``num_losses`` and ``step`` (device
-    int32: iterations run, skipped ones included)."""
+    ``scaler_state`` is loss 0's), ``num_losses``, ``step`` (device
+    int32: iterations run, skipped ones included) and ``fp8_state`` (an
+    :class:`~apex_tpu_torch.quant.fp8.Fp8TrainState` under an fp8 policy,
+    O4; None below it)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  properties: Properties, scaler: LossScaler,
@@ -186,6 +206,10 @@ class Amp:
         self.scaler_states: List[LossScaleState] = [
             scaler.init_state(dev) for _ in range(self.num_losses)]
         self.step = torch.zeros((), dtype=torch.int32, device=dev)
+        self.fp8_state: Optional[fp8_lib.Fp8TrainState] = None
+        if properties.enabled and properties.fp8:
+            self.fp8_state = fp8_lib.init_train_state(
+                properties.fp8_amax_history_len, device=dev)
         #: whether the optimizer's step takes a device skip flag (the
         #: port's fused optimizers); another one is stepped from the host
         self._takes_flag = "noop_flag" in inspect.signature(
@@ -557,6 +581,18 @@ def _split_batch(tree: Any, n: int) -> List[Any]:
             for i in range(n)]
 
 
+def _roll_fp8(amp: Amp, amax_in: torch.Tensor, amax_w: torch.Tensor,
+              amax_g: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The end-of-step roll of :attr:`Amp.fp8_state` and its metrics."""
+    old = amp.fp8_state
+    margin = amp.properties.fp8_margin
+    amp.fp8_state = fp8_lib.update_train_state(old, amax_in, amax_w,
+                                               amax_g, margin)
+    return {"fp8_amax_saturation": fp8_lib.step_saturation(
+                old, amax_in, amax_w, amax_g, margin),
+            "fp8_rescales": fp8_lib.rescale_events(old, amp.fp8_state)}
+
+
 def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
                     axis_name=None, reduce_fn: Optional[Callable] = None,
                     accum_steps: Optional[int] = None,
@@ -565,7 +601,10 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
     "pinned_at_floor"}`` (device tensors): ``loss_fn(model, *batch)`` at
     compute precision, its fp32 loss scaled, the backward, then
     :meth:`Amp.apply_gradients`.  ``model`` is the one ``amp`` was
-    initialized with.  The step makes no host sync.
+    initialized with.  The step makes no host sync.  Under O4 the forward
+    runs inside the op layer's fp8 trace, the fp8 state rolls every step
+    and the result gains ``fp8_amax_saturation`` and ``fp8_rescales``
+    (the module docstring).
 
     Data parallelism, as the JAX package resolves it: ``reduce_fn``
     (e.g. ``DistributedDataParallel(...).reduce``) reduces the scaled
@@ -602,18 +641,37 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
         def reduce_fn(grads):
             return reduce_gradients(grads, axis_name)
 
+    fp8_on = amp.properties.enabled and amp.properties.fp8 \
+        and amp.fp8_state is not None
+
     def backward(batch):
+        """``(loss, scaled grads, (input, weight) amaxes or None)``."""
+        amaxes = None
         with torch.enable_grad():
-            loss = amp.run(loss_fn, model, *batch)
+            if fp8_on:
+                # the cotangents are loss-scaled, the grad history is not
+                st = amp.fp8_state
+                with amp_ops.fp8_trace(st, grad_scale=st.grad.scale
+                                       / amp.scaler_state.loss_scale) as tr:
+                    loss = amp.run(loss_fn, model, *batch)
+                    amaxes = amp_ops.collected_fp8_amaxes(tr)
+            else:
+                loss = amp.run(loss_fn, model, *batch)
             grads = torch.autograd.grad(amp.scale_loss(loss), amp.params)
-        return loss.detach(), grads
+        return loss.detach(), grads, amaxes
 
     if accum_steps is None or int(accum_steps) == 1:
         def step(*batch) -> Dict[str, torch.Tensor]:
-            loss, grads = backward(batch)
+            loss, grads, amaxes = backward(batch)
+            fp8_metrics = {}
+            if fp8_on:
+                with torch.no_grad():
+                    amax_g = fp8_lib.tree_amax(grads) \
+                        * (1.0 / amp.scaler_state.loss_scale)
+                    fp8_metrics = _roll_fp8(amp, *amaxes, amax_g)
             info = amp.apply_gradients(grads, reduce_fn=reduce_fn,
                                        finite_axes=finite_axes)
-            return {"loss": loss, **info}
+            return {"loss": loss, **info, **fp8_metrics}
 
         return step
 
@@ -624,9 +682,9 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
         acc = amp.accumulators()
         torch._foreach_zero_(acc)
         enabled = amp.properties.enabled
-        losses = []
+        losses, micro_amaxes = [], []
         for mb in micro:
-            loss, grads = backward(mb)
+            loss, grads, amaxes = backward(mb)
             if enabled:
                 with torch.no_grad():
                     amp.scaler.unscale_with_stashed(
@@ -634,9 +692,20 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
             else:
                 amp.accumulate(grads, acc)
             losses.append(loss)
+            micro_amaxes.append(amaxes)
             del grads
         # the mean-loss step; JAX divides outside any kernel too
         torch._foreach_div_(acc, float(n))
+        fp8_metrics = {}
+        if fp8_on:
+            # each class's entry is the iteration's max; the accumulators
+            # are unscaled already (the scale is a power of two, so this
+            # is the scaled sum's amax times 1 / scale)
+            with torch.no_grad():
+                fp8_metrics = _roll_fp8(
+                    amp, *(torch.stack(a).amax()
+                           for a in zip(*micro_amaxes)),
+                    fp8_lib.tree_amax(acc))
         total = acc
         if reduce_fn is not None:
             with torch.no_grad():
@@ -650,6 +719,6 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
             # kept buffers in the masters' dtype (bf16 under O3)
             torch._foreach_copy_(grads, total)
         info = amp.step_if(grads, overflow)
-        return {"loss": torch.stack(losses).mean(), **info}
+        return {"loss": torch.stack(losses).mean(), **info, **fp8_metrics}
 
     return accum_step

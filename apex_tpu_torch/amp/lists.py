@@ -1,6 +1,6 @@
-"""Casting policy tables of amp O1, as ``apex_tpu/amp/lists.py``.
+"""Casting policy tables of amp O1 and O4, as ``apex_tpu/amp/lists.py``.
 
-The same five tables as the JAX package's, naming the ops of the port's
+The same tables as the JAX package's, naming the ops of the port's
 policy-aware op layer (:mod:`apex_tpu_torch.amp.ops`):
 
 - ``HALF_OPS``: contractions (the matmul family, convolutions, linear
@@ -10,11 +10,14 @@ policy-aware op layer (:mod:`apex_tpu_torch.amp.ops`):
 - ``PROMOTE_OPS``: binary math, run in the widest floating input type;
 - ``SEQUENCE_PROMOTE_OPS``: concatenate / stack of a mixed-dtype list;
 - ``BANNED_OPS``: binary cross entropy on probabilities, which raises
-  under a policy when any input is in the half dtype.
+  under a policy when any input is in the half dtype;
+- ``FP8_OPS``: under an fp8 policy (O4) the contractions, the only ops
+  whose two operands quantize to e4m3 (fp32 accumulation);
+- ``FP8_DENY_OPS``: never quantized below the 16-bit tables' decision
+  (``prelu``, a half op that is no contraction, and ``FP32_OPS``).
 
-The fp8 tables belong to O4 and are not ported.  ``torch.autocast`` is
-not used: its op lists are not these tables, so it would compute another
-function.
+``torch.autocast`` is not used: its op lists are not these tables, so it
+would compute another function.
 """
 
 HALF_OPS = [
@@ -50,6 +53,18 @@ PROMOTE_OPS = [
 SEQUENCE_PROMOTE_OPS = ["concatenate", "stack"]  # torch_overrides.py:100-103
 
 BANNED_OPS = ["binary_cross_entropy"]  # functional_overrides.py:67-77
+
+FP8_OPS = [
+    # the contraction family: the only ops whose operands quantize
+    "matmul", "dot", "einsum", "dot_general", "tensordot", "linear",
+    "conv", "conv_general_dilated", "conv_transpose",
+]
+
+FP8_DENY_OPS = [
+    # a pointwise select among the half ops (quantizing its alpha would
+    # pollute the weight class's amax history), and every fp32 op
+    "prelu",
+] + FP32_OPS
 
 BANNED_MESSAGE = (
     "amp does not work out-of-the-box with binary_cross_entropy on "

@@ -30,7 +30,18 @@ padding is :func:`conv_transpose_pads`.  With
 ``APEX_TPU_FUSED_CONV1X1=1`` each eligible 1x1 stride-1 conv goes to
 :func:`apex_tpu_torch.ops.cuda.conv1x1.conv1x1` (its backward is K16).
 
-Not ported: the fp8 (O4) half of the JAX module.
+The fp8 (O4) half: under a policy with ``fp8`` and an open
+:func:`fp8_trace` (``make_train_step`` opens one around the forward),
+each contraction (``FP8_OPS``) casts its first two floating operands
+(the input and weight classes) to the half dtype, records their amaxes
+on the trace and quantize-dequantizes them onto e4m3 at the delayed
+scales (:func:`apex_tpu_torch.quant.fp8.qdq_ste`: the cotangent passes
+unrounded), half-casts the rest, and rounds its output's cotangent onto
+e5m2 (:func:`~apex_tpu_torch.quant.fp8.bwd_qdq`).  Every e4m3 value is a
+bf16 value, so the product of the rounded bf16 operands accumulates what
+an fp8-operand product would.  Without an open trace (a bare
+``Amp.run`` under O4) the contractions take the plain half cast, as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import torch.utils._pytree as pytree
 from apex_tpu_torch.amp import lists
 from apex_tpu_torch.amp.policy import Properties
 from apex_tpu_torch.ops.cuda import conv1x1 as c1
+from apex_tpu_torch.quant import fp8 as fp8_lib
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -108,10 +120,101 @@ def _state_set(policy: Optional[Properties], depth: int):
 def recompute_context():
     """``(forward, recompute)`` contexts for ``torch.utils.checkpoint``'s
     ``context_fn``: the recompute, which autograd may run on another
-    thread, sees the policy (and the :func:`disable_casts` depth) that
-    the forward saw, so it computes in the same dtypes."""
-    return contextlib.nullcontext(), _state_set(_state.policy,
-                                                _state.disable_depth)
+    thread, sees the policy (and the :func:`disable_casts` depth) and the
+    fp8 trace's scales that the forward saw, so it computes in the same
+    dtypes on the same fp8 grids (its amaxes are not recorded again)."""
+    return contextlib.nullcontext(), _recompute_state(
+        _state.policy, _state.disable_depth, _fp8_state.scales)
+
+
+@contextlib.contextmanager
+def _recompute_state(policy, depth, scales):
+    with _state_set(policy, depth):
+        prev = (_fp8_state.scales, _fp8_state.amaxes)
+        _fp8_state.scales = scales
+        _fp8_state.amaxes = {"input": [], "weight": []}
+        try:
+            yield
+        finally:
+            _fp8_state.scales, _fp8_state.amaxes = prev
+
+
+# -- fp8 (O4) operand quantization ---------------------------------------------
+
+class _Fp8TraceState(threading.local):
+    def __init__(self):
+        self.scales = None    # {"input", "weight", "grad"}: 0-d fp32
+        self.amaxes = None    # {"input", "weight"}: lists of 0-d fp32
+
+
+_fp8_state = _Fp8TraceState()
+
+
+@contextlib.contextmanager
+def fp8_trace(fp8_train_state, grad_scale=None):
+    """fp8 operand quantization for the dynamic extent: the
+    :class:`~apex_tpu_torch.quant.fp8.Fp8TrainState` gives the delayed
+    scales, and each call's forward amaxes collect on the yielded object
+    (``.amaxes``) for the end-of-step roll.  ``grad_scale`` overrides the
+    e5m2 cotangent scale: the train step passes ``grad.scale /
+    loss_scale``, since the cotangents are loss-scaled while the grad
+    history is kept in unscaled units."""
+    prev = (_fp8_state.scales, _fp8_state.amaxes)
+    _fp8_state.scales = {"input": fp8_train_state.input.scale,
+                         "weight": fp8_train_state.weight.scale,
+                         "grad": (grad_scale if grad_scale is not None
+                                  else fp8_train_state.grad.scale)}
+    _fp8_state.amaxes = {"input": [], "weight": []}
+    try:
+        yield _fp8_state
+    finally:
+        _fp8_state.scales, _fp8_state.amaxes = prev
+
+
+def _active_fp8():
+    """The open fp8 trace, or None: it takes an fp8 policy in effect and
+    an open :func:`fp8_trace`."""
+    p = active_policy()
+    if p is None or not p.fp8 or _fp8_state.scales is None:
+        return None
+    return _fp8_state
+
+
+def collected_fp8_amaxes(trace) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trace's per-call amaxes reduced to one ``(input, weight)``
+    pair of 0-d fp32 tensors (zeros when nothing was quantized)."""
+    out = []
+    for kind in ("input", "weight"):
+        vals = trace.amaxes.get(kind, [])
+        out.append(torch.stack(vals).amax() if vals else torch.zeros(
+            (), dtype=torch.float32,
+            device=trace.scales["input"].device))
+    return tuple(out)
+
+
+def _fp8_call(fn, args, kwargs, p):
+    """The fp8 path of a contraction: the first two floating tensor
+    operands (input, weight classes) half-cast, their amaxes recorded and
+    quantize-dequantized onto the forward format at the delayed scales,
+    the rest half-cast, the output's cotangent rounded onto e5m2.  None
+    when no trace is open or the call has fewer than two floating
+    operands (the caller half-casts)."""
+    tr = _active_fp8()
+    if tr is None:
+        return None
+    flat = list(args)
+    idx = [i for i, a in enumerate(flat) if _is_float(a)]
+    if len(idx) < 2:
+        return None
+    i, j = idx[0], idx[1]
+    x, w = flat[i].to(p.half_dtype), flat[j].to(p.half_dtype)
+    tr.amaxes["input"].append(fp8_lib.tensor_amax(x.detach()))
+    tr.amaxes["weight"].append(fp8_lib.tensor_amax(w.detach()))
+    flat[i] = fp8_lib.qdq_ste(x, tr.scales["input"], p.fp8_dtype_fwd)
+    flat[j] = fp8_lib.qdq_ste(w, tr.scales["weight"], p.fp8_dtype_fwd)
+    rest, rkw = _cast_tree((flat[j + 1:], kwargs), p.half_dtype)
+    out = fn(*flat[:j + 1], *rest, **rkw)
+    return fp8_lib.bwd_qdq(out, tr.scales["grad"])
 
 
 # -- cast helpers -----------------------------------------------------------
@@ -141,17 +244,33 @@ def _widest_float(tree: Any) -> Optional[torch.dtype]:
 
 # -- wrapper factories --------------------------------------------------------
 
-def half_function(fn: Callable) -> Callable:
+def half_function(fn: Callable, fp8_eligible: bool = True) -> Callable:
     """Run ``fn`` with its floating inputs cast to the policy's half
-    dtype."""
+    dtype.  Under an fp8 policy with an open :func:`fp8_trace` its two
+    contraction operands also quantize onto e4m3 (and its cotangent onto
+    e5m2), the ``FP8_OPS`` behaviour; ``fp8_eligible=False`` pins a half
+    op that is no contraction (``prelu``) to the plain half cast."""
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         p = active_policy()
         if p is None:
             return fn(*args, **kwargs)
+        if fp8_eligible and p.fp8:
+            out = _fp8_call(fn, args, kwargs, p)
+            if out is not None:
+                return out
         args, kwargs = _cast_tree((args, kwargs), p.half_dtype)
         return fn(*args, **kwargs)
     wrapper.__amp_wrapped__ = "half"
+    return wrapper
+
+
+def fp8_function(fn: Callable) -> Callable:
+    """Opt a user contraction into fp8 operand quantization: the half
+    wrapper (operands quantized under an fp8 policy, half-cast under a
+    16-bit one, both suspended by :func:`disable_casts`)."""
+    wrapper = half_function(fn)
+    wrapper.__amp_wrapped__ = "fp8"
     return wrapper
 
 
@@ -237,6 +356,11 @@ def register_float_function(module: Any, name: str) -> None:
 def register_promote_function(module: Any, name: str) -> None:
     """Replace ``module.name`` by its :func:`promote_function`."""
     _register(module, name, promote_function)
+
+
+def register_fp8_function(module: Any, name: str) -> None:
+    """Replace ``module.name`` by its :func:`fp8_function`."""
+    _register(module, name, fp8_function)
 
 
 def deactivate_registrations() -> None:
@@ -461,7 +585,8 @@ conv_general_dilated = half_function(_conv_general_dilated)
 conv_transpose = half_function(_conv_transpose)
 linear = half_function(_linear)
 conv = half_function(_conv)
-prelu = half_function(_prelu)
+# a half op but in FP8_DENY_OPS: a pointwise select, not a contraction
+prelu = half_function(_prelu, fp8_eligible=False)
 
 
 # -- FP32_OPS -------------------------------------------------------------------

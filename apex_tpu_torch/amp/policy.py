@@ -1,8 +1,10 @@
 """Optimization-level policy, as ``apex_tpu/amp/policy.py``: ``Properties``
-and the ``O0``-``O3`` levels, with bf16 as the half dtype.
+and the ``O0``-``O4`` levels, with bf16 as the half dtype.
 
-O4 (fp8) is not ported yet: :func:`resolve` refuses it.  O1's
-``cast_ops`` turns on the op layer of :mod:`apex_tpu_torch.amp.ops`.
+O1's ``cast_ops`` turns on the op layer of :mod:`apex_tpu_torch.amp.ops`;
+O4 is O2's rig (fp32 masters, a bf16 model, a dynamic loss scale) with
+that op layer on and its contractions quantized to fp8 under delayed
+scaling (:mod:`apex_tpu_torch.quant.fp8`).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _parse_loss_scale(value: Union[None, float, int, str]
 @dataclasses.dataclass(frozen=True)
 class Properties:
     """Resolved mixed-precision options (the JAX package's
-    ``Properties`` without its fp8 fields).
+    ``Properties``).
 
     ``cast_model_dtype``: dtype the model params and compute are cast to
     (O0, O2, O3), or None to leave the model in fp32 (O1).
@@ -57,7 +59,12 @@ class Properties:
     model is cast.  ``master_weights``: keep fp32 master params and run
     the optimizer on them.  ``loss_scale``: a number or ``"dynamic"``.
     ``cast_model_outputs``: dtype model outputs are cast to (fp32 when
-    None)."""
+    None).  ``fp8``: O4's switch, the contractions of the op layer
+    quantize their operands to fp8 at delayed per-tensor scales;
+    ``fp8_dtype_fwd`` / ``fp8_dtype_bwd`` the forward (e4m3) and backward
+    (e5m2) formats, set when ``fp8`` is; ``fp8_amax_history_len`` the
+    amax window (at least 1); ``fp8_margin`` the power-of-two headroom
+    of the derived scale."""
 
     enabled: bool = True
     opt_level: str = "O1"
@@ -68,6 +75,11 @@ class Properties:
     loss_scale: Union[float, str] = DYNAMIC
     half_dtype: torch.dtype = torch.bfloat16
     cast_model_outputs: Optional[torch.dtype] = None
+    fp8: bool = False
+    fp8_dtype_fwd: Optional[torch.dtype] = None
+    fp8_dtype_bwd: Optional[torch.dtype] = None
+    fp8_amax_history_len: int = 16
+    fp8_margin: int = 0
 
     def __post_init__(self):
         object.__setattr__(
@@ -75,7 +87,18 @@ class Properties:
             _parse_tristate(self.keep_batchnorm_fp32, "keep_batchnorm_fp32"))
         object.__setattr__(self, "loss_scale",
                            _parse_loss_scale(self.loss_scale))
-        if self.cast_ops and self.cast_model_dtype is not None:
+        if self.fp8:
+            if self.fp8_dtype_fwd is None:
+                object.__setattr__(self, "fp8_dtype_fwd",
+                                   torch.float8_e4m3fn)
+            if self.fp8_dtype_bwd is None:
+                object.__setattr__(self, "fp8_dtype_bwd", torch.float8_e5m2)
+            if self.fp8_amax_history_len < 1:
+                raise ValueError(
+                    f"fp8_amax_history_len must be >= 1; got "
+                    f"{self.fp8_amax_history_len}")
+        if self.cast_ops and self.cast_model_dtype is not None \
+                and not self.fp8:
             warnings.warn(
                 "O1-style op casting (cast_ops=True) together with a cast "
                 "model dtype is unusual; O1 expects the model left in fp32.")
@@ -131,7 +154,19 @@ def O3(half_dtype=torch.bfloat16) -> Properties:
         half_dtype=half_dtype)
 
 
-opt_levels = {"O0": O0, "O1": O1, "O2": O2, "O3": O3}
+def O4(half_dtype=torch.bfloat16) -> Properties:
+    """fp8 training: O2's rig (fp32 masters and norm layers, a dynamic
+    loss scale, a half model) with the op layer's contractions quantized
+    to fp8 at delayed per-tensor scales (e4m3 forward, e5m2 backward,
+    fp32 accumulation); the ``Amp`` carries an ``Fp8TrainState`` beside
+    the loss scaler."""
+    return Properties(
+        opt_level="O4", cast_model_dtype=half_dtype, cast_ops=True,
+        keep_batchnorm_fp32=True, master_weights=True, loss_scale=DYNAMIC,
+        half_dtype=half_dtype, fp8=True)
+
+
+opt_levels = {"O0": O0, "O1": O1, "O2": O2, "O3": O3, "O4": O4}
 
 
 def resolve(opt_level: str = "O1", half_dtype=torch.bfloat16,
@@ -139,14 +174,12 @@ def resolve(opt_level: str = "O1", half_dtype=torch.bfloat16,
     """Select an opt level, then apply explicit per-kwarg overrides (the
     reference's resolution order).  ``cast_model_dtype=False`` means "do
     not cast the model" on top of O2 / O3."""
-    if opt_level == "O4":
-        raise NotImplementedError(
-            "opt_level 'O4' (fp8 training with delayed scaling) is not "
-            "ported to apex_tpu_torch yet")
     if opt_level not in opt_levels:
         raise ValueError(
             f"Unexpected optimization level {opt_level!r}; options are "
-            "'O0', 'O1', 'O2', 'O3' (the letter O, not zero).")
+            "'O0', 'O1', 'O2', 'O3', 'O4' (the letter O, not zero; "
+            "O4 = fp8 training with delayed scaling, see "
+            "apex_tpu_torch.quant).")
     props = opt_levels[opt_level](half_dtype=half_dtype)
     overrides = {k: v for k, v in overrides.items() if v is not None}
     cast_override = overrides.pop("cast_model_dtype", None)

@@ -17,12 +17,16 @@ The payload is the JAX package's, leaf for leaf under the same names::
     {"master_params": {...},           # nested by the parameter names
      "opt_state": OptState(step, m, v, leaf_step),
      "scaler_states": [{"loss_scale", "unskipped"}, ...],
-     "step": ..., "fp8_state": None,   # no O4 in the port: no leaves
+     "step": ...,
+     "fp8_state": Fp8TrainState(input, weight, grad) or None,
      "extras": {...}}
 
-so a snapshot of either package restores into the other's state.  The
-compute parameters (bf16 under O2) are not saved: a restore refreshes
-them from the restored masters, as the JAX package recomputes them.
+so a snapshot of either package restores into the other's state.
+``fp8_state`` is O4's delayed-scaling state (each class's
+``amax_history`` and ``scale``, in the NamedTuples' field order), None
+below O4, which contributes no leaves.  The compute parameters (bf16
+under O2) are not saved: a restore refreshes them from the restored
+masters, as the JAX package recomputes them.
 
 A restore copies into the state's own tensors (``copy_``), never rebinds
 them: FusedAdam's per-leaf step counts are views into one vector that
@@ -108,9 +112,9 @@ def payload_template(amp: Amp, extras: Optional[Dict[str, Any]] = None
             {"loss_scale": s.loss_scale, "unskipped": s.unskipped}
             for s in amp.scaler_states],
         "step": amp.step,
-        # O4's delayed-scaling state: none in the port (no O4 yet), which
-        # contributes no leaves, as below O4 in the JAX package
-        "fp8_state": None,
+        # O4's delayed-scaling state; None below O4 holds no leaves, so
+        # pre-fp8 payloads and templates keep matching
+        "fp8_state": amp.fp8_state,
         # always present (possibly empty), so that save and restore
         # structures match whenever both sides pass the same extras
         "extras": extras if extras else {},
@@ -171,11 +175,14 @@ def load_state_dict(amp: Amp, d: Dict[str, Any]) -> Tuple[Amp, Dict]:
     loss scalers get new tensors, as every step gives them.  A
     structural mismatch raises naming the first diverging leaf path.
 
-    The JAX package's O2 -> O4 warm start restores a payload without
-    ``fp8_state`` into an fp8 template; with no O4 in the port, a payload
-    without the key restores as one with ``fp8_state`` None does."""
+    The O2 -> O4 warm start: a payload without ``fp8_state`` (a pre-fp8
+    checkpoint) restores into an O4 ``amp``, which keeps its fresh fp8
+    state (the amax history is a running statistic of the new regime,
+    not trained state); the masters, moments and scalers restore."""
     target = payload_template(amp)
     del target["extras"]    # extras follow their own (optional) contract
+    if amp.fp8_state is not None and "fp8_state" not in d:
+        del target["fp8_state"]
     saved = {k: d.get(k) for k in target}
     check_same_structure(_leaf_keys(saved), _leaf_keys(target))
     values = dict(tree_leaves_with_path(saved))

@@ -40,6 +40,7 @@ from apex_tpu_torch.models.gpt import (
     gpt_small_tpu,
     gpt_tiny,
     lm_loss,
+    train_toy_lm,
 )
 
 __all__ = ["AmpDense", "Discriminator", "Generator", "MLP",
@@ -48,4 +49,5 @@ __all__ = ["AmpDense", "Discriminator", "Generator", "MLP",
            "accuracy", "resnet_loss", "shard_rows", "synthetic_batch", "BertConfig", "BertForPreTraining", "BertModel", "GPTConfig",
            "GPTModel", "SelfAttention", "TransformerLayer", "bert_base",
            "bert_large", "bert_large_tpu", "bert_tiny", "gpt_small",
-           "gpt_small_tpu", "gpt_tiny", "lm_loss", "pretraining_loss"]
+           "gpt_small_tpu", "gpt_tiny", "lm_loss", "pretraining_loss",
+           "train_toy_lm"]

@@ -11,7 +11,15 @@ kernel on the card.  The layer math mirrors ``GPTModel.forward`` op for
 op.
 
 Greedy (``temperature=0``) or temperature sampling from a
-``torch.Generator``.  The int8 KV cache is not ported yet.
+``torch.Generator``.
+
+``kv_dtype="int8"`` stores the cache as int8 with one fp32 scale per
+cached position and layer (``(L, B, M)`` beside each int8 cache): every
+write quantizes its tokens' ``(H, D)`` vectors
+(:func:`apex_tpu_torch.quant.int8.quantize_kv`), and the read folds the
+scales into the attention math (:func:`_attn_cached`).  A full prefill
+from an empty cache still runs the flash kernel on the unquantized q / k
+/ v; only the cache is int8.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from apex_tpu_torch.normalization import (
 )
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
 from apex_tpu_torch.ops.rope import apply_rope, rope_tables
+from apex_tpu_torch.quant.int8 import quantize_kv
 
 NEG_INF = -1e30
 
@@ -53,16 +62,27 @@ def _ln(x: torch.Tensor, ln: FusedLayerNorm, eps: float) -> torch.Tensor:
 
 def _attn_cached(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, valid_mask: torch.Tensor,
-                 scale: float) -> torch.Tensor:
+                 scale: float, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """fp32-softmax attention of ``q (B, Lq, H, D)`` against the cache
     ``(B, M, H, D)`` under a validity mask (True = attend), ``(Lq, M)``
     shared across the batch or ``(B, Lq, M)`` per row (the serve
-    engine's per-slot lengths).  Output in q's dtype."""
+    engine's per-slot lengths).  Output in q's dtype.
+
+    ``k_scale`` / ``v_scale`` ``(B, M)`` read an int8 cache: the K scale
+    multiplies the scores after the ``scale`` factor and before the mask,
+    the V scale the probabilities after the softmax (each is constant
+    over the contracted ``(H, D)``, so this is dequantizing the cache
+    without making a dequantized copy)."""
     mask = valid_mask[None, None] if valid_mask.dim() == 2 \
         else valid_mask[:, None]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, None, None, :]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, None, None, :]
     out = torch.einsum("bhqk,bkhd->bqhd", p, v_cache.float())
     return out.to(q.dtype)
 
@@ -93,13 +113,24 @@ def block_tail(x: torch.Tensor, o: torch.Tensor, blk: GPTBlock,
 
 
 def _block(x, blk: GPTBlock, cfg: GPTConfig, kc, vc, layer_i: int, cos,
-           sin, valid_mask, write_at: int):
+           sin, valid_mask, write_at: int, ks=None, vs=None):
     """One block over ``x (B, Lq, E)``, writing its k/v into the caches
-    ``(L, B, M, H, D)`` at ``(layer_i, :, write_at:)`` in place."""
+    ``(L, B, M, H, D)`` at ``(layer_i, :, write_at:)`` in place; with the
+    int8 format's scale caches ``ks`` / ``vs`` ``(L, B, M)``, quantized
+    (one scale a written position)."""
     lq = x.shape[1]
+    at = slice(write_at, write_at + lq)
     q, k, v = qkv_rotated(x, blk, cfg, cos, sin)
-    kc[layer_i, :, write_at:write_at + lq] = k.to(kc.dtype)
-    vc[layer_i, :, write_at:write_at + lq] = v.to(vc.dtype)
+    if ks is not None:
+        qk, sk = quantize_kv(k)                 # (B, Lq, H, D), (B, Lq)
+        qv, sv = quantize_kv(v)
+        kc[layer_i, :, at] = qk
+        vc[layer_i, :, at] = qv
+        ks[layer_i, :, at] = sk
+        vs[layer_i, :, at] = sv
+    else:
+        kc[layer_i, :, at] = k.to(kc.dtype)
+        vc[layer_i, :, at] = v.to(vc.dtype)
     if lq > 1 and write_at == 0:
         # full prefill from an empty cache: causal self-attention over
         # the rotated prompt q/k/v IS attention to cache slots <= each
@@ -110,16 +141,20 @@ def _block(x, blk: GPTBlock, cfg: GPTConfig, kc, vc, layer_i: int, cos,
         # the cache already, so the masked cache attention covers the
         # history and the causality inside the chunk at once
         o = _attn_cached(q, kc[layer_i], vc[layer_i], valid_mask,
-                         1.0 / math.sqrt(cfg.head_dim))
+                         1.0 / math.sqrt(cfg.head_dim),
+                         k_scale=None if ks is None else ks[layer_i],
+                         v_scale=None if vs is None else vs[layer_i])
     return block_tail(x, o, blk, cfg)
 
 
 def _forward_cached(model: GPTModel, cfg: GPTConfig, ids: torch.Tensor,
-                    kc: torch.Tensor, vc: torch.Tensor,
-                    start: int) -> torch.Tensor:
+                    kc: torch.Tensor, vc: torch.Tensor, start: int,
+                    ks: Optional[torch.Tensor] = None,
+                    vs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Embed ``ids (B, Lq)`` at positions ``start..``, run every layer
-    with cache writes at ``start``; returns the last token's logits
-    ``(B, V)``."""
+    with cache writes at ``start`` (``ks`` / ``vs``: the int8 format's
+    scale caches, None for a dense cache); returns the last token's
+    logits ``(B, V)``."""
     b, lq = ids.shape
     m = kc.shape[2]
     dev = ids.device
@@ -129,7 +164,8 @@ def _forward_cached(model: GPTModel, cfg: GPTConfig, ids: torch.Tensor,
     qpos = start + torch.arange(lq, device=dev)[:, None]
     valid = torch.arange(m, device=dev)[None, :] <= qpos          # (Lq, M)
     for i, blk in enumerate(model.blocks):
-        x = _block(x, blk, cfg, kc, vc, i, cos, sin, valid, write_at=start)
+        x = _block(x, blk, cfg, kc, vc, i, cos, sin, valid, write_at=start,
+                   ks=ks, vs=vs)
     x = _ln(x[:, -1:], model.ln_f, cfg.layer_norm_eps)
     return x[:, 0] @ model.lm_head.kernel
 
@@ -155,23 +191,35 @@ def _check_model_device(model: GPTModel, device: torch.device) -> None:
 def generate(model: GPTModel, cfg: GPTConfig, prompt_ids,
              max_new_tokens: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             device: DeviceLike = None) -> torch.Tensor:
+             device: DeviceLike = None,
+             kv_dtype: Optional[str] = None) -> torch.Tensor:
     """Decode ``max_new_tokens`` tokens after ``prompt_ids (B, L)``;
     returns ``(B, L + max_new_tokens)`` int64 ids on ``device`` (the card
     by default; the model must be there).  ``temperature=0`` is greedy;
-    ``temperature > 0`` samples and needs ``generator``."""
+    ``temperature > 0`` samples and needs ``generator``.
+    ``kv_dtype="int8"`` keeps the cache in the int8 format (the module
+    docstring); None keeps it in the model's dtype."""
     device = resolve_device(device)
     _check_model_device(model, device)
     sample = float(temperature) > 0.0
     if sample and generator is None:
         raise ValueError("temperature sampling requires a generator")
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8'; got "
+                         f"{kv_dtype!r}")
     prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.long,
                              device=device)
     b, lp = prompt.shape
     m = lp + int(max_new_tokens)
     shape = (cfg.num_layers, b, m, cfg.num_heads, cfg.head_dim)
-    kc = torch.zeros(shape, dtype=model.dtype, device=device)
+    int8 = kv_dtype == "int8"
+    kc = torch.zeros(shape, dtype=torch.int8 if int8 else model.dtype,
+                     device=device)
     vc = torch.zeros_like(kc)
+    ks = vs = None
+    if int8:
+        ks = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        vs = torch.zeros_like(ks)
 
     def pick(logits):
         if sample:
@@ -179,11 +227,12 @@ def generate(model: GPTModel, cfg: GPTConfig, prompt_ids,
         return greedy_argmax(logits.float())
 
     out = [prompt]
-    tok = pick(_forward_cached(model, cfg, prompt, kc, vc, start=0))
+    tok = pick(_forward_cached(model, cfg, prompt, kc, vc, start=0,
+                               ks=ks, vs=vs))
     out.append(tok[:, None])
     for t in range(int(max_new_tokens) - 1):
         logits = _forward_cached(model, cfg, tok[:, None], kc, vc,
-                                 start=lp + t)
+                                 start=lp + t, ks=ks, vs=vs)
         tok = pick(logits)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)[:, :m]

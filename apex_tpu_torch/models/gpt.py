@@ -242,3 +242,38 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
         count = _all_reduce_(count.detach().clone(),
                              process_group(seq_axis_name))
     return ((lse - picked) * m).sum() / torch.clamp(count, min=1.0)
+
+
+def train_toy_lm(cfg: Optional[GPTConfig] = None, steps: int = 50,
+                 period: int = 16, device: DeviceLike = None):
+    """``(cfg, model, ids)``: gpt_tiny trained briefly on a periodic token
+    stream, as the JAX package's ``train_toy_lm``: amp O2 and FusedAdam
+    (lr 3e-3), ``steps`` steps on the ``(8, 64)`` ids ``(arange * 7) %
+    period``, which it returns (int32) for prompts.  ``model`` is left
+    in the O2 serving layout (bf16 parameters) on ``device`` (the card by
+    default).  A model with real argmax margins: a random one's
+    near-uniform logits measure tie-breaking, not a cache format.  Its
+    weights start from seed 8 of PyTorch's CPU generator (drawn on the
+    CPU whatever the device, without touching the global generator), so
+    it is not the JAX package's model bit for bit."""
+    import numpy as np
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    device = resolve_device(device)
+    cfg = cfg or gpt_tiny()
+    ids = (np.arange(8 * 64).reshape(8, 64) * 7) % period
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        model = GPTModel(cfg, device="cpu")
+    model = model.to(device)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                        device=device),
+                       opt_level="O2", device=device)
+    step = amp.make_train_step(
+        a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+    x = torch.as_tensor(ids, device=device)
+    for _ in range(steps):
+        step(x)
+    return cfg, model, ids.astype(np.int32)

@@ -10,6 +10,12 @@ from apex_tpu_torch.serve.paged import (
     TRASH_BLOCK,
     BlockAllocator,
     PoolExhausted,
+    gather_slot_kv,
+    gather_slot_scales,
+    make_pools,
+    make_scale_pools,
+    paged_attention,
+    token_write_coords,
 )
 from apex_tpu_torch.serve.sampling import advance_key, sample_tokens
 from apex_tpu_torch.serve.scheduler import (
@@ -20,4 +26,6 @@ from apex_tpu_torch.serve.scheduler import (
 
 __all__ = ["BlockAllocator", "PoolExhausted", "Request", "ServeConfig",
            "ServeEngine", "SlotScheduler", "TRASH_BLOCK", "advance_key",
-           "chunk_prefill_math", "sample_tokens", "validate_request"]
+           "chunk_prefill_math", "gather_slot_kv", "gather_slot_scales",
+           "make_pools", "make_scale_pools", "paged_attention",
+           "sample_tokens", "token_write_coords", "validate_request"]

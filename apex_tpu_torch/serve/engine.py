@@ -17,7 +17,13 @@ then runs ONE decode step over every slot:
 
 Admission prefills a prompt in ``prefill_chunk``-token chunks through
 the slot's page-table row (:func:`chunk_prefill_math`), so a request
-joins mid-stream.  The pools are updated in place.  PyTorch runs eagerly,
+joins mid-stream.  The pools are updated in place.  With
+``ServeConfig(kv_dtype="int8")`` the pools are int8 beside fp32 scale
+pools: every cache write quantizes its tokens
+(:func:`apex_tpu_torch.quant.int8.quantize_kv`), the attention folds the
+gathered scales in (:func:`apex_tpu_torch.serve.paged.paged_attention`),
+and each admission sets the gauge ``serve_kv_quant_error`` (the last
+chunk's relative quantization error, read with the first token).  PyTorch runs eagerly,
 so there is no compiled step to keep shape-stable; the kernels' launch
 counters (:func:`apex_tpu_torch.ops.cuda.launch_counts`) show which
 kernels a step ran.
@@ -28,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +49,7 @@ from apex_tpu_torch.models.gpt import GPTBlock, GPTConfig, GPTModel
 from apex_tpu_torch.obs import metrics as obs_metrics
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 from apex_tpu_torch.ops.rope import rope_tables
+from apex_tpu_torch.quant.int8 import dequantize_int8, quantize_kv
 from apex_tpu_torch.serve import paged, sampling
 from apex_tpu_torch.serve.paged import TRASH_BLOCK
 from apex_tpu_torch.serve.scheduler import Request, SlotScheduler
@@ -52,8 +59,9 @@ from apex_tpu_torch.serve.scheduler import Request, SlotScheduler
 class ServeConfig:
     """Shapes of the serving state.  ``num_blocks`` includes the trash
     block, so ``num_blocks - 1`` are usable; a slot's context is
-    ``max_blocks_per_slot * block_size`` tokens.  KV is stored in the
-    model's dtype.  ``prefix_cache`` turns on
+    ``max_blocks_per_slot * block_size`` tokens.  ``kv_dtype=None``
+    stores KV in the model's dtype; ``"int8"`` (or ``torch.int8``) the
+    int8 format (:attr:`int8_kv`).  ``prefix_cache`` turns on
     cross-request prefix sharing (the scheduler's docstring has the
     model)."""
 
@@ -62,39 +70,89 @@ class ServeConfig:
     num_blocks: int = 33
     max_blocks_per_slot: int = 8
     prefill_chunk: int = 16
+    kv_dtype: Optional[Any] = None
     prefix_cache: bool = True
+
+    @property
+    def int8_kv(self) -> bool:
+        """Whether ``kv_dtype`` selects the int8 format: int8 pools
+        beside fp32 per-position scale pools, quantized on write, the
+        scales folded into the attention read."""
+        if self.kv_dtype is None:
+            return False
+        if isinstance(self.kv_dtype, str):
+            return self.kv_dtype == "int8"
+        return self.kv_dtype == torch.int8
+
+
+def _quant_error(k: torch.Tensor, v: torch.Tensor, qk, sk, qv, sv
+                 ) -> torch.Tensor:
+    """The relative int8 quantization error of one write of ``k`` / ``v``
+    ``(N, H, D)``: the mean absolute error of both over their mean
+    magnitude (a 0-d fp32 tensor on the device)."""
+    kf, vf = k.float(), v.float()
+    num = (kf - dequantize_int8(qk, sk[:, None, None])).abs().mean() \
+        + (vf - dequantize_int8(qv, sv[:, None, None])).abs().mean()
+    return num / (kf.abs().mean() + vf.abs().mean() + 1e-12)
 
 
 def _paged_block(x: torch.Tensor, blk: GPTBlock, cfg: GPTConfig,
                  kc: torch.Tensor, vc: torch.Tensor, layer_i: int, cos,
                  sin, blocks: torch.Tensor, offs: torch.Tensor,
                  table: torch.Tensor, valid: torch.Tensor,
-                 scale: float) -> torch.Tensor:
+                 scale: float, ks: Optional[torch.Tensor] = None,
+                 vs: Optional[torch.Tensor] = None,
+                 with_err: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block over ``x (B, Lq, E)`` reading and writing the paged
     pools in place: the math of solo decode's block, with the cache
     write at the flattened ``blocks``/``offs`` ``(B * Lq,)`` and
     ``valid (B, Lq, M)`` the causal-vs-cache mask.  The decode step
-    calls it at ``(num_slots, 1)``, a prefill chunk at ``(1, chunk)``."""
+    calls it at ``(num_slots, 1)``, a prefill chunk at ``(1, chunk)``.
+    ``ks`` / ``vs``: the int8 format's scale pools (None: dense); with
+    ``with_err`` (int8 only) the write's quantization error comes back
+    beside the output, else None."""
     b, lq = x.shape[0], x.shape[1]
     q, k, v = qkv_rotated(x, blk, cfg, cos, sin)
     n, h, d = b * lq, cfg.num_heads, cfg.head_dim
-    kc[layer_i, blocks, offs] = k.reshape(n, h, d).to(kc.dtype)
-    vc[layer_i, blocks, offs] = v.reshape(n, h, d).to(vc.dtype)
+    k, v = k.reshape(n, h, d), v.reshape(n, h, d)
+    kg_scale = vg_scale = err = None
+    if ks is not None:
+        qk, sk = quantize_kv(k)
+        qv, sv = quantize_kv(v)
+        if with_err:
+            err = _quant_error(k, v, qk, sk, qv, sv)
+        kc[layer_i, blocks, offs] = qk
+        vc[layer_i, blocks, offs] = qv
+        ks[layer_i, blocks, offs] = sk
+        vs[layer_i, blocks, offs] = sv
+        kg_scale = paged.gather_slot_scales(ks[layer_i], table)
+        vg_scale = paged.gather_slot_scales(vs[layer_i], table)
+    else:
+        kc[layer_i, blocks, offs] = k.to(kc.dtype)
+        vc[layer_i, blocks, offs] = v.to(vc.dtype)
     kg = paged.gather_slot_kv(kc[layer_i], table)
     vg = paged.gather_slot_kv(vc[layer_i], table)
-    o = paged.paged_attention(q, kg, vg, valid, scale)
-    return block_tail(x, o, blk, cfg)
+    o = paged.paged_attention(q, kg, vg, valid, scale, k_scale=kg_scale,
+                              v_scale=vg_scale)
+    return block_tail(x, o, blk, cfg), err
 
 
 def chunk_prefill_math(cfg: GPTConfig, block_size: int,
                        max_blocks_per_slot: int, model: GPTModel,
                        kc: torch.Tensor, vc: torch.Tensor,
                        table_row: torch.Tensor, chunk_ids: torch.Tensor,
-                       start: int, n_valid: int) -> torch.Tensor:
+                       start: int, n_valid: int,
+                       ks: Optional[torch.Tensor] = None,
+                       vs: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ``(1, C)`` prompt chunk written through a slot's page-table
-    row at positions ``start..``; returns the logits ``(1, V)`` of the
-    last valid token.  Rows past ``n_valid`` are padding: their writes
-    go to the trash block and their outputs are never read."""
+    row at positions ``start..``; returns ``(logits (1, V) of the last
+    valid token, kv_err)``, ``kv_err`` the layers' mean relative int8
+    quantization error of the chunk's writes (0 for a dense cache;
+    ``ks`` / ``vs`` the int8 format's scale pools).  Rows past
+    ``n_valid`` are padding: their writes go to the trash block and
+    their outputs are never read."""
     bs, mb = block_size, max_blocks_per_slot
     lq = chunk_ids.shape[1]
     m = mb * bs
@@ -110,11 +168,15 @@ def chunk_prefill_math(cfg: GPTConfig, block_size: int,
     # cache slots <= the row's position: history and in-chunk causality
     valid = (torch.arange(m, device=dev)[None, :] <= pos[:, None])[None]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    esum = torch.zeros((), dtype=torch.float32, device=dev)
     for i, blk in enumerate(model.blocks):
-        x = _paged_block(x, blk, cfg, kc, vc, i, cos, sin, blocks, offs,
-                         table_row[None], valid, scale)
+        x, err = _paged_block(x, blk, cfg, kc, vc, i, cos, sin, blocks,
+                              offs, table_row[None], valid, scale, ks=ks,
+                              vs=vs, with_err=ks is not None)
+        if err is not None:
+            esum = esum + err
     x_last = _ln(x[:, n_valid - 1:n_valid], model.ln_f, cfg.layer_norm_eps)
-    return x_last[:, 0] @ model.lm_head.kernel
+    return x_last[:, 0] @ model.lm_head.kernel, esum / cfg.num_layers
 
 
 class ServeEngine:
@@ -160,9 +222,22 @@ class ServeEngine:
             max_blocks_per_slot=serve_cfg.max_blocks_per_slot,
             registry=self.metrics,
             prefix_cache=serve_cfg.prefix_cache)
+        int8 = serve_cfg.int8_kv
         self.kc, self.vc = paged.make_pools(
             cfg.num_layers, serve_cfg.num_blocks, serve_cfg.block_size,
-            cfg.num_heads, cfg.head_dim, model.dtype, self.device)
+            cfg.num_heads, cfg.head_dim,
+            torch.int8 if int8 else model.dtype, self.device)
+        #: the int8 format's scale pools (None for a dense cache)
+        self.ks = self.vs = None
+        self._m_kv_err = None
+        if int8:
+            self.ks, self.vs = paged.make_scale_pools(
+                cfg.num_layers, serve_cfg.num_blocks, serve_cfg.block_size,
+                self.device)
+            self._m_kv_err = self.metrics.gauge(
+                "serve_kv_quant_error",
+                "relative int8 KV quantization error of the latest "
+                "admission's last prefill chunk")
         #: one generator per slot; a slot's is replaced at admission
         self.generators: List[torch.Generator] = [
             sampling.make_generator(0) for _ in range(serve_cfg.num_slots)]
@@ -195,8 +270,9 @@ class ServeEngine:
         valid = valid[:, None, :]                                # (S, 1, M)
         scale = 1.0 / math.sqrt(c.head_dim)
         for i, blk in enumerate(self.model.blocks):
-            x = _paged_block(x, blk, c, self.kc, self.vc, i, cos, sin,
-                             blocks, offs, page_table, valid, scale)
+            x, _ = _paged_block(x, blk, c, self.kc, self.vc, i, cos, sin,
+                                blocks, offs, page_table, valid, scale,
+                                ks=self.ks, vs=self.vs)
         x = _ln(x[:, -1:], self.model.ln_f, c.layer_norm_eps)
         logits = x[:, 0] @ self.model.lm_head.kernel             # (S, V)
         toks = sampling.sample_tokens(
@@ -205,9 +281,11 @@ class ServeEngine:
         return torch.where(active, toks, tokens)
 
     def _cow_copy(self, src: int, dst: int) -> None:
-        """Copy block ``src`` into block ``dst`` in both pools."""
-        self.kc[:, dst] = self.kc[:, src]
-        self.vc[:, dst] = self.vc[:, src]
+        """Copy block ``src`` into block ``dst`` in both pools, and in
+        both scale pools under the int8 format."""
+        for pool in (self.kc, self.vc, self.ks, self.vs):
+            if pool is not None:
+                pool[:, dst] = pool[:, src]
 
     # -- host loop ---------------------------------------------------
 
@@ -239,13 +317,13 @@ class ServeEngine:
         padded[:rest] = prompt[resume:]
         padded = self._t(padded)
         table_row = self._t(self.sched.page_table[slot]).long()
-        logits = None
+        logits = kv_err = None
         for j in range(0, padded.shape[0], c):
-            logits = chunk_prefill_math(
+            logits, kv_err = chunk_prefill_math(
                 self.cfg, self.scfg.block_size,
                 self.scfg.max_blocks_per_slot, self.model, self.kc,
                 self.vc, table_row, padded[None, j:j + c], resume + j,
-                min(c, rest - j))
+                min(c, rest - j), ks=self.ks, vs=self.vs)
             self._m_prefill.inc()
         if req.resume_key is not None:
             gen = torch.Generator()
@@ -258,7 +336,13 @@ class ServeEngine:
             self._t(np.full(1, req.top_k, np.int64)),
             self._t(np.full(1, req.top_p, np.float32)))
         self.generators[slot] = gen
-        first = int(tok[0])
+        if self._m_kv_err is not None:
+            # the gauge rides the first token's read-back: one copy
+            got = torch.stack([tok[0].double(), kv_err.double()]).cpu()
+            first = int(got[0])
+            self._m_kv_err.set(float(got[1]))
+        else:
+            first = int(tok[0])
         self.sched.arm(slot, first, n)
         self._m_tokens.inc(1)          # the prefill's sampled token
         # a 1-token budget (or an immediate EOS) finishes on the prefill

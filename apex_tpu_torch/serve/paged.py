@@ -5,6 +5,10 @@ tables, as ``apex_tpu/serve/paged.py``.
   row maps its logical block ``j`` (positions ``j * block_size ..``) to a
   physical block, and :func:`gather_slot_kv` linearises every slot's
   cache back to ``(S, M, H, D)``.
+- The int8 KV format (``ServeConfig(kv_dtype="int8")``) keeps int8 pools
+  beside fp32 scale pools ``(L, num_blocks, block_size)``
+  (:func:`make_scale_pools`), one scale a cached token and layer,
+  linearised by :func:`gather_slot_scales` as the caches are.
 - Physical block 0 is the trash block: never allocated, the target of
   every empty page-table entry and of the writes of inactive lanes and
   padding rows.
@@ -191,10 +195,21 @@ class BlockAllocator:
 def make_pools(num_layers: int, num_blocks: int, block_size: int,
                num_heads: int, head_dim: int, dtype: torch.dtype,
                device: torch.device):
-    """Zeroed ``(kc, vc)`` pools ``(L, num_blocks, block_size, H, D)``."""
+    """Zeroed ``(kc, vc)`` pools ``(L, num_blocks, block_size, H, D)`` in
+    ``dtype`` (the model's, or ``torch.int8`` for the int8 format)."""
     shape = (num_layers, num_blocks, block_size, num_heads, head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def make_scale_pools(num_layers: int, num_blocks: int, block_size: int,
+                     device: torch.device):
+    """Zeroed fp32 ``(ks, vs)`` scale pools ``(L, num_blocks,
+    block_size)``: the int8 format's one scale a cached token and layer
+    (an unwritten position dequantizes to exact zeros)."""
+    shape = (num_layers, num_blocks, block_size)
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
 
 
 def gather_slot_kv(pool_l: torch.Tensor,
@@ -205,6 +220,16 @@ def gather_slot_kv(pool_l: torch.Tensor,
     g = pool_l[page_table]                   # (S, MB, bs, H, D)
     s, mb, bs, h, d = g.shape
     return g.reshape(s, mb * bs, h, d)
+
+
+def gather_slot_scales(pool_s: torch.Tensor,
+                       page_table: torch.Tensor) -> torch.Tensor:
+    """``pool_s (num_blocks, bs)`` gathered by ``page_table (S,
+    max_blocks)`` into ``(S, max_blocks * bs)``: scale ``[s, p]`` belongs
+    to position ``[s, p]`` of :func:`gather_slot_kv`'s output."""
+    g = pool_s[page_table]                   # (S, MB, bs)
+    s, mb, bs = g.shape
+    return g.reshape(s, mb * bs)
 
 
 def token_write_coords(lengths: torch.Tensor, page_table: torch.Tensor,
@@ -221,9 +246,12 @@ def token_write_coords(lengths: torch.Tensor, page_table: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, k_lin: torch.Tensor,
                     v_lin: torch.Tensor, valid: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """fp32-softmax attention of ``q (S, Lq, H, D)`` against the
     linearised caches ``(S, M, H, D)`` under ``valid (S, Lq, M)``; the
     math is :func:`apex_tpu_torch.models.generate._attn_cached`, so the
-    engine and solo ``generate()`` share it."""
-    return _attn_cached(q, k_lin, v_lin, valid, scale)
+    engine and solo ``generate()`` share it.  ``k_scale`` / ``v_scale``
+    ``(S, M)`` (from :func:`gather_slot_scales`) read int8 caches."""
+    return _attn_cached(q, k_lin, v_lin, valid, scale, k_scale=k_scale,
+                        v_scale=v_scale)

@@ -12,7 +12,7 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
 ``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``,
-``resilience``),
+``resilience``, ``quant``),
 printing their lines and no ``kernels`` or ``ok`` line: how one card
 times a parent against a change.  The ``ddp``, ``seq_parallel`` and
 ``pipeline_moe`` phases re-run this script as their ranks
@@ -257,6 +257,27 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             4 s hang under a 2 s watchdog: a valid incident written
             within the hang, then ``WatchdogTimeout``; the card's snapshot
             restored into a CPU template bit for bit;
+   quant    (after resilience) fp8 / int8: ``quantize``, ``dequantize``,
+            ``qdq`` (e4m3 and e5m2), ``quantize_int8``, ``quantize_kv``
+            and ``record_amax`` on the card equal the CPU's bit for bit;
+            ``scaled_matmul`` through ``torch._scaled_mm`` at gpt_small's
+            ``ffn_in`` product against its plain version (relative error
+            within ``MM_REL_TOL``, its time, the whole call's, the plain
+            version's, the bf16 matmul's, the bound at the fp8 rate); the
+            serve phase's 16 requests through the dense and the int8
+            engine in turns (tokens/s, decode p50 / p99, the pools' bytes,
+            ``serve_kv_quant_error``, K1 only), 4 of them through solo
+            int8 ``generate()`` (K2 once a layer) under the near-tie rule;
+            ``train_toy_lm`` trained on the card: int8 against dense
+            tokens >= 0.9, two int8 runs bitwise equal, the int8 engine
+            equal to solo; gpt_small at O4 in turns with O2 (B 8 x L
+            2048, 10 steps each: losses, p50s, tokens/s, peak memory, the
+            exact launches of every O4 step, sync-debug warnings, one
+            profiled O4 step with the eager fp8 functions as their own
+            group, an injected overflow skipped while the fp8 histories
+            roll, 2 steps with ``accum_steps=2``: K10 2, K15 1, K6 0); a
+            2-layer O4 model on the card against the CPU (losses within
+            2e-2, the scales within ``O4_SCALE_RTOL``);
    rnn      every RNN mode card against CPU (H 512, B 16, T 32, both
             directions, ragged lengths) in fp32 (1e-4 of each tensor's
             largest element; the chaotic mLSTM 1e-3, beside each case's
@@ -7236,11 +7257,622 @@ def phase_resilience(cfg, tree):
         torch.cuda.empty_cache()
 
 
+# -- fp8 training (amp O4) and the int8 KV cache ---------------------------
+
+#: H100 SXM dense fp8 tensor-core rate (the data sheet's, at 700 W)
+PEAK_FP8_FLOPS = 1979e12
+#: gpt_small's ffn_in product at B 8 x L 2048: (16384 x 768) @ (768 x 3072)
+QUANT_MM = (TRAIN_B * TRAIN_L, 768, 3072)
+#: the O4 card-against-CPU reference: its steps, the loss bound (the
+#: train reference's bf16 one) and the scales' relative bounds, by class,
+#: stated before the first run (the CPU tests' bounds against JAX: a
+#: one-ulp bf16 difference of an operand flips an e4m3 rounding, 2**-3)
+O4_REF_STEPS = 4
+O4_REF_LOSS_TOL = 2e-2
+O4_SCALE_RTOL = {"input": 2.0 ** -5, "weight": 2.0 ** -7,
+                 "grad": 2.0 ** -3}
+#: ``scaled_matmul`` on the card against its plain version, relative to
+#: the largest output: the fp8 tensor cores keep fewer bits than fp32 in
+#: their partial sums (measured 2.6e-4 at K 768 on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W)
+MM_REL_TOL = 2.0 ** -10
+#: int8 against dense greedy tokens on the trained toy LM (the JAX
+#: package's documented tolerance)
+INT8_MATCH_MIN = 0.9
+#: the accumulated O4 steps: micro-batches of B 4
+O4_ACCUM = 2
+
+
+def serve_requests(cfg):
+    """The serve phase's 16 requests: prompts of 32-512 tokens, 32-128
+    new tokens each, from seed 1."""
+    rng = np.random.default_rng(1)
+    return [(f"r{i}", rng.integers(0, cfg.vocab_size,
+                                   int(rng.integers(32, 513))),
+             int(rng.integers(32, 129))) for i in range(16)]
+
+
+def _same_bits(got, want) -> bool:
+    """Bit for bit on the host, NaN payloads aside."""
+    import torch
+    g, w = got.cpu(), want.cpu()
+    if g.dtype != w.dtype or g.shape != w.shape:
+        return False
+    gn, wn = torch.isnan(g.float()), torch.isnan(w.float())
+    size = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[g.element_size()]
+    return bool(torch.equal(gn, wn)) and bool(torch.equal(
+        g.contiguous().view(size)[~wn], w.contiguous().view(size)[~wn]))
+
+
+def _quant_functions():
+    """``quantize`` / ``dequantize`` / ``qdq`` (e4m3 and e5m2, fp32 and
+    bf16 in), ``quantize_int8`` (per tensor and per channel),
+    ``quantize_kv`` and ``record_amax`` on the card against the same calls
+    on the CPU, bit for bit (NaN payloads aside), over 2**20 values with
+    the edges (zeros, the fp8 maxima and past them, halfway points,
+    subnormals, infinities, a NaN)."""
+    import torch
+    from apex_tpu_torch.quant import fp8, int8
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    x = rng.standard_normal(n).astype(np.float32) * rng.choice(
+        np.float32([1e-7, 1e-3, 1, 30, 500, 3e4, 1e5]), n)
+    x[:16] = [0.0, -0.0, 448.0, -448.0, 464.0, 57344.0, -61440.0, 1.0625,
+              1.1875, 2.0 ** -10, 1e-40, np.inf, -np.inf, np.nan, 3e38, 0.5]
+    x = torch.from_numpy(x)
+    cases, bad = 0, []
+
+    def check(what, got, want):
+        nonlocal cases
+        cases += 1
+        if not _same_bits(got, want):
+            bad.append(what)
+    for scale in (1.0, 0.37, 1536.0):
+        s, sd = torch.tensor(scale), torch.tensor(scale, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            xc = x.to(dtype)
+            xd = xc.cuda()
+            for fmt in (fp8.FP8_E4M3, fp8.FP8_E5M2):
+                name = f"{str(fmt)[6:]}/{str(dtype)[6:]}/{scale}"
+                q, qd = fp8.quantize(xc, s, fmt), fp8.quantize(xd, sd, fmt)
+                check(f"quantize {name}", qd, q)
+                check(f"dequantize {name}", fp8.dequantize(qd, sd),
+                      fp8.dequantize(q, s))
+                check(f"qdq {name}", fp8.qdq(xd, sd, fmt),
+                      fp8.qdq(xc, s, fmt))
+        w = x[16:16 + 1024 * 768].reshape(1024, 768) * scale
+        for axis in (None, 0, 1):
+            q, sc = int8.quantize_int8(w, axis)
+            qd, scd = int8.quantize_int8(w.cuda(), axis)
+            check(f"quantize_int8 axis={axis}/{scale}", qd, q)
+            check(f"quantize_int8 scale axis={axis}/{scale}", scd, sc)
+        kv = (x[16:16 + 64 * 16 * 12 * 64].reshape(64, 16, 12, 64)
+              * scale).bfloat16()
+        kv[5, 3] = 0
+        q, sc = int8.quantize_kv(kv)
+        qd, scd = int8.quantize_kv(kv.cuda())
+        check(f"quantize_kv/{scale}", qd, q)
+        check(f"quantize_kv scales/{scale}", scd, sc)
+    st = fp8.init_delayed_scaling(16, device="cpu")
+    sd = fp8.init_delayed_scaling(16, device="cuda")
+    for a in (2.0, float("inf"), 8.0, float("nan"), 1e-40, 3e38, 0.3):
+        st = fp8.record_amax(st, torch.tensor(a), fp8.FP8_E5M2, 1)
+        sd = fp8.record_amax(sd, torch.tensor(a, device="cuda"),
+                             fp8.FP8_E5M2, 1)
+        check(f"record_amax {a} history", sd.amax_history, st.amax_history)
+        check(f"record_amax {a} scale", sd.scale, st.scale)
+    require(not bad, f"quant functions on the card differ from the CPU: "
+                     f"{bad}")
+    return dict(values=n, cases=cases, all_bitwise=True)
+
+
+@contextlib.contextmanager
+def _counting_scaled_mm():
+    """Counts the ``torch._scaled_mm`` calls made inside the block."""
+    import torch
+    orig, calls = torch._scaled_mm, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+    torch._scaled_mm = counted
+    try:
+        yield calls
+    finally:
+        torch._scaled_mm = orig
+
+
+def _scaled_matmul_case():
+    """``scaled_matmul`` at gpt_small's ``ffn_in`` product (16384 x 768 @
+    768 x 3072, bf16 in, delayed-style scales 448 / amax): its product
+    through ``torch._scaled_mm`` against the plain version (the fp32
+    product of the upcast fp8 operands), its time and the whole call's,
+    the plain version's, the bf16 ``torch.matmul``'s, and the bound
+    (the fp8 operands read and the fp32 output written once, over 3.35
+    TB/s; 2 m k n operations over the dense fp8 rate); then a ragged
+    (100, 72, 40) that ``_scaled_mm`` takes padded to 16."""
+    import torch
+    from apex_tpu_torch.quant import fp8
+    m, k, n = QUANT_MM
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(k, n, device="cuda", generator=gen)
+         * k ** -0.5).bfloat16()
+    sx = 448.0 / fp8.tensor_amax(x)
+    sw = 448.0 / fp8.tensor_amax(w)
+    qx, qw = fp8.quantize(x, sx), fp8.quantize(w, sw)
+    with _counting_scaled_mm() as calls:
+        got = fp8.scaled_mm_product(qx, qw, sx, sw)
+        whole = fp8.scaled_matmul(x, w, sx, sw)
+    require(calls[0] == 2, f"_scaled_mm called {calls[0]} times, want 2")
+    require(whole.dtype == torch.bfloat16 and whole.shape == (m, n),
+            f"scaled_matmul gave {whole.dtype} {tuple(whole.shape)}")
+    want = fp8.scaled_mm_product_ref(qx, qw, sx, sw)
+    rel = float((got - want).abs().max() / want.abs().max())
+    require(rel <= MM_REL_TOL, f"scaled_matmul relative error {rel} > "
+                               f"{MM_REL_TOL}")
+    ms = time_ms(lambda: fp8.scaled_mm_product(qx, qw, sx, sw))
+    whole_ms = time_ms(lambda: fp8.scaled_matmul(x, w, sx, sw))
+    plain_ms = time_ms(lambda: fp8.scaled_mm_product_ref(qx, qw, sx, sw))
+    bf16_ms = time_ms(lambda: torch.matmul(x, w))
+    bound_ms, by = bound(m * k + k * n + m * n * 4, 2.0 * m * k * n,
+                         PEAK_FP8_FLOPS)
+    xr = torch.randn(100, 72, device="cuda", generator=gen)
+    wr = torch.randn(72, 40, device="cuda", generator=gen)
+    s1, s2 = torch.tensor(64.0, device="cuda"), \
+        torch.tensor(32.0, device="cuda")
+    with _counting_scaled_mm() as calls:
+        gr = fp8.scaled_matmul(xr, wr, s1, s2, out_dtype=torch.float32)
+    rr = fp8.scaled_mm_product_ref(fp8.quantize(xr, s1),
+                                   fp8.quantize(wr, s2), s1, s2)
+    rel_r = float((gr - rr).abs().max() / rr.abs().max())
+    require(calls[0] == 1 and rel_r <= MM_REL_TOL,
+            f"ragged scaled_matmul: {calls[0]} calls, error {rel_r}")
+    return dict(shape=[m, k, n], scaled_mm_calls=2, max_rel_err=rel,
+                tolerance=MM_REL_TOL, ms=ms, whole_call_ms=whole_ms,
+                plain_ms=plain_ms, bf16_matmul_ms=bf16_ms,
+                bound_ms=bound_ms, bound_by=by,
+                bound_share=bound_ms / ms,
+                ragged={"shape": [100, 72, 40], "max_rel_err": rel_r})
+
+
+#: the eager fp8 functions, timed as ranges in the profiled O4 step
+FP8_RANGES = ("fp8_quantize", "fp8_dequantize", "fp8_amax")
+
+
+@contextlib.contextmanager
+def _fp8_ranges():
+    """Each call of the fp8 module's quantize, dequantize and amax
+    functions inside a ``record_function`` range (the op layer and the
+    step reach them through the module's attributes), so a profile sums
+    their kernels."""
+    from torch.profiler import record_function
+    from apex_tpu_torch.quant import fp8
+    saved = []
+    for name, rng in (("quantize", "fp8_quantize"),
+                      ("dequantize", "fp8_dequantize"),
+                      ("tensor_amax", "fp8_amax"), ("tree_amax", "fp8_amax")):
+        orig = getattr(fp8, name)
+
+        def ranged(*args, _orig=orig, _rng=rng, **kwargs):
+            with record_function(_rng):
+                return _orig(*args, **kwargs)
+        saved.append((name, orig))
+        setattr(fp8, name, ranged)
+    try:
+        yield
+    finally:
+        for name, orig in saved:
+            setattr(fp8, name, orig)
+
+
+def _o4_profile(step, *batch):
+    """One O4 step profiled, its eager fp8 functions as their own group
+    (taken out of "other PyTorch kernels")."""
+    with _fp8_ranges():
+        prof = profile_step(step, *batch, ranges=FP8_RANGES)
+    if "by_group_ms" in prof:
+        fp8_ms = sum(r["device_ms"] for r in prof["ranges"].values())
+        prof["by_group_ms"]["fp8 quantize / dequantize / amax (eager)"] = \
+            fp8_ms
+        prof["by_group_ms"]["other PyTorch kernels"] -= fp8_ms
+    return prof
+
+
+def _o4_train(cfg, tree):
+    """gpt_small at O4 and at O2 (each FusedAdam lr 3e-4 from the seeded
+    weights, B 8 x L 2048), ``TRAIN_STEPS`` steps each in turns: losses,
+    p50s, tokens/s, peak memory, the O4 step's exact launches (each O4
+    step counted alone), the sync-debug warnings of each, the fp8
+    metrics; one profiled O4 step; an injected overflow; then 2
+    accumulated O4 steps (``accum_steps=2``) with their launches."""
+    import warnings
+
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    runs = {}
+    for level in ("O2", "O4"):
+        model = params_from_jax(tree, cfg, trainable=True)
+        opt = FusedAdam(model.parameters(), lr=3e-4)
+        a = amp.initialize(model, opt, opt_level=level)
+        runs[level] = dict(model=model, opt=opt, amp=a, times=[], losses=[],
+                           warnings=0, peak=0.0, step_peak=0.0,
+                           step=amp.make_train_step(a, model,
+                                                    _gpt_loss_poisoned))
+    require(runs["O4"]["amp"].fp8_state is not None
+            and runs["O2"]["amp"].fp8_state is None,
+            "O4 has no fp8 state, or O2 has one")
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    clean = torch.zeros(TRAIN_B, device="cuda")
+    counts = dict(NO_LAUNCHES)
+    metrics = None
+    for i in range(TRAIN_STEPS):
+        for level in (("O2", "O4") if i % 2 == 0 else ("O4", "O2")):
+            r = runs[level]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_launch_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    out = r["step"](ids, clean)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            r["times"].append(time.perf_counter() - t0)
+            got = launch_counts()
+            if level == "O4":
+                counts = {k: counts[k] + got[k] for k in counts}
+                metrics = out
+            r["warnings"] += sum("synchroniz" in str(w.message).lower()
+                                 for w in caught)
+            peak = torch.cuda.max_memory_allocated()
+            r["peak"] = max(r["peak"], peak / 1e9)
+            r["step_peak"] = max(r["step_peak"], (peak - resident) / 1e9)
+            r["losses"].append(float(out["loss"]))
+            require(not bool(out["overflow"]), f"{level} overflow at step "
+                                               f"{i}")
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    want = dict(gpt_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
+    require(per_step == want, f"O4 launches per step {per_step}, want "
+                              f"{want}")
+    for level, r in runs.items():
+        require(all(np.isfinite(r["losses"]))
+                and r["losses"][-1] < r["losses"][0],
+                f"{level} losses {r['losses']}")
+    a4 = runs["O4"]["amp"]
+    scales = {c: float(getattr(a4.fp8_state, c).scale)
+              for c in ("input", "weight", "grad")}
+    require(all(s != 1.0 for s in scales.values()),
+            f"an fp8 scale did not move off 1: {scales}")
+    p50 = {lv: float(np.median(r["times"][2:])) * 1e3
+           for lv, r in runs.items()}
+    fp8_last = {"fp8_amax_saturation":
+                float(metrics["fp8_amax_saturation"]),
+                "fp8_rescales": int(metrics["fp8_rescales"])}
+    stats = {lv: dict(losses=r["losses"],
+                      step_ms=[t * 1e3 for t in r["times"]],
+                      peak_memory_gb=r["peak"],
+                      step_peak_over_resident_gb=r["step_peak"],
+                      sync_debug_warnings=r["warnings"])
+             for lv, r in runs.items()}
+    del runs["O2"]
+    torch.cuda.empty_cache()
+    r4 = runs["O4"]
+    profile = _o4_profile(r4["step"], ids, clean)
+
+    # an overflow: skipped on the card, the histories roll all the same
+    opt, model = r4["opt"], r4["model"]
+    masters = {n: t.clone() for n, t in a4.masters.items()}
+    st = opt.state[a4.masters["lm_head.kernel"]]
+    moments = (st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+               int(st["step"]))
+    hist = [c.amax_history.clone() for c in a4.fp8_state]
+    scale_before = float(a4.scaler_state.loss_scale)
+    poison = clean.clone()
+    poison[3] = float("inf")
+    out = r4["step"](ids, poison)
+    torch.cuda.synchronize()
+    require(bool(out["overflow"])
+            and float(out["loss_scale"]) == scale_before / 2,
+            "the O4 overflow was not seen or the scale did not halve")
+    require(all(torch.equal(masters[n], t) for n, t in a4.masters.items())
+            and torch.equal(st["exp_avg"], moments[0])
+            and torch.equal(st["exp_avg_sq"], moments[1])
+            and int(st["step"]) == moments[2],
+            "masters or moments changed on a skipped O4 step")
+    rolled = all(torch.equal(c.amax_history[1:], h[:-1])
+                 for c, h in zip(a4.fp8_state, hist))
+    newest = {c: float(getattr(a4.fp8_state, c).amax_history[0])
+              for c in ("input", "weight", "grad")}
+    require(rolled and newest["grad"] == 0.0 and newest["input"] > 0.0
+            and newest["weight"] > 0.0,
+            f"the overflow step's fp8 roll: rolled {rolled}, newest "
+            f"{newest}")
+    del masters, moments
+
+    # accumulation: 2 steps of 2 micro-batches of B 4
+    acc_step = amp.make_train_step(a4, model, _gpt_loss_poisoned,
+                                   accum_steps=O4_ACCUM)
+    acc_step(ids, clean)                     # its buffers, then counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    acc_losses = [float(acc_step(ids, clean)["loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    acc_counts = launch_counts()
+    acc_want = dict(gpt_pass_launches(cfg, O4_ACCUM, b=TRAIN_B // O4_ACCUM),
+                    packed_axpby=O4_ACCUM, packed_nonfinite=1,
+                    packed_adam_tree=1)
+    require({k: v / 2 for k, v in acc_counts.items()} == acc_want,
+            f"O4 accum launches per step {acc_counts} / 2, want "
+            f"{acc_want}")
+    require(all(np.isfinite(acc_losses)), f"O4 accum losses {acc_losses}")
+    require(stats["O4"]["sync_debug_warnings"]
+            <= stats["O2"]["sync_debug_warnings"],
+            f"the O4 steps synchronize more than O2's: "
+            f"{stats['O4']['sync_debug_warnings']} against "
+            f"{stats['O2']['sync_debug_warnings']} warnings")
+    rec = dict(
+        model="gpt_small", optimizer="FusedAdam", lr=3e-4, batch=TRAIN_B,
+        seq_len=TRAIN_L, steps=TRAIN_STEPS,
+        order="O2 and O4 alternated step by step (both models resident)",
+        by_level=stats, step_ms_p50_steps_3_to_10=p50,
+        o4_over_o2=p50["O4"] / p50["O2"],
+        tokens_per_s={lv: TRAIN_B * TRAIN_L / (p / 1e3)
+                      for lv, p in p50.items()},
+        launches=counts, launches_per_step=per_step,
+        fp8_scales=scales, last_step=fp8_last, profile=profile,
+        injected_overflow={"skipped": True,
+                           "loss_scale": [scale_before,
+                                          float(out["loss_scale"])],
+                           "histories_rolled": rolled,
+                           "newest_amax": newest},
+        accum={"accum_steps": O4_ACCUM, "losses": acc_losses,
+               "launches_per_step": acc_want})
+    return rec, counts, acc_counts
+
+
+def _o4_reference():
+    """A 2-layer narrow GPT at O4, ``O4_REF_STEPS`` steps on the card and
+    on the CPU from the same weights: losses within ``O4_REF_LOSS_TOL``,
+    each class's scale after each step within ``O4_SCALE_RTOL``."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    tree = gpt_small_tree(cfg, seed=9)
+    ids = train_stream(cfg.vocab_size, 4, 128)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(tree, cfg, device=dev, trainable=True)
+        a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-3,
+                                            device=dev),
+                           opt_level="O4", device=dev)
+        step = amp.make_train_step(a, model, _gpt_loss)
+        x = torch.as_tensor(ids, device=dev)
+        losses, scales = [], []
+        for _ in range(O4_REF_STEPS):
+            losses.append(float(step(x)["loss"]))
+            scales.append({c: float(getattr(a.fp8_state, c).scale)
+                           for c in O4_SCALE_RTOL})
+        runs[dev] = (losses, scales)
+    (lg, sg), (lc, sc) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(x - y) for x, y in zip(lg, lc))
+    scale_err = {c: max(abs(g[c] - w[c]) / abs(w[c]) for g, w in zip(sg, sc))
+                 for c in O4_SCALE_RTOL}
+    require(all(np.isfinite(lg)) and lg[-1] < lg[0],
+            f"O4 reference losses on the card: {lg}")
+    require(loss_err <= O4_REF_LOSS_TOL,
+            f"O4 losses card vs CPU differ by {loss_err}")
+    require(all(scale_err[c] <= O4_SCALE_RTOL[c] for c in O4_SCALE_RTOL),
+            f"O4 scales card vs CPU differ by {scale_err} (bounds "
+            f"{O4_SCALE_RTOL})")
+    return dict(steps=O4_REF_STEPS, losses_card=lg, losses_cpu=lc,
+                loss_max_abs_err=loss_err, loss_tolerance=O4_REF_LOSS_TOL,
+                scales_card=sg, scales_cpu=sc, scale_max_rel_err=scale_err,
+                scale_rel_tolerance=O4_SCALE_RTOL)
+
+
+def _pool_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (eng.kc, eng.vc, eng.ks, eng.vs) if t is not None)
+
+
+def _serve_run(model, cfg, requests, kv_dtype):
+    """One drained run of ``requests`` through a fresh engine (the serve
+    phase's shapes): outputs, the launches, tokens/s, decode p50 / p99,
+    the pools' bytes and the int8 error gauge."""
+    import torch
+    from apex_tpu_torch.obs import Registry
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serve import Request, ServeConfig, ServeEngine
+    scfg = ServeConfig(num_slots=8, block_size=16, max_blocks_per_slot=64,
+                       num_blocks=8 * 64 + 1, prefill_chunk=64,
+                       kv_dtype=kv_dtype)
+    reg = Registry()
+    eng = ServeEngine(model, cfg, scfg, registry=reg)
+    for uid, prompt, n in requests:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    chunks = int(reg.counter("serve_prefill_chunks_total").value)
+    require(len(out) == len(requests), f"{kv_dtype}: not every request "
+                                       f"finished")
+    require(counts == dict(NO_LAUNCHES, layer_norm_fwd=(
+        2 * cfg.num_layers + 1) * (eng.steps + chunks)),
+        f"{kv_dtype} serve launched {counts}")
+    h = reg.histogram("serve_decode_step_seconds")
+    generated = int(reg.counter("serve_tokens_total").value)
+    err = reg.gauge("serve_kv_quant_error").value \
+        if kv_dtype == "int8" else None
+    return out, counts, dict(
+        tokens_per_s=generated / wall, wall_s=wall,
+        generated_tokens=generated, decode_steps=eng.steps,
+        prefill_chunks=chunks, decode_step_p50_ms=h.quantile(0.5) * 1e3,
+        decode_step_p99_ms=h.quantile(0.99) * 1e3,
+        pool_bytes=_pool_bytes(eng), serve_kv_quant_error=err)
+
+
+def _int8_serve(cfg, tree, requests):
+    """The serve phase's 16 requests through the dense and the int8
+    engine in turns (dense, int8, int8, dense); the int8 runs equal each
+    other; then 4 of them through solo int8 ``generate()`` (K2 once a
+    layer, the full prefill), equal to the int8 engine under the solo
+    phase's near-tie rule."""
+    import torch
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models.generate import generate
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    model = params_from_jax(tree, cfg, dtype=torch.bfloat16)
+    recs = {"dense": [], "int8": []}
+    outs = {}
+    counts = dict(NO_LAUNCHES)
+    for kind in ("dense", "int8", "int8", "dense"):
+        out, got, rec = _serve_run(model, cfg, requests,
+                                   None if kind == "dense" else "int8")
+        if kind in outs:
+            require(all(np.array_equal(outs[kind][u], out[u]) for u in out),
+                    f"two {kind} engine runs differ")
+        outs[kind] = out
+        if kind == "int8":
+            counts = {k: counts[k] + got[k] for k in counts}
+        recs[kind].append(rec)
+    dense_b, int8_b = recs["dense"][0]["pool_bytes"], \
+        recs["int8"][0]["pool_bytes"]
+    per_token = (cfg.num_heads * cfg.head_dim + 4) / (
+        2 * cfg.num_heads * cfg.head_dim)
+    require(int8_b / dense_b == per_token,
+            f"int8 pools {int8_b} B against bf16 {dense_b} B, want "
+            f"{per_token}")
+    err = recs["int8"][0]["serve_kv_quant_error"]
+    require(0.0 < err < 0.1, f"serve_kv_quant_error {err}")
+    agree = np.mean([np.mean(outs["dense"][u] == outs["int8"][u])
+                     for u in outs["int8"]])
+    solo_total = dict(NO_LAUNCHES)
+    rows = []
+    for uid, prompt, n in requests[:4]:
+        reset_launch_counts()
+        seq = generate(model, cfg, prompt[None], n,
+                       kv_dtype="int8")[0].cpu().numpy()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        require(got["flash_attn_fwd"] == cfg.num_layers,
+                f"{uid}: int8 solo flash_attn_fwd {got['flash_attn_fwd']}")
+        solo_total = {k: solo_total[k] + got[k] for k in solo_total}
+        t = first_divergence(seq[len(prompt):], outs["int8"][uid])
+        margin = None
+        if t is not None:
+            margin = float(margins_of(model, seq, len(prompt))[t])
+            require(margin <= NEAR_TIE_BF16,
+                    f"{uid}: int8 engine and solo differ at step {t} with "
+                    f"top-2 margin {margin} > {NEAR_TIE_BF16}")
+        rows.append(dict(uid=uid, new=n,
+                         equal_prefix=n if t is None else t,
+                         near_tie_margin=margin))
+    p50 = {k: float(np.mean([r["decode_step_p50_ms"] for r in v]))
+           for k, v in recs.items()}
+    tps = {k: float(np.mean([r["tokens_per_s"] for r in v]))
+           for k, v in recs.items()}
+    del model
+    torch.cuda.empty_cache()
+    rec = dict(order="dense, int8, int8, dense", runs=recs,
+               tokens_per_s_mean=tps,
+               int8_over_dense_tokens_per_s=tps["int8"] / tps["dense"],
+               decode_step_p50_ms_mean=p50,
+               pool_bytes={"bf16": dense_b, "int8": int8_b},
+               pool_ratio=int8_b / dense_b, pool_ratio_want=per_token,
+               serve_kv_quant_error=err,
+               int8_dense_token_agreement=float(agree),
+               launches_per_int8_run=counts["layer_norm_fwd"] / 2,
+               solo=dict(calls=4, requests=rows, launches=solo_total,
+                         near_tie_rule=f"divergence only at top-2 margin "
+                                       f"<= {NEAR_TIE_BF16} (bf16 logits)"))
+    return rec, counts, solo_total
+
+
+def _int8_toy():
+    """The port's ``train_toy_lm`` trained on the card (gpt_tiny, O2, 50
+    steps): int8 against dense greedy tokens >= ``INT8_MATCH_MIN``, two
+    int8 runs bitwise equal, the int8 engine's streams equal to solo int8
+    ``generate()``."""
+    import torch
+    from apex_tpu_torch.models import train_toy_lm
+    from apex_tpu_torch.models.generate import generate
+    from apex_tpu_torch.obs import Registry
+    from apex_tpu_torch.serve import Request, ServeConfig, ServeEngine
+    t0 = time.perf_counter()
+    cfg, model, ids = train_toy_lm()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    prompt = ids[:2, :8]
+    dense = generate(model, cfg, prompt, 12).cpu().numpy()
+    q = generate(model, cfg, prompt, 12, kv_dtype="int8").cpu().numpy()
+    q2 = generate(model, cfg, prompt, 12, kv_dtype="int8").cpu().numpy()
+    match = float(np.mean(dense[:, 8:] == q[:, 8:]))
+    require(match >= INT8_MATCH_MIN, f"toy LM int8 against dense {match}")
+    require(np.array_equal(q, q2), "two int8 generate runs differ")
+    eng = ServeEngine(model, cfg, ServeConfig(
+        num_slots=2, block_size=4, num_blocks=11, max_blocks_per_slot=5,
+        prefill_chunk=4, kv_dtype="int8"), registry=Registry())
+    asks = {"a": prompt[0], "b": prompt[1][:5]}
+    for uid, p in asks.items():
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+    outs = eng.run()
+    for uid, p in asks.items():
+        solo = generate(model, cfg, p[None], 6,
+                        kv_dtype="int8")[0].cpu().numpy()[len(p):]
+        require(np.array_equal(outs[uid], solo),
+                f"toy LM int8 engine {outs[uid]} against solo {solo}")
+    return dict(train_s=train_s, int8_dense_match=match,
+                match_min=INT8_MATCH_MIN, int8_runs_bitwise=True,
+                engine_equals_solo=True,
+                serve_kv_quant_error=eng.metrics.gauge(
+                    "serve_kv_quant_error").value)
+
+
+def phase_quant(cfg, tree, requests):
+    """fp8 / int8 (``quant``): the functions on the card against the CPU
+    bit for bit and ``scaled_matmul`` (``torch._scaled_mm``) against its
+    plain version; gpt_small at O4 in turns with O2; a 2-layer O4 model
+    card against CPU; int8-KV serving at full width in turns with dense,
+    and solo int8; the int8 cache on the trained toy LM."""
+    import torch
+    t0 = time.perf_counter()
+    functions = _quant_functions()
+    mm = _scaled_matmul_case()
+    # the host-bound serving runs before the O4 step's profiler session
+    serve, int8_counts, solo_counts = _int8_serve(cfg, tree, requests)
+    toy = _int8_toy()
+    train, o4_counts, acc_counts = _o4_train(cfg, tree)
+    torch.cuda.empty_cache()
+    reference = _o4_reference()
+    emit("quant", functions=functions, scaled_matmul=mm, o4_train=train,
+         o4_reference=reference, int8_serve=serve, int8_toy_lm=toy,
+         seconds=time.perf_counter() - t0)
+    return dict(o4_train=o4_counts, o4_accum=acc_counts,
+                int8_serve=int8_counts, int8_solo=solo_counts)
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
                   "data_prefetch", "seq_parallel", "rnn", "pipeline_moe",
-                  "resilience")
+                  "resilience", "quant")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -7288,8 +7920,11 @@ def partial_run(names, repo: Path) -> int:
             phase_rnn()
         elif name == "pipeline_moe":
             phase_pipeline_moe(cfg, gpt_small_tree(cfg, seed=0), repo)
-        else:
+        elif name == "resilience":
             phase_resilience(cfg, gpt_small_tree(cfg, seed=0))
+        else:
+            phase_quant(cfg, gpt_small_tree(cfg, seed=0),
+                        serve_requests(cfg))
     return 0
 
 
@@ -7350,10 +7985,7 @@ def main(argv=None) -> int:
         from apex_tpu_torch.convert import params_from_jax
         from apex_tpu_torch.models import gpt_small
         cfg = gpt_small()
-        rng = np.random.default_rng(1)
-        requests = [(f"r{i}", rng.integers(0, cfg.vocab_size,
-                                           int(rng.integers(32, 513))),
-                     int(rng.integers(32, 129))) for i in range(16)]
+        requests = serve_requests(cfg)
         solo_reqs = requests[:4]
         ln_recs, fl_recs, ln_extra = phase_kernels(
             [len(p) for _, p, _ in solo_reqs])
@@ -7398,6 +8030,7 @@ def main(argv=None) -> int:
         sp_counts, sp_blocks = phase_seq_parallel(cfg, tree, repo)
         pipe_counts, moe_counts = phase_pipeline_moe(cfg, tree, repo)
         res_counts = phase_resilience(cfg, tree)
+        quant_counts = phase_quant(cfg, tree, requests)
         del tree
         lm_counts = phase_rnn()
         mh_fwd, mh_bwd = phase_flash_mh_kernels()
@@ -7438,7 +8071,11 @@ def main(argv=None) -> int:
                    "pipeline_nccl": pipe_counts.get(k, 0),
                    "moe_nccl": moe_counts.get(k, 0),
                    "rnn_byte_lm": lm_counts.get(k, 0),
-                   "resilient_loop": res_counts.get(k, 0)}
+                   "resilient_loop": res_counts.get(k, 0),
+                   "o4_train": quant_counts["o4_train"][k],
+                   "o4_accum": quant_counts["o4_accum"][k],
+                   "int8_serve": quant_counts["int8_serve"][k],
+                   "int8_solo": quant_counts["int8_solo"][k]}
                for k in bert_counts}
     rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8

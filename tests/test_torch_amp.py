@@ -19,7 +19,8 @@ from apex_tpu_torch.optimizers import FusedAdam
 
 FIELDS = ("enabled", "opt_level", "cast_model_dtype", "cast_ops",
           "keep_batchnorm_fp32", "master_weights", "loss_scale",
-          "half_dtype", "cast_model_outputs")
+          "half_dtype", "cast_model_outputs", "fp8", "fp8_dtype_fwd",
+          "fp8_dtype_bwd", "fp8_amax_history_len", "fp8_margin")
 
 
 def _dtype_name(d):
@@ -33,24 +34,35 @@ def _dtype_name(d):
 @pytest.mark.parametrize("overrides", [
     {}, {"loss_scale": 128.0}, {"keep_batchnorm_fp32": "False"},
     {"cast_model_dtype": False}, {"master_weights": True}])
-@pytest.mark.parametrize("level", ["O0", "O1", "O2", "O3"])
+@pytest.mark.parametrize("level", ["O0", "O1", "O2", "O3", "O4"])
 def test_resolve_matches_jax_properties(level, overrides):
     want = jax_policy.resolve(level, **overrides)
     got = resolve(level, **overrides)
     for f in FIELDS:
         w, g = getattr(want, f), getattr(got, f)
-        if f.endswith("dtype") or f == "cast_model_outputs":
+        if f.endswith("dtype") or f.endswith("_fwd") or \
+                f.endswith("_bwd") or f == "cast_model_outputs":
             w, g = _dtype_name(w), _dtype_name(g)
         assert w == g, f
-    assert not want.fp8
+    assert want.fp8 == (level == "O4")
     assert got.use_master_weights == want.use_master_weights
     assert got.is_dynamic_loss_scale == want.is_dynamic_loss_scale
 
 
 def test_o4_and_unknown_levels_are_refused():
-    with pytest.raises(NotImplementedError, match="O4"):
-        resolve("O4")
-    with pytest.raises(ValueError, match="optimization level"):
+    """O4 resolves to the JAX package's properties (fp8 training); an
+    unknown level is refused, naming O4 among the options as JAX's
+    message does."""
+    want, got = jax_policy.resolve("O4"), resolve("O4")
+    for f in FIELDS:
+        w, g = getattr(want, f), getattr(got, f)
+        if f.endswith("dtype") or f.endswith("_fwd") or \
+                f.endswith("_bwd") or f == "cast_model_outputs":
+            w, g = _dtype_name(w), _dtype_name(g)
+        assert w == g, f
+    assert got.fp8 and got.fp8_dtype_fwd == torch.float8_e4m3fn \
+        and got.fp8_dtype_bwd == torch.float8_e5m2
+    with pytest.raises(ValueError, match="optimization level.*O4"):
         resolve("O9")
 
 

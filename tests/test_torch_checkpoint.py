@@ -39,6 +39,7 @@ from apex_tpu.models.gpt import lm_loss as jax_lm_loss
 from apex_tpu.models.mlp import MLP as JaxMLP
 from apex_tpu.models.mlp import cross_entropy_loss as jax_cross_entropy
 from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+from apex_tpu.resilience import durable as jax_durable
 from apex_tpu_torch import amp, checkpoint
 from apex_tpu_torch.convert import (mlp_params_from_jax, params_from_jax,
                                     params_to_numpy)
@@ -309,9 +310,8 @@ def test_retention_keeps_the_newest(tmp_path):
 
 
 def test_a_payload_without_fp8_state_restores():
-    """The JAX package's O2 -> O4 warm start: a payload saved before the
-    fp8 state existed restores (no O4 in the port: a payload without the
-    key restores as one holding None)."""
+    """A payload saved before the fp8 state existed (no ``fp8_state``
+    key) restores into an O2 ``Amp``, as one holding None does."""
     a, step, batch = _mlp_run()
     step(*batch)
     d = checkpoint.state_dict(a)
@@ -320,6 +320,106 @@ def test_a_payload_without_fp8_state_restores():
     b, _, _ = _mlp_run()
     checkpoint.load_state_dict(b, d)
     _assert_same(_snapshot(b), _snapshot(a))
+
+
+def _o4_mlp_run(steps=3):
+    case = _mlp_case()
+    model = case["model"]
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=case["lr"],
+                                        device="cpu"),
+                       opt_level="O4", device="cpu")
+    step = amp.make_train_step(a, model, case["loss"])
+    for _ in range(steps):
+        step(*case["batch"])
+    return a, step, case["batch"]
+
+
+def test_an_o4_state_round_trips_through_state_dict_and_durable(tmp_path):
+    """The fp8 state is in the payload under the JAX package's names
+    (each class's ``amax_history`` and ``scale``), and an O4 ``Amp``
+    restored from it, by ``load_state_dict`` or through the durable
+    manager, equals the saved one bit for bit and takes the same next
+    step."""
+    a, step, batch = _o4_mlp_run()
+    d = checkpoint.state_dict(a)
+    keys = [k for k, _ in tree_leaves_with_path(d)]
+    fp8_keys = [k for k in keys if k.startswith("['fp8_state']")]
+    assert fp8_keys == [f"['fp8_state'].{c}.{f}"
+                        for c in ("input", "weight", "grad")
+                        for f in ("amax_history", "scale")]
+    assert float(a.fp8_state.input.scale) != 1.0
+    b, _, _ = _o4_mlp_run(steps=0)
+    checkpoint.load_state_dict(b, d)
+    _assert_same(_snapshot(b), _snapshot(a))
+    mgr = DurableCheckpointManager(str(tmp_path), fsync=False)
+    mgr.save(2, a)
+    mgr.close()
+    c, step_c, _ = _o4_mlp_run(steps=0)
+    DurableCheckpointManager(str(tmp_path)).restore(c)
+    _assert_same(_snapshot(c), _snapshot(a))
+    want, got = step(*batch), step_c(*batch)
+    for k in ("loss", "fp8_amax_saturation", "fp8_rescales"):
+        assert torch.equal(got[k], want[k]), k
+    _assert_same(_snapshot(c), _snapshot(a))
+
+
+def test_a_jax_o4_snapshot_restores_into_the_port_and_back(tmp_path):
+    case = _mlp_case()
+    ja = jax_amp.initialize(optimizer=JaxFusedAdam(lr=case["lr"]),
+                            opt_level="O4", verbosity=0)
+    jstep = jax.jit(jax_amp.make_train_step(ja, case["jax_loss"]))
+    state = ja.init(case["tree"])
+    for _ in range(3):
+        state, _ = jstep(state, *case["jax_batch"])
+    jmgr = jax_durable.DurableCheckpointManager(str(tmp_path / "jax"),
+                                                fsync=False)
+    jmgr.save(2, state)
+    jmgr.close()
+
+    def jax_leaves(st):
+        return {jax.tree_util.keystr(p): np.asarray(v) for p, v in
+                jax.tree_util.tree_leaves_with_path(
+                    jax_checkpoint.state_dict(st))}
+    want = jax_leaves(state)
+    assert "['fp8_state'].grad.amax_history" in want
+    a, step, batch = _o4_mlp_run(steps=0)
+    DurableCheckpointManager(str(tmp_path / "jax")).restore(a)
+    got = dict(_snapshot(a))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+    for p, master in zip(a.params, a.masters.values()):
+        assert torch.equal(p, master.to(torch.bfloat16))
+    step(*batch)                        # the restored state trains
+
+    # and back: the port's O4 snapshot into a JAX O4 template
+    mgr = DurableCheckpointManager(str(tmp_path / "port"), fsync=False)
+    mgr.save(3, a)
+    mgr.close()
+    restored, _ = jax_durable.DurableCheckpointManager(
+        str(tmp_path / "port")).restore(ja.init(case["tree"]))
+    back = jax_leaves(restored)
+    for k, t in _snapshot(a):
+        np.testing.assert_array_equal(back[k], t.numpy(), err_msg=k)
+
+
+def test_an_o2_payload_warm_starts_an_o4_amp():
+    """The O2 -> O4 warm start: a payload without ``fp8_state`` restores
+    the masters, moments and scalers into an O4 ``Amp``, which keeps its
+    fresh fp8 state (unit scales, empty histories)."""
+    a, step, batch = _mlp_run()
+    for _ in range(2):
+        step(*batch)
+    d = checkpoint.state_dict(a)
+    del d["fp8_state"]
+    b, _, _ = _o4_mlp_run(steps=0)
+    checkpoint.load_state_dict(b, d)
+    for c in b.fp8_state:
+        assert float(c.scale) == 1.0 and not bool(c.amax_history.any())
+    got = dict(_snapshot(b))
+    for k, t in _snapshot(a):
+        if not k.startswith("['fp8_state']"):
+            assert torch.equal(got[k], t), k
 
 
 def test_restore_raises_when_every_snapshot_is_corrupt(tmp_path):

@@ -2498,3 +2498,138 @@ def test_first_step_after_a_restore_equals_the_uninterrupted_step(
     assert counts["packed_scale"] == 1 and counts["packed_adam_tree"] == 1
     assert torch.equal(loss, want_loss)
     _equal_states(_host_leaves(a), want)
+
+
+# -- fp8 / int8 (quant) on the card ----------------------------------------
+
+def _quant_inputs(seed=0, n=1 << 16):
+    """fp32 values over many magnitudes with the fp8 and int8 edges:
+    zeros, the fp8 maxima and past them, halfway points, subnormals,
+    infinities and a NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32) * rng.choice(
+        np.float32([1e-7, 1e-3, 1, 30, 500, 3e4, 1e5]), n)
+    x[:16] = [0.0, -0.0, 448.0, -448.0, 464.0, 57344.0, -61440.0, 1.0625,
+              1.1875, 2.0 ** -10, 1e-40, np.inf, -np.inf, np.nan, 3e38,
+              0.5]
+    return torch.from_numpy(x)
+
+
+def _same_bits(got, want):
+    """Bit for bit, NaN payloads aside."""
+    g, w = got.cpu(), want.cpu()
+    assert g.dtype == w.dtype and g.shape == w.shape
+    gn, wn = torch.isnan(g.float()), torch.isnan(w.float())
+    assert torch.equal(gn, wn)
+    size = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[g.element_size()]
+    assert torch.equal(g.contiguous().view(size)[~wn],
+                       w.contiguous().view(size)[~wn])
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.37, 1536.0])
+def test_quant_functions_on_the_card_equal_the_cpu_bitwise(cuda, scale):
+    """``quantize``, ``dequantize``, ``qdq`` (e4m3 and e5m2, fp32 and bf16
+    inputs), ``quantize_int8`` (per tensor and per channel),
+    ``quantize_kv`` (a zero vector among the rows) and ``record_amax`` on
+    the card equal the same calls on the CPU bit for bit: IEEE
+    elementwise ops."""
+    from apex_tpu_torch.quant import fp8, int8
+    x = _quant_inputs()
+    s = torch.tensor(scale, dtype=torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        for fmt in (fp8.FP8_E4M3, fp8.FP8_E5M2):
+            q = fp8.quantize(xc, s, fmt)
+            qd = fp8.quantize(xc.to(cuda), s.to(cuda), fmt)
+            _same_bits(qd, q)
+            _same_bits(fp8.dequantize(qd, s.to(cuda)), fp8.dequantize(q, s))
+            _same_bits(fp8.qdq(xc.to(cuda), s.to(cuda), fmt),
+                       fp8.qdq(xc, s, fmt))
+    w = x[16:16 + 64 * 96].reshape(64, 96) * scale
+    for axis in (None, 0, 1):
+        q, sc = int8.quantize_int8(w, axis)
+        qd, scd = int8.quantize_int8(w.to(cuda), axis)
+        _same_bits(qd, q)
+        _same_bits(scd, sc)
+    kv = x[16:16 + 4 * 16 * 12 * 8].reshape(4, 16, 12, 8).bfloat16()
+    kv[1, 3] = 0
+    q, sc = int8.quantize_kv(kv)
+    qd, scd = int8.quantize_kv(kv.to(cuda))
+    _same_bits(qd, q)
+    _same_bits(scd, sc)
+    st = fp8.init_delayed_scaling(4, device="cpu")
+    sd = fp8.init_delayed_scaling(4, device=cuda)
+    for a in (2.0, float("inf"), 8.0 * scale, float("nan"), 1e-40):
+        st = fp8.record_amax(st, torch.tensor(a), fp8.FP8_E4M3, 1)
+        sd = fp8.record_amax(sd, torch.tensor(a, device=cuda),
+                             fp8.FP8_E4M3, 1)
+        _same_bits(sd.amax_history, st.amax_history)
+        _same_bits(sd.scale, st.scale)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 3072), (100, 72, 40),
+                                   (1, 24, 8)])
+def test_scaled_matmul_runs_scaled_mm_and_matches_plain(cuda, m, k, n):
+    """``scaled_matmul`` on the card (``torch._scaled_mm`` on the fp8
+    operands, padded to 16 where a dim is not a multiple of it) against
+    its plain version (the fp32 product of the upcast operands): within
+    ``2**-10`` of the largest output.  The fp8 tensor cores keep fewer
+    bits than fp32 in their partial sums (measured 2.6e-4 of the largest
+    output at K 768 on an NVIDIA H100 80GB HBM3 at 700.00 W), and the
+    scales ride the epilogue as reciprocals."""
+    from apex_tpu_torch.quant import fp8
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).bfloat16()
+    w = torch.randn(k, n, generator=gen).bfloat16()
+    sx, sw = torch.tensor(96.0), torch.tensor(160.0)
+    want = fp8.scaled_matmul(x, w, sx, sw, out_dtype=torch.float32)
+    got = fp8.scaled_matmul(x.to(cuda), w.to(cuda), sx.to(cuda),
+                            sw.to(cuda), out_dtype=torch.float32)
+    tol = 2.0 ** -10 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= tol
+    out = fp8.scaled_matmul(x.to(cuda), w.to(cuda), sx.to(cuda),
+                            sw.to(cuda))
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+
+
+def test_tree_amax_propagates_nan_on_the_card(cuda):
+    """The grad class's amax over a tree: the largest magnitude, NaN when
+    a leaf holds one (which records as 0, as JAX's ``max`` gives)."""
+    from apex_tpu_torch.quant import fp8
+    leaves = [torch.randn(1000, device=cuda).bfloat16() for _ in range(3)]
+    leaves.append(torch.randn(77, device=cuda))
+    want = max(float(t.float().abs().max()) for t in leaves)
+    assert float(fp8.tree_amax(leaves)) == want
+    leaves[1][5] = float("nan")
+    assert torch.isnan(fp8.tree_amax(leaves))
+    leaves[1][5] = float("inf")
+    assert float(fp8.tree_amax(leaves)) == float("inf")
+
+
+def test_o4_step_on_the_card_quantizes_and_rolls_on_device(cuda):
+    """A 2-layer GPT's O4 step on the card: the fp8 state lives on the
+    card, the step launches the port's kernels (K1, K3, K2, the
+    backward, K6, K11) and no state leaves the card; the scales move off
+    1 after the first step."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTConfig, GPTModel, lm_loss
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256)
+    torch.manual_seed(0)
+    model = GPTModel(cfg, device=cuda)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=1e-3),
+                       opt_level="O4")
+    step = amp.make_train_step(
+        a, model, lambda m, x: lm_loss(m(x)[:, :-1], x[:, 1:]))
+    ids = torch.arange(4 * 128, device=cuda).reshape(4, 128) % 512
+    reset_launch_counts()
+    out = step(ids)
+    counts = launch_counts()
+    for k in ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
+              "packed_scale", "packed_adam_tree"):
+        assert counts[k] > 0, k
+    assert all(t.is_cuda for c in a.fp8_state for t in c)
+    assert out["fp8_rescales"].is_cuda and out["fp8_amax_saturation"].is_cuda
+    assert float(a.fp8_state.weight.scale) != 1.0
