@@ -23,7 +23,11 @@ resumes: :mod:`apex_tpu_torch.checkpoint` over the durable snapshots of
 :mod:`apex_tpu_torch.resilience`, whose ``run_resilient`` is the
 self-healing train loop (watchdog, IO retry, divergence rewind).  fp8
 training (amp O4) and the int8 KV cache (``kv_dtype="int8"`` in
-``generate`` and the serve engine): :mod:`apex_tpu_torch.quant`.  Entry
+``generate`` and the serve engine): :mod:`apex_tpu_torch.quant`.
+Speculative decoding (:class:`~apex_tpu_torch.serve.SpecEngine`) and the
+disaggregated prefill / decode fleet (:class:`~apex_tpu_torch.serve.
+DisaggRouter`), over trace spans, request traces and SLO objectives
+(:mod:`apex_tpu_torch.obs`) and :mod:`apex_tpu_torch.utils`.  Entry
 points default to the card and raise when there is none unless given
 ``device="cpu"``.
 """

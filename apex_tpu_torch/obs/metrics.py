@@ -1,12 +1,13 @@
 """Process-local metrics: counters, gauges and fixed-bucket histograms,
-as the parts of ``apex_tpu/obs/metrics.py`` that the serve engine and
-scheduler use.
+as the parts of ``apex_tpu/obs/metrics.py`` that the serve engines, the
+router and the SLO evaluator use.
 
 Values are host numbers, applied when recorded.  The JAX package defers
 device values and resolves them a step late; in eager PyTorch the engine
 records host numbers only, so :meth:`Registry.tick` is a no-op kept for
 the engine's step-boundary call.  Histogram buckets and quantile
-interpolation are the JAX package's, so p50/p99 mean the same in both,
+interpolation are the JAX package's (with its window rule,
+``quantile(q, since=Histogram.state())``), so p50/p99 mean the same in both,
 and :meth:`Registry.snapshot` writes the JAX package's rows, so a
 snapshot in an incident record reads the same from either package.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import bisect
 import math
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -82,14 +83,29 @@ class Histogram:
         self.count += 1
         self._max = max(self._max, value)
 
-    def quantile(self, q: float) -> float:
+    def state(self) -> Tuple[np.ndarray, float, int, float]:
+        """Opaque snapshot for windowed reads: ``quantile(q,
+        since=state)`` reads only what was observed after it."""
+        return (self.counts.copy(), self.sum, self.count, self._max)
+
+    def quantile(self, q: float, since=None) -> float:
         """Prometheus-style ``histogram_quantile``: rank-interpolated
         inside the owning bucket (lower edge 0 for the first); the +inf
-        bucket interpolates toward the largest value seen.  ``nan`` with
-        no observation."""
+        bucket interpolates toward the largest value seen.  ``nan`` when
+        (the window since ``since``, a :meth:`state`) holds no
+        observation."""
         if not 0.0 <= q <= 1.0:
             raise ValueError(f"quantile {q} outside [0, 1]")
         counts, total, hi_max = self.counts, self.count, self._max
+        if since is not None:
+            counts = counts - since[0]
+            total = self.count - since[2]
+            # the window's max is known only where it set the running
+            # max; a larger one from before the window (a first step's
+            # warm-up) must not stretch the overflow bucket, so it falls
+            # back to the last finite bound
+            if not self._max > since[3]:
+                hi_max = -math.inf
         if total <= 0:
             return math.nan
         rank = q * total

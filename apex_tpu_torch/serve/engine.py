@@ -27,6 +27,18 @@ chunk's relative quantization error, read with the first token).  PyTorch runs e
 so there is no compiled step to keep shape-stable; the kernels' launch
 counters (:func:`apex_tpu_torch.ops.cuda.launch_counts`) show which
 kernels a step ran.
+
+Observability, as the JAX engine's: each decode step runs in the span
+``serve/decode_step`` and each prefill chunk in ``serve/prefill_chunk``
+(:mod:`apex_tpu_torch.obs.spans`); with ``tracer=`` (a
+:class:`~apex_tpu_torch.obs.reqtrace.RequestTracer`) the engine records
+each request's ``enqueue``, ``cow_fork``, ``prefix_hit``,
+``prefill_chunk``, ``admit``, ``decode_step``, ``preempt`` and ``retire``
+under its ``trace_name``.  The speculative engine overrides
+:meth:`ServeEngine._run_prefill` and calls
+:meth:`ServeEngine._admit_and_evict` and
+:meth:`ServeEngine._observe_step_wall` from its own step; the fleet's
+prefill worker calls :meth:`ServeEngine._run_prefill` for one request.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from apex_tpu_torch.models.generate import (
 )
 from apex_tpu_torch.models.gpt import GPTBlock, GPTConfig, GPTModel
 from apex_tpu_torch.obs import metrics as obs_metrics
+from apex_tpu_torch.obs import spans
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 from apex_tpu_torch.ops.rope import rope_tables
 from apex_tpu_torch.quant.int8 import dequantize_int8, quantize_kv
@@ -188,18 +201,24 @@ class ServeEngine:
     >>> outputs = eng.run()          # {"a": generated token ids}
 
     ``device`` defaults to the card (raising when there is none); the
-    model must live there.
+    model must live there.  ``tracer`` (a :class:`~apex_tpu_torch.obs.
+    reqtrace.RequestTracer`, None = off) records each request's events
+    under ``trace_name`` (``"prefill"``, ``"replica0"``, ... in a fleet).
     """
 
     def __init__(self, model: GPTModel, cfg: GPTConfig,
                  serve_cfg: ServeConfig,
                  registry: Optional[obs_metrics.Registry] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 tracer: Optional[Any] = None,
+                 trace_name: str = "engine"):
         self.device = resolve_device(device)
         _check_model_device(model, self.device)
         self.model = model
         self.cfg = cfg
         self.scfg = serve_cfg
+        self.tracer = tracer
+        self.trace_name = trace_name
         self.metrics = registry if registry is not None \
             else obs_metrics.DEFAULT
         self._m_step_s = self.metrics.histogram(
@@ -241,17 +260,32 @@ class ServeEngine:
         #: one generator per slot; a slot's is replaced at admission
         self.generators: List[torch.Generator] = [
             sampling.make_generator(0) for _ in range(serve_cfg.num_slots)]
+        #: decode steps run (speculative rounds in the spec engine): the
+        #: tracer's ``step`` index
         self.steps = 0
         self._outputs: Dict[str, np.ndarray] = {}
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    @property
+    def pools(self) -> Dict[str, torch.Tensor]:
+        """The cache pools by name: ``kc``, ``vc``, and the int8 format's
+        ``ks``, ``vs``."""
+        return {n: t for n, t in (("kc", self.kc), ("vc", self.vc),
+                                  ("ks", self.ks), ("vs", self.vs))
+                if t is not None}
+
     # -- device work -------------------------------------------------
 
     def _decode(self) -> torch.Tensor:
-        """One decode step over every slot; returns the ``(S,)`` next
-        tokens (an inactive slot keeps its pending token)."""
+        """One decode step over every slot, in the span
+        ``serve/decode_step``; returns the ``(S,)`` next tokens (an
+        inactive slot keeps its pending token)."""
+        with spans.span("serve/decode_step", registry=self.metrics):
+            return self._decode_math()
+
+    def _decode_math(self) -> torch.Tensor:
         c, s = self.cfg, self.sched
         bs = self.scfg.block_size
         tokens = self._t(s.last_tok).long()
@@ -291,8 +325,15 @@ class ServeEngine:
 
     def submit(self, req: Request) -> None:
         self.sched.submit(req)
+        if self.tracer is not None:
+            self.tracer.record("enqueue", req.uid, self.trace_name,
+                               queue_depth=len(self.sched.queue))
 
     def _run_prefill(self, slot: int, req: Request) -> None:
+        """Admission of ``req`` into ``slot`` (blocks and tables already
+        set): the prompt's chunks (after any prefix-cache match), then the
+        first token's sample, then the slot armed; a request done at its
+        first token retires here."""
         c = self.scfg.prefill_chunk
         prompt = np.asarray(req.prompt, np.int64)
         n = len(prompt)
@@ -304,14 +345,21 @@ class ServeEngine:
         s = self.sched.slots[slot]
         resume = 0
         if s.cow_src is not None:
+            src = s.cow_src
             dst = int(self.sched.page_table[slot,
                                             (n - 1) // self.scfg.block_size])
-            self._cow_copy(s.cow_src, dst)
+            self._cow_copy(src, dst)
             self.sched.finish_cow(slot)
             self._m_cow.inc()
             resume = n - 1
+            if self.tracer is not None:
+                self.tracer.record("cow_fork", req.uid, self.trace_name,
+                                   src_block=src, dst_block=dst)
         elif s.prefix_len:
             resume = s.prefix_len
+        if resume and self.tracer is not None:
+            self.tracer.record("prefix_hit", req.uid, self.trace_name,
+                               matched_tokens=s.prefix_len, prompt_len=n)
         rest = n - resume
         padded = np.zeros(-(-rest // c) * c, np.int64)
         padded[:rest] = prompt[resume:]
@@ -319,12 +367,18 @@ class ServeEngine:
         table_row = self._t(self.sched.page_table[slot]).long()
         logits = kv_err = None
         for j in range(0, padded.shape[0], c):
-            logits, kv_err = chunk_prefill_math(
-                self.cfg, self.scfg.block_size,
-                self.scfg.max_blocks_per_slot, self.model, self.kc,
-                self.vc, table_row, padded[None, j:j + c], resume + j,
-                min(c, rest - j), ks=self.ks, vs=self.vs)
+            n_valid = min(c, rest - j)
+            with spans.span("serve/prefill_chunk", registry=self.metrics):
+                logits, kv_err = chunk_prefill_math(
+                    self.cfg, self.scfg.block_size,
+                    self.scfg.max_blocks_per_slot, self.model, self.kc,
+                    self.vc, table_row, padded[None, j:j + c], resume + j,
+                    n_valid, ks=self.ks, vs=self.vs)
             self._m_prefill.inc()
+            if self.tracer is not None:
+                self.tracer.record("prefill_chunk", req.uid,
+                                   self.trace_name, start=resume + j,
+                                   n_valid=n_valid)
         if req.resume_key is not None:
             gen = torch.Generator()
             gen.set_state(torch.as_tensor(req.resume_key, dtype=torch.uint8))
@@ -345,25 +399,47 @@ class ServeEngine:
             first = int(tok[0])
         self.sched.arm(slot, first, n)
         self._m_tokens.inc(1)          # the prefill's sampled token
+        if self.tracer is not None:
+            self.tracer.record("admit", req.uid, self.trace_name,
+                               slot=slot, first_token=first, prompt_len=n,
+                               tokens=1)
         # a 1-token budget (or an immediate EOS) finishes on the prefill
         # sample itself
         if req.max_new_tokens <= 1 or (
                 req.eos_id is not None and first == req.eos_id):
             uid, out = self.sched.retire(slot)
             self._outputs[uid] = out
+            self._trace_retire(uid, out)
+
+    def _trace_retire(self, uid: str, out: np.ndarray) -> None:
+        if self.tracer is not None:
+            self.tracer.record("retire", uid, self.trace_name,
+                               tokens_out=int(out.shape[0]))
 
     def _admit_and_evict(self) -> None:
+        """The step boundary's admissions and evictions, as the
+        scheduler plans them."""
         while True:
             plan = self.sched.plan()
             if plan is None:
                 return
             if plan[0] == "evict":
                 slot = plan[1]
+                uid = self.sched.slots[slot].request.uid
                 state = self.generators[slot].get_state().numpy().copy()
                 self.sched.preempt(slot, state)
+                if self.tracer is not None:
+                    self.tracer.record("preempt", uid, self.trace_name,
+                                       slot=slot)
             else:
                 _, slot, req = plan
                 self._run_prefill(slot, req)
+
+    def _observe_step_wall(self, dt: float) -> None:
+        """One step's wall seconds (launches + the token read-back) into
+        ``serve_decode_step_seconds``: the base and speculative steps'
+        one observer."""
+        self._m_step_s.observe(dt)
 
     @torch.inference_mode()
     def step(self) -> Dict[str, np.ndarray]:
@@ -377,15 +453,22 @@ class ServeEngine:
         n_act = int(sched.active.sum())
         t0 = time.perf_counter()
         toks = self._decode().cpu().numpy()
-        self._m_step_s.observe(time.perf_counter() - t0)
+        self._observe_step_wall(time.perf_counter() - t0)
         self._m_tokens.inc(n_act)
         self.steps += 1
         finished: Dict[str, np.ndarray] = {}
         for slot in range(sched.num_slots):
-            if sched.active[slot] and sched.record_token(slot,
-                                                         int(toks[slot])):
+            if not sched.active[slot]:
+                continue
+            if self.tracer is not None:
+                self.tracer.record(
+                    "decode_step", sched.slots[slot].request.uid,
+                    self.trace_name, step=self.steps,
+                    token=int(toks[slot]), batch=n_act, tokens=1)
+            if sched.record_token(slot, int(toks[slot])):
                 uid, out = sched.retire(slot)
                 finished[uid] = out
+                self._trace_retire(uid, out)
         self._outputs.update(finished)
         self.metrics.tick()
         return finished

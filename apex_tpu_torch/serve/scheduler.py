@@ -294,6 +294,19 @@ class SlotScheduler:
             self.prefix_hits += 1
         return matched + fresh, prefix_len, cow_src
 
+    def probe_prefix_tokens(self, prompt) -> int:
+        """Side-effect-free prefix probe: how many leading prompt tokens
+        the index covers now (0 when sharing is off) — the disaggregated
+        router's straight-to-decode routing signal."""
+        if not self.prefix_cache:
+            return 0
+        m = 0
+        for h in prefix_block_hashes(np.asarray(prompt), self.block_size):
+            if self.allocator.lookup(h) is None:
+                break
+            m += 1
+        return m * self.block_size
+
     def _eviction_victim(self, need: int) -> Optional[int]:
         """Youngest-admitted active slot whose blocks would make the
         admission possible; never the only active slot.  Only the

@@ -12,7 +12,7 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
 ``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``,
-``resilience``, ``quant``),
+``resilience``, ``quant``, ``serve_fleet``, ``serve``),
 printing their lines and no ``kernels`` or ``ok`` line: how one card
 times a parent against a change.  The ``ddp``, ``seq_parallel`` and
 ``pipeline_moe`` phases re-run this script as their ranks
@@ -53,6 +53,25 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 5. solo     4 of those requests through ``generate()``: the flash kernel
             launches once per layer per call; token agreement with the
             engine under the near-tie rule;
+   serve_fleet  (after solo, before any profiler session) speculative
+            decoding and the disaggregated fleet on gpt_small (bf16 from
+            the seeded tree, the serve phase's 16 requests and shapes):
+            ``SpecEngine`` with ``truncated_draft(..., 2)`` and k 4 in
+            turns with the dense engine (tokens/s, p50 / p99 a round or
+            step, the acceptance counters, K1 exactly (k + 1)(2 L_d + 1)
+            + 2 L + 1 a round plus the draft's and the target's prefill
+            chunks, spec against dense under the near-tie rule);
+            ``DisaggRouter`` with 2 decode replicas on ``[cuda:0] * 3``
+            (the slices share the card), in ``ship`` mode, ``recompute``
+            mode and ``ship`` with the busiest replica killed after 6
+            steps: tokens/s, shipments and their bytes (pools + the
+            generator state), CUDA-event ms of each shipment's gather,
+            wire and install, the three timed alone beside their bounds,
+            K1 exactly (2 L + 1) a decode step or prefill chunk, streams
+            against the dense engine's under the near-tie rule; then the
+            port's ``train_toy_lm`` on the card: spec, the fleet (ship,
+            recompute, a kill) and solo ``generate()`` (K2 once a layer)
+            exactly equal to the dense engine;
 6. reference  fp32 on a small input: the card's kernels against the plain
             versions on the CPU, tokens and logits;
 7. train kernels  the training slice's kernels (layer-norm backward, the
@@ -7868,17 +7887,441 @@ def phase_quant(cfg, tree, requests):
                 int8_serve=int8_counts, int8_solo=solo_counts)
 
 
+# -- speculative decoding and the disaggregated fleet (serve_fleet) ------
+
+#: the draft of the spec runs: gpt_small's first 2 of 12 blocks, k 4
+FLEET_DRAFT_LAYERS = 2
+FLEET_SPEC_K = 4
+#: the toy LM's serving shapes and requests: 8 prompts of 8 tokens from
+#: its training stream, 48 new tokens each
+TOY_SCFG = dict(num_slots=4, block_size=16, num_blocks=17,
+                max_blocks_per_slot=4, prefill_chunk=16)
+TOY_NEW = 48
+#: fleet steps before the kill: the replicas hold decoding requests
+FLEET_KILL_AFTER = 6
+#: the fleet's prefill slice and two decode slices: one card, shared
+FLEET_DEVICES = ("cuda:0",) * 3
+
+
+def _serve_cfg(**kw):
+    from apex_tpu_torch.serve import ServeConfig
+    return ServeConfig(**dict(dict(num_slots=8, block_size=16,
+                                   max_blocks_per_slot=64,
+                                   num_blocks=8 * 64 + 1,
+                                   prefill_chunk=64), **kw))
+
+
+def _host_clock(obj, name: str, acc: list) -> None:
+    """Wrap the bound method ``obj.name`` to add its host seconds and
+    calls to ``acc`` (``[seconds, calls]``)."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[0] += time.perf_counter() - t0
+            acc[1] += 1
+    setattr(obj, name, timed)
+
+
+def _drain(make, requests):
+    """A fresh engine from ``make(registry)``, the requests submitted,
+    drained with the launch counters reset around the run: outputs,
+    launches, wall seconds, the registry, the engine, and the host
+    seconds of its admissions (``_run_prefill``: chunks and the first
+    token, which ends in a read-back)."""
+    import torch
+    from apex_tpu_torch.obs import Registry
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serve import Request
+    reg = Registry()
+    eng = make(reg)
+    admit = [0.0, 0]
+    _host_clock(eng, "_run_prefill", admit)
+    for uid, prompt, n in requests:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(len(out) == len(requests), "not every request finished")
+    eng.admission_s = admit[0]
+    return out, launch_counts(), wall, reg, eng
+
+
+def _wall_split(reg, eng, wall) -> dict:
+    """A drained run's wall seconds split into its steps' (the exact sum
+    of ``serve_decode_step_seconds``), its admissions' and the rest, with
+    the exact mean step (the p50 / p99 interpolate inside buckets a
+    factor 2 wide)."""
+    h = reg.histogram("serve_decode_step_seconds")
+    return dict(step_mean_ms=h.sum / max(h.count, 1) * 1e3,
+                steps_s=h.sum, admissions_s=eng.admission_s,
+                other_s=wall - h.sum - eng.admission_s)
+
+
+def _near_tie_check(what, model, requests, got, want, rule):
+    """``got`` against ``want`` request by request: equal, or first
+    different at a top-2 margin of ``want``'s own logits at most ``rule``
+    (``None``: exactly equal).  Returns the rows."""
+    rows = []
+    for uid, prompt, n in requests:
+        g, w = got[uid], want[uid]
+        require(g.shape == (n,) and g.min() >= 0, f"{what} {uid}: {g.shape}")
+        t = first_divergence(g, w)
+        margin = None
+        if t is not None:
+            require(rule is not None,
+                    f"{what} {uid}: differs at step {t}: {g} against {w}")
+            margin = float(margins_of(model, np.concatenate([prompt, w]),
+                                      len(prompt))[t])
+            require(margin <= rule,
+                    f"{what} {uid}: differs at step {t} with top-2 margin "
+                    f"{margin} > {rule}")
+        rows.append(dict(uid=uid, new=n, equal_prefix=n if t is None else t,
+                         near_tie_margin=margin))
+    return rows
+
+
+def _spec_record(reg, eng, counts, wall, cfg, dcfg):
+    """tokens/s, p50 / p99 a round, the spec counters and K1's launches
+    against ``(k + 1)(2 L_d + 1) + 2 L + 1`` a round plus the draft's and
+    the target's prefill chunks."""
+    k = FLEET_SPEC_K
+    rounds = int(reg.counter("serve_spec_rounds_total").value)
+    chunks = int(reg.counter("serve_prefill_chunks_total").value)
+    dchunks = reg.histogram("span_seconds__serve_spec_draft_prefill").count
+    per_round = (k + 1) * (2 * dcfg.num_layers + 1) + 2 * cfg.num_layers + 1
+    want = rounds * per_round + dchunks * (2 * dcfg.num_layers + 1) \
+        + chunks * (2 * cfg.num_layers + 1)
+    require(counts == dict(NO_LAUNCHES, layer_norm_fwd=want),
+            f"spec engine launched {counts}, want K1 {want}")
+    h = reg.histogram("serve_decode_step_seconds")
+    generated = int(reg.counter("serve_tokens_total").value)
+    proposed = reg.counter("serve_spec_proposed_total").value
+    accepted = reg.counter("serve_spec_accepted_total").value
+    return dict(
+        tokens_per_s=generated / wall, wall_s=wall,
+        generated_tokens=generated, rounds=rounds,
+        prefill_chunks=chunks, draft_prefill_chunks=dchunks,
+        round_p50_ms=h.quantile(0.5) * 1e3,
+        round_p99_ms=h.quantile(0.99) * 1e3,
+        proposed=proposed, accepted=accepted,
+        acceptance_rate=reg.gauge("serve_spec_acceptance_rate").value,
+        draft_steps=reg.counter("serve_spec_draft_steps_total").value,
+        tokens_per_slot_round=(generated - len(eng._outputs)) / max(
+            proposed / k, 1),
+        k1_launches=counts["layer_norm_fwd"], k1_per_round=per_round,
+        verify_ms_mean=_mean_ms(reg, "span_seconds__serve_spec_verify"),
+        draft_ms_mean=_mean_ms(reg, "span_seconds__serve_spec_draft"),
+        draft_prefill_ms_mean=_mean_ms(
+            reg, "span_seconds__serve_spec_draft_prefill"),
+        **_wall_split(reg, eng, wall))
+
+
+def _mean_ms(reg, name: str) -> float:
+    h = reg.histogram(name)
+    return h.sum / max(h.count, 1) * 1e3
+
+
+def _dense_record(reg, eng, counts, wall, cfg):
+    chunks = int(reg.counter("serve_prefill_chunks_total").value)
+    require(counts == dict(NO_LAUNCHES, layer_norm_fwd=(
+        2 * cfg.num_layers + 1) * (eng.steps + chunks)),
+        f"dense engine launched {counts}")
+    h = reg.histogram("serve_decode_step_seconds")
+    generated = int(reg.counter("serve_tokens_total").value)
+    return dict(tokens_per_s=generated / wall, wall_s=wall,
+                generated_tokens=generated, decode_steps=eng.steps,
+                prefill_chunks=chunks, step_p50_ms=h.quantile(0.5) * 1e3,
+                step_p99_ms=h.quantile(0.99) * 1e3,
+                **_wall_split(reg, eng, wall))
+
+
+def _spec_vs_dense(model, cfg, requests, scfg, tie_rule):
+    """The spec engine (a truncated draft, k 4) and the dense engine in
+    turns (spec, dense, dense, spec): each pair of runs of one engine
+    equal, spec against dense under ``tie_rule``."""
+    from apex_tpu_torch.serve import (ServeEngine, SpecConfig, SpecEngine,
+                                      truncated_draft)
+    draft, dcfg = truncated_draft(model, cfg, FLEET_DRAFT_LAYERS
+                                  if cfg.num_layers > FLEET_DRAFT_LAYERS
+                                  else 1)
+    recs = {"spec": [], "dense": []}
+    outs = {}
+    counts = {"spec": dict(NO_LAUNCHES), "dense": dict(NO_LAUNCHES)}
+    for kind in ("spec", "dense", "dense", "spec"):
+        if kind == "spec":
+            def make(reg):
+                return SpecEngine(model, cfg, scfg, draft, dcfg,
+                                  SpecConfig(k=FLEET_SPEC_K), registry=reg)
+        else:
+            def make(reg):
+                return ServeEngine(model, cfg, scfg, registry=reg)
+        out, got, wall, reg, eng = _drain(make, requests)
+        rec = (_spec_record(reg, eng, got, wall, cfg, dcfg) if kind == "spec"
+               else _dense_record(reg, eng, got, wall, cfg))
+        if kind in outs:
+            require(all(np.array_equal(outs[kind][u], out[u]) for u in out),
+                    f"two {kind} runs differ")
+        outs[kind] = out
+        recs[kind].append(rec)
+        counts[kind] = {c: counts[kind][c] + got[c] for c in got}
+    rows = _near_tie_check("spec against dense", model, requests,
+                           outs["spec"], outs["dense"], tie_rule)
+    tps = {k: float(np.mean([r["tokens_per_s"] for r in v]))
+           for k, v in recs.items()}
+    return outs, counts, dict(
+        order="spec, dense, dense, spec", draft_layers=dcfg.num_layers,
+        k=FLEET_SPEC_K, runs=recs, tokens_per_s_mean=tps,
+        spec_over_dense_tokens_per_s=tps["spec"] / tps["dense"],
+        spec_against_dense=rows,
+        equal_requests=sum(r["equal_prefix"] == r["new"] for r in rows))
+
+
+def _timed_fleet(router):
+    """CUDA events around each shipment's gather, wire and install in a
+    run of ``router``; returns the lists of (start, end) pairs."""
+    import torch
+    from apex_tpu_torch.serve import transfer
+    spans_ = {"gather": [], "wire": [], "install": []}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            spans_[name].append((a, b))
+            return out
+        return wrapped
+
+    router.prefill._gather = timed("gather", router.prefill._gather)
+    for rep in router.replicas:
+        rep._install = timed("install", rep._install)
+    return spans_, timed("wire", transfer.ship)
+
+
+def _fleet_run(model, cfg, requests, scfg, mode, kill=False):
+    """The requests through ``DisaggRouter`` on ``FLEET_DEVICES``;
+    ``kill``: the busiest replica killed after ``FLEET_KILL_AFTER``
+    steps.  Outputs, launches, and the run's record."""
+    import torch
+    from apex_tpu_torch.obs import Registry
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serve import (DisaggRouter, Request, RouterConfig,
+                                      transfer)
+    reg = Registry()
+    router = DisaggRouter(model, cfg, scfg, RouterConfig(transfer=mode),
+                          devices=FLEET_DEVICES, registry=reg)
+    require(router.replicas[0].eng.model is model,
+            "replicas on one card must share the model")
+    spans_, wire = _timed_fleet(router)
+    route, steps_acc = [0.0, 0], [0.0, 0]
+    _host_clock(router, "_route_one", route)
+    for rep in router.replicas:
+        _host_clock(rep, "step", steps_acc)
+    for uid, prompt, n in requests:
+        router.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    orig_ship, transfer.ship = transfer.ship, wire
+    rerouted = []
+    try:
+        t0 = time.perf_counter()
+        if kill:
+            for _ in range(FLEET_KILL_AFTER):
+                router.step()
+            victim = max(router.replicas,
+                         key=lambda r: r.eng.sched.n_active()).index
+            rerouted = router.kill_replica(victim)
+            require(rerouted, "the kill hit no request")
+        out = router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        transfer.ship = orig_ship
+    counts = launch_counts()
+    require(len(out) == len(requests), f"{mode}: not every request finished")
+    engines = [router.prefill.eng] + [r.eng for r in router.replicas]
+    steps = sum(e.steps for e in engines)
+    chunks = sum(int(e.metrics.counter("serve_prefill_chunks_total").value)
+                 for e in engines)
+    require(counts == dict(NO_LAUNCHES, layer_norm_fwd=(
+        2 * cfg.num_layers + 1) * (steps + chunks)),
+        f"fleet ({mode}) launched {counts}")
+    generated = sum(int(e.metrics.counter("serve_tokens_total").value)
+                    for e in engines)
+    shipments = int(reg.counter("serve_kv_shipments_total").value)
+    nbytes = int(reg.counter("serve_kv_transfer_bytes").value)
+    pool = router.replicas[0].eng.kc
+    kv_bytes = 2 * cfg.num_layers * scfg.max_blocks_per_slot \
+        * scfg.block_size * cfg.hidden_size * pool.element_size()
+    key_bytes = len(torch.Generator().get_state())
+    direct = reg.counter("serve_prefix_direct_admissions_total").value
+    if mode == "ship":
+        # every admission ships once, but a prefix hit sent straight to
+        # a replica; a rerouted request is admitted again
+        require(shipments + direct == len(requests) + len(rerouted),
+                f"{shipments} shipments and {direct} prefix-direct "
+                f"admissions for {len(requests)} requests and "
+                f"{len(rerouted)} reroutes")
+        require(nbytes == shipments * (kv_bytes + key_bytes),
+                f"{nbytes} bytes shipped, want {shipments} x "
+                f"({kv_bytes} + {key_bytes})")
+    else:
+        require(shipments == 0 and nbytes == 0, "recompute shipped")
+    ev_ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans_.items()}
+    rec = dict(
+        mode=mode, tokens_per_s=generated / wall, wall_s=wall,
+        generated_tokens=generated, decode_steps=steps,
+        prefill_chunks=chunks, shipments=shipments,
+        transfer_bytes=nbytes, kv_bytes_per_shipment=kv_bytes,
+        generator_state_bytes=key_bytes,
+        shipment_event_ms_mean={k: float(np.mean(v)) if v else None
+                                for k, v in ev_ms.items()},
+        prefix_direct_admissions=int(direct),
+        replica_decode_p99_ms=[r.p99() * 1e3 for r in router.replicas],
+        replica_decode_p50_ms=[
+            r._hist.quantile(0.5) * 1e3 for r in router.replicas],
+        replica_decode_mean_ms=[
+            r._hist.sum / max(r._hist.count, 1) * 1e3
+            for r in router.replicas],
+        decode_steps_s=sum(r._hist.sum for r in router.replicas),
+        replica_step_calls_s=steps_acc[0], routing_s=route[0],
+        other_s=wall - steps_acc[0] - route[0],
+        slices=router.slices.describe(),
+        slices_share_one_card=len(set(FLEET_DEVICES)) == 1)
+    if kill:
+        rec.update(killed=victim, rerouted=len(rerouted),
+                   reroutes=int(reg.counter("serve_reroute_total").value))
+    return out, counts, rec, router
+
+
+def _shipment_times(router, scfg):
+    """One full shipment's gather, wire and install timed alone (CUDA
+    events over repeated calls), beside the bytes each moves and its
+    bound (read + write over the memory rate)."""
+    import torch
+    from apex_tpu_torch.serve import KVShipment, Request, transfer
+    rep = router.replicas[0]
+    pre = router.prefill
+    dev = rep.placement
+    row = torch.arange(1, scfg.max_blocks_per_slot + 1, device=dev)
+    pre_row = torch.arange(1, pre.scfg.num_blocks, device=dev)
+    kv = pre._gather(pre.eng.pools, pre_row)
+    key = pre.eng.generators[0].get_state()
+    shp = KVShipment(request=Request(uid="t", prompt=np.ones(4, np.int64),
+                                     max_new_tokens=1),
+                     kv=kv, first_token=0, prompt_len=4, key=key)
+    moved = transfer.shipment_bytes(kv, key) - key.numel()
+    gens = list(rep.eng.generators)
+    out = {}
+    for name, fn in (
+            ("gather", lambda: pre._gather(pre.eng.pools, pre_row)),
+            ("wire", lambda: transfer.ship(shp, dev)),
+            ("install", lambda: rep._install(rep.eng.pools, gens, row, kv, 0,
+                                             key))):
+        ms = time_ms(fn)
+        b, by = bound(2 * moved, 0, PEAK_BF16_FLOPS)
+        out[name] = dict(ms=ms, bytes_read_and_written=2 * moved,
+                         bound_ms=b, bound_by=by)
+    return out
+
+
+def _toy_fleet(cfg, model, requests, dense_out):
+    """The toy LM's requests through the fleet, ship and recompute, and
+    through a kill: exactly the dense engine's streams."""
+    from apex_tpu_torch.serve import ServeConfig
+    scfg = ServeConfig(**TOY_SCFG)
+    rows = {}
+    for mode, kill in (("ship", False), ("recompute", False),
+                       ("ship", True)):
+        out, _, rec, _ = _fleet_run(model, cfg, requests, scfg, mode, kill)
+        _near_tie_check(f"toy fleet {mode}", model, requests, out,
+                        dense_out, None)
+        rows[mode + ("_kill" if kill else "")] = dict(
+            tokens_per_s=rec["tokens_per_s"], equal=True,
+            rerouted=rec.get("rerouted"))
+    return rows
+
+
+def phase_serve_fleet(cfg, tree, requests):
+    """Speculative decoding and the disaggregated fleet at gpt_small's
+    full width (bf16 from the seeded tree, the serve phase's 16 requests
+    and shapes), then on the trained toy LM; every gate fails the run."""
+    import torch
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import train_toy_lm
+    from apex_tpu_torch.models.generate import generate
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serve import ServeConfig
+    t_phase = time.perf_counter()
+    model = params_from_jax(tree, cfg, dtype=torch.bfloat16)
+    scfg = _serve_cfg()
+    outs, spec_counts, spec = _spec_vs_dense(model, cfg, requests, scfg,
+                                             NEAR_TIE_BF16)
+    dense_out = outs["dense"]
+    fleet, fleet_counts = {}, dict(NO_LAUNCHES)
+    for mode, kill in (("ship", False), ("recompute", False),
+                       ("ship", True)):
+        out, got, rec, router = _fleet_run(model, cfg, requests, scfg, mode,
+                                           kill)
+        rec["against_monolithic"] = _near_tie_check(
+            f"fleet {mode}{' kill' if kill else ''}", model, requests, out,
+            dense_out, NEAR_TIE_BF16)
+        rec["equal_requests"] = sum(
+            r["equal_prefix"] == r["new"] for r in rec["against_monolithic"])
+        fleet[mode + ("_kill" if kill else "")] = rec
+        fleet_counts = {k: fleet_counts[k] + got[k] for k in got}
+        if mode == "ship" and not kill:
+            fleet["shipment_alone"] = _shipment_times(router, scfg)
+        del router
+    del model
+    torch.cuda.empty_cache()
+    # the trained toy LM: spec, dense, the fleet and solo exactly equal
+    tcfg, toy, ids = train_toy_lm()
+    toy_reqs = [(f"t{i}", ids[0, i:i + 8], TOY_NEW) for i in range(8)]
+    tscfg = ServeConfig(**TOY_SCFG)
+    toy_outs, _, toy_spec = _spec_vs_dense(toy, tcfg, toy_reqs, tscfg, None)
+    reset_launch_counts()
+    solo = {uid: generate(toy, tcfg, p[None], n)[0].cpu().numpy()[len(p):]
+            for uid, p, n in toy_reqs}
+    solo_counts = launch_counts()
+    require(solo_counts["flash_attn_fwd"] == tcfg.num_layers * len(toy_reqs),
+            f"toy solo flash_attn_fwd {solo_counts['flash_attn_fwd']}")
+    _near_tie_check("toy spec against solo", toy, toy_reqs, toy_outs["spec"],
+                    solo, None)
+    toy_fleet = _toy_fleet(tcfg, toy, toy_reqs, toy_outs["dense"])
+    emit("serve_fleet", model="gpt_small", dtype="bfloat16",
+         requests=len(requests), spec=spec, fleet=fleet,
+         toy_lm=dict(spec=toy_spec, solo_equal=True,
+                     solo_launches=solo_counts, fleet=toy_fleet),
+         near_tie_rule=f"divergence only at top-2 margin <= "
+                       f"{NEAR_TIE_BF16} (bf16 logits); the toy LM exact",
+         seconds=time.perf_counter() - t_phase)
+    return dict(spec_serve=spec_counts["spec"], fleet_serve=fleet_counts,
+                toy_solo=solo_counts)
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
                   "data_prefetch", "seq_parallel", "rnn", "pipeline_moe",
-                  "resilience", "quant")
+                  "resilience", "quant", "serve_fleet", "serve")
 
 
 def partial_run(names, repo: Path) -> int:
     """The device phase, the tree's kernel library (built if it has none,
     with no spill checks), then each named phase of ``PARTIAL_PHASES`` in
     that order; no ``kernels`` or ``ok`` line (not the whole run)."""
+    import torch
+    from apex_tpu_torch.convert import params_from_jax
     from apex_tpu_torch.models import bert_large, gpt_small
     from apex_tpu_torch.ops.cuda import build
     phase_device()
@@ -7922,9 +8365,16 @@ def partial_run(names, repo: Path) -> int:
             phase_pipeline_moe(cfg, gpt_small_tree(cfg, seed=0), repo)
         elif name == "resilience":
             phase_resilience(cfg, gpt_small_tree(cfg, seed=0))
-        else:
+        elif name == "serve":
+            phase_serve(params_from_jax(gpt_small_tree(cfg, seed=0), cfg,
+                                        dtype=torch.bfloat16),
+                        cfg, serve_requests(cfg))
+        elif name == "quant":
             phase_quant(cfg, gpt_small_tree(cfg, seed=0),
                         serve_requests(cfg))
+        else:
+            phase_serve_fleet(cfg, gpt_small_tree(cfg, seed=0),
+                              serve_requests(cfg))
     return 0
 
 
@@ -7999,6 +8449,13 @@ def main(argv=None) -> int:
                 "flash_attn_fwd never launched on the solo path")
         del model
         torch.cuda.empty_cache()
+        # host-bound like serve: before any profiler session
+        fleet_counts = phase_serve_fleet(cfg, tree, requests)
+        require(fleet_counts["spec_serve"]["layer_norm_fwd"] > 0
+                and fleet_counts["fleet_serve"]["layer_norm_fwd"] > 0,
+                "layer_norm_fwd never launched on the spec or fleet path")
+        require(fleet_counts["toy_solo"]["flash_attn_fwd"] > 0,
+                "flash_attn_fwd never launched on the toy LM's solo path")
         phase_reference(tree, cfg)
         train_recs = phase_train_kernels(cfg)
         train_counts = phase_train(cfg, tree)
@@ -8075,7 +8532,10 @@ def main(argv=None) -> int:
                    "o4_train": quant_counts["o4_train"][k],
                    "o4_accum": quant_counts["o4_accum"][k],
                    "int8_serve": quant_counts["int8_serve"][k],
-                   "int8_solo": quant_counts["int8_solo"][k]}
+                   "int8_solo": quant_counts["int8_solo"][k],
+                   "spec_serve": fleet_counts["spec_serve"][k],
+                   "fleet_serve": fleet_counts["fleet_serve"][k],
+                   "toy_solo": fleet_counts["toy_solo"][k]}
                for k in bert_counts}
     rk_main = max(rk_recs, key=lambda r: r["bound_ms"])
     ln_main = next(r for r in ln_recs if r["n1"] == 8

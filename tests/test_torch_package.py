@@ -210,3 +210,32 @@ def test_resnet_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert all(b.device.type == "cpu" for b in model.buffers())
     x, _ = synthetic_batch(torch.Generator(), 2, 32, device="cpu")
     assert model(x).shape == (2, 4)
+
+
+@pytest.mark.parametrize("module", [
+    "utils/__init__.py", "utils/profiling.py", "utils/logging.py",
+    "obs/__init__.py", "obs/spans.py", "obs/reqtrace.py", "obs/slo.py",
+    "serve/__init__.py", "serve/engine.py", "serve/spec.py",
+    "serve/transfer.py", "serve/router.py"])
+def test_the_serving_fleet_modules_import_nothing_of_jax(module):
+    """Every import of the module, at the top or inside a function."""
+    path = ROOT / "apex_tpu_torch" / module
+    names = list(_imports(path))
+    assert names
+    assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("package", ["serve", "utils"])
+def test_every_name_of_the_jax_package_resolves_in_the_port(package):
+    """Each name of ``apex_tpu.<package>.__all__`` (read from its source,
+    not imported) is an attribute of ``apex_tpu_torch.<package>``."""
+    import importlib
+    tree = ast.parse((ROOT / "apex_tpu" / package / "__init__.py")
+                     .read_text())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and node.targets[0].id == "__all__")
+    assert len(names) >= 9
+    port = importlib.import_module(f"apex_tpu_torch.{package}")
+    assert [n for n in names if not hasattr(port, n)] == []
+    assert set(names) <= set(port.__all__)
