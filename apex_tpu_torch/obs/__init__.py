@@ -1,8 +1,29 @@
-"""Runtime telemetry (the port of ``apex_tpu/obs``): the metrics
-registry, trace spans, per-request lifecycle traces, SLO objectives and
-the incident flight recorder."""
+"""Runtime telemetry (the port of ``apex_tpu/obs``):
 
-from apex_tpu_torch.obs import reqtrace, slo, spans
+- :mod:`~apex_tpu_torch.obs.metrics`: counters, gauges and fixed-bucket
+  histograms whose device values resolve with a lag (a copy queued
+  behind the step, read a step later), Prometheus text and JSON export,
+  and :func:`instrument_step`;
+- :mod:`~apex_tpu_torch.obs.spans`: nesting trace spans over
+  :mod:`apex_tpu_torch.utils.profiling`, their wall durations into the
+  registry's histograms;
+- :mod:`~apex_tpu_torch.obs.xplane`: the torch profiler's chrome trace
+  by op and category, step markers, named buckets;
+- :mod:`~apex_tpu_torch.obs.reqtrace`: per-request lifecycle traces;
+- :mod:`~apex_tpu_torch.obs.flight`: the incident flight recorder;
+- :mod:`~apex_tpu_torch.obs.fleet`: fleet-level registry merges
+  (counter sums, bucket-union quantiles, per-replica gauge tables);
+- :mod:`~apex_tpu_torch.obs.exposition`: the stdlib HTTP scrape target
+  (``/metrics``, ``/fleet``, ``/healthz``);
+- :mod:`~apex_tpu_torch.obs.slo`: declarative SLO objectives over the
+  registry.
+
+The JAX package's ``stepclass`` and ``contprof`` wait for the port of
+``apex_tpu/analysis/``.
+"""
+
+from apex_tpu_torch.obs import exposition, fleet, reqtrace, slo, spans, xplane
+from apex_tpu_torch.obs.exposition import MetricsServer
 from apex_tpu_torch.obs.flight import FlightRecorder
 from apex_tpu_torch.obs.metrics import (
     DEFAULT,
@@ -11,12 +32,19 @@ from apex_tpu_torch.obs.metrics import (
     Gauge,
     Histogram,
     Registry,
+    counter,
+    gauge,
+    get_registry,
+    histogram,
+    instrument_step,
 )
 from apex_tpu_torch.obs.reqtrace import EVENT_KINDS, RequestTracer
 from apex_tpu_torch.obs.slo import SLObjective, SLOEvaluator, serve_objectives
 from apex_tpu_torch.obs.spans import current_path, span, traced_span
 
 __all__ = ["Counter", "DEFAULT", "EVENT_KINDS", "FlightRecorder", "Gauge",
-           "Histogram", "LATENCY_BUCKETS", "Registry", "RequestTracer",
-           "SLOEvaluator", "SLObjective", "current_path", "reqtrace",
-           "serve_objectives", "slo", "span", "spans", "traced_span"]
+           "Histogram", "LATENCY_BUCKETS", "MetricsServer", "Registry",
+           "RequestTracer", "SLOEvaluator", "SLObjective", "counter",
+           "current_path", "exposition", "fleet", "gauge", "get_registry",
+           "histogram", "instrument_step", "reqtrace", "serve_objectives",
+           "slo", "span", "spans", "traced_span", "xplane"]

@@ -92,15 +92,14 @@ def unpack(flat: torch.Tensor, meta: PackMeta) -> List[torch.Tensor]:
 
 
 def host_pack(arrays: Sequence[np.ndarray]) -> Tuple[np.ndarray, PackMeta]:
-    """Host (numpy) arrays of one dtype in one flat array, unpadded."""
+    """Host (numpy) arrays of one dtype in one flat array, unpadded,
+    through the native host runtime (:func:`apex_tpu_torch._native.flatten`,
+    a multithreaded copy: the ``apex_C.flatten`` analog)."""
+    from apex_tpu_torch import _native
+    arrays = [np.asarray(a) for a in arrays]
     if not arrays:
         raise ValueError("host_pack requires at least one array")
-    arrays = [np.asarray(a) for a in arrays]
-    dtype = arrays[0].dtype
-    if any(a.dtype != dtype for a in arrays):
-        raise ValueError("host_pack requires a single dtype per call "
-                         "(group_by_dtype first)")
-    flat = np.concatenate([a.reshape(-1) for a in arrays])
+    flat = _native.flatten(arrays)
     sizes = tuple(int(a.size) for a in arrays)
     return flat, PackMeta(tuple(a.shape for a in arrays), sizes,
                           _offsets(sizes), int(flat.size), int(flat.size),
@@ -108,10 +107,10 @@ def host_pack(arrays: Sequence[np.ndarray]) -> Tuple[np.ndarray, PackMeta]:
 
 
 def host_unpack(flat: np.ndarray, meta: PackMeta) -> List[np.ndarray]:
-    """The arrays of :func:`host_pack`, as new arrays."""
-    flat = np.ascontiguousarray(flat)[:meta.total]
-    return [flat[o:o + n].reshape(s).copy() for s, n, o in
-            zip(meta.shapes, meta.sizes, meta.offsets)]
+    """The arrays of :func:`host_pack`, as new arrays
+    (:func:`apex_tpu_torch._native.unflatten`)."""
+    from apex_tpu_torch import _native
+    return _native.unflatten(np.asarray(flat)[:meta.total], meta.shapes)
 
 
 class AlignedMeta(NamedTuple):

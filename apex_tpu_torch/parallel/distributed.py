@@ -191,20 +191,11 @@ def plan_buckets(numels: Sequence[int], message_numel: int,
                  triggers: Optional[Sequence[bool]] = None) -> np.ndarray:
     """Greedy in-order bucket ids, one per tensor: the running bucket
     closes once its element count reaches ``message_numel`` or at a
-    trigger tensor (``apex/parallel/distributed.py:339-362``)."""
-    n = len(numels)
-    if triggers is not None and len(triggers) != n:
-        raise ValueError(f"triggers has {len(triggers)} entries for "
-                         f"{n} tensors")
-    ids = np.empty(n, dtype=np.int64)
-    bucket = acc = 0
-    for i in range(n):
-        ids[i] = bucket
-        acc += int(numels[i])
-        if acc >= message_numel or (triggers is not None and triggers[i]):
-            bucket += 1
-            acc = 0
-    return ids
+    trigger tensor (``apex/parallel/distributed.py:339-362``).  Planned
+    by the native host runtime (:mod:`apex_tpu_torch._native`, as the
+    JAX package plans)."""
+    from apex_tpu_torch import _native
+    return _native.plan_buckets(numels, message_numel, triggers)
 
 
 DEFAULT_MESSAGE_SIZE = 10_000_000

@@ -63,7 +63,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
+
+# torch is imported inside the functions that take tensors: verifying
+# and digesting snapshots (the fleet's supervisors) needs only numpy
 
 MANIFEST = "manifest.json"
 _STEP_PREFIX = "step_"
@@ -132,12 +134,13 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any,
     return fn(prefix, tree)
 
 
-def pinned_views(specs: List[Tuple[Tuple[int, ...], torch.dtype]]
-                 ) -> List[torch.Tensor]:
+def pinned_views(specs: List[Tuple[Tuple[int, ...], "torch.dtype"]]
+                 ) -> List["torch.Tensor"]:
     """One CPU tensor per ``(shape, dtype)``, each a view of one pinned
     host buffer (64-byte aligned offsets): the staging area of the copies
     between the card and the host, which run at the link's rate only
     from pinned memory."""
+    import torch
     sizes = [int(np.prod(shape, dtype=np.int64))
              * torch.empty((), dtype=dt).element_size()
              for shape, dt in specs]
@@ -156,6 +159,7 @@ def host_copies(leaves: List[Any]) -> List[Any]:
     together on the current stream, then one wait), a CPU tensor a clone
     (a later in-place step must not reach it), anything else a numpy
     array."""
+    import torch
     out: List[Any] = [None] * len(leaves)
     on_card = []
     for i, leaf in enumerate(leaves):
@@ -179,6 +183,7 @@ def host_copies(leaves: List[Any]) -> List[Any]:
 def host_array(leaf: Any) -> Tuple[np.ndarray, str]:
     """``(numpy array, manifest dtype)`` of a host leaf; bf16 as its
     2-byte words (``V2``) under ``"bfloat16"``."""
+    import torch
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -190,10 +195,11 @@ def host_array(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def as_tensor(value: Any, dtype: Optional[str] = None) -> torch.Tensor:
+def as_tensor(value: Any, dtype: Optional[str] = None) -> "torch.Tensor":
     """A CPU tensor of a stored leaf: a ``V2`` array (or one whose
     manifest dtype is ``"bfloat16"``) is read back as bf16 bit for bit;
     a tensor passes through."""
+    import torch
     if isinstance(value, torch.Tensor):
         return value
     arr = np.asarray(value)
@@ -213,16 +219,22 @@ def _flatten_payload(payload: Any) -> List[Tuple[str, np.ndarray, str]]:
 
 
 def _npy_parts(arr: np.ndarray) -> Tuple[bytes, memoryview]:
-    """The bytes ``np.save(f, arr, allow_pickle=False)`` writes, as the
-    header and a view of the array's own data (no copy)."""
+    """The bytes ``np.save(f, arr, allow_pickle=False)`` writes (for
+    bf16's ``V2`` words, those it writes for an ml_dtypes ``bfloat16``
+    array), as the header and a view of the array's own data (no
+    copy)."""
     if arr.dtype.hasobject:
         raise ValueError("an object array needs pickle, which snapshots "
                          "do not allow")
     if not arr.flags["C_CONTIGUOUS"]:
         arr = arr.copy(order="C")   # (ascontiguousarray makes 0-d 1-d)
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    if arr.dtype == np.dtype("V2"):
+        # bf16's words: the descr numpy writes for the JAX package's
+        # bfloat16 leaf, so that both packages write the same bytes
+        header["descr"] = "<V2"
     head = io.BytesIO()
-    np.lib.format.write_array_header_1_0(
-        head, np.lib.format.header_data_from_array_1_0(arr))
+    np.lib.format.write_array_header_1_0(head, header)
     return head.getvalue(), memoryview(arr.reshape(-1).view(np.uint8))
 
 
@@ -660,6 +672,7 @@ def place_like(values: Any, template: Any) -> Any:
     """Each restored leaf onto its template leaf: a tensor template is
     filled in place (``copy_``: its device and dtype) and returned; a
     Python number comes back as its own type; anything else as read."""
+    import torch
     flat = dict(tree_leaves_with_path(values))
 
     def place(path, t):

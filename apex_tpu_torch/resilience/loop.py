@@ -25,12 +25,15 @@ in place.  :func:`run_resilient` checkpoints, rewinds and re-scales the
   structured incident instead of looping.
 
 The loop adds no host sync on the step path: it queues steps back to
-back and reads each step's metrics (loss, overflow, pinned) one step
-later (``sentinel_lag``), in one device-to-host copy, by which point the
-card has computed them while the next step is queued.  Only a checkpoint
-step reads a device value more: whether the masters are all finite
-(one K15 launch).  The loop's overhead on the card is measured by
-``chip_smoke.py``'s ``resilience`` phase (``PERF.md``).
+back, and right after each step queues that step's metrics (loss,
+overflow, pinned) for one device-to-host copy into pinned memory with a
+CUDA event behind it (:class:`~apex_tpu_torch.obs.metrics.HostCopy`), on
+the current stream, before any later step's kernels.  It reads them one
+step later (``sentinel_lag``): the wait is for that copy alone, while
+the next step keeps the card busy.  Only a checkpoint step reads a
+device value more: whether the masters are all finite (one K15 launch).
+The loop's overhead on the card is measured by ``chip_smoke.py``'s
+``resilience`` phase (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import traceback
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from apex_tpu_torch.obs import metrics as obs_metrics
@@ -122,24 +126,27 @@ def _tensors_of(state: Any) -> List[torch.Tensor]:
             if isinstance(t, torch.Tensor)]
 
 
-def _host_scalars(m: Dict[str, Any]) -> Tuple[float, bool, bool]:
-    """``(loss, overflow, pinned)`` of a step's metrics in one
-    device-to-host copy; a per-scaler tuple counts when any of its
-    scalers does."""
+def _host_scalars(m: Dict[str, Any]
+                  ) -> Callable[[], Tuple[float, bool, bool]]:
+    """Queue the copy of a step's ``(loss, overflow, pinned)`` now, right
+    behind the step, and return the function that reads them later; a
+    per-scaler tuple counts when any of its scalers does."""
     def items(v):
         return list(v) if isinstance(v, (tuple, list)) else [v]
-    loss = m["loss"]
     over = items(m.get("overflow", False))
     pinned = items(m.get("pinned_at_floor", False))
-    parts = [loss] + over + pinned
+    parts = [m["loss"]] + over + pinned
     tensors = [p for p in parts if isinstance(p, torch.Tensor)]
-    host = iter(torch.stack([t.detach().reshape(()).to(torch.float32)
-                             for t in tensors]).cpu().tolist()
-                if tensors else [])
-    vals = [next(host) if isinstance(p, torch.Tensor) else float(p)
-            for p in parts]
-    return (vals[0], any(vals[1:1 + len(over)]),
-            any(vals[1 + len(over):]))
+    copy = obs_metrics.HostCopy(tensors) if tensors else None
+
+    def read() -> Tuple[float, bool, bool]:
+        host = iter(copy.result() if copy is not None else [])
+        vals = [np.asarray(next(host) if isinstance(p, torch.Tensor) else p,
+                           dtype=np.float64).reshape(-1) for p in parts]
+        flags = [bool(v.any()) for v in vals[1:]]
+        return (float(vals[0][0]), any(flags[:len(over)]),
+                any(flags[len(over):]))
+    return read
 
 
 def run_resilient(
@@ -153,6 +160,7 @@ def run_resilient(
     registry: Optional[obs_metrics.Registry] = None,
     flight: Optional[FlightRecorder] = None,
     start_step: int = 0,
+    fleet_metrics: Optional[Any] = None,
 ) -> RunResult:
     """Drive ``step_fn(*batch) -> metrics`` over steps ``start_step`` to
     ``num_steps - 1`` with the protections of the module docstring.
@@ -170,6 +178,10 @@ def run_resilient(
     enables checkpoints on disk and checksum-verified rewinds; without
     one, a host copy taken at the same cadence backs the rewind.
     ``start_step`` resumes a run at that step (after a restore).
+    ``fleet_metrics`` (a
+    :class:`~apex_tpu_torch.resilience.fleet.FleetMetrics`) hooks the
+    elastic fleet's ``train_fleet_*`` instruments: ``on_resolve()`` at
+    each lag-resolved step, ``on_rewind()`` at a rewind.
 
     The loop records into ``registry`` (default: the shared
     :data:`apex_tpu_torch.obs.metrics.DEFAULT`) the counters
@@ -389,26 +401,31 @@ def run_resilient(
         events.append({"event": "rewind", "to_step": restored,
                        "reason": reason, "rewind_count": rewinds})
         m_rewinds.inc()
+        if fleet_metrics is not None:
+            fleet_metrics.on_rewind()
         fr.note("rewind", to_step=restored, reason=reason,
                 rewind_count=rewinds)
         return restored + 1
 
     # -- main loop --------------------------------------------------------
-    pending: deque = deque()   # (step, metrics) awaiting resolution
+    pending: deque = deque()   # (step, metrics reader) awaiting resolution
     i = int(start_step)
     steps_completed = i
 
-    def _resolve(entry: Tuple[int, dict]) -> Optional[int]:
-        """Consume one lagged metrics record; returns a step to jump to."""
+    def _resolve(entry: Tuple[int, Callable]) -> Optional[int]:
+        """Consume one lagged metrics record (its copy was queued right
+        behind its step); returns a step to jump to."""
         nonlocal consecutive_pinned, steps_completed
-        j, m = entry
-        loss, overflow, pinned = _host_scalars(m)
+        j, read = entry
+        loss, overflow, pinned = read()
         with lock:
             t0 = inflight.pop(j, None)
         losses.append((j, loss))
         steps_completed = max(steps_completed, j + 1)
         m_steps.inc()
         m_loss.set(loss)
+        if fleet_metrics is not None:
+            fleet_metrics.on_resolve()
         if overflow:
             m_over.inc()
         if t0 is not None:
@@ -446,7 +463,7 @@ def run_resilient(
                         injector.on_step_start(i)
                         batch = injector.poison_batch(i, batch)
                         _note_new_faults()
-                    pending.append((i, step_fn(*batch)))
+                    pending.append((i, _host_scalars(step_fn(*batch))))
                 # resolve lagged metrics (all of them once dispatch is done)
                 lag = cfg.sentinel_lag if i < num_steps else 0
                 jump = None

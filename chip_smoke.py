@@ -12,7 +12,8 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 ``multi_tensor_kernels``, ``bert_kernels``, ``bert_train``,
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
 ``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``,
-``resilience``, ``quant``, ``serve_fleet``, ``serve``),
+``resilience``, ``train_fleet`` (with ``obs_lag``, ``native`` and
+``xplane``), ``quant``, ``serve_fleet``, ``serve``),
 printing their lines and no ``kernels`` or ``ok`` line: how one card
 times a parent against a change.  The ``ddp``, ``seq_parallel`` and
 ``pipeline_moe`` phases re-run this script as their ranks
@@ -276,7 +277,27 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             4 s hang under a 2 s watchdog: a valid incident written
             within the hang, then ``WatchdogTimeout``; the card's snapshot
             restored into a CPU template bit for bit;
-   quant    (after resilience) fp8 / int8: ``quantize``, ``dequantize``,
+   train_fleet  (after resilience) the elastic fleet's drill on
+            ``cuda:0``: two supervisors and their generation children
+            (DDP + amp O2 + FusedAdam, an MLP at gpt_small's MLP widths,
+            768 -> 3072 -> 768, 8192 rows a rank; two ranks on one card,
+            so gloo), 24 steps, a snapshot every 4, rank 1 killed (child
+            and supervisor) at step 10: the generations, each restore
+            step, the steps lost, the detection latency (ledger clock),
+            ``train_fleet_recovery_seconds``, the children's launches (K6,
+            K11 a step, K15 a checkpoint); the shrink, regrow and
+            cross-rank replays must all be bitwise equal;
+   obs_lag  (after train_fleet) ``instrument_step`` around the gpt_small
+            O2 step (B 8 x L 2048), 10 steps in turns with the bare step:
+            both p50s, the pending groups after each tick, the loss gauge
+            against the steps' own losses, ``/metrics`` and ``/fleet``
+            scraped over HTTP while the steps run, the launches (the train
+            phase's a step); one wrapped O4 step: both fp8 gauges;
+   native   the native host runtime (``csrc/host_runtime.cpp``, the host
+            compiler): ``plan_buckets`` on ResNet-50's O2 gradients and
+            ``flatten`` / ``unflatten`` of its masters against their plain
+            versions, timed;
+   quant    (after native) fp8 / int8: ``quantize``, ``dequantize``,
             ``qdq`` (e4m3 and e5m2), ``quantize_int8``, ``quantize_kv``
             and ``record_amax`` on the card equal the CPU's bit for bit;
             ``scaled_matmul`` through ``torch._scaled_mm`` at gpt_small's
@@ -367,7 +388,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 20. serve_profile  last (a profiled run can slow the host's later
             calls): one decode step of gpt_small's 8 slots profiled (device
             ms by group, busy share) after one whose host ms in K1's calls
-            is timed.
+            is timed;
+   xplane   (after serve_profile) two gpt_small O2 steps profiled under a
+            schedule: ``obs.xplane``'s device total of the chrome trace
+            within 1% of ``key_averages()``'s, 2 step markers.
 
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -8113,6 +8137,7 @@ def _fleet_run(model, cfg, requests, scfg, mode, kill=False):
     steps.  Outputs, launches, and the run's record."""
     import torch
     from apex_tpu_torch.obs import Registry
+    from apex_tpu_torch.obs.fleet import merged_quantile
     from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from apex_tpu_torch.serve import (DisaggRouter, Request, RouterConfig,
                                       transfer)
@@ -8187,6 +8212,11 @@ def _fleet_run(model, cfg, requests, scfg, mode, kill=False):
                                 for k, v in ev_ms.items()},
         prefix_direct_admissions=int(direct),
         replica_decode_p99_ms=[r.p99() * 1e3 for r in router.replicas],
+        # the fleet's p99: one quantile over the union of the replicas'
+        # buckets, each over the window its own p99 reads
+        fleet_decode_p99_ms=merged_quantile(
+            [(r._hist, r._p99_window) for r in router.replicas],
+            0.99) * 1e3,
         replica_decode_p50_ms=[
             r._hist.quantile(0.5) * 1e3 for r in router.replicas],
         replica_decode_mean_ms=[
@@ -8309,11 +8339,360 @@ def phase_serve_fleet(cfg, tree, requests):
                 toy_solo=solo_counts)
 
 
+# -- the elastic training fleet, the lagged registry, the trace parser and
+# -- the native host runtime ---------------------------------------------
+
+#: the drill: JAX's schedule (24 steps, a snapshot every 4, rank 1 killed
+#: at step 10) at gpt_small's MLP widths, a rank's batch one gpt_small
+#: step's tokens (B 4 x L 2048); two ranks share the one card, so gloo
+FLEET_DRILL = dict(num_steps=24, checkpoint_every=4, world_size=2, seed=0,
+                   lease_ttl_s=2.0, heartbeat_s=0.25, poll_s=0.1,
+                   init_timeout_s=120.0, stall_budget_s=180.0,
+                   step_delay_s=0.25, d_in=768, hidden=3072, batch=8192,
+                   faults=("rank_kill@10:1",), device="cuda",
+                   backend="gloo")
+FLEET_DRILL_TIMEOUT_S = 300.0
+#: wrapped / bare gpt_small O2 steps a turn, and the turns
+LAG_STEPS, LAG_TURNS = 10, 2
+#: calls timed of each bucket plan (native and plain) in ``native``
+NATIVE_REPS = 200
+
+
+def phase_train_fleet(repo: Path):
+    """The elastic fleet's drill on ``cuda:0`` (``FLEET_DRILL``): two
+    supervisors, rank 1 killed (child and supervisor) at step 10, the
+    survivor's shrink to one rank, the killed rank started again once
+    the shrunken generation has committed a snapshot, the regrow to two;
+    then the post-kill and post-regrow schedules replayed from the
+    drill's own snapshots in fresh ledgers.  Fails unless the shrink,
+    regrow and cross-rank verdicts are all bitwise true.  Launches: the
+    generation children's (K6, K11 a step; K15 a checkpoint)."""
+    import shutil
+    import tempfile
+    from apex_tpu_torch.resilience.fleet import FleetConfig
+    from apex_tpu_torch.testing import run_fleet_drill
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="apex_tpu_torch_fleet_",
+                            dir=str(repo / "build"))
+    cfg = FleetConfig(**FLEET_DRILL)
+    try:
+        out = run_fleet_drill(base, cfg, timeout_s=FLEET_DRILL_TIMEOUT_S)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    counts = dict(NO_LAUNCHES, **out["launches"])
+    gens = out["generations"]
+    require(all(out["bitwise"].values()),
+            f"fleet drill verdicts {out['bitwise']}")
+    require([g["members"] for g in gens[:3]] == [[0, 1], [0], [0, 1]],
+            f"generations {gens}")
+    require(out["steps_lost"] <= cfg.checkpoint_every,
+            f"{out['steps_lost']} steps lost")
+    require(counts["packed_scale"] > 0 and counts["packed_adam_tree"] > 0
+            and counts["packed_nonfinite"] > 0,
+            f"the fleet's children launched {out['launches']}")
+    emit("train_fleet", device="cuda:0", backend=cfg.backend,
+         ranks_share_one_card=True, workload=dict(
+             d_in=cfg.d_in, hidden=cfg.hidden, batch_per_rank=cfg.batch,
+             opt_level="O2", optimizer="FusedAdam", dtype="bfloat16"),
+         schedule=dict(num_steps=cfg.num_steps,
+                       checkpoint_every=cfg.checkpoint_every,
+                       faults=list(cfg.faults), lease_ttl_s=cfg.lease_ttl_s,
+                       poll_s=cfg.poll_s, step_delay_s=cfg.step_delay_s),
+         generations=gens, kill_step=out["kill_step"],
+         shrink_restore=out["shrink_restore"],
+         regrow_restore=out["regrow_restore"],
+         steps_lost=out["steps_lost"],
+         detection_latency_s=out["detection_latency_s"],
+         detection_bound_s=cfg.lease_ttl_s + cfg.poll_s,
+         train_fleet_recovery_seconds=out["recovery_seconds"],
+         bitwise=out["bitwise"], finals=out["finals"],
+         replays={k: {"world": v["world"],
+                      "restore_step": v["restore_step"],
+                      "final_step": v["final_step"]}
+                  for k, v in out["replays"].items()},
+         launches=out["launches"], drill_wall_s=out["wall_s"],
+         seconds=time.perf_counter() - t0)
+    return counts
+
+
+def _lag_run(step, ids, reg=None, scrape=None):
+    """``LAG_STEPS`` steps queued back to back (wrapped by
+    ``instrument_step`` on ``reg`` when given), each step's start
+    stamped; one synchronize at the end.  Returns the stamps' p50
+    interval (ms), the wall a step, each step's loss tensor and the
+    pending groups after each tick."""
+    import torch
+    from apex_tpu_torch.obs.metrics import instrument_step
+    fn = instrument_step(step, registry=reg) if reg is not None else step
+    stamps, losses, pending = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAG_STEPS):
+        stamps.append(time.perf_counter())
+        losses.append(fn(ids)["loss"])
+        if reg is not None:
+            pending.append(reg.pending_groups)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p50, _ = _p50_intervals(stamps)
+    return p50, wall / LAG_STEPS * 1e3, losses, pending
+
+
+def _scraper(url):
+    """A thread GETting ``url`` every 100 ms until stopped: the scrapes'
+    count and the last body."""
+    import threading
+    import urllib.request
+    got = {"n": 0, "body": None}
+    stop = threading.Event()
+
+    def run():
+        while not stop.wait(0.1):
+            with urllib.request.urlopen(url, timeout=10) as r:
+                got["body"] = r.read().decode()
+            got["n"] += 1
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def finish():
+        stop.set()
+        t.join(timeout=10)
+        return got
+    return finish
+
+
+def phase_obs_lag(cfg, tree):
+    """``instrument_step`` around the gpt_small O2 step (FusedAdam, B 8 x
+    L 2048, seeded weights), ``LAG_STEPS`` steps in turns with the bare
+    step: p50 of each, the registry's pending groups after each tick,
+    the loss gauge against the steps' own losses (lag 1, resolved 8 at a
+    time), a ``MetricsServer``'s ``/metrics`` and ``/fleet`` scraped over
+    HTTP while the wrapped steps run; then one O4 step, wrapped: both fp8
+    gauges present and finite.  Launches: the wrapped O2 steps' (each
+    step's are the train phase's)."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.obs import MetricsServer, Registry, instrument_step
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    t0 = time.perf_counter()
+    model = params_from_jax(tree, cfg, trainable=True)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                       opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    for _ in range(2):
+        step(ids)
+    bare, wrapped, counts, regs = [], [], None, []
+    for turn in range(LAG_TURNS):
+        p50, wall, _, _ = _lag_run(step, ids)
+        bare.append(dict(step_ms_p50=p50, wall_ms_a_step=wall))
+        reg = Registry()
+        regs.append(reg)
+        srv = MetricsServer(registry=reg,
+                            fleet_registries={"wrapped": reg,
+                                              "bare": Registry()})
+        host, port = srv.start()
+        stop_metrics = _scraper(f"http://{host}:{port}/metrics")
+        stop_fleet = _scraper(f"http://{host}:{port}/fleet")
+        reset_launch_counts()
+        p50, wall, losses, pending = _lag_run(step, ids, reg)
+        if counts is None:
+            counts = launch_counts()
+        scraped, fleet_scraped = stop_metrics(), stop_fleet()
+        srv.stop()
+        # lag 1, resolve_every 8: after 10 ticks groups 0..7 are resolved
+        gauge_before_flush = reg.gauge("train_loss").value
+        reg.flush()
+        own = [float(v) for v in losses]
+        wrapped.append(dict(
+            step_ms_p50=p50, wall_ms_a_step=wall,
+            pending_groups_after_each_tick=pending,
+            loss_gauge_before_flush=gauge_before_flush,
+            own_loss_of_step_8=own[7],
+            loss_gauge_after_flush=reg.gauge("train_loss").value,
+            own_last_loss=own[-1], scrapes=scraped["n"],
+            fleet_scrapes=fleet_scraped["n"]))
+        require(pending == [1, 2, 3, 4, 5, 6, 7, 8, 1, 2],
+                f"pending groups {pending}")
+        require(gauge_before_flush == own[7]
+                and reg.gauge("train_loss").value == own[-1],
+                f"loss gauge {gauge_before_flush} / "
+                f"{reg.gauge('train_loss').value} against {own}")
+        require(scraped["n"] > 0 and fleet_scraped["n"] > 0
+                and "train_steps_total" in scraped["body"]
+                and "# gauge-table" in fleet_scraped["body"],
+                "no scrape of /metrics or /fleet during the steps")
+    per = {k: v / LAG_STEPS for k, v in counts.items()}
+    want = dict(gpt_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
+    require(per == want, f"wrapped launches a step {per}, want {want}")
+    last = regs[-1].to_prometheus()
+    del a, model, step
+    torch.cuda.empty_cache()
+    # one O4 step, wrapped: the fp8 gauges
+    model = params_from_jax(tree, cfg, trainable=True)
+    a4 = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                        opt_level="O4")
+    reg4 = Registry()
+    step4 = instrument_step(amp.make_train_step(a4, model, _gpt_loss),
+                            registry=reg4)
+    reset_launch_counts()
+    out4 = step4(ids)
+    o4_counts = launch_counts()
+    reg4.flush()
+    sat = reg4.gauge("train_fp8_amax_saturation").value
+    resc = reg4.counter("train_fp8_rescales_total").value
+    require(np.isfinite(sat) and np.isfinite(resc)
+            and "train_fp8_amax_saturation" in reg4.to_prometheus()
+            and sat == float(out4["fp8_amax_saturation"])
+            and resc == float(out4["fp8_rescales"]),
+            f"fp8 gauges {sat} / {resc}")
+    require(o4_counts == want, f"O4 wrapped launches {o4_counts}")
+    del a4, model, step4
+    torch.cuda.empty_cache()
+    b_p50 = float(np.median([r["step_ms_p50"] for r in bare]))
+    w_p50 = float(np.median([r["step_ms_p50"] for r in wrapped]))
+    emit("obs_lag", model="gpt_small", opt_level="O2", batch=TRAIN_B,
+         seq_len=TRAIN_L, steps=LAG_STEPS, turns=LAG_TURNS,
+         registry=dict(lag=1, resolve_every=8), bare=bare, wrapped=wrapped,
+         bare_step_ms_p50=b_p50, wrapped_step_ms_p50=w_p50,
+         wrapped_over_bare=w_p50 / b_p50 - 1.0,
+         prometheus_lines=len(last.splitlines()),
+         fp8_o4=dict(train_fp8_amax_saturation=sat,
+                     train_fp8_rescales_total=resc, launches=o4_counts),
+         launches=counts, seconds=time.perf_counter() - t0)
+    return counts
+
+
+def phase_native():
+    """The native host runtime (``apex_tpu_torch/csrc/host_runtime.cpp``,
+    built with the host compiler) on the DDP phase's ResNet-50 gradients
+    (the O2 leaves' element counts, grouped by dtype as
+    ``reduce_gradients`` groups them): ``plan_buckets`` equal to its plain
+    version (and the buckets the DDP phase reduces), and ``flatten`` /
+    ``unflatten`` of the fp32 masters' host copies equal to theirs, each
+    timed against its plain version (a plan: the mean of ``NATIVE_REPS``
+    calls of each dtype's, summed over the dtypes)."""
+    import torch
+    from apex_tpu_torch import _native, amp
+    from apex_tpu_torch.models import ARCHS
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import distributed
+    t_build = time.perf_counter()
+    _native.library()
+    build_s = time.perf_counter() - t_build
+    model = ARCHS["resnet50"]()
+    a = amp.initialize(model, FusedAdam(model.parameters()), opt_level="O2")
+    by_dtype = {}
+    for p in a.params:
+        by_dtype.setdefault(str(p.dtype), []).append(p.numel())
+    plans, t_native, t_plain = {}, 0.0, 0.0
+    for dt, numels in by_dtype.items():
+        got = distributed.plan_buckets(numels,
+                                       distributed.DEFAULT_MESSAGE_SIZE)
+        want = _native.plan_buckets_plain(numels,
+                                          distributed.DEFAULT_MESSAGE_SIZE)
+        require(np.array_equal(got, want), f"plan_buckets {dt} differs")
+        plans[dt] = dict(leaves=len(numels), buckets=int(got[-1]) + 1)
+        # the mean of NATIVE_REPS calls each, as a DDP step makes one
+        t = time.perf_counter()
+        for _ in range(NATIVE_REPS):
+            distributed.plan_buckets(numels, distributed.DEFAULT_MESSAGE_SIZE)
+        t_native += (time.perf_counter() - t) / NATIVE_REPS
+        t = time.perf_counter()
+        for _ in range(NATIVE_REPS):
+            _native.plan_buckets_plain(numels,
+                                       distributed.DEFAULT_MESSAGE_SIZE)
+        t_plain += (time.perf_counter() - t) / NATIVE_REPS
+    host = [m.detach().cpu().numpy() for m in a.masters.values()]
+    t = time.perf_counter()
+    flat = _native.flatten(host)
+    flat_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    plain = _native.flatten_plain(host)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    back = _native.unflatten(flat, [h.shape for h in host])
+    require(np.array_equal(flat, plain)
+            and all(np.array_equal(x, y) for x, y in zip(back, host)),
+            "native flatten / unflatten differ from the plain versions")
+    emit("native", source="apex_tpu_torch/csrc/host_runtime.cpp",
+         library=str(_native.library_path()), build_s=build_s,
+         resnet50_buckets=plans, plan_buckets_us=t_native * 1e6,
+         plan_buckets_plain_us=t_plain * 1e6,
+         flatten_bytes=int(flat.nbytes), flatten_ms=flat_ms,
+         flatten_plain_ms=plain_ms)
+    del a, model
+    torch.cuda.empty_cache()
+
+
+def phase_xplane(cfg, tree, repo: Path):
+    """Two gpt_small O2 steps profiled under a schedule (made last, with
+    the other profiled phases), the chrome trace written by
+    ``tensorboard_trace_handler``: ``obs.xplane.op_times``'s device total
+    against ``prof.key_averages()``'s within 1%, and ``step_markers``
+    counting the 2 steps."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import (ProfilerActivity, profile, schedule,
+                                tensorboard_trace_handler)
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.obs import xplane
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                       opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    step(ids)
+    torch.cuda.synchronize()
+    d = tempfile.mkdtemp(prefix="apex_tpu_torch_trace_",
+                         dir=str(repo / "build"))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=2,
+                                       repeat=1),
+                     on_trace_ready=tensorboard_trace_handler(d)) as prof:
+            for _ in range(3):
+                step(ids)
+                torch.cuda.synchronize()
+                prof.step()
+        t = xplane.op_times(d)
+        marks = xplane.step_markers(d)
+        trace_bytes = sum(os.path.getsize(os.path.join(r, f))
+                          for r, _, fs in os.walk(d) for f in fs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    want_ms = sum(device_kernel_ms(prof).values())
+    got_ms = t.total_ps / 1e9
+    require(t.source == "trace-device", f"trace source {t.source}")
+    require(abs(got_ms - want_ms) <= 0.01 * want_ms,
+            f"xplane total {got_ms} ms against the profiler's {want_ms}")
+    require(len(marks) == 2, f"step markers {marks}")
+    top = sorted(t.by_op.items(), key=lambda kv: -kv[1])[:5]
+    emit("xplane", model="gpt_small", opt_level="O2", profiled_steps=2,
+         device_ms=got_ms, key_averages_device_ms=want_ms,
+         rel_diff=got_ms / want_ms - 1.0,
+         by_category_ms={k: v / 1e9 for k, v in t.by_category.items()},
+         step_markers_ms=[m["duration_ps"] / 1e9 for m in marks],
+         top_ops_ms=[[n[:80], v / 1e9] for n, v in top],
+         trace_bytes=trace_bytes)
+    del a, model, step
+    torch.cuda.empty_cache()
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
                   "data_prefetch", "seq_parallel", "rnn", "pipeline_moe",
-                  "resilience", "quant", "serve_fleet", "serve")
+                  "resilience", "train_fleet", "quant", "serve_fleet",
+                  "serve")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -8365,6 +8744,13 @@ def partial_run(names, repo: Path) -> int:
             phase_pipeline_moe(cfg, gpt_small_tree(cfg, seed=0), repo)
         elif name == "resilience":
             phase_resilience(cfg, gpt_small_tree(cfg, seed=0))
+        elif name == "train_fleet":
+            # the slice's phases: the drill, the lag and fp8 gauges, the
+            # native runtime, then the profiled trace
+            phase_train_fleet(repo)
+            phase_obs_lag(cfg, gpt_small_tree(cfg, seed=0))
+            phase_native()
+            phase_xplane(cfg, gpt_small_tree(cfg, seed=0), repo)
         elif name == "serve":
             phase_serve(params_from_jax(gpt_small_tree(cfg, seed=0), cfg,
                                         dtype=torch.bfloat16),
@@ -8487,6 +8873,9 @@ def main(argv=None) -> int:
         sp_counts, sp_blocks = phase_seq_parallel(cfg, tree, repo)
         pipe_counts, moe_counts = phase_pipeline_moe(cfg, tree, repo)
         res_counts = phase_resilience(cfg, tree)
+        fleet_drill_counts = phase_train_fleet(repo)
+        lag_counts = phase_obs_lag(cfg, tree)
+        phase_native()
         quant_counts = phase_quant(cfg, tree, requests)
         del tree
         lm_counts = phase_rnn()
@@ -8498,6 +8887,7 @@ def main(argv=None) -> int:
         dcgan_counts = phase_dcgan_o1()
         simt_fwd, simt_bwd = phase_generic_kernels()
         phase_serve_profile(cfg)
+        phase_xplane(cfg, gpt_small_tree(cfg, seed=0), repo)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8529,6 +8919,8 @@ def main(argv=None) -> int:
                    "moe_nccl": moe_counts.get(k, 0),
                    "rnn_byte_lm": lm_counts.get(k, 0),
                    "resilient_loop": res_counts.get(k, 0),
+                   "train_fleet_children": fleet_drill_counts[k],
+                   "instrumented_train": lag_counts[k],
                    "o4_train": quant_counts["o4_train"][k],
                    "o4_accum": quant_counts["o4_accum"][k],
                    "int8_serve": quant_counts["int8_serve"][k],

@@ -2633,3 +2633,111 @@ def test_o4_step_on_the_card_quantizes_and_rolls_on_device(cuda):
     assert all(t.is_cuda for c in a.fp8_state for t in c)
     assert out["fp8_rescales"].is_cuda and out["fp8_amax_saturation"].is_cuda
     assert float(a.fp8_state.weight.scale) != 1.0
+
+
+# -- the lagged metrics read (instrument_step, run_resilient) ---------------
+
+#: host work a lag-test step does before it queues its device work
+LAG_HOST_S = 0.020
+#: the device work a lag-test step queues (a device-side sleep)
+LAG_DEVICE_MS = 50.0
+
+
+def _sleep_cycles(ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that take ``ms`` on this card
+    (measured by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return int(20_000_000 * ms / start.elapsed_time(end))
+
+
+def _lag_step(cuda):
+    """A step that spends ``LAG_HOST_S`` of host time, then queues
+    ``LAG_DEVICE_MS`` of device time, and returns a loss made after it."""
+    import time
+    cycles = _sleep_cycles(LAG_DEVICE_MS)
+    x = torch.zeros((), device=cuda)
+
+    def step(*_):
+        time.sleep(LAG_HOST_S)
+        torch.cuda._sleep(cycles)
+        return {"loss": x + 1.0, "overflow": torch.zeros((), dtype=torch.bool,
+                                                         device=cuda)}
+    return step
+
+
+def _steady_ms(stamps):
+    return float(np.median(np.diff(np.asarray(stamps)[2:]))) * 1e3
+
+
+def test_instrument_step_overlaps_host_time_with_the_previous_step(cuda):
+    """Each resolve waits only for the step before the one just queued,
+    so a step's 20 ms of host time overlaps the previous step's 50 ms on
+    the card: the steady step stays near 50 ms, not 70 (what a read
+    queued behind the newer step, or a ``.cpu()`` at resolve time,
+    gives)."""
+    import time
+    from apex_tpu_torch.obs.metrics import Registry, instrument_step
+    reg = Registry(lag=1, resolve_every=1)
+    step = _lag_step(cuda)
+    wrapped = instrument_step(step, registry=reg)
+    stamps = []
+    torch.cuda.synchronize()
+    for _ in range(10):
+        stamps.append(time.perf_counter())
+        wrapped()
+    torch.cuda.synchronize()
+    ms = _steady_ms(stamps)
+    assert ms < LAG_DEVICE_MS + 8.0, ms
+    assert reg.pending_groups == 1
+    reg.flush()
+    assert reg.gauge("train_loss").value == 1.0
+    assert reg.counter("train_steps_total").value == 10.0
+
+
+def test_run_resilient_overlaps_host_time_with_the_previous_step(cuda):
+    import time
+    from apex_tpu_torch.obs.metrics import Registry
+    from apex_tpu_torch.resilience import ResilienceConfig, run_resilient
+    step = _lag_step(cuda)
+    stamps = []
+
+    def timed(*batch):
+        stamps.append(time.perf_counter())
+        return step(*batch)
+
+    torch.cuda.synchronize()
+    result = run_resilient(timed, {"x": torch.zeros(1, device=cuda)},
+                           lambda i: (), 10,
+                           config=ResilienceConfig(checkpoint_every=0),
+                           registry=Registry())
+    torch.cuda.synchronize()
+    ms = _steady_ms(stamps)
+    assert ms < LAG_DEVICE_MS + 8.0, ms
+    assert [v for _, v in result.losses] == [1.0] * 10
+
+
+def test_native_host_runtime_builds_on_the_cards_host(cuda):
+    """The native library builds on the card's machine (its host
+    compiler) and equals its plain versions there."""
+    from apex_tpu_torch import _native
+    _native.library()
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in [(1024, 1024), (3, 5), (), (777,)]]
+    flat = _native.flatten(arrays)
+    np.testing.assert_array_equal(flat, _native.flatten_plain(arrays))
+    for got, a in zip(_native.unflatten(flat, [a.shape for a in arrays]),
+                      arrays):
+        np.testing.assert_array_equal(got, a)
+    numels = rng.integers(1, 5_000_000, size=161).tolist()
+    np.testing.assert_array_equal(
+        _native.plan_buckets(numels, 10_000_000),
+        _native.plan_buckets_plain(numels, 10_000_000))
+    assert _native.fingerprint64(arrays[1]) == \
+        _native.fingerprint64_plain(arrays[1])

@@ -49,7 +49,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     "checkpoint.py", "obs/flight.py", "obs/metrics.py",
     "resilience/__init__.py", "resilience/durable.py",
     "resilience/faults.py", "resilience/incidents.py",
-    "resilience/loop.py"])
+    "resilience/loop.py", "resilience/fleet.py", "obs/fleet.py",
+    "obs/exposition.py", "obs/xplane.py", "_native.py", "testing.py"])
 def test_the_resilience_modules_import_nothing_of_jax(module):
     """Every import of the module, at the top or inside a function."""
     path = ROOT / "apex_tpu_torch" / module
@@ -158,7 +159,13 @@ def test_the_new_modules_are_covered_by_the_import_check():
             "apex_tpu_torch/resilience/durable.py",
             "apex_tpu_torch/resilience/faults.py",
             "apex_tpu_torch/resilience/incidents.py",
-            "apex_tpu_torch/resilience/loop.py"} <= names
+            "apex_tpu_torch/resilience/loop.py",
+            "apex_tpu_torch/resilience/fleet.py",
+            "apex_tpu_torch/obs/fleet.py",
+            "apex_tpu_torch/obs/exposition.py",
+            "apex_tpu_torch/obs/xplane.py",
+            "apex_tpu_torch/_native.py"} <= names
+    assert (ROOT / "apex_tpu_torch" / "csrc" / "host_runtime.cpp").is_file()
 
 
 def test_bert_entry_points_need_a_card_unless_asked_for_the_cpu():
