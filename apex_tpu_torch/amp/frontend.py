@@ -105,9 +105,11 @@ from apex_tpu_torch.amp import ops as amp_ops
 from apex_tpu_torch.amp import policy as policy_lib
 from apex_tpu_torch.amp.policy import Properties
 from apex_tpu_torch.amp.scaler import LossScaler, LossScaleState, all_finite
+from apex_tpu_torch.obs.stepclass import AMP_APPLY, AMP_BACKWARD, AMP_FORWARD
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
 from apex_tpu_torch.ops.multi_tensor import CHUNK_SIZE, multi_tensor_axpby
 from apex_tpu_torch.quant import fp8 as fp8_lib
+from apex_tpu_torch.utils.profiling import profile_range
 
 #: name fragments of normalization parameters kept in fp32 under
 #: keep_batchnorm_fp32 (the JAX package's ``default_keep_fp32_filter``)
@@ -601,7 +603,11 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
     "pinned_at_floor"}`` (device tensors): ``loss_fn(model, *batch)`` at
     compute precision, its fp32 loss scaled, the backward, then
     :meth:`Amp.apply_gradients`.  ``model`` is the one ``amp`` was
-    initialized with.  The step makes no host sync.  Under O4 the forward
+    initialized with.  The step makes no host sync.  While a
+    ``torch.profiler`` capture runs, the forward, the backward and the
+    update run in the ranges ``amp/forward``, ``amp/backward`` and
+    ``amp/apply_gradients`` (:mod:`apex_tpu_torch.obs.stepclass` reads
+    them); outside one they cost a flag check each.  Under O4 the forward
     runs inside the op layer's fp8 trace, the fp8 state rolls every step
     and the result gains ``fp8_amax_saturation`` and ``fp8_rescales``
     (the module docstring).
@@ -648,16 +654,21 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
         """``(loss, scaled grads, (input, weight) amaxes or None)``."""
         amaxes = None
         with torch.enable_grad():
-            if fp8_on:
-                # the cotangents are loss-scaled, the grad history is not
-                st = amp.fp8_state
-                with amp_ops.fp8_trace(st, grad_scale=st.grad.scale
-                                       / amp.scaler_state.loss_scale) as tr:
+            with profile_range(AMP_FORWARD):
+                if fp8_on:
+                    # the cotangents are loss-scaled, the grad history is
+                    # not
+                    st = amp.fp8_state
+                    with amp_ops.fp8_trace(
+                            st, grad_scale=st.grad.scale
+                            / amp.scaler_state.loss_scale) as tr:
+                        loss = amp.run(loss_fn, model, *batch)
+                        amaxes = amp_ops.collected_fp8_amaxes(tr)
+                else:
                     loss = amp.run(loss_fn, model, *batch)
-                    amaxes = amp_ops.collected_fp8_amaxes(tr)
-            else:
-                loss = amp.run(loss_fn, model, *batch)
-            grads = torch.autograd.grad(amp.scale_loss(loss), amp.params)
+            with profile_range(AMP_BACKWARD):
+                grads = torch.autograd.grad(amp.scale_loss(loss),
+                                            amp.params)
         return loss.detach(), grads, amaxes
 
     if accum_steps is None or int(accum_steps) == 1:
@@ -669,8 +680,9 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
                     amax_g = fp8_lib.tree_amax(grads) \
                         * (1.0 / amp.scaler_state.loss_scale)
                     fp8_metrics = _roll_fp8(amp, *amaxes, amax_g)
-            info = amp.apply_gradients(grads, reduce_fn=reduce_fn,
-                                       finite_axes=finite_axes)
+            with profile_range(AMP_APPLY):
+                info = amp.apply_gradients(grads, reduce_fn=reduce_fn,
+                                           finite_axes=finite_axes)
             return {"loss": loss, **info, **fp8_metrics}
 
         return step
@@ -685,12 +697,13 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
         losses, micro_amaxes = [], []
         for mb in micro:
             loss, grads, amaxes = backward(mb)
-            if enabled:
-                with torch.no_grad():
-                    amp.scaler.unscale_with_stashed(
-                        grads, acc, amp.scaler_state, out=acc)
-            else:
-                amp.accumulate(grads, acc)
+            with profile_range(AMP_APPLY):
+                if enabled:
+                    with torch.no_grad():
+                        amp.scaler.unscale_with_stashed(
+                            grads, acc, amp.scaler_state, out=acc)
+                else:
+                    amp.accumulate(grads, acc)
             losses.append(loss)
             micro_amaxes.append(amaxes)
             del grads
@@ -706,19 +719,20 @@ def make_train_step(amp: Amp, model: nn.Module, loss_fn: Callable,
                     amp, *(torch.stack(a).amax()
                            for a in zip(*micro_amaxes)),
                     fp8_lib.tree_amax(acc))
-        total = acc
-        if reduce_fn is not None:
-            with torch.no_grad():
-                total = list(reduce_fn(acc))
-        overflow = None
-        if enabled:
-            overflow = amp.update_scaler(
-                0, _and_over(all_finite(total), finite_axes))
-        grads = amp.grad_buffers()
-        if grads is not total:
-            # kept buffers in the masters' dtype (bf16 under O3)
-            torch._foreach_copy_(grads, total)
-        info = amp.step_if(grads, overflow)
+        with profile_range(AMP_APPLY):
+            total = acc
+            if reduce_fn is not None:
+                with torch.no_grad():
+                    total = list(reduce_fn(acc))
+            overflow = None
+            if enabled:
+                overflow = amp.update_scaler(
+                    0, _and_over(all_finite(total), finite_axes))
+            grads = amp.grad_buffers()
+            if grads is not total:
+                # kept buffers in the masters' dtype (bf16 under O3)
+                torch._foreach_copy_(grads, total)
+            info = amp.step_if(grads, overflow)
         return {"loss": torch.stack(losses).mean(), **info, **fp8_metrics}
 
     return accum_step

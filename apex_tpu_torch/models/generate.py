@@ -13,6 +13,15 @@ op.
 Greedy (``temperature=0``) or temperature sampling from a
 ``torch.Generator``.
 
+The decode path names its parts for the profiler's step classifiers
+(:data:`apex_tpu_torch.obs.stepclass.DECODE_RANGES`, ranges that exist
+only while a capture runs): the weight products and the embedding gather
+(``param_read``), the cache writes (``kv_write``), the cache's fp32 read
+and the score chain of :func:`_attn_cached` (``kv_read``,
+``attention``), the token pick (``sampling``); each decode step of
+:func:`generate` runs in :data:`~apex_tpu_torch.obs.stepclass.
+GENERATE_STEP`.
+
 ``kv_dtype="int8"`` stores the cache as int8 with one fp32 scale per
 cached position and layer (``(L, B, M)`` beside each int8 cache): every
 write quantizes its tokens' ``(H, D)`` vectors
@@ -36,9 +45,11 @@ from apex_tpu_torch.normalization import (
     FusedLayerNorm,
     fused_layer_norm_affine,
 )
+from apex_tpu_torch.obs.stepclass import DECODE_RANGES, GENERATE_STEP
 from apex_tpu_torch.ops import DeviceLike, resolve_device, same_device
 from apex_tpu_torch.ops.rope import apply_rope, rope_tables
 from apex_tpu_torch.quant.int8 import quantize_kv
+from apex_tpu_torch.utils.profiling import profile_range
 
 NEG_INF = -1e30
 
@@ -74,17 +85,28 @@ def _attn_cached(q: torch.Tensor, k_cache: torch.Tensor,
     the V scale the probabilities after the softmax (each is constant
     over the contracted ``(H, D)``, so this is dequantizing the cache
     without making a dequantized copy)."""
-    mask = valid_mask[None, None] if valid_mask.dim() == 2 \
-        else valid_mask[:, None]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
-    if k_scale is not None:
-        s = s * k_scale[:, None, None, :]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    if v_scale is not None:
-        p = p * v_scale[:, None, None, :]
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v_cache.float())
-    return out.to(q.dtype)
+    with profile_range(DECODE_RANGES["attention"]):
+        mask = valid_mask[None, None] if valid_mask.dim() == 2 \
+            else valid_mask[:, None]
+        qf = q.float()
+        with profile_range(DECODE_RANGES["kv_read"]):
+            kf, vf = k_cache.float(), v_cache.float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        if k_scale is not None:
+            s = s * k_scale[:, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        if v_scale is not None:
+            p = p * v_scale[:, None, None, :]
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+        return out.to(q.dtype)
+
+
+def _dense(h: torch.Tensor, layer) -> torch.Tensor:
+    """``h @ kernel + bias`` of a ``Dense`` layer in h's dtype, in the
+    ``param_read`` range."""
+    with profile_range(DECODE_RANGES["param_read"]):
+        return h @ layer.kernel + layer.bias.to(h.dtype)
 
 
 def qkv_rotated(x: torch.Tensor, blk: GPTBlock, cfg: GPTConfig, cos, sin):
@@ -92,8 +114,7 @@ def qkv_rotated(x: torch.Tensor, blk: GPTBlock, cfg: GPTConfig, cos, sin):
     on q and k: the head of every cached block (solo and serve)."""
     b, lq = x.shape[0], x.shape[1]
     h = _ln(x, blk.ln1, cfg.layer_norm_eps)
-    att = blk.attention
-    qkv = h @ att.qkv.kernel + att.qkv.bias.to(h.dtype)
+    qkv = _dense(h, blk.attention.qkv)
     q, k, v = (t.reshape(b, lq, cfg.num_heads, cfg.head_dim)
                for t in qkv.split(cfg.hidden_size, dim=-1))
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
@@ -105,11 +126,10 @@ def block_tail(x: torch.Tensor, o: torch.Tensor, blk: GPTBlock,
     residual: the tail of every cached block (solo and serve)."""
     b, lq = x.shape[0], x.shape[1]
     o = o.reshape(b, lq, cfg.hidden_size)
-    out = blk.attention.out
-    x = x + (o @ out.kernel + out.bias.to(o.dtype))
+    x = x + _dense(o, blk.attention.out)
     h = _ln(x, blk.ln2, cfg.layer_norm_eps)
-    h = gelu(h @ blk.ffn_in.kernel + blk.ffn_in.bias.to(h.dtype))
-    return x + (h @ blk.ffn_out.kernel + blk.ffn_out.bias.to(h.dtype))
+    h = gelu(_dense(h, blk.ffn_in))
+    return x + _dense(h, blk.ffn_out)
 
 
 def _block(x, blk: GPTBlock, cfg: GPTConfig, kc, vc, layer_i: int, cos,
@@ -121,16 +141,17 @@ def _block(x, blk: GPTBlock, cfg: GPTConfig, kc, vc, layer_i: int, cos,
     lq = x.shape[1]
     at = slice(write_at, write_at + lq)
     q, k, v = qkv_rotated(x, blk, cfg, cos, sin)
-    if ks is not None:
-        qk, sk = quantize_kv(k)                 # (B, Lq, H, D), (B, Lq)
-        qv, sv = quantize_kv(v)
-        kc[layer_i, :, at] = qk
-        vc[layer_i, :, at] = qv
-        ks[layer_i, :, at] = sk
-        vs[layer_i, :, at] = sv
-    else:
-        kc[layer_i, :, at] = k.to(kc.dtype)
-        vc[layer_i, :, at] = v.to(vc.dtype)
+    with profile_range(DECODE_RANGES["kv_write"]):
+        if ks is not None:
+            qk, sk = quantize_kv(k)             # (B, Lq, H, D), (B, Lq)
+            qv, sv = quantize_kv(v)
+            kc[layer_i, :, at] = qk
+            vc[layer_i, :, at] = qv
+            ks[layer_i, :, at] = sk
+            vs[layer_i, :, at] = sv
+        else:
+            kc[layer_i, :, at] = k.to(kc.dtype)
+            vc[layer_i, :, at] = v.to(vc.dtype)
     if lq > 1 and write_at == 0:
         # full prefill from an empty cache: causal self-attention over
         # the rotated prompt q/k/v IS attention to cache slots <= each
@@ -158,7 +179,8 @@ def _forward_cached(model: GPTModel, cfg: GPTConfig, ids: torch.Tensor,
     b, lq = ids.shape
     m = kc.shape[2]
     dev = ids.device
-    x = model.tok_emb.embedding[ids]
+    with profile_range(DECODE_RANGES["param_read"]):
+        x = model.tok_emb.embedding[ids]
     positions = (start + torch.arange(lq, device=dev))[None].expand(b, lq)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     qpos = start + torch.arange(lq, device=dev)[:, None]
@@ -167,7 +189,8 @@ def _forward_cached(model: GPTModel, cfg: GPTConfig, ids: torch.Tensor,
         x = _block(x, blk, cfg, kc, vc, i, cos, sin, valid, write_at=start,
                    ks=ks, vs=vs)
     x = _ln(x[:, -1:], model.ln_f, cfg.layer_norm_eps)
-    return x[:, 0] @ model.lm_head.kernel
+    with profile_range(DECODE_RANGES["param_read"]):
+        return x[:, 0] @ model.lm_head.kernel
 
 
 def sample_categorical(logits: torch.Tensor, temperature: float,
@@ -222,17 +245,20 @@ def generate(model: GPTModel, cfg: GPTConfig, prompt_ids,
         vs = torch.zeros_like(ks)
 
     def pick(logits):
-        if sample:
-            return sample_categorical(logits, float(temperature), generator)
-        return greedy_argmax(logits.float())
+        with profile_range(DECODE_RANGES["sampling"]):
+            if sample:
+                return sample_categorical(logits, float(temperature),
+                                          generator)
+            return greedy_argmax(logits.float())
 
     out = [prompt]
     tok = pick(_forward_cached(model, cfg, prompt, kc, vc, start=0,
                                ks=ks, vs=vs))
     out.append(tok[:, None])
     for t in range(int(max_new_tokens) - 1):
-        logits = _forward_cached(model, cfg, tok[:, None], kc, vc,
-                                 start=lp + t, ks=ks, vs=vs)
-        tok = pick(logits)
+        with profile_range(GENERATE_STEP):
+            logits = _forward_cached(model, cfg, tok[:, None], kc, vc,
+                                     start=lp + t, ks=ks, vs=vs)
+            tok = pick(logits)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)[:, :m]

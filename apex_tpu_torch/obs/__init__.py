@@ -16,13 +16,32 @@
 - :mod:`~apex_tpu_torch.obs.exposition`: the stdlib HTTP scrape target
   (``/metrics``, ``/fleet``, ``/healthz``);
 - :mod:`~apex_tpu_torch.obs.slo`: declarative SLO objectives over the
-  registry.
-
-The JAX package's ``stepclass`` and ``contprof`` wait for the port of
-``apex_tpu/analysis/``.
+  registry;
+- :mod:`~apex_tpu_torch.obs.stepclass`: the step classifiers (the decode
+  and train bucket vocabularies) over the profiler's trace, each device
+  event under the host op that launched it;
+- :mod:`~apex_tpu_torch.obs.contprof`: the continuous profiler (sampled
+  capture windows inside the serve and train loops, profiled steps kept
+  out of the gated latency histograms) and its drift sentinel.
 """
 
-from apex_tpu_torch.obs import exposition, fleet, reqtrace, slo, spans, xplane
+from apex_tpu_torch.obs import (
+    contprof,
+    exposition,
+    fleet,
+    reqtrace,
+    slo,
+    spans,
+    stepclass,
+    xplane,
+)
+from apex_tpu_torch.obs.contprof import (
+    ContinuousProfiler,
+    ContProfConfig,
+    DriftSentinel,
+    serve_profiler,
+    train_profiler,
+)
 from apex_tpu_torch.obs.exposition import MetricsServer
 from apex_tpu_torch.obs.flight import FlightRecorder
 from apex_tpu_torch.obs.metrics import (
@@ -42,9 +61,11 @@ from apex_tpu_torch.obs.reqtrace import EVENT_KINDS, RequestTracer
 from apex_tpu_torch.obs.slo import SLObjective, SLOEvaluator, serve_objectives
 from apex_tpu_torch.obs.spans import current_path, span, traced_span
 
-__all__ = ["Counter", "DEFAULT", "EVENT_KINDS", "FlightRecorder", "Gauge",
+__all__ = ["ContProfConfig", "ContinuousProfiler", "Counter", "DEFAULT",
+           "DriftSentinel", "EVENT_KINDS", "FlightRecorder", "Gauge",
            "Histogram", "LATENCY_BUCKETS", "MetricsServer", "Registry",
-           "RequestTracer", "SLOEvaluator", "SLObjective", "counter",
-           "current_path", "exposition", "fleet", "gauge", "get_registry",
-           "histogram", "instrument_step", "reqtrace", "serve_objectives",
-           "slo", "span", "spans", "traced_span", "xplane"]
+           "RequestTracer", "SLOEvaluator", "SLObjective", "contprof",
+           "counter", "current_path", "exposition", "fleet", "gauge",
+           "get_registry", "histogram", "instrument_step", "reqtrace",
+           "serve_objectives", "serve_profiler", "slo", "span", "spans",
+           "stepclass", "traced_span", "train_profiler", "xplane"]

@@ -161,6 +161,7 @@ def run_resilient(
     flight: Optional[FlightRecorder] = None,
     start_step: int = 0,
     fleet_metrics: Optional[Any] = None,
+    profiler: Optional[Any] = None,
 ) -> RunResult:
     """Drive ``step_fn(*batch) -> metrics`` over steps ``start_step`` to
     ``num_steps - 1`` with the protections of the module docstring.
@@ -198,6 +199,18 @@ def run_resilient(
     are flushed and an incident recorded (status ``preempted`` /
     ``interrupted``) before the exception propagates: the next process's
     ``manager.restore`` lands on the last good snapshot.
+
+    ``profiler`` (a :class:`apex_tpu_torch.obs.contprof.ContinuousProfiler`,
+    usually from :func:`apex_tpu_torch.obs.contprof.train_profiler`) turns
+    on continuous profiling: every ``capture_every`` dispatches a short
+    window is captured around the step dispatch and bucketed into the
+    train vocabulary (fwd / bwd / optimizer / collectives / host_gap);
+    the loop supplies the classifier, built at the first window close.
+    A rewind SUPPRESSES capture (an open window is aborted and the
+    cadence restarts: the sentinel never judges a half-rewound capture),
+    and a window still open when the loop exits is aborted.  Outside a
+    window the step path is unchanged (the metrics' copy is queued right
+    behind the step as before).
     """
     cfg = config or ResilienceConfig()
     from apex_tpu_torch import checkpoint as ckpt
@@ -463,7 +476,22 @@ def run_resilient(
                         injector.on_step_start(i)
                         batch = injector.poison_batch(i, batch)
                         _note_new_faults()
-                    pending.append((i, _host_scalars(step_fn(*batch))))
+                    if profiler is None:
+                        metrics = step_fn(*batch)
+                    else:
+                        if not profiler.has_classifier_builder:
+                            # built lazily, at the first window close
+                            from apex_tpu_torch.obs.contprof import (
+                                train_classifier_builder)
+                            profiler.set_classifier_builder(
+                                train_classifier_builder(profiler.scope))
+                        profiler.step_begin()
+                        t_disp = time.perf_counter()
+                        metrics = step_fn(*batch)
+                        # a window's close synchronizes the device; other
+                        # steps record the dispatch's wall only
+                        profiler.step_end(time.perf_counter() - t_disp)
+                    pending.append((i, _host_scalars(metrics)))
                 # resolve lagged metrics (all of them once dispatch is done)
                 lag = cfg.sentinel_lag if i < num_steps else 0
                 jump = None
@@ -473,6 +501,11 @@ def run_resilient(
                     pending.clear()
                     with lock:
                         inflight.clear()
+                    if profiler is not None:
+                        # capture suppressed while rewinding: the
+                        # re-dispatched timeline must not feed the
+                        # sentinel a half-rewound capture
+                        profiler.suppress()
                     i = jump
                     continue
                 if i < num_steps and cfg.checkpoint_every \
@@ -511,6 +544,10 @@ def run_resilient(
     finally:
         stop.set()
         monitor.join(timeout=1.0)
+        if profiler is not None:
+            # a window still open on any exit path must not leak the
+            # process's capture
+            profiler.abort_window()
         if manager is not None:
             try:
                 manager.wait()

@@ -34,7 +34,15 @@ Observability, as the JAX engine's: each decode step runs in the span
 :class:`~apex_tpu_torch.obs.reqtrace.RequestTracer`) the engine records
 each request's ``enqueue``, ``cow_fork``, ``prefix_hit``,
 ``prefill_chunk``, ``admit``, ``decode_step``, ``preempt`` and ``retire``
-under its ``trace_name``.  The speculative engine overrides
+under its ``trace_name``.  With ``profiler=`` (a
+:class:`~apex_tpu_torch.obs.contprof.ContinuousProfiler`, usually from
+:func:`~apex_tpu_torch.obs.contprof.serve_profiler`) each step drives its
+``step_begin`` / ``step_end`` hooks; a step inside a capture window
+records its wall into ``serve_profiled_step_seconds`` INSTEAD of
+``serve_decode_step_seconds``, a window that an admission dispatch
+(a prefill chunk, a copy-on-write fork, a fleet's KV install) entered is
+discarded, and a failing step aborts the window.  The speculative
+engine overrides
 :meth:`ServeEngine._run_prefill` and calls
 :meth:`ServeEngine._admit_and_evict` and
 :meth:`ServeEngine._observe_step_wall` from its own step; the fleet's
@@ -60,12 +68,14 @@ from apex_tpu_torch.models.generate import (
 from apex_tpu_torch.models.gpt import GPTBlock, GPTConfig, GPTModel
 from apex_tpu_torch.obs import metrics as obs_metrics
 from apex_tpu_torch.obs import spans
+from apex_tpu_torch.obs.stepclass import DECODE_RANGES
 from apex_tpu_torch.ops import DeviceLike, resolve_device
 from apex_tpu_torch.ops.rope import rope_tables
 from apex_tpu_torch.quant.int8 import dequantize_int8, quantize_kv
 from apex_tpu_torch.serve import paged, sampling
 from apex_tpu_torch.serve.paged import TRASH_BLOCK
 from apex_tpu_torch.serve.scheduler import Request, SlotScheduler
+from apex_tpu_torch.utils.profiling import profile_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,20 +140,22 @@ def _paged_block(x: torch.Tensor, blk: GPTBlock, cfg: GPTConfig,
     n, h, d = b * lq, cfg.num_heads, cfg.head_dim
     k, v = k.reshape(n, h, d), v.reshape(n, h, d)
     kg_scale = vg_scale = err = None
+    with profile_range(DECODE_RANGES["kv_write"]):
+        if ks is not None:
+            qk, sk = quantize_kv(k)
+            qv, sv = quantize_kv(v)
+            if with_err:
+                err = _quant_error(k, v, qk, sk, qv, sv)
+            kc[layer_i, blocks, offs] = qk
+            vc[layer_i, blocks, offs] = qv
+            ks[layer_i, blocks, offs] = sk
+            vs[layer_i, blocks, offs] = sv
+        else:
+            kc[layer_i, blocks, offs] = k.to(kc.dtype)
+            vc[layer_i, blocks, offs] = v.to(vc.dtype)
     if ks is not None:
-        qk, sk = quantize_kv(k)
-        qv, sv = quantize_kv(v)
-        if with_err:
-            err = _quant_error(k, v, qk, sk, qv, sv)
-        kc[layer_i, blocks, offs] = qk
-        vc[layer_i, blocks, offs] = qv
-        ks[layer_i, blocks, offs] = sk
-        vs[layer_i, blocks, offs] = sv
         kg_scale = paged.gather_slot_scales(ks[layer_i], table)
         vg_scale = paged.gather_slot_scales(vs[layer_i], table)
-    else:
-        kc[layer_i, blocks, offs] = k.to(kc.dtype)
-        vc[layer_i, blocks, offs] = v.to(vc.dtype)
     kg = paged.gather_slot_kv(kc[layer_i], table)
     vg = paged.gather_slot_kv(vc[layer_i], table)
     o = paged.paged_attention(q, kg, vg, valid, scale, k_scale=kg_scale,
@@ -204,6 +216,8 @@ class ServeEngine:
     model must live there.  ``tracer`` (a :class:`~apex_tpu_torch.obs.
     reqtrace.RequestTracer`, None = off) records each request's events
     under ``trace_name`` (``"prefill"``, ``"replica0"``, ... in a fleet).
+    ``profiler`` (None = off): the continuous profiler the module
+    docstring describes.
     """
 
     def __init__(self, model: GPTModel, cfg: GPTConfig,
@@ -211,7 +225,8 @@ class ServeEngine:
                  registry: Optional[obs_metrics.Registry] = None,
                  device: DeviceLike = None,
                  tracer: Optional[Any] = None,
-                 trace_name: str = "engine"):
+                 trace_name: str = "engine",
+                 profiler: Optional[Any] = None):
         self.device = resolve_device(device)
         _check_model_device(model, self.device)
         self.model = model
@@ -219,11 +234,19 @@ class ServeEngine:
         self.scfg = serve_cfg
         self.tracer = tracer
         self.trace_name = trace_name
+        #: the continuous profiler whose hooks ``step()`` drives
+        self.profiler = profiler
+        #: admission dispatches into this engine's pools (prefill chunks,
+        #: copy-on-write forks, and the fleet's KV installs, which
+        #: ``DecodeReplica.admit_shipment`` counts): the profiler's
+        #: contamination marker
+        self._admission_dispatches = 0
         self.metrics = registry if registry is not None \
             else obs_metrics.DEFAULT
         self._m_step_s = self.metrics.histogram(
             "serve_decode_step_seconds",
             "wall seconds per decode step (launch + token fetch)")
+        self._m_profiled_s = None
         self._m_tokens = self.metrics.counter(
             "serve_tokens_total", "tokens generated (active slots x "
             "decode steps + prefill first-tokens)")
@@ -293,7 +316,8 @@ class ServeEngine:
         active = self._t(s.active)
         page_table = self._t(s.page_table).long()
         m = self.scfg.max_blocks_per_slot * bs
-        x = self.model.tok_emb.embedding[tokens][:, None]       # (S, 1, E)
+        with profile_range(DECODE_RANGES["param_read"]):
+            x = self.model.tok_emb.embedding[tokens][:, None]   # (S, 1, E)
         cos, sin = rope_tables(lengths[:, None], c.head_dim, c.rope_theta)
         blocks, offs = paged.token_write_coords(lengths, page_table, bs,
                                                 active)
@@ -308,7 +332,8 @@ class ServeEngine:
                                 blocks, offs, page_table, valid, scale,
                                 ks=self.ks, vs=self.vs)
         x = _ln(x[:, -1:], self.model.ln_f, c.layer_norm_eps)
-        logits = x[:, 0] @ self.model.lm_head.kernel             # (S, V)
+        with profile_range(DECODE_RANGES["param_read"]):
+            logits = x[:, 0] @ self.model.lm_head.kernel         # (S, V)
         toks = sampling.sample_tokens(
             logits, self.generators, self._t(s.temperature),
             self._t(s.top_k), self._t(s.top_p))
@@ -351,6 +376,7 @@ class ServeEngine:
             self._cow_copy(src, dst)
             self.sched.finish_cow(slot)
             self._m_cow.inc()
+            self._admission_dispatches += 1
             resume = n - 1
             if self.tracer is not None:
                 self.tracer.record("cow_fork", req.uid, self.trace_name,
@@ -375,6 +401,7 @@ class ServeEngine:
                     self.vc, table_row, padded[None, j:j + c], resume + j,
                     n_valid, ks=self.ks, vs=self.vs)
             self._m_prefill.inc()
+            self._admission_dispatches += 1
             if self.tracer is not None:
                 self.tracer.record("prefill_chunk", req.uid,
                                    self.trace_name, start=resume + j,
@@ -435,11 +462,38 @@ class ServeEngine:
                 _, slot, req = plan
                 self._run_prefill(slot, req)
 
-    def _observe_step_wall(self, dt: float) -> None:
+    def _profiler_begin(self) -> bool:
+        """The profiler's hook before a step dispatch; True = this step is
+        captured.  The step's own admissions ran before it; the marker
+        catches later admissions landing inside the window."""
+        if self.profiler is None:
+            return False
+        return self.profiler.step_begin(marker=self._admission_dispatches)
+
+    def _profiler_abort(self, in_window: bool) -> None:
+        """A step that failed inside a window ends the window unjudged."""
+        if in_window:
+            self.profiler.abort_window()
+
+    def _observe_step_wall(self, dt: float, in_window: bool = False
+                           ) -> None:
         """One step's wall seconds (launches + the token read-back) into
-        ``serve_decode_step_seconds``: the base and speculative steps'
-        one observer."""
-        self._m_step_s.observe(dt)
+        exactly one of ``serve_decode_step_seconds`` and (a captured
+        step) ``serve_profiled_step_seconds``, then the profiler's
+        closing hook: the base and speculative steps' one observer."""
+        if in_window:
+            if self._m_profiled_s is None:
+                self._m_profiled_s = self.metrics.histogram(
+                    "serve_profiled_step_seconds",
+                    "wall seconds of decode steps inside a "
+                    "continuous-profiler capture window — EXCLUDED from "
+                    "serve_decode_step_seconds so latency gates and SLO "
+                    "burn rates never judge a profiled step")
+            self._m_profiled_s.observe(dt)
+        else:
+            self._m_step_s.observe(dt)
+        if self.profiler is not None:
+            self.profiler.step_end(dt, marker=self._admission_dispatches)
 
     @torch.inference_mode()
     def step(self) -> Dict[str, np.ndarray]:
@@ -451,9 +505,14 @@ class ServeEngine:
         if not sched.active.any():
             return {}
         n_act = int(sched.active.sum())
+        in_window = self._profiler_begin()
         t0 = time.perf_counter()
-        toks = self._decode().cpu().numpy()
-        self._observe_step_wall(time.perf_counter() - t0)
+        try:
+            toks = self._decode().cpu().numpy()
+        except BaseException:
+            self._profiler_abort(in_window)
+            raise
+        self._observe_step_wall(time.perf_counter() - t0, in_window)
         self._m_tokens.inc(n_act)
         self.steps += 1
         finished: Dict[str, np.ndarray] = {}
@@ -478,12 +537,18 @@ class ServeEngine:
         token ids}`` for every request submitted (the prompt is not
         repeated)."""
         steps = 0
-        while not self.sched.idle():
-            before = self.sched.n_active() + len(self.sched.queue)
-            self.step()
-            steps += 1
-            if steps > max_steps:
-                raise RuntimeError(
-                    f"serve loop exceeded {max_steps} steps with "
-                    f"{before} request(s) outstanding")
+        try:
+            while not self.sched.idle():
+                before = self.sched.n_active() + len(self.sched.queue)
+                self.step()
+                steps += 1
+                if steps > max_steps:
+                    raise RuntimeError(
+                        f"serve loop exceeded {max_steps} steps with "
+                        f"{before} request(s) outstanding")
+        finally:
+            if self.profiler is not None:
+                # a window still open at drain would leak the process's
+                # capture into the next loop
+                self.profiler.abort_window()
         return dict(self._outputs)

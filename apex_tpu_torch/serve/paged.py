@@ -30,6 +30,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from apex_tpu_torch.models.generate import _attn_cached
+from apex_tpu_torch.obs.stepclass import DECODE_RANGES
+from apex_tpu_torch.utils.profiling import profile_range
 
 #: physical block id reserved as the write target for masked/inactive
 #: lanes; never allocated, never mapped by a live page-table entry
@@ -217,9 +219,10 @@ def gather_slot_kv(pool_l: torch.Tensor,
     """``pool_l (num_blocks, bs, H, D)`` gathered by ``page_table (S,
     max_blocks)`` into ``(S, max_blocks * bs, H, D)``: position ``p`` of
     slot ``s`` lands at ``[s, p]``."""
-    g = pool_l[page_table]                   # (S, MB, bs, H, D)
-    s, mb, bs, h, d = g.shape
-    return g.reshape(s, mb * bs, h, d)
+    with profile_range(DECODE_RANGES["kv_read"]):
+        g = pool_l[page_table]               # (S, MB, bs, H, D)
+        s, mb, bs, h, d = g.shape
+        return g.reshape(s, mb * bs, h, d)
 
 
 def gather_slot_scales(pool_s: torch.Tensor,
@@ -227,9 +230,10 @@ def gather_slot_scales(pool_s: torch.Tensor,
     """``pool_s (num_blocks, bs)`` gathered by ``page_table (S,
     max_blocks)`` into ``(S, max_blocks * bs)``: scale ``[s, p]`` belongs
     to position ``[s, p]`` of :func:`gather_slot_kv`'s output."""
-    g = pool_s[page_table]                   # (S, MB, bs)
-    s, mb, bs = g.shape
-    return g.reshape(s, mb * bs)
+    with profile_range(DECODE_RANGES["kv_read"]):
+        g = pool_s[page_table]               # (S, MB, bs)
+        s, mb, bs = g.shape
+        return g.reshape(s, mb * bs)
 
 
 def token_write_coords(lengths: torch.Tensor, page_table: torch.Tensor,

@@ -72,10 +72,19 @@ class RouterConfig:
     ``slo``: a tuple of :class:`apex_tpu_torch.obs.slo.SLObjective`
     judged per replica over its own registry at every fleet step
     boundary; a replica with a violated objective takes no admission
-    until its window recovers (None: ranking only).  ``contprof`` (the
-    continuous profiler, with JAX's ``contprof_band`` and ``contprof_k``)
-    waits for the port of ``obs/contprof`` (``ROADMAP.md`` Queue 1,
-    ``analysis/``): setting it raises."""
+    until its window recovers (None: ranking only).  ``contprof`` (an
+    :class:`apex_tpu_torch.obs.contprof.ContProfConfig`, None = off):
+    every decode replica gets its own continuous profiler, capture phases
+    staggered across replicas (the capture is process-wide: a colliding
+    window is skipped, not queued), and its own
+    :class:`~apex_tpu_torch.obs.contprof.DriftSentinel` (band
+    ``contprof_band``, confirmation count ``contprof_k``) over the
+    replica's registry.  A confirmed drift flips the replica's
+    ``serve_profile_drift`` gauge (and the router's
+    ``serve_replica{i}_profile_drift``), notes the flight recorder,
+    writes a ``profile-drift`` incident to ``incident_path`` and ranks
+    the replica LAST in admission (never blocked: a fleet whose every
+    replica drifted still serves)."""
 
     n_decode_replicas: int = 2
     n_prefill_devices: int = 1
@@ -85,6 +94,8 @@ class RouterConfig:
     incident_path: Optional[str] = None
     slo: Optional[tuple] = None
     contprof: Optional[Any] = None
+    contprof_band: float = 0.03
+    contprof_k: int = 2
 
     def __post_init__(self):
         if self.transfer not in ("ship", "recompute"):
@@ -96,11 +107,6 @@ class RouterConfig:
             raise ValueError(
                 f"admit_block_util={self.admit_block_util} outside "
                 f"(0, 1]")
-        if self.contprof is not None:
-            raise NotImplementedError(
-                "contprof: the continuous profiler (obs/contprof) waits "
-                "for the port of apex_tpu/analysis/ (ROADMAP.md Queue 1, "
-                "analysis/)")
 
 
 class PrefillWorker:
@@ -224,6 +230,9 @@ class DecodeReplica:
                       eng._t(sched.page_table[slot]).long(), shp.kv, slot,
                       shp.key)
         sched.arm(slot, shp.first_token, shp.prompt_len)
+        # an admission dispatch into the pools: a capture window it
+        # lands in is discarded
+        eng._admission_dispatches += 1
         return slot
 
     def submit(self, req: Request) -> None:
@@ -414,6 +423,33 @@ class DisaggRouter:
                     f"violated in its window; 0 = de-ranked from "
                     f"admission)")
                 for i in range(n)]
+        # -- continuous profiling: one profiler and drift sentinel a
+        # replica, phases staggered so fleet windows do not collide on
+        # the process-wide capture
+        self.profilers = None
+        self.sentinels = None
+        self._m_rep_drift = []
+        if self.rcfg.contprof is not None:
+            from apex_tpu_torch.obs import contprof as contprof_lib
+            pcfg = self.rcfg.contprof
+            stride = max(pcfg.capture_steps + 1, pcfg.capture_every // n)
+            self.profilers, self.sentinels = [], []
+            for i, rep in enumerate(self.replicas):
+                sent = contprof_lib.DriftSentinel(
+                    band=self.rcfg.contprof_band, k=self.rcfg.contprof_k,
+                    registry=rep.eng.metrics, flight=self.flight,
+                    incident_path=self.rcfg.incident_path, name="serve")
+                self.sentinels.append(sent)
+                self.profilers.append(contprof_lib.serve_profiler(
+                    rep.eng, sentinel=sent, config=dataclasses.replace(
+                        pcfg, phase=pcfg.phase + i * stride)))
+            self._m_rep_drift = [
+                self.metrics.gauge(
+                    f"serve_replica{i}_profile_drift",
+                    f"replica {i} confirmed, unrecovered op-level drift "
+                    f"(mirror of its serve_profile_drift gauge; a "
+                    f"drifting replica ranks last in admission)")
+                for i in range(n)]
 
     # -- submission ----------------------------------------------------
 
@@ -437,15 +473,18 @@ class DisaggRouter:
     def _eligible(self, req: Request) -> List[tuple]:
         """``(load, replica)`` for every replica that may take ``req``
         this boundary: alive, a free slot and the footprint, block
-        utilization under the admission bar, no violated SLO."""
-        scored = [(r.load(), r) for r in self.replicas
+        utilization under the admission bar, no violated SLO.  ``load``
+        leads with the replica's drift flag, so a drifting replica ranks
+        last."""
+        scored = [((self._drifting(r),) + r.load(), r)
+                  for r in self.replicas
                   if r.can_admit(req) and not self._slo_violating(r)]
         return [(load, r) for load, r in scored
-                if load[1] < self.rcfg.admit_block_util]
+                if load[2] < self.rcfg.admit_block_util]
 
     def _pick_replica(self, req: Request) -> Optional[DecodeReplica]:
-        """The least-loaded eligible replica, ranked by (outstanding
-        work, utilization, decode p99)."""
+        """The least-loaded eligible replica, ranked by (drifting,
+        outstanding work, utilization, decode p99)."""
         eligible = self._eligible(req)
         if not eligible:
             return None
@@ -463,6 +502,14 @@ class DisaggRouter:
         if best is None:
             return None, 0
         return best[1], -best[0][0]
+
+    def _drifting(self, rep: DecodeReplica) -> bool:
+        """True when the replica's drift sentinel holds a confirmed,
+        unrecovered drift: it ranks LAST in admission (a soft de-rank,
+        not a block)."""
+        if self.sentinels is None:
+            return False
+        return self.sentinels[rep.index].drifting
 
     def _slo_violating(self, rep: DecodeReplica) -> bool:
         """True when the replica's LAST boundary evaluation has a
@@ -550,6 +597,9 @@ class DisaggRouter:
                 self.slo_evals[i].evaluate()
                 self._m_rep_slo[i].set(
                     0.0 if self.slo_evals[i].violated() else 1.0)
+            if self.sentinels is not None:
+                self._m_rep_drift[i].set(
+                    1.0 if self.sentinels[i].drifting else 0.0)
         self.metrics.tick()
 
     def slo_summary(self) -> Optional[dict]:
@@ -567,16 +617,21 @@ class DisaggRouter:
         """Drain the fleet; ``{uid: generated token ids}`` for every
         request ever submitted (the prompt not repeated)."""
         steps = 0
-        while not self.idle():
-            outstanding = len(self.queue) + sum(
-                r.eng.sched.n_active() + len(r.eng.sched.queue)
-                for r in self.replicas if r.alive)
-            self.step()
-            steps += 1
-            if steps > max_steps:
-                raise RuntimeError(
-                    f"router loop exceeded {max_steps} steps with "
-                    f"{outstanding} request(s) outstanding")
+        try:
+            while not self.idle():
+                outstanding = len(self.queue) + sum(
+                    r.eng.sched.n_active() + len(r.eng.sched.queue)
+                    for r in self.replicas if r.alive)
+                self.step()
+                steps += 1
+                if steps > max_steps:
+                    raise RuntimeError(
+                        f"router loop exceeded {max_steps} steps with "
+                        f"{outstanding} request(s) outstanding")
+        finally:
+            if self.profilers is not None:
+                for prof in self.profilers:
+                    prof.abort_window()
         return dict(self._outputs)
 
     # -- failure semantics --------------------------------------------
@@ -594,6 +649,10 @@ class DisaggRouter:
         if not rep.alive:
             return []
         rep.alive = False
+        if self.profilers is not None:
+            # a dead replica steps no more: its open window would hold
+            # the process's capture for the rest of the run
+            self.profilers[index].abort_window()
         if self.flight is not None:
             self.flight.note("replica_kill", replica=index,
                              active=rep.eng.sched.n_active(),

@@ -42,7 +42,10 @@ Each round runs ``k + 1`` single-token draft steps (the last one only for
 its cache write at ``L + k``: a fully accepted round moves the slot to
 ``L + k + 1``), in the span ``serve/spec_draft``, then the verifier in
 ``serve/spec_verify``; the draft's prompt prefill runs in
-``serve/spec_draft_prefill``.
+``serve/spec_draft_prefill``.  A continuous profiler
+(:func:`apex_tpu_torch.obs.contprof.serve_profiler`) captures whole
+rounds under the base engine's contract; its classifier buckets the
+verify round and leaves the draft's launches in ``other``.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from apex_tpu_torch.models.generate import _check_model_device, _ln
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.obs import metrics as obs_metrics
 from apex_tpu_torch.obs import spans
+from apex_tpu_torch.obs.stepclass import DECODE_RANGES
 from apex_tpu_torch.ops import DeviceLike
 from apex_tpu_torch.ops.rope import rope_tables
 from apex_tpu_torch.serve import paged, sampling
@@ -69,6 +73,7 @@ from apex_tpu_torch.serve.engine import (
     chunk_prefill_math,
 )
 from apex_tpu_torch.serve.paged import TRASH_BLOCK
+from apex_tpu_torch.utils.profiling import profile_range
 
 __all__ = ["SpecConfig", "SpecEngine", "truncated_draft"]
 
@@ -227,7 +232,8 @@ class SpecEngine(ServeEngine):
             dev = self.device
             q_tokens = torch.cat([tokens[:, None], proposals], dim=1)
             positions = lengths[:, None] + torch.arange(k + 1, device=dev)
-            x = self.model.tok_emb.embedding[q_tokens]      # (S, k+1, E)
+            with profile_range(DECODE_RANGES["param_read"]):
+                x = self.model.tok_emb.embedding[q_tokens]  # (S, k+1, E)
             cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
             flat_pos = positions.reshape(-1)                 # (S (k+1),)
             rows = torch.arange(s_, device=dev).repeat_interleave(k + 1)
@@ -248,7 +254,8 @@ class SpecEngine(ServeEngine):
                                     sin, blocks, offs, page_table, valid,
                                     scale, ks=self.ks, vs=self.vs)
             x = _ln(x, self.model.ln_f, c.layer_norm_eps)
-            logits = x @ self.model.lm_head.kernel           # (S, k+1, V)
+            with profile_range(DECODE_RANGES["param_read"]):
+                logits = x @ self.model.lm_head.kernel       # (S, k+1, V)
             gens = self.generators
             before = [g.get_state() for g in gens]
             cand, ladder = [], []
@@ -303,14 +310,22 @@ class SpecEngine(ServeEngine):
         sched = self.sched
         if not sched.active.any():
             return {}
+        # the base step's profiler contract: a captured round (draft +
+        # verify) records into serve_profiled_step_seconds
+        in_window = self._profiler_begin()
         t0 = time.perf_counter()
-        args = (self._t(sched.last_tok).long(), self._t(sched.lengths).long(),
-                self._t(sched.active), self._t(sched.page_table).long(),
-                self._t(sched.temperature), self._t(sched.top_k),
-                self._t(sched.top_p))
-        proposals = self._draft_round(*args)
-        cand, n_emit = self._verify_round(proposals, *args)
-        self._observe_step_wall(time.perf_counter() - t0)
+        try:
+            args = (self._t(sched.last_tok).long(),
+                    self._t(sched.lengths).long(), self._t(sched.active),
+                    self._t(sched.page_table).long(),
+                    self._t(sched.temperature), self._t(sched.top_k),
+                    self._t(sched.top_p))
+            proposals = self._draft_round(*args)
+            cand, n_emit = self._verify_round(proposals, *args)
+        except BaseException:
+            self._profiler_abort(in_window)
+            raise
+        self._observe_step_wall(time.perf_counter() - t0, in_window)
         n_act = int(sched.active.sum())
         k = self.spec.k
         self._m_rounds.inc()

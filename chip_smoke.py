@@ -13,7 +13,7 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
 ``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``,
 ``resilience``, ``train_fleet`` (with ``obs_lag``, ``native`` and
-``xplane``), ``quant``, ``serve_fleet``, ``serve``),
+``xplane``), ``quant``, ``serve_fleet``, ``serve``, ``contprof``),
 printing their lines and no ``kernels`` or ``ok`` line: how one card
 times a parent against a change.  The ``ddp``, ``seq_parallel`` and
 ``pipeline_moe`` phases re-run this script as their ranks
@@ -392,7 +392,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    xplane   (after serve_profile) two gpt_small O2 steps profiled under a
             schedule: ``obs.xplane``'s device total of the chrome trace
             within 1% of ``key_averages()``'s, 2 step markers.
+   contprof  (after xplane) the continuous profiler: ``DisaggRouter``
+            over gpt_small (2 decode replicas on ``[cuda:0] * 3``, the
+            serve phase's 16 requests, capped at 80 new tokens) with
+            ``RouterConfig(contprof=ContProfConfig(capture_every=16,
+            capture_steps=2))``, a clean
+            and a seeded lane (replica 0's kv_read x 2 from window 2) in
+            turn with a run without a profiler: greedy streams equal bit
+            for bit, every window from the device (none discarded, the
+            decode fractions summing to 1, ``other`` at most half), the
+            clean lane quiet, the seeded drift confirmed at window 3
+            naming kv_read (gauges, incident, the replica ranked last, the
+            PROFILE_DRIFT document valid); ``run_resilient`` over
+            gpt_small O2 with ``train_profiler`` (fwd / bwd / optimizer
+            above 0, K13 / K14 in bwd, K6 / K11 in optimizer, K2 / K1 in
+            fwd, the profiled steps' launches the loop's), a NaN storm's
+            rewind suppressing the open window; a window's cost against
+            bare 2-step segments in turns (before and after it), amortized
+            at ``capture_every=256`` against ``CONTPROF_BUDGET_PCT``; the
+            decode ranges' cost outside a window (the ranges a step
+            enters x a range's host µs); at most 90 s.
 
+Every phase line carries ``at_s``, its seconds since the script started.
 Then one JSON line of per-kernel numbers (``{"kernels": [...]}``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before the last line; with no card it exits 1 at
@@ -434,8 +455,14 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+#: the script's clock: each phase line carries its seconds since the start
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _T0, 3)}),
+          flush=True)
 
 
 def time_ms(fn, budget_s: float = 0.05) -> float:
@@ -1926,37 +1953,6 @@ class TableRows:
                                             default=0))
 
 
-#: kernel-name fragments of the step's device time, by group
-PROFILE_GROUPS = (("NCCL collectives", ("nccl",)),
-                  ("conv1x1_bwd (K16)", ("conv1x1_bwd_kernel",
-                                         "conv1x1_one_pass",
-                                         "conv1x1_two_role")),
-                  ("generic flash forward", ("fwd_simt",)),
-                  ("generic flash dk / dv", ("dkdv_simt",)),
-                  ("generic flash dq", ("dq_simt",)),
-                  ("flash_attn_bwd_dq (K13)", ("flash_bwd_dq_sm90",)),
-                  ("flash_attn_bwd_dkv (K14)", ("flash_bwd_dkv_sm90",)),
-                  ("prologues (k^; q^ and k^)", ("flash_bwd_prologue",)),
-                  ("finish pass (K4's dq planes)", ("flash_bwd_finish",)),
-                  ("flash_attn_bwd (K4)", ("flash_bwd_fused",)),
-                  ("flash_attn_fwd (K2)", ("flash_fwd",)),
-                  ("layer_norm_bwd (K3)", ("ln_bwd",)),
-                  ("layer_norm_fwd (K1)", ("ln_fwd",)),
-                  ("adam_tree (K11)", ("adam_tree_kernel",)),
-                  ("axpby (K10)", ("axpby_kernel",)),
-                  ("sumsq_per_tensor (K12)", ("sumsq_per_leaf_kernel",)),
-                  ("packed_adam (K5)", ("adam_kernel",)),
-                  ("packed_scale (K6)", ("scale_kernel",)),
-                  ("lamb_stage1 (K7)", ("lamb_stage1",)),
-                  ("lamb_stage2 (K8)", ("lamb_stage2",)),
-                  ("packed_sumsq (K9)", ("sumsq_kernel",)),
-                  ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad",
-                                            "implicit_convolve",
-                                            "cudnn")),
-                  ("matmuls (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
-                                        "sm90_", "nvjet")))
-
-
 def device_kernel_ms(prof) -> dict:
     """Device ms by kernel name of a finished ``torch.profiler`` session:
     device events only, without the ranges that annotate a span of them
@@ -1980,6 +1976,8 @@ def profile_step(step, *batch, ranges=()):
     kernels' device ms (and calls) are summed too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.obs.stepclass import (OTHER_GROUP, PROFILE_GROUPS,
+                                              kernel_group)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1992,12 +1990,9 @@ def profile_step(step, *batch, ranges=()):
     if busy == 0.0:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
-    groups["other PyTorch kernels"] = 0.0
+    groups[OTHER_GROUP] = 0.0
     for name, ms in kernels.items():
-        low = name.lower()
-        g = next((g for g, frags in PROFILE_GROUPS
-                  if any(f in low for f in frags)), "other PyTorch kernels")
-        groups[g] += ms
+        groups[kernel_group(name)] += ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     rec = {"wall_ms": wall_ms, "device_ms": busy,
            "device_busy_share": busy / wall_ms, "by_group_ms": groups,
@@ -6949,19 +6944,23 @@ def _p50_intervals(stamps):
 
 
 def _plain_run(step, batch, n):
-    """The plain loop: each step queued, the previous step's loss read
-    (the same one-step lag as the resilient loop's)."""
+    """The plain loop: each step queued, its loss's copy queued right
+    behind it (``HostCopy``: a pinned buffer and an event), and the
+    previous step's copy read after the next step is queued — the
+    resilient loop's one-step lag, without waiting for the step just
+    queued."""
     import torch
+    from apex_tpu_torch.obs.metrics import HostCopy
     stamps, losses, prev = [], [], None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n):
         stamps.append(time.perf_counter())
-        m = step(*batch(i))
+        copy = HostCopy([step(*batch(i))["loss"]])
         if prev is not None:
-            losses.append(float(prev["loss"]))
-        prev = m
-    losses.append(float(prev["loss"]))
+            losses.append(float(prev.result()[0]))
+        prev = copy
+    losses.append(float(prev.result()[0]))
     torch.cuda.synchronize()
     return stamps, losses, time.perf_counter() - t0
 
@@ -8687,12 +8686,473 @@ def phase_xplane(cfg, tree, repo: Path):
     torch.cuda.empty_cache()
 
 
+# -- the continuous profiler: the serving fleet and the resilient loop ------
+
+#: the serve lanes: the router's profilers capture 2 steps every 16
+#: (replicas staggered by 8) over the serve phase's requests, each capped
+#: at 80 new tokens (5 windows a replica); the sentinel's band and
+#: confirmation count
+CP_EVERY, CP_STEPS, CP_NEW = 16, 2, 80
+CP_BAND = 0.1
+CP_BAND_SOURCE = ("the clean lane's spread on an H100 (this phase): "
+                  "bucket fractions within 0.01 and a step's device time "
+                  "within 8% across a run's windows")
+CP_K = 2
+#: the seeded lane: replica 0's kv_read op times x 2 from window 2
+CP_SEED_BUCKET, CP_SEED_FACTOR, CP_SEED_FROM = "kv_read", 2.0, 2
+#: the train lane: one window (steps 3-4 of 8) of run_resilient
+CP_TRAIN_STEPS = 8
+#: the rewind lane: a window opens at step index 11, where resolving
+#: step 10 rewinds (RES_STORM, RES_PATIENCE)
+CP_REWIND_EVERY = 10
+#: the cost: captured and bare 2-step segments in turns (turn 0 warms
+#: the capture up and is reported apart); the amortizing cadence
+CP_TURNS = 3
+CP_DEFAULT_EVERY = 256
+#: the train windows' kernels and the one bucket each must land in
+CP_TRAIN_GROUPS = {"flash_attn_bwd_dq (K13)": "bwd",
+                   "flash_attn_bwd_dkv (K14)": "bwd",
+                   "packed_scale (K6)": "optimizer",
+                   "adam_tree (K11)": "optimizer",
+                   "flash_attn_fwd (K2)": "fwd",
+                   "layer_norm_fwd (K1)": "fwd"}
+
+
+def _window_row(w) -> dict:
+    """A window's record as the phase line prints it."""
+    keys = ("index", "start_step", "steps", "step_wall_s",
+            "host_step_wall_s", "stream_steps", "stream_step_wall_s",
+            "source", "fractions", "out_of_band", "matched_frac",
+            "capture_s", "parse_s", "total_ps", "attributed_ps",
+            "unattributed_ps", "discarded")
+    return {k: w[k] for k in keys if k in w}
+
+
+def _seed_profiler(prof, bucket, factor, start):
+    """The seeded lane of ``tools/continuous_profile.py``: from window
+    ``start`` on, the measured times of every key the classifier puts in
+    ``bucket`` are multiplied by ``factor`` before bucketing."""
+    def seeded(step_times, clf):
+        if len(prof.windows) + len(prof.discarded) < start:
+            return step_times
+        return {k: (int(ps * factor) if clf(k) == bucket else ps)
+                for k, ps in step_times.items()}
+    prof._seed = seeded
+
+
+def _contprof_fleet(model, cfg, requests, scfg, lane, incident_path=None):
+    """The requests through ``DisaggRouter`` (ship, ``FLEET_DEVICES``):
+    lane ``plain`` without a profiler, ``clean`` and ``seeded`` with
+    ``RouterConfig(contprof=...)`` (replica 0 seeded in ``seeded``):
+    outputs, launches, wall seconds, the router."""
+    import torch
+    from apex_tpu_torch.obs import FlightRecorder, Registry
+    from apex_tpu_torch.obs.contprof import ContProfConfig
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serve import DisaggRouter, Request, RouterConfig
+    # the cadence pinned, as tools/continuous_profile.py pins it: the
+    # auto-throttle would widen it to ~10^3 steps after the first window
+    rcfg = RouterConfig(transfer="ship") if lane == "plain" else \
+        RouterConfig(transfer="ship", incident_path=incident_path,
+                     contprof=ContProfConfig(capture_every=CP_EVERY,
+                                             capture_steps=CP_STEPS,
+                                             max_overhead_pct=None),
+                     contprof_band=CP_BAND, contprof_k=CP_K)
+    router = DisaggRouter(model, cfg, scfg, rcfg, devices=FLEET_DEVICES,
+                          registry=Registry(), flight=FlightRecorder())
+    if lane == "seeded":
+        _seed_profiler(router.profilers[0], CP_SEED_BUCKET, CP_SEED_FACTOR,
+                       CP_SEED_FROM)
+    for uid, prompt, n in requests:
+        router.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = router.run()
+    torch.cuda.synchronize()
+    return out, launch_counts(), time.perf_counter() - t0, router
+
+
+def _range_cost(model, cfg, requests, scfg, plain_router) -> dict:
+    """What the decode path's classifier ranges cost outside a capture:
+    the ranges one decode step of 8 slots enters (counted in one
+    captured step), the host µs of a range outside a capture (a flag
+    check), and their product against the unprofiled fleet's mean decode
+    step."""
+    import json as json_mod
+    import tempfile
+    import torch
+    from apex_tpu_torch.obs import Registry
+    from apex_tpu_torch.serve import Request, ServeEngine
+    from apex_tpu_torch.utils.profiling import profile_range
+    eng = ServeEngine(model, cfg, scfg, registry=Registry())
+    for uid, prompt, n in requests[:scfg.num_slots]:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    eng.step()
+    prof.stop()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "step.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json_mod.load(f)["traceEvents"]
+    ranges = sum(1 for e in events if e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("decode/"))
+
+    def enter_exit():
+        with profile_range("decode/kv_read"):
+            pass
+
+    us = host_us(enter_exit, n=20000)
+    hists = [r.eng.metrics.histogram("serve_decode_step_seconds")
+             for r in plain_router.replicas]
+    step_ms = sum(h.sum for h in hists) / max(sum(h.count for h in hists),
+                                              1) * 1e3
+    del eng
+    return dict(ranges_a_decode_step=ranges, range_us=us,
+                cost_us_a_step=ranges * us, plain_step_ms=step_ms,
+                cost_pct=ranges * us / 1e3 / step_ms * 100.0)
+
+
+def _lane_record(router, wall) -> dict:
+    """Each replica's profiler and sentinel after a lane's run."""
+    reps = []
+    for i, (prof, sent) in enumerate(zip(router.profilers,
+                                         router.sentinels)):
+        reps.append(dict(
+            windows=[_window_row(w) for w in prof.windows],
+            discarded=[_window_row(w) for w in prof.discarded],
+            skipped=prof.skipped_windows, aborted=prof.aborted_windows,
+            drifts=[{k: d[k] for k in ("window", "bucket", "windows_out")}
+                    for d in sent.drifts],
+            drifting=sent.drifting,
+            gauge=router.replicas[i].eng.metrics.gauge(
+                "serve_profile_drift").value,
+            router_gauge=router.metrics.gauge(
+                f"serve_replica{i}_profile_drift").value,
+            profiled_steps=router.replicas[i].eng.metrics.histogram(
+                "serve_profiled_step_seconds").count,
+            gated_steps=router.replicas[i].eng.metrics.histogram(
+                "serve_decode_step_seconds").count))
+    return dict(wall_s=wall, replicas=reps)
+
+
+def _session(prof, sent, seed=None) -> dict:
+    """A PROFILE_DRIFT session of one replica's windows."""
+    out = {"baseline": sent.baseline,
+           "windows": [dict(_window_row(w), out_of_band=w["out_of_band"])
+                       for w in prof.windows],
+           "drifts": [{k: d[k] for k in ("window", "bucket", "windows_out")}
+                      for d in sent.drifts],
+           "quiet": not sent.drifts,
+           "discarded_windows": len(prof.discarded),
+           "skipped_windows": prof.skipped_windows}
+    if seed is not None:
+        out["seed"] = seed
+    return out
+
+
+def _serve_windows_ok(lane: str, router) -> None:
+    """Every window of every replica: from the device, none discarded,
+    the decode fractions summing to 1, ``other`` at most half."""
+    for i, prof in enumerate(router.profilers):
+        require(not prof.discarded,
+                f"{lane}: replica {i} discarded {prof.discarded}")
+        require(prof.windows, f"{lane}: replica {i} has no window")
+        for w in prof.windows:
+            require(w["source"] == "trace-device",
+                    f"{lane}: replica {i} window {w['index']} source "
+                    f"{w['source']}")
+            total = sum(w["fractions"].values())
+            require(abs(total - 1.0) <= 1e-6,
+                    f"{lane}: replica {i} window {w['index']} fractions "
+                    f"sum to {total}")
+            require(w["fractions"]["other"] <= 0.5,
+                    f"{lane}: replica {i} window {w['index']} other "
+                    f"{w['fractions']['other']} > 0.5")
+
+
+def _train_window(cfg, tree):
+    """``run_resilient`` over gpt_small O2 with ``train_profiler``: one
+    window, its buckets and where the port's kernels landed; then a NaN
+    storm whose rewind suppresses the window open at that step."""
+    import torch
+    from apex_tpu_torch.obs import FlightRecorder, Registry
+    from apex_tpu_torch.obs.contprof import (ContProfConfig, _capture_lock,
+                                             train_profiler)
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.resilience import (FaultInjector, NaNStorm,
+                                           ResilienceConfig, run_resilient)
+    a, step = _res_amp(cfg, tree)
+    batch = _res_batches(cfg)
+    step(*batch(0))
+    torch.cuda.synchronize()
+    reg = Registry()
+    prof = train_profiler(
+        config=ContProfConfig(capture_every=4, capture_steps=2,
+                              warmup_steps=2, max_windows=1,
+                              max_overhead_pct=None), registry=reg)
+    reset_launch_counts()
+    result = run_resilient(step, a, batch, CP_TRAIN_STEPS,
+                           config=ResilienceConfig(watchdog_timeout_s=120.0),
+                           registry=reg, profiler=prof)
+    torch.cuda.synchronize()
+    per = {k: v / CP_TRAIN_STEPS for k, v in launch_counts().items()}
+    want = dict(gpt_pass_launches(cfg), packed_scale=1, packed_adam_tree=1)
+    require(per == want, f"profiled loop's launches a step {per}, want "
+                         f"{want}")
+    require(result.steps_completed == CP_TRAIN_STEPS and len(prof.windows)
+            == 1 and not prof.discarded, f"train windows {prof.windows} / "
+                                         f"{prof.discarded}")
+    w = prof.windows[0]
+    groups = {g: {b: ps / 1e9 for b, ps in by.items()}
+              for g, by in w.get("groups", {}).items()}
+    train = dict(window=_window_row(w), groups_ms=groups,
+                 top_ops=w["top_ops"], launches_a_step=per)
+    # the rewind: a NaN storm pins the scale; resolving step 10 rewinds
+    # while the window opened at step 11 is open
+    flight = FlightRecorder()
+    prof2 = train_profiler(
+        config=ContProfConfig(capture_every=CP_REWIND_EVERY,
+                              capture_steps=2, warmup_steps=1,
+                              max_overhead_pct=None))
+    inj = FaultInjector([NaNStorm(**RES_STORM)])
+    r2 = run_resilient(step, a, batch, RES_STEPS,
+                       config=ResilienceConfig(
+                           checkpoint_every=RES_EVERY,
+                           overflow_patience=RES_PATIENCE,
+                           watchdog_timeout_s=120.0),
+                       injector=inj, registry=Registry(), flight=flight,
+                       profiler=prof2)
+    torch.cuda.synchronize()
+    rewind = dict(rewinds=r2.rewinds, windows=len(prof2.windows),
+                  window_starts=[x["start_step"] for x in prof2.windows],
+                  aborted=prof2.aborted_windows,
+                  steps_begun=prof2._step,
+                  lock_free=not _capture_lock.locked())
+    del a, step
+    torch.cuda.empty_cache()
+    return train, w, rewind
+
+
+def _cost_turns(cfg, tree):
+    """A captured 2-step segment (a window: open, the steps, close,
+    parse, classify) in turns with bare ones before and after it, from a
+    synchronized card to a synchronized card."""
+    import torch
+    from apex_tpu_torch.obs.contprof import (ContProfConfig,
+                                             train_classifier_builder,
+                                             train_profiler)
+    a, step = _res_amp(cfg, tree)
+    ids = _res_batches(cfg)(0)
+    step(*ids)
+    torch.cuda.synchronize()
+
+    def bare():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CP_STEPS):
+            step(*ids)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows = []
+    for turn in range(CP_TURNS + 1):
+        before = bare()
+        prof = train_profiler(config=ContProfConfig(
+            capture_every=CP_DEFAULT_EVERY, capture_steps=CP_STEPS,
+            warmup_steps=0))
+        prof.set_classifier_builder(train_classifier_builder(prof.scope))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CP_STEPS):
+            require(prof.step_begin(), "the cost turn's window did not open")
+            td = time.perf_counter()
+            step(*ids)
+            prof.step_end(time.perf_counter() - td)
+        captured = (time.perf_counter() - t0) * 1e3
+        after = bare()
+        require(len(prof.windows) == 1, f"cost turn windows "
+                                        f"{prof.windows} {prof.discarded}")
+        w = prof.windows[0]
+        rows.append(dict(bare_ms=before, captured_ms=captured,
+                         after_ms=after, capture_s=w["capture_s"],
+                         parse_s=w["parse_s"],
+                         sentinel_s=w.get("sentinel_s", 0.0),
+                         device_ps=w["total_ps"],
+                         throttled_to=w.get("throttled_to")))
+    del a, step
+    torch.cuda.empty_cache()
+    steady = rows[1:]
+    bare_ms = float(np.median([r["bare_ms"] for r in steady]))
+    cost_ms = float(np.median([r["captured_ms"] - r["bare_ms"]
+                               for r in steady]))
+    after_ms = float(np.median([r["after_ms"] for r in steady]))
+    step_ms = bare_ms / CP_STEPS
+    return dict(turns=rows, first_window=rows[0],
+                bare_2_steps_ms=bare_ms, window_cost_ms=cost_ms,
+                bare_after_window_2_steps_ms=after_ms,
+                after_over_before=after_ms / bare_ms - 1.0,
+                step_ms=step_ms, default_capture_every=CP_DEFAULT_EVERY,
+                amortized_overhead_pct=100.0 * cost_ms
+                / (CP_DEFAULT_EVERY * step_ms))
+
+
+def phase_contprof(cfg, tree, requests, repo: Path):
+    """The continuous profiler on the card (made last, with the other
+    profiled phases).  Serving: ``DisaggRouter`` over gpt_small (bf16)
+    with two decode replicas on ``FLEET_DEVICES`` and
+    ``RouterConfig(contprof=ContProfConfig(capture_every=16,
+    capture_steps=2))``, the serve phase's 16 requests capped at 80 new
+    tokens: a run without a profiler, a clean lane and a seeded lane
+    (replica 0's ``kv_read`` times x 2 from window 2), the greedy streams
+    of both equal the plain run's bit for bit; every window from the
+    device, none discarded, fractions summing to 1, ``other`` at most
+    half; the clean lane quiet; the seeded lane's drift confirmed at
+    window ``2 + k - 1`` naming ``kv_read``, the replica's gauges set,
+    its incident valid, the replica ranked last; the session's document
+    valid under the port's ``validate_profile_drift``; the decode ranges'
+    cost outside a window.  Training: ``run_resilient`` over
+    gpt_small O2 with ``train_profiler`` (fwd, bwd and optimizer above 0;
+    K13 / K14 in bwd, K6 / K11 in optimizer, K2 / K1 in fwd), a NaN
+    storm's rewind suppressing the open window, and a window's cost
+    against bare steps in turns."""
+    import shutil
+    import tempfile
+    import torch
+    from apex_tpu_torch.analysis import CONTPROF_BUDGET_PCT
+    from apex_tpu_torch.analysis.profile_drift import validate_profile_drift
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.obs.contprof import _capture_lock
+    from apex_tpu_torch.resilience.incidents import validate_incident_file
+    from apex_tpu_torch.serve import Request
+    t_phase = time.perf_counter()
+    model = params_from_jax(tree, cfg, dtype=torch.bfloat16)
+    scfg = _serve_cfg()
+    requests = [(uid, p, min(n, CP_NEW)) for uid, p, n in requests]
+    root = tempfile.mkdtemp(prefix="apex_tpu_torch_contprof_",
+                            dir=str(repo / "build"))
+    try:
+        plain_out, plain_counts, plain_wall, plain_router = \
+            _contprof_fleet(model, cfg, requests, scfg, "plain")
+        ranges = _range_cost(model, cfg, requests, scfg, plain_router)
+        del plain_router
+        lanes, routers, counts = {}, {}, {}
+        for lane in ("clean", "seeded"):
+            inc = os.path.join(root, f"INCIDENT_{lane}.json")
+            out, got, wall, router = _contprof_fleet(
+                model, cfg, requests, scfg, lane, inc)
+            require(set(out) == set(plain_out) and all(
+                np.array_equal(out[u], plain_out[u]) for u in plain_out),
+                f"{lane}: the profiled streams differ from the plain run")
+            lanes[lane] = _lane_record(router, wall)
+            routers[lane], counts[lane] = router, got
+            lanes[lane]["incident_valid"] = (
+                validate_incident_file(inc) if os.path.exists(inc)
+                else None)
+        clean, seeded = routers["clean"], routers["seeded"]
+        probe = Request(uid="probe", prompt=np.ones(8, np.int64),
+                        max_new_tokens=8)
+        picked = seeded._pick_replica(probe)
+        seed = {"bucket": CP_SEED_BUCKET, "factor": CP_SEED_FACTOR,
+                "from_window": CP_SEED_FROM}
+        doc = {"round": 1, "platform": "gpu", "kind": "serve-decode",
+               "config": {"model": "gpt_small", "replica": 0,
+                          "num_slots": scfg.num_slots,
+                          "capture_every": CP_EVERY,
+                          "capture_steps": CP_STEPS},
+               "band": {"value": CP_BAND, "source": CP_BAND_SOURCE},
+               "k": CP_K,
+               "sessions": {
+                   "clean": _session(clean.profilers[0],
+                                     clean.sentinels[0]),
+                   "seeded": _session(seeded.profilers[0],
+                                      seeded.sentinels[0], seed)}}
+        caught = bool(seeded.sentinels[0].drifts)
+        quiet = all(not s.drifts for s in clean.sentinels)
+        doc["gate"] = {"clean_quiet": doc["sessions"]["clean"]["quiet"],
+                       "seeded_caught": caught,
+                       "ok": doc["sessions"]["clean"]["quiet"] and caught}
+        doc["note"] = ("gpt_small on one H100: replica 0 of a 2-replica "
+                       "DisaggRouter, windows of 2 decode steps every 16 "
+                       "bucketed from the card's kernels; the seeded "
+                       "lane inflates kv_read x 2 before bucketing")
+        problems = validate_profile_drift(doc)
+        train, train_w, rewind = _train_window(cfg, tree)
+        del model
+        torch.cuda.empty_cache()
+        cost = _cost_turns(cfg, tree)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_drift = CP_SEED_FROM + CP_K - 1
+    s_drifts = seeded.sentinels[0].drifts
+    emit("contprof", model="gpt_small", requests=len(requests),
+         replicas=2, devices=list(FLEET_DEVICES),
+         capture_every=CP_EVERY, capture_steps=CP_STEPS, band=CP_BAND,
+         k=CP_K, plain_wall_s=plain_wall, ranges_outside_a_window=ranges,
+         lanes=lanes,
+         launches_plain=plain_counts, launches_profiled=counts,
+         seeded_pick=picked.index if picked is not None else None,
+         document_problems=problems, train=train, rewind=rewind,
+         cost=dict(cost, budget_pct=CONTPROF_BUDGET_PCT),
+         seconds=time.perf_counter() - t_phase)
+    for lane, router in routers.items():
+        _serve_windows_ok(lane, router)
+        require(counts[lane] == plain_counts,
+                f"{lane}: profiled launches {counts[lane]} != plain "
+                f"{plain_counts}")
+    require(len(seeded.profilers[0].windows) >= want_drift + 1,
+            f"seeded: replica 0 captured "
+            f"{len(seeded.profilers[0].windows)} windows")
+    require(quiet, f"clean lane drifted: "
+                   f"{[s.drifts for s in clean.sentinels]}")
+    require(s_drifts and s_drifts[0]["window"] == want_drift
+            and s_drifts[0]["bucket"] == CP_SEED_BUCKET,
+            f"seeded drifts {s_drifts}, want window {want_drift} "
+            f"{CP_SEED_BUCKET}")
+    require(not seeded.sentinels[1].drifts,
+            f"the unseeded replica drifted: {seeded.sentinels[1].drifts}")
+    require(seeded.metrics.gauge("serve_replica0_profile_drift").value == 1.0
+            and seeded.replicas[0].eng.metrics.gauge(
+                "serve_profile_drift").value == 1.0
+            and seeded.metrics.gauge(
+                "serve_replica1_profile_drift").value == 0.0,
+            "the seeded replica's drift gauges did not flip")
+    require(lanes["seeded"]["incident_valid"] == [],
+            f"seeded incident: {lanes['seeded']['incident_valid']}")
+    require(picked is seeded.replicas[1],
+            "the drifting replica did not rank last")
+    require(problems == [], f"PROFILE_DRIFT document: {problems}")
+    require(ranges["ranges_a_decode_step"] > 0,
+            "no decode range in a captured decode step")
+    fr = train_w["fractions"]
+    require(all(fr[b] > 0 for b in ("fwd", "bwd", "optimizer"))
+            and train_w["source"] == "trace-device",
+            f"train window fractions {fr} ({train_w['source']})")
+    groups = train_w.get("groups", {})
+    for g, b in CP_TRAIN_GROUPS.items():
+        by = groups.get(g, {})
+        require(by and set(by) == {b},
+                f"{g} landed in {by}, want only {b}")
+    require(rewind["rewinds"] == 1 and rewind["aborted"] == 1
+            and rewind["windows"] == 1 and rewind["lock_free"],
+            f"the rewind did not suppress the open window: {rewind}")
+    require(not _capture_lock.locked(), "a window leaked the capture")
+    require(time.perf_counter() - t_phase <= 90.0,
+            f"contprof phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "multi_tensor_kernels", "bert_kernels", "bert_train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
                   "data_prefetch", "seq_parallel", "rnn", "pipeline_moe",
                   "resilience", "train_fleet", "quant", "serve_fleet",
-                  "serve")
+                  "serve", "contprof")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -8758,6 +9218,9 @@ def partial_run(names, repo: Path) -> int:
         elif name == "quant":
             phase_quant(cfg, gpt_small_tree(cfg, seed=0),
                         serve_requests(cfg))
+        elif name == "contprof":
+            phase_contprof(cfg, gpt_small_tree(cfg, seed=0),
+                           serve_requests(cfg), repo)
         else:
             phase_serve_fleet(cfg, gpt_small_tree(cfg, seed=0),
                               serve_requests(cfg))
@@ -8888,6 +9351,7 @@ def main(argv=None) -> int:
         simt_fwd, simt_bwd = phase_generic_kernels()
         phase_serve_profile(cfg)
         phase_xplane(cfg, gpt_small_tree(cfg, seed=0), repo)
+        phase_contprof(cfg, gpt_small_tree(cfg, seed=0), requests, repo)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -347,9 +347,18 @@ def test_bucket_op_times_equals_jaxs(capture):
 
 
 def test_obs_exports_jaxs_names_but_contprof_and_stepclass():
+    """Every name the JAX package's ``obs`` exports or imports at its top
+    level resolves in the port's, ``contprof`` and ``stepclass`` among
+    them since they were ported (the name is the test's from before)."""
     from apex_tpu import obs as jobs
-    want = set(jobs.__all__) | {"MetricsServer", "exposition"}
+    want = set(jobs.__all__) | {"MetricsServer", "exposition", "contprof",
+                                "stepclass", "ContinuousProfiler",
+                                "ContProfConfig", "DriftSentinel",
+                                "serve_profiler", "train_profiler"}
     missing = {n for n in want if not hasattr(obs, n)}
     assert missing == set()
-    assert not hasattr(obs, "contprof") and not hasattr(obs, "stepclass")
+    assert {"contprof", "stepclass"} <= set(obs.__all__)
+    assert obs.stepclass.TRAIN_BUCKETS == jobs.stepclass.TRAIN_BUCKETS
+    assert obs.contprof.ContProfConfig().capture_every == \
+        jobs.contprof.ContProfConfig().capture_every
     assert math.isnan(Registry().histogram("h").quantile(0.5))

@@ -393,8 +393,12 @@ def test_router_config_and_submit_validation(setup):
         RouterConfig(transfer="teleport")
     with pytest.raises(ValueError, match="admit_block_util"):
         RouterConfig(admit_block_util=0.0)
-    with pytest.raises(NotImplementedError, match="contprof"):
-        RouterConfig(contprof=object())
+    # the continuous profiler's settings build (JAX's defaults); the
+    # wiring itself: tests/test_torch_contprof.py
+    from apex_tpu_torch.obs.contprof import ContProfConfig
+    rc, jrc = RouterConfig(contprof=ContProfConfig()), JaxRouterConfig()
+    assert (rc.contprof.capture_every, rc.contprof_band, rc.contprof_k) \
+        == (256, jrc.contprof_band, jrc.contprof_k)
     router = _router(model)
     with pytest.raises(ValueError, match="non-empty"):
         router.submit(Request(uid="e", prompt=np.zeros(0, np.int32),
