@@ -50,7 +50,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.attention import local_attention
-from apex_tpu_torch.parallel.distributed import _COUNTS
+from apex_tpu_torch.parallel.distributed import _all_gather_parts
 from apex_tpu_torch.parallel.p2p import (AllToAll, Anchor, Hop, group_of,
                                          shift, unwire, via_host, wire)
 
@@ -183,12 +183,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _gather_mask(kv_mask: torch.Tensor, group) -> torch.Tensor:
     """``(B, L/W)`` masks of every rank joined into ``(B, L)``."""
-    import torch.distributed as dist
-    world = dist.get_world_size(group)
     send = wire(kv_mask, via_host(kv_mask, group))
-    parts = [torch.empty_like(send) for _ in range(world)]
-    dist.all_gather(parts, send, group=group)
-    _COUNTS["all_gather"] += 1
+    parts = _all_gather_parts(send, group, like=kv_mask)
     return torch.cat([unwire(p, kv_mask) for p in parts], dim=1)
 
 

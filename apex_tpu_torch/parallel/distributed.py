@@ -27,17 +27,35 @@ package's ``pvary_params`` has no counterpart: PyTorch's gradients are
 per rank already, which is what ``pvary_params`` restores under
 ``shard_map``.
 
-Every collective of :mod:`apex_tpu_torch.parallel` (these functions and
-:class:`~apex_tpu_torch.parallel.SyncBatchNorm`'s statistics) is counted
-by kind in :func:`collective_counts`.
+Every collective of the port (these functions,
+:class:`~apex_tpu_torch.parallel.SyncBatchNorm`'s statistics, the hops,
+all-to-alls and broadcasts of :mod:`~apex_tpu_torch.parallel.p2p`, the
+ring's mask gather, amp's finite flag, the fleet's loss) is counted by
+kind in :func:`collective_counts` and goes through :func:`issue`, which
+appends one entry a logical collective to the open :func:`recording`
+(the schedule :mod:`apex_tpu_torch.analysis.capture` records).  An
+entry carries the JAX package's schedule keys
+(``apex_tpu/analysis/spmd.py``'s ``_IDENTITY_KEYS``): ``kind`` in HLO's
+spelling, ``variant`` (``sync`` for a blocking call, ``async`` for a
+batch of point-to-point operations), ``channel_id`` ``None`` (torch has
+no channel ids), ``replica_groups`` (the whole partition of the group's
+axis, the same on every rank: :func:`register_partition`),
+``use_global_device_ids`` ``False``, ``dtypes`` (HLO's spelling of what
+the collective carries), ``bytes`` (what it delivers to this rank, as
+JAX counts a result) and ``region`` ``None`` (eager code has no
+control-flow region).  Under a *dry* recording a collective is recorded
+and not issued: its outputs have the right shapes and dtypes and
+meaningless values, and :func:`collective_counts` is left as it was.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import enum
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -57,6 +75,137 @@ def collective_counts() -> Dict[str, int]:
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
+
+
+#: HLO's spelling of the dtypes a collective carries
+_HLO_DTYPES = {torch.bool: "pred", torch.int8: "s8", torch.uint8: "u8",
+               torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
+               torch.float16: "f16", torch.bfloat16: "bf16",
+               torch.float32: "f32", torch.float64: "f64",
+               torch.complex64: "c64", torch.complex128: "c128",
+               torch.float8_e4m3fn: "f8e4m3fn", torch.float8_e5m2: "f8e5m2"}
+
+
+@dataclasses.dataclass
+class Recording:
+    """The collectives issued while a :func:`recording` is open, in
+    order (:attr:`schedule`); ``depth`` > 0 while one is being issued."""
+
+    dry: bool
+    world: Optional[int]
+    schedule: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    depth: int = 0
+
+
+#: the open recording (visible from every thread: a backward's
+#: collectives may run on autograd's device thread)
+_RECORDING: Optional[Recording] = None
+
+
+@contextlib.contextmanager
+def recording(dry: bool = False,
+              world: Optional[int] = None) -> Iterator[Recording]:
+    """Record every collective issued inside, in order.  ``dry``: record
+    them and issue none (outputs of the right shapes and dtypes with
+    meaningless values; :func:`collective_counts` is restored on exit).
+    ``world`` (dry only) declares a world of that size for the axis
+    ``"data"`` in place of any formed group, so that one process records
+    what a rank of ``world`` would issue.  One recording at a time."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError("a collective recording is already open")
+    if world is not None and not dry:
+        raise ValueError("world= declares a world for a dry recording only")
+    counts = dict(_COUNTS)
+    _RECORDING = Recording(bool(dry), None if world is None else int(world))
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = None
+        if dry:
+            _COUNTS.clear()
+            _COUNTS.update(counts)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeclaredGroup:
+    """The group of a dry recording's declared world (this process its
+    rank 0): it issues nothing."""
+
+    world: int
+
+
+def group_size(group) -> int:
+    import torch.distributed as dist
+    if isinstance(group, DeclaredGroup):
+        return group.world
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    import torch.distributed as dist
+    if isinstance(group, DeclaredGroup):
+        return 0
+    return dist.get_rank(group)
+
+
+def _spell_groups(lines: Sequence[Sequence[int]]) -> str:
+    """``{{0,1},{2,3}}``, the canonical spelling of a partition."""
+    return "{" + ",".join("{" + ",".join(str(int(r)) for r in line) + "}"
+                          for line in lines) + "}"
+
+
+#: group -> the canonical spelling of the whole partition of the world
+#: it is one part of (a mesh axis's lines, SyncBatchNorm's rank lists)
+_PARTITIONS: Dict[Any, str] = {}
+
+
+def register_partition(group, lines: Sequence[Sequence[int]]) -> None:
+    """Record that ``group`` is one of the parts ``lines`` (every group
+    of an axis, in order), so that its collectives spell the whole
+    partition as JAX's ``replica_groups`` do: the same on every rank."""
+    _PARTITIONS[group] = _spell_groups(lines)
+
+
+def replica_groups(group) -> str:
+    """The canonical partition ``group`` belongs to: a registered one,
+    the world's ``{{0,...,W-1}}``, or else the group's own ranks."""
+    import torch.distributed as dist
+    if isinstance(group, DeclaredGroup):
+        return _spell_groups([range(group.world)])
+    if group in _PARTITIONS:
+        return _PARTITIONS[group]
+    if group is dist.group.WORLD:
+        return _spell_groups([range(dist.get_world_size())])
+    return _spell_groups([dist.get_process_group_ranks(group)])
+
+
+@contextlib.contextmanager
+def issue(kind: str, group, carried: Sequence[torch.Tensor],
+          nbytes: int, variant: str = "sync") -> Iterator[bool]:
+    """Around one logical collective of ``group``: appends its entry to
+    the open recording (``kind`` in HLO's spelling, the dtypes of the
+    ``carried`` tensors, ``nbytes`` delivered) and yields whether the
+    recording is dry, in which case the caller issues nothing."""
+    rec = _RECORDING
+    if rec is None:
+        yield False
+        return
+    rec.schedule.append({
+        "kind": kind, "variant": variant, "channel_id": None,
+        "replica_groups": replica_groups(group),
+        "use_global_device_ids": False,
+        "dtypes": [_HLO_DTYPES[t.dtype] for t in carried],
+        "bytes": int(nbytes), "region": None})
+    rec.depth += 1
+    try:
+        yield rec.dry
+    finally:
+        rec.depth -= 1
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class ReduceOp(enum.Enum):
@@ -84,6 +233,12 @@ def process_group(axis_name: AxisName = "data"):
     :func:`~apex_tpu_torch.parallel.multiproc.initialize` when no group
     is formed, and ``ValueError`` for another name."""
     import torch.distributed as dist
+    if isinstance(axis_name, str) and _RECORDING is not None \
+            and _RECORDING.world is not None:
+        if axis_name != "data":
+            raise ValueError(f"axis_name {axis_name!r}: a declared world "
+                             f"has the one axis \"data\"")
+        return DeclaredGroup(_RECORDING.world)
     if isinstance(axis_name, str):
         if axis_name != "data" and axis_name not in _AXIS_GROUPS:
             raise ValueError(
@@ -105,30 +260,45 @@ def process_group(axis_name: AxisName = "data"):
 def _all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
     """In-place sum (or ``op``) of ``t`` over ``group``."""
     import torch.distributed as dist
-    dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
-                    group=group)
+    with issue("all-reduce", group, [t], _nbytes(t)) as dry:
+        if not dry:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                            group=group)
     _COUNTS["all_reduce"] += 1
     return t
+
+
+def _all_gather_parts(send: torch.Tensor, group,
+                      like: Optional[torch.Tensor] = None
+                      ) -> List[torch.Tensor]:
+    """``send`` of every rank of ``group`` in rank order; ``like``: the
+    tensor ``send`` carries (its dtype is the entry's), where ``send`` is
+    its bits in a wire dtype."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(send) for _ in range(group_size(group))]
+    with issue("all-gather", group, [send if like is None else like],
+               _nbytes(send) * len(parts)) as dry:
+        if not dry:
+            dist.all_gather(parts, send, group=group)
+    _COUNTS["all_gather"] += 1
+    return parts
 
 
 def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` of every rank of ``group``, stacked on a new axis 0 in rank
     order."""
-    import torch.distributed as dist
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    _COUNTS["all_gather"] += 1
-    return torch.stack(parts)
+    return torch.stack(_all_gather_parts(t.contiguous(), group))
 
 
 def _broadcast_(t: torch.Tensor, group, root: int) -> torch.Tensor:
     """``t`` of the rank ``root`` of ``group`` (its group rank), in
     place."""
     import torch.distributed as dist
-    src = root if group is dist.group.WORLD \
-        else dist.get_global_rank(group, root)
-    dist.broadcast(t, src=src, group=group)
+    with issue("collective-broadcast", group, [t], _nbytes(t)) as dry:
+        if not dry:
+            src = root if group is dist.group.WORLD \
+                else dist.get_global_rank(group, root)
+            dist.broadcast(t, src=src, group=group)
     _COUNTS["broadcast"] += 1
     return t
 
@@ -212,8 +382,7 @@ def reduce_gradients(grads: Any, axis_name: AxisName = "data",
     multiplied by ``f / world`` under ``gradient_average``, and cast back
     to its dtype."""
     group = process_group(axis_name)
-    import torch.distributed as dist
-    world = dist.get_world_size(group)
+    world = group_size(group)
     leaves, spec = pytree.tree_flatten(grads)
     wire: List[torch.Tensor] = []
     for g in leaves:

@@ -50,7 +50,8 @@ def subgroup_of(ranks: Sequence[Sequence[int]]):
     partition (``new_subgroups_by_enumeration``: every rank creates every
     group, in order) and cached."""
     import torch.distributed as dist
-    from apex_tpu_torch.parallel.distributed import process_group
+    from apex_tpu_torch.parallel.distributed import (process_group,
+                                                     register_partition)
     world = process_group("data")
     key = (id(world), tuple(tuple(int(r) for r in g) for g in ranks))
     if key not in _SUBGROUPS:
@@ -60,6 +61,7 @@ def subgroup_of(ranks: Sequence[Sequence[int]]):
                              f"{dist.get_world_size()} ranks")
         mine, _ = dist.new_subgroups_by_enumeration(
             [list(g) for g in key[1]])
+        register_partition(mine, key[1])
         me = dist.get_rank()
         _SUBGROUPS[key] = (mine, next(g for g in key[1] if me in g))
     return _SUBGROUPS[key]

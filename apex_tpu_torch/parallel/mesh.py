@@ -11,9 +11,18 @@ collectives) resolves to it.  With no mesh naming it, ``"data"`` stays
 the default (world) group.  A line that spans the whole world is the
 world group itself.
 
+Each axis's groups are registered with their whole partition
+(:func:`~apex_tpu_torch.parallel.distributed.register_partition`), so
+that a collective along an axis spells its ``replica_groups`` as JAX's
+do, every line of the axis, the same on every rank (``{{0,1},{2,3}}``
+along the second axis of a 2 x 2 mesh): the schedule that
+:func:`~apex_tpu_torch.parallel.multiproc.spmd_preflight` compares
+across ranks.
+
 The JAX package's ``replicated_sharding``, ``partition_spec_of`` and
-``intended_specs`` describe JAX placements and the graph lint's intent:
-they wait for the port's ``analysis/``.
+``intended_specs`` describe JAX placements and the sharding lint's
+intent: they wait for the passes with a torch subject (``ROADMAP.md``
+Queue 1 #3).
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from apex_tpu_torch.parallel.distributed import _AXIS_GROUPS
+from apex_tpu_torch.parallel.distributed import (_AXIS_GROUPS,
+                                                 register_partition)
 
 DATA_AXIS = "data"
 
@@ -79,6 +89,7 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
             group = dist.group.WORLD if members == list(range(world)) \
                 else dist.new_group(members)
             if me in members:
+                register_partition(group, lines.tolist())
                 groups[name] = group
                 coords[name] = members.index(me)
     for name in axis_names:

@@ -20,14 +20,22 @@ multiproc.py``).
   with its stderr's tail, and ranks still running
   ``APEX_TPU_SPAWN_GRACE_S`` after a peer exited cleanly are reaped.
 
-The JAX package's ``spmd_preflight`` hashes a lowered XLA module; it
-waits for the port of ``apex_tpu/analysis/``, and
-``initialize(preflight=...)`` raises ``NotImplementedError`` until then.
+- :func:`spmd_preflight` is the cross-rank SPMD consistency barrier:
+  each rank hashes the collective schedule and the dispatched ops of a
+  capture of its step (:mod:`apex_tpu_torch.analysis.capture`, the
+  port's subject in the place of JAX's lowered module), the digests are
+  exchanged over the group's store, and a divergence raises
+  :class:`SpmdPreflightError` on every rank naming the first differing
+  collective in both spellings, before the fleet wedges in it.
+  ``initialize(preflight=...)`` runs it right after the group forms.
 """
 
 from __future__ import annotations
 
 import datetime
+import hashlib
+import itertools
+import json
 import os
 import subprocess
 import sys
@@ -43,9 +51,168 @@ class ClusterInitError(RuntimeError):
     be missing."""
 
 
+class SpmdPreflightError(ClusterInitError):
+    """The SPMD preflight barrier found a rank whose step diverges from
+    its peers'; the message names the first differing collective in both
+    spellings.  Raised on every rank (every rank reads every digest), so
+    the whole fleet aborts with a diagnosis instead of wedging in the
+    first mismatched collective."""
+
+
 def _env_float(name: str, default: float) -> float:
     val = os.environ.get(name)
     return float(val) if val not in (None, "") else default
+
+
+#: per-process preflight round counter (namespaces the store's keys, so
+#: a repeated barrier never reads an earlier round's digests; every rank
+#: runs the rounds in the same order, so the counters agree)
+_PREFLIGHT_SEQ = itertools.count()
+
+
+def _default_store():
+    """The default group's key-value store, or ``None`` when it cannot be
+    had (the caller then exchanges by all-gather)."""
+    import torch.distributed as dist
+    try:
+        return dist.distributed_c10d._get_default_store()
+    except (RuntimeError, ValueError, AttributeError):
+        return None
+
+
+def _subject(program: Any):
+    """``(schedule, module_hash)`` of a capture, a schedule list, or a
+    zero-arg callable captured dry."""
+    from apex_tpu_torch.analysis.capture import Capture, capture
+    from apex_tpu_torch.analysis.spmd import (collective_schedule,
+                                              serialize_schedule)
+    if callable(program):
+        program = capture(program)
+    if isinstance(program, Capture):
+        return collective_schedule(program), program.module_hash
+    if isinstance(program, list):
+        sched = collective_schedule(program)
+        payload = serialize_schedule(sched).encode("utf-8")
+        return sched, hashlib.sha256(payload).hexdigest()
+    raise TypeError(
+        "spmd_preflight expects a Capture, a schedule list, or a zero-arg "
+        f"callable to capture; got {type(program).__name__}")
+
+
+def _gather_rows(row, device) -> List[bytes]:
+    """Every rank's ``row`` (bytes of one length) by an all-gather over
+    the default group."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel.distributed import _all_gather_parts
+    t = torch.frombuffer(bytearray(row), dtype=torch.uint8).to(device)
+    return [p.cpu().numpy().tobytes()
+            for p in _all_gather_parts(t, dist.group.WORLD)]
+
+
+def spmd_preflight(program: Any, label: str = "train_step") -> dict:
+    """Cross-rank SPMD consistency barrier: hash this rank's collective
+    schedule and dispatched ops, exchange the digests, and raise a named
+    schedule diff if any rank diverges.
+
+    ``program`` is a :class:`~apex_tpu_torch.analysis.capture.Capture`,
+    a schedule list (its module hash is then the schedule's), or a
+    zero-arg callable, captured dry (no collective is issued).
+
+    The exchange follows the JAX package's: over the default group's
+    key-value store (the ``TCPStore`` the group formed with), not over a
+    collective, so the detector cannot itself wedge in the mismatched
+    collective.  One digest per rank; only on a mismatch does a second
+    round move the serialized schedules, so that the error names the
+    first differing op: rank 3's fp32 bucket surfaces as
+    ``all-reduce(bf16, ...)`` against ``all-reduce(f32, ...)``, not as a
+    hang.  Keys are namespaced by ``label`` and a per-process round
+    counter.  Without a store the exchange is a fixed-shape 32-byte
+    all-gather, then the schedules padded to the longest.  A peer that
+    never publishes its digest is a :class:`ClusterInitError` after
+    ``APEX_TPU_PREFLIGHT_TIMEOUT_S`` (default 120).  With no group formed
+    (or one rank) it records the hashes.
+
+    Returns JAX's record ``{label, rank, n_ranks, module_hash,
+    schedule_hash, n_collectives, ok}`` plus ``exchange``: ``"store"``,
+    ``"all_gather"`` or ``"none"`` (one rank).  Raises
+    :class:`SpmdPreflightError` on every rank on a divergence."""
+    import torch.distributed as dist
+    from apex_tpu_torch.analysis.spmd import (first_divergence,
+                                              serialize_schedule)
+    sched, module_hash = _subject(program)
+    payload = serialize_schedule(sched).encode("utf-8")
+    schedule_hash = hashlib.sha256(payload).hexdigest()
+    formed = dist.is_available() and dist.is_initialized()
+    me = dist.get_rank() if formed else 0
+    n = dist.get_world_size() if formed else 1
+    record = {"label": label, "rank": int(me), "n_ranks": int(n),
+              "module_hash": module_hash, "schedule_hash": schedule_hash,
+              "n_collectives": len(sched), "ok": True, "exchange": "none"}
+    if n <= 1:
+        return record
+    combined = hashlib.sha256(
+        (module_hash + schedule_hash).encode("utf-8")).hexdigest()
+    store = _default_store()
+    if store is not None:
+        record["exchange"] = "store"
+        timeout = datetime.timedelta(seconds=max(
+            1.0, _env_float("APEX_TPU_PREFLIGHT_TIMEOUT_S", 120.0)))
+        prefix = f"apex_tpu/spmd_preflight/{label}/{next(_PREFLIGHT_SEQ)}"
+        store.set(f"{prefix}/digest/{me}", combined)
+        keys = [f"{prefix}/digest/{r}" for r in range(n)]
+        try:
+            store.wait(keys, timeout)
+        except RuntimeError as e:
+            raise ClusterInitError(
+                f"SPMD preflight barrier for {label!r} timed out on rank "
+                f"{me}: a peer never published its schedule digest "
+                f"({e}).  Tune via APEX_TPU_PREFLIGHT_TIMEOUT_S.") from e
+        digests = [store.get(k).decode("utf-8") for k in keys]
+        divergent = [r for r in range(n) if digests[r] != digests[0]]
+        if not divergent:
+            return record
+        other = 0 if me in divergent else divergent[0]
+        store.set(f"{prefix}/sched/{me}", payload)
+        try:
+            store.wait([f"{prefix}/sched/{other}"], timeout)
+            theirs = json.loads(store.get(f"{prefix}/sched/{other}"))
+        except (RuntimeError, ValueError):
+            theirs = []
+    else:
+        # a fixed-shape gather: rank-invariant whatever the programs
+        record["exchange"] = "all_gather"
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        rows = _gather_rows(hashlib.sha256(combined.encode()).digest(),
+                            device)
+        divergent = [r for r in range(n) if rows[r] != rows[0]]
+        if not divergent:
+            return record
+        lengths = [int.from_bytes(b, "little") for b in _gather_rows(
+            len(payload).to_bytes(8, "little"), device)]
+        padded = payload + bytes(max(lengths) - len(payload))
+        other = 0 if me in divergent else divergent[0]
+        try:
+            theirs = json.loads(_gather_rows(padded, device)[other]
+                                [:lengths[other]].decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            theirs = []
+    d = first_divergence(json.loads(payload.decode("utf-8")), theirs)
+    if d is None:
+        detail = (f"collective schedules agree ({len(sched)} op(s)) but "
+                  f"module hashes differ — the divergence is in "
+                  f"non-collective compute (this rank "
+                  f"{module_hash[:12]}, rank {other} differs)")
+    else:
+        i, mine_spell, theirs_spell = d
+        detail = (f"first differing collective is op #{i}: rank {me} "
+                  f"issues {mine_spell} but rank {other} issues "
+                  f"{theirs_spell}")
+    raise SpmdPreflightError(
+        f"SPMD preflight failed for {label!r}: rank(s) {divergent} "
+        f"captured a step diverging from rank 0 — {detail}.  "
+        f"Aborting before the first step instead of deadlocking the "
+        f"fleet in a mismatched collective.")
 
 
 def _address(coordinator_address: Optional[str]) -> Optional[str]:
@@ -65,7 +232,7 @@ def initialize(coordinator_address: Optional[str] = None,
                preflight: Any = None,
                preflight_label: str = "train_step",
                backend: Optional[str] = None,
-               device: DeviceLike = None) -> None:
+               device: DeviceLike = None) -> Optional[dict]:
     """Form the default process group of this process.
 
     ``coordinator_address`` (``host:port``), ``num_processes`` and
@@ -78,13 +245,16 @@ def initialize(coordinator_address: Optional[str] = None,
     is retried ``retries`` times (``APEX_TPU_INIT_RETRIES``, default 2)
     after ``backoff_s * 2**try`` seconds (``APEX_TPU_INIT_BACKOFF_S``,
     default 5); then :class:`ClusterInitError`.  A process whose group is
-    already formed raises ``RuntimeError`` at once."""
+    already formed raises ``RuntimeError`` at once.
+
+    ``preflight`` opts into the SPMD consistency barrier, run right after
+    the group forms: a capture of the step this process is about to run,
+    its schedule list, or a zero-arg callable captured dry then
+    (:func:`spmd_preflight`, labelled ``preflight_label``).  A divergent
+    rank raises :class:`SpmdPreflightError` on every rank.  Returns the
+    preflight's record when it ran, else ``None``."""
     import torch
     import torch.distributed as dist
-    if preflight is not None:
-        raise NotImplementedError(
-            "spmd_preflight hashes a lowered XLA module and waits for the "
-            "port of apex_tpu/analysis/ (ROADMAP.md Queue 1, analysis/)")
     if dist.is_initialized():
         raise RuntimeError("torch.distributed is already initialized in "
                            "this process")
@@ -120,7 +290,6 @@ def initialize(coordinator_address: Optional[str] = None,
                 backend, init_method=f"tcp://{addr}", world_size=ws,
                 rank=rank,
                 timeout=datetime.timedelta(seconds=max(1.0, timeout_s)))
-            return None
         except (RuntimeError, OSError, ValueError) as e:
             # a double initialize is a programming error, not weather
             if "already initialized" in str(e).lower() \
@@ -129,6 +298,10 @@ def initialize(coordinator_address: Optional[str] = None,
             last_error = e
             if attempt + 1 < attempts:
                 time.sleep(backoff_s * (2.0 ** attempt))
+            continue
+        if preflight is None:
+            return None
+        return spmd_preflight(preflight, label=preflight_label)
     others = sorted(set(range(ws)) - {rank})
     raise ClusterInitError(
         f"cluster init failed after {attempts} attempt(s) x {timeout_s:g}s "

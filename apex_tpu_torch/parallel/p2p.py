@@ -25,7 +25,12 @@ a CUDA tensor is copied to the host and back, explicitly (counted as
 ``kind`` (``ring_hop`` for the ring, ``pipe_hop`` for the pipeline) and
 ``send_recv`` a tensor, an all-to-all as ``all_to_all``, a broadcast as
 ``broadcast``.  At world size 1 a hop is the identity and nothing is
-sent.
+sent.  Each call is one entry of an open collective recording
+(:func:`~apex_tpu_torch.parallel.distributed.issue`): a shift a
+``collective-permute`` of all its tensors, an all-to-all an
+``all-to-all`` a tensor (both ``async``: a batch of point-to-point
+operations), a broadcast a ``collective-broadcast``; each entry carries
+the caller's dtypes, not the 16-bit integer views that travel.
 """
 
 from __future__ import annotations
@@ -34,21 +39,24 @@ from typing import List, Sequence
 
 import torch
 
-from apex_tpu_torch.parallel.distributed import _COUNTS, process_group
+from apex_tpu_torch.parallel.distributed import (_COUNTS, DeclaredGroup,
+                                                 _nbytes, group_rank,
+                                                 group_size, issue,
+                                                 process_group)
 
 
 def group_of(axis_name):
     """``(group, rank in it, its size)`` of ``axis_name``."""
-    import torch.distributed as dist
     group = process_group(axis_name)
-    return group, dist.get_rank(group), dist.get_world_size(group)
+    return group, group_rank(group), group_size(group)
 
 
 def via_host(t: torch.Tensor, group) -> bool:
     """Whether ``t`` must be staged on the host for ``group``'s backend
     (gloo moves host memory only)."""
     import torch.distributed as dist
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    return t.is_cuda and not isinstance(group, DeclaredGroup) \
+        and dist.get_backend(group) == "gloo"
 
 
 def wire(t: torch.Tensor, host: bool) -> torch.Tensor:
@@ -77,20 +85,22 @@ def shift(tensors: Sequence[torch.Tensor], group, by: int,
     operations; counted once as ``kind``.  At world size 1, the tensors
     themselves (nothing sent or counted)."""
     import torch.distributed as dist
-    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    rank, world = group_rank(group), group_size(group)
     if world == 1:
         return list(tensors)
-    dst = dist.get_global_rank(group, (rank + by) % world)
-    src = dist.get_global_rank(group, (rank - by) % world)
-    ops, outs = [], []
-    for t in tensors:
-        send = wire(t, via_host(t, group))
-        recv = torch.empty_like(send)
-        ops += [dist.P2POp(dist.isend, send, dst, group),
-                dist.P2POp(dist.irecv, recv, src, group)]
-        outs.append(recv)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    sends = [wire(t, via_host(t, group)) for t in tensors]
+    outs = [torch.empty_like(send) for send in sends]
+    with issue("collective-permute", group, tensors,
+               sum(_nbytes(t) for t in tensors), "async") as dry:
+        if not dry:
+            dst = dist.get_global_rank(group, (rank + by) % world)
+            src = dist.get_global_rank(group, (rank - by) % world)
+            ops = []
+            for send, recv in zip(sends, outs):
+                ops += [dist.P2POp(dist.isend, send, dst, group),
+                        dist.P2POp(dist.irecv, recv, src, group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     _COUNTS[kind] += 1
     _COUNTS["send_recv"] += len(tensors)
     return [unwire(o, t) for o, t in zip(outs, tensors)]
@@ -133,20 +143,23 @@ def all_to_all(tensors: Sequence[torch.Tensor], group, split: int,
     tensor (gloo has no all-to-all in every PyTorch release; NCCL groups
     the batch as its own all-to-all does)."""
     import torch.distributed as dist
-    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    rank, world = group_rank(group), group_size(group)
     outs = []
     for t in tensors:
         parts = [c.contiguous() for c in wire(t, via_host(t, group))
                  .chunk(world, dim=split)]
-        got, ops = list(parts), []
-        for j in range(world):
-            if j != rank:
-                peer = dist.get_global_rank(group, j)
-                got[j] = torch.empty_like(parts[j])
-                ops += [dist.P2POp(dist.isend, parts[j], peer, group),
-                        dist.P2POp(dist.irecv, got[j], peer, group)]
-        for req in dist.batch_isend_irecv(ops) if ops else ():
-            req.wait()
+        got = [p if j == rank else torch.empty_like(p)
+               for j, p in enumerate(parts)]
+        with issue("all-to-all", group, [t], _nbytes(t), "async") as dry:
+            if not dry and world > 1:
+                ops = []
+                for j in range(world):
+                    if j != rank:
+                        peer = dist.get_global_rank(group, j)
+                        ops += [dist.P2POp(dist.isend, parts[j], peer, group),
+                                dist.P2POp(dist.irecv, got[j], peer, group)]
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
         _COUNTS["all_to_all"] += 1
         outs.append(torch.cat([unwire(g, t) for g in got], dim=concat))
     return outs
@@ -181,8 +194,10 @@ class Broadcast(torch.autograd.Function):
         if via_host(t, group):
             buf = buf.cpu()
             _COUNTS["via_host"] += 1
-        dist.broadcast(buf, src=dist.get_global_rank(group, root),
-                       group=group)
+        with issue("collective-broadcast", group, [t], _nbytes(t)) as dry:
+            if not dry:
+                dist.broadcast(buf, src=dist.get_global_rank(group, root),
+                               group=group)
         _COUNTS["broadcast"] += 1
         return buf.to(t.device).view(t.dtype).reshape(t.shape)
 

@@ -160,11 +160,12 @@ def batchnorm_backward_c_last(grad_out, x, mean, invstd, weight, mean_dy,
 def _group_mean_(t: torch.Tensor, sync) -> torch.Tensor:
     """The mean of ``t`` over the ranks of ``sync`` (``(group, ranks)``:
     ranks None for the whole group, summed; else gathered)."""
-    from apex_tpu_torch.parallel.distributed import _all_gather, _all_reduce_
+    from apex_tpu_torch.parallel.distributed import (_all_gather,
+                                                     _all_reduce_,
+                                                     group_size)
     group, ranks = sync
     if ranks is None:
-        import torch.distributed as dist
-        return _all_reduce_(t, group).div_(dist.get_world_size(group))
+        return _all_reduce_(t, group).div_(group_size(group))
     return _all_gather(t, group).mean(dim=0)
 
 
@@ -219,7 +220,8 @@ def _synced_stats(mean: torch.Tensor, var: torch.Tensor, count: int,
     backward sums the cotangents over the group) for the unfused
     backward."""
     from apex_tpu_torch.parallel.distributed import (_COUNTS, _all_gather,
-                                                     _all_reduce_)
+                                                     _all_reduce_, _nbytes,
+                                                     issue)
     group, ranks = sync
     c = torch.full((1,), float(count), dtype=torch.float32,
                    device=mean.device)
@@ -232,8 +234,10 @@ def _synced_stats(mean: torch.Tensor, var: torch.Tensor, count: int,
         from torch.distributed.nn.functional import all_reduce
 
         def total(t):
+            with issue("all-reduce", group, [t], _nbytes(t)) as dry:
+                out = t if dry else all_reduce(t, group=group)
             _COUNTS["all_reduce"] += 1
-            return all_reduce(t, group=group)
+            return out
     else:
         def total(t):
             return _all_reduce_(t, group)

@@ -40,11 +40,14 @@ them into a loop that survives a rank's death:
 
 Placement is explicit: :class:`FleetConfig` names the ``device`` (the
 card by default) and the ``backend`` (NCCL by default); ranks that share
-one card run gloo, and only when the caller says so.  The JAX package
-runs an SPMD preflight and loads its step from an AOT cache at each
-formation; the port compiles nothing, and its ledger keeps JAX's
-``preflight`` and ``aot`` events (``source: "eager"``) so that the event
-log reads the same.  The ledger's files are JAX's, name for name and key
+one card run gloo, and only when the caller says so.  Each formation
+runs the SPMD preflight (:func:`~apex_tpu_torch.parallel.multiproc.
+spmd_preflight`) over a dry capture of the step's communicating part
+(:meth:`_Workload.capture`: the gradients' reduction and the loss's
+mean), and its ``preflight`` event carries the verdict, the number of
+collectives and the schedule's hash, as JAX's does.  The JAX package
+also loads its step from an AOT cache; the port compiles nothing, and
+its ``aot`` event says ``source: "eager"``.  The ledger's files are JAX's, name for name and key
 for key: either package reads a ledger the other wrote.
 
 Every kill, shrink, restore and regrow lands in the flight recorder and
@@ -686,18 +689,38 @@ class _Workload:
                              device=self.device),
             opt_level="O2", min_loss_scale=cfg.min_loss_scale,
             device=self.device)
+        self.reducer = Reducer()
         step = amp.make_train_step(self.amp, model, _mlp_loss,
-                                   reduce_fn=Reducer().reduce)
+                                   reduce_fn=self.reducer.reduce)
 
         def step_fn(xb):
-            import torch.distributed as dist
             m = step(xb)
-            loss = m["loss"].detach().clone()
-            dist.all_reduce(loss)
-            return {"loss": loss / self.world, "overflow": m["overflow"],
+            return {"loss": self._mean_loss(m["loss"].detach().clone()),
+                    "overflow": m["overflow"],
                     "pinned_at_floor": m["pinned_at_floor"]}
 
         self.step_fn = step_fn
+
+    def _mean_loss(self, loss):
+        """The ranks' mean of this rank's fp32 loss (summed in place)."""
+        from apex_tpu_torch.parallel.distributed import (_all_reduce_,
+                                                         process_group)
+        return _all_reduce_(loss, process_group()) / self.world
+
+    def _communicate(self) -> None:
+        """What the step sends, on zeros of its shapes and dtypes: the
+        gradients' reduction, then the loss's mean."""
+        import torch
+        self.reducer.reduce([torch.zeros_like(p) for p in self.amp.params])
+        self._mean_loss(torch.zeros((), dtype=torch.float32,
+                                    device=self.device))
+
+    def capture(self):
+        """A dry :func:`~apex_tpu_torch.analysis.capture.capture` of the
+        step's communicating part: the subject of the generation's SPMD
+        preflight (the JAX package lowers the whole step)."""
+        from apex_tpu_torch.analysis.capture import capture
+        return capture(self._communicate)
 
     def batch_array(self, abs_step: int):
         """This rank's rows of step ``abs_step``'s batch as numpy: the
@@ -823,14 +846,16 @@ def run_generation(ledger: FleetLedger, cfg: FleetConfig, gen: int,
                 backend=cfg.backend, device=cfg.device)
             wl = _Workload(cfg, world, idx)
 
-            # the JAX package hashes its lowered step here and compares
-            # the hashes across ranks; the port compiles nothing to hash
             step_cell["phase"] = "preflight"
-            ledger.event(rank, "preflight", gen=gen, ok=None,
-                         n_collectives=None, schedule_hash=None,
-                         skipped="no compiled program to check")
-            fr.note("preflight", gen=gen, n_collectives=None)
-            # nor is there an AOT cache: the step runs eagerly
+            pre = multiproc.spmd_preflight(wl.capture(),
+                                           label=f"fleet_gen{gen}")
+            ledger.event(rank, "preflight", gen=gen, ok=bool(pre["ok"]),
+                         n_collectives=pre["n_collectives"],
+                         schedule_hash=pre["schedule_hash"],
+                         exchange=pre["exchange"])
+            fr.note("preflight", gen=gen,
+                    n_collectives=pre["n_collectives"])
+            # the port has no AOT cache: the step runs eagerly
             step_cell["phase"] = "aot"
             ledger.event(rank, "aot", gen=gen, source="eager", world=world)
             fr.note("aot", gen=gen, source="eager")

@@ -211,8 +211,19 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             whole-batch B 64 world-one run, the ranks' masters and running
             stats equal bit for bit, an inf on rank 1 skipped on both;
             LARC's per-leaf norms (K12, two launches) at ResNet-50's 161
-            leaves against the plain version.  No path across several
-            cards runs (one card);
+            leaves against the plain version.  The SPMD preflight
+            (``preflight``): at NCCL world one a dry capture of the DDP
+            step's reduce over zeros of its gradients, its preflight ok,
+            its schedule fingerprint equal to the first real step's
+            reduce captured for real, one all-reduce a bucket (4 at the
+            default message size) carrying the gradients' bytes, a
+            ``{"total": 0}`` budget failing it and passing the world-one
+            step captured for real; on the gloo ranks a clean round ok
+            with one schedule hash over the group's store, then rank 1's
+            buckets on the fp32 wire refused on both ranks, naming
+            ``all-reduce(bf16, ...)`` and ``all-reduce(f32, ...)`` at one
+            op index; the capture's and the exchange's host ms.  No path
+            across several cards runs (one card);
    amp_surface  (after ddp) the legacy ``FP16_Optimizer`` on BASELINE
             config 1's MLP in bf16 (SGD with momentum, dynamic scaling,
             an inf at step 2) against the same run on the CPU (scales and
@@ -264,8 +275,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             ``run_resilient`` on gpt_small O2 + FusedAdam at B 8 x L 2048
             (12 steps, batches a function of the step index, a checkpoint
             every 4, at most 2 snapshots kept, under a temporary directory
-            the phase deletes): the plain loop and the resilient loop in
-            turns (both step p50s, the save's blocking ms, the writer's
+            the phase deletes): the plain loop, then the resilient loop
+            (``RES_TURNS`` pairs; both step p50s, the save's blocking ms, the writer's
             ms, the snapshot's bytes, the restore's ms, K6 1 and K11 1 a
             resolved step, K15 once a checkpoint); a preemption at step 8
             resumed by a fresh model, Amp and manager, equal to the
@@ -286,7 +297,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
             step, the steps lost, the detection latency (ledger clock),
             ``train_fleet_recovery_seconds``, the children's launches (K6,
             K11 a step, K15 a checkpoint); the shrink, regrow and
-            cross-rank replays must all be bitwise equal;
+            cross-rank replays must all be bitwise equal; every
+            generation's SPMD preflight event ``ok: true`` with one
+            ``schedule_hash`` across its ranks;
    obs_lag  (after train_fleet) ``instrument_step`` around the gpt_small
             O2 step (B 8 x L 2048), 10 steps in turns with the bare step:
             both p50s, the pending groups after each tick, the loss gauge
@@ -3957,6 +3970,37 @@ def _grads_err(ref, got) -> dict:
             "sign_flip_share": flips / sum(r.numel() for r in ref)}
 
 
+def _ddp_preflight(reduce, params, label):
+    """A dry capture of ``reduce`` over zeros of ``params``' shapes and
+    dtypes (the DDP step's communicating part) and the SPMD preflight
+    over it: the capture, and the preflight's record with the capture's
+    and the exchange's host ms."""
+    import torch
+    from apex_tpu_torch.analysis import capture
+    from apex_tpu_torch.parallel import multiproc
+    zeros = [torch.zeros_like(p) for p in params]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dry = capture(reduce, zeros)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre = multiproc.spmd_preflight(dry, label=label)
+    t2 = time.perf_counter()
+    return dry, dict(pre, capture_ms=(t1 - t0) * 1e3,
+                     exchange_ms=(t2 - t1) * 1e3)
+
+
+def _first_op_difference(dry_ops, real_ops) -> dict:
+    """The two captures' op counts and their first differing dispatched
+    op (``None`` when the lists are equal)."""
+    at = next((i for i, (d, r) in enumerate(zip(dry_ops, real_ops))
+               if d != r), min(len(dry_ops), len(real_ops)))
+    first = None if list(dry_ops) == list(real_ops) else dict(
+        index=at, dry=dry_ops[at] if at < len(dry_ops) else None,
+        real=real_ops[at] if at < len(real_ops) else None)
+    return dict(dry=len(dry_ops), real=len(real_ops), first_difference=first)
+
+
 def _ddp_rank_nccl(out: Path) -> None:
     """One rank of the NCCL world-size-one run (a ``--ddp-rank nccl``
     process): ResNet-50 O2 + FusedAdam at B 256 x 224^2 from seeded
@@ -3975,6 +4019,10 @@ def _ddp_rank_nccl(out: Path) -> None:
                                          collective_counts, multiproc,
                                          reset_collective_counts)
     from apex_tpu_torch.parallel import sync_batchnorm as sbn
+    from apex_tpu_torch.analysis import (build_context, capture,
+                                         collective_table, run_passes)
+    from apex_tpu_torch.analysis.spmd import (format_entry,
+                                              schedule_fingerprint)
     multiproc.initialize()
     require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
             f"nccl world: {dist.get_backend()} x {dist.get_world_size()}")
@@ -3984,13 +4032,24 @@ def _ddp_rank_nccl(out: Path) -> None:
                            RN_B, RN_SIZE)
     want = dict(NO_LAUNCHES, packed_scale=1, packed_adam_tree=1)
     ddp = DistributedDataParallel()
+    real_caps = []
+
+    def reduce_first_captured(grads):
+        """The DDP step's reduce; the first call captured for real."""
+        if real_caps:
+            return ddp.reduce(grads)
+        real_caps.append(capture(ddp.reduce, grads, dry=False))
+        return real_caps[0].value
+
     runs = {}
     for name, sync in (("world_one", False), ("ddp", True)):
         model = _ddp_model(state, sync)
         a = amp.initialize(model, FusedAdam(model.parameters(), lr=RN_LR),
                            opt_level="O2")
         runs[name] = (model, a, amp.make_train_step(
-            a, model, _rn_loss, reduce_fn=ddp.reduce if sync else None))
+            a, model, _rn_loss,
+            reduce_fn=reduce_first_captured if sync else None))
+    dry, pre = _ddp_preflight(ddp.reduce, runs["ddp"][1].params, "ddp_step")
 
     def first_grads(name, nudge=False):
         """The first (unscaled) gradients; ``nudge``: every BatchNorm's
@@ -4020,7 +4079,13 @@ def _ddp_rank_nccl(out: Path) -> None:
     snap = {}
     for name in ("world_one", "ddp"):
         model, a, step = runs[name]
-        infos = [step(x, y) for _ in range(DDP_REF_STEPS)]
+        if name == "world_one":
+            # the step without DDP, captured for real: no collective
+            world_one_first = capture(step, x, y, dry=False)
+            infos = [world_one_first.value]
+        else:
+            infos = []
+        infos += [step(x, y) for _ in range(DDP_REF_STEPS - len(infos))]
         snap[name] = {n: t.clone() for n, t in a.masters.items()}
         reset_collective_counts()
         counts, run = _rn_run(step, x, y, RN_STEPS, want)
@@ -4047,6 +4112,24 @@ def _ddp_rank_nccl(out: Path) -> None:
     res["masters"] = _masters_err(snap["world_one"], snap["ddp"])
     res["step_ms_p50"] = {k: res[k]["step_ms_p50_steps_3_to_10"]
                           for k in ("world_one", "ddp")}
+    (real,) = real_caps
+    wire = sum(arg.nbytes for arg in dry.args)
+    budget = {"collectives": {"budget": {"total": 0}}}
+    pre.update(
+        dry_fingerprint=schedule_fingerprint(dry.schedule),
+        real_fingerprint=schedule_fingerprint(real.schedule),
+        dry_module_hash_equals_real=dry.module_hash == real.module_hash,
+        dry_real_ops=_first_op_difference(dry.ops, real.ops),
+        real_schedule=[format_entry(e) for e in real.schedule],
+        all_reduce_bytes=collective_table(dry)["all-reduce"]["bytes"],
+        gradient_wire_bytes=wire,
+        ddp_step_total_0_ok=run_passes(build_context(dry),
+                                       options=budget).ok,
+        world_one_step_total_0_ok=run_passes(
+            build_context(world_one_first), options=budget).ok,
+        world_one_step_ops=len(world_one_first.ops))
+    res["preflight"] = pre
+    del world_one_first
     (out / "nccl.json").write_text(json.dumps(res))
     expect = 3 * res["ddp"]["batchnorms"] + sum(
         res["ddp"]["buckets"].values())
@@ -4074,7 +4157,8 @@ def _ddp_rank_gloo(out: Path) -> None:
     from apex_tpu_torch import amp
     from apex_tpu_torch.models import ARCHS, shard_rows, synthetic_batch
     from apex_tpu_torch.optimizers import FusedAdam
-    from apex_tpu_torch.parallel import DistributedDataParallel, multiproc
+    from apex_tpu_torch.parallel import (DistributedDataParallel,
+                                         ReduceConfig, Reducer, multiproc)
     multiproc.initialize(backend="gloo")
     r, w = dist.get_rank(), dist.get_world_size()
     torch.manual_seed(0)
@@ -4097,6 +4181,15 @@ def _ddp_rank_gloo(out: Path) -> None:
     ddp.broadcast_params(model, root=0)
     a = amp.initialize(model, FusedAdam(model.parameters(), lr=RN_LR),
                        opt_level="O2")
+    # the SPMD preflight: a clean round, then rank 1's buckets on the fp32
+    # wire (the signSGD class), which every rank must refuse
+    _, res["preflight"] = _ddp_preflight(ddp.reduce, a.params, "ddp_clean")
+    seeded = Reducer(config=ReduceConfig(allreduce_always_fp32=r == 1))
+    try:
+        _ddp_preflight(seeded.reduce, a.params, "ddp_seeded")
+        res["seeded"] = {"raised": False}
+    except multiproc.SpmdPreflightError as e:
+        res["seeded"] = {"raised": True, "error": str(e).splitlines()[0]}
     step = amp.make_train_step(a, model, _rn_loss_poisoned,
                                reduce_fn=ddp.reduce)
     xl, yl = shard_rows([x, y], r, w)
@@ -4192,6 +4285,76 @@ def _larc_case():
                 ms=time_ms(lambda: larc(gs, ps, 0.1, weight_decay=1e-4)))
 
 
+#: the DDP step's buckets at the default message size
+#: (``apex_tpu_torch/parallel/distributed.py``'s docstring): 3 of bf16
+#: gradients under O2, 1 of the fp32 BatchNorm leaves
+DDP_BUCKETS = 4
+
+
+def _ddp_preflight_checks(nccl, ranks) -> dict:
+    """The SPMD preflight's gates on the ``ddp`` runs' records: at NCCL
+    world one, the dry capture of the step's reduce passes, is the
+    schedule the first real step issued, has one all-reduce a bucket
+    carrying the gradients' bytes, and fails a ``{"total": 0}`` budget
+    that the world-one step without DDP passes; on the two gloo ranks the
+    clean round agrees and the seeded one (rank 1's buckets on the fp32
+    wire) raises on both, naming the same op in both spellings.  Returns
+    the ``ddp`` line's ``preflight`` record."""
+    pre = nccl["preflight"]
+    require(pre["ok"], f"NCCL preflight {pre}")
+    require(pre["dry_fingerprint"] == pre["real_fingerprint"],
+            f"the dry capture is not what ran: {pre['real_schedule']}")
+    require(pre["n_collectives"] == DDP_BUCKETS
+            == sum(nccl["ddp"]["buckets"].values()),
+            f"preflight n_collectives {pre['n_collectives']}, buckets "
+            f"{nccl['ddp']['buckets']}, want {DDP_BUCKETS}")
+    require(pre["all_reduce_bytes"] == pre["gradient_wire_bytes"],
+            f"all-reduce bytes {pre['all_reduce_bytes']}, gradients "
+            f"{pre['gradient_wire_bytes']}")
+    require(not pre["ddp_step_total_0_ok"]
+            and pre["world_one_step_total_0_ok"],
+            "the {'total': 0} budget must fail the DDP step and pass the "
+            "world-one step")
+    clean = [rk["preflight"] for rk in ranks]
+    require(all(c["ok"] and c["exchange"] == "store" for c in clean)
+            and len({c["schedule_hash"] for c in clean}) == 1,
+            f"gloo clean preflight {clean}")
+    seeded = [rk["seeded"] for rk in ranks]
+    require(all(sd["raised"] for sd in seeded),
+            f"the seeded preflight did not raise on every rank: {seeded}")
+    ops = [re.search(r"op #(\d+)", sd["error"]) for sd in seeded]
+    require(all(o is not None for o in ops)
+            and len({o.group(1) for o in ops}) == 1
+            and all("all-reduce(bf16, " in sd["error"]
+                    and "all-reduce(f32, " in sd["error"]
+                    for sd in seeded),
+            f"the seeded errors do not name one op in both spellings: "
+            f"{seeded}")
+    return dict(
+        nccl_world_one=dict(
+            ok=pre["ok"], exchange=pre["exchange"],
+            capture_ms=pre["capture_ms"], exchange_ms=pre["exchange_ms"],
+            n_collectives=pre["n_collectives"],
+            schedule_hash=pre["schedule_hash"][:16],
+            dry_equals_real=True,
+            dry_module_hash_equals_real=pre["dry_module_hash_equals_real"],
+            dry_real_ops=pre["dry_real_ops"],
+            all_reduce_bytes=pre["all_reduce_bytes"],
+            budget_total_0=dict(ddp_step_ok=pre["ddp_step_total_0_ok"],
+                                world_one_step_ok=pre[
+                                    "world_one_step_total_0_ok"]),
+            world_one_step_ops=pre["world_one_step_ops"]),
+        gloo_two_processes_on_cuda0=dict(
+            ok=[c["ok"] for c in clean], exchange=clean[0]["exchange"],
+            capture_ms=[c["capture_ms"] for c in clean],
+            exchange_ms=[c["exchange_ms"] for c in clean],
+            n_collectives=clean[0]["n_collectives"],
+            schedule_hash=clean[0]["schedule_hash"][:16],
+            seeded_raised_on=[rk["rank"] for rk in ranks
+                              if rk["seeded"]["raised"]],
+            seeded_error=seeded[0]["error"]))
+
+
 def phase_ddp(repo: Path):
     """Data parallelism across processes: the port's ``multiproc``
     spawner re-runs this script as the ranks.  NCCL at world size one
@@ -4244,8 +4407,9 @@ def phase_ddp(repo: Path):
                 and inf["loss_scale"][1] == inf["loss_scale"][0] / 2,
                 f"rank {rk['rank']}: the inf on rank 1 was not skipped: "
                 f"{inf}")
+    preflight = _ddp_preflight_checks(nccl, ranks)
     larc_rec = _larc_case()
-    emit("ddp", nccl_world_one=dict(
+    emit("ddp", preflight=preflight, nccl_world_one=dict(
         model="resnet50", opt_level="O2", batch=RN_B, image_size=RN_SIZE,
         seconds=nccl_s, **nccl),
         gloo_two_processes_on_cuda0=dict(
@@ -6862,7 +7026,7 @@ RES_MIN_SCALE = 2.0 ** 14
 RES_KEEP = 2
 RES_WATCHDOG_S = 2.0
 RES_HANG_S = 4.0
-RES_TURNS = 2
+RES_TURNS = 1
 #: the storm: poisoned from step index 8 for 4 firings; with the scale's
 #: floor at 2**14 (from 2**16) it pins at step 9, and 2 pinned overflows
 #: in a row (steps 9 and 10) call the rewind before the save of step 11
@@ -8368,7 +8532,7 @@ def phase_train_fleet(repo: Path):
     generation children's (K6, K11 a step; K15 a checkpoint)."""
     import shutil
     import tempfile
-    from apex_tpu_torch.resilience.fleet import FleetConfig
+    from apex_tpu_torch.resilience.fleet import FleetConfig, FleetLedger
     from apex_tpu_torch.testing import run_fleet_drill
     t0 = time.perf_counter()
     base = tempfile.mkdtemp(prefix="apex_tpu_torch_fleet_",
@@ -8376,12 +8540,21 @@ def phase_train_fleet(repo: Path):
     cfg = FleetConfig(**FLEET_DRILL)
     try:
         out = run_fleet_drill(base, cfg, timeout_s=FLEET_DRILL_TIMEOUT_S)
+        preflights = [e for e in FleetLedger(out["root"]).events()
+                      if e["kind"] == "preflight"]
     finally:
         shutil.rmtree(base, ignore_errors=True)
     counts = dict(NO_LAUNCHES, **out["launches"])
     gens = out["generations"]
     require(all(out["bitwise"].values()),
             f"fleet drill verdicts {out['bitwise']}")
+    by_gen = {g["gen"]: [e for e in preflights if e["gen"] == g["gen"]]
+              for g in gens}
+    require(all(len(by_gen[g["gen"]]) == len(g["members"])
+                and all(e["ok"] is True for e in by_gen[g["gen"]])
+                and len({e["schedule_hash"] for e in by_gen[g["gen"]]}) == 1
+                for g in gens),
+            f"the generations' preflight events {preflights}")
     require([g["members"] for g in gens[:3]] == [[0, 1], [0], [0, 1]],
             f"generations {gens}")
     require(out["steps_lost"] <= cfg.checkpoint_every,
@@ -8410,6 +8583,11 @@ def phase_train_fleet(repo: Path):
                       "final_step": v["final_step"]}
                   for k, v in out["replays"].items()},
          launches=out["launches"], drill_wall_s=out["wall_s"],
+         preflight={str(g): dict(
+             ok=[e["ok"] for e in evs], exchange=evs[0]["exchange"],
+             n_collectives=evs[0]["n_collectives"],
+             schedule_hash=evs[0]["schedule_hash"][:16])
+             for g, evs in by_gen.items()},
          seconds=time.perf_counter() - t0)
     return counts
 
@@ -9257,6 +9435,15 @@ def main(argv=None) -> int:
     if not (repo / "apex_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no apex_tpu_torch in {repo}", file=sys.stderr)
         return 1
+    # the card's environment writes no bytecode (PYTHONDONTWRITEBYTECODE)
+    # and its packages ship none, so every Python process this script
+    # starts (launchers, ranks, the fleet's supervisors and children)
+    # would compile torch's modules anew: ~10 s each.  They share one
+    # cache under build/ instead, never beside the packages' sources
+    sys.pycache_prefix = str(HERE / "build" / "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     sys.path.insert(0, str(repo))
     # the launch expectations below assume the default partials budget
     # and the 1x1-conv switch off

@@ -536,6 +536,16 @@ def test_two_rank_cpu_drill_shrinks_regrows_and_is_bitwise(tmp_path):
             "preflight", "aot"} <= set(kinds)
     assert {e["source"] for e in led.events() if e["kind"] == "aot"} \
         == {"eager"}
+    # every formation's SPMD preflight passed, one schedule a generation
+    pre = [e for e in led.events() if e["kind"] == "preflight"]
+    assert {e["gen"] for e in pre} == {g["gen"] for g in gens}
+    assert all(e["ok"] is True and e["exchange"] in ("store", "none")
+               for e in pre)
+    for g in gens:
+        mine = [e for e in pre if e["gen"] == g["gen"]]
+        assert len(mine) == len(g["members"])
+        assert len({e["schedule_hash"] for e in mine}) == 1
+        assert {e["n_collectives"] for e in mine} == {2}
     # the JAX package reads the drill's ledger
     jled = jfleet.FleetLedger(out["root"])
     assert len(jled.events()) == len(kinds)

@@ -81,10 +81,31 @@ def test_initialize_refuses_a_missing_world_or_a_swapped_backend(no_env):
         # nccl, the default, wants the card: no silent switch to gloo
         with pytest.raises(RuntimeError, match="no CUDA device"):
             multiproc.initialize("localhost:1", 2, 0)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        multiproc.initialize("localhost:1", 2, 0, device="cpu",
-                             preflight=lambda: "module")
     assert calls == []
+
+
+def test_initialize_runs_the_preflight_after_formation(no_env):
+    """``initialize(preflight=...)`` forms the group, then captures the
+    callable dry and returns the preflight's record (the group here is
+    the monkeypatched one, so the barrier sees one rank)."""
+    from apex_tpu_torch.analysis.spmd import schedule_fingerprint
+    calls = _capture(no_env)
+    seen = []
+
+    def step():
+        seen.append(len(calls))
+        return torch.ones(2) * 2
+
+    rec = multiproc.initialize("localhost:1", 2, 0, device="cpu",
+                               preflight=step, preflight_label="unit")
+    assert len(calls) == 1 and seen == [1]
+    assert rec["label"] == "unit" and rec["ok"]
+    assert (rec["n_collectives"], rec["exchange"]) == (0, "none")
+    assert rec["schedule_hash"] == schedule_fingerprint([])
+    assert multiproc.initialize("localhost:1", 2, 0, device="cpu") is None
+    with pytest.raises(TypeError, match="Capture"):
+        multiproc.initialize("localhost:1", 2, 0, device="cpu",
+                             preflight="module")
 
 
 def test_initialize_retries_with_backoff_then_names_missing_ranks(no_env):
