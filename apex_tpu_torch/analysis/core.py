@@ -16,6 +16,21 @@ pass                  catches
 ===================== ==================================================
 ``collectives``       per-kind collective count / bytes against a byte
                       budget (:mod:`~apex_tpu_torch.analysis.collectives`)
+``constant-capture``  weight-sized tensors read from a closure instead of
+                      passed, or held as a parameter or buffer
+                      (:mod:`~apex_tpu_torch.analysis.constants`)
+``policy``            FP32-list work executing in 16-bit, the O1 audit
+                      (opt-in, on the forward:
+                      :mod:`~apex_tpu_torch.analysis.policy`)
+``memory``            the call's peak bytes against a device budget;
+                      the largest buffers
+                      (:mod:`~apex_tpu_torch.analysis.memory`)
+``cost``              the dispatched ops' flops and bytes and the
+                      roofline they imply
+                      (:mod:`~apex_tpu_torch.analysis.cost`)
+``syncs``             host reads of device values and blocking uploads
+                      inside the call (:mod:`~apex_tpu_torch.analysis.
+                      syncs`)
 ``spmd-consistency``  a schedule that diverges from its peers' (opt-in,
                       as in JAX: :mod:`~apex_tpu_torch.analysis.spmd`)
 ===================== ==================================================
@@ -37,8 +52,9 @@ from apex_tpu_torch.analysis.report import Finding, Report, make_report
 
 @dataclasses.dataclass(frozen=True)
 class PassContext:
-    """Everything a lint pass may look at: the capture, and the resolved
-    mixed-precision policy when the caller knows it."""
+    """Everything a lint pass may look at: the capture (its schedule,
+    records, kernel launches, free tensors and live bytes), and the
+    resolved mixed-precision policy when the caller knows it."""
 
     capture: Capture
     policy: Optional[Any] = None
@@ -60,7 +76,7 @@ PASSES: Dict[str, Callable[..., List[Finding]]] = {}
 
 #: JAX's ``("donation", "sharding", "collectives", "constant-capture")``
 #: restricted to the passes the port registers, in JAX's order
-DEFAULT_PASSES = ("collectives",)
+DEFAULT_PASSES = ("collectives", "constant-capture")
 
 
 def register_pass(name: str, fn: Callable[..., List[Finding]],

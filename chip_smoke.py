@@ -13,7 +13,8 @@ named phases of ``PARTIAL_PHASES`` after ``device`` and ``build``
 ``resnet_kernels``, ``resnet_train``, ``ddp``, ``amp_surface``,
 ``data_prefetch``, ``seq_parallel``, ``rnn``, ``pipeline_moe``,
 ``resilience``, ``train_fleet`` (with ``obs_lag``, ``native`` and
-``xplane``), ``quant``, ``serve_fleet``, ``serve``, ``contprof``),
+``xplane``), ``quant``, ``serve_fleet``, ``serve``, ``contprof``,
+``lint``),
 printing their lines and no ``kernels`` or ``ok`` line: how one card
 times a parent against a change.  The ``ddp``, ``seq_parallel`` and
 ``pipeline_moe`` phases re-run this script as their ranks
@@ -105,6 +106,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 9. train reference  a 2-layer, 2 x 64-head model, 3 steps on the card
             against the same on the CPU (plain versions): fp32 O0, and bf16
             O3 (no master weights: Adam steps the bf16 parameters);
+   lint     (after train reference) the lint passes of
+            ``apex_tpu_torch.analysis`` over gpt_small on the card, from
+            the seeded tree: the O1 forward at B 8 x L 2048 policy-clean
+            (``amp.audit``), its opaque launches equal to the same forward
+            run outside the capture (K1 and a flash forward among them),
+            its fp32 GEMMs; the O2 step at the train phase's shapes on a
+            model of its own (after one warm-up step): no host read
+            (``syncs``), no free tensor (``constant-capture``), the
+            capture's launches the train phase's, its GEMMs at least 3 x
+            the forward's (the backward's, on autograd's device thread),
+            the tracker's and the allocator's peaks with ``hbm-budget``
+            quiet at the card's memory and firing at half the allocator's
+            peak, flops, bytes and the roofline at 989 TFLOP/s and 3.35
+            TB/s, the capture's host ms beside a bare step's; the serving
+            engine (bf16 and int8): each prefill's one read (the first
+            token; the int8 engine's gauge rides its copy), ``_decode``
+            with no read and its blocking uploads (the uniforms among
+            them), ``step()`` with one read (the tokens) and
+            ``_decode``'s uploads; not a gate, ``FP16_Optimizer`` over SGD
+            reading its overflow flag;
    multi_tensor_kernels  axpby (K10), the whole-tree Adam (K11) and the
             per-tensor sums of squares (K12) against their plain versions
             at gpt_small's 148 leaves (K12 also at bert_large's 303): K10
@@ -2243,6 +2264,225 @@ TRAIN_REF_PARAM_TOL = 1e-4
 #: the bf16 parameters themselves are reported, not gated: a gradient
 #: near zero whose sign differs moves an element by up to 2 x lr a step
 TRAIN_REF_O3_LOSS_TOL = 2e-2
+
+
+# -- the lint passes on the card ------------------------------------------------
+
+def _source_line(fn, text: str) -> str:
+    """``path:line`` (from the checkout's root) of the line of ``fn``'s
+    source that holds ``text``: the site the syncs lint names."""
+    import inspect
+    fn = inspect.unwrap(fn)
+    lines, first = inspect.getsourcelines(fn)
+    hits = [first + i for i, line in enumerate(lines) if text in line]
+    require(len(hits) == 1, f"{text!r} found {len(hits)} times in "
+                            f"{fn.__qualname__}")
+    path = Path(inspect.getsourcefile(fn)).resolve()
+    root = Path(sys.modules["apex_tpu_torch"].__file__).resolve().parents[1]
+    return f"{path.relative_to(root)}:{hits[0]}"
+
+
+def _sync_sites(rep):
+    """``{"host-callback": [site, ...], "pure-callback": [...]}`` of a
+    report's syncs findings, in op order."""
+    out = {"host-callback": [], "pure-callback": []}
+    for f in rep.by_pass("syncs"):
+        out[f.op].append(f.example)
+    return out
+
+
+def _gemms(cap) -> int:
+    return sum(r.name.split(".")[1] in ("mm", "addmm", "bmm")
+               for r in cap.records)
+
+
+LINT_PEAKS = {"cost": {"peak_flops": PEAK_BF16_FLOPS,
+                       "peak_hbm_bytes_per_s": PEAK_BYTES_S}}
+
+
+def _lint_forward(cfg, tree, ids):
+    """The O1 forward (``Amp.run`` of the loss) captured and audited; its
+    launches against the same forward run outside the capture."""
+    import torch
+    from apex_tpu_torch import amp, analysis
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                       opt_level="O1")
+
+    def forward(x):
+        return a.run(_gpt_loss, model, x)
+
+    forward(ids)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    forward(ids)
+    torch.cuda.synchronize()
+    bare = {k: v for k, v in launch_counts().items() if v}
+    cap = analysis.capture(forward, ids)
+    rep = analysis.run_passes(analysis.build_context(cap), ("policy",))
+    audit = amp.audit_records(cap.records, cap.launches)
+    require(audit["ok"], f"the O1 forward is not policy-clean: "
+                         f"{amp.format_report(audit)}")
+    require(rep.ok, rep.format())
+    require(cap.launches == bare, f"captured forward launched "
+                                  f"{cap.launches}, uncaptured {bare}")
+    require(audit["custom_call_count"] == sum(bare.values()) > 0
+            and bare.get("layer_norm_fwd", 0) > 0
+            and bare.get("flash_attn_fwd", 0) > 0,
+            f"the O1 forward's launches {bare}")
+    out = dict(ok=audit["ok"], violations=audit["violations"],
+               fp32_matmul_count=audit["fp32_matmul_count"],
+               custom_call_count=audit["custom_call_count"],
+               launches=bare, ops=len(cap.records), gemms=_gemms(cap))
+    del cap, rep, a, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lint_train(cfg, tree, ids, forward_gemms):
+    """The O2 step (the train phase's shapes, a model of its own) after a
+    warm-up step: syncs, constant-capture, memory and cost over one
+    capture; the capture's host ms against an uncaptured step's."""
+    import torch
+    from apex_tpu_torch import amp, analysis
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = params_from_jax(tree, cfg, trainable=True)
+    a = amp.initialize(model, FusedAdam(model.parameters(), lr=3e-4),
+                       opt_level="O2")
+    step = amp.make_train_step(a, model, _gpt_loss)
+    step(ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ids)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cap = analysis.capture(step, ids)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    ctx = analysis.build_context(cap)
+    rep = analysis.run_passes(
+        ctx, ("syncs", "constant-capture", "memory", "cost"),
+        dict(LINT_PEAKS, memory={"budget_bytes": "device"}))
+    mem = cap.memory
+    alloc = mem["allocator_peak_bytes"]
+    half = analysis.run_passes(ctx, ("memory",), {"memory": {
+        "budget_bytes": alloc // 2}})
+    want = {k: v for k, v in dict(gpt_pass_launches(cfg), packed_scale=1,
+                                  packed_adam_tree=1).items() if v}
+    require(not [f for f in rep.by_pass("syncs") if f.severity == "error"],
+            f"host reads in the O2 step: {rep.format()}")
+    require(not rep.by_pass("constant-capture"),
+            f"free tensors in the O2 step: {rep.format()}")
+    require(cap.launches == want, f"the captured step launched "
+                                  f"{cap.launches}, want {want}")
+    gemms = _gemms(cap)
+    require(gemms >= 3 * forward_gemms, f"the step's capture holds {gemms} "
+            f"GEMMs, the forward's {forward_gemms}: the backward's missing")
+    require(not [f for f in rep.by_pass("memory") if f.op == "hbm-budget"],
+            f"the step over the card's memory: {rep.format()}")
+    require([f.op for f in half.errors] == ["hbm-budget"],
+            f"half the allocator's peak did not fire: {half.format()}")
+    table = analysis.cost.cost_table(ctx)
+    roof = analysis.roofline_expectation(table["flops"], table["hbm_bytes"],
+                                         PEAK_BF16_FLOPS, PEAK_BYTES_S)
+    out = dict(ops=len(cap.records), gemms=gemms, launches=cap.launches,
+               capture_ms=capture_ms, bare_step_ms=bare_ms,
+               syncs=_sync_sites(rep),
+               constant_capture=len(rep.by_pass("constant-capture")),
+               free_tensors=len(cap.free),
+               tracker_peak_bytes=mem["peak_bytes"],
+               argument_bytes=mem["argument_bytes"],
+               allocated_peak_bytes=mem["allocated_peak_bytes"],
+               allocator_peak_bytes=alloc,
+               budget_bytes=analysis.memory.device_budget(cap.device),
+               largest=[list(r) for r in mem["largest"][:3]],
+               flops=table["flops"], hbm_bytes_upper=table["hbm_bytes"],
+               roofline=roof,
+               opaque_launches=sum(cap.launches.values()))
+    del cap, ctx, rep, half, step, a, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lint_serve(cfg, tree):
+    """syncs over the serving engine at gpt_small (bf16, the serve
+    phase's shapes): one prefill of the dense and of the int8 engine, a
+    bare ``_decode`` and one ``step()``."""
+    import torch
+    from apex_tpu_torch import analysis
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.serve import Request, ServeEngine, sampling
+    model = params_from_jax(tree, cfg, dtype=torch.bfloat16)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 200)
+    uniforms = _source_line(sampling.sample_tokens, "draw_uniforms(")
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        eng = ServeEngine(model, cfg, _serve_cfg(kv_dtype=kv))
+        eng.submit(Request(uid="lint", prompt=prompt, max_new_tokens=64))
+        _, slot, req = eng.sched.plan()
+        rep = analysis.analyze(eng._run_prefill, slot, req,
+                               passes=("syncs",))
+        site = _source_line(ServeEngine._run_prefill, ".cpu()"
+                            if kv == "int8" else "first = int(tok[0])")
+        got = _sync_sites(rep)
+        require(got["host-callback"] == [site],
+                f"{kv} prefill reads {got['host-callback']}, want [{site}]")
+        out[f"prefill_{kv}"] = got
+        if kv == "int8":
+            break
+        dec = _sync_sites(analysis.analyze(eng._decode, passes=("syncs",)))
+        require(dec["host-callback"] == [] and uniforms
+                in dec["pure-callback"],
+                f"_decode's syncs {dec}, want no read and the uniforms' "
+                f"upload at {uniforms}")
+        # step() runs under inference mode: the capture takes the
+        # composite ops' decompositions, so its copies are _decode's
+        stp = _sync_sites(analysis.analyze(eng.step, passes=("syncs",)))
+        read = _source_line(ServeEngine.step, "self._decode().cpu()")
+        require(stp["host-callback"] == [read]
+                and stp["pure-callback"] == dec["pure-callback"],
+                f"step()'s syncs {stp}, want [{read}] and _decode's "
+                f"uploads")
+        out.update(decode=dec, step=stp)
+        del eng
+    return out
+
+
+def _lint_fp16_optimizer():
+    """Not a gate: the legacy optimizer over a generic inner optimizer
+    reads its overflow flag on the host once a step."""
+    import torch
+    from apex_tpu_torch import analysis
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    lin = torch.nn.Linear(768, 768, device="cuda").to(torch.bfloat16)
+    opt = FP16_Optimizer(torch.optim.SGD(lin.parameters(), lr=0.1),
+                         dynamic_loss_scale=True)
+    x = torch.ones(8, 768, device="cuda", dtype=torch.bfloat16)
+    rep = analysis.analyze(opt.step_with_closure,
+                           lambda: lin(x).float().square().mean(),
+                           passes=("syncs",))
+    return _sync_sites(rep)
+
+
+def phase_lint(cfg, tree):
+    """The lint passes (``apex_tpu_torch.analysis``) over gpt_small on the
+    card: the O1 forward's policy audit, the O2 step's syncs, free
+    tensors, memory and cost, the serving engine's host reads and
+    uploads, and the legacy optimizer's read."""
+    import torch
+    ids = torch.as_tensor(train_stream(cfg.vocab_size, TRAIN_B, TRAIN_L),
+                          device="cuda")
+    fwd = _lint_forward(cfg, tree, ids)
+    train = _lint_train(cfg, tree, ids, fwd["gemms"])
+    serve = _lint_serve(cfg, tree)
+    emit("lint", model="gpt_small", batch=[TRAIN_B, TRAIN_L],
+         o1_forward=fwd, o2_step=train, serve=serve,
+         fp16_optimizer_sgd=_lint_fp16_optimizer())
 
 
 # -- accumulation, the whole-tree Adam, FP16Optimizer --------------------
@@ -9330,7 +9570,7 @@ PARTIAL_PHASES = ("o0_train", "generic_kernels", "train_kernels", "train",
                   "resnet_kernels", "resnet_train", "ddp", "amp_surface",
                   "data_prefetch", "seq_parallel", "rnn", "pipeline_moe",
                   "resilience", "train_fleet", "quant", "serve_fleet",
-                  "serve", "contprof")
+                  "serve", "contprof", "lint")
 
 
 def partial_run(names, repo: Path) -> int:
@@ -9399,6 +9639,8 @@ def partial_run(names, repo: Path) -> int:
         elif name == "contprof":
             phase_contprof(cfg, gpt_small_tree(cfg, seed=0),
                            serve_requests(cfg), repo)
+        elif name == "lint":
+            phase_lint(cfg, gpt_small_tree(cfg, seed=0))
         else:
             phase_serve_fleet(cfg, gpt_small_tree(cfg, seed=0),
                               serve_requests(cfg))
@@ -9496,6 +9738,7 @@ def main(argv=None) -> int:
         train_recs = phase_train_kernels(cfg)
         train_counts = phase_train(cfg, tree)
         phase_train_reference()
+        phase_lint(cfg, tree)
         from apex_tpu_torch.models import bert_large
         bert_cfg = bert_large()
         mt_recs = phase_multi_tensor_kernels(cfg, bert_cfg)
